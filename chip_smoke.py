@@ -1,0 +1,372 @@
+"""Smoke test of the PyTorch port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (so the script exits non-zero):
+
+1. The card (nvidia-smi name and power limit) and the build: nvcc compiles
+   picotron_tpu_torch/csrc/flash_attention.cu for sm_90a from the checkout.
+2. Each of the three flash-attention kernels against its plain PyTorch
+   version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
+   D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
+   Hkv 8), and at a shifted-positions shape (a later q shard against the
+   whole K/V) with a nonzero LSE cotangent. Then each kernel's time at the
+   training shape beside its plain version's, PyTorch's SDPA as a yardstick
+   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound.
+3. The main path: `python -m picotron_tpu_torch.train --config
+   picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json` (its entry point,
+   in process) on full-width, full-depth SmolLM-1.7B (24 layers), seq 2048, mbs 2, ga 2,
+   constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
+   offload off. Checks: every loss finite; the last step's loss below the
+   first's; each kernel launched 24 x ga x steps times; and the trained
+   model's loss on the first step's batch (re-read from a fresh loader)
+   below that step's loss. The synthetic tokens are uniform random, so a
+   later step's fresh batch is learnable only down to the unigram law and
+   its loss moves by little more than batch-to-batch noise; the seen batch
+   is where a correct gradient must show, since Adam's first step follows
+   that batch's gradient.
+4. Numbers, then the device line last.
+
+Tolerance (phase 2), per row of each output (a row is one token's D values
+of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
+whose RMS is below 1e-3 counts as RMS 1e-3), and |kernel - plain| <= 2e-3
+on each fp32 lse entry. Both versions take bf16 inputs, multiply exactly
+in fp32, and round the rotated q/k, P and dS to bf16 at the same points;
+they differ in the order of fp32 sums, in the forward normalising P after
+(the plain version before) its bf16 rounding, and in fused versus
+separate multiply-adds in the rotation, so a bf16 rounding may land one
+ulp apart. A row then differs by a few bf16 half-ulps (2^-9 = 2e-3
+relative each: the output's own rounding plus the P or dS roundings of a
+row with few terms); the worst row over the three shapes measures 5.7e-3,
+and the worst lse entry 9.1e-4 (NVIDIA H100 80GB HBM3 at 700 W; phase 2
+prints both per shape). The limit is relative per row,
+not against the largest value in the tensor, so a row of small values (a
+long causal row's output, a late key's gradient) is held as tightly as
+the largest row. tests/test_torch_cuda.py plants faults in copies of the
+kernel source and checks that each fails this limit: a mask off by one
+(in all rows, or only in rows at position 1024 and later), the diagonal
+tile taken as full, the last tile of the inner loop skipped, and the LSE
+cotangent left out of delta.
+
+Needs one card; exits non-zero with no result when CUDA is absent or when
+run without the rest of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ROW_RTOL = 1e-2               # per-row relative L2 error of out/dq/dk/dv
+ROW_FLOOR = 1e-3              # row RMS below which the limit is absolute
+LSE_ATOL = 2e-3               # absolute error of each fp32 lse entry
+STEPS, GA, MBS, SEQ = 4, 2, 2, 2048
+# phase-2 shapes: (b, hq, hkv, sq, sk, d, q position shift); a nonzero
+# shift makes explicit positions and a nonzero LSE cotangent
+SLICE_SHAPE = (2, 32, 32, SEQ, SEQ, 64, 0)
+SHAPES = {
+    "slice B2 S2048 H32 D64 rope static": SLICE_SHAPE,
+    "gqa B1 S2048 Hq32 Hkv8 D128 rope static": (1, 32, 8, SEQ, SEQ, 128, 0),
+    "shifted B1 Sq1024 Sk2048 Hq8 Hkv2 D64 rope dlse": (1, 8, 2, 1024, SEQ,
+                                                         64, 1024),
+}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+KERNELS = [  # (counter name, TPU kernel it replaces)
+    ("flash_fwd", "picotron_tpu/ops/flash_attention.py:139"),
+    ("flash_bwd_dq", "picotron_tpu/ops/flash_attention.py:327"),
+    ("flash_bwd_dkv", "picotron_tpu/ops/flash_attention.py:412"),
+]
+SOURCE = "picotron_tpu_torch/csrc/flash_attention.cu"
+CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() over `iters` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def make_case(fa, rope_tables, b, hq, hkv, sq, sk, d, shift, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    q, k, v = r(b, hq, sq, d), r(b, hkv, sk, d), r(b, hkv, sk, d)
+    q = q * torch.tensor(d ** -0.5, dtype=torch.bfloat16)  # the wrapper's fold
+    qpos = torch.arange(shift, shift + sq, device=dev, dtype=torch.int32)
+    kpos = torch.arange(sk, device=dev, dtype=torch.int32)
+    cos, sin = rope_tables(max(sk, shift + sq), d, device=dev)
+    tabs = fa._tables((cos, sin), qpos, kpos)
+    do = r(b, hq, sq, d)
+    dlse = (torch.randn(b, hq, sq, generator=g, device=dev)
+            if shift else torch.zeros(b, hq, sq, device=dev))
+    return q, k, v, qpos, kpos, tabs, do, dlse, shift == 0
+
+
+def row_errors(got, want, lse: bool = False) -> torch.Tensor:
+    """Error of each row, flattened: |got - want| per fp32 lse entry, else
+    ||got - want||_2 / ||want||_2 over the last axis, where a row whose RMS
+    is below ROW_FLOOR counts as ROW_FLOOR (a row that cancels to ~0, such
+    as dq of a row that sees one key, is held to an absolute limit)."""
+    diff = got.float() - want.float()
+    if lse:
+        return diff.abs().flatten()
+    floor = ROW_FLOOR * want.shape[-1] ** 0.5
+    return (diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(floor)
+            ).flatten()
+
+
+def kernel_errors(fa, case) -> dict:
+    """Each kernel output against its plain version on one case:
+    {output: (kernel name, row errors, max abs error, max |plain|)}. The
+    backward kernels start from the plain forward's (out, lse), so each
+    kernel is held to its own plain version alone."""
+    q, k, v, qpos, kpos, tabs, do, dlse, static = case
+    out, lse = fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static)
+    out_p, lse_p = fa.fwd_plain(q, k, v, qpos, kpos, tabs, True)
+    dq, dk, dv = fa._bwd(q, k, v, out_p, lse_p, do, dlse, qpos, kpos, tabs,
+                         True, static)
+    dq_p, dk_p, dv_p = fa.bwd_plain(q, k, v, out_p, lse_p, do, dlse, qpos,
+                                    kpos, tabs, True)
+    res = {}
+    for key, name, got, want in (
+            ("out", "flash_fwd", out, out_p), ("lse", "flash_fwd", lse, lse_p),
+            ("dq", "flash_bwd_dq", dq, dq_p), ("dk", "flash_bwd_dkv", dk, dk_p),
+            ("dv", "flash_bwd_dkv", dv, dv_p)):
+        res[key] = (name, row_errors(got, want, lse=key == "lse"),
+                    float((got.float() - want.float()).abs().max()),
+                    float(want.float().abs().max()))
+    torch.cuda.synchronize()
+    return res
+
+
+def compare(fa, case, errs: dict, label: str) -> None:
+    """Raise unless every row of every output is within its limit; `errs`
+    keeps the largest absolute error per kernel."""
+    for key, (name, rows, abs_err, scale) in kernel_errors(fa, case).items():
+        limit = LSE_ATOL if key == "lse" else ROW_RTOL
+        worst = float(rows.max())
+        errs[name] = max(errs.get(name, 0.0), abs_err)
+        log(f"  {key}: worst row err {worst:.4g} (limit {limit:g}), max abs "
+            f"err {abs_err:.4g}, max |plain| {scale:.4g}")
+        if not worst <= limit:
+            bad = int((rows > limit).sum())
+            raise AssertionError(f"{label}: {key} of {name}: {bad} of "
+                                 f"{rows.numel()} rows over {limit:g}, worst "
+                                 f"{worst:.4g}")
+    log(f"compare {label}: ok")
+
+
+def bounds(b, hq, hkv, sq, sk, d, shift) -> dict:
+    """Least time per kernel: max(bytes / HBM rate, FLOPs / bf16 peak),
+    counting each input read once and each output written once, and only
+    the (q, k) pairs these positions make visible."""
+    pairs = b * hq * sum(min(sk, shift + i + 1) for i in range(sq))
+    qb, kvb = b * hq * sq * d * 2, b * hkv * sk * d * 2
+    tab = 2 * (sq + sk) * (d // 2) * 4 + (sq + sk) * 4
+    row = b * hq * sq * 4
+    work = {
+        # S = QK^T and O = PV
+        "flash_fwd": (4 * d * pairs, qb + 2 * kvb + tab + qb + row),
+        # S, dP = dO V^T, dQ = dS K
+        "flash_bwd_dq": (6 * d * pairs, 2 * qb + 2 * kvb + tab + 2 * row + qb),
+        # S, dP, dV = P^T dO, dK = dS^T Q
+        "flash_bwd_dkv": (8 * d * pairs, 2 * qb + 2 * kvb + tab + 2 * row
+                          + 2 * kvb),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def time_kernels(fa, case) -> dict:
+    import torch.nn.functional as F
+
+    q, k, v, qpos, kpos, tabs, do, dlse, static = case
+    out, lse = fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static)
+    delta = fa._delta(do, out, dlse)
+    t = {}
+    t["flash_fwd"] = cuda_ms(
+        lambda: fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static))
+    t["flash_bwd_dq"] = cuda_ms(lambda: fa.bwd_dq_kernel(
+        q, k, v, do, lse, delta, qpos, kpos, tabs, True, static))
+    t["flash_bwd_dkv"] = cuda_ms(lambda: fa.bwd_dkv_kernel(
+        q, k, v, do, lse, delta, qpos, kpos, tabs, True, static))
+    plain_fwd = cuda_ms(lambda: fa.fwd_plain(q, k, v, qpos, kpos, tabs, True),
+                        iters=3, warmup=1)
+    # the plain backward computes dq, dk and dv together
+    plain_bwd = cuda_ms(lambda: fa.bwd_plain(q, k, v, out, lse, do, dlse, qpos,
+                                             kpos, tabs, True),
+                        iters=3, warmup=1)
+    # SDPA yardstick: pre-rotated inputs (it does no RoPE), its own scale
+    qr = fa._rot(q, tabs[0], tabs[1], 1.0).requires_grad_()
+    kr = fa._rot(k, tabs[2], tabs[3], 1.0).requires_grad_()
+    vr = v.clone().requires_grad_()
+    n_rep = q.shape[1] // k.shape[1]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qr, kr.repeat_interleave(n_rep, 1), vr.repeat_interleave(n_rep, 1),
+        is_causal=True, scale=1.0)
+    lib_fwd = cuda_ms(sdpa)
+    o = sdpa()
+    # one backward call of SDPA computes dq, dk and dv together
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do,
+                                                  retain_graph=True))
+    return {
+        "flash_fwd": (t["flash_fwd"], plain_fwd, lib_fwd),
+        "flash_bwd_dq": (t["flash_bwd_dq"], plain_bwd, lib_bwd),
+        "flash_bwd_dkv": (t["flash_bwd_dkv"], plain_bwd, lib_bwd),
+    }
+
+
+@torch.no_grad()
+def seen_batch_loss(cfg, model) -> float:
+    """The trained model's token-mean loss on the first step's batch."""
+    from picotron_tpu_torch.data import MicroBatchDataLoader
+    from picotron_tpu_torch.models.llama import loss_sum_count
+
+    ids, tgt = next(MicroBatchDataLoader(cfg, "cuda"))
+    total = count = 0
+    for i in range(ids.shape[0]):
+        s, c, _ = loss_sum_count(model, ids[i], tgt[i])
+        total, count = total + float(s), count + int(c)
+    return total / count
+
+
+def main_path(fa, here: str) -> dict:
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.config import load_config
+
+    path = os.path.join(here, CONFIG)
+    t = load_config(path).training
+    if (t.seq_length, t.micro_batch_size, t.gradient_accumulation_steps,
+            t.total_train_steps) != (SEQ, MBS, GA, STEPS):
+        raise AssertionError(f"{CONFIG} is not the smoke shape")
+    fa.reset_launch_counts()
+    result = train.main(["--config", path])
+    torch.cuda.synchronize()
+    result["launches"] = dict(fa.launches)
+    losses = result["losses"]
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the last loss is not below the first: {losses}")
+    result["seen_batch_loss"] = seen_batch_loss(load_config(path),
+                                                result.pop("state").model)
+    if not result["seen_batch_loss"] < losses[0]:
+        raise AssertionError(
+            f"loss on the first batch did not fall: {losses[0]} at step 1, "
+            f"{result['seen_batch_loss']} after {STEPS} steps")
+    want = 24 * GA * STEPS
+    for name, _ in KERNELS:
+        if result["launches"][name] != want:
+            raise AssertionError(f"{name} launched {result['launches'][name]} "
+                                 f"times on the main path, want {want}")
+    return result
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from picotron_tpu_torch.kernels import build
+    from picotron_tpu_torch.ops import flash_attention as fa
+    from picotron_tpu_torch.ops.rope import rope_tables
+    from picotron_tpu_torch.utils import H100_BF16_PEAK, flops_per_token
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # phase 1: build
+    build.load("flash_attention")
+    for line in build.BUILD_LOGS.get("flash_attention", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"ptxas: {line.strip()}")
+    log("phase 1 build: ok")
+
+    # phase 2: kernels against plain versions
+    errs: dict = {}
+    for i, (label, shp) in enumerate(SHAPES.items()):
+        case = make_case(fa, rope_tables, *shp, dev=dev, seed=i)
+        compare(fa, case, errs, label)
+        del case
+        torch.cuda.empty_cache()
+    case = make_case(fa, rope_tables, *SLICE_SHAPE, dev=dev, seed=7)
+    times = time_kernels(fa, case)
+    bnd = bounds(*SLICE_SHAPE)
+    del case
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log("phase 2 kernels vs plain: ok")
+
+    # phase 3: the main path
+    result = main_path(fa, here)
+    log(f"phase 3 main path: ok, losses {result['losses']}, first batch "
+        f"after {STEPS} steps {result['seen_batch_loss']}")
+
+    # phase 4: numbers
+    from picotron_tpu_torch.config import config_from_dict
+
+    m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
+    steady = statistics.median(result["step_seconds"][1:])
+    tps = result["tokens_per_step"] / steady
+    mfu = tps * flops_per_token(m, SEQ) / H100_BF16_PEAK
+    log(f"main path ({card}): step {steady * 1e3:.1f} ms (median of steps "
+        f"2-{STEPS}), {tps:.1f} tokens/s, MFU {100 * mfu:.2f}% of "
+        f"{H100_BF16_PEAK / 1e12:.1f} TFLOP/s, peak memory "
+        f"{result['peak_memory_gb']:.2f} GiB, step seconds "
+        f"{result['step_seconds']}")
+    kernels = []
+    for name, replaces in KERNELS:
+        ms, plain_ms, lib_ms = times[name]
+        bound_ms, bound_by = bnd[name]
+        log(f"{name} at B2 S2048 H32 D64 ({card}): {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} "
+            f"ms ({bound_by})")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": result["launches"][name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"main_path": {
+        "card": card, "step_ms": steady * 1e3, "tokens_per_s": tps,
+        "mfu": mfu, "peak_memory_gb": result["peak_memory_gb"],
+        "losses": result["losses"],
+        "seen_batch_loss": result["seen_batch_loss"]}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

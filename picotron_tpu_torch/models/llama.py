@@ -1,0 +1,242 @@
+"""Llama-family decoder-only model as an `nn.Module` (port of
+picotron_tpu/models/llama.py).
+
+Embedding -> N x (RMSNorm -> qkv (+ optional Qwen2 bias) -> attention with
+RoPE -> o-proj -> residual -> RMSNorm -> gated MLP -> residual) -> final
+RMSNorm -> untied or tied LM head. The functions below keep the JAX names
+(`embed`, `qkv_proj`, `_attention_block`, `_mlp_block`, `decoder_layer`,
+`final_hidden`, `logits_from_hidden`, `forward`, `loss_sum_count`).
+
+Params are fp32 masters and are cast to the compute dtype where used (the
+JAX `.astype(dt)`), so autograd gives fp32 grads. Matmul weights use the
+PyTorch [out_features, in_features] layout (`F.linear`); `weights.py`
+converts to and from the JAX [in, out] stacked-layer pytree.
+
+Single device only in this slice: MoE, tp/cp/pp hooks and remat are
+rejected with an error naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from picotron_tpu_torch.config import ModelConfig
+from picotron_tpu_torch.ops.attention import sdpa_attention
+from picotron_tpu_torch.ops.flash_attention import flash_attention
+from picotron_tpu_torch.ops.losses import cross_entropy_sum_count
+from picotron_tpu_torch.ops.rmsnorm import rms_norm
+from picotron_tpu_torch.ops.rope import apply_rope, rope_tables
+
+
+def model_rope_tables(cfg: ModelConfig, max_len=None, device=None):
+    """RoPE tables for a model config, honouring cfg.rope_scaling."""
+    return rope_tables(max_len or cfg.max_position_embeddings, cfg.head_dim,
+                       cfg.rope_theta, rope_scaling=cfg.rope_scaling_dict,
+                       device=device)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Activation/compute dtype (params stay fp32)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice of the port does not run."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE models are not ported yet (ROADMAP Queue 1 item 10)")
+    if cfg.attn_impl not in ("auto", "flash", "reference"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is a context-parallel schedule, not "
+            "ported yet (ROADMAP Queue 1 item 9)")
+
+
+def mlp_act(cfg: ModelConfig):
+    """SwiGLU (silu), exact-erf GeGLU ("gelu") or tanh GeGLU ("gelu_tanh")."""
+    if cfg.hidden_act == "silu":
+        return F.silu
+    approx = "tanh" if cfg.hidden_act == "gelu_tanh" else "none"
+    return lambda x: F.gelu(x, approximate=approx)
+
+
+class DecoderLayer(nn.Module):
+    """One decoder layer's parameters ([out, in] matmul weights)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        h, i, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+        q_out = cfg.num_attention_heads * d
+        kv_out = cfg.num_key_value_heads * d
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(*shape, device=device,
+                                            dtype=torch.float32))
+
+        self.input_norm = p(h)
+        self.q, self.k, self.v = p(q_out, h), p(kv_out, h), p(kv_out, h)
+        self.o = p(h, q_out)
+        self.post_norm = p(h)
+        if cfg.attention_bias:
+            self.b_q, self.b_k, self.b_v = p(q_out), p(kv_out), p(kv_out)
+        else:
+            self.b_q = self.b_k = self.b_v = None
+        self.gate, self.up = p(i, h), p(i, h)
+        self.down = p(h, i)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        h, v = cfg.hidden_size, cfg.vocab_size
+        self.embedding = nn.Parameter(torch.empty(v, h, device=device))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, device) for _ in range(cfg.num_hidden_layers))
+        self.final_norm = nn.Parameter(torch.empty(h, device=device))
+        self.lm_head = (None if cfg.tie_word_embeddings
+                        else nn.Parameter(torch.empty(v, h, device=device)))
+        cos, sin = model_rope_tables(cfg, device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def head_weight(self) -> torch.Tensor:
+        """[V, H]: the separate lm_head, or the tied embedding."""
+        return self.lm_head if self.lm_head is not None else self.embedding
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return forward(self, input_ids)
+
+
+@torch.no_grad()
+def init_params(model: LlamaModel, generator: torch.Generator) -> LlamaModel:
+    """Initialise in place with the JAX package's distributions: linear
+    weights ~ U(+-sqrt(1/fan_in)), embedding ~ N(0, 1), norms = 1, biases
+    = 0. The numbers differ from jax.random's; tests transplant weights
+    with `weights.params_from_jax` instead of re-initialising."""
+
+    def uniform(w):
+        bound = (1.0 / w.shape[1]) ** 0.5
+        w.uniform_(-bound, bound, generator=generator)
+
+    model.embedding.normal_(0.0, 1.0, generator=generator)
+    for lp in model.layers:
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            uniform(getattr(lp, name))
+        lp.input_norm.fill_(1.0)
+        lp.post_norm.fill_(1.0)
+        for b in (lp.b_q, lp.b_k, lp.b_v):
+            if b is not None:
+                b.zero_()
+    model.final_norm.fill_(1.0)
+    if model.lm_head is not None:
+        uniform(model.lm_head)
+    return model
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+
+def embed(model: LlamaModel, input_ids: torch.Tensor) -> torch.Tensor:
+    """Token embedding -> [B, S, H] in compute dtype."""
+    return model.embedding[input_ids].to(compute_dtype(model.cfg))
+
+
+def qkv_proj(h: torch.Tensor, lp: DecoderLayer, d: int):
+    """q/k/v projections (+ optional bias) -> [B,S,Hq,D], [B,S,Hkv,D] x2."""
+    dt = h.dtype
+    b, s, _ = h.shape
+    q = F.linear(h, lp.q.to(dt))
+    k = F.linear(h, lp.k.to(dt))
+    v = F.linear(h, lp.v.to(dt))
+    if lp.b_q is not None:
+        q = q + lp.b_q.to(dt)
+        k = k + lp.b_k.to(dt)
+        v = v + lp.b_v.to(dt)
+    return (q.reshape(b, s, -1, d), k.reshape(b, s, -1, d),
+            v.reshape(b, s, -1, d))
+
+
+def _attention(q, k, v, cfg: ModelConfig, rope):
+    """The attention impl by cfg.attn_impl: "auto"/"flash" -> the flash
+    kernels with RoPE fused and positions None (static causal);
+    "reference" -> apply_rope + sdpa_attention."""
+    if cfg.attn_impl in ("auto", "flash"):
+        return flash_attention(q, k, v, causal=True, rope=rope)
+    q = apply_rope(q, *rope)
+    k = apply_rope(k, *rope)
+    return sdpa_attention(q, k, v, causal=True)
+
+
+def _attention_block(x, lp: DecoderLayer, cfg: ModelConfig, rope):
+    """RMSNorm -> qkv -> attention (RoPE inside) -> o-proj."""
+    dt = x.dtype
+    d = cfg.head_dim
+    h = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
+    b, s, _ = h.shape
+    q, k, v = qkv_proj(h, lp, d)
+    out = _attention(q, k, v, cfg, rope)
+    out = out.reshape(b, s, -1)
+    return F.linear(out, lp.o.to(dt))
+
+
+def _mlp_block(x, lp: DecoderLayer, cfg: ModelConfig):
+    """RMSNorm -> gated MLP."""
+    dt = x.dtype
+    h = rms_norm(x, lp.post_norm, cfg.rms_norm_eps)
+    gate = F.linear(h, lp.gate.to(dt))
+    up = F.linear(h, lp.up.to(dt))
+    return F.linear(mlp_act(cfg)(gate) * up, lp.down.to(dt))
+
+
+def decoder_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope):
+    x = x + _attention_block(x, lp, cfg, rope)
+    return x + _mlp_block(x, lp, cfg)
+
+
+def run_layers(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
+    rope = (model.rope_cos, model.rope_sin)
+    for lp in model.layers:
+        x = decoder_layer(x, lp, model.cfg, rope)
+    return x
+
+
+def final_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, model.final_norm, model.cfg.rms_norm_eps)
+
+
+def logits_from_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, model.head_weight().to(x.dtype))
+
+
+def forward(model: LlamaModel, input_ids: torch.Tensor) -> torch.Tensor:
+    """input_ids [B, S] -> logits [B, S, V]."""
+    x = run_layers(model, embed(model, input_ids))
+    return logits_from_hidden(model, final_hidden(model, x))
+
+
+def loss_sum_count(model: LlamaModel, input_ids: torch.Tensor,
+                   targets: torch.Tensor):
+    """(sum of per-token NLL, valid-token count, extras) — the reduction
+    pieces, summed over microbatches before one division. extras is {} for
+    dense models."""
+    logits = forward(model, input_ids)
+    total, count = cross_entropy_sum_count(logits, targets)
+    return total, count, {}
+
+
+def loss_fn(model: LlamaModel, input_ids: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy."""
+    total, count, _ = loss_sum_count(model, input_ids, targets)
+    return total / count.clamp(min=1)

@@ -1,0 +1,112 @@
+"""Where a training step's device time goes, on the card:
+
+    python -m picotron_tpu_torch.profile_step \
+        --config picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json \
+        [--warmup 2] [--steps 2] [--trace chiprun_out/step_trace.json]
+
+Runs the trainer (`train.run`) for `warmup + steps` steps and traces the
+last `steps` under torch.profiler (CPU + CUDA activity), then prints per
+step: wall time, device-busy time (the sum of kernel durations: one
+stream, so kernels do not overlap), the idle share 1 - busy / wall, and
+device time by class (the three flash kernels, GEMMs, everything else) and
+by kernel name. The last line is one JSON object with the same numbers.
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+from picotron_tpu_torch import train
+from picotron_tpu_torch.config import load_config
+
+_FLASH = ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")
+_GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for k in _FLASH:
+        if k in name:
+            return "flash:" + k
+    if any(g in low for g in _GEMM):
+        return "gemm"
+    return "other"
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--warmup", type=int, default=2,
+                    help="untraced steps first (at least 1)")
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--trace", default=None,
+                    help="write a chrome trace of the profiled steps here")
+    args = ap.parse_args(argv)
+    if args.warmup < 1 or args.steps < 1:
+        ap.error("--warmup and --steps must be at least 1")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = load_config(args.config)
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, total_train_steps=args.warmup + args.steps,
+        max_tokens=None))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(step: int) -> None:
+        # the trainer has synced the device (the loss reached the host)
+        if step == args.warmup:
+            prof.start()
+            clock["t0"] = time.perf_counter()
+        elif step == args.warmup + args.steps:
+            torch.cuda.synchronize()
+            clock["wall"] = (time.perf_counter() - clock["t0"]) / args.steps
+            prof.stop()
+
+    train.run(cfg, "cuda", on_step=on_step)
+    wall = clock["wall"]
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    events = prof.events()
+    # a host range such as "Optimizer.step#AdamW.step" is mirrored on the
+    # GPU track under the same name and spans the kernels it launched:
+    # count device events whose name no host event carries
+    host_names = {evt.name for evt in events
+                  if evt.device_type == torch.autograd.DeviceType.CPU}
+    by_name = defaultdict(float)
+    for evt in events:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.name not in host_names):
+            by_name[evt.name] += evt.device_time_total / 1e3 / args.steps
+    if not by_name:
+        raise RuntimeError("torch.profiler recorded no device time on this "
+                           "card; time with CUDA events instead")
+    by_class = defaultdict(float)
+    for name, ms in by_name.items():
+        by_class[kernel_class(name)] += ms
+    busy = sum(by_name.values())
+    card = torch.cuda.get_device_name(0)
+    print(f"card {card}: step wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls:28s} {ms:9.2f} ms/step  {ms / busy:6.1%}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"    {ms:9.2f} ms/step  {name[:100]}")
+    out = {"card": card, "step_wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "idle_share": 1 - busy / (wall * 1e3),
+           "by_class_ms": dict(by_class)}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

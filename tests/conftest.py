@@ -56,6 +56,11 @@ def pytest_configure(config):
         "Dev loop: `pytest -m 'not slow'` (< 10 min); CI/full: plain "
         "`pytest tests/` runs everything — semantics identical, the marker "
         "only partitions wall-time")
+    config.addinivalue_line(
+        "markers",
+        "cuda: PyTorch-port kernel tests that need an NVIDIA GPU and nvcc "
+        "(skipped without CUDA; on the card: `python -m pytest --noconftest "
+        "-m cuda tests/test_torch_cuda.py`)")
 
 
 def pytest_collection_modifyitems(config, items):

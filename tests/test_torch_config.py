@@ -1,0 +1,94 @@
+"""The PyTorch port's config against the JAX package's: same dataclasses,
+same JSON loading, same validation errors."""
+
+import dataclasses
+import glob
+import json
+import os
+
+import pytest
+
+from picotron_tpu import config as jcfg
+from picotron_tpu_torch import config as tcfg
+
+RUNS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..", "runs",
+                                     "*", "config.json")))
+
+
+def test_runs_exist():
+    assert len(RUNS) >= 8
+
+
+@pytest.mark.parametrize("path", RUNS, ids=lambda p: p.split(os.sep)[-2])
+def test_runs_configs_load_equal(path):
+    j = jcfg.load_config(path)
+    t = tcfg.load_config(path)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.global_batch_size == j.global_batch_size
+    assert tcfg.num_params(t.model) == jcfg.num_params(j.model)
+
+
+@pytest.mark.parametrize("name", sorted(jcfg.MODEL_PRESETS))
+def test_presets_and_param_counts_equal(name):
+    raw = {"model": {"name": name}}
+    j = jcfg.config_from_dict(raw)
+    t = tcfg.config_from_dict(raw)
+    assert dataclasses.asdict(t.model) == dataclasses.asdict(j.model)
+    for active in (False, True):
+        assert (tcfg.num_params(t.model, active_only=active,
+                                include_tied_head=True)
+                == jcfg.num_params(j.model, active_only=active,
+                                   include_tied_head=True))
+
+
+ILLEGAL = [
+    {"distributed": {"tp_size": 3}, "model": {"name": "debug-tiny"}},
+    {"model": {"name": "no-such-model"}},
+    {"model": {"hidden_size": 64}},
+    {"model": {"name": "debug-tiny", "attn_impl": "magic"}},
+    {"training": {"seq_length": 4096}, "model": {"name": "debug-tiny",
+                                                 "max_position_embeddings": 2048}},
+    {"training": {"adam_moments_dtype": "float16"}},
+    {"training": {"grad_engine": "fused", "remat": False}},
+    {"training": {"lr_schedule": "cosine", "lr_warmup_steps": 500,
+                  "total_train_steps": 100}},
+    {"resilience": {"chaos": "hang@3"}},
+    {"resilience": {"chaos": "bogus@1"}},
+    {"distributed": {"ep_size": 2}},
+    {"distributed": {"cp_size": 2, "cp_layout": "zigzag"},
+     "training": {"seq_length": 30}},
+]
+
+
+@pytest.mark.parametrize("raw", ILLEGAL, ids=range(len(ILLEGAL)))
+def test_illegal_configs_raise_in_both(raw):
+    with pytest.raises((ValueError, KeyError)) as ej:
+        jcfg.config_from_dict(raw)
+    with pytest.raises((ValueError, KeyError)) as et:
+        tcfg.config_from_dict(raw)
+    assert type(et.value) is type(ej.value)
+    assert str(et.value) == str(ej.value)
+
+
+def test_config_json_roundtrip(tmp_path):
+    raw = {"model": {"name": "Llama-3.1-8B"}, "training": {"seq_length": 256}}
+    t = tcfg.config_from_dict(raw)
+    p = tmp_path / "c.json"
+    tcfg.save_config(t, str(p))
+    back = tcfg.load_config(str(p))
+    assert dataclasses.asdict(back) == dataclasses.asdict(t)
+    assert back.model.rope_scaling_dict["rope_type"] == "llama3"
+    assert json.loads(p.read_text())["model"]["name"] == "Llama-3.1-8B"
+
+
+def test_adaptive_tp_strategy_waits_for_the_cost_model():
+    cfg = tcfg.config_from_dict({
+        "model": {"name": "debug-tiny"},
+        "distributed": {"tp_size": 2, "tp_strategy": "adaptive"}})
+    with pytest.raises(NotImplementedError, match="cost model"):
+        tcfg.resolved_tp_strategy(cfg)
+    cfg = tcfg.config_from_dict({"model": {"name": "debug-tiny"},
+                                 "distributed": {"tp_size": 2}})
+    assert tcfg.resolved_tp_strategy(cfg) == jcfg.resolved_tp_strategy(
+        jcfg.config_from_dict({"model": {"name": "debug-tiny"},
+                               "distributed": {"tp_size": 2}}))

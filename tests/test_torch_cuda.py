@@ -1,0 +1,195 @@
+"""The hand-written CUDA flash-attention kernels against their plain PyTorch
+versions on the card. These need an NVIDIA GPU (sm_90a) and nvcc, so they
+skip elsewhere; run them on the card with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(--noconftest: the suite's conftest imports jax, which the card machine
+lacks; this file imports no jax.)
+
+Tolerances: fp32 inputs agree to fp32 round-off of a different summation
+order (2e-4 on O(1) values at these sizes). bf16 inputs are held to
+chip_smoke.py's phase-2 limit, per row: ||kernel - plain||_2 <= 1e-2 *
+||plain||_2 for out/dq/dk/dv and 2e-3 on each fp32 lse entry (chip_smoke's
+docstring says why). `test_planted_wrong_kernels_fail` shows that limit
+fails a kernel with a planted fault."""
+
+import re
+
+import pytest
+import torch
+
+import chip_smoke
+from picotron_tpu_torch.kernels import build
+from picotron_tpu_torch.ops import flash_attention as fa
+from picotron_tpu_torch.ops.rope import rope_tables
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA; run `python -m pytest "
+                    "--noconftest "
+                    "-m cuda tests/test_torch_cuda.py` on the card")
+    return torch.device("cuda")
+
+
+CASES = [
+    # (b, hq, hkv, sq, sk, d, causal, positions, rope)
+    (2, 4, 4, 256, 256, 64, True, None, True),
+    (1, 8, 2, 192, 192, 128, True, None, True),
+    (1, 4, 2, 100, 100, 64, True, None, False),        # ragged edge
+    (1, 4, 1, 128, 256, 64, True, "shifted", True),    # later q shard
+    (1, 4, 2, 96, 160, 128, False, None, False),       # non-causal, sk > sq
+]
+
+
+def _make(case, dtype, dev, seed=0):
+    b, hq, hkv, sq, sk, d, causal, positions, rope = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
+    q, k, v = r(b, hq, sq, d), r(b, hkv, sk, d), r(b, hkv, sk, d)
+    qpos = torch.arange(sq, device=dev, dtype=torch.int32)
+    kpos = torch.arange(sk, device=dev, dtype=torch.int32)
+    if positions == "shifted":
+        qpos = qpos + (sk - sq)
+    tabs = None
+    if rope:
+        cos, sin = rope_tables(512, d, device=dev)
+        tabs = fa._tables((cos, sin), qpos, kpos)
+    static = causal and positions is None
+    return q, k, v, qpos, kpos, tabs, causal, static
+
+
+def _assert_close(got, want, dtype, what):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=2e-4, msg=what)
+        return
+    lse = what == "lse"
+    worst = float(chip_smoke.row_errors(got, want, lse=lse).max())
+    limit = chip_smoke.LSE_ATOL if lse else chip_smoke.ROW_RTOL
+    assert worst <= limit, f"{what}: worst row error {worst:.4g} > {limit}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=range(len(CASES)))
+def test_kernels_match_plain(case, dtype, dev):
+    q, k, v, qpos, kpos, tabs, causal, static = _make(case, dtype, dev)
+    fa.reset_launch_counts()
+    out, lse = fa.fwd_kernel(q, k, v, qpos, kpos, tabs, causal, static)
+    out_p, lse_p = fa.fwd_plain(q, k, v, qpos, kpos, tabs, causal)
+    torch.cuda.synchronize()
+    _assert_close(out, out_p, dtype, "out")
+    _assert_close(lse, lse_p, dtype, "lse")
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    dlse = torch.randn(lse.shape, generator=g, device=dev)
+    got = fa._bwd(q, k, v, out_p, lse_p, do, dlse, qpos, kpos, tabs, causal,
+                  static)
+    want = fa.bwd_plain(q, k, v, out_p, lse_p, do, dlse, qpos, kpos, tabs,
+                        causal)
+    torch.cuda.synchronize()
+    for a, b_, name in zip(got, want, ("dq", "dk", "dv")):
+        _assert_close(a, b_, dtype, name)
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+
+
+def test_public_wrapper_launches_kernels_and_autograd(dev):
+    q = torch.randn(2, 128, 8, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(2, 128, 4, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    v = torch.randn_like(k, requires_grad=True)
+    rope = rope_tables(128, 64, device=dev)
+    fa.reset_launch_counts()
+    out = fa.flash_attention(q, k, v, causal=True, rope=rope)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
+
+
+def test_wrapper_raises_instead_of_falling_back(dev):
+    q = torch.randn(1, 64, 2, 48, device=dev)  # head_dim 48: no variant
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+
+
+# Faults planted in a copy of the CUDA source: (pattern, replacement, count).
+# Each edits every kernel that has the site, so each kernel's own output
+# shows whether the limit catches it.
+MUTANTS = {
+    # the causal mask lets each row see one key past its own position
+    "mask_off_by_one": (r">= kp_s\[c\]", "+ 1 >= kp_s[c]", 3),
+    # the same, only in rows at position 1024 and later
+    "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[c\]",
+                             r"\1 + (\1 >= 1024) >= kp_s[c]", 3),
+    # the diagonal tile counted as full: its mask is never applied
+    "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
+                              "t.full = q0 >= k0;", 1),
+    # the last visible tile of the inner loop is dropped (fwd, dq: the
+    # diagonal kv tile; dk/dv: the last q tile)
+    "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt",
+                          None, 3),
+}
+
+
+def _plant(name, tmp_path):
+    pattern, repl, count = MUTANTS[name]
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    if repl is None:  # drop the loop's last iteration
+        repl = lambda m: m.group(0).replace(";", " - 1;", 1)  # noqa: E731
+    mutated, n = re.subn(pattern, repl, src)
+    assert n == count, f"{name}: {n} sites, want {count}"
+    (tmp_path / "flash_attention.cu").write_text(mutated)
+
+
+@pytest.mark.parametrize("mutant", [*MUTANTS, "dlse_dropped"])
+def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
+                                    capsys):
+    """Each planted fault fails chip_smoke's phase-2 limit on some output,
+    and the mask faults fail it on every output in the late half of the
+    rows alone (where a limit scaled by the tensor's largest value, printed
+    beside it, is loosest)."""
+    if mutant == "dlse_dropped":  # the LSE cotangent left out of delta
+        delta = fa._delta
+        monkeypatch.setattr(fa, "_delta", lambda do4, o4, dlse: delta(
+            do4, o4, None))
+    else:
+        _plant(mutant, tmp_path)
+        monkeypatch.setattr(build, "CSRC", tmp_path)
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(build, "_LIBS", {})
+    failed, late_failed = set(), set()
+    for i, (label, shp) in enumerate(chip_smoke.SHAPES.items()):
+        b, hq, hkv, sq, sk, d, shift = shp
+        case = chip_smoke.make_case(fa, rope_tables, *shp, dev=dev, seed=i)
+        for key, (name, rows, abs_err, scale) in chip_smoke.kernel_errors(
+                fa, case).items():
+            limit = (chip_smoke.LSE_ATOL if key == "lse"
+                     else chip_smoke.ROW_RTOL)
+            seq = sk if key in ("dk", "dv") else sq
+            late = float(rows.view(-1, seq)[:, seq // 2:].max())
+            worst = float(rows.max())
+            old = abs_err / max(1.0, scale)  # the max-scaled limit, 2e-2
+            with capsys.disabled():
+                print(f"\n{mutant} | {label} | {key}: worst row {worst:.4g}, "
+                      f"late half {late:.4g} (limit {limit:g}); max abs "
+                      f"{abs_err:.4g} / max(1, max|plain|) = {old:.4g}",
+                      end="")
+            if worst > limit:
+                failed.add(key)
+            if late > limit:
+                late_failed.add(key)
+        del case
+        torch.cuda.empty_cache()
+    assert failed, f"{mutant}: every output within the limit"
+    if mutant.endswith("mask_off_by_one"):
+        assert late_failed >= {"out", "dq", "dk", "dv"}, late_failed

@@ -1,0 +1,233 @@
+"""The port's training path against the JAX package's single-device step:
+the same SyntheticSource batches, weights carried across, 3 steps with
+grad accumulation 2, fp32 compute on the CPU. Per-step losses and final
+params at rtol 1e-5 / atol 1e-5; loader batches and cursors token-exact.
+Plus the optimizer's lr schedules and one CLI run with --device cpu."""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from picotron_tpu import config as jcfg
+from picotron_tpu import data as jdata
+from picotron_tpu import optimizer as joptim
+from picotron_tpu import train_step as jstep
+from picotron_tpu.mesh import MeshEnv
+from picotron_tpu.models import llama as jllama
+from picotron_tpu_torch import config as tcfg
+from picotron_tpu_torch import data as tdata
+from picotron_tpu_torch import optimizer as toptim
+from picotron_tpu_torch import train as ttrain
+from picotron_tpu_torch import train_step as tstep
+from picotron_tpu_torch import weights
+from picotron_tpu_torch.models import llama as tllama
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _raw(moments, preset="debug-tiny", **training):
+    t = dict(seq_length=16, micro_batch_size=2, gradient_accumulation_steps=2,
+             total_train_steps=3, lr_schedule="cosine", lr_warmup_steps=1,
+             learning_rate=1e-3, weight_decay=0.1, grad_clip_norm=1.0,
+             adam_moments_dtype=moments, remat=False, num_samples=10)
+    t.update(training)
+    return {"model": {"name": preset, "dtype": "float32"}, "training": t,
+            "distributed": {"use_cpu": True}}
+
+
+@pytest.mark.parametrize("moments,preset,clip", [
+    ("float32", "debug-tiny", 1.0),
+    ("bfloat16", "debug-tiny", 0.0),
+    ("bfloat16", "debug-tiny-qwen", 0.05),
+])
+def test_three_steps_match_jax(moments, preset, clip):
+    raw = _raw(moments, preset, grad_clip_norm=clip)
+    jc, tc = jcfg.config_from_dict(raw), tcfg.config_from_dict(raw)
+    tree = jax.tree.map(np.asarray, jllama.init_params(jc.model,
+                                                       jax.random.key(3)))
+
+    model = tllama.LlamaModel(tc.model, device="cpu")
+    model.load_state_dict(weights.params_from_jax(tree, tc.model))
+    state = tstep.init_train_state(tc, model)
+    step_fn = tstep.make_train_step(tc)
+    loader = tdata.MicroBatchDataLoader(tc, "cpu")
+
+    jstate = jstep.init_train_state(jc, jax.tree.map(jnp.asarray, tree))
+    jstep_fn = jax.jit(jstep.make_train_step(jc))
+
+    for _ in range(3):
+        ids, tgt = next(loader)
+        tloss = float(step_fn(state, (ids, tgt)))
+        jstate, jloss = jstep_fn(jstate, (jnp.asarray(ids.numpy()),
+                                          jnp.asarray(tgt.numpy())))
+        np.testing.assert_allclose(tloss, float(jloss), **TOL)
+    # 3 steps over 10 samples at 4 per step: the last one wrapped the epoch
+    assert loader.state == {"epoch": 1, "cursor": 4}
+    got = weights.params_to_numpy(model)
+    for path, want in jax.tree_util.tree_leaves_with_path(jstate.params):
+        np.testing.assert_allclose(
+            dict(jax.tree_util.tree_leaves_with_path(got))[path],
+            np.asarray(want), err_msg=str(path), **TOL)
+
+
+def test_loader_batches_and_cursors_token_exact():
+    raw = _raw("float32", num_samples=10)
+    jc, tc = jcfg.config_from_dict(raw), tcfg.config_from_dict(raw)
+    jl = jdata.MicroBatchDataLoader(jc, MeshEnv.from_config(jc))
+    tl = tdata.MicroBatchDataLoader(tc, "cpu")
+    for _ in range(4):
+        (ji, jt), (ti, tt) = next(jl), next(tl)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        assert ti.shape == (2, 2, 16) and ti.dtype == torch.int64
+        assert tl.state == jl.state
+    st = tl.state
+    tl2 = tdata.MicroBatchDataLoader(tc, "cpu")
+    tl2.set_state(st)
+    jl.set_state(st)
+    np.testing.assert_array_equal(next(tl2)[0].numpy(), np.asarray(next(jl)[0]))
+    tl2.reset({"epoch": 0, "cursor": 0})
+    np.testing.assert_array_equal(
+        next(tl2)[0].numpy(),
+        jdata.SyntheticSource(256, 16, seed=42).get_rows(0, 0, 4)
+        .reshape(2, 2, 17)[..., :-1])
+
+
+@pytest.mark.parametrize("schedule,warmup", [
+    ("constant", 0), ("constant", 2), ("cosine", 0), ("cosine", 3),
+    ("linear", 2),
+])
+def test_lr_schedule_matches_optax(schedule, warmup):
+    t = tcfg.TrainingConfig(lr_schedule=schedule, lr_warmup_steps=warmup,
+                            total_train_steps=10, learning_rate=2e-3,
+                            lr_min_ratio=0.1)
+    jt = jcfg.TrainingConfig(lr_schedule=schedule, lr_warmup_steps=warmup,
+                             total_train_steps=10, learning_rate=2e-3,
+                             lr_min_ratio=0.1)
+    tl, jl = toptim.make_lr(t), joptim.make_lr(jt)
+    for count in range(12):
+        want = float(jl(count)) if callable(jl) else jl
+        got = tl(count) if callable(tl) else tl
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+    if warmup:
+        assert tl(0) == 0.0  # the first update uses lr = 0
+
+
+def test_optimizer_offload_is_refused():
+    t = tcfg.TrainingConfig(optimizer_offload=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        toptim.make_optimizer([torch.zeros(2, requires_grad=True)], t)
+
+
+def test_guard_nonfinite_keeps_old_tensors():
+    new, old = [torch.ones(3)], [torch.zeros(3)]
+    tstep.guard_nonfinite(torch.tensor(False), new, old)
+    assert torch.equal(new[0], torch.zeros(3))
+    new = [torch.ones(3)]
+    tstep.guard_nonfinite(torch.tensor(True), new, old)
+    assert torch.equal(new[0], torch.ones(3))
+
+
+def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
+    raw = _raw("bfloat16", total_train_steps=2, lr_warmup_steps=0)
+    raw["model"]["dtype"] = "bfloat16"
+    raw["distributed"] = {}
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(raw))
+    result = ttrain.main(["--config", str(path), "--device", "cpu"])
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("[step ")]
+    assert [l[:13] for l in lines] == ["[step 000001]", "[step 000002]"]
+    assert "| tokens/s: " in lines[0] and "| MFU: 0.00% |" in lines[0]
+    assert len(result["losses"]) == 2
+    assert all(np.isfinite(result["losses"]))
+    assert result["device"] == "cpu"
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"distributed": {"dp_size": 2}}, "dp_size"),
+    ({"training": {"remat": True}}, "remat"),
+    ({"training": {"ce_chunk_size": 64}}, "ce_chunk_size"),
+    ({"checkpoint": {"save_frequency": 5}}, "checkpoint"),
+    ({"training": {"eval_frequency": 2}}, "eval"),
+    ({"model": {"name": "debug-tiny-moe"}}, "MoE"),
+])
+def test_trainer_refuses_what_the_slice_lacks(override, match):
+    raw = _raw("float32")
+    for section, vals in override.items():
+        raw.setdefault(section, {}).update(vals)
+    cfg = tcfg.config_from_dict(raw)
+    with pytest.raises(NotImplementedError, match=match):
+        ttrain.run(cfg, "cpu")
+
+
+def test_smoke_config_is_the_supported_main_path():
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "picotron_tpu_torch",
+                        "configs", "smollm17-1gpu-seq2048.json")
+    cfg = tcfg.load_config(path)
+    assert ttrain.unsupported(cfg) == []
+    m, t = cfg.model, cfg.training
+    assert (m.num_hidden_layers, m.hidden_size, m.num_attention_heads,
+            m.num_key_value_heads, m.head_dim, m.intermediate_size,
+            m.vocab_size) == (24, 2048, 32, 32, 64, 8192, 49152)
+    assert (t.seq_length, t.micro_batch_size, t.gradient_accumulation_steps,
+            t.total_train_steps, t.learning_rate, t.lr_warmup_steps) == (
+        2048, 2, 2, 4, 3e-4, 0)
+
+
+def test_seen_batch_loss_falls():
+    """What chip_smoke checks on the card, at debug size: after training,
+    the loss on the first step's batch is below that step's loss."""
+    raw = _raw("bfloat16", lr_schedule="constant", lr_warmup_steps=0,
+               total_train_steps=3, grad_clip_norm=0.0)
+    cfg = tcfg.config_from_dict(raw)
+    result = ttrain.run(cfg, "cpu")
+    ids, tgt = next(tdata.MicroBatchDataLoader(cfg, "cpu"))
+    with torch.no_grad():
+        total = sum(float(tllama.loss_sum_count(result["state"].model,
+                                                ids[i], tgt[i])[0])
+                    for i in range(ids.shape[0]))
+    assert total / ids[0].numel() / ids.shape[0] < result["losses"][0]
+
+
+def test_run_calls_on_step_after_each_step():
+    """The hook profile_step drives the trainer through."""
+    cfg = tcfg.config_from_dict(_raw("float32", total_train_steps=3))
+    seen = []
+    result = ttrain.run(cfg, "cpu", on_step=seen.append)
+    assert seen == [1, 2, 3]
+    assert len(result["losses"]) == 3
+
+
+def test_profile_step_kernel_classes():
+    from picotron_tpu_torch.profile_step import kernel_class
+
+    assert kernel_class("void {anon}::fwd_kernel<__nv_bfloat16, 64>(...)") == (
+        "flash:fwd_kernel")
+    assert kernel_class("bwd_dkv_kernel<float, 128>") == "flash:bwd_dkv_kernel"
+    assert kernel_class("nvjet_tst_128x256_64x4_2x1_v_bz_coopB_TNT") == "gemm"
+    assert kernel_class("void at::native::vectorized_elementwise_kernel") == (
+        "other")
+
+
+@pytest.mark.parametrize("preset", ["SmolLM-1.7B", "Llama-3.2-1B",
+                                    "debug-tiny-qwen"])
+def test_flops_mfu_and_log_line_match_jax(preset):
+    from picotron_tpu import utils as jutils
+    from picotron_tpu_torch import utils as tutils
+
+    raw = {"model": {"name": preset}}
+    jm = jcfg.config_from_dict(raw).model
+    tm = tcfg.config_from_dict(raw).model
+    assert tutils.flops_per_token(tm, 2048) == jutils.flops_per_token(jm, 2048)
+    assert (tutils.mfu(1e4, tm, 2048, 1, tutils.H100_BF16_PEAK)
+            == jutils.mfu(1e4, jm, 2048, 1, jutils.H100_BF16_PEAK))
+    args = (7, 10.9674, 10329.3, 10329.3, 0.1261, 32768, 38.99)
+    assert (tutils.training_log_line(*args, extras={"x": 1.5})
+            == jutils.training_log_line(*args, extras={"x": 1.5}))
