@@ -5,20 +5,26 @@
 Phases, each of which raises on failure (so the script exits non-zero):
 
 1. The card (nvidia-smi name and power limit) and the build: nvcc compiles
-   picotron_tpu_torch/csrc/flash_attention.cu for sm_90a from the checkout.
+   picotron_tpu_torch/csrc/flash_attention.cu for sm_90a from the checkout
+   (ptxas registers and spills per kernel printed), and cuobjdump's SASS of
+   the library must show HMMA (tensor-core) instructions in both variants
+   of the bf16 forward, fwd_mma_kernel.
 2. Each of the three flash-attention kernels against its plain PyTorch
    version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
    D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
    Hkv 8), and at a shifted-positions shape (a later q shard against the
    whole K/V) with a nonzero LSE cotangent. Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
-   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound.
+   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and the
+   forward's time, achieved TFLOP/s and share of its bound at the training
+   and the GQA D 128 shapes.
 3. The main path: `python -m picotron_tpu_torch.train --config
    picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json` (its entry point,
    in process) on full-width, full-depth SmolLM-1.7B (24 layers), seq 2048, mbs 2, ga 2,
    constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
    offload off. Checks: every loss finite; the last step's loss below the
-   first's; each kernel launched 24 x ga x steps times; and the trained
+   first's; each kernel launched 24 x ga x steps times, every forward
+   launch on the tensor-core kernel (bf16); and the trained
    model's loss on the first step's batch (re-read from a fresh loader)
    below that step's loss. The synthetic tokens are uniform random, so a
    later step's fresh batch is learnable only down to the unigram law and
@@ -32,21 +38,25 @@ of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
 whose RMS is below 1e-3 counts as RMS 1e-3), and |kernel - plain| <= 2e-3
 on each fp32 lse entry. Both versions take bf16 inputs, multiply exactly
 in fp32, and round the rotated q/k, P and dS to bf16 at the same points;
-they differ in the order of fp32 sums, in the forward normalising P after
-(the plain version before) its bf16 rounding, and in fused versus
-separate multiply-adds in the rotation, so a bf16 rounding may land one
+they differ in the order of fp32 sums (and the tensor cores' fp32
+accumulation), in the forward normalising P after (the plain version
+before) its bf16 rounding, and, in the backward kernels, in fused versus
+separate multiply-adds in the rotation (the tensor-core forward rounds
+each product as the plain version does), so a bf16 rounding may land one
 ulp apart. A row then differs by a few bf16 half-ulps (2^-9 = 2e-3
 relative each: the output's own rounding plus the P or dS roundings of a
-row with few terms); the worst row over the three shapes measures 5.7e-3,
-and the worst lse entry 9.1e-4 (NVIDIA H100 80GB HBM3 at 700 W; phase 2
-prints both per shape). The limit is relative per row,
+row with few terms); the worst row over the three shapes measures under
+6e-3, and the worst lse entry of the tensor-core forward about 1e-6
+(NVIDIA H100 80GB HBM3 at 700 W; phase 2 prints both per shape, PERF.md
+has the run's numbers). The limit is relative per row,
 not against the largest value in the tensor, so a row of small values (a
 long causal row's output, a late key's gradient) is held as tightly as
 the largest row. tests/test_torch_cuda.py plants faults in copies of the
 kernel source and checks that each fails this limit: a mask off by one
 (in all rows, or only in rows at position 1024 and later), the diagonal
 tile taken as full, the last tile of the inner loop skipped, and the LSE
-cotangent left out of delta.
+cotangent left out of delta, and in the tensor-core forward P packed from
+the wrong S n-tile.
 
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
@@ -175,9 +185,9 @@ def compare(fa, case, errs: dict, label: str) -> None:
 
 
 def bounds(b, hq, hkv, sq, sk, d, shift) -> dict:
-    """Least time per kernel: max(bytes / HBM rate, FLOPs / bf16 peak),
-    counting each input read once and each output written once, and only
-    the (q, k) pairs these positions make visible."""
+    """Least time per kernel, (ms, what bounds it, FLOPs): max(bytes / HBM
+    rate, FLOPs / bf16 peak), counting each input read once and each output
+    written once, and only the (q, k) pairs these positions make visible."""
     pairs = b * hq * sum(min(sk, shift + i + 1) for i in range(sq))
     qb, kvb = b * hq * sq * d * 2, b * hkv * sk * d * 2
     tab = 2 * (sq + sk) * (d // 2) * 4 + (sq + sk) * 4
@@ -195,7 +205,7 @@ def bounds(b, hq, hkv, sq, sk, d, shift) -> dict:
     for name, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
         out[name] = (1e3 * max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
+                     "operations" if t_ops >= t_bytes else "bytes", flops)
     return out
 
 
@@ -238,6 +248,17 @@ def time_kernels(fa, case) -> dict:
     }
 
 
+def sass_hmma(build) -> dict:
+    """HMMA (tensor-core) instructions per kernel in the built library's
+    SASS, by cuobjdump from the toolkit that built it: {mangled name: n}."""
+    lib = build.build("flash_attention")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {block.split("\n", 1)[0].strip(): block.count("HMMA")
+            for block in sass.split("Function : ")[1:]}
+
+
 @torch.no_grad()
 def seen_batch_loss(cfg, model) -> float:
     """The trained model's token-mean loss on the first step's batch."""
@@ -265,6 +286,7 @@ def main_path(fa, here: str) -> dict:
     result = train.main(["--config", path])
     torch.cuda.synchronize()
     result["launches"] = dict(fa.launches)
+    result["fwd_launches"] = dict(fa.fwd_launches)
     losses = result["losses"]
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -281,6 +303,10 @@ def main_path(fa, here: str) -> dict:
         if result["launches"][name] != want:
             raise AssertionError(f"{name} launched {result['launches'][name]} "
                                  f"times on the main path, want {want}")
+    if result["fwd_launches"] != {"tensor_core": want, "cuda_core": 0}:
+        raise AssertionError(f"forward launches by variant "
+                             f"{result['fwd_launches']}: want all {want} on "
+                             f"the tensor-core kernel")
     return result
 
 
@@ -306,8 +332,16 @@ def main() -> int:
     # phase 1: build
     build.load("flash_attention")
     for line in build.BUILD_LOGS.get("flash_attention", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("entry function" in line or "registers" in line or "spill" in line
+                or "error" in line):
             log(f"ptxas: {line.strip()}")
+    hmma = sass_hmma(build)
+    for fn, n in hmma.items():
+        log(f"sass: {n} HMMA in {fn}")
+    fwd_mma = [n for fn, n in hmma.items() if "fwd_mma_kernel" in fn]
+    if len(fwd_mma) != 2 or min(fwd_mma) == 0:
+        raise AssertionError(f"fwd_mma_kernel's SASS (D 64, 128) holds no "
+                             f"tensor-core HMMA: {fwd_mma}")
     log("phase 1 build: ok")
 
     # phase 2: kernels against plain versions
@@ -322,6 +356,20 @@ def main() -> int:
     bnd = bounds(*SLICE_SHAPE)
     del case
     torch.cuda.empty_cache()
+    # the forward alone at each static shape: time, TFLOP/s, share of bound;
+    # and without RoPE (the same products, no K rotation per tile)
+    for label, shp in list(SHAPES.items())[:2]:
+        case = make_case(fa, rope_tables, *shp, dev=dev, seed=7)
+        q, k, v, qpos, kpos, tabs, _, _, static = case
+        bound_ms, bound_by, flops = bounds(*shp)["flash_fwd"]
+        for rope, t in (("", tabs), (" without RoPE", None)):
+            ms = cuda_ms(lambda: fa.fwd_kernel(q, k, v, qpos, kpos, t, True,
+                                               static), iters=20, warmup=3)
+            log(f"flash_fwd {label}{rope} ({card}): {ms:.4f} ms, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound")
+        del case, q, k, v
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     log("phase 2 kernels vs plain: ok")
 
@@ -345,7 +393,7 @@ def main() -> int:
     kernels = []
     for name, replaces in KERNELS:
         ms, plain_ms, lib_ms = times[name]
-        bound_ms, bound_by = bnd[name]
+        bound_ms, bound_by, _ = bnd[name]
         log(f"{name} at B2 S2048 H32 D64 ({card}): {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} "
             f"ms ({bound_by})")
@@ -359,7 +407,7 @@ def main() -> int:
     print(json.dumps({"main_path": {
         "card": card, "step_ms": steady * 1e3, "tokens_per_s": tps,
         "mfu": mfu, "peak_memory_gb": result["peak_memory_gb"],
-        "losses": result["losses"],
+        "losses": result["losses"], "fwd_launches": result["fwd_launches"],
         "seen_batch_loss": result["seen_batch_loss"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,44 @@
 // Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
 //
 // Replaces the three Pallas TPU kernels of picotron_tpu/ops/flash_attention.py:
-//   fwd_kernel     <- _fwd_kernel     (:139, pallas_call in _fwd :281)
+//   fwd_mma_kernel <- _fwd_kernel     (:139, pallas_call in _fwd :281), bf16
+//   fwd_kernel     <- _fwd_kernel     (the same), fp32 inputs only
 //   bwd_dq_kernel  <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543)
 //   bwd_dkv_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593)
 //
 // What bounds it on the card: causal attention at the training shapes
 // (S = 2048, D = 64) does ~S/2 multiply-adds per loaded element, far above
 // the H100's ~295 FLOP/byte ridge, so the work is bound by operations, not
-// by device-memory bytes. This first version computes the products with
+// by device-memory bytes.
+//
+// The bf16 forward (fwd_mma_kernel, the main path's) therefore runs both
+// products on the tensor cores: mma.sync m16n8k16 bf16 with fp32
+// accumulation. One block of 4 warps per (64-row q tile, q head, batch),
+// each warp owning 16 q rows, heaviest causal tiles launched first. Q is
+// loaded once, rotated, and kept as ldmatrix A fragments in registers for
+// the whole kv loop; K/V tiles stream through a two-stage shared-memory
+// ring filled by 16-byte cp.async copies (rows padded by 16 bytes, so
+// ldmatrix is free of bank conflicts), the copy of the next visible tile
+// (with its RoPE table rows, in the region Q no longer needs) issued
+// before the current tile's products and rotated in place once it lands;
+// the online softmax runs on the S accumulator fragments, and P is rounded
+// to bf16 and packed straight from them into the A fragments of O += P V
+// (the m16n8 C layout of two neighbouring n-tiles is the m16k16 A layout),
+// so P never touches shared memory. One barrier per tile, two with RoPE.
+// The per-tile K rotation costs about a third of the kernel's time at the
+// training shape (PERF.md); wgmma, TMA and warp specialisation are later
+// steps.
+//
+// The fp32 forward and the two backward kernels are the first version:
 // fp32 FMAs on CUDA cores (67 TFLOP/s peak) rather than the tensor cores
-// (989 TFLOP/s bf16); its design is about keeping every operand on chip:
-// one block of 256 threads per (batch, head, 64-row tile), Q/K/V/dO tiles
-// converted to fp32 in shared memory (rows padded by 4 floats so the
-// float4 reads are free of bank conflicts), each thread owning a 4 x 4
-// block of scores and a 4 x D/16 block of the accumulator, and the TPU's
-// sequential grid axis replaced by a loop inside the block (over kv tiles
-// for the forward and dq, over (group head, q tile) for dk/dv, so grouped
-// heads accumulate in registers with no atomics). Moving the products to
-// mma/wgmma is the next step.
+// (989 TFLOP/s bf16), designed to keep every operand on chip: one block of
+// 256 threads per (batch, head, 64-row tile), Q/K/V/dO tiles converted to
+// fp32 in shared memory (rows padded by 4 floats so the float4 reads are
+// free of bank conflicts), each thread owning a 4 x 4 block of scores and
+// a 4 x D/16 block of the accumulator. In every kernel the TPU's
+// sequential grid axis is a loop inside the block (over kv tiles for the
+// forward and dq, over (group head, q tile) for dk/dv, so grouped heads
+// accumulate in registers with no atomics).
 //
 // Features carried over from the TPU kernels: GQA by index (kv head =
 // h / (Hq / Hkv), K/V never repeated), masking by position vectors
@@ -34,12 +54,14 @@
 // returns cudaGetLastError() after its launch. Tensors are contiguous
 // [B, H, S, D]; lse and delta are fp32 [B, Hq, Sq]; positions int32; RoPE
 // tables fp32 [S, D/2] already gathered at the positions (null = no RoPE).
+// The bf16 forward also needs q, k, v, out and the tables 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -230,8 +252,9 @@ __device__ __forceinline__ TileClass classify(bool causal, bool static_causal,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (q tile, q head, batch); loop over kv tiles with the
-// online softmax (m, l, acc) in registers.
+// Forward on CUDA cores, for fp32 inputs (bf16 runs fwd_mma_kernel): one
+// block per (q tile, q head, batch); loop over kv tiles with the online
+// softmax (m, l, acc) in registers.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -338,6 +361,420 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l_safe);
     if (tx == 0)
       lse[row_base + q0 + r] = l[i] == 0.f ? -INFINITY : m[i] + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward on the tensor cores (bf16): mma.sync m16n8k16, ldmatrix, and a
+// two-stage cp.async ring of K/V tiles. Fragment layouts (PTX ISA, per
+// lane: g = lane / 4, t = lane % 4): A 16x16 in a[0..3] = (row g, cols
+// 2t..2t+1), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8); B 16x8 in b[0..1] =
+// (rows 2t..2t+1, col g), (2t + 8, g); C 16x8 in c[0..3] = (row g, cols
+// 2t, 2t + 1), (g + 8, 2t, 2t + 1).
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_NT = 128;  // 4 warps, 16 q rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; with full = false it reads nothing
+// and zero-fills the 16 bytes (rows past the end of a sequence)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+// the same for one 4-byte word (zero-filled with full = false)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] holds (row g, cols 2t, 2t + 1) of it
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// the same, each matrix transposed: r[i] holds (rows 2t, 2t + 1, col g)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (2 ulp; results below 2^-126 flush to
+// 0, and 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                    pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// Rotate-half RoPE in place on rows [0, n) of a bf16 tile in shared memory
+// (row stride D + 8) with the tile's rows of the gathered fp32 tables (row
+// stride ldt, in device or shared memory): fp32 math rounded to bf16, the
+// same rounding point as load_tile (and as the TPU kernels' _rot). Rows
+// past n stay zero.
+template <int D>
+__device__ __forceinline__ void rope_tile(__nv_bfloat16* t, int n,
+                                          const float* tc, const float* ts,
+                                          int ldt) {
+  constexpr int H = D / 2, LDS = D + 8, CH = H / 8;
+  // consecutive lanes take consecutive rows: with 16-byte row padding the
+  // 16-byte accesses of 8 lanes fall in distinct banks
+  for (int idx = threadIdx.x; idx < BK * CH; idx += MMA_NT) {
+    const int r = idx % BK, d = (idx / BK) * 8;
+    if (r >= n) continue;
+    uint4* lo = reinterpret_cast<uint4*>(t + r * LDS + d);
+    uint4* hi = reinterpret_cast<uint4*>(t + r * LDS + d + H);
+    const float4* c4 = reinterpret_cast<const float4*>(tc + (size_t)r * ldt + d);
+    const float4* s4 = reinterpret_cast<const float4*>(ts + (size_t)r * ldt + d);
+    const float4 c0 = c4[0], c1 = c4[1], s0 = s4[0], s1 = s4[1];
+    const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    float x[8], y[8], xr[8], yr[8];
+    unpack8(*lo, x);
+    unpack8(*hi, y);
+    // each product rounded on its own (no FMA contraction), as the plain
+    // version's separate fp32 ops round them, so the bf16 results agree
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      xr[i] = __fsub_rn(__fmul_rn(x[i], c[i]), __fmul_rn(y[i], s[i]));
+      yr[i] = __fadd_rn(__fmul_rn(y[i], c[i]), __fmul_rn(x[i], s[i]));
+    }
+    *lo = pack8(xr);
+    *hi = pack8(yr);
+  }
+}
+
+// Shared memory of fwd_mma_kernel: a first region that holds the Q tile
+// and then, once Q's fragments are in registers, the next kv tile's RoPE
+// table rows (cos then sin, fp32 rows of D/2 + 4); then two stages of K
+// and two of V (bf16 rows of D + 8).
+template <int D> __host__ __device__ constexpr int fwd_mma_head_bytes() {
+  return BQ * (D + 8) * 2 > 2 * BK * (D / 2 + 4) * 4 ? BQ * (D + 8) * 2
+                                                      : 2 * BK * (D / 2 + 4) * 4;
+}
+template <int D> constexpr size_t fwd_mma_smem() {
+  return fwd_mma_head_bytes<D>() + 4 * BK * (D + 8) * 2;
+}
+
+// minimum blocks per SM: 3 at D 64 and 2 at D 128, the most that fit
+// without register spills (ptxas: 152 and 200 registers)
+template <int D>
+__global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, const float* cq, const float* sq,
+    const float* ck, const float* sk, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int static_causal) {
+  using bf16 = __nv_bfloat16;
+  // LDS: tile row stride, padded by 16 bytes; CH: 16-byte chunks per row;
+  // KD: k-steps of S = Q K^T; ND: 8-column n-tiles of O; LDT: table row
+  // stride, padded by 16 bytes
+  constexpr int LDS = D + 8, CH = D / 8, KD = D / 16, ND = D / 8;
+  constexpr int H = D / 2, LDT = H + 4;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  float* Tab = reinterpret_cast<float*>(smem4);  // after Q: BK cos, BK sin rows
+  bf16* Ks = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem4) +
+                                     fwd_mma_head_bytes<D>());  // two stages
+  bf16* Vs = Ks + 2 * BK * LDS;  // two stages
+  __shared__ int qp_s[BQ];
+  __shared__ int kp_ring[2 * BK];
+
+  const int num_q = (Sq + BQ - 1) / BQ;
+  // static-causal: the heaviest q tiles (most kv tiles) launch first, so
+  // the longest rows do not start last
+  const int qt = static_causal ? num_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ, nq = min(BQ, Sq - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t row_base = (size_t)(b * Hq + h) * Sq;
+  const bf16* qb = q + row_base * D;
+  const bf16* kb = k + (size_t)(b * Hkv + hk) * Sk * D;
+  const bf16* vb = v + (size_t)(b * Hkv + hk) * Sk * D;
+
+  // the Q tile: one cp.async group, rows past Sq zero-filled
+  for (int idx = tid; idx < BQ * CH; idx += MMA_NT) {
+    const int r = idx / CH, c8 = (idx % CH) * 8;
+    cp_async16(Qs + r * LDS + c8, qb + (size_t)(r < nq ? q0 + r : 0) * D + c8,
+               r < nq);
+  }
+  cp_async_commit();
+  if (tid < BQ) qp_s[tid] = tid < nq ? qpos[q0 + tid] : 0;
+  __syncthreads();
+  int qmin, qmax;
+  tile_minmax(qp_s, nq, qmin, qmax);
+
+  const int num_kv = (Sk + BK - 1) / BK;
+  // static-causal: no kv tile past the last one this q tile can see
+  const int kv_end = static_causal ? min(num_kv, (q0 + nq - 1) / BK + 1) : num_kv;
+  auto tile_class = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    int kmin = 0, kmax = 0;
+    if (causal && !static_causal) tile_minmax(kpos + k0, nk, kmin, kmax);
+    return classify(causal, static_causal, q0, nq, k0, nk, qmin, qmax, kmin,
+                    kmax);
+  };
+  // the first visible kv tile at or after kt (kv_end if none) and its
+  // class: invisible tiles are neither copied nor multiplied
+  auto next_visible = [&](int kt, TileClass& cls) {
+    for (; kt < kv_end; ++kt) {
+      cls = tile_class(kt);
+      if (cls.visible) return kt;
+    }
+    return kv_end;
+  };
+  // start the copies of kv tile kt into ring stage st (K, V and position
+  // rows past Sk zero-filled)
+  auto issue_kv = [&](int kt, int st) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    bf16* ks = Ks + st * BK * LDS;
+    bf16* vs = Vs + st * BK * LDS;
+    for (int idx = tid; idx < BK * CH; idx += MMA_NT) {
+      const int r = idx / CH, c8 = (idx % CH) * 8;
+      const size_t off = (size_t)(r < nk ? k0 + r : 0) * D + c8;
+      cp_async16(ks + r * LDS + c8, kb + off, r < nk);
+      cp_async16(vs + r * LDS + c8, vb + off, r < nk);
+    }
+    if (causal && tid < BK)
+      cp_async4(kp_ring + st * BK + tid, kpos + (tid < nk ? k0 + tid : 0),
+                tid < nk);
+  };
+  // start the copies of kv tile kt's RoPE table rows into Tab
+  auto issue_tab = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    constexpr int TC = H / 4;  // 16-byte chunks per table row
+    for (int idx = tid; idx < 2 * BK * TC; idx += MMA_NT) {
+      const int r = (idx / TC) % BK, c4 = (idx % TC) * 4;
+      const float* src = idx < BK * TC ? ck : sk;
+      cp_async16(Tab + (idx / TC) * LDT + c4,
+                 src + (size_t)(r < nk ? k0 + r : 0) * H + c4, r < nk);
+    }
+  };
+
+  TileClass cls_cur, cls_next;
+  int kt = next_visible(0, cls_cur);
+  if (kt < kv_end) issue_kv(kt, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // the Q group has landed (the first kv tile may not)
+  __syncthreads();
+  if (cq != nullptr) {  // q is constant across the kv loop: rotate it once
+    rope_tile<D>(Qs, nq, cq + (size_t)q0 * H, sq + (size_t)q0 * H, H);
+    __syncthreads();
+  }
+  // Q's A fragments for this warp's 16 rows, resident for the whole loop
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
+                        + kk * 16 + (lane >> 4) * 8);
+  if (ck != nullptr && kt < kv_end) {
+    __syncthreads();  // every warp holds its Q fragments: Tab may take over
+    issue_tab(kt);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // the first kv tile (and its tables) landed
+  __syncthreads();
+  if (ck != nullptr && kt < kv_end) {
+    rope_tile<D>(Ks, min(BK, Sk - kt * BK), Tab, Tab + BK * LDT, LDT);
+    __syncthreads();
+  }
+
+  float o[ND][4], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  int st = 0;
+  while (kt < kv_end) {
+    // tile kt is in stage st, rotated; stage st ^ 1 and Tab are free (every
+    // warp passed the barriers that closed the last tile): start tile kn
+    const int kn = next_visible(kt + 1, cls_next);
+    if (kn < kv_end) {
+      issue_kv(kn, st ^ 1);
+      if (ck != nullptr) issue_tab(kn);
+    }
+    cp_async_commit();
+    const int nk = min(BK, Sk - kt * BK);
+    const bf16* ks = Ks + st * BK * LDS;
+    const bf16* vs = Vs + st * BK * LDS;
+    const int* kp_s = kp_ring + st * BK;
+
+    // S = Q K^T: this warp's 16 x 64 scores in 8 n-tiles of 4 registers
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        // K rows j2*16.. as the B fragments of n-tiles 2 j2 and 2 j2 + 1
+        uint32_t kf[4];
+        ldsm_x4(kf, ks + (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LDS
+                       + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_16816(s[2 * j2], qf[kk], kf[0], kf[1]);
+        mma_16816(s[2 * j2 + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+    if (!cls_cur.full) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = warp * 16 + g + (e >> 1) * 8;
+          const int c = j * 8 + tig * 2 + (e & 1);
+          const bool ok = c < nk && (!causal || qp_s[r] >= kp_s[c]);
+          if (!ok) s[j][e] = NEG;
+        }
+    }
+    // online softmax on the fragments: this lane holds rows g (e = 0, 1)
+    // and g + 8 (e = 2, 3); a row's 64 scores are spread over one quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      // exp(x) as exp2(x log2 e)
+      const float alpha = m[i] <= NEG ? 0.f : fast_exp2((m[i] - m_new) * LOG2E);
+      // a fully masked row has m_new = NEG: exp(NEG - NEG) must be 0, so
+      // its shift is +inf
+      const float mb = m_new <= NEG ? INFINITY : m_new * LOG2E;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const float p = fast_exp2(fmaf(s[j][e], LOG2E, -mb));
+          rs += p;  // l sums p before its bf16 rounding
+          s[j][e] = p;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        o[j][2 * i] *= alpha;
+        o[j][2 * i + 1] *= alpha;
+      }
+    }
+    // O += P V: P's A fragment for kv columns 16 kk.. is n-tiles 2 kk and
+    // 2 kk + 1 of S, rounded to bf16; V's B fragments by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n2 = 0; n2 < ND / 2; ++n2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
+                            + n2 * 16 + (lane >> 4) * 8);
+        mma_16816(o[2 * n2], pa, vf[0], vf[1]);
+        mma_16816(o[2 * n2 + 1], pa, vf[2], vf[3]);
+      }
+    }
+    cp_async_wait<0>();  // tile kn has landed
+    __syncthreads();     // for every warp; and stage st is free for a refill
+    if (ck != nullptr && kn < kv_end) {
+      rope_tile<D>(Ks + (st ^ 1) * BK * LDS, min(BK, Sk - kn * BK), Tab,
+                   Tab + BK * LDT, LDT);
+      __syncthreads();  // tile kn is rotated, and Tab is free
+    }
+    kt = kn;
+    cls_cur = cls_next;
+    st ^= 1;
+  }
+
+  // O / l rounded to bf16, staged through this warp's own 16 rows of Qs
+  // (no other warp reads them, and no table copy is in flight) for
+  // 16-byte row stores
+  bf16* stage = Qs + warp * 16 * LDS;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv_l = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * i) * LDS + j * 8 + tig * 2) =
+          pack_bf16(o[j][2 * i] * inv_l, o[j][2 * i + 1] * inv_l);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c8 = (idx % CH) * 8, row = warp * 16 + r;
+    if (row < nq)
+      *reinterpret_cast<uint4*>(out + (row_base + q0 + row) * D + c8) =
+          *reinterpret_cast<const uint4*>(stage + r * LDS + c8);
+  }
+  if (tig == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = warp * 16 + g + 8 * i;
+      if (row < nq)
+        lse[row_base + q0 + row] = l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
+    }
   }
 }
 
@@ -603,6 +1040,32 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
+                           void* out, void* lse, const void* qpos,
+                           const void* kpos, const void* cq, const void* sq,
+                           const void* ck, const void* sk, int B, int Hq,
+                           int Hkv, int Sq, int Sk, int causal,
+                           int static_causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  // cp.async and the vector loads move 16 bytes at a time
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)out | (uintptr_t)cq | (uintptr_t)sq |
+                         (uintptr_t)ck | (uintptr_t)sk;
+  if (addr & 15) return cudaErrorMisalignedAddress;
+  constexpr size_t smem = fwd_mma_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  fwd_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+      (float*)lse, (const int*)qpos, (const int*)kpos, (const float*)cq,
+      (const float*)sq, (const float*)ck, (const float*)sk, Hq, Hkv, Sq, Sk,
+      causal, static_causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
@@ -656,13 +1119,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// bf16 inputs run the tensor-core forward, fp32 inputs the CUDA-core one
 int pt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, const void* qpos, const void* kpos, const void* cq,
                  const void* sq, const void* ck, const void* sk, int B, int Hq,
                  int Hkv, int Sq, int Sk, int D, int causal, int static_causal,
                  int is_bf16, void* stream) {
-  PT_DISPATCH(launch_fwd, q, k, v, out, lse, qpos, kpos, cq, sq, ck, sk, B,
-              Hq, Hkv, Sq, Sk, causal, static_causal, (cudaStream_t)stream)
+#define PT_FWD_ARGS                                                        \
+  q, k, v, out, lse, qpos, kpos, cq, sq, ck, sk, B, Hq, Hkv, Sq, Sk, causal, \
+      static_causal, (cudaStream_t)stream
+  if (is_bf16 && D == 64) return (int)launch_fwd_mma<64>(PT_FWD_ARGS);
+  if (is_bf16 && D == 128) return (int)launch_fwd_mma<128>(PT_FWD_ARGS);
+  if (!is_bf16 && D == 64) return (int)launch_fwd<float, 64>(PT_FWD_ARGS);
+  if (!is_bf16 && D == 128) return (int)launch_fwd<float, 128>(PT_FWD_ARGS);
+#undef PT_FWD_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 int pt_flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -3,7 +3,8 @@
 
 Port of picotron_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 there (`_fwd_kernel` :139, `_bwd_dq_kernel` :327, `_bwd_dkv_kernel` :412)
-become three CUDA kernels for sm_90a; the source note at the top of the
+become CUDA kernels for sm_90a (the forward on the tensor cores for bf16,
+on CUDA cores for fp32); the source note at the top of the
 .cu file says what bounds them on the card (operations: causal attention
 at S = 2048 is far above the card's FLOP/byte ridge) and what their design
 does about it. The public contract is the JAX one:
@@ -22,7 +23,8 @@ CPU tensors run the plain version, RoPE in fp32 + `sdpa_attention` /
 `sdpa_attention_bwd_from_saved` on the same [B,H,S,D] layout, so the CPU
 tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
-kernel launches per kernel; plain runs never count.
+kernel launches per kernel, and `fwd_launches` the forward's by variant
+(bf16 on the tensor cores, fp32 on CUDA cores); plain runs never count.
 """
 
 from __future__ import annotations
@@ -38,14 +40,18 @@ from picotron_tpu_torch.ops.attention import (
 
 # launches of each kernel since the last reset (plain integers)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# the forward's launches by the kernel that ran: `fwd_mma_kernel` (bf16,
+# tensor cores) or `fwd_kernel` (fp32, CUDA cores)
+fwd_launches = {"tensor_core": 0, "cuda_core": 0}
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def reset_launch_counts() -> None:
-    for key in launches:
-        launches[key] = 0
+    for counts in (launches, fwd_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +142,11 @@ def _stream(t: torch.Tensor) -> int:
 def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
     """Launch the forward kernel: q4 [B,Hq,Sq,D] (already scaled), k4/v4
     [B,Hkv,Sk,D], qpos/kpos int32, tabs None or the gathered fp32 tables
-    (cq, sq, ck, sk). -> out4 [B,Hq,Sq,D], lse [B,Hq,Sq] fp32."""
+    (cq, sq, ck, sk). -> out4 [B,Hq,Sq,D], lse [B,Hq,Sq] fp32.
+
+    `pt_flash_fwd` dispatches by dtype: bf16 (the training path) always
+    runs `fwd_mma_kernel` on the tensor cores, fp32 runs the CUDA-core
+    `fwd_kernel`; `fwd_launches` records which."""
     q4, k4, v4, qpos, kpos, tabs = _operands(
         "flash_fwd", q4, k4, v4, qpos, kpos, tabs)
     b, hq, sq, d = q4.shape
@@ -149,6 +159,8 @@ def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
         int(static_causal), int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_fwd")
     launches["flash_fwd"] += 1
+    fwd_launches["tensor_core" if q4.dtype == torch.bfloat16
+                 else "cuda_core"] += 1
     return out, lse
 
 

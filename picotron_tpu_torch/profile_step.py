@@ -26,15 +26,18 @@ import torch
 from picotron_tpu_torch import train
 from picotron_tpu_torch.config import load_config
 
-_FLASH = ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")
+# (name substring, class): the forward's two variants share its class
+_FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
+          ("bwd_dq_kernel", "bwd_dq_kernel"),
+          ("bwd_dkv_kernel", "bwd_dkv_kernel"))
 _GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    for k in _FLASH:
+    for k, cls in _FLASH:
         if k in name:
-            return "flash:" + k
+            return "flash:" + cls
     if any(g in low for g in _GEMM):
         return "gemm"
     return "other"

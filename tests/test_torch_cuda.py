@@ -12,7 +12,9 @@ order (2e-4 on O(1) values at these sizes). bf16 inputs are held to
 chip_smoke.py's phase-2 limit, per row: ||kernel - plain||_2 <= 1e-2 *
 ||plain||_2 for out/dq/dk/dv and 2e-3 on each fp32 lse entry (chip_smoke's
 docstring says why). `test_planted_wrong_kernels_fail` shows that limit
-fails a kernel with a planted fault."""
+fails a kernel with a planted fault, and `test_mutant_sites` (which needs no
+card and runs in the CPU suite) that each planted fault still lands in the
+kernels it names, the tensor-core forward included."""
 
 import re
 
@@ -24,7 +26,7 @@ from picotron_tpu_torch.kernels import build
 from picotron_tpu_torch.ops import flash_attention as fa
 from picotron_tpu_torch.ops.rope import rope_tables
 
-pytestmark = pytest.mark.cuda
+cuda = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -43,6 +45,7 @@ CASES = [
     (1, 4, 2, 100, 100, 64, True, None, False),        # ragged edge
     (1, 4, 1, 128, 256, 64, True, "shifted", True),    # later q shard
     (1, 4, 2, 96, 160, 128, False, None, False),       # non-causal, sk > sq
+    (1, 8, 2, 200, 200, 128, True, None, True),        # GQA 4:1, ragged, D 128
 ]
 
 
@@ -74,6 +77,7 @@ def _assert_close(got, want, dtype, what):
     assert worst <= limit, f"{what}: worst row error {worst:.4g} > {limit}"
 
 
+@cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", CASES, ids=range(len(CASES)))
@@ -98,8 +102,12 @@ def test_kernels_match_plain(case, dtype, dev):
         _assert_close(a, b_, dtype, name)
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
+    # bf16 runs the tensor-core forward, fp32 the CUDA-core one
+    variant = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert fa.fwd_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
 
 
+@cuda
 def test_public_wrapper_launches_kernels_and_autograd(dev):
     q = torch.randn(2, 128, 8, 64, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
@@ -113,9 +121,11 @@ def test_public_wrapper_launches_kernels_and_autograd(dev):
     torch.cuda.synchronize()
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
+    assert fa.fwd_launches == {"tensor_core": 1, "cuda_core": 0}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
+@cuda
 def test_wrapper_raises_instead_of_falling_back(dev):
     q = torch.randn(1, 64, 2, 48, device=dev)  # head_dim 48: no variant
     with pytest.raises(ValueError, match="head_dim"):
@@ -124,33 +134,93 @@ def test_wrapper_raises_instead_of_falling_back(dev):
 
 # Faults planted in a copy of the CUDA source: (pattern, replacement, count).
 # Each edits every kernel that has the site, so each kernel's own output
-# shows whether the limit catches it.
+# shows whether the limit catches it. The counts include the sites in the
+# tensor-core forward (`fwd_mma_kernel`), the kernel bf16 inputs run.
 MUTANTS = {
     # the causal mask lets each row see one key past its own position
-    "mask_off_by_one": (r">= kp_s\[c\]", "+ 1 >= kp_s[c]", 3),
+    # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel)
+    "mask_off_by_one": (r">= kp_s\[c\]", "+ 1 >= kp_s[c]", 4),
     # the same, only in rows at position 1024 and later
     "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[c\]",
-                             r"\1 + (\1 >= 1024) >= kp_s[c]", 3),
-    # the diagonal tile counted as full: its mask is never applied
+                             r"\1 + (\1 >= 1024) >= kp_s[c]", 4),
+    # the diagonal tile counted as full: its mask is never applied (one
+    # `classify` shared by all kernels)
     "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
                               "t.full = q0 >= k0;", 1),
     # the last visible tile of the inner loop is dropped (fwd, dq: the
-    # diagonal kv tile; dk/dv: the last q tile)
+    # diagonal kv tile, in fwd_mma_kernel through its next-visible-tile
+    # search; dk/dv: the last q tile)
     "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt",
-                          None, 3),
+                          None, 4),
+    # fwd_mma_kernel packs P's A fragment for kv columns 8..15 of each
+    # k-step from the S n-tile of columns 0..7
+    "p_from_wrong_ntile": (r"s\[2 \* kk \+ 1\]", "s[2 * kk]", 4),
 }
 
 
-def _plant(name, tmp_path):
-    pattern, repl, count = MUTANTS[name]
+def _mutate(name):
+    """The kernel source with fault `name` planted, and its site count."""
+    pattern, repl, _ = MUTANTS[name]
     src = (build.CSRC / "flash_attention.cu").read_text()
     if repl is None:  # drop the loop's last iteration
         repl = lambda m: m.group(0).replace(";", " - 1;", 1)  # noqa: E731
-    mutated, n = re.subn(pattern, repl, src)
-    assert n == count, f"{name}: {n} sites, want {count}"
+    return re.subn(pattern, repl, src)
+
+
+def _plant(name, tmp_path):
+    mutated, n = _mutate(name)
+    assert n == MUTANTS[name][2], f"{name}: {n} sites, want {MUTANTS[name][2]}"
     (tmp_path / "flash_attention.cu").write_text(mutated)
 
 
+def _kernel_body(src, name):
+    """The text of `__global__ ... name(` up to the next __global__."""
+    start = src.index(f" {name}(")
+    end = src.find("__global__", start)
+    return src[start:end if end >= 0 else len(src)]
+
+
+@pytest.mark.parametrize("mutant", list(MUTANTS))
+def test_mutant_sites(mutant):
+    """Each planted fault finds its stated number of sites, and every one
+    but the classify fault (shared by all kernels through `classify`) has
+    a site inside the tensor-core forward; no card needed."""
+    mutated, n = _mutate(mutant)
+    assert n == MUTANTS[mutant][2], f"{mutant}: {n} sites"
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    body, new_body = (_kernel_body(t, "fwd_mma_kernel") for t in (src, mutated))
+    if mutant == "diagonal_tile_as_full":
+        assert "classify(" in body
+    else:
+        assert body != new_body, f"{mutant} misses fwd_mma_kernel"
+
+
+def test_tensor_core_forward_in_source():
+    """The bf16 forward is a kernel of its own whose products are bf16
+    mma.sync instructions fed by ldmatrix from a cp.async ring, and
+    pt_flash_fwd sends bf16 inputs to it alone; no card needed."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"__global__ void __launch_bounds__\(MMA_NT[^)]*\) "
+                     r"fwd_mma_kernel\(", src)
+    assert re.search(r"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16"
+                     r"\.bf16\.f32", src)
+    for instr in ("ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+                  "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                  "cp.async.cg.shared.global", "cp.async.wait_group"):
+        assert instr in src, instr
+    body = _kernel_body(src, "fwd_mma_kernel")
+    for helper in ("mma_16816(", "ldsm_x4(", "ldsm_x4_trans(", "issue_kv(",
+                   "cp_async_wait<"):
+        assert helper in body, helper
+    fwd = src[src.index("int pt_flash_fwd("):]
+    fwd = fwd[:fwd.index("\n}\n")]
+    assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
+                      r"launch_fwd_mma<\1>", fwd) == ["64", "128"]
+    assert "launch_fwd<__nv_bfloat16" not in src
+    assert "PT_DISPATCH(launch_fwd," not in src
+
+
+@cuda
 @pytest.mark.parametrize("mutant", [*MUTANTS, "dlse_dropped"])
 def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
                                     capsys):
@@ -191,5 +261,7 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
         del case
         torch.cuda.empty_cache()
     assert failed, f"{mutant}: every output within the limit"
+    if mutant in MUTANTS:  # each lands in the bf16 forward, fwd_mma_kernel
+        assert failed & {"out", "lse"}, f"{mutant}: forward passed"
     if mutant.endswith("mask_off_by_one"):
         assert late_failed >= {"out", "dq", "dk", "dv"}, late_failed

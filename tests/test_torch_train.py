@@ -208,7 +208,9 @@ def test_run_calls_on_step_after_each_step():
 def test_profile_step_kernel_classes():
     from picotron_tpu_torch.profile_step import kernel_class
 
-    assert kernel_class("void {anon}::fwd_kernel<__nv_bfloat16, 64>(...)") == (
+    assert kernel_class("void {anon}::fwd_kernel<float, 64>(...)") == (
+        "flash:fwd_kernel")
+    assert kernel_class("void {anon}::fwd_mma_kernel<64>(...)") == (
         "flash:fwd_kernel")
     assert kernel_class("bwd_dkv_kernel<float, 128>") == "flash:bwd_dkv_kernel"
     assert kernel_class("nvjet_tst_128x256_64x4_2x1_v_bz_coopB_TNT") == "gemm"
