@@ -1,10 +1,11 @@
 // Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
 //
 // Replaces the three Pallas TPU kernels of picotron_tpu/ops/flash_attention.py:
-//   fwd_mma_kernel <- _fwd_kernel     (:139, pallas_call in _fwd :281), bf16
-//   fwd_kernel     <- _fwd_kernel     (the same), fp32 inputs only
-//   bwd_dq_kernel  <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543)
-//   bwd_dkv_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593)
+//   fwd_mma_kernel     <- _fwd_kernel     (:139, pallas_call in _fwd :281), bf16
+//   fwd_kernel         <- _fwd_kernel     (the same), fp32 inputs only
+//   bwd_dq_kernel      <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543)
+//   bwd_dkv_mma_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593), bf16
+//   bwd_dkv_kernel     <- _bwd_dkv_kernel (the same), fp32 inputs only
 //
 // What bounds it on the card: causal attention at the training shapes
 // (S = 2048, D = 64) does ~S/2 multiply-adds per loaded element, far above
@@ -29,7 +30,24 @@
 // training shape (PERF.md); wgmma, TMA and warp specialisation are later
 // steps.
 //
-// The fp32 forward and the two backward kernels are the first version:
+// The bf16 dk/dv (bwd_dkv_mma_kernel) is bound by operations too (8 D
+// FLOPs per visible (q, k) pair against the same bytes), and runs its four
+// products on the tensor cores with the forward's building blocks, the
+// roles turned round: one block of 4 warps per (64-row kv tile, kv head,
+// batch), each warp owning 16 kv rows of dK and dV. K and V are copied
+// once and stay resident (K rotated in place once per block); Q, dO and
+// each q row's position, lse and delta stream through a two-stage cp.async
+// ring over (GQA head x q tile), the next visible step's copy issued
+// before the current one's products, invisible steps never copied, and
+// the landed Q tile rotated in place once (S^T and dK share it). The
+// products are taken transposed (S^T = K Q^T, dV += P^T dO, dP^T = V dO^T,
+// dK += dS^T Q), so the kv rows are the mma rows and P^T and dS^T (from
+// the fp32 P) go from the accumulator fragments straight into bf16 A
+// fragments: neither touches shared memory, and nothing stands between
+// the products. GQA heads accumulate in registers with no atomics. One
+// barrier per step, two with RoPE.
+//
+// The fp32 forward, the fp32 dk/dv and the dq kernel are the first version:
 // fp32 FMAs on CUDA cores (67 TFLOP/s peak) rather than the tensor cores
 // (989 TFLOP/s bf16), designed to keep every operand on chip: one block of
 // 256 threads per (batch, head, 64-row tile), Q/K/V/dO tiles converted to
@@ -54,7 +72,8 @@
 // returns cudaGetLastError() after its launch. Tensors are contiguous
 // [B, H, S, D]; lse and delta are fp32 [B, Hq, Sq]; positions int32; RoPE
 // tables fp32 [S, D/2] already gathered at the positions (null = no RoPE).
-// The bf16 forward also needs q, k, v, out and the tables 16-byte aligned.
+// The bf16 forward also needs q, k, v, out and the tables 16-byte aligned,
+// the bf16 dk/dv q, k, v, dout, dk, dv and the tables.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -895,8 +914,9 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv: one block per (kv tile, kv head, batch); the inner loop walks the
-// GQA group's q heads x q tiles, so grouped heads accumulate in registers.
+// dk/dv on CUDA cores, for fp32 inputs (bf16 runs bwd_dkv_mma_kernel): one
+// block per (kv tile, kv head, batch); the inner loop walks the GQA group's
+// q heads x q tiles, so grouped heads accumulate in registers.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -1017,6 +1037,351 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv on the tensor cores (bf16), the design in the note at the top: per
+// step (GQA head, q tile), with kv rows as the mma rows and the 64 q
+// columns as the n-dimension,
+//   S^T = K Q^T, P^T = exp(S^T - lse), dV += P^T dO,
+//   dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+// Fragment layouts as for fwd_mma_kernel.
+// ---------------------------------------------------------------------------
+
+// Shared memory of bwd_dkv_mma_kernel: the resident K and V tiles, two ring
+// stages of Q and two of dO (bf16 rows of D + 8), and the next q tile's
+// RoPE table rows (cos then sin, fp32 rows of D/2 + 4): 73,728 bytes at
+// D 64 and 139,264 at D 128, plus 1,792 static (positions, lse, delta).
+template <int D> constexpr size_t dkv_mma_smem() {
+  return 6 * BK * (D + 8) * 2 + 2 * BQ * (D / 2 + 4) * 4;
+}
+
+// Blocks per SM: 2 at D 64, set by registers (ptxas: 241, no spills; the
+// live set is the dK and dV accumulators, S^T and dP^T, and the K and V A
+// fragments, 32 registers each), and 1 at D 128, set by shared memory
+// (252 registers, no spills). Staging the q tiles' table rows costs D 128
+// its second block, and still wins with RoPE over reading them from L2
+// between the step's two barriers.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    const float* cq, const float* sq, const float* ck, const float* sk,
+    int Hq, int Hkv, int Sq, int Sk, int causal, int static_causal) {
+  using bf16 = __nv_bfloat16;
+  // LDS: tile row stride, padded by 16 bytes; CH: 16-byte chunks per row;
+  // KD: k-steps of S^T and dP^T (over d); ND: 8-column n-tiles of dK, dV;
+  // LDT: table row stride, padded by 16 bytes
+  constexpr int LDS = D + 8, CH = D / 8, KD = D / 16, ND = D / 8;
+  constexpr int H = D / 2, LDT = H + 4;
+  // q columns per pass: at D 128 the accumulators take 128 registers, so
+  // S^T and dP^T cover 32 q columns at a time; NC: n-tiles per pass
+  constexpr int QC = D == 64 ? BQ : BQ / 2, NC = QC / 8;
+  // at D 64 the K and V A fragments stay in registers; at D 128 they are
+  // read from the resident tiles at each k-step (64 more registers would
+  // spill)
+  constexpr bool KV_REGS = D == 64;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + BK * LDS;
+  bf16* Qs = Vs + BK * LDS;        // two stages
+  bf16* dOs = Qs + 2 * BQ * LDS;   // two stages
+  float* Tab = reinterpret_cast<float*>(dOs + 2 * BQ * LDS);  // BQ cos, BQ sin
+  __shared__ int kp_s[BK];
+  __shared__ int qp_ring[2 * BQ];
+  __shared__ __align__(8) float lse_ring[2 * BQ];
+  __shared__ __align__(8) float dl_ring[2 * BQ];
+
+  // static-causal: kv tile 0 sees the most q tiles, so ascending blockIdx.x
+  // already launches the heaviest blocks first
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int n_rep = Hq / Hkv;
+  const int k0 = kt * BK, nk = min(BK, Sk - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t kv_base = (size_t)(b * Hkv + hk) * Sk;
+
+  // the K and V tiles (and the kv positions): one cp.async group, rows
+  // past Sk zero-filled
+  for (int idx = tid; idx < BK * CH; idx += MMA_NT) {
+    const int r = idx / CH, c8 = (idx % CH) * 8;
+    const size_t off = (kv_base + (r < nk ? k0 + r : 0)) * D + c8;
+    cp_async16(Ks + r * LDS + c8, k + off, r < nk);
+    cp_async16(Vs + r * LDS + c8, v + off, r < nk);
+  }
+  if (causal && tid < BK)
+    cp_async4(kp_s + tid, kpos + (tid < nk ? k0 + tid : 0), tid < nk);
+  cp_async_commit();
+  int kmin = 0, kmax = 0;
+  if (causal && !static_causal) tile_minmax(kpos + k0, nk, kmin, kmax);
+
+  // the inner loop walks (GQA head gh < n_rep) x (q tile >= qt_start) as
+  // one sequence it = gh * nqt + (qt - qt_start); static-causal: q tiles
+  // before the first one that can see this kv tile are never visited
+  // (_q_eff)
+  const int num_q = (Sq + BQ - 1) / BQ;
+  const int qt_start = static_causal ? k0 / BQ : 0;
+  const int nqt = max(0, num_q - qt_start);
+  const int it_end = n_rep * nqt;
+  auto q_start = [&](int it) { return (qt_start + it % nqt) * BQ; };
+  auto tile_class = [&](int it) {
+    const int q0 = q_start(it), nq = min(BQ, Sq - q0);
+    int qmin = 0, qmax = 0;
+    if (causal && !static_causal) tile_minmax(qpos + q0, nq, qmin, qmax);
+    return classify(causal, static_causal, q0, nq, k0, nk, qmin, qmax, kmin,
+                    kmax);
+  };
+  // the first visible (head, q tile) at or after it (it_end if none) and
+  // its class: invisible tiles are neither copied nor multiplied
+  auto next_visible = [&](int it, TileClass& cls) {
+    for (; it < it_end; ++it) {
+      cls = tile_class(it);
+      if (cls.visible) return it;
+    }
+    return it_end;
+  };
+  // start the copies of step it into ring stage st: Q and dO (16-byte
+  // copies), the q positions, lse and delta rows (4-byte copies), rows past
+  // Sq zero-filled; and the q tile's RoPE table rows into Tab
+  auto issue_q = [&](int it, int st) {
+    const int q0 = q_start(it), nq = min(BQ, Sq - q0);
+    const size_t row_base = (size_t)(b * Hq + hk * n_rep + it / nqt) * Sq;
+    bf16* qs = Qs + st * BQ * LDS;
+    bf16* dos = dOs + st * BQ * LDS;
+    for (int idx = tid; idx < BQ * CH; idx += MMA_NT) {
+      const int r = idx / CH, c8 = (idx % CH) * 8;
+      const size_t off = (row_base + (r < nq ? q0 + r : 0)) * D + c8;
+      cp_async16(qs + r * LDS + c8, q + off, r < nq);
+      cp_async16(dos + r * LDS + c8, dout + off, r < nq);
+    }
+    if (tid < BQ) {
+      const int row = tid < nq ? q0 + tid : 0;
+      if (causal) cp_async4(qp_ring + st * BQ + tid, qpos + row, tid < nq);
+      cp_async4(lse_ring + st * BQ + tid, lse + row_base + row, tid < nq);
+      cp_async4(dl_ring + st * BQ + tid, delta + row_base + row, tid < nq);
+    }
+    if (cq != nullptr) {
+      constexpr int TC = H / 4;  // 16-byte chunks per table row
+      for (int idx = tid; idx < 2 * BQ * TC; idx += MMA_NT) {
+        const int r = (idx / TC) % BQ, c4 = (idx % TC) * 4;
+        const float* src = idx < BQ * TC ? cq : sq;
+        cp_async16(Tab + (idx / TC) * LDT + c4,
+                   src + (size_t)(r < nq ? q0 + r : 0) * H + c4, r < nq);
+      }
+    }
+  };
+  // rotate the landed Q tile of step it in ring stage st in place: rotated
+  // Q is both S^T's and dK's B operand, so one rotation serves both
+  auto rope_q = [&](int it, int st) {
+    rope_tile<D>(Qs + st * BQ * LDS, min(BQ, Sq - q_start(it)), Tab,
+                 Tab + BQ * LDT, LDT);
+  };
+
+  TileClass cls_cur, cls_next;
+  int it = next_visible(0, cls_cur);
+  if (it < it_end) issue_q(it, 0);
+  cp_async_commit();
+  cp_async_wait<0>();  // K, V and the first q tile have landed
+  __syncthreads();
+  if (ck != nullptr) {
+    // k is constant across the inner loop: rotate it once per block (TPU
+    // :430-433), and the first Q tile beside it
+    rope_tile<D>(Ks, nk, ck + (size_t)k0 * H, sk + (size_t)k0 * H, H);
+    if (it < it_end) rope_q(it, 0);
+    __syncthreads();
+  }
+  // this warp's 16 kv rows as A fragments: lanes 8i..8i+7 address matrix i
+  // (rows 0-7 / 8-15, k columns 0-7 / 8-15)
+  const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                    (lane >> 4) * 8;
+  uint32_t kf[KV_REGS ? KD : 1][4], vf[KV_REGS ? KD : 1][4];
+  if constexpr (KV_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      ldsm_x4(kf[kk], Ks + a_off + kk * 16);
+      ldsm_x4(vf[kk], Vs + a_off + kk * 16);
+    }
+  }
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[j][e] = 0.f;
+      dv_acc[j][e] = 0.f;
+    }
+
+  int st = 0;
+  while (it < it_end) {
+    // step it is in stage st, rotated; stage st ^ 1 and Tab are free
+    // (every warp passed the barriers that closed the last step): start
+    // step in
+    const int in = next_visible(it + 1, cls_next);
+    if (in < it_end) issue_q(in, st ^ 1);
+    cp_async_commit();
+    const int nq = min(BQ, Sq - q_start(it));
+    const bf16* qs = Qs + st * BQ * LDS;
+    const bf16* dos = dOs + st * BQ * LDS;
+    const int* qp_s = qp_ring + st * BQ;
+    const float* lse_s = lse_ring + st * BQ;
+    const float* dl_s = dl_ring + st * BQ;
+
+#pragma unroll
+    for (int c0 = 0; c0 < BQ; c0 += QC) {
+      // S^T = K Q^T and dP^T = V dO^T for q columns c0..c0+QC: this warp's
+      // 16 kv rows x QC columns in NC n-tiles of 4 registers each
+      float p[NC][4], dp[NC][4];
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        if constexpr (KV_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ka[i] = kf[kk][i];
+            va[i] = vf[kk][i];
+          }
+        } else {
+          ldsm_x4(ka, Ks + a_off + kk * 16);
+          ldsm_x4(va, Vs + a_off + kk * 16);
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < NC / 2; ++j2) {
+          // Q and dO rows c0 + j2*16.. as the B fragments of n-tiles 2 j2
+          // and 2 j2 + 1
+          const int off = (c0 + j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LDS
+                          + kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t qb[4], ob[4];
+          ldsm_x4(qb, qs + off);
+          mma_16816(p[2 * j2], ka, qb[0], qb[1]);
+          mma_16816(p[2 * j2 + 1], ka, qb[2], qb[3]);
+          ldsm_x4(ob, dos + off);
+          mma_16816(dp[2 * j2], va, ob[0], ob[1]);
+          mma_16816(dp[2 * j2 + 1], va, ob[2], ob[3]);
+        }
+      }
+      // P^T = exp(S^T - lse[c]) in fp32, then dS^T = P^T (dP^T - delta[c])
+      // from the fp32 P: this lane holds kv rows g (e = 0, 1) and g + 8
+      // (e = 2, 3) at q columns cb, cb + 1 of each n-tile
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int cb = c0 + j * 8 + tig * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + cb);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_s + cb);
+        // exp(x) as exp2(x log2 e); a column with no visible key (lse =
+        // -inf) must give P = 0, so its shift is +inf
+        const float lb[2] = {l2.x <= NEG ? INFINITY : l2.x * LOG2E,
+                             l2.y <= NEG ? INFINITY : l2.y * LOG2E};
+        const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = warp * 16 + g + (e >> 1) * 8, c = cb + (e & 1);
+          float sv = p[j][e];
+          if (!cls_cur.full) {
+            const bool ok = c < nq && (!causal || qp_s[c] >= kp_s[r]);
+            if (!ok) sv = NEG;
+          }
+          const float pv = fast_exp2(fmaf(sv, LOG2E, -lb[e & 1]));
+          p[j][e] = pv;
+          dp[j][e] = pv * (dp[j][e] - dl[e & 1]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: the A fragment for q rows 16 kk..
+      // of the pass is n-tiles 2 kk and 2 kk + 1 of P^T (of dS^T), rounded
+      // to bf16; dO's and Q's B fragments by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        uint32_t pa[4], sa[4];
+        pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+        pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+        pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+        pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+        sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          const int off = (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
+                          * LDS + n2 * 16 + (lane >> 4) * 8;
+          uint32_t ob[4], qb[4];
+          ldsm_x4_trans(ob, dos + off);
+          mma_16816(dv_acc[2 * n2], pa, ob[0], ob[1]);
+          mma_16816(dv_acc[2 * n2 + 1], pa, ob[2], ob[3]);
+          ldsm_x4_trans(qb, qs + off);
+          mma_16816(dk_acc[2 * n2], sa, qb[0], qb[1]);
+          mma_16816(dk_acc[2 * n2 + 1], sa, qb[2], qb[3]);
+        }
+      }
+    }
+    cp_async_wait<0>();  // step in has landed
+    __syncthreads();     // for every warp; and stage st is free for a refill
+    if (cq != nullptr && in < it_end) {
+      rope_q(in, st ^ 1);
+      __syncthreads();  // step in is rotated, and Tab is free
+    }
+    it = in;
+    cls_cur = cls_next;
+    st ^= 1;
+  }
+
+  // dk was accumulated against the rotated k: back through the rotation's
+  // transpose, y c + y[d+D/2] s (d < D/2), y c - y[d-D/2] s. Column d and
+  // d + D/2 are n-tiles j and j + ND/2 of the same lane and e.
+  if (ck != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      if (r >= nk) continue;  // past Sk: no table row, never written
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const size_t t = (size_t)(k0 + r) * H + j * 8 + tig * 2 + (e & 1);
+          const float c = ck[t], s = sk[t];
+          const float x = dk_acc[j][e], y = dk_acc[j + ND / 2][e];
+          dk_acc[j][e] = x * c + y * s;
+          dk_acc[j + ND / 2][e] = y * c - x * s;
+        }
+    }
+  }
+  // dK and dV rounded to bf16, staged through this warp's own 16 rows of Ks
+  // and Vs (no other warp reads them, and no copy is in flight) for
+  // 16-byte row stores; rows past Sk are not written
+  bf16* kst = Ks + warp * 16 * LDS;
+  bf16* vst = Vs + warp * 16 * LDS;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int o = (g + 8 * i) * LDS + j * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(kst + o) =
+          pack_bf16(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(vst + o) =
+          pack_bf16(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c8 = (idx % CH) * 8, row = warp * 16 + r;
+    if (row < nk) {
+      const size_t o = (kv_base + k0 + row) * D + c8;
+      *reinterpret_cast<uint4*>(dk + o) =
+          *reinterpret_cast<const uint4*>(kst + r * LDS + c8);
+      *reinterpret_cast<uint4*>(dv + o) =
+          *reinterpret_cast<const uint4*>(vst + r * LDS + c8);
+    }
+  }
+}
+
 template <int D> constexpr size_t fwd_smem() { return (3 * 64 * (D + 4) + 64 * LDP) * sizeof(float); }
 template <int D> constexpr size_t dq_smem() { return (4 * 64 * (D + 4) + 64 * LDP) * sizeof(float); }
 template <int D> constexpr size_t dkv_smem() { return (4 * 64 * (D + 4) + 2 * 64 * LDP) * sizeof(float); }
@@ -1107,6 +1472,36 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv,
+                           const void* qpos, const void* kpos, const void* cq,
+                           const void* sq, const void* ck, const void* sk,
+                           int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+                           int static_causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  // cp.async and the vector loads and stores move 16 bytes at a time
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)dk | (uintptr_t)dv |
+                         (uintptr_t)cq | (uintptr_t)sq | (uintptr_t)ck |
+                         (uintptr_t)sk;
+  if (addr & 15) return cudaErrorMisalignedAddress;
+  constexpr size_t smem = dkv_mma_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sk + BK - 1) / BK, Hkv, B);
+  bwd_dkv_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+      (const int*)qpos, (const int*)kpos, (const float*)cq, (const float*)sq,
+      (const float*)ck, (const float*)sk, Hq, Hkv, Sq, Sk, causal,
+      static_causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dispatch on (input type, head dim); anything else is refused
@@ -1155,9 +1550,16 @@ int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* sk, int B, int Hq, int Hkv, int Sq, int Sk,
                      int D, int causal, int static_causal, int is_bf16,
                      void* stream) {
-  PT_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, qpos, kpos, cq,
-              sq, ck, sk, B, Hq, Hkv, Sq, Sk, causal, static_causal,
-              (cudaStream_t)stream)
+  // bf16 inputs run the tensor-core dk/dv, fp32 inputs the CUDA-core one
+#define PT_DKV_ARGS                                                         \
+  q, k, v, dout, lse, delta, dk, dv, qpos, kpos, cq, sq, ck, sk, B, Hq, Hkv, \
+      Sq, Sk, causal, static_causal, (cudaStream_t)stream
+  if (is_bf16 && D == 64) return (int)launch_dkv_mma<64>(PT_DKV_ARGS);
+  if (is_bf16 && D == 128) return (int)launch_dkv_mma<128>(PT_DKV_ARGS);
+  if (!is_bf16 && D == 64) return (int)launch_dkv<float, 64>(PT_DKV_ARGS);
+  if (!is_bf16 && D == 128) return (int)launch_dkv<float, 128>(PT_DKV_ARGS);
+#undef PT_DKV_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

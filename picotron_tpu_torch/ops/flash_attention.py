@@ -3,8 +3,8 @@
 
 Port of picotron_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 there (`_fwd_kernel` :139, `_bwd_dq_kernel` :327, `_bwd_dkv_kernel` :412)
-become CUDA kernels for sm_90a (the forward on the tensor cores for bf16,
-on CUDA cores for fp32); the source note at the top of the
+become CUDA kernels for sm_90a (the forward and dk/dv on the tensor cores
+for bf16, on CUDA cores for fp32); the source note at the top of the
 .cu file says what bounds them on the card (operations: causal attention
 at S = 2048 is far above the card's FLOP/byte ridge) and what their design
 does about it. The public contract is the JAX one:
@@ -23,8 +23,9 @@ CPU tensors run the plain version, RoPE in fp32 + `sdpa_attention` /
 `sdpa_attention_bwd_from_saved` on the same [B,H,S,D] layout, so the CPU
 tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
-kernel launches per kernel, and `fwd_launches` the forward's by variant
-(bf16 on the tensor cores, fp32 on CUDA cores); plain runs never count.
+kernel launches per kernel, and `fwd_launches` and `dkv_launches` the
+forward's and dk/dv's by variant (bf16 on the tensor cores, fp32 on CUDA
+cores); plain runs never count.
 """
 
 from __future__ import annotations
@@ -43,13 +44,15 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 # the forward's launches by the kernel that ran: `fwd_mma_kernel` (bf16,
 # tensor cores) or `fwd_kernel` (fp32, CUDA cores)
 fwd_launches = {"tensor_core": 0, "cuda_core": 0}
+# the same for dk/dv: `bwd_dkv_mma_kernel` (bf16) or `bwd_dkv_kernel` (fp32)
+dkv_launches = {"tensor_core": 0, "cuda_core": 0}
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, fwd_launches):
+    for counts in (launches, fwd_launches, dkv_launches):
         for key in counts:
             counts[key] = 0
 
@@ -184,7 +187,11 @@ def bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
 
 def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
                    static_causal):
-    """Launch the dk/dv kernel -> dk4, dv4 [B,Hkv,Sk,D]."""
+    """Launch the dk/dv kernel -> dk4, dv4 [B,Hkv,Sk,D].
+
+    `pt_flash_bwd_dkv` dispatches by dtype: bf16 (the training path) always
+    runs `bwd_dkv_mma_kernel` on the tensor cores, fp32 runs the CUDA-core
+    `bwd_dkv_kernel`; `dkv_launches` records which."""
     q4, k4, v4, do4, qpos, kpos, tabs, lse, delta = _operands(
         "flash_bwd_dkv", q4, k4, v4, qpos, kpos, tabs, lse, delta, do4=do4)
     b, hq, sq, d = q4.shape
@@ -198,6 +205,8 @@ def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
         int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
+    dkv_launches["tensor_core" if q4.dtype == torch.bfloat16
+                 else "cuda_core"] += 1
     return dk, dv
 
 

@@ -26,9 +26,10 @@ import torch
 from picotron_tpu_torch import train
 from picotron_tpu_torch.config import load_config
 
-# (name substring, class): the forward's two variants share its class
+# (name substring, class): each kernel's two variants share its class
 _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
           ("bwd_dq_kernel", "bwd_dq_kernel"),
+          ("bwd_dkv_mma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_kernel", "bwd_dkv_kernel"))
 _GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 

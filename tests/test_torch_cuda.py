@@ -14,7 +14,7 @@ chip_smoke.py's phase-2 limit, per row: ||kernel - plain||_2 <= 1e-2 *
 docstring says why). `test_planted_wrong_kernels_fail` shows that limit
 fails a kernel with a planted fault, and `test_mutant_sites` (which needs no
 card and runs in the CPU suite) that each planted fault still lands in the
-kernels it names, the tensor-core forward included."""
+kernels it names, the tensor-core forward and dk/dv included."""
 
 import re
 
@@ -102,9 +102,10 @@ def test_kernels_match_plain(case, dtype, dev):
         _assert_close(a, b_, dtype, name)
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    # bf16 runs the tensor-core forward, fp32 the CUDA-core one
+    # bf16 runs the tensor-core forward and dk/dv, fp32 the CUDA-core ones
     variant = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
     assert fa.fwd_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
+    assert fa.dkv_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
 
 
 @cuda
@@ -122,6 +123,7 @@ def test_public_wrapper_launches_kernels_and_autograd(dev):
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
     assert fa.fwd_launches == {"tensor_core": 1, "cuda_core": 0}
+    assert fa.dkv_launches == {"tensor_core": 1, "cuda_core": 0}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
@@ -135,26 +137,32 @@ def test_wrapper_raises_instead_of_falling_back(dev):
 # Faults planted in a copy of the CUDA source: (pattern, replacement, count).
 # Each edits every kernel that has the site, so each kernel's own output
 # shows whether the limit catches it. The counts include the sites in the
-# tensor-core forward (`fwd_mma_kernel`), the kernel bf16 inputs run.
+# tensor-core forward and dk/dv (`fwd_mma_kernel`, `bwd_dkv_mma_kernel`),
+# the kernels bf16 inputs run.
 MUTANTS = {
-    # the causal mask lets each row see one key past its own position
-    # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel)
-    "mask_off_by_one": (r">= kp_s\[c\]", "+ 1 >= kp_s[c]", 4),
-    # the same, only in rows at position 1024 and later
-    "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[c\]",
-                             r"\1 + (\1 >= 1024) >= kp_s[c]", 4),
+    # the causal mask lets each q row see one key past its own position
+    # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel,
+    # bwd_dkv_mma_kernel, whose transposed mask indexes kp_s by kv row)
+    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 5),
+    # the same, only in q rows at position 1024 and later
+    "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[(\w+)\]",
+                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 5),
     # the diagonal tile counted as full: its mask is never applied (one
     # `classify` shared by all kernels)
     "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
                               "t.full = q0 >= k0;", 1),
     # the last visible tile of the inner loop is dropped (fwd, dq: the
     # diagonal kv tile, in fwd_mma_kernel through its next-visible-tile
-    # search; dk/dv: the last q tile)
-    "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt",
-                          None, 4),
+    # search; dk/dv: the last q tile, in bwd_dkv_mma_kernel the last head's)
+    "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt"
+                          r"|it < it_end; \+\+it", None, 5),
     # fwd_mma_kernel packs P's A fragment for kv columns 8..15 of each
     # k-step from the S n-tile of columns 0..7
     "p_from_wrong_ntile": (r"s\[2 \* kk \+ 1\]", "s[2 * kk]", 4),
+    # bwd_dkv_mma_kernel's (GQA head x q tile) sequence drops its last head
+    # (with one head per group, every head)
+    "gqa_last_head_dropped": (r"it_end = n_rep \* nqt",
+                              "it_end = (n_rep - 1) * nqt", 1),
 }
 
 
@@ -180,19 +188,32 @@ def _kernel_body(src, name):
     return src[start:end if end >= 0 else len(src)]
 
 
+def _lands_in(mutant, kernel):
+    """Whether fault `mutant` edits `kernel` (the classify fault lands in
+    every kernel that calls `classify`)."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    body = _kernel_body(src, kernel)
+    if mutant == "diagonal_tile_as_full":
+        return "classify(" in body
+    return body != _kernel_body(_mutate(mutant)[0], kernel)
+
+
 @pytest.mark.parametrize("mutant", list(MUTANTS))
 def test_mutant_sites(mutant):
-    """Each planted fault finds its stated number of sites, and every one
-    but the classify fault (shared by all kernels through `classify`) has
-    a site inside the tensor-core forward; no card needed."""
+    """Each planted fault finds its stated number of sites; every one but
+    the dk/dv-only GQA fault lands in the tensor-core forward, and every
+    one with a site in the CUDA-core dk/dv has one in the tensor-core
+    dk/dv; no card needed."""
     mutated, n = _mutate(mutant)
     assert n == MUTANTS[mutant][2], f"{mutant}: {n} sites"
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    body, new_body = (_kernel_body(t, "fwd_mma_kernel") for t in (src, mutated))
-    if mutant == "diagonal_tile_as_full":
-        assert "classify(" in body
+    if mutant == "gqa_last_head_dropped":
+        assert _lands_in(mutant, "bwd_dkv_mma_kernel")
+        assert not _lands_in(mutant, "fwd_mma_kernel")
     else:
-        assert body != new_body, f"{mutant} misses fwd_mma_kernel"
+        assert _lands_in(mutant, "fwd_mma_kernel"), f"{mutant} misses fwd"
+    if _lands_in(mutant, "bwd_dkv_kernel"):
+        assert _lands_in(mutant, "bwd_dkv_mma_kernel"), (
+            f"{mutant} misses bwd_dkv_mma_kernel")
 
 
 def test_tensor_core_forward_in_source():
@@ -218,6 +239,28 @@ def test_tensor_core_forward_in_source():
                       r"launch_fwd_mma<\1>", fwd) == ["64", "128"]
     assert "launch_fwd<__nv_bfloat16" not in src
     assert "PT_DISPATCH(launch_fwd," not in src
+
+
+def test_tensor_core_dkv_in_source():
+    """The bf16 dk/dv is a kernel of its own whose products are bf16
+    mma.sync instructions fed by ldmatrix from a cp.async ring, and
+    pt_flash_bwd_dkv sends bf16 inputs to it alone; no card needed."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"__global__ void __launch_bounds__\(MMA_NT[^)]*\) "
+                     r"bwd_dkv_mma_kernel\(", src)
+    body = _kernel_body(src, "bwd_dkv_mma_kernel")
+    body = body[:body.index("\n}\n")]  # the kernel alone
+    for helper in ("mma_16816(", "ldsm_x4(", "ldsm_x4_trans(", "issue_q(",
+                   "cp_async16(", "cp_async_wait<"):
+        assert helper in body, helper
+    assert body.count("mma_16816(") >= 4  # S^T, dP^T, dV, dK
+    dkv = src[src.index("int pt_flash_bwd_dkv("):]
+    dkv = dkv[:dkv.index("\n}\n")]
+    assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
+                      r"launch_dkv_mma<\1>", dkv) == ["64", "128"]
+    assert "bwd_dkv_kernel<__nv_bfloat16" not in src
+    assert "launch_dkv<__nv_bfloat16" not in src
+    assert "PT_DISPATCH(launch_dkv," not in src
 
 
 @cuda
@@ -261,7 +304,10 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
         del case
         torch.cuda.empty_cache()
     assert failed, f"{mutant}: every output within the limit"
-    if mutant in MUTANTS:  # each lands in the bf16 forward, fwd_mma_kernel
-        assert failed & {"out", "lse"}, f"{mutant}: forward passed"
+    # a fault in a bf16 kernel fails that kernel's own outputs
+    for kernel, outs in (("fwd_mma_kernel", {"out", "lse"}),
+                         ("bwd_dkv_mma_kernel", {"dk", "dv"})):
+        if mutant in MUTANTS and _lands_in(mutant, kernel):
+            assert failed & outs, f"{mutant}: {kernel}'s outputs passed"
     if mutant.endswith("mask_off_by_one"):
         assert late_failed >= {"out", "dq", "dk", "dv"}, late_failed
