@@ -8,24 +8,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
    picotron_tpu_torch/csrc/flash_attention.cu for sm_90a from the checkout
    (ptxas registers and spills per kernel printed), and cuobjdump's SASS of
    the library must show HMMA (tensor-core) instructions in both variants
-   (D 64, 128) of the bf16 forward, fwd_mma_kernel, and of the bf16 dk/dv,
-   bwd_dkv_mma_kernel.
+   (D 64, 128) of each bf16 kernel: the forward, fwd_mma_kernel, the dq,
+   bwd_dq_mma_kernel, and the dk/dv, bwd_dkv_mma_kernel.
 2. Each of the three flash-attention kernels against its plain PyTorch
    version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
    D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
    Hkv 8), and at a shifted-positions shape (a later q shard against the
    whole K/V) with a nonzero LSE cotangent. Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
-   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and the
-   forward's and dk/dv's time, achieved TFLOP/s and share of their bounds
-   at the training and the GQA D 128 shapes, with and without RoPE.
+   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and each
+   kernel's time, achieved TFLOP/s and share of its bound at the training
+   and the GQA D 128 shapes, with and without RoPE.
 3. The main path: `python -m picotron_tpu_torch.train --config
    picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json` (its entry point,
    in process) on full-width, full-depth SmolLM-1.7B (24 layers), seq 2048, mbs 2, ga 2,
    constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
    offload off. Checks: every loss finite; the last step's loss below the
-   first's; each kernel launched 24 x ga x steps times, every forward and
-   dk/dv launch on its tensor-core kernel (bf16); and the trained
+   first's; each kernel launched 24 x ga x steps times, every launch on
+   its tensor-core kernel (bf16); and the trained
    model's loss on the first step's batch (re-read from a fresh loader)
    below that step's loss. The synthetic tokens are uniform random, so a
    later step's fresh batch is learnable only down to the unigram law and
@@ -43,16 +43,15 @@ kernels also round P and dS to bf16 before their products, as the TPU
 kernels do, where the plain version keeps them in fp32. They differ
 besides in the order of fp32 sums (and the tensor cores' fp32
 accumulation), in the forward normalising P after (the plain version
-before) its bf16 rounding, in exp (the tensor-core kernels take ex2.approx
-of a shifted x log2 e), and, in dq, in fused versus separate
-multiply-adds in the rotation (the tensor-core kernels round each
-product as the plain version does), so a bf16 rounding may land one ulp
-apart. A row then differs by a few bf16 half-ulps (2^-9 = 2e-3 relative
-each: the output's own rounding plus the P or dS roundings of a row with
-few terms); the worst row over the three shapes measures under 6e-3, and
-the worst lse entry of the tensor-core forward about 1e-6 (NVIDIA H100
-80GB HBM3 at 700 W; phase 2 prints both per shape, PERF.md has the run's
-numbers). The limit is relative per row,
+before) its bf16 rounding, and in exp (the tensor-core kernels take
+ex2.approx of a shifted x log2 e; in the rotations and their inverses
+they round each product as the plain version does), so a bf16 rounding
+may land one ulp apart. A row then differs by a few bf16 half-ulps (2^-9
+= 2e-3 relative each: the output's own rounding plus the P or dS
+roundings of a row with few terms); the worst row over the three shapes
+measures under 6e-3, and the worst lse entry of the tensor-core forward
+about 1e-6 (NVIDIA H100 80GB HBM3 at 700 W; phase 2 prints both per
+shape, PERF.md has the run's numbers). The limit is relative per row,
 not against the largest value in the tensor, so a row of small values (a
 long causal row's output, a late key's gradient) is held as tightly as
 the largest row. tests/test_torch_cuda.py plants faults in copies of the
@@ -60,8 +59,9 @@ kernel source and checks that each fails this limit: a mask off by one
 (in all rows, or only in rows at position 1024 and later), the diagonal
 tile taken as full, the last tile of the inner loop skipped, and the LSE
 cotangent left out of delta, in the tensor-core forward P packed from
-the wrong S n-tile, and in the tensor-core dk/dv the last GQA head of
-the inner loop dropped.
+the wrong S n-tile, in the tensor-core dq one row's delta taken for
+another's, and in the tensor-core dk/dv the last GQA head of the inner
+loop dropped.
 
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
@@ -97,6 +97,8 @@ KERNELS = [  # (counter name, TPU kernel it replaces)
     ("flash_bwd_dq", "picotron_tpu/ops/flash_attention.py:327"),
     ("flash_bwd_dkv", "picotron_tpu/ops/flash_attention.py:412"),
 ]
+# each kernel's launches by variant (bf16 tensor-core, fp32 CUDA-core)
+VARIANT_COUNTS = ("fwd_launches", "dq_launches", "dkv_launches")
 SOURCE = "picotron_tpu_torch/csrc/flash_attention.cu"
 CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json"
 
@@ -291,8 +293,8 @@ def main_path(fa, here: str) -> dict:
     result = train.main(["--config", path])
     torch.cuda.synchronize()
     result["launches"] = dict(fa.launches)
-    result["fwd_launches"] = dict(fa.fwd_launches)
-    result["dkv_launches"] = dict(fa.dkv_launches)
+    for key in VARIANT_COUNTS:
+        result[key] = dict(getattr(fa, key))
     losses = result["losses"]
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -309,7 +311,7 @@ def main_path(fa, here: str) -> dict:
         if result["launches"][name] != want:
             raise AssertionError(f"{name} launched {result['launches'][name]} "
                                  f"times on the main path, want {want}")
-    for key in ("fwd_launches", "dkv_launches"):
+    for key in VARIANT_COUNTS:
         if result[key] != {"tensor_core": want, "cuda_core": 0}:
             raise AssertionError(f"{key} by variant {result[key]}: want all "
                                  f"{want} on the tensor-core kernel")
@@ -344,7 +346,8 @@ def main() -> int:
     hmma = sass_hmma(build)
     for fn, n in hmma.items():
         log(f"sass: {n} HMMA in {fn}")
-    for kernel in ("fwd_mma_kernel", "bwd_dkv_mma_kernel"):
+    for kernel in ("fwd_mma_kernel", "bwd_dq_mma_kernel",
+                   "bwd_dkv_mma_kernel"):
         counts = [n for fn, n in hmma.items() if kernel in fn]
         if len(counts) != 2 or min(counts) == 0:
             raise AssertionError(f"{kernel}'s SASS (D 64, 128) holds no "
@@ -376,6 +379,8 @@ def main() -> int:
             runs = {
                 "flash_fwd": lambda: fa.fwd_kernel(q, k, v, qpos, kpos, t,
                                                    True, static),
+                "flash_bwd_dq": lambda: fa.bwd_dq_kernel(
+                    q, k, v, do, lse, delta, qpos, kpos, t, True, static),
                 "flash_bwd_dkv": lambda: fa.bwd_dkv_kernel(
                     q, k, v, do, lse, delta, qpos, kpos, t, True, static),
             }
@@ -424,8 +429,8 @@ def main() -> int:
     print(json.dumps({"main_path": {
         "card": card, "step_ms": steady * 1e3, "tokens_per_s": tps,
         "mfu": mfu, "peak_memory_gb": result["peak_memory_gb"],
-        "losses": result["losses"], "fwd_launches": result["fwd_launches"],
-        "dkv_launches": result["dkv_launches"],
+        "losses": result["losses"],
+        **{key: result[key] for key in VARIANT_COUNTS},
         "seen_batch_loss": result["seen_batch_loss"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 // Replaces the three Pallas TPU kernels of picotron_tpu/ops/flash_attention.py:
 //   fwd_mma_kernel     <- _fwd_kernel     (:139, pallas_call in _fwd :281), bf16
 //   fwd_kernel         <- _fwd_kernel     (the same), fp32 inputs only
-//   bwd_dq_kernel      <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543)
+//   bwd_dq_mma_kernel  <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543), bf16
+//   bwd_dq_kernel      <- _bwd_dq_kernel  (the same), fp32 inputs only
 //   bwd_dkv_mma_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593), bf16
 //   bwd_dkv_kernel     <- _bwd_dkv_kernel (the same), fp32 inputs only
 //
@@ -47,9 +48,25 @@
 // the products. GQA heads accumulate in registers with no atomics. One
 // barrier per step, two with RoPE.
 //
-// The fp32 forward, the fp32 dk/dv and the dq kernel are the first version:
-// fp32 FMAs on CUDA cores (67 TFLOP/s peak) rather than the tensor cores
-// (989 TFLOP/s bf16), designed to keep every operand on chip: one block of
+// The bf16 dq (bwd_dq_mma_kernel) is bound by operations as well (6 D
+// FLOPs per visible pair), and runs its three products on the tensor
+// cores with the forward's data flow: one block of 4 warps per (64-row q
+// tile, q head, batch), heaviest causal tiles first, each warp owning 16
+// q rows of dQ. Q (rotated once) and dO are copied once and stay resident
+// as A fragments in registers, each lane holding its two rows' lse and
+// delta; K/V tiles stream through the forward's two-stage cp.async ring,
+// the next visible tile's copy issued before the current tile's products
+// and K rotated in place once it lands (rotated K is the B operand of
+// both S = Q K^T and dQ += dS K). dP = dO V^T takes V's rows as K's are
+// taken for S; dS = P (dP - delta), from the fp32 P, is rounded to bf16
+// and packed from the accumulator fragments straight into A fragments,
+// so dS never touches shared memory. One barrier per tile, two with
+// RoPE; dq goes back through the rotation's transpose in registers.
+//
+// The fp32 kernels (fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel) are the
+// first version: fp32 FMAs on CUDA cores (67 TFLOP/s peak) rather than
+// the tensor cores (989 TFLOP/s bf16), designed to keep every operand on
+// chip: one block of
 // 256 threads per (batch, head, 64-row tile), Q/K/V/dO tiles converted to
 // fp32 in shared memory (rows padded by 4 floats so the float4 reads are
 // free of bank conflicts), each thread owning a 4 x 4 block of scores and
@@ -73,7 +90,8 @@
 // [B, H, S, D]; lse and delta are fp32 [B, Hq, Sq]; positions int32; RoPE
 // tables fp32 [S, D/2] already gathered at the positions (null = no RoPE).
 // The bf16 forward also needs q, k, v, out and the tables 16-byte aligned,
-// the bf16 dk/dv q, k, v, dout, dk, dv and the tables.
+// the bf16 dq q, k, v, dout, dq and the tables, the bf16 dk/dv q, k, v,
+// dout, dk, dv and the tables.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,16 +108,11 @@ constexpr int NT = 256;
 constexpr int LDP = BK + 4;
 constexpr float NEG = -1e30f;
 
+// the CUDA-core kernels are instantiated for fp32 inputs alone
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 // round an fp32 value to T and back (the TPU kernels' .astype(input dtype))
 template <typename T> __device__ __forceinline__ float round_t(float x) {
   return to_f<T>(from_f<T>(x));
@@ -798,8 +811,9 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) fwd_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dq: one block per (q tile, q head, batch); loop over kv tiles, P
-// recomputed from the saved LSE, ds = p * (dp - delta).
+// dq on CUDA cores, for fp32 inputs (bf16 runs bwd_dq_mma_kernel): one
+// block per (q tile, q head, batch); loop over kv tiles, P recomputed from
+// the saved LSE, ds = p * (dp - delta).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -910,6 +924,327 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
       }
       drow[d] = from_f<T>(val);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq on the tensor cores (bf16), the design in the note at the top: per kv
+// tile, with this warp's 16 q rows as the mma rows and the kv columns as
+// the n-dimension,
+//   S = Q K^T, P = exp(S - lse), dP = dO V^T, dS = P (dP - delta),
+//   dQ += dS K.
+// Fragment layouts as for fwd_mma_kernel.
+// ---------------------------------------------------------------------------
+
+// Shared memory of bwd_dq_mma_kernel: a first region that holds the Q and
+// dO tiles and then, once their fragments are in registers, the next kv
+// tile's RoPE table rows (cos then sin, fp32 rows of D/2 + 4; the two
+// uses take the same bytes); then two stages of K and two of V (bf16 rows
+// of D + 8): 55,296 bytes at D 64 and 104,448 at D 128, plus 768 static
+// (positions), so shared memory allows 4 and 2 blocks per SM.
+template <int D> __host__ __device__ constexpr int dq_mma_head_bytes() {
+  return 2 * BQ * (D + 8) * 2 > 2 * BK * (D / 2 + 4) * 4
+             ? 2 * BQ * (D + 8) * 2
+             : 2 * BK * (D / 2 + 4) * 4;
+}
+template <int D> constexpr size_t dq_mma_smem() {
+  return dq_mma_head_bytes<D>() + 4 * BK * (D + 8) * 2;
+}
+
+// Blocks per SM: 3 at D 64 and 2 at D 128 (the second set by shared
+// memory). The live set is the dQ accumulators (D/2 registers), Q's and
+// dO's resident A fragments (D/4 each), and S and dP for KC kv columns at
+// a time (KC/2 each). The instructions are the same for any KC, so KC is
+// chosen for registers, by measurement (kernels/variants.py on an H100 at
+// the training shapes, PERF.md): at D 64, KC 64 takes 220 registers (2
+// blocks per SM) and KC 16 159 (3 blocks, no spills), 16% faster, while
+// KC 32 spills at the 168 registers that 3 blocks allow; at D 128, KC 32
+// takes 246 registers and KC 64 255, neither spilling, and KC 32 is no
+// slower. Reading dO's fragments from shared memory at each k-step instead
+// would keep its tile beside the table rows: one block per SM at D 128.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) bwd_dq_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, const float* cq, const float* sq,
+    const float* ck, const float* sk, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int static_causal) {
+  using bf16 = __nv_bfloat16;
+  // LDS: tile row stride, padded by 16 bytes; CH: 16-byte chunks per row;
+  // KD: k-steps of S and dP (over d); ND: 8-column n-tiles of dQ; LDT:
+  // table row stride, padded by 16 bytes
+  constexpr int LDS = D + 8, CH = D / 8, KD = D / 16, ND = D / 8;
+  constexpr int H = D / 2, LDT = H + 4;
+  // KC: kv columns per pass of S, dP and dQ += dS K (see above); NC:
+  // n-tiles per pass
+  constexpr int KC = D == 64 ? 16 : 32, NC = KC / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + BQ * LDS;
+  float* Tab = reinterpret_cast<float*>(smem4);  // after Q, dO: cos, sin rows
+  bf16* Ks = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem4) +
+                                     dq_mma_head_bytes<D>());  // two stages
+  bf16* Vs = Ks + 2 * BK * LDS;  // two stages
+  __shared__ int qp_s[BQ];
+  __shared__ int kp_ring[2 * BK];
+
+  const int num_q = (Sq + BQ - 1) / BQ;
+  // static-causal: the heaviest q tiles (most kv tiles) launch first, so
+  // the longest rows do not start last
+  const int qt = static_causal ? num_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ, nq = min(BQ, Sq - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t row_base = (size_t)(b * Hq + h) * Sq;
+  const bf16* kb = k + (size_t)(b * Hkv + hk) * Sk * D;
+  const bf16* vb = v + (size_t)(b * Hkv + hk) * Sk * D;
+
+  // the Q and dO tiles: one cp.async group, rows past Sq zero-filled
+  for (int idx = tid; idx < BQ * CH; idx += MMA_NT) {
+    const int r = idx / CH, c8 = (idx % CH) * 8;
+    const size_t off = (row_base + (r < nq ? q0 + r : 0)) * D + c8;
+    cp_async16(Qs + r * LDS + c8, q + off, r < nq);
+    cp_async16(dOs + r * LDS + c8, dout + off, r < nq);
+  }
+  cp_async_commit();
+  if (tid < BQ) qp_s[tid] = tid < nq ? qpos[q0 + tid] : 0;
+  // lse and delta of this lane's rows g and g + 8 of the warp's 16 (i = 0,
+  // 1): exp(x) as exp2(x log2 e), and a row with no visible key (lse =
+  // -inf) or past Sq must give P = 0, so its shift is +inf
+  float lb[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    const float lr = r < nq ? lse[row_base + q0 + r] : -INFINITY;
+    lb[i] = lr <= NEG ? INFINITY : lr * LOG2E;
+    dl[i] = r < nq ? delta[row_base + q0 + r] : 0.f;
+  }
+  __syncthreads();
+  int qmin, qmax;
+  tile_minmax(qp_s, nq, qmin, qmax);
+
+  const int num_kv = (Sk + BK - 1) / BK;
+  // static-causal: no kv tile past the last one this q tile can see
+  const int kv_end = static_causal ? min(num_kv, (q0 + nq - 1) / BK + 1) : num_kv;
+  auto tile_class = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    int kmin = 0, kmax = 0;
+    if (causal && !static_causal) tile_minmax(kpos + k0, nk, kmin, kmax);
+    return classify(causal, static_causal, q0, nq, k0, nk, qmin, qmax, kmin,
+                    kmax);
+  };
+  // the first visible kv tile at or after kt (kv_end if none) and its
+  // class: invisible tiles are neither copied nor multiplied
+  auto next_visible = [&](int kt, TileClass& cls) {
+    for (; kt < kv_end; ++kt) {
+      cls = tile_class(kt);
+      if (cls.visible) return kt;
+    }
+    return kv_end;
+  };
+  // start the copies of kv tile kt into ring stage st (K, V and position
+  // rows past Sk zero-filled)
+  auto issue_kv = [&](int kt, int st) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    bf16* ks = Ks + st * BK * LDS;
+    bf16* vs = Vs + st * BK * LDS;
+    for (int idx = tid; idx < BK * CH; idx += MMA_NT) {
+      const int r = idx / CH, c8 = (idx % CH) * 8;
+      const size_t off = (size_t)(r < nk ? k0 + r : 0) * D + c8;
+      cp_async16(ks + r * LDS + c8, kb + off, r < nk);
+      cp_async16(vs + r * LDS + c8, vb + off, r < nk);
+    }
+    if (causal && tid < BK)
+      cp_async4(kp_ring + st * BK + tid, kpos + (tid < nk ? k0 + tid : 0),
+                tid < nk);
+  };
+  // start the copies of kv tile kt's RoPE table rows into Tab
+  auto issue_tab = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    constexpr int TC = H / 4;  // 16-byte chunks per table row
+    for (int idx = tid; idx < 2 * BK * TC; idx += MMA_NT) {
+      const int r = (idx / TC) % BK, c4 = (idx % TC) * 4;
+      const float* src = idx < BK * TC ? ck : sk;
+      cp_async16(Tab + (idx / TC) * LDT + c4,
+                 src + (size_t)(r < nk ? k0 + r : 0) * H + c4, r < nk);
+    }
+  };
+
+  TileClass cls_cur, cls_next;
+  int kt = next_visible(0, cls_cur);
+  if (kt < kv_end) issue_kv(kt, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO have landed (the first kv tile may not)
+  __syncthreads();
+  if (cq != nullptr) {  // q is constant across the kv loop: rotate it once
+    rope_tile<D>(Qs, nq, cq + (size_t)q0 * H, sq + (size_t)q0 * H, H);
+    __syncthreads();
+  }
+  // Q's and dO's A fragments for this warp's 16 rows, resident for the
+  // whole loop: lanes 8i..8i+7 address matrix i (rows 0-7 / 8-15, k
+  // columns 0-7 / 8-15)
+  const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                    (lane >> 4) * 8;
+  uint32_t qf[KD][4], of[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(qf[kk], Qs + a_off + kk * 16);
+    ldsm_x4(of[kk], dOs + a_off + kk * 16);
+  }
+  if (ck != nullptr && kt < kv_end) {
+    __syncthreads();  // every warp holds its fragments: Tab may take over
+    issue_tab(kt);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // the first kv tile (and its tables) landed
+  __syncthreads();
+  if (ck != nullptr && kt < kv_end) {
+    rope_tile<D>(Ks, min(BK, Sk - kt * BK), Tab, Tab + BK * LDT, LDT);
+    __syncthreads();
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int st = 0;
+  while (kt < kv_end) {
+    // tile kt is in stage st, rotated; stage st ^ 1 and Tab are free (every
+    // warp passed the barriers that closed the last tile): start tile kn
+    const int kn = next_visible(kt + 1, cls_next);
+    if (kn < kv_end) {
+      issue_kv(kn, st ^ 1);
+      if (ck != nullptr) issue_tab(kn);
+    }
+    cp_async_commit();
+    const int nk = min(BK, Sk - kt * BK);
+    const bf16* ks = Ks + st * BK * LDS;
+    const bf16* vs = Vs + st * BK * LDS;
+    const int* kp_s = kp_ring + st * BK;
+
+#pragma unroll
+    for (int c0 = 0; c0 < BK; c0 += KC) {
+      // S = Q K^T and dP = dO V^T for kv columns c0..c0+KC: this warp's 16
+      // q rows x KC columns in NC n-tiles of 4 registers each
+      float s[NC][4], dp[NC][4];
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 0.f;
+          dp[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int j2 = 0; j2 < NC / 2; ++j2) {
+          // K and V rows c0 + j2*16.. as the B fragments of n-tiles 2 j2
+          // and 2 j2 + 1
+          const int off = (c0 + j2 * 16 + (lane & 7) + (lane >> 4) * 8) * LDS
+                          + kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t kf[4], vf[4];
+          ldsm_x4(kf, ks + off);
+          mma_16816(s[2 * j2], qf[kk], kf[0], kf[1]);
+          mma_16816(s[2 * j2 + 1], qf[kk], kf[2], kf[3]);
+          ldsm_x4(vf, vs + off);
+          mma_16816(dp[2 * j2], of[kk], vf[0], vf[1]);
+          mma_16816(dp[2 * j2 + 1], of[kk], vf[2], vf[3]);
+        }
+      }
+      // P = exp(S - lse) in fp32, then dS = P (dP - delta) from the fp32 P:
+      // this lane holds rows g (e = 0, 1) and g + 8 (e = 2, 3) at kv
+      // columns 2 tig, 2 tig + 1 of each n-tile
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sv = s[j][e];
+          if (!cls_cur.full) {
+            const int r = warp * 16 + g + (e >> 1) * 8;
+            const int c = c0 + j * 8 + tig * 2 + (e & 1);
+            const bool ok = c < nk && (!causal || qp_s[r] >= kp_s[c]);
+            if (!ok) sv = NEG;
+          }
+          const float pv = fast_exp2(fmaf(sv, LOG2E, -lb[e >> 1]));
+          dp[j][e] = pv * (dp[j][e] - dl[e >> 1]);
+        }
+      // dQ += dS K: dS's A fragment for kv columns c0 + 16 kk.. is n-tiles
+      // 2 kk and 2 kk + 1 of dS, rounded to bf16; rotated K's B fragments
+      // by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NC / 2; ++kk) {
+        uint32_t da[4];
+        da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t kf[4];
+          ldsm_x4_trans(kf, ks + (c0 + kk * 16 + (lane & 7)
+                                  + ((lane >> 3) & 1) * 8) * LDS
+                                + n2 * 16 + (lane >> 4) * 8);
+          mma_16816(acc[2 * n2], da, kf[0], kf[1]);
+          mma_16816(acc[2 * n2 + 1], da, kf[2], kf[3]);
+        }
+      }
+    }
+    cp_async_wait<0>();  // tile kn has landed
+    __syncthreads();     // for every warp; and stage st is free for a refill
+    if (ck != nullptr && kn < kv_end) {
+      rope_tile<D>(Ks + (st ^ 1) * BK * LDS, min(BK, Sk - kn * BK), Tab,
+                   Tab + BK * LDT, LDT);
+      __syncthreads();  // tile kn is rotated, and Tab is free
+    }
+    kt = kn;
+    cls_cur = cls_next;
+    st ^= 1;
+  }
+
+  // dq was accumulated against the rotated q: back through the rotation's
+  // transpose, y c + y[d+D/2] s (d < D/2), y c - y[d-D/2] s, each product
+  // rounded on its own as the plain version's separate fp32 ops round them.
+  // Column d and d + D/2 are n-tiles j and j + ND/2 of the same lane and e.
+  if (cq != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      if (r >= nq) continue;  // past Sq: no table row, never written
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const size_t t = (size_t)(q0 + r) * H + j * 8 + tig * 2 + (e & 1);
+          const float c = cq[t], s = sq[t];
+          const float x = acc[j][e], y = acc[j + ND / 2][e];
+          acc[j][e] = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+          acc[j + ND / 2][e] = __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, s));
+        }
+    }
+  }
+  // dQ rounded to bf16, staged through this warp's own 16 rows of Qs (no
+  // other warp reads them, and no copy is in flight) for 16-byte row
+  // stores; rows past Sq are not written
+  bf16* stage = Qs + warp * 16 * LDS;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * i) * LDS + j * 8 + tig * 2) =
+          pack_bf16(acc[j][2 * i], acc[j][2 * i + 1]);
+  __syncwarp();
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c8 = (idx % CH) * 8, row = warp * 16 + r;
+    if (row < nq)
+      *reinterpret_cast<uint4*>(dq + (row_base + q0 + row) * D + c8) =
+          *reinterpret_cast<const uint4*>(stage + r * LDS + c8);
   }
 }
 
@@ -1334,8 +1669,9 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
   }
 
   // dk was accumulated against the rotated k: back through the rotation's
-  // transpose, y c + y[d+D/2] s (d < D/2), y c - y[d-D/2] s. Column d and
-  // d + D/2 are n-tiles j and j + ND/2 of the same lane and e.
+  // transpose, y c + y[d+D/2] s (d < D/2), y c - y[d-D/2] s, each product
+  // rounded on its own as the plain version's separate fp32 ops round them.
+  // Column d and d + D/2 are n-tiles j and j + ND/2 of the same lane and e.
   if (ck != nullptr) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1348,8 +1684,8 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
           const size_t t = (size_t)(k0 + r) * H + j * 8 + tig * 2 + (e & 1);
           const float c = ck[t], s = sk[t];
           const float x = dk_acc[j][e], y = dk_acc[j + ND / 2][e];
-          dk_acc[j][e] = x * c + y * s;
-          dk_acc[j + ND / 2][e] = y * c - x * s;
+          dk_acc[j][e] = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+          dk_acc[j + ND / 2][e] = __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, s));
         }
     }
   }
@@ -1451,6 +1787,34 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, const void* qpos,
+                          const void* kpos, const void* cq, const void* sq,
+                          const void* ck, const void* sk, int B, int Hq,
+                          int Hkv, int Sq, int Sk, int causal,
+                          int static_causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  // cp.async and the vector loads and stores move 16 bytes at a time
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)cq |
+                         (uintptr_t)sq | (uintptr_t)ck | (uintptr_t)sk;
+  if (addr & 15) return cudaErrorMisalignedAddress;
+  constexpr size_t smem = dq_mma_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  bwd_dq_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, (const int*)qpos,
+      (const int*)kpos, (const float*)cq, (const float*)sq, (const float*)ck,
+      (const float*)sk, Hq, Hkv, Sq, Sk, causal, static_causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -1504,14 +1868,7 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dispatch on (input type, head dim); anything else is refused
-#define PT_DISPATCH(FN, ...)                                              \
-  if (is_bf16 && D == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);  \
-  if (is_bf16 && D == 128) return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__); \
-  if (!is_bf16 && D == 64) return (int)FN<float, 64>(__VA_ARGS__);         \
-  if (!is_bf16 && D == 128) return (int)FN<float, 128>(__VA_ARGS__);       \
-  return (int)cudaErrorInvalidValue;
-
+// Each entry dispatches on (input type, head dim); anything else is refused.
 extern "C" {
 
 // bf16 inputs run the tensor-core forward, fp32 inputs the CUDA-core one
@@ -1538,9 +1895,16 @@ int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* sk, int B, int Hq, int Hkv, int Sq, int Sk,
                     int D, int causal, int static_causal, int is_bf16,
                     void* stream) {
-  PT_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, qpos, kpos, cq, sq,
-              ck, sk, B, Hq, Hkv, Sq, Sk, causal, static_causal,
-              (cudaStream_t)stream)
+  // bf16 inputs run the tensor-core dq, fp32 inputs the CUDA-core one
+#define PT_DQ_ARGS                                                          \
+  q, k, v, dout, lse, delta, dq, qpos, kpos, cq, sq, ck, sk, B, Hq, Hkv, Sq, \
+      Sk, causal, static_causal, (cudaStream_t)stream
+  if (is_bf16 && D == 64) return (int)launch_dq_mma<64>(PT_DQ_ARGS);
+  if (is_bf16 && D == 128) return (int)launch_dq_mma<128>(PT_DQ_ARGS);
+  if (!is_bf16 && D == 64) return (int)launch_dq<float, 64>(PT_DQ_ARGS);
+  if (!is_bf16 && D == 128) return (int)launch_dq<float, 128>(PT_DQ_ARGS);
+#undef PT_DQ_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,

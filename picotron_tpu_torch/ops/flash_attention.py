@@ -3,8 +3,8 @@
 
 Port of picotron_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 there (`_fwd_kernel` :139, `_bwd_dq_kernel` :327, `_bwd_dkv_kernel` :412)
-become CUDA kernels for sm_90a (the forward and dk/dv on the tensor cores
-for bf16, on CUDA cores for fp32); the source note at the top of the
+become CUDA kernels for sm_90a (all three on the tensor cores for bf16,
+on CUDA cores for fp32); the source note at the top of the
 .cu file says what bounds them on the card (operations: causal attention
 at S = 2048 is far above the card's FLOP/byte ridge) and what their design
 does about it. The public contract is the JAX one:
@@ -23,9 +23,9 @@ CPU tensors run the plain version, RoPE in fp32 + `sdpa_attention` /
 `sdpa_attention_bwd_from_saved` on the same [B,H,S,D] layout, so the CPU
 tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
-kernel launches per kernel, and `fwd_launches` and `dkv_launches` the
-forward's and dk/dv's by variant (bf16 on the tensor cores, fp32 on CUDA
-cores); plain runs never count.
+kernel launches per kernel, and `fwd_launches`, `dq_launches` and
+`dkv_launches` each kernel's by variant (bf16 on the tensor cores, fp32
+on CUDA cores); plain runs never count.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 # the forward's launches by the kernel that ran: `fwd_mma_kernel` (bf16,
 # tensor cores) or `fwd_kernel` (fp32, CUDA cores)
 fwd_launches = {"tensor_core": 0, "cuda_core": 0}
+# the same for dq: `bwd_dq_mma_kernel` (bf16) or `bwd_dq_kernel` (fp32)
+dq_launches = {"tensor_core": 0, "cuda_core": 0}
 # the same for dk/dv: `bwd_dkv_mma_kernel` (bf16) or `bwd_dkv_kernel` (fp32)
 dkv_launches = {"tensor_core": 0, "cuda_core": 0}
 
@@ -52,7 +54,7 @@ _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, fwd_launches, dkv_launches):
+    for counts in (launches, fwd_launches, dq_launches, dkv_launches):
         for key in counts:
             counts[key] = 0
 
@@ -169,7 +171,11 @@ def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
 
 def bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
                   static_causal):
-    """Launch the dq kernel -> dq4 [B,Hq,Sq,D] (w.r.t. the scaled q)."""
+    """Launch the dq kernel -> dq4 [B,Hq,Sq,D] (w.r.t. the scaled q).
+
+    `pt_flash_bwd_dq` dispatches by dtype: bf16 (the training path) always
+    runs `bwd_dq_mma_kernel` on the tensor cores, fp32 runs the CUDA-core
+    `bwd_dq_kernel`; `dq_launches` records which."""
     q4, k4, v4, do4, qpos, kpos, tabs, lse, delta = _operands(
         "flash_bwd_dq", q4, k4, v4, qpos, kpos, tabs, lse, delta, do4=do4)
     b, hq, sq, d = q4.shape
@@ -182,6 +188,8 @@ def bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
         int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
+    dq_launches["tensor_core" if q4.dtype == torch.bfloat16
+                else "cuda_core"] += 1
     return dq
 
 

@@ -28,6 +28,7 @@ from picotron_tpu_torch.config import load_config
 
 # (name substring, class): each kernel's two variants share its class
 _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
+          ("bwd_dq_mma_kernel", "bwd_dq_kernel"),
           ("bwd_dq_kernel", "bwd_dq_kernel"),
           ("bwd_dkv_mma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_kernel", "bwd_dkv_kernel"))

@@ -14,7 +14,7 @@ chip_smoke.py's phase-2 limit, per row: ||kernel - plain||_2 <= 1e-2 *
 docstring says why). `test_planted_wrong_kernels_fail` shows that limit
 fails a kernel with a planted fault, and `test_mutant_sites` (which needs no
 card and runs in the CPU suite) that each planted fault still lands in the
-kernels it names, the tensor-core forward and dk/dv included."""
+kernels it names, the tensor-core forward, dq and dk/dv included."""
 
 import re
 
@@ -102,10 +102,10 @@ def test_kernels_match_plain(case, dtype, dev):
         _assert_close(a, b_, dtype, name)
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    # bf16 runs the tensor-core forward and dk/dv, fp32 the CUDA-core ones
+    # bf16 runs the tensor-core kernels, fp32 the CUDA-core ones
     variant = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
-    assert fa.fwd_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
-    assert fa.dkv_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
+    for counts in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
+        assert counts == {"tensor_core": 0, "cuda_core": 0, variant: 1}
 
 
 @cuda
@@ -122,8 +122,8 @@ def test_public_wrapper_launches_kernels_and_autograd(dev):
     torch.cuda.synchronize()
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    assert fa.fwd_launches == {"tensor_core": 1, "cuda_core": 0}
-    assert fa.dkv_launches == {"tensor_core": 1, "cuda_core": 0}
+    for counts in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
+        assert counts == {"tensor_core": 1, "cuda_core": 0}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
@@ -137,25 +137,27 @@ def test_wrapper_raises_instead_of_falling_back(dev):
 # Faults planted in a copy of the CUDA source: (pattern, replacement, count).
 # Each edits every kernel that has the site, so each kernel's own output
 # shows whether the limit catches it. The counts include the sites in the
-# tensor-core forward and dk/dv (`fwd_mma_kernel`, `bwd_dkv_mma_kernel`),
-# the kernels bf16 inputs run.
+# tensor-core forward, dq and dk/dv (`fwd_mma_kernel`, `bwd_dq_mma_kernel`,
+# `bwd_dkv_mma_kernel`), the kernels bf16 inputs run.
 MUTANTS = {
     # the causal mask lets each q row see one key past its own position
-    # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel,
-    # bwd_dkv_mma_kernel, whose transposed mask indexes kp_s by kv row)
-    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 5),
+    # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dq_mma_kernel,
+    # bwd_dkv_kernel, bwd_dkv_mma_kernel, whose transposed mask indexes
+    # kp_s by kv row)
+    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 6),
     # the same, only in q rows at position 1024 and later
     "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[(\w+)\]",
-                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 5),
+                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 6),
     # the diagonal tile counted as full: its mask is never applied (one
     # `classify` shared by all kernels)
     "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
                               "t.full = q0 >= k0;", 1),
     # the last visible tile of the inner loop is dropped (fwd, dq: the
-    # diagonal kv tile, in fwd_mma_kernel through its next-visible-tile
-    # search; dk/dv: the last q tile, in bwd_dkv_mma_kernel the last head's)
+    # diagonal kv tile, in fwd_mma_kernel and bwd_dq_mma_kernel through
+    # their next-visible-tile search; dk/dv: the last q tile, in
+    # bwd_dkv_mma_kernel the last head's)
     "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt"
-                          r"|it < it_end; \+\+it", None, 5),
+                          r"|it < it_end; \+\+it", None, 6),
     # fwd_mma_kernel packs P's A fragment for kv columns 8..15 of each
     # k-step from the S n-tile of columns 0..7
     "p_from_wrong_ntile": (r"s\[2 \* kk \+ 1\]", "s[2 * kk]", 4),
@@ -163,7 +165,13 @@ MUTANTS = {
     # (with one head per group, every head)
     "gqa_last_head_dropped": (r"it_end = n_rep \* nqt",
                               "it_end = (n_rep - 1) * nqt", 1),
+    # bwd_dq_mma_kernel takes row g's delta for row g + 8 of each warp's
+    # 16 (the lane's two rows of the accumulator fragments)
+    "dq_delta_wrong_row": (r"dl\[e >> 1\]", "dl[0]", 1),
 }
+# the faults that only one kernel has a site for
+ONE_KERNEL = {"gqa_last_head_dropped": "bwd_dkv_mma_kernel",
+              "dq_delta_wrong_row": "bwd_dq_mma_kernel"}
 
 
 def _mutate(name):
@@ -201,19 +209,20 @@ def _lands_in(mutant, kernel):
 @pytest.mark.parametrize("mutant", list(MUTANTS))
 def test_mutant_sites(mutant):
     """Each planted fault finds its stated number of sites; every one but
-    the dk/dv-only GQA fault lands in the tensor-core forward, and every
-    one with a site in the CUDA-core dk/dv has one in the tensor-core
-    dk/dv; no card needed."""
+    the one-kernel faults lands in the tensor-core forward, and every one
+    with a site in a CUDA-core backward kernel has one in its tensor-core
+    counterpart; no card needed."""
     mutated, n = _mutate(mutant)
     assert n == MUTANTS[mutant][2], f"{mutant}: {n} sites"
-    if mutant == "gqa_last_head_dropped":
-        assert _lands_in(mutant, "bwd_dkv_mma_kernel")
+    if mutant in ONE_KERNEL:
+        assert _lands_in(mutant, ONE_KERNEL[mutant])
         assert not _lands_in(mutant, "fwd_mma_kernel")
     else:
         assert _lands_in(mutant, "fwd_mma_kernel"), f"{mutant} misses fwd"
-    if _lands_in(mutant, "bwd_dkv_kernel"):
-        assert _lands_in(mutant, "bwd_dkv_mma_kernel"), (
-            f"{mutant} misses bwd_dkv_mma_kernel")
+    for old, new in (("bwd_dq_kernel", "bwd_dq_mma_kernel"),
+                     ("bwd_dkv_kernel", "bwd_dkv_mma_kernel")):
+        if _lands_in(mutant, old):
+            assert _lands_in(mutant, new), f"{mutant} misses {new}"
 
 
 def test_tensor_core_forward_in_source():
@@ -263,6 +272,52 @@ def test_tensor_core_dkv_in_source():
     assert "PT_DISPATCH(launch_dkv," not in src
 
 
+def test_tensor_core_dq_in_source():
+    """The bf16 dq is a kernel of its own whose three products are bf16
+    mma.sync instructions fed by ldmatrix from a cp.async ring, and
+    pt_flash_bwd_dq sends bf16 inputs to it alone; no card needed."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"__global__ void __launch_bounds__\(MMA_NT[^)]*\) "
+                     r"bwd_dq_mma_kernel\(", src)
+    body = _kernel_body(src, "bwd_dq_mma_kernel")
+    body = body[:body.index("\n}\n")]  # the kernel alone
+    for helper in ("mma_16816(", "ldsm_x4(", "ldsm_x4_trans(", "issue_kv(",
+                   "cp_async16(", "cp_async_wait<"):
+        assert helper in body, helper
+    assert body.count("mma_16816(") >= 3  # S, dP, dQ
+    dq = src[src.index("int pt_flash_bwd_dq("):]
+    dq = dq[:dq.index("\n}\n")]
+    assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
+                      r"launch_dq_mma<\1>", dq) == ["64", "128"]
+    assert "bwd_dq_kernel<__nv_bfloat16" not in src
+    assert "launch_dq<__nv_bfloat16" not in src
+    assert "PT_DISPATCH(launch_dq," not in src
+
+
+def test_variant_edits_and_ptxas_lines():
+    """kernels/variants.py edits the source by exact substrings (refusing
+    one that is absent) and keeps the ptxas lines of one kernel; no card
+    needed."""
+    from picotron_tpu_torch.kernels import variants
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    name, edited = variants.edit(
+        src, "kc32:int KC = D == 64 ? 16 : 32=>int KC = 32")
+    assert name == "kc32" and edited.count("int KC = 32") == 1
+    assert edited.replace("int KC = 32", "int KC = D == 64 ? 16 : 32") == src
+    for bad in ("kc32:no such text=>x", "kc32 no separator", ":a=>b"):
+        with pytest.raises(ValueError):
+            variants.edit(src, bad)
+    log = ("ptxas info    : Compiling entry function '_Z17fwd_mma_kernelILi64E'"
+           " for 'sm_90a'\nptxas info    : Used 152 registers\n"
+           "ptxas info    : Compiling entry function "
+           "'_Z17bwd_dq_mma_kernelILi64E' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores\n"
+           "ptxas info    : Used 180 registers\n")
+    got = variants.ptxas_lines(log, "bwd_dq_mma_kernel")
+    assert len(got) == 3 and got[-1].endswith("Used 180 registers")
+
+
 @cuda
 @pytest.mark.parametrize("mutant", [*MUTANTS, "dlse_dropped"])
 def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
@@ -306,6 +361,7 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
     assert failed, f"{mutant}: every output within the limit"
     # a fault in a bf16 kernel fails that kernel's own outputs
     for kernel, outs in (("fwd_mma_kernel", {"out", "lse"}),
+                         ("bwd_dq_mma_kernel", {"dq"}),
                          ("bwd_dkv_mma_kernel", {"dk", "dv"})):
         if mutant in MUTANTS and _lands_in(mutant, kernel):
             assert failed & outs, f"{mutant}: {kernel}'s outputs passed"

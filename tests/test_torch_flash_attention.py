@@ -139,8 +139,8 @@ def test_plain_path_never_counts_launches():
     out.sum().backward()
     assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
-    assert tfa.fwd_launches == tfa.dkv_launches == {"tensor_core": 0,
-                                                    "cuda_core": 0}
+    assert tfa.fwd_launches == tfa.dq_launches == tfa.dkv_launches == {
+        "tensor_core": 0, "cuda_core": 0}
 
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
