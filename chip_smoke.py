@@ -32,7 +32,25 @@ Phases, each of which raises on failure (so the script exits non-zero):
    its loss moves by little more than batch-to-batch noise; the seen batch
    is where a correct gradient must show, since Adam's first step follows
    that batch's gradient.
-4. Numbers, then the device line last.
+4. Checkpoint and resume on the same model and config, plus
+   `checkpoint: {save_dir: build/smoke_ckpt, auto_resume: true}` and
+   `training: {eval_frequency: 4, eval_steps: 2}`, through `train.run`.
+   Run A: SIGTERM after step 2 must exit 75 with an emergency checkpoint
+   of step 2 (~14.5 GB: fp32 params, bf16 moments) that verifies against
+   its manifest. Run B: the same config auto-resumes at step 2 and trains
+   steps 3-4. Gates: the state run B restored equals the state run A held
+   at step 2, bit for bit (a device fingerprint of every param and moment,
+   the AdamW count and the loader cursor); if run A's steps 1-2 equal
+   phase 3's bit for bit, run B's steps 3-4 must equal phase 3's bit for
+   bit, else they must agree within RESUME_SPREAD_FACTOR times the spread
+   measured between run A and phase 3 (both printed); the val_loss at step
+   4 (2 batches through the forward kernel under no_grad) within
+   EVAL_ATOL of the same params' loss under `attn_impl: "reference"`;
+   each kernel's launches in each run (eval's 24 x ga x 2 forward
+   launches included), every one on its tensor-core kernel. The save,
+   verify and restore times are printed; the free disk is checked first
+   and the directory is deleted at the end.
+5. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -63,6 +81,12 @@ the wrong S n-tile, in the tensor-core dq one row's delta taken for
 another's, and in the tensor-core dk/dv the last GQA head of the inner
 loop dropped.
 
+Phase 4's limits: EVAL_ATOL = 5e-3 absolute on a loss near 11: the two
+attention paths take the same bf16 q/k/v and differ by the kernels' bf16
+rounding of P (the plain version keeps it in fp32) and the order of fp32
+sums, which the per-row phase-2 limit bounds at 1e-2 relative per row of
+out; averaged over 8192 tokens the loss moves by far less.
+
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
 """
@@ -74,6 +98,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -101,6 +126,10 @@ KERNELS = [  # (counter name, TPU kernel it replaces)
 VARIANT_COUNTS = ("fwd_launches", "dq_launches", "dkv_launches")
 SOURCE = "picotron_tpu_torch/csrc/flash_attention.cu"
 CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json"
+CKPT_DIR = "build/smoke_ckpt"
+EVAL_STEPS = 2
+EVAL_ATOL = 5e-3               # val_loss: forward kernel vs plain attention
+RESUME_SPREAD_FACTOR = 4       # resumed losses vs phase 3, if not bitwise
 
 
 def log(msg: str) -> None:
@@ -318,6 +347,191 @@ def main_path(fa, here: str) -> dict:
     return result
 
 
+def launch_counts(fa) -> dict:
+    return {"launches": dict(fa.launches),
+            **{key: dict(getattr(fa, key)) for key in VARIANT_COUNTS}}
+
+
+def check_launches(counts: dict, want: dict, label: str) -> None:
+    """Raise unless each kernel launched `want[name]` times, every launch
+    on its tensor-core kernel."""
+    for (name, _), key in zip(KERNELS, VARIANT_COUNTS):
+        n = want[name]
+        if counts["launches"][name] != n or counts[key] != {
+                "tensor_core": n, "cuda_core": 0}:
+            raise AssertionError(
+                f"{label}: {name} launched {counts['launches'][name]} times "
+                f"({key} {counts[key]}), want {n}, all on the tensor cores")
+
+
+@torch.no_grad()
+def fingerprint(state) -> list:
+    """Two int64 sums over the bits of every param and AdamW moment (a
+    plain sum and a position-weighted one), the count and the step: equal
+    fingerprints mean bit-identical states but for a vanishing chance."""
+    out = []
+    for _, p in state.model.named_parameters():
+        st = state.optimizer.moments(p)
+        for t in (p, st["mu"], st["nu"]):
+            bits = t.detach().reshape(-1).view(
+                torch.int32 if t.element_size() == 4 else torch.int16)
+            v = bits.to(torch.int64)
+            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+            out.append((int(v.sum()), int((v * w).sum())))
+            del v, w
+    return out + [state.optimizer.count, state.step]
+
+
+def checkpoint_resume(cfg, device: str, phase3_losses: list,
+                      on_launches=None) -> dict:
+    """Phase 4 (the docstring says what it checks). `cfg` is the main-path
+    config with save_dir, auto_resume and eval set; `on_launches(label)` is
+    called after each run (the launch-count check)."""
+    import shutil
+    import signal
+
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.checkpoint import CheckpointManager
+    from picotron_tpu_torch.ckpt_integrity import checkpoint_nbytes
+
+    save_dir = cfg.checkpoint.save_dir
+    shutil.rmtree(save_dir, ignore_errors=True)
+    os.makedirs(save_dir)
+    est = checkpoint_nbytes(cfg)
+    free = shutil.disk_usage(save_dir).free
+    log(f"phase 4: checkpoint ~{est / 1e9:.2f} GB, {free / 1e9:.1f} GB free "
+        f"under {save_dir}")
+    if free < 1.1 * est:
+        raise AssertionError(f"not enough disk for one checkpoint: {free} "
+                             f"bytes free, {est} needed")
+    real_build = train.build_state
+    held = {}
+
+    def build(cfg, dev):
+        out = real_build(cfg, dev)
+        held["state"] = out[0]
+        if out[0].step:  # resumed: the state as restored, before a step
+            held["restored"] = fingerprint(out[0])
+            held["meta"] = out[2]
+        return out
+
+    out = {}
+    try:
+        train.build_state = build
+        # run A: preempted after step 2
+        losses_a, clock = [], {}
+
+        def on_step(step, metrics):
+            losses_a.append(metrics["loss"])
+            if step == 2:
+                held["saved"] = fingerprint(held["state"])
+                clock["t0"] = time.perf_counter()
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        try:
+            train.run(cfg, device, on_step=on_step)
+            raise AssertionError("run A was not preempted")
+        except SystemExit as e:
+            if e.code != 75:
+                raise AssertionError(f"run A exited {e.code}, want 75")
+        out["emergency_save_s"] = time.perf_counter() - clock["t0"]
+        held.pop("state")
+        if on_launches:
+            on_launches("run A")
+        mgr = CheckpointManager(cfg)
+        t0 = time.perf_counter()
+        res = mgr.verify_step(2)
+        out["verify_s"] = time.perf_counter() - t0
+        if mgr.durable_steps() != [2] or res.status != "verified":
+            raise AssertionError(f"run A's checkpoint: durable steps "
+                                 f"{mgr.durable_steps()}, step 2 {res.status} "
+                                 f"{res.failures}")
+        out["checkpoint_bytes"] = res.manifest["total_bytes"]
+        out["digest"] = res.manifest["algo"]
+        log(f"phase 4 run A: exit 75 after step 2, losses {losses_a}, "
+            f"emergency save {out['emergency_save_s']:.2f} s (SIGTERM to "
+            f"exit), {out['checkpoint_bytes'] / 1e9:.2f} GB, re-verify "
+            f"({out['digest']}) {out['verify_s']:.2f} s")
+
+        # run B: auto-resume, steps 3-4, eval at step 4
+        result = train.run(cfg, device)
+        if on_launches:
+            on_launches("run B")
+        if result["start_step"] != 2:
+            raise AssertionError(f"run B resumed at {result['start_step']}")
+        if held["restored"] != held["saved"]:
+            bad = sum(a != b for a, b in zip(held["restored"], held["saved"]))
+            raise AssertionError(f"restored state differs from the saved "
+                                 f"state in {bad} fingerprints")
+        if held["meta"]["dataloader"] != {"epoch": 0,
+                                          "cursor": 2 * cfg.global_batch_size}:
+            raise AssertionError(f"restored cursor {held['meta']}")
+        out["restore_timings"] = result["restore_timings"]
+        losses_b = result["losses"]
+        bitwise = losses_a == phase3_losses[:2]
+        spread = max(abs(a - b) for a, b in zip(losses_a, phase3_losses))
+        diff = max(abs(a - b) for a, b in zip(losses_b, phase3_losses[2:]))
+        log(f"phase 4 run B: resumed at step 2 (verify "
+            f"{out['restore_timings']['verify_s']:.2f} s, load "
+            f"{out['restore_timings']['load_s']:.2f} s), losses {losses_b}; "
+            f"run A vs phase 3 steps 1-2 {'bit for bit' if bitwise else ''} "
+            f"(max diff {spread}), run B vs phase 3 steps 3-4 max diff {diff}")
+        if bitwise and losses_b != phase3_losses[2:]:
+            raise AssertionError(f"resumed losses {losses_b} differ from "
+                                 f"phase 3's {phase3_losses[2:]}")
+        if not bitwise and not diff <= RESUME_SPREAD_FACTOR * spread:
+            raise AssertionError(
+                f"resumed losses {losses_b} differ from phase 3's "
+                f"{phase3_losses[2:]} by {diff}, over {RESUME_SPREAD_FACTOR} x "
+                f"the run-to-run spread {spread}")
+
+        # eval gate: the forward kernel's val_loss vs the plain attention
+        val = result["val_losses"][4]
+        model = result.pop("state").model
+        ref = reference_eval_loss(cfg, model, device)
+        out.update(losses_a=losses_a, losses_b=losses_b, bitwise=bitwise,
+                   spread=spread, val_loss=val, val_loss_reference=ref)
+        log(f"phase 4 eval: val_loss {val} (forward kernel), {ref} (plain "
+            f"attention), diff {abs(val - ref):.3g} (limit {EVAL_ATOL:g})")
+        if not abs(val - ref) <= EVAL_ATOL:
+            raise AssertionError(f"val_loss {val} vs plain attention {ref}")
+    finally:
+        train.build_state = real_build
+        shutil.rmtree(save_dir, ignore_errors=True)
+    return out
+
+
+@torch.no_grad()
+def reference_eval_loss(cfg, model, device) -> float:
+    """The eval batches' mean loss with `attn_impl: "reference"` on the
+    same params (model.cfg swapped for the call)."""
+    import dataclasses
+
+    from picotron_tpu_torch.data import MicroBatchDataLoader, build_eval_source
+    from picotron_tpu_torch.train_step import make_eval_step
+
+    eval_dl = MicroBatchDataLoader(cfg, device, source=build_eval_source(cfg))
+    batches = [next(eval_dl) for _ in range(cfg.training.eval_steps)]
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, attn_impl="reference")
+    try:
+        fn = make_eval_step(cfg)
+        return sum(float(fn(model, b)) for b in batches) / len(batches)
+    finally:
+        model.cfg = saved
+
+
+def phase4_config(here: str):
+    from picotron_tpu_torch.config import config_from_dict
+
+    with open(os.path.join(here, CONFIG)) as f:
+        raw = json.load(f)
+    raw["checkpoint"] = {"save_dir": os.path.join(here, CKPT_DIR),
+                         "auto_resume": True}
+    raw["training"].update(eval_frequency=4, eval_steps=EVAL_STEPS)
+    return config_from_dict(raw)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -400,7 +614,29 @@ def main() -> int:
     log(f"phase 3 main path: ok, losses {result['losses']}, first batch "
         f"after {STEPS} steps {result['seen_batch_loss']}")
 
-    # phase 4: numbers
+    # phase 4: checkpoint and resume
+    per_step = 24 * GA
+    expect = {"run A": {"flash_fwd": 2 * per_step, "flash_bwd_dq": 2 * per_step,
+                        "flash_bwd_dkv": 2 * per_step},
+              "run B": {"flash_fwd": 2 * per_step + 24 * GA * EVAL_STEPS,
+                        "flash_bwd_dq": 2 * per_step,
+                        "flash_bwd_dkv": 2 * per_step}}
+    phase4_launches = {}
+
+    def on_launches(label):
+        counts = launch_counts(fa)
+        check_launches(counts, expect[label], f"phase 4 {label}")
+        phase4_launches[label] = counts["launches"]
+        fa.reset_launch_counts()
+
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    ckpt = checkpoint_resume(phase4_config(here), "cuda", result["losses"],
+                             on_launches)
+    ckpt["launches"] = phase4_launches
+    log(f"phase 4 checkpoint and resume: ok, launches {phase4_launches}")
+
+    # phase 5: numbers
     from picotron_tpu_torch.config import config_from_dict
 
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
@@ -432,6 +668,7 @@ def main() -> int:
         "losses": result["losses"],
         **{key: result[key] for key in VARIANT_COUNTS},
         "seen_batch_loss": result["seen_batch_loss"]}}))
+    print(json.dumps({"checkpoint_resume": {"card": card, **ckpt}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ H100 (Hopper, sm_90a).
 
 The JAX package `picotron_tpu` stays the reference; this package mirrors
 its module names (config, ops/, models/llama, optimizer, train_step, data,
-utils, train) and imports nothing from it or from jax. The three Pallas
+utils, train, checkpoint, ckpt_integrity/, resilience/, telemetry/bus)
+and imports nothing from it or from jax. The three Pallas
 flash-attention kernels are hand-written CUDA in `csrc/flash_attention.cu`,
 built with nvcc at first launch (`kernels/build.py`), never at import.
 
@@ -24,5 +25,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "data", "models", "ops", "optimizer", "train",
+__all__ = ["checkpoint", "ckpt_integrity", "config", "data", "models",
+           "ops", "optimizer", "resilience", "telemetry", "train",
            "train_step", "utils", "weights"]

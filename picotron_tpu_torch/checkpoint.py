@@ -1,0 +1,586 @@
+"""Checkpointing of the port (counterpart of picotron_tpu/checkpoint.py):
+train-state save/resume with commit manifests, params-only restore, and
+HF safetensors import/export.
+
+Layout, the JAX package's with a torch payload in place of Orbax's:
+
+    <save_dir>/step_%08d/
+        state/params.pt      fp32 master params {name: tensor}
+        state/opt_state.pt   {"mu": {name: tensor}, "nu": {...}, "count",
+                              "step"}: moments in their dtype (bf16 stays
+                              bf16), AdamW's count, TrainState.step
+        meta.json            step, trained_tokens, config, dataloader
+        manifest.json        per-file sizes and digests + topology
+
+Durability: the payload is written under `state.tmp.<pid>/`, fsynced, and
+renamed to `state/` last; a step dir whose `state/` exists is durable.
+The manifest is written after the rename; `latest_valid_step` trusts a
+step only when it is durable AND verifies against its manifest.
+
+Async saves (`checkpoint.async_save`, the default): `save()` returns once
+every tensor has been copied to host memory. The port updates params and
+moments in place, so a writer that read device tensors after `save()`
+returned would save a later step; the host copies are the snapshot. The
+file write, manifest hash and retention GC then run on a thread that
+`wait_until_finished` joins (and re-raises a failed payload write from).
+
+Restore reads with `torch.load(weights_only=True, mmap=True)` and copies
+into the live tensors, so it costs no second device copy. A checkpoint
+saved under another topology or model shape is refused, naming both.
+
+HF safetensors (dense Llama/Qwen2 families): the port's [out, in] weight
+layout is HF's own, so nothing is transposed. The format (an 8-byte
+little-endian header length, a JSON header of dtype/shape/data_offsets,
+then the raw bytes) is read and written here, without the `safetensors`
+package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import shutil
+import struct
+import sys
+import threading
+import time
+import warnings
+from typing import Optional, Union
+
+import torch
+
+from picotron_tpu_torch.ckpt_integrity import (
+    MANIFEST_NAME, VerifyResult, atomic_write_text, build_manifest,
+    fsync_dir, retention_plan, verify_step_dir, write_manifest,
+)
+from picotron_tpu_torch.config import Config, ModelConfig
+from picotron_tpu_torch.resilience.retry import RetryPolicy, retry_call
+from picotron_tpu_torch.telemetry import bus as telemetry_bus
+from picotron_tpu_torch.train_step import TrainState
+
+PARAMS_FILE = "params.pt"
+OPT_FILE = "opt_state.pt"
+
+
+def topology(cfg: Config) -> dict:
+    """The parallel layout a checkpoint is saved under (the port runs one
+    device: every size 1)."""
+    d = cfg.distributed
+    return {"dp": d.dp_size, "pp": d.pp_size, "ep": d.ep_size,
+            "cp": d.cp_size, "tp": d.tp_size, "world_size": d.world_size,
+            "process_count": 1}
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t`, complete when this returns (a CUDA->CPU copy
+    without non_blocking waits for the device)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _save_file(obj, path: str) -> None:
+    with open(path, "wb") as f:
+        torch.save(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _load_file(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True)
+
+
+class CheckpointManager:
+    """Save/restore a TrainState under `<save_dir>/step_<n>/`, with commit
+    manifests, lineage fallback past corrupt steps, and retention GC
+    (`checkpoint.keep_last` / `keep_every`), which never deletes the last
+    verified step. `timings` holds the seconds of the last save's host
+    copy (`snapshot_s`), payload write (`write_s`) and manifest hash
+    (`manifest_s`), and of the last restore's verification (`verify_s`)
+    and load (`load_s`)."""
+
+    def __init__(self, cfg: Config, directory: Optional[str] = None):
+        self.cfg = cfg
+        self.directory = os.path.abspath(directory or cfg.checkpoint.save_dir)
+        self._commit_thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.timings: dict = {}
+        # Flaky-store retry (resilience config). The manifest commit keeps
+        # the attempt budget with short delays.
+        self._retry = RetryPolicy.from_config(cfg.resilience)
+        self._probe_retry = dataclasses.replace(
+            self._retry,
+            base_delay=min(self._retry.base_delay, 0.2),
+            max_delay=min(self._retry.max_delay, 1.0))
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}")
+
+    # -- save -------------------------------------------------------------
+
+    def save(self, state: TrainState, trained_tokens: int = 0,
+             dataloader_state: Optional[dict] = None) -> str:
+        """Snapshot `state` to host memory, write meta.json, and commit
+        the payload + manifest (on a thread when async_save). Returns the
+        step dir."""
+        # At most one save in flight.
+        self.wait_until_finished()
+        step = int(state.step)
+        path = self._step_dir(step)
+        t0 = time.perf_counter()
+        model, opt = state.model, state.optimizer
+        named = list(model.named_parameters())
+        params = {n: _host(p) for n, p in named}
+        opt_state = {"mu": {n: _host(opt.moments(p)["mu"]) for n, p in named},
+                     "nu": {n: _host(opt.moments(p)["nu"]) for n, p in named},
+                     "count": int(opt.count), "step": step}
+        self.timings = {"snapshot_s": time.perf_counter() - t0}
+        meta = {"step": step, "trained_tokens": int(trained_tokens),
+                "config": self.cfg.to_json_dict()}
+        if dataloader_state is not None:
+            meta["dataloader"] = dict(dataloader_state)
+
+        def _write_meta():
+            os.makedirs(path, exist_ok=True)
+            atomic_write_text(os.path.join(path, "meta.json"),
+                              json.dumps(meta, indent=2))
+
+        retry_call(_write_meta, policy=self._retry,
+                   describe=f"checkpoint meta write (step {step})")
+        if self.cfg.checkpoint.async_save:
+            self._commit_thread = threading.Thread(
+                target=self._commit_async, args=(step, path, params,
+                                                 opt_state),
+                name=f"ckpt-commit-{step}", daemon=False)
+            self._commit_thread.start()
+        else:
+            self._commit(step, path, params, opt_state)
+        return path
+
+    def _write_payload(self, path: str, params: dict, opt_state: dict):
+        """state.tmp.<pid>/ -> fsync -> rename to state/ (replacing a
+        stale payload of the same step, whose manifest goes first)."""
+        tmp = os.path.join(path, f"state.tmp.{os.getpid()}")
+        final = os.path.join(path, "state")
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        _save_file(params, os.path.join(tmp, PARAMS_FILE))
+        _save_file(opt_state, os.path.join(tmp, OPT_FILE))
+        fsync_dir(tmp)
+        stale_manifest = os.path.join(path, MANIFEST_NAME)
+        if os.path.exists(stale_manifest):
+            os.remove(stale_manifest)
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        fsync_dir(path)
+
+    def _commit(self, step: int, path: str, params: dict,
+                opt_state: dict) -> None:
+        """Write the payload (raises on failure: the step is then not
+        durable), then the manifest and GC (a failure there leaves the
+        step durable-but-legacy, reported as an event, not raised)."""
+        t0 = time.perf_counter()
+        retry_call(self._write_payload, path, params, opt_state,
+                   policy=self._retry,
+                   describe=f"checkpoint save (step {step})")
+        t1 = time.perf_counter()
+        self.timings["write_s"] = t1 - t0
+        del params, opt_state
+        try:
+            def _hash_and_write():
+                manifest = build_manifest(path, step=step,
+                                          topology=topology(self.cfg))
+                write_manifest(path, manifest)
+                return manifest
+
+            manifest = retry_call(
+                _hash_and_write, policy=self._probe_retry,
+                describe=f"manifest commit (step {step})")
+            self.timings["manifest_s"] = time.perf_counter() - t1
+            telemetry_bus.emit("ckpt_commit", step=step,
+                               files=manifest["file_count"],
+                               bytes=manifest["total_bytes"])
+            self.gc()
+        except Exception as e:  # noqa: BLE001
+            self._probe_failed(path, e, what="manifest commit")
+
+    def _commit_async(self, *args) -> None:
+        try:
+            self._commit(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised on join
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        """Block until an in-flight async save is durable AND its manifest
+        is written; re-raise a failed payload write. Call before exit and
+        before restoring a checkpoint this manager may still be writing."""
+        t = self._commit_thread
+        if t is not None and t is not threading.current_thread():
+            t.join()
+            self._commit_thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+    @staticmethod
+    def _probe_failed(path: str, e: Exception,
+                      what: str = "durability probe") -> bool:
+        telemetry_bus.emit("ckpt_probe_failed", what=what, path=str(path),
+                           error=repr(e))
+        warnings.warn(f"checkpoint {what} failed for {path}: {e!r}")
+        return False
+
+    # -- lineage ----------------------------------------------------------
+
+    def _is_durable(self, step: int) -> bool:
+        """True when the step's payload was renamed into place."""
+        state_dir = os.path.join(self._step_dir(step), "state")
+        return all(os.path.isfile(os.path.join(state_dir, f))
+                   for f in (PARAMS_FILE, OPT_FILE))
+
+    def steps(self) -> list:
+        """All step numbers with a step_<n> dir, sorted (durable or not)."""
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(m.group(1)) for d in os.listdir(self.directory)
+                      if (m := re.fullmatch(r"step_(\d+)", d)))
+
+    def durable_steps(self) -> list:
+        return [s for s in self.steps() if self._is_durable(s)]
+
+    def latest_step(self) -> Optional[int]:
+        """Newest *durable* step (not content-verified; prefer
+        latest_valid_step)."""
+        steps = self.durable_steps()
+        return max(steps) if steps else None
+
+    def verify_step(self, step: int, deep: bool = True) -> VerifyResult:
+        return verify_step_dir(self._step_dir(step), deep=deep)
+
+    def _report_corrupt(self, step: int, res: VerifyResult) -> None:
+        telemetry_bus.emit("ckpt_corrupt", step=step,
+                           failures=list(res.failures[:8]))
+        print(f"[ckpt] step {step} failed verification "
+              f"({'; '.join(res.failures[:3]) or res.status}); "
+              f"falling back to an older checkpoint",
+              file=sys.stderr, flush=True)
+
+    def latest_valid_step(self) -> Optional[int]:
+        """Newest step that is durable AND verifies against its manifest:
+        what restore, auto-resume and rollback trust. Each corrupt step
+        skipped on the way down emits `ckpt_corrupt`."""
+        for step in sorted(self.durable_steps(), reverse=True):
+            res = self.verify_step(step)
+            if res.ok:
+                return step
+            self._report_corrupt(step, res)
+        return None
+
+    def valid_steps(self) -> list:
+        return [s for s in self.durable_steps() if self.verify_step(s).ok]
+
+    def gc(self, dry_run: bool = False) -> dict:
+        """Retention GC over durable steps per keep_last / keep_every;
+        returns {"kept", "deleted"}. The last verified step is protected:
+        keep_last=1 with a corrupt newest step keeps the fallback alive."""
+        ck = self.cfg.checkpoint
+        if ck.keep_last <= 0:
+            return {"kept": self.steps(), "deleted": []}
+        last_valid = self.latest_valid_step()
+        keep, delete = retention_plan(
+            self.durable_steps(), keep_last=ck.keep_last,
+            keep_every=ck.keep_every,
+            protect=() if last_valid is None else (last_valid,))
+        if not dry_run:
+            for s in delete:
+                shutil.rmtree(self._step_dir(s))
+            if delete:
+                telemetry_bus.emit("ckpt_gc", deleted=delete, kept=keep)
+        return {"kept": keep, "deleted": delete}
+
+    # -- restore ----------------------------------------------------------
+
+    def restore(self, state: TrainState,
+                step: Optional[int] = None) -> tuple[TrainState, dict]:
+        """Restore into `state`'s tensors in place; returns (state, meta),
+        meta carrying trained_tokens and the dataloader position. With no
+        step: the newest durable AND verified one (lineage fallback). An
+        explicit step is validated the same way first, so a non-durable or
+        corrupt request fails with the list of valid steps."""
+        self.wait_until_finished()  # never read our own partial write
+        t0 = time.perf_counter()
+        if step is None:
+            step = self.latest_valid_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no valid checkpoints under {self.directory}")
+        else:
+            if not self._is_durable(step):
+                raise FileNotFoundError(
+                    f"checkpoint step {step} under {self.directory} is "
+                    f"missing or not durable (save incomplete/crashed); "
+                    f"available valid steps: {self.valid_steps()}")
+            res = self.verify_step(step)
+            if not res.ok:
+                self._report_corrupt(step, res)
+                raise FileNotFoundError(
+                    f"checkpoint step {step} under {self.directory} failed "
+                    f"verification ({'; '.join(res.failures[:3])}); "
+                    f"available valid steps: {self.valid_steps()}")
+        verify_s = time.perf_counter() - t0
+        out = self.load_step(state, step)
+        self.timings["verify_s"] = verify_s
+        return out
+
+    def load_step(self, state: TrainState,
+                  step: int) -> tuple[TrainState, dict]:
+        """Load one step into `state` without verifying it (restore and
+        the trainer's auto-resume verify first)."""
+        t0 = time.perf_counter()
+        path = self._step_dir(step)
+
+        def _read_json(name):
+            with open(os.path.join(path, name)) as f:
+                return json.load(f)
+
+        meta = retry_call(_read_json, "meta.json", policy=self._retry,
+                          describe=f"checkpoint meta read (step {step})")
+        saved_topo = None
+        if os.path.exists(os.path.join(path, MANIFEST_NAME)):
+            saved_topo = _read_json(MANIFEST_NAME).get("topology")
+        here = topology(self.cfg)
+        if saved_topo is not None and any(
+                saved_topo.get(k) != v for k, v in here.items()):
+            raise ValueError(
+                f"checkpoint step {step} under {self.directory} was saved "
+                f"under topology {saved_topo}; this run is {here}. The "
+                f"port restores only into the layout it saved")
+        state_dir = os.path.join(path, "state")
+        params = retry_call(_load_file, os.path.join(state_dir, PARAMS_FILE),
+                            policy=self._retry,
+                            describe=f"checkpoint restore (step {step})")
+        opt_state = retry_call(_load_file, os.path.join(state_dir, OPT_FILE),
+                               policy=self._retry,
+                               describe=f"checkpoint restore (step {step})")
+        model, opt = state.model, state.optimizer
+        named = list(model.named_parameters())
+        _check_shapes(params, {n: p for n, p in named}, "param", step)
+        for kind in ("mu", "nu"):
+            _check_shapes(opt_state[kind],
+                          {n: opt.moments(p)[kind] for n, p in named},
+                          f"AdamW {kind}", step)
+        with torch.no_grad():
+            for n, p in named:
+                p.copy_(params[n])
+                st = opt.moments(p)
+                st["mu"].copy_(opt_state["mu"][n])
+                st["nu"].copy_(opt_state["nu"][n])
+        if model.embedding.is_cuda:
+            torch.cuda.synchronize(model.embedding.device)
+        opt.count = int(opt_state["count"])
+        state.step = int(opt_state["step"])
+        self.timings["load_s"] = time.perf_counter() - t0
+        return state, meta
+
+
+def _check_shapes(saved: dict, live: dict, what: str, step: int) -> None:
+    """Raise ValueError naming both sides when the saved tensors' names,
+    shapes or dtypes differ from the live model's."""
+    diffs = []
+    for n in sorted(set(saved) | set(live)):
+        s, t = saved.get(n), live.get(n)
+        sd = None if s is None else (tuple(s.shape), s.dtype)
+        td = None if t is None else (tuple(t.shape), t.dtype)
+        if sd != td:
+            diffs.append(f"{n}: saved {sd} vs this run's {td}")
+    if diffs:
+        raise ValueError(
+            f"checkpoint step {step} holds a different model ({what}s): "
+            + "; ".join(diffs[:4])
+            + (f"; and {len(diffs) - 4} more" if len(diffs) > 4 else ""))
+
+
+def restore_params_only(cfg: Config, ckpt_dir: str,
+                        step: Optional[int] = None,
+                        dtype: Optional[torch.dtype] = None
+                        ) -> tuple[dict, int]:
+    """Only the params of a training checkpoint ({name: CPU tensor}, the
+    port's state_dict; cast to `dtype` when given) and the step: the
+    generation/export path. Reads `state/params.pt` alone, never the
+    moments. With no step: the newest durable AND verified one."""
+    mgr = CheckpointManager(cfg, directory=ckpt_dir)
+    if step is None:
+        step = mgr.latest_valid_step()
+        if step is None:
+            raise FileNotFoundError(f"no valid checkpoints under {ckpt_dir}")
+    params = _load_file(os.path.join(mgr._step_dir(step), "state",
+                                     PARAMS_FILE))
+    if dtype is not None:
+        params = {n: t.to(dtype) for n, t in params.items()}
+    return params, step
+
+
+# ---------------------------------------------------------------------------
+# HF safetensors
+# ---------------------------------------------------------------------------
+
+# HF name suffix under model.layers.<i>. -> the port's layer param
+_LAYER_MAP = {
+    "self_attn.q_proj.weight": "q",
+    "self_attn.k_proj.weight": "k",
+    "self_attn.v_proj.weight": "v",
+    "self_attn.o_proj.weight": "o",
+    "input_layernorm.weight": "input_norm",
+    "post_attention_layernorm.weight": "post_norm",
+    "mlp.gate_proj.weight": "gate",
+    "mlp.up_proj.weight": "up",
+    "mlp.down_proj.weight": "down",
+}
+# Qwen2-style qkv bias
+_BIAS_MAP = {
+    "self_attn.q_proj.bias": "b_q",
+    "self_attn.k_proj.bias": "b_k",
+    "self_attn.v_proj.bias": "b_v",
+}
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+_ST_CODES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """All tensors of one .safetensors file, as CPU tensors."""
+    out = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        base = 8 + n
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = _ST_DTYPES[info["dtype"]]
+            start, end = info["data_offsets"]
+            if end == start:
+                out[name] = torch.empty(info["shape"], dtype=dtype)
+                continue
+            f.seek(base + start)
+            buf = bytearray(f.read(end - start))
+            out[name] = torch.frombuffer(buf, dtype=dtype).reshape(
+                info["shape"])
+    return out
+
+
+def write_safetensors(tensors: dict[str, torch.Tensor], path: str,
+                      metadata: Optional[dict] = None) -> None:
+    """Write `tensors` as one .safetensors file (names sorted, data packed
+    without gaps, header padded with spaces to 8 bytes), via a tmp name
+    and a rename."""
+    header, offset, items = {}, 0, []
+    for name in sorted(tensors):
+        t = tensors[name].detach().contiguous().cpu()
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_CODES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+        items.append(t)
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    hb = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    hb += b" " * (-len(hb) % 8)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for t in items:
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _read_safetensors_dir(path: str) -> dict[str, torch.Tensor]:
+    """Single-file or index-sharded HF safetensors checkpoint dir."""
+    index_path = os.path.join(path, "model.safetensors.index.json")
+    single_path = os.path.join(path, "model.safetensors")
+    tensors: dict[str, torch.Tensor] = {}
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            index = json.load(f)
+        for shard in sorted(set(index["weight_map"].values())):
+            tensors.update(read_safetensors(os.path.join(path, shard)))
+    elif os.path.exists(single_path):
+        tensors.update(read_safetensors(single_path))
+    else:
+        raise FileNotFoundError(
+            f"no model.safetensors[.index.json] under {path}")
+    return tensors
+
+
+def load_hf_safetensors(path: str, cfg: ModelConfig,
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """An HF Llama-family safetensors checkpoint as the port's state_dict
+    ({name: CPU tensor}, fp32 by default; load with
+    `model.load_state_dict`)."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE weights are not ported yet (ROADMAP Queue 1 item 10)")
+    raw = _read_safetensors_dir(path)
+    nl = cfg.num_hidden_layers
+    file_layers = {int(m.group(1)) for k in raw
+                   if (m := re.match(r"model\.layers\.(\d+)\.", k))}
+    if file_layers and len(file_layers) != nl:
+        raise ValueError(
+            f"checkpoint at {path} has {len(file_layers)} layers but the "
+            f"config expects num_hidden_layers={nl}; pass a matching model "
+            f"config")
+
+    def get(name: str) -> torch.Tensor:
+        if name not in raw:
+            raise KeyError(f"tensor {name!r} missing from checkpoint "
+                           f"(found {len(raw)} tensors)")
+        return raw[name].to(dtype)
+
+    lmap = dict(_LAYER_MAP)
+    if cfg.attention_bias:
+        lmap.update(_BIAS_MAP)
+    sd = {"embedding": get("model.embed_tokens.weight"),
+          "final_norm": get("model.norm.weight")}
+    for i in range(nl):
+        for suffix, key in lmap.items():
+            sd[f"layers.{i}.{key}"] = get(f"model.layers.{i}.{suffix}")
+    if not cfg.tie_word_embeddings:
+        # a tied-head file loaded as an untied model: untie by copying
+        sd["lm_head"] = (get("lm_head.weight") if "lm_head.weight" in raw
+                         else sd["embedding"].clone())
+    return sd
+
+
+def save_hf_safetensors(params: Union[torch.nn.Module, dict],
+                        path: str) -> None:
+    """Export the port's params (a model or its state_dict) to HF Llama
+    naming in `<path>/model.safetensors`, at the params' dtype."""
+    sd = (dict(params.named_parameters())
+          if isinstance(params, torch.nn.Module) else params)
+    os.makedirs(path, exist_ok=True)
+    inv = {v: k for k, v in {**_LAYER_MAP, **_BIAS_MAP}.items()}
+    out = {}
+    for name, t in sd.items():
+        if name == "embedding":
+            out["model.embed_tokens.weight"] = t
+        elif name == "final_norm":
+            out["model.norm.weight"] = t
+        elif name == "lm_head":
+            out["lm_head.weight"] = t
+        else:
+            m = re.fullmatch(r"layers\.(\d+)\.(\w+)", name)
+            if m is None or m.group(2) not in inv:
+                raise KeyError(f"no HF name for param {name!r}")
+            out[f"model.layers.{m.group(1)}.{inv[m.group(2)]}"] = t
+    write_safetensors(out, os.path.join(path, "model.safetensors"))

@@ -5,8 +5,8 @@ function of (seed, epoch, start)), so both packages read the same tokens.
 `MicroBatchDataLoader` keeps the (epoch, cursor) state, `set_state` and
 `reset`, drops the epoch tail like the reference, and yields
 (input_ids, targets) shaped [grad_acc, mbs, seq] as int64 tensors on the
-loader's device. HF datasets, the prefetch thread, chaos and I/O retry
-come in a later slice.
+loader's device. `build_eval_source` is the validation stream. HF
+datasets, the prefetch thread, chaos and I/O retry come in a later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +36,19 @@ class SyntheticSource:
         rng = np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch, start]))
         return rng.integers(0, self.vocab_size, (n, self.block), dtype=np.int32)
+
+
+def build_eval_source(cfg: Config) -> SyntheticSource:
+    """Validation batch source (training.eval_frequency > 0): a synthetic
+    stream on a seed offset disjoint from training's, the JAX package's
+    `build_eval_source` for synthetic data."""
+    if cfg.dataset.name != "synthetic":
+        raise NotImplementedError(
+            f"dataset {cfg.dataset.name!r}: only the synthetic eval source "
+            "is ported (HF datasets are ROADMAP Queue 1 item 5)")
+    return SyntheticSource(cfg.model.vocab_size, cfg.training.seq_length,
+                           seed=cfg.training.seed + 104729,
+                           num_samples=cfg.training.num_samples)
 
 
 class MicroBatchDataLoader:

@@ -10,14 +10,17 @@
        (so with warmup the first update uses lr = 0), then p += update.
 
 Plain torch ops, as the JAX package left AdamW to XLA. The moments are
-updated in place. The host-offloaded optimizer (optimizer_offload) is not
-in this slice.
+updated in place. Clipping selects with `torch.where` on a norm the step
+passes in (optax's `select`), so it costs no host sync; the divergence
+guard's `skip` suppresses a non-finite update per tensor in place
+(`guard_nonfinite`). The host-offloaded optimizer (optimizer_offload) is
+not in this slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -37,6 +40,23 @@ def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
         decay = 0.5 * (1.0 + math.cos(math.pi * c / steps))
         return init * ((1.0 - alpha) * decay + alpha)
     return f
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax.global_norm: the fp32 L2 norm over every tensor, as a 0-dim
+    tensor, in two fused reductions (one norm per tensor by
+    `torch._foreach_norm`, then the norm of those norms) and no host
+    sync. A NaN or Inf anywhere makes it non-finite."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def guard_nonfinite(ok: torch.Tensor, new_tensors, old_tensors) -> None:
+    """The divergence guard's 'skip' half: where `ok` (a 0-dim bool: loss
+    and grad norm finite) is False, copy each old tensor back over its new
+    one in place, discarding a poisoned update."""
+    for n, o in zip(new_tensors, old_tensors):
+        n.copy_(torch.where(ok, n, o))
 
 
 def make_lr(t: TrainingConfig) -> Union[float, Callable[[int], float]]:
@@ -76,28 +96,46 @@ class AdamW(torch.optim.Optimizer):
     def lr_at(self, count: int) -> float:
         return self.lr(count) if callable(self.lr) else self.lr
 
+    def moments(self, p: torch.Tensor) -> dict:
+        """p's AdamW state {"mu", "nu"} in the moments dtype, made as zeros
+        on first use (optax's init)."""
+        st = self.state[p]
+        if not st:
+            st["mu"] = torch.zeros_like(p, dtype=self.moments_dtype)
+            st["nu"] = torch.zeros_like(p, dtype=self.moments_dtype)
+        return st
+
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, grad_norm: Optional[torch.Tensor] = None,
+             ok: Optional[torch.Tensor] = None):
+        """One update from p.grad. `grad_norm`: the grads' global norm when
+        the caller has it (else computed here when clipping needs it).
+        `ok`: a 0-dim bool; when given and False, params, moments and the
+        count keep their old values (the guard's skip policy; reading `ok`
+        for the count syncs the host once)."""
         t = self.t
         params = [p for g in self.param_groups for p in g["params"]
                   if p.grad is not None]
-        grads = [p.grad for p in params]
-        if t.grad_clip_norm > 0:
-            g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-            if not bool(g_norm < t.grad_clip_norm):
-                grads = [(g / g_norm) * t.grad_clip_norm for g in grads]
+        clip = t.grad_clip_norm > 0
+        if clip:
+            if grad_norm is None:
+                grad_norm = global_norm([p.grad for p in params])
+            # optax.clip_by_global_norm: select, not a host branch
+            trigger = grad_norm < t.grad_clip_norm
         lr = self.lr_at(self.count)
-        self.count += 1
+        count = self.count + 1
         b1, b2, eps, wd = t.adam_beta1, t.adam_beta2, t.adam_eps, t.weight_decay
         # bias corrections in fp32 (optax computes decay ** count there)
-        cnt = torch.tensor(float(self.count), dtype=torch.float32)
+        cnt = torch.tensor(float(count), dtype=torch.float32)
         c1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** cnt)
         c2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** cnt)
-        for p, g in zip(params, grads):
-            st = self.state[p]
-            if not st:
-                st["mu"] = torch.zeros_like(p, dtype=self.moments_dtype)
-                st["nu"] = torch.zeros_like(p, dtype=self.moments_dtype)
+        for p in params:
+            st = self.moments(p)
+            g = p.grad
+            if clip:
+                g = torch.where(trigger, g, (g / grad_norm) * t.grad_clip_norm)
+            old = ((p.clone(), st["mu"].clone(), st["nu"].clone())
+                   if ok is not None else None)
             g = g.float()
             if self.low_moments:
                 mu = b1 * st["mu"].float() + (1 - b1) * g
@@ -110,6 +148,9 @@ class AdamW(torch.optim.Optimizer):
             upd = (mu / c1) / (torch.sqrt(nu / c2) + eps)
             upd = upd + wd * p
             p.add_(upd * -lr)
+            if old is not None:
+                guard_nonfinite(ok, (p, st["mu"], st["nu"]), old)
+        self.count = count if ok is None or bool(ok) else self.count
 
 
 def make_optimizer(params, t: TrainingConfig) -> AdamW:

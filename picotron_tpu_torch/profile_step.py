@@ -66,7 +66,7 @@ def main(argv=None) -> dict:
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     clock = {}
 
-    def on_step(step: int) -> None:
+    def on_step(step: int, metrics: dict) -> None:
         # the trainer has synced the device (the loss reached the host)
         if step == args.warmup:
             prof.start()

@@ -3,41 +3,58 @@ picotron_tpu/train.py):
 
     python -m picotron_tpu_torch.train --config cfg.json [--device cpu]
 
-Flow: load the config -> fresh init from training.seed -> synthetic loader
--> step loop -> one `training_log_line` per logged step. Runs on CUDA
-unless `--device cpu` or config `distributed.use_cpu: true` asks for the
-CPU; with no GPU and no such request it raises. MFU is printed as 0.00% on
-the CPU: it is a device metric and is not measured there.
+Flow: load the config -> state (fresh init from training.seed, then HF
+weights, then an explicit `checkpoint.load_path` or `auto_resume` of the
+newest verified checkpoint in save_dir) -> synthetic loader fast-forwarded
+to the checkpoint's cursor -> step loop: divergence guard, one
+`training_log_line` per logged step (with the `grad_norm` extra and
+tokens/s over the window since the last logged step), eval, periodic
+save, preemption check -> final save. Runs on CUDA unless `--device cpu`
+or config `distributed.use_cpu: true` asks for the CPU; with no GPU and no
+such request it raises. MFU is printed as 0.00% on the CPU: it is a
+device metric and is not measured there.
 
-What this slice does not run is refused up front, naming the ROADMAP item
-that ports it (see `unsupported`).
+Exit codes (the contract with a supervisor): 75 preempted with a durable
+emergency checkpoint (resubmit with auto_resume), 76 diverged, 77 the
+watchdog found no progress. What this slice does not run is refused up
+front, naming the ROADMAP item that ports it (see `unsupported`).
 """
 
 from __future__ import annotations
 
 import argparse
-import math
+import os
 import sys
+import time
 from typing import Callable, Optional
 
 import torch
 
-from picotron_tpu_torch.config import Config, load_config
-from picotron_tpu_torch.data import MicroBatchDataLoader
-from picotron_tpu_torch.models.llama import LlamaModel, init_params
-from picotron_tpu_torch.train_step import init_train_state, make_train_step
-from picotron_tpu_torch.utils import (
-    StepTimer, device_memory_gb, device_peak_flops, log_print, mfu,
-    training_log_line,
+from picotron_tpu_torch.checkpoint import (
+    CheckpointManager, load_hf_safetensors,
 )
-
-EXIT_DIVERGED = 76
+from picotron_tpu_torch.ckpt_integrity import preflight_save_dir
+from picotron_tpu_torch.config import Config, load_config
+from picotron_tpu_torch.data import MicroBatchDataLoader, build_eval_source
+from picotron_tpu_torch.models.llama import LlamaModel, init_params
+from picotron_tpu_torch.resilience import (
+    EXIT_DIVERGED, EXIT_PREEMPTED, DivergenceGuard, GuardAction,
+    PreemptionHandler, Watchdog,
+)
+from picotron_tpu_torch.telemetry import bus as telemetry_bus
+from picotron_tpu_torch.train_step import (
+    init_train_state, make_eval_step, make_train_step,
+)
+from picotron_tpu_torch.utils import (
+    StepTimer, device_memory_gb, device_peak_flops, human_format, log_print,
+    mfu, training_log_line,
+)
 
 
 def unsupported(cfg: Config) -> list[str]:
     """What the config asks for that this slice lacks, each with its
     ROADMAP item (an empty list means the run is supported)."""
-    d, m, t, ck = cfg.distributed, cfg.model, cfg.training, cfg.checkpoint
+    d, m, t = cfg.distributed, cfg.model, cfg.training
     out = []
     for name in ("dp_size", "tp_size", "pp_size", "cp_size", "ep_size"):
         if getattr(d, name) > 1:
@@ -59,18 +76,11 @@ def unsupported(cfg: Config) -> list[str]:
     if t.ce_chunk_size:
         out.append("training.ce_chunk_size (chunked CE: ROADMAP Queue 1 "
                    "item 7)")
-    if t.eval_frequency:
-        out.append("training.eval_frequency (eval loop: ROADMAP Queue 1 "
-                   "item 6)")
-    if ck.save_frequency or ck.load_path or ck.auto_resume or ck.init_from_hf:
-        out.append("checkpoint save/load/auto_resume/init_from_hf "
-                   "(ROADMAP Queue 1 item 6)")
     if cfg.dataset.name != "synthetic":
         out.append(f"dataset {cfg.dataset.name!r} (HF datasets: ROADMAP "
                    "Queue 1 item 5)")
-    if cfg.resilience.chaos or cfg.resilience.guard_policy in ("skip",
-                                                               "rollback"):
-        out.append("resilience chaos / guard skip|rollback (ROADMAP Queue 1 "
+    if cfg.resilience.chaos:
+        out.append("resilience.chaos (fault injection: ROADMAP Queue 1 "
                    "item 12)")
     if cfg.logging.use_wandb or cfg.logging.profile_dir:
         out.append("logging.use_wandb / profile_dir (telemetry: ROADMAP "
@@ -90,58 +100,280 @@ def resolve_device(cfg: Config, device: Optional[str] = None) -> torch.device:
     return dev
 
 
+def build_state(cfg: Config, dev: torch.device):
+    """(state, trained_tokens, ckpt_meta, resumed_from, restore_timings):
+    fresh init, then HF weights, then resume, in the JAX driver's
+    precedence. `resumed_from` is the checkpoint directory the state came
+    from ("" when fresh): with auto_resume and no explicit load_path, the
+    newest durable AND verified checkpoint in save_dir wins."""
+    ck = cfg.checkpoint
+    gen = torch.Generator(device=dev).manual_seed(cfg.training.seed)
+    model = init_params(LlamaModel(cfg.model, device=dev), gen)
+    state = init_train_state(cfg, model)
+    if ck.init_from_hf:
+        model.load_state_dict(load_hf_safetensors(ck.init_from_hf,
+                                                  cfg.model))
+        log_print(f"initialized weights from {ck.init_from_hf}")
+
+    load_dir, mgr, step, verify_s = ck.load_path, None, None, 0.0
+    if not load_dir and ck.auto_resume:
+        probe = CheckpointManager(cfg)
+        t0 = time.perf_counter()
+        step = probe.latest_valid_step()
+        verify_s = time.perf_counter() - t0
+        if step is not None:
+            load_dir, mgr = probe.directory, probe
+            log_print(f"auto_resume: found checkpoints in {load_dir}")
+    if not load_dir:
+        return state, 0, {}, "", {}
+    if mgr is None:
+        mgr = CheckpointManager(cfg, directory=load_dir)
+        state, meta = mgr.restore(state)
+    else:  # verified by latest_valid_step above
+        state, meta = mgr.load_step(state, step)
+        mgr.timings["verify_s"] = verify_s
+    tokens = int(meta.get("trained_tokens", 0))
+    log_print(f"resumed from {load_dir} at step {state.step} "
+              f"({human_format(tokens)} tokens; verify "
+              f"{mgr.timings['verify_s']:.2f}s, load "
+              f"{mgr.timings['load_s']:.2f}s)")
+    return state, tokens, meta, load_dir, dict(mgr.timings)
+
+
+def _save_line(what: str, path: str, timings: dict) -> str:
+    parts = [f"{k[:-2]} {v:.2f}s" for k, v in timings.items()
+             if k in ("snapshot_s", "write_s", "manifest_s")]
+    return f"{what} -> {path} ({', '.join(parts)})"
+
+
+def _emergency_checkpoint(cfg, ckpt_mgr, state, trained_tokens, dl,
+                          saved_steps):
+    """Preemption landed: make the in-flight progress durable inside the
+    grace window. Builds a manager on the spot when periodic saving was
+    off: an emergency save must not depend on save_frequency."""
+    mgr = ckpt_mgr if ckpt_mgr is not None else CheckpointManager(cfg)
+    path = mgr._step_dir(state.step)
+    if state.step not in saved_steps:
+        path = mgr.save(state, trained_tokens, dataloader_state=dl.state)
+        saved_steps.add(state.step)
+    mgr.wait_until_finished()
+    log_print(_save_line("emergency checkpoint", path, mgr.timings))
+    return mgr
+
+
+def _rollback(ckpt_mgr, state, dl, step, trained_tokens, why):
+    """Divergence-guard rollback: restore the last known-good checkpoint
+    (durable AND manifest-verified) and reposition the dataloader to the
+    cursor AFTER the poison batch. Returns (state, restored step,
+    trained_tokens); exits EXIT_DIVERGED when nothing valid exists."""
+    if ckpt_mgr is None or ckpt_mgr.latest_valid_step() is None:
+        log_print(f"[guard {step:06d}] {why}; rollback requested but no "
+                  f"valid checkpoint exists — aborting (exit "
+                  f"{EXIT_DIVERGED})")
+        raise SystemExit(EXIT_DIVERGED)
+    skip_to = dl.state  # position after the poison batch
+    state, meta = ckpt_mgr.restore(state)
+    dl.reset(skip_to)
+    tokens = int(meta.get("trained_tokens", 0))
+    log_print(f"[guard {step:06d}] {why}; rolled back to step {state.step} "
+              f"(skipping poisoned data through epoch {skip_to['epoch']} "
+              f"cursor {skip_to['cursor']}); was "
+              f"{human_format(trained_tokens)} tokens, now "
+              f"{human_format(tokens)}")
+    return state, state.step, tokens
+
+
 def run(cfg: Config, device: Optional[str] = None,
-        on_step: Optional[Callable[[int], None]] = None) -> dict:
+        on_step: Optional[Callable[[int, dict], None]] = None) -> dict:
     """Train per the config; returns {"losses", "step_seconds",
-    "tokens_per_step", "peak_memory_gb", "device", "state"} (state: the
-    trained TrainState). `on_step(step)` runs after each step, once its
-    loss has reached the host."""
+    "tokens_per_step", "peak_memory_gb", "device", "state", "val_losses",
+    "start_step", "restore_timings", "save_timings"} (state: the trained
+    TrainState; val_losses: {step: val_loss}). `on_step(step, metrics)`
+    runs after each completed step with its metrics as floats, before the
+    preemption check. Raises SystemExit(75/76) on preemption/divergence."""
     bad = unsupported(cfg)
     if bad:
         raise NotImplementedError(
             "not supported by this slice of the PyTorch port: "
             + "; ".join(bad))
     dev = resolve_device(cfg, device)
-    t = cfg.training
-    gen = torch.Generator(device=dev).manual_seed(t.seed)
-    model = init_params(LlamaModel(cfg.model, device=dev), gen)
-    state = init_train_state(cfg, model)
-    step_fn = make_train_step(cfg)
+    t, ck = cfg.training, cfg.checkpoint
+    if ck.save_frequency > 0:
+        est = preflight_save_dir(cfg)  # raises RuntimeError with the story
+        log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
+                  f"~{est / 1e9:.2f} GB/checkpoint)")
     dl = MicroBatchDataLoader(cfg, dev)
+    state, trained_tokens, ckpt_meta, resumed_from, restore_timings = (
+        build_state(cfg, dev))
+    start_step = state.step
+    if start_step > 0:
+        # Fast-forward the loader so resume does not replay consumed data;
+        # a checkpoint without a recorded position gets it from the step
+        # count and the tail-dropping epoch arithmetic.
+        dl_state = ckpt_meta.get("dataloader")
+        if dl_state is None:
+            per_epoch = max(1, len(dl.source) // cfg.global_batch_size)
+            dl_state = {"epoch": start_step // per_epoch,
+                        "cursor": (start_step % per_epoch)
+                        * cfg.global_batch_size}
+        dl.set_state(dl_state)
+    step_fn = make_train_step(cfg)
+    eval_batches = eval_fn = None
+    if t.eval_frequency > 0:
+        # a FIXED validation set: every eval (and every resumed run) scores
+        # the same batches
+        eval_dl = MicroBatchDataLoader(cfg, dev, source=build_eval_source(cfg))
+        eval_batches = [next(eval_dl) for _ in range(t.eval_steps)]
+        eval_fn = make_eval_step(cfg)
+    ckpt_mgr = CheckpointManager(cfg) if ck.save_frequency > 0 else None
     peak = device_peak_flops(dev) if dev.type == "cuda" else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
+    # two stop conditions, whichever bites first: steps and tokens
     total_steps = t.total_train_steps
     if t.max_tokens is not None:
-        total_steps = min(total_steps, -(-t.max_tokens // cfg.tokens_per_step))
-    losses, step_seconds = [], []
-    trained_tokens = 0
-    timer = StepTimer()
-    for step in range(1, total_steps + 1):
-        batch = next(dl)
-        loss = float(step_fn(state, batch))  # syncs the device
-        dt = max(timer.lap(), 1e-9)
-        trained_tokens += cfg.tokens_per_step
-        losses.append(loss)
-        step_seconds.append(dt)
-        if not math.isfinite(loss) and cfg.resilience.guard_policy == "abort":
-            log_print(f"[guard {step:06d}] non-finite loss {loss}; aborting "
-                      f"(exit {EXIT_DIVERGED})")
-            raise SystemExit(EXIT_DIVERGED)
-        if step % cfg.logging.log_frequency == 0 or step == total_steps:
-            tps = cfg.tokens_per_step / dt
-            mfu_frac = (mfu(tps, cfg.model, t.seq_length, 1, peak)
-                        if peak else 0.0)
-            log_print(training_log_line(step, loss, tps, tps, mfu_frac,
-                                        trained_tokens,
-                                        device_memory_gb(dev)))
-        if on_step is not None:
-            on_step(step)
+        remaining = max(0, t.max_tokens - trained_tokens)
+        total_steps = min(total_steps,
+                          start_step + -(-remaining // cfg.tokens_per_step))
+
+    rcfg = cfg.resilience
+    guard = (DivergenceGuard.from_config(rcfg)
+             if rcfg.guard_policy != "off" else None)
+    preempt = PreemptionHandler()
+    watchdog = Watchdog(rcfg.watchdog_timeout)
+    # Steps whose checkpoint already exists in the SAVE directory: the
+    # loaded step counts only when the resume source IS the save dir.
+    resumed_in_place = bool(resumed_from) and (
+        os.path.abspath(resumed_from) == os.path.abspath(ck.save_dir))
+    saved_steps = {start_step} if resumed_in_place else set()
+    losses, step_seconds, val_losses = [], [], {}
+    window = StepTimer()
+    last_logged_step = start_step
+    exit_code = None
+    step = start_step
+    # A while loop, not a range: rollback rewinds `step` to the restored
+    # checkpoint and the loop re-trains from there.
+    try:
+        preempt.install()
+        while step < total_steps:
+            step += 1
+            t0 = time.perf_counter()
+            watchdog.beat("data", step)
+            batch = next(dl)
+            watchdog.beat("step", step)
+            metrics = step_fn(state, batch)
+            watchdog.beat("sync", step)
+            # one device->host copy (and sync) for all of the metrics
+            fmetrics = dict(zip(metrics, torch.stack(
+                list(metrics.values())).tolist()))
+            step_seconds.append(time.perf_counter() - t0)
+            losses.append(fmetrics["loss"])
+            trained_tokens += cfg.tokens_per_step
+            if not watchdog.started:
+                # Arm only after the first step completes: step 1 includes
+                # the kernels' build and cuBLAS set-up.
+                watchdog.start()
+
+            if guard is not None:
+                action, why = guard.observe(
+                    step, fmetrics["loss"],
+                    grad_norm=fmetrics.get("grad_norm"),
+                    nonfinite=fmetrics.get("nonfinite"))
+                if action is not GuardAction.OK:
+                    telemetry_bus.emit("guard", action=action.value,
+                                       step=step, why=why)
+                if action is GuardAction.ABORT:
+                    log_print(f"[guard {step:06d}] {why}; aborting "
+                              f"(exit {EXIT_DIVERGED})")
+                    exit_code = EXIT_DIVERGED
+                    break
+                if action is GuardAction.SKIP:
+                    if "spike" in why:
+                        log_print(f"[guard {step:06d}] {why}; quarantined "
+                                  f"from the spike window (update already "
+                                  f"applied — policy 'rollback' undoes it)")
+                    else:
+                        log_print(f"[guard {step:06d}] {why}; batch skipped "
+                                  f"(update suppressed in-step, optimizer "
+                                  f"state preserved)")
+                elif action is GuardAction.ROLLBACK:
+                    watchdog.beat("rollback", step)
+                    state, step, trained_tokens = _rollback(
+                        ckpt_mgr, state, dl, step, trained_tokens, why)
+                    saved_steps.add(step)
+                    last_logged_step = step
+                    window.lap()  # restart the throughput window
+                    continue
+
+            if step % cfg.logging.log_frequency == 0 or step == total_steps:
+                extras = {k: v for k, v in fmetrics.items()
+                          if k not in ("loss", "nonfinite")}
+                # tokens/s over the window since the last logged step
+                dt = max(window.lap(), 1e-9)
+                tps = cfg.tokens_per_step * (step - last_logged_step) / dt
+                last_logged_step = step
+                mfu_frac = (mfu(tps, cfg.model, t.seq_length, 1, peak)
+                            if peak else 0.0)
+                log_print(training_log_line(
+                    step, fmetrics["loss"], tps, tps, mfu_frac,
+                    trained_tokens, device_memory_gb(dev), extras=extras))
+
+            if eval_fn is not None and (step % t.eval_frequency == 0
+                                        or step == total_steps):
+                watchdog.beat("eval", step)
+                val = (sum(float(eval_fn(state.model, b))
+                           for b in eval_batches) / len(eval_batches))
+                val_losses[step] = val
+                log_print(f"[eval  {step:06d}] val_loss: {val:.4f} "
+                          f"({t.eval_steps} batches)")
+
+            if ckpt_mgr is not None and step % ck.save_frequency == 0:
+                watchdog.beat("save", step)
+                path = ckpt_mgr.save(state, trained_tokens,
+                                     dataloader_state=dl.state)
+                saved_steps.add(step)
+                log_print(f"saved checkpoint -> {path}")
+
+            if on_step is not None:
+                on_step(step, fmetrics)
+
+            if preempt.triggered:
+                # The in-flight step finished above; make it durable and
+                # hand control back to the supervisor.
+                watchdog.beat("preempt-save", step)
+                ckpt_mgr = _emergency_checkpoint(
+                    cfg, ckpt_mgr, state, trained_tokens, dl, saved_steps)
+                log_print(f"preempted at step {step}; state is durable — "
+                          f"exiting {EXIT_PREEMPTED} for auto_resume")
+                exit_code = EXIT_PREEMPTED
+                break
+
+        if exit_code is None and ckpt_mgr is not None \
+                and state.step not in saved_steps:
+            # Final save, unless this run already wrote this exact step.
+            watchdog.beat("save", state.step)
+            ckpt_mgr.save(state, trained_tokens, dataloader_state=dl.state)
+    finally:
+        # A mid-run crash must not leak the watchdog, the signal handlers
+        # or a half-written async checkpoint; each cleanup is fenced so
+        # one failure cannot mask the original exception.
+        watchdog.stop()
+        preempt.uninstall()
+        if ckpt_mgr is not None:
+            try:
+                ckpt_mgr.wait_until_finished()
+            except Exception as e:  # noqa: BLE001
+                log_print(f"checkpoint finalization failed during "
+                          f"shutdown: {e!r}")
+    if exit_code is not None:
+        raise SystemExit(exit_code)
     return {"losses": losses, "step_seconds": step_seconds,
             "tokens_per_step": cfg.tokens_per_step,
             "peak_memory_gb": device_memory_gb(dev), "device": str(dev),
-            "state": state}
+            "state": state, "val_losses": val_losses,
+            "start_step": start_step, "restore_timings": restore_timings,
+            "save_timings": dict(ckpt_mgr.timings) if ckpt_mgr else {}}
 
 
 def main(argv=None) -> dict:

@@ -367,3 +367,52 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
             assert failed & outs, f"{mutant}: {kernel}'s outputs passed"
     if mutant.endswith("mask_off_by_one"):
         assert late_failed >= {"out", "dq", "dk", "dv"}, late_failed
+
+
+@cuda
+def test_bf16_save_resume_on_the_card_is_bit_identical(dev, tmp_path):
+    """A debug-size bf16 model (head_dim 64, so the tensor-core kernels
+    run) preempted by SIGTERM after step 2 and auto-resumed to step 4 on
+    the card: the losses and final params equal an uninterrupted run's."""
+    import os
+    import signal
+
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.config import config_from_dict
+
+    def cfg(save_dir=None):
+        raw = {"model": {"name": "debug-tiny", "hidden_size": 128,
+                         "num_attention_heads": 2, "num_key_value_heads": 1,
+                         "dtype": "bfloat16"},
+               "training": {"seq_length": 128, "micro_batch_size": 2,
+                            "gradient_accumulation_steps": 2,
+                            "total_train_steps": 4, "learning_rate": 1e-3,
+                            "adam_moments_dtype": "bfloat16", "remat": False,
+                            "eval_frequency": 4, "eval_steps": 1}}
+        if save_dir:
+            raw["checkpoint"] = {"save_dir": str(save_dir),
+                                 "auto_resume": True}
+        return config_from_dict(raw)
+
+    def preempt(step, metrics):
+        first.append(metrics["loss"])
+        if step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    first = []
+    fa.reset_launch_counts()
+    with pytest.raises(SystemExit) as e:
+        train.run(cfg(tmp_path), "cuda", on_step=preempt)
+    assert e.value.code == 75
+    resumed = train.run(cfg(tmp_path), "cuda")
+    assert resumed["start_step"] == 2
+    # 4 layers x ga 2 x 4 steps, + the eval's 4 x 2 x 1 forward launches
+    assert fa.launches == {"flash_fwd": 40, "flash_bwd_dq": 32,
+                           "flash_bwd_dkv": 32}
+    assert fa.fwd_launches == {"tensor_core": 40, "cuda_core": 0}
+    whole = train.run(cfg(), "cuda")
+    assert first + resumed["losses"] == whole["losses"]
+    assert resumed["val_losses"] == whole["val_losses"]
+    for (n, p), q in zip(resumed["state"].model.named_parameters(),
+                         whole["state"].model.parameters()):
+        assert torch.equal(p, q), n

@@ -9,6 +9,7 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -58,13 +59,20 @@ def test_three_steps_match_jax(moments, preset, clip):
 
     jstate = jstep.init_train_state(jc, jax.tree.map(jnp.asarray, tree))
     jstep_fn = jax.jit(jstep.make_train_step(jc))
+    jgrads_fn = jax.jit(lambda p, b: jstep.accumulate_grads(
+        p, b, jc, jstep.DEFAULT_CTX)[0])
 
     for _ in range(3):
         ids, tgt = next(loader)
-        tloss = float(step_fn(state, (ids, tgt)))
-        jstate, jloss = jstep_fn(jstate, (jnp.asarray(ids.numpy()),
-                                          jnp.asarray(tgt.numpy())))
-        np.testing.assert_allclose(tloss, float(jloss), **TOL)
+        metrics = step_fn(state, (ids, tgt))
+        jbatch = (jnp.asarray(ids.numpy()), jnp.asarray(tgt.numpy()))
+        # the guard's grad norm (default policy "abort") is optax's
+        want_norm = float(optax.global_norm(jgrads_fn(jstate.params, jbatch)))
+        jstate, jloss = jstep_fn(jstate, jbatch)
+        np.testing.assert_allclose(float(metrics["loss"]), float(jloss), **TOL)
+        np.testing.assert_allclose(float(metrics["grad_norm"]), want_norm,
+                                   **TOL)
+        assert float(metrics["nonfinite"]) == 0.0
     # 3 steps over 10 samples at 4 per step: the last one wrapped the epoch
     assert loader.state == {"epoch": 1, "cursor": 4}
     got = weights.params_to_numpy(model)
@@ -152,8 +160,8 @@ def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
     ({"distributed": {"dp_size": 2}}, "dp_size"),
     ({"training": {"remat": True}}, "remat"),
     ({"training": {"ce_chunk_size": 64}}, "ce_chunk_size"),
-    ({"checkpoint": {"save_frequency": 5}}, "checkpoint"),
-    ({"training": {"eval_frequency": 2}}, "eval"),
+    ({"resilience": {"chaos": "sigterm@2"}}, "chaos"),
+    ({"dataset": {"name": "HuggingFaceTB/smollm-corpus"}}, "HF datasets"),
     ({"model": {"name": "debug-tiny-moe"}}, "MoE"),
 ])
 def test_trainer_refuses_what_the_slice_lacks(override, match):
@@ -200,7 +208,7 @@ def test_run_calls_on_step_after_each_step():
     """The hook profile_step drives the trainer through."""
     cfg = tcfg.config_from_dict(_raw("float32", total_train_steps=3))
     seen = []
-    result = ttrain.run(cfg, "cpu", on_step=seen.append)
+    result = ttrain.run(cfg, "cpu", on_step=lambda s, m: seen.append(s))
     assert seen == [1, 2, 3]
     assert len(result["losses"]) == 3
 
