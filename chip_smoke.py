@@ -50,7 +50,33 @@ Phases, each of which raises on failure (so the script exits non-zero):
    launches included), every one on its tensor-core kernel. The save,
    verify and restore times are printed; the free disk is checked first
    and the directory is deleted at the end.
-5. Numbers, then the device line last.
+5. The fused grad engine, remat and chunked CE, on the same model:
+   (a) engine parity: one step (ga 2) of the phase-3 config from one seed
+   under the AD engine without remat and under the fused engine
+   (`parallel/fused_bwd.py`, remat "dots_attn"): the same mean loss (bit
+   for bit, else within LOSS_ATOL), every grad tensor within GRAD_RTOL in
+   relative L2 of the AD engine's, and the fused engine's weight grads
+   taken inside the GEMM (`torch.addmm(..., out_dtype=float32, out=acc)`,
+   first checked to write in place) against its plain form (bf16 dW, then
+   an fp32 add) at the same limit, and one step's grads by each form timed
+   in turns; (b) the fused main path, `python -m
+   picotron_tpu_torch.train --config
+   picotron_tpu_torch/configs/smollm17-1gpu-seq2048-fused.json` (remat
+   "dots_attn", grad_engine "auto", which must resolve to "fused"), with
+   phase 3's checks: each kernel launched 24 x ga x steps times on its
+   tensor-core kernel, so the forward kernel never re-runs in the
+   backward; (c) two steps of the phase-3 config under the AD engine with
+   each remat policy (two, so that the peak holds the AdamW moments the
+   first update makes): the step-1 loss equal to phase 3's (bit for bit,
+   else within LOSS_ATOL) and the step-2 loss within LOSS_ATOL of phase
+   3's, the
+   forward kernel launched twice per layer and microbatch under "full" and
+   once otherwise, and each policy's peak memory and second step's time;
+   (d) the chunked CE (chunk CE_CHUNK) against the unchunked one
+   on one microbatch's hidden [2, 2048, 2048] and the head [49152, 2048]
+   in bf16: the loss within CE_LOSS_RTOL, d hidden and d head within
+   CE_GRAD_RTOL in relative L2, and each one's peak memory.
+6. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -86,6 +112,18 @@ attention paths take the same bf16 q/k/v and differ by the kernels' bf16
 rounding of P (the plain version keeps it in fp32) and the order of fp32
 sums, which the per-row phase-2 limit bounds at 1e-2 relative per row of
 out; averaged over 8192 tokens the loss moves by far less.
+
+Phase 5's limits: GRAD_RTOL = 1e-2 per grad tensor, ||g_fused - g_ad||_2
+<= 1e-2 * ||g_ad||_2. The engines run the same bf16 products, but the
+fused engine accumulates each weight grad in fp32 inside the GEMM where
+autograd rounds the microbatch's dW to bf16 (2^-9 relative per element)
+before its fp32 add, and it sums the dX products of q/k/v and gate/up in
+another order; the bf16 dW rounding alone is ~2e-3. LOSS_ATOL = 1e-3: the
+forward ops are the same, so the loss is expected bit for bit. The chunked
+CE runs the same bf16 head products as the unchunked CE and merges the
+chunks' fp32 (max, sumexp) pairs: CE_LOSS_RTOL = 1e-3 on the loss and
+CE_GRAD_RTOL = 1e-2 on the grads (its dlogits round to bf16 per chunk, as
+the unchunked CE's do).
 
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
@@ -130,6 +168,13 @@ CKPT_DIR = "build/smoke_ckpt"
 EVAL_STEPS = 2
 EVAL_ATOL = 5e-3               # val_loss: forward kernel vs plain attention
 RESUME_SPREAD_FACTOR = 4       # resumed losses vs phase 3, if not bitwise
+FUSED_CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-seq2048-fused.json"
+REMAT_POLICIES = ("full", "dots", "dots_attn", "dots_lean", "dots_norms")
+GRAD_RTOL = 1e-2               # per grad tensor: fused vs AD engine
+LOSS_ATOL = 1e-3               # step-1 loss across engines and policies
+CE_CHUNK = 8192
+CE_LOSS_RTOL = 1e-3            # chunked vs unchunked CE loss
+CE_GRAD_RTOL = 1e-2            # chunked vs unchunked CE grads, relative L2
 
 
 def log(msg: str) -> None:
@@ -309,15 +354,15 @@ def seen_batch_loss(cfg, model) -> float:
     return total / count
 
 
-def main_path(fa, here: str) -> dict:
+def main_path(fa, here: str, config: str = CONFIG) -> dict:
     from picotron_tpu_torch import train
     from picotron_tpu_torch.config import load_config
 
-    path = os.path.join(here, CONFIG)
+    path = os.path.join(here, config)
     t = load_config(path).training
     if (t.seq_length, t.micro_batch_size, t.gradient_accumulation_steps,
             t.total_train_steps) != (SEQ, MBS, GA, STEPS):
-        raise AssertionError(f"{CONFIG} is not the smoke shape")
+        raise AssertionError(f"{config} is not the smoke shape")
     fa.reset_launch_counts()
     result = train.main(["--config", path])
     torch.cuda.synchronize()
@@ -362,6 +407,216 @@ def check_launches(counts: dict, want: dict, label: str) -> None:
             raise AssertionError(
                 f"{label}: {name} launched {counts['launches'][name]} times "
                 f"({key} {counts[key]}), want {n}, all on the tensor cores")
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def worst_grad(got: dict, want: dict):
+    """(largest relative L2 error over the grad tensors, its name)."""
+    errs = {n: rel_l2(got[n], want[n]) for n in want}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def gemm_accumulate_in_place(dev) -> float:
+    """The fused engine's weight-grad GEMM writes into its fp32
+    accumulator in place: relative L2 error against an fp32 reference."""
+    from picotron_tpu_torch.parallel.fused_bwd import accumulate_weight_grad
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    dy = torch.randn(2, 1024, 192, generator=g, device=dev).bfloat16()
+    x = torch.randn(2, 1024, 320, generator=g, device=dev).bfloat16()
+    acc = torch.randn(192, 320, generator=g, device=dev)
+    want = acc + dy.reshape(-1, 192).double().t() @ x.reshape(-1, 320).double()
+    ptr = acc.data_ptr()
+    accumulate_weight_grad(acc, dy, x)
+    err = rel_l2(acc, want)
+    if acc.data_ptr() != ptr or not err <= 1e-5:
+        raise AssertionError(f"GEMM-accumulate: in place "
+                             f"{acc.data_ptr() == ptr}, error {err:.3g}")
+    return err
+
+
+def engine_parity(cfg, seed: int = 1234, dev: str = "cuda") -> dict:
+    """Phase 5(a) on `cfg` (an AD config without remat; its fused twin is
+    the same config with remat "dots_attn" and grad_engine "fused"): one
+    step's grads from one seed under both engines, and the fused engine's
+    GEMM-accumulate against its plain form. Raises past the limits."""
+    import dataclasses
+
+    from picotron_tpu_torch.data import MicroBatchDataLoader
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+    from picotron_tpu_torch.parallel.fused_bwd import (
+        ComputeWeights, fused_accumulate_grads,
+    )
+    from picotron_tpu_torch.train_step import (
+        make_grads_fn, resolved_grad_engine,
+    )
+
+    fused_cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, remat=True, remat_policy="dots_attn",
+        grad_engine="fused"))
+    if (resolved_grad_engine(cfg), resolved_grad_engine(fused_cfg)) != (
+            "ad", "fused"):
+        raise AssertionError("engine parity needs an AD config")
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(LlamaModel(cfg.model, device=dev), gen)
+    batch = next(MicroBatchDataLoader(cfg, dev))
+    loss_ad = float(make_grads_fn(cfg)(model, batch))
+    g_ad = grads_of(model)
+    loss_fused = float(make_grads_fn(fused_cfg)(model, batch))
+    g_fused = grads_of(model)
+    err, name = worst_grad(g_fused, g_ad)
+    del g_ad
+    weights = ComputeWeights(model)
+    weights.refresh()
+    loss_plain = float(fused_accumulate_grads(model, weights, batch,
+                                              plain=True))
+    err_plain, name_plain = worst_grad(grads_of(model), g_fused)
+    times = {True: [], False: []}
+    if dev.type == "cuda":  # one step's grads by each form, in turns
+        for plain in (False, True, True, False):
+            times[plain].append(cuda_ms(lambda: fused_accumulate_grads(
+                model, weights, batch, plain=plain), iters=1, warmup=0))
+    out = {"loss_ad": loss_ad, "loss_fused": loss_fused,
+           "loss_fused_plain": loss_plain,
+           "bitwise": loss_ad == loss_fused == loss_plain,
+           "worst_grad_rel_l2": err, "worst_grad": name,
+           "worst_gemm_vs_plain_rel_l2": err_plain,
+           "worst_gemm_vs_plain": name_plain,
+           "grads_ms_gemm": times[False], "grads_ms_plain": times[True]}
+    del g_fused, weights, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase 5a engine parity: loss AD {loss_ad}, fused {loss_fused}, "
+        f"fused plain {loss_plain}; worst grad fused vs AD {err:.4g} "
+        f"({name}), GEMM-accumulate vs plain {err_plain:.4g} ({name_plain}) "
+        f"(limit {GRAD_RTOL:g}); one step's grads GEMM-accumulate "
+        f"{times[False]} ms, plain {times[True]} ms")
+    for a, b in ((loss_ad, loss_fused), (loss_fused, loss_plain)):
+        if not abs(a - b) <= LOSS_ATOL:
+            raise AssertionError(f"engine losses {a} vs {b}")
+    if not (err <= GRAD_RTOL and err_plain <= GRAD_RTOL):
+        raise AssertionError(f"engine grads: fused vs AD {err} ({name}), "
+                             f"GEMM vs plain {err_plain} ({name_plain})")
+    return out
+
+
+def chunked_ce_check(n=(MBS, SEQ), hidden=2048, vocab=49152,
+                     chunk=CE_CHUNK, seed=5) -> dict:
+    """Phase 5(d): the chunked CE against the unchunked one in bf16 on the
+    card, loss and grads, with each one's peak memory (GiB above what was
+    allocated before it)."""
+    from picotron_tpu_torch.ops.losses import (
+        IGNORE_INDEX, chunked_cross_entropy_sum_count, cross_entropy_sum_count,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(*n, hidden, generator=g, device=dev).bfloat16()
+    bound = (1.0 / hidden) ** 0.5
+    w = ((torch.rand(vocab, hidden, generator=g, device=dev) * 2 - 1)
+         * bound).bfloat16()
+    tgt = torch.randint(0, vocab, n, generator=g, device=dev)
+    tgt[0, :64] = IGNORE_INDEX
+    res = {}
+    for name, fn in (
+            ("unchunked", lambda h_, w_: cross_entropy_sum_count(
+                h_ @ w_.t(), tgt)[0]),
+            ("chunked", lambda h_, w_: chunked_cross_entropy_sum_count(
+                h_, w_, tgt, chunk)[0])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        h_, w_ = h.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = fn(h_, w_)
+        dh, dw = torch.autograd.grad(loss, (h_, w_))
+        torch.cuda.synchronize()
+        res[name] = (float(loss.detach()), dh, dw,
+                     (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        del h_, w_, loss
+    lu, dhu, dwu, mu = res["unchunked"]
+    lc, dhc, dwc, mc = res["chunked"]
+    out = {"loss": lc, "loss_unchunked": lu,
+           "loss_rel_err": abs(lc - lu) / abs(lu),
+           "d_hidden_rel_l2": rel_l2(dhc, dhu), "d_head_rel_l2": rel_l2(dwc, dwu),
+           "peak_gb": mc, "peak_gb_unchunked": mu}
+    del res, dhu, dwu, dhc, dwc
+    torch.cuda.empty_cache()
+    log(f"phase 5d chunked CE (chunk {chunk}, tokens {n[0] * n[1]}, vocab "
+        f"{vocab}): loss {lc} vs {lu} (rel {out['loss_rel_err']:.3g}, limit "
+        f"{CE_LOSS_RTOL:g}), d hidden {out['d_hidden_rel_l2']:.3g}, d head "
+        f"{out['d_head_rel_l2']:.3g} (limit {CE_GRAD_RTOL:g}); peak "
+        f"{mc:.3f} GiB chunked, {mu:.3f} GiB unchunked")
+    if not (out["loss_rel_err"] <= CE_LOSS_RTOL
+            and out["d_hidden_rel_l2"] <= CE_GRAD_RTOL
+            and out["d_head_rel_l2"] <= CE_GRAD_RTOL):
+        raise AssertionError(f"chunked CE out of its limits: {out}")
+    return out
+
+
+def remat_policies(fa, here: str, phase3_losses: list) -> dict:
+    """Phase 5(c): two steps of the phase-3 config under the AD engine
+    with each remat policy, through `train.run`: {policy: {losses, peak
+    GiB, second step's seconds}}."""
+    import dataclasses
+    import gc
+
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.config import load_config
+
+    base = load_config(os.path.join(here, CONFIG))
+    out = {}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(base, training=dataclasses.replace(
+            base.training, remat=True, remat_policy=policy, grad_engine="ad",
+            total_train_steps=2))
+        fa.reset_launch_counts()
+        result = train.run(cfg, "cuda")
+        torch.cuda.synchronize()
+        per_step = 24 * GA * 2
+        check_launches(launch_counts(fa), {
+            "flash_fwd": per_step * (2 if policy == "full" else 1),
+            "flash_bwd_dq": per_step, "flash_bwd_dkv": per_step},
+            f"phase 5c {policy}")
+        losses = result["losses"]
+        out[policy] = {"losses": losses,
+                       "peak_memory_gb": result["peak_memory_gb"],
+                       "step_2_s": result["step_seconds"][1]}
+        want = phase3_losses[:2]
+        same = "bit for bit" if losses == want else (
+            f"max diff {max(abs(a - b) for a, b in zip(losses, want))!r}")
+        log(f"phase 5c remat {policy}: losses {losses} (phase 3: {want}, "
+            f"{same}), peak {result['peak_memory_gb']:.2f} "
+            f"GiB, step 2 {result['step_seconds'][1] * 1e3:.1f} ms, forward "
+            f"launches {fa.launches['flash_fwd']}")
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(abs(a - b) <= LOSS_ATOL for a, b in zip(losses, want)):
+            raise AssertionError(f"remat {policy}: losses {losses}, phase 3 "
+                                 f"{want}")
+    return out
+
+
+def path_numbers(result: dict, m, peak_flops: float) -> dict:
+    """Step ms (median of steps 2-4), tokens/s, MFU, peak GiB of a
+    main-path run."""
+    from picotron_tpu_torch.utils import flops_per_token
+
+    steady = statistics.median(result["step_seconds"][1:])
+    tps = result["tokens_per_step"] / steady
+    return {"step_ms": steady * 1e3, "tokens_per_s": tps,
+            "mfu": tps * flops_per_token(m, SEQ) / peak_flops,
+            "peak_memory_gb": result["peak_memory_gb"]}
 
 
 @torch.no_grad()
@@ -541,7 +796,7 @@ def main() -> int:
     from picotron_tpu_torch.kernels import build
     from picotron_tpu_torch.ops import flash_attention as fa
     from picotron_tpu_torch.ops.rope import rope_tables
-    from picotron_tpu_torch.utils import H100_BF16_PEAK, flops_per_token
+    from picotron_tpu_torch.utils import H100_BF16_PEAK
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -635,19 +890,41 @@ def main() -> int:
                              on_launches)
     ckpt["launches"] = phase4_launches
     log(f"phase 4 checkpoint and resume: ok, launches {phase4_launches}")
+    torch.cuda.empty_cache()
 
-    # phase 5: numbers
-    from picotron_tpu_torch.config import config_from_dict
+    # phase 5: the fused grad engine, remat and chunked CE
+    from picotron_tpu_torch.config import config_from_dict, load_config
+    from picotron_tpu_torch.train_step import resolved_grad_engine
 
+    engines = {"card": card,
+               "gemm_accumulate_in_place_rel_l2": gemm_accumulate_in_place(dev)}
+    engines["parity"] = engine_parity(load_config(os.path.join(here, CONFIG)))
+    engine = resolved_grad_engine(load_config(os.path.join(here,
+                                                           FUSED_CONFIG)))
+    if engine != "fused":
+        raise AssertionError(f"{FUSED_CONFIG} resolves to {engine}")
+    fused = main_path(fa, here, FUSED_CONFIG)
+    log(f"phase 5b fused main path: ok, losses {fused['losses']}, first "
+        f"batch after {STEPS} steps {fused['seen_batch_loss']}, launches "
+        f"{fused['launches']}")
+    torch.cuda.empty_cache()
+    engines["remat"] = remat_policies(fa, here, result["losses"])
+    engines["chunked_ce"] = chunked_ce_check()
+    log("phase 5 engines, remat and chunked CE: ok")
+
+    # phase 6: numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
-    steady = statistics.median(result["step_seconds"][1:])
-    tps = result["tokens_per_step"] / steady
-    mfu = tps * flops_per_token(m, SEQ) / H100_BF16_PEAK
-    log(f"main path ({card}): step {steady * 1e3:.1f} ms (median of steps "
-        f"2-{STEPS}), {tps:.1f} tokens/s, MFU {100 * mfu:.2f}% of "
-        f"{H100_BF16_PEAK / 1e12:.1f} TFLOP/s, peak memory "
-        f"{result['peak_memory_gb']:.2f} GiB, step seconds "
-        f"{result['step_seconds']}")
+    for label, res in (("main path (AD, no remat)", result),
+                       ("fused path (fused, dots_attn)", fused)):
+        nums = path_numbers(res, m, H100_BF16_PEAK)
+        engines["ad" if res is result else "fused"] = {
+            **nums, "losses": res["losses"],
+            **{key: res[key] for key in VARIANT_COUNTS}}
+        log(f"{label} ({card}): step {nums['step_ms']:.1f} ms (median of "
+            f"steps 2-{STEPS}), {nums['tokens_per_s']:.1f} tokens/s, MFU "
+            f"{100 * nums['mfu']:.2f}% of {H100_BF16_PEAK / 1e12:.1f} "
+            f"TFLOP/s, peak memory {nums['peak_memory_gb']:.2f} GiB, step "
+            f"seconds {res['step_seconds']}")
     kernels = []
     for name, replaces in KERNELS:
         ms, plain_ms, lib_ms = times[name]
@@ -663,12 +940,12 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
-        "card": card, "step_ms": steady * 1e3, "tokens_per_s": tps,
-        "mfu": mfu, "peak_memory_gb": result["peak_memory_gb"],
-        "losses": result["losses"],
-        **{key: result[key] for key in VARIANT_COUNTS},
+        "card": card, **engines["ad"],
         "seen_batch_loss": result["seen_batch_loss"]}}))
     print(json.dumps({"checkpoint_resume": {"card": card, **ckpt}}))
+    engines["remat_peak_gb"] = {p: r["peak_memory_gb"]
+                                for p, r in engines["remat"].items()}
+    print(json.dumps({"engines": engines}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

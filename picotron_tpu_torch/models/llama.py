@@ -12,8 +12,37 @@ JAX `.astype(dt)`), so autograd gives fp32 grads. Matmul weights use the
 PyTorch [out_features, in_features] layout (`F.linear`); `weights.py`
 converts to and from the JAX [in, out] stacked-layer pytree.
 
-Single device only in this slice: MoE, tp/cp/pp hooks and remat are
-rejected with an error naming the ROADMAP item.
+Single device only in this slice: MoE and the tp/cp/pp hooks are rejected
+with an error naming the ROADMAP item.
+
+Remat (port of `remat_policy_for` / `run_layers` under `ctx.remat`): each
+policy cuts the layer into `torch.utils.checkpoint` segments (non-reentrant)
+so that what one layer keeps for its backward is the JAX policy's saved
+set. The flash kernels are bound through ctypes, out of the dispatcher's
+sight, so no op-level selective policy can name their outputs: the
+attention core stays outside the segments (its autograd node saves q, k, v,
+out and lse) except under "full". A segment keeps its inputs; a matmul
+outside a segment keeps its input. Per layer ("q" is the kernel's
+sm_scale-folded q, the others the named JAX tensors; x is the layer input):
+
+    policy       saved per layer                               count
+    (no remat)   everything autograd saves                     -
+    full         x                                             1
+    dots_attn    x, q, k, v, attn_out, attn_lse                6
+    dots_lean    + mlp_gate, mlp_up                            8
+    dots         + attn_proj_out                               9
+    dots_norms   + norm_out (input norm and post norm)         11
+
+Everything else is recomputed in the backward: the norms, the residual
+sum, the activation, and under "dots_attn" the o-projection and the MLP's
+gate/up products ("full" re-runs the whole layer, the forward kernel
+included). Autograd saves a matmul's input before it multiplies, and a
+segment's recompute stops once its last saved tensor is rebuilt, so the
+matmuls a segment recomputes are those before its last one: two of q/k/v
+under every policy but "full" and "dots_norms", and mlp_gate under "dots"
+and "dots_lean" (JAX recomputes none of these; the saved sets are equal).
+"dots_offload" (saves parked in pinned host memory) is not ported
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -23,11 +52,14 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from picotron_tpu_torch.config import ModelConfig
 from picotron_tpu_torch.ops.attention import sdpa_attention
 from picotron_tpu_torch.ops.flash_attention import flash_attention
-from picotron_tpu_torch.ops.losses import cross_entropy_sum_count
+from picotron_tpu_torch.ops.losses import (
+    chunked_cross_entropy_sum_count, cross_entropy_sum_count,
+)
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.rope import apply_rope, rope_tables
 
@@ -180,23 +212,34 @@ def _attention(q, k, v, cfg: ModelConfig, rope):
 
 def _attention_block(x, lp: DecoderLayer, cfg: ModelConfig, rope):
     """RMSNorm -> qkv -> attention (RoPE inside) -> o-proj."""
-    dt = x.dtype
-    d = cfg.head_dim
+    q, k, v = _qkv_block(x, lp, cfg)
+    return _o_proj(_attention(q, k, v, cfg, rope), lp)
+
+
+def _qkv_block(x, lp: DecoderLayer, cfg: ModelConfig):
     h = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
-    b, s, _ = h.shape
-    q, k, v = qkv_proj(h, lp, d)
-    out = _attention(q, k, v, cfg, rope)
-    out = out.reshape(b, s, -1)
-    return F.linear(out, lp.o.to(dt))
+    return qkv_proj(h, lp, cfg.head_dim)
+
+
+def _o_proj(out, lp: DecoderLayer):
+    """[B, S, Hq, D] attention output -> o-projection [B, S, H]."""
+    b, s = out.shape[:2]
+    return F.linear(out.reshape(b, s, -1), lp.o.to(out.dtype))
+
+
+def _gate_up(h, lp: DecoderLayer):
+    dt = h.dtype
+    return F.linear(h, lp.gate.to(dt)), F.linear(h, lp.up.to(dt))
+
+
+def _act_down(gate, up, lp: DecoderLayer, cfg: ModelConfig):
+    return F.linear(mlp_act(cfg)(gate) * up, lp.down.to(gate.dtype))
 
 
 def _mlp_block(x, lp: DecoderLayer, cfg: ModelConfig):
     """RMSNorm -> gated MLP."""
-    dt = x.dtype
     h = rms_norm(x, lp.post_norm, cfg.rms_norm_eps)
-    gate = F.linear(h, lp.gate.to(dt))
-    up = F.linear(h, lp.up.to(dt))
-    return F.linear(mlp_act(cfg)(gate) * up, lp.down.to(dt))
+    return _act_down(*_gate_up(h, lp), lp, cfg)
 
 
 def decoder_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope):
@@ -204,10 +247,74 @@ def decoder_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope):
     return x + _mlp_block(x, lp, cfg)
 
 
-def run_layers(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
+# the remat segments: each returns what crosses its boundary
+
+
+def _after_attention(x, out, lp, cfg):
+    """o-proj -> residual -> MLP -> residual ("dots_attn")."""
+    a = x + _o_proj(out, lp)
+    return a + _mlp_block(a, lp, cfg)
+
+
+def _res_norm(x, o, lp, cfg):
+    a = x + o
+    return a, rms_norm(a, lp.post_norm, cfg.rms_norm_eps)
+
+
+def _res_norm_gate_up(x, o, lp, cfg):
+    a, h = _res_norm(x, o, lp, cfg)
+    return (a, *_gate_up(h, lp))
+
+
+def _o_res_norm_gate_up(x, out, lp, cfg):
+    return _res_norm_gate_up(x, _o_proj(out, lp), lp, cfg)
+
+
+def _segment(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
+    """`decoder_layer` with `policy`'s saved set (module docstring)."""
+    if policy == "full":
+        return _segment(decoder_layer, x, lp, cfg, rope)
+    if policy == "dots_norms":
+        h = _segment(rms_norm, x, lp.input_norm, cfg.rms_norm_eps)
+        q, k, v = qkv_proj(h, lp, cfg.head_dim)
+    else:
+        q, k, v = _segment(_qkv_block, x, lp, cfg)
+    out = _attention(q, k, v, cfg, rope)
+    if policy == "dots_attn":
+        return _segment(_after_attention, x, out, lp, cfg)
+    if policy == "dots_lean":
+        a, gate, up = _segment(_o_res_norm_gate_up, x, out, lp, cfg)
+    elif policy == "dots":
+        o = _segment(_o_proj, out, lp)
+        a, gate, up = _segment(_res_norm_gate_up, x, o, lp, cfg)
+    elif policy == "dots_norms":
+        o = _segment(_o_proj, out, lp)
+        a, h = _segment(_res_norm, x, o, lp, cfg)
+        gate, up = _gate_up(h, lp)
+    else:
+        raise NotImplementedError(
+            f"remat_policy={policy!r}: saves parked in pinned host memory "
+            "are not ported (ROADMAP Queue 1 item 7)"
+            if policy == "dots_offload" else
+            f"unknown remat_policy {policy!r}")
+    return a + _segment(_act_down, gate, up, lp, cfg)
+
+
+def run_layers(model: LlamaModel, x: torch.Tensor,
+               remat: Optional[str] = None) -> torch.Tensor:
+    """The decoder layers over x; `remat` is a remat policy name, or None
+    for none."""
     rope = (model.rope_cos, model.rope_sin)
     for lp in model.layers:
-        x = decoder_layer(x, lp, model.cfg, rope)
+        if remat is None:
+            x = decoder_layer(x, lp, model.cfg, rope)
+        else:
+            x = remat_layer(x, lp, model.cfg, rope, remat)
     return x
 
 
@@ -226,12 +333,20 @@ def forward(model: LlamaModel, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def loss_sum_count(model: LlamaModel, input_ids: torch.Tensor,
-                   targets: torch.Tensor):
+                   targets: torch.Tensor, remat: Optional[str] = None,
+                   ce_chunk_size: int = 0):
     """(sum of per-token NLL, valid-token count, extras) — the reduction
     pieces, summed over microbatches before one division. extras is {} for
-    dense models."""
-    logits = forward(model, input_ids)
-    total, count = cross_entropy_sum_count(logits, targets)
+    dense models. `remat`: a remat policy name or None; `ce_chunk_size`
+    > 0 streams the head's CE over vocab chunks (training.ce_chunk_size)."""
+    x = run_layers(model, embed(model, input_ids), remat)
+    x = final_hidden(model, x)
+    if ce_chunk_size:
+        total, count = chunked_cross_entropy_sum_count(
+            x, model.head_weight(), targets, ce_chunk_size)
+    else:
+        total, count = cross_entropy_sum_count(logits_from_hidden(model, x),
+                                               targets)
     return total, count, {}
 
 

@@ -1,0 +1,316 @@
+"""Fused-accumulation grad engine: a manual backward over the decoder
+layers that adds each layer's weight grads straight into the fp32 grads
+(port of picotron_tpu/parallel/fused_bwd.py, single device).
+
+Why it exists: under gradient accumulation autograd gives every
+microbatch a fresh grad per parameter, which `.grad` then adds in a second
+whole-model fp32 pass, and each use of an fp32 master re-casts it to bf16.
+Here the weight grads are taken inside the GEMM into `p.grad` (on CUDA
+`torch.addmm(..., out_dtype=torch.float32, out=p.grad)`; on the CPU the
+plain form, dW in the compute dtype then `add_(dW.float())`, which is the
+JAX engine's and autograd's rounding point), and the matmuls read
+`ComputeWeights`, bf16 copies of the masters refreshed once per step.
+
+The forward runs under `torch.no_grad()` and keeps per layer what the
+"dots_attn" remat policy keeps: the layer input x, q, k, v, the attention
+out and its lse. The backward walks the layers in reverse: it recomputes
+the o-projection and the MLP, takes the norm and activation transposes
+from `torch.autograd.grad` over the recomputed elementwise pieces (the
+counterpart of the JAX engine's segment `jax.vjp`s, so activation
+functions cannot diverge from the AD engine), the dX products as explicit
+matmuls against the compute weights, and reaches attention only through
+`flash_attention_bwd_from_saved` (the dq and dk/dv kernels; the forward
+kernel runs once per layer, never again in the backward). Embedding,
+final-norm, head, norm and bias grads are added as the JAX engine adds
+its non-layer leaves.
+
+Eligibility is the JAX package's (`fused_bwd_supported`: one pipeline
+stage under remat "dots_attn"); of its branches only the single-device
+ones are ported: flash (`attn_impl` "auto"/"flash") and the plain
+"reference" attention. Context parallelism and tp/SP (ROADMAP Queue 1 item
+9) and MoE (item 10) are refused.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from picotron_tpu_torch.config import Config
+from picotron_tpu_torch.models.llama import (
+    LlamaModel, compute_dtype, embed, mlp_act,
+)
+from picotron_tpu_torch.ops.attention import (
+    sdpa_attention, sdpa_attention_bwd_from_saved,
+)
+from picotron_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd_from_saved,
+)
+from picotron_tpu_torch.ops.losses import (
+    chunked_cross_entropy_sum_count, cross_entropy_sum_count,
+)
+from picotron_tpu_torch.ops.rmsnorm import rms_norm
+from picotron_tpu_torch.ops.rope import apply_rope
+
+_MATMULS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def fused_bwd_supported(cfg: Config) -> bool:
+    """The JAX package's eligibility: one pipeline stage under remat with
+    the "dots_attn" policy, whose save set the manual backward is derived
+    from."""
+    d, t = cfg.distributed, cfg.training
+    return (d.pp_size == 1
+            and t.remat and t.remat_policy == "dots_attn")
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise for the JAX engine's branches this port lacks."""
+    d, m = cfg.distributed, cfg.model
+    if d.cp_size > 1 or m.attn_impl not in ("auto", "flash", "reference"):
+        raise NotImplementedError(
+            "the fused grad engine's context-parallel branches are not "
+            "ported yet (ROADMAP Queue 1 item 9)")
+    if d.tp_size > 1 or d.sequence_parallel:
+        raise NotImplementedError(
+            "the fused grad engine under tp/sequence parallelism is not "
+            "ported yet (ROADMAP Queue 1 item 9)")
+    if m.num_experts:
+        raise NotImplementedError(
+            "the fused grad engine's MoE branch is not ported yet (ROADMAP "
+            "Queue 1 item 10)")
+
+
+class ComputeWeights:
+    """The matmul weights in the compute dtype, read by the engine: one
+    copy per layer weight and the head, refreshed from the fp32 masters by
+    one `torch._foreach_copy_` at the start of every step (so a restore or
+    a rollback cannot leave them stale; a cast is deterministic, so this
+    equals casting at each use bit for bit). Under fp32 compute they are
+    the masters themselves."""
+
+    def __init__(self, model: LlamaModel):
+        self.model = model
+        dt = compute_dtype(model.cfg)
+        self.masters = [getattr(lp, name).detach() for lp in model.layers
+                        for name in _MATMULS]
+        self.masters.append(model.head_weight().detach())
+        self.copies = (self.masters if dt == torch.float32 else
+                       [torch.empty_like(p, dtype=dt) for p in self.masters])
+
+    def refresh(self) -> None:
+        if self.copies is not self.masters:
+            torch._foreach_copy_(self.copies, self.masters)
+
+    def layer(self, i: int) -> dict:
+        n = len(_MATMULS)
+        return dict(zip(_MATMULS, self.copies[i * n:(i + 1) * n]))
+
+    @property
+    def head(self) -> torch.Tensor:
+        return self.copies[-1]
+
+
+def accumulate_weight_grad(acc: torch.Tensor, dy: torch.Tensor,
+                           x: torch.Tensor, plain: bool = False) -> None:
+    """acc [out, in] fp32 += dy^T x over the flattened leading dims. CUDA
+    takes the product into acc inside the GEMM (fp32 accumulation, no
+    rounding of dW); the CPU (or `plain=True`) computes dW in the compute
+    dtype and adds it in fp32. Any other device raises."""
+    dy2 = dy.reshape(-1, dy.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if acc.is_cuda and not plain:
+        if x2.dtype == acc.dtype:
+            acc.addmm_(dy2.t(), x2)
+        else:
+            torch.addmm(acc, dy2.t(), x2, out_dtype=acc.dtype, out=acc)
+    elif acc.is_cuda or acc.device.type == "cpu":
+        acc.add_((dy2.t() @ x2).to(acc.dtype))
+    else:
+        raise RuntimeError(f"fused grad engine: no path for {acc.device}")
+
+
+def _attn_paths(model: LlamaModel):
+    """(attn_fwd, attn_bwd) for the model's attention impl:
+    attn_fwd(q, k, v) -> (out, lse), q/k unrotated [B, S, H, D];
+    attn_bwd(q, k, v, out, lse, dout) -> (dq, dk, dv) in the same
+    domains."""
+    cfg = model.cfg
+    rope = (model.rope_cos, model.rope_sin)
+    if cfg.attn_impl in ("auto", "flash"):
+        def attn_fwd(q, k, v):
+            return flash_attention(q, k, v, causal=True, rope=rope,
+                                   return_lse=True)
+
+        def attn_bwd(q, k, v, out, lse, dout):
+            return flash_attention_bwd_from_saved(q, k, v, out, lse, dout,
+                                                  causal=True, rope=rope)
+
+        return attn_fwd, attn_bwd
+
+    def rotated(q, k):
+        return apply_rope(q, *rope), apply_rope(k, *rope)
+
+    def attn_fwd(q, k, v):
+        qr, kr = rotated(q, k)
+        return sdpa_attention(qr, kr, v, causal=True, return_lse=True)
+
+    def attn_bwd(q, k, v, out, lse, dout):
+        with torch.enable_grad():
+            q_, k_ = q.detach().requires_grad_(), k.detach().requires_grad_()
+            qr, kr = rotated(q_, k_)
+        dqr, dkr, dv = sdpa_attention_bwd_from_saved(
+            qr.detach(), kr.detach(), v, out, lse, dout, causal=True)
+        # the rotation's transpose, by autograd over the rotation
+        dq, dk = torch.autograd.grad((qr, kr), (q_, k_), (dqr, dkr))
+        return dq, dk, dv
+
+    return attn_fwd, attn_bwd
+
+
+def _qkv(h, lp, w, d):
+    b, s, _ = h.shape
+    q, k, v = F.linear(h, w["q"]), F.linear(h, w["k"]), F.linear(h, w["v"])
+    if lp.b_q is not None:
+        q = q + lp.b_q.to(h.dtype)
+        k = k + lp.b_k.to(h.dtype)
+        v = v + lp.b_v.to(h.dtype)
+    return (q.reshape(b, s, -1, d), k.reshape(b, s, -1, d),
+            v.reshape(b, s, -1, d))
+
+
+def _flat(t):
+    return t.reshape(t.shape[0], t.shape[1], -1)
+
+
+def _with_grad(t):
+    return t.detach().requires_grad_()
+
+
+@torch.no_grad()
+def forward_saved(model: LlamaModel, weights: ComputeWeights,
+                  ids: torch.Tensor, attn_fwd=None):
+    """The engine's forward through the compute weights: (the last layer's
+    output, per layer (x, q, k, v, out, lse), the "dots_attn" set)."""
+    cfg = model.cfg
+    eps, hd, act = cfg.rms_norm_eps, cfg.head_dim, mlp_act(cfg)
+    attn_fwd = attn_fwd or _attn_paths(model)[0]
+    saved = []
+    x = embed(model, ids)
+    for i, lp in enumerate(model.layers):
+        w = weights.layer(i)
+        q, k, v = _qkv(rms_norm(x, lp.input_norm, eps), lp, w, hd)
+        out, lse = attn_fwd(q, k, v)
+        a = x + F.linear(_flat(out), w["o"])
+        h = rms_norm(a, lp.post_norm, eps)
+        m = act(F.linear(h, w["gate"])) * F.linear(h, w["up"])
+        saved.append((x, q, k, v, out, lse))
+        x = a + F.linear(m, w["down"])
+    return x, saved
+
+
+def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
+                      ids: torch.Tensor, tgt: torch.Tensor,
+                      ce_chunk_size: int = 0, plain: bool = False):
+    """One microbatch: adds its NLL-sum grads into every `p.grad` (fp32
+    tensors the caller allocated) and returns (nll_sum, valid_count).
+    `plain=True` takes the weight grads by the plain form on CUDA too
+    (the comparison of the two forms on the card; never the main path)."""
+    cfg = model.cfg
+    eps = cfg.rms_norm_eps
+    act = mlp_act(cfg)
+    attn_fwd, attn_bwd = _attn_paths(model)
+    x, saved = forward_saved(model, weights, ids, attn_fwd)
+
+    # ---------------- head + CE ----------------
+    head = model.head_weight()
+    with torch.enable_grad():
+        x_l, head_w = _with_grad(x), _with_grad(weights.head)
+        h = rms_norm(x_l, model.final_norm, eps)
+        if ce_chunk_size:
+            total, count = chunked_cross_entropy_sum_count(
+                h, head_w, tgt, ce_chunk_size)
+        else:
+            total, count = cross_entropy_sum_count(F.linear(h, head_w), tgt)
+    dy, d_final, d_head = torch.autograd.grad(
+        total, (x_l, model.final_norm, head_w))
+    model.final_norm.grad.add_(d_final)
+    head.grad.add_(d_head.to(head.grad.dtype))
+
+    # ---------------- backward, layer by layer in reverse ----------------
+    for i in reversed(range(len(model.layers))):
+        lp, w = model.layers[i], weights.layer(i)
+        x, q, k, v, out, lse = saved.pop()
+        with torch.no_grad():
+            outf = _flat(out)
+            a = x + F.linear(outf, w["o"])
+        # MLP half: y = a + down(act(gate) * up) with gate/up from norm(a)
+        with torch.enable_grad():
+            a_ = _with_grad(a)
+            h2 = rms_norm(a_, lp.post_norm, eps)
+        h2d = h2.detach()
+        with torch.enable_grad():
+            gate = _with_grad(F.linear(h2d, w["gate"]))
+            up = _with_grad(F.linear(h2d, w["up"]))
+            m = act(gate) * up
+        dm = dy @ w["down"]
+        accumulate_weight_grad(lp.down.grad, dy, m.detach(), plain)
+        d_gate, d_up = torch.autograd.grad(m, (gate, up), dm)
+        # sums in autograd's order (the later consumer's grad first), so
+        # the bf16 roundings are the AD engine's
+        dh2 = d_up @ w["up"] + d_gate @ w["gate"]
+        accumulate_weight_grad(lp.gate.grad, d_gate, h2d, plain)
+        accumulate_weight_grad(lp.up.grad, d_up, h2d, plain)
+        da, d_post = torch.autograd.grad(h2, (a_, lp.post_norm), dh2)
+        lp.post_norm.grad.add_(d_post)
+        da = dy + da
+        # o-projection, then attention from the saved (out, lse)
+        dout = (da @ w["o"]).reshape(out.shape)
+        accumulate_weight_grad(lp.o.grad, da, outf, plain)
+        dq, dk, dv = attn_bwd(q, k, v, out, lse, dout)
+        dq, dk, dv = _flat(dq), _flat(dk), _flat(dv)
+        # qkv half: q/k/v = norm(x) @ W (+ b)
+        with torch.enable_grad():
+            x_ = _with_grad(x)
+            h1 = rms_norm(x_, lp.input_norm, eps)
+        h1d = h1.detach()
+        dh1 = dv @ w["v"] + dk @ w["k"] + dq @ w["q"]
+        for name, g in (("q", dq), ("k", dk), ("v", dv)):
+            accumulate_weight_grad(getattr(lp, name).grad, g, h1d, plain)
+            bias = getattr(lp, "b_" + name)
+            if bias is not None:
+                bias.grad.add_(g.sum(dim=(0, 1)).to(bias.grad.dtype))
+        dx, d_in = torch.autograd.grad(h1, (x_, lp.input_norm), dh1)
+        lp.input_norm.grad.add_(d_in)
+        dy = da + dx
+        del x, q, k, v, out, lse
+
+    # ---------------- embedding ----------------
+    model.embedding.grad.index_put_((ids,), dy.to(model.embedding.dtype),
+                                    accumulate=True)
+    return total.detach(), count
+
+
+def fused_accumulate_grads(model: LlamaModel, weights: ComputeWeights,
+                           batch, ce_chunk_size: int = 0,
+                           plain: bool = False) -> torch.Tensor:
+    """The fused engine's counterpart of `train_step.accumulate_grads`:
+    token-mean fp32 grads in every p.grad, the mean loss returned.
+    `weights` must have been refreshed for this step."""
+    ids, tgt = batch
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        else:
+            p.grad.zero_()
+    nll_total = torch.zeros((), dtype=torch.float32, device=ids.device)
+    count = torch.zeros((), dtype=torch.int64, device=ids.device)
+    for i in range(ids.shape[0]):
+        total, c = fused_micro_grads(model, weights, ids[i], tgt[i],
+                                     ce_chunk_size, plain)
+        nll_total += total
+        count += c
+    count = count.clamp(min=1)
+    for p in model.parameters():
+        p.grad.div_(count)
+    return nll_total / count

@@ -9,7 +9,12 @@ last `steps` under torch.profiler (CPU + CUDA activity), then prints per
 step: wall time, device-busy time (the sum of kernel durations: one
 stream, so kernels do not overlap), the idle share 1 - busy / wall, and
 device time by class (the three flash kernels, GEMMs, everything else) and
-by kernel name. The last line is one JSON object with the same numbers.
+by kernel name, and by part of the step: the kernels launched under the
+optimizer's and the guard's grad-norm host ranges, and the rest, the
+grads (forward and backward: autograd launches its backward kernels from
+its own thread, outside any range of the step's thread, so the grads are
+the busy time less the two ranges). The last line is one JSON object
+with the same numbers.
 Needs a CUDA card.
 """
 
@@ -33,6 +38,7 @@ _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
           ("bwd_dkv_mma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_kernel", "bwd_dkv_kernel"))
 _GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
+RANGES = ("train_step.grad_norm", "Optimizer.step")
 
 
 def kernel_class(name: str) -> str:
@@ -95,6 +101,13 @@ def main(argv=None) -> dict:
     if not by_name:
         raise RuntimeError("torch.profiler recorded no device time on this "
                            "card; time with CUDA events instead")
+    # the kernels launched under the optimizer's and the grad norm's host
+    # ranges; the grads are the rest
+    by_range = defaultdict(float)
+    for evt in events:
+        if (evt.device_type == torch.autograd.DeviceType.CPU
+                and evt.name.startswith(RANGES)):
+            by_range[evt.name] += evt.device_time_total / 1e3 / args.steps
     by_class = defaultdict(float)
     for name, ms in by_name.items():
         by_class[kernel_class(name)] += ms
@@ -104,11 +117,14 @@ def main(argv=None) -> dict:
           f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:28s} {ms:9.2f} ms/step  {ms / busy:6.1%}")
+    by_range["grads (the rest)"] = busy - sum(by_range.values())
+    for name, ms in sorted(by_range.items()):
+        print(f"  part {name:29s} {ms:9.2f} ms/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {ms:9.2f} ms/step  {name[:100]}")
     out = {"card": card, "step_wall_ms": wall * 1e3, "device_busy_ms": busy,
            "idle_share": 1 - busy / (wall * 1e3),
-           "by_class_ms": dict(by_class)}
+           "by_class_ms": dict(by_class), "by_range_ms": dict(by_range)}
     print(json.dumps(out))
     return out
 

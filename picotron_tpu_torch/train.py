@@ -43,7 +43,7 @@ from picotron_tpu_torch.resilience import (
 )
 from picotron_tpu_torch.telemetry import bus as telemetry_bus
 from picotron_tpu_torch.train_step import (
-    init_train_state, make_eval_step, make_train_step,
+    init_train_state, make_eval_step, make_train_step, resolved_grad_engine,
 )
 from picotron_tpu_torch.utils import (
     StepTimer, device_memory_gb, device_peak_flops, human_format, log_print,
@@ -68,14 +68,9 @@ def unsupported(cfg: Config) -> list[str]:
     if t.optimizer_offload:
         out.append("training.optimizer_offload (ROADMAP Queue 1 item 4, "
                    "offload half)")
-    if t.remat:
-        out.append("training.remat (remat policies as torch.utils."
-                   "checkpoint: ROADMAP Queue 1 item 7); set remat: false")
-    if t.grad_engine == "fused":
-        out.append("training.grad_engine='fused' (ROADMAP Queue 1 item 7)")
-    if t.ce_chunk_size:
-        out.append("training.ce_chunk_size (chunked CE: ROADMAP Queue 1 "
-                   "item 7)")
+    if t.remat and t.remat_policy == "dots_offload":
+        out.append("training.remat_policy='dots_offload' (saves in pinned "
+                   "host memory: ROADMAP Queue 1 item 7)")
     if cfg.dataset.name != "synthetic":
         out.append(f"dataset {cfg.dataset.name!r} (HF datasets: ROADMAP "
                    "Queue 1 item 5)")
@@ -218,6 +213,10 @@ def run(cfg: Config, device: Optional[str] = None,
                         * cfg.global_batch_size}
         dl.set_state(dl_state)
     step_fn = make_train_step(cfg)
+    log_print(f"grad engine: {resolved_grad_engine(cfg)} (grad_engine "
+              f"{t.grad_engine!r}, remat "
+              f"{t.remat_policy if t.remat else None!r}, ce_chunk_size "
+              f"{t.ce_chunk_size})")
     eval_batches = eval_fn = None
     if t.eval_frequency > 0:
         # a FIXED validation set: every eval (and every resumed run) scores

@@ -416,3 +416,52 @@ def test_bf16_save_resume_on_the_card_is_bit_identical(dev, tmp_path):
     for (n, p), q in zip(resumed["state"].model.named_parameters(),
                          whole["state"].model.parameters()):
         assert torch.equal(p, q), n
+
+
+def _small_bf16_cfg(**training):
+    from picotron_tpu_torch.config import config_from_dict
+
+    return config_from_dict({
+        "model": {"name": "debug-tiny", "hidden_size": 128,
+                  "num_attention_heads": 2, "num_key_value_heads": 1,
+                  "dtype": "bfloat16"},
+        "training": {"seq_length": 128, "micro_batch_size": 2,
+                     "gradient_accumulation_steps": 2, "remat": False,
+                     "grad_engine": "ad", **training}})
+
+
+@cuda
+def test_gemm_accumulate_writes_in_place(dev):
+    assert chip_smoke.gemm_accumulate_in_place(dev) <= 1e-5
+
+
+@cuda
+def test_fused_engine_matches_ad_on_the_card(dev):
+    """chip_smoke phase 5(a) at debug size (head_dim 64: the tensor-core
+    kernels): fused vs AD grads and GEMM-accumulate vs plain within
+    GRAD_RTOL per tensor, the same loss; the fused step launches each
+    kernel once per layer and microbatch."""
+    out = chip_smoke.engine_parity(_small_bf16_cfg())
+    assert out["worst_grad_rel_l2"] <= chip_smoke.GRAD_RTOL
+    assert out["worst_gemm_vs_plain_rel_l2"] <= chip_smoke.GRAD_RTOL
+    assert abs(out["loss_ad"] - out["loss_fused"]) <= chip_smoke.LOSS_ATOL
+    from picotron_tpu_torch import train
+
+    fa.reset_launch_counts()
+    result = train.run(_small_bf16_cfg(remat=True, remat_policy="dots_attn",
+                                       grad_engine="auto",
+                                       total_train_steps=2), "cuda")
+    assert len(result["losses"]) == 2
+    # 4 layers x ga 2 x 2 steps
+    assert fa.launches == {"flash_fwd": 16, "flash_bwd_dq": 16,
+                           "flash_bwd_dkv": 16}
+    assert fa.fwd_launches == {"tensor_core": 16, "cuda_core": 0}
+
+
+@cuda
+def test_chunked_ce_on_the_card(dev):
+    """chip_smoke phase 5(d) at a small size: within its limits, and the
+    chunked CE's peak memory below the unchunked one's."""
+    out = chip_smoke.chunked_ce_check(n=(2, 256), hidden=128, vocab=8192,
+                                      chunk=1024)
+    assert out["peak_gb"] < out["peak_gb_unchunked"]

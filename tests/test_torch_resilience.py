@@ -88,8 +88,8 @@ def _poison(monkeypatch, at_calls):
     real_make, real_loss = tstep.make_train_step, tstep.loss_sum_count
     calls = [0]
 
-    def poisoned(model, ids, tgt):
-        total, count, extras = real_loss(model, ids, tgt)
+    def poisoned(model, ids, tgt, *args):
+        total, count, extras = real_loss(model, ids, tgt, *args)
         return total + torch.sqrt(model.final_norm.sum() * 0.0), count, extras
 
     def make(cfg):

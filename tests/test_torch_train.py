@@ -158,8 +158,9 @@ def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
 
 @pytest.mark.parametrize("override,match", [
     ({"distributed": {"dp_size": 2}}, "dp_size"),
-    ({"training": {"remat": True}}, "remat"),
-    ({"training": {"ce_chunk_size": 64}}, "ce_chunk_size"),
+    ({"training": {"remat": True, "remat_policy": "dots_offload"}},
+     "dots_offload"),
+    ({"logging": {"use_wandb": True}}, "use_wandb"),
     ({"resilience": {"chaos": "sigterm@2"}}, "chaos"),
     ({"dataset": {"name": "HuggingFaceTB/smollm-corpus"}}, "HF datasets"),
     ({"model": {"name": "debug-tiny-moe"}}, "MoE"),
@@ -187,6 +188,38 @@ def test_smoke_config_is_the_supported_main_path():
     assert (t.seq_length, t.micro_batch_size, t.gradient_accumulation_steps,
             t.total_train_steps, t.learning_rate, t.lr_warmup_steps) == (
         2048, 2, 2, 4, 3e-4, 0)
+
+
+def test_fused_smoke_config_resolves_to_the_fused_engine():
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "picotron_tpu_torch",
+                        "configs", "smollm17-1gpu-seq2048-fused.json")
+    cfg = tcfg.load_config(path)
+    assert ttrain.unsupported(cfg) == []
+    assert tstep.resolved_grad_engine(cfg) == "fused"
+    base = tcfg.load_config(os.path.join(os.path.dirname(path),
+                                         "smollm17-1gpu-seq2048.json"))
+    assert tstep.resolved_grad_engine(base) == "ad"
+    assert cfg.model == base.model
+    t = cfg.training
+    assert (t.remat, t.remat_policy, t.grad_engine) == (True, "dots_attn",
+                                                        "auto")
+
+
+@pytest.mark.parametrize("training", [
+    {"remat": True, "remat_policy": "dots"},
+    {"remat": True, "remat_policy": "full", "ce_chunk_size": 128},
+    {"remat": True, "remat_policy": "dots_attn", "grad_engine": "fused"},
+])
+def test_trainer_takes_remat_engines_and_chunked_ce(training):
+    cfg = tcfg.config_from_dict(_raw("float32", total_train_steps=2,
+                                     **training))
+    result = ttrain.run(cfg, "cpu")
+    plain = ttrain.run(tcfg.config_from_dict(_raw("float32",
+                                                  total_train_steps=2)),
+                       "cpu")
+    np.testing.assert_allclose(result["losses"], plain["losses"], **TOL)
 
 
 def test_seen_batch_loss_falls():
