@@ -5,8 +5,9 @@
 Phases, each of which raises on failure (so the script exits non-zero):
 
 1. The card (nvidia-smi name and power limit) and the build: nvcc compiles
-   picotron_tpu_torch/csrc/flash_attention.cu for sm_90a from the checkout
-   (ptxas registers and spills per kernel printed), and cuobjdump's SASS of
+   picotron_tpu_torch/csrc/flash_attention.cu and csrc/adamw.cu for sm_90a
+   from the checkout, both at once (ptxas registers and spills per kernel
+   printed), and cuobjdump's SASS of
    the library must show HMMA (tensor-core) instructions in both variants
    (D 64, 128) of each bf16 kernel: the forward, fwd_mma_kernel, the dq,
    bwd_dq_mma_kernel, and the dk/dv, bwd_dkv_mma_kernel.
@@ -25,7 +26,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
    offload off. Checks: every loss finite; the last step's loss below the
    first's; each kernel launched 24 x ga x steps times, every launch on
-   its tensor-core kernel (bf16); and the trained
+   its tensor-core kernel (bf16); the AdamW kernel launched once per
+   parameter tensor per step (219 x steps); and the trained
    model's loss on the first step's batch (re-read from a fresh loader)
    below that step's loss. The synthetic tokens are uniform random, so a
    later step's fresh batch is learnable only down to the unigram law and
@@ -47,9 +49,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    4 (2 batches through the forward kernel under no_grad) within
    EVAL_ATOL of the same params' loss under `attn_impl: "reference"`;
    each kernel's launches in each run (eval's 24 x ga x 2 forward
-   launches included), every one on its tensor-core kernel. The save,
-   verify and restore times are printed; the free disk is checked first
-   and the directory is deleted at the end.
+   launches included), every one on its tensor-core kernel, and the
+   AdamW kernel's (219 x 2 in each run). The save, verify and restore
+   times are printed; the free disk is checked first and the directory
+   is deleted at the end.
 5. The fused grad engine, remat and chunked CE, on the same model:
    (a) engine parity: one step (ga 2) of the phase-3 config from one seed
    under the AD engine without remat and under the fused engine
@@ -76,7 +79,52 @@ Phases, each of which raises on failure (so the script exits non-zero):
    on one microbatch's hidden [2, 2048, 2048] and the head [49152, 2048]
    in bf16: the loss within CE_LOSS_RTOL, d hidden and d head within
    CE_GRAD_RTOL in relative L2, and each one's peak memory.
-6. Numbers, then the device line last.
+6. The AdamW kernel (`csrc/adamw.cu`) and the host-offloaded optimizer:
+   (a) the kernel against its plain version (`optimizer.adamw_update_plain`)
+   on the card, bit for bit, at ragged sizes (not multiples of its 8-wide
+   vectors), both moment dtypes, clipping under and over the threshold,
+   `grad_scale` with and without the clip, `ok` True and False (False
+   must leave every tensor as it was) and with and without the bf16
+   compute copy (which must equal p's cast); then its time for one
+   update of every tensor at the phase-3 shape (SmolLM-1.7B's 219
+   tensors, 1.812 B params, bf16 moments) beside its plain version's,
+   its bound (20 B per param over the HBM rate) and
+   `torch._fused_adamw_` on the same tensors with fp32 moments (the one
+   PyTorch call that computes this update; the port never calls it);
+   (b) offload against resident: 3 steps of the phase-3 config (constant
+   lr 3e-4, ga 2) from one seed under `optimizer_offload`, the resident
+   AdamW, and the resident AdamW computing as offload does
+   (`offload_roundings`: offload's params are the bf16 cast of their
+   masters, so its norm weights enter their products as that cast, and
+   its norm and embedding grads round to bf16 as a bf16 param's do).
+   Gates: offload's master at init equal to the resident params; the
+   step-1 loss equal in all three runs; each streamed update equal bit
+   for bit to `adamw_update_plain` run over whole tensors on card copies
+   of the state before it (`replay_offload_steps`: master, mu, nu and the
+   compute copy); offload equal to the rounded resident run bit for bit
+   (losses, and every master after steps 1 and 3); and each tensor's
+   update (master_t - master_0) against the plain resident run's, in
+   relative L2: the matmul weights within OFFLOAD_RTOL after step 1, the
+   norms and embedding within OFFLOAD_UPDATE_RTOL after step 1, and
+   every tensor within OFFLOAD_UPDATE_RTOL after step 3; and the
+   launches (each flash kernel 24 x ga per step, the AdamW kernel once
+   per tensor, or streamed slice, per step). tests/test_torch_cuda.py
+   plants three faults in the offloaded optimizer (the moments not
+   copied back, the embedding's slices skipped, its grad lost) and checks
+   that each fails the gates it must;
+   (c) the offload configuration, `picotron_tpu_torch/configs/
+   smollm17-1gpu-offload.json` (the JAX package's
+   runs/smollm17-offload-1chip: full SmolLM-1.7B, seq 2048, mbs 2, ga 64,
+   remat "dots_attn" so the fused engine, bf16 moments, cosine with 100
+   warmup steps) at full width, depth and ga, 3 steps through `train.run`
+   (`training.max_tokens` stops it, so the lr schedule is the file's):
+   every loss finite, every flash launch on its tensor-core kernel (24 x
+   64 x 3 each), the AdamW kernel once per slice per step, peak device
+   memory, step time and tokens/s, and the update's seconds per step
+   (CUDA events on the compute stream) and GB/s each way (8 B per param
+   each way over the PCIe link), beside the link's own rate (1 GiB
+   pinned copies, each way alone and both at once).
+7. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -125,18 +173,41 @@ chunks' fp32 (max, sumexp) pairs: CE_LOSS_RTOL = 1e-3 on the loss and
 CE_GRAD_RTOL = 1e-2 on the grads (its dlogits round to bf16 per chunk, as
 the unchunked CE's do).
 
+Phase 6's limits: the AdamW kernel is held to its plain version bit for
+bit. Both take every fp32 operation in the same order, rounded on its
+own (the kernel with the __f*_rn intrinsics, so nvcc cannot contract a
+multiply-add into an FMA; the plain version in separate torch ops, its
+divisions by c1 and c2 by 0-dim device tensors, which PyTorch divides,
+where a Python-scalar divisor would be a multiplication by its
+reciprocal), and round to bf16 to nearest even. Phase 6b holds the
+streamed update (the replay) and offload against the rounded resident
+run bit for bit. Against the plain resident run the matmul weights take
+the same grads (both scaled by 1 / count in the update), so their step-1
+updates are held to OFFLOAD_RTOL = 1e-5 (measured 0); the norm weights'
+and embedding's grads round to bf16 under offload only, and from step 2
+the offload forward uses bf16 norm weights, so OFFLOAD_UPDATE_RTOL = 0.1
+holds their step-1 updates and every step-3 update. Measured (NVIDIA
+H100 80GB HBM3, 700 W; PERF.md): step 1 norms 0.034 at worst, the
+embedding 5.2e-4; step 3 0.024 at worst; the planted faults 1.0 (the
+embedding's slices skipped or its grad lost, steps 1 and 3) and 0.46 to
+0.50 on every tensor after step 3 (the moments not copied back).
+
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import torch
 
@@ -163,6 +234,17 @@ KERNELS = [  # (counter name, TPU kernel it replaces)
 # each kernel's launches by variant (bf16 tensor-core, fp32 CUDA-core)
 VARIANT_COUNTS = ("fwd_launches", "dq_launches", "dkv_launches")
 SOURCE = "picotron_tpu_torch/csrc/flash_attention.cu"
+ADAMW_SOURCE = "picotron_tpu_torch/csrc/adamw.cu"
+# no Pallas kernel: the JAX package's AdamW is XLA's fusion of this math
+ADAMW_REPLACES = ("no Pallas kernel: XLA-fused in the JAX package, "
+                  "picotron_tpu/optimizer.py:208")
+ADAMW_SIZES = (1, 7, 8, 13, 1000, 65536 + 3, 4 * 2 ** 20 + 5)
+OFFLOAD_CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-offload.json"
+OFFLOAD_STEPS = 3
+OFFLOAD_RTOL = 1e-5            # step-1 matmul updates vs resident, rel L2
+OFFLOAD_UPDATE_RTOL = 0.1      # the other updates vs resident, rel L2
+OFFLOAD_FAULTS = ("moments_not_copied_back", "embedding_slices_skipped",
+                  "embedding_grad_lost")
 CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json"
 CKPT_DIR = "build/smoke_ckpt"
 EVAL_STEPS = 2
@@ -358,15 +440,19 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
     from picotron_tpu_torch import train
     from picotron_tpu_torch.config import load_config
 
+    from picotron_tpu_torch import optimizer as topt
+
     path = os.path.join(here, config)
     t = load_config(path).training
     if (t.seq_length, t.micro_batch_size, t.gradient_accumulation_steps,
             t.total_train_steps) != (SEQ, MBS, GA, STEPS):
         raise AssertionError(f"{config} is not the smoke shape")
     fa.reset_launch_counts()
+    topt.reset_launch_counts()
     result = train.main(["--config", path])
     torch.cuda.synchronize()
-    result["launches"] = dict(fa.launches)
+    result["launches"] = {**fa.launches, **topt.launches}
+    n_tensors = len(list(result["state"].model.parameters()))
     for key in VARIANT_COUNTS:
         result[key] = dict(getattr(fa, key))
     losses = result["losses"]
@@ -389,6 +475,10 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
         if result[key] != {"tensor_core": want, "cuda_core": 0}:
             raise AssertionError(f"{key} by variant {result[key]}: want all "
                                  f"{want} on the tensor-core kernel")
+    if result["launches"]["adamw"] != n_tensors * STEPS:
+        raise AssertionError(f"adamw launched {result['launches']['adamw']} "
+                             f"times on the main path, want one per tensor "
+                             f"per step, {n_tensors * STEPS}")
     return result
 
 
@@ -470,16 +560,16 @@ def engine_parity(cfg, seed: int = 1234, dev: str = "cuda") -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = init_params(LlamaModel(cfg.model, device=dev), gen)
     batch = next(MicroBatchDataLoader(cfg, dev))
-    loss_ad = float(make_grads_fn(cfg)(model, batch))
+    loss_ad = float(make_grads_fn(cfg)(model, batch)[0])
     g_ad = grads_of(model)
-    loss_fused = float(make_grads_fn(fused_cfg)(model, batch))
+    loss_fused = float(make_grads_fn(fused_cfg)(model, batch)[0])
     g_fused = grads_of(model)
     err, name = worst_grad(g_fused, g_ad)
     del g_ad
     weights = ComputeWeights(model)
     weights.refresh()
     loss_plain = float(fused_accumulate_grads(model, weights, batch,
-                                              plain=True))
+                                              plain=True)[0])
     err_plain, name_plain = worst_grad(grads_of(model), g_fused)
     times = {True: [], False: []}
     if dev.type == "cuda":  # one step's grads by each form, in turns
@@ -787,6 +877,563 @@ def phase4_config(here: str):
     return config_from_dict(raw)
 
 
+def _adamw_case(n, mdt, mode, out, dev, gen):
+    """One phase-6a case: fresh operands and the keyword arguments."""
+    r = lambda: torch.randn(n, generator=gen, device=dev)  # noqa: E731
+    ops = [r(), 3 * r(), (0.1 * r()).to(mdt),
+           torch.rand(n, generator=gen, device=dev).to(mdt)]
+    def one(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    kw = {
+        "none": {}, "clip_under": {"grad_norm": one(0.5)},
+        "clip_over": {"grad_norm": one(4.0)},
+        "scale": {"grad_scale": one(1 / 7)},
+        "scale_clip_under": {"grad_scale": one(1 / 7),
+                             "grad_norm": one(3.5)},
+        "scale_clip_over": {"grad_scale": one(1 / 7), "grad_norm": one(70.0)},
+        "ok_true": {"ok": torch.tensor(True, device=dev)},
+        "ok_false": {"ok": torch.tensor(False, device=dev)},
+    }[mode]
+    if out:
+        ops.append(torch.full((n,), 7.0, dtype=torch.bfloat16, device=dev))
+    return ops, kw
+
+
+ADAMW_MODES = ("none", "clip_under", "clip_over", "scale", "scale_clip_under",
+               "scale_clip_over", "ok_true", "ok_false")
+
+
+def adamw_vs_plain(dev) -> dict:
+    """Phase 6a, the comparison: every case's p, mu, nu (and the compute
+    copy) from the kernel equal to the plain version's bit for bit.
+    Returns the number of cases, the largest absolute difference and the
+    largest difference in fp32 ulps (both 0 when the gate holds)."""
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch.config import TrainingConfig
+
+    t = TrainingConfig(learning_rate=3e-4, weight_decay=0.1,
+                       grad_clip_norm=1.0)
+    h = topt.step_hyper(t, topt.make_lr(t), 5)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = worst_abs = worst_ulp = 0
+    bad = []
+    for n in ADAMW_SIZES:
+        for mdt in (torch.bfloat16, torch.float32):
+            for mode in ADAMW_MODES:
+                for out in (False, True):
+                    ops, kw = _adamw_case(n, mdt, mode, out, dev, gen)
+                    before = [x.clone() for x in ops]
+                    plain = [x.clone() for x in ops]
+                    o = {"out": ops[4]} if out else {}
+                    topt.adamw_update(*ops[:4], h, **kw, **o)
+                    po = {"out": plain[4]} if out else {}
+                    topt.adamw_update_plain(*plain[:4], h, **kw, **po)
+                    torch.cuda.synchronize()
+                    cases += 1
+                    for a, b in zip(ops, plain):
+                        d = (a.float() - b.float()).abs().max()
+                        worst_abs = max(worst_abs, float(d))
+                        if a.dtype == torch.float32:
+                            u = (a.view(torch.int32).long()
+                                 - b.view(torch.int32).long()).abs().max()
+                            worst_ulp = max(worst_ulp, int(u))
+                    label = f"n {n} {mdt} {mode} out {out}"
+                    if not all(torch.equal(a, b) for a, b in zip(ops, plain)):
+                        bad.append(label)
+                    if mode == "ok_false" and not all(
+                            torch.equal(a, b) for a, b in zip(ops, before)):
+                        bad.append(label + " wrote under ok False")
+                    if out and mode != "ok_false" and not torch.equal(
+                            ops[4], ops[0].to(torch.bfloat16)):
+                        bad.append(label + " compute copy is not p's cast")
+    log(f"phase 6a adamw vs plain: {cases} cases, max abs diff {worst_abs}, "
+        f"max fp32 ulp diff {worst_ulp}; {len(bad)} failed")
+    if bad:
+        raise AssertionError(f"adamw kernel vs plain: {bad[:6]}")
+    return {"cases": cases, "max_abs_err": worst_abs, "max_ulp": worst_ulp}
+
+
+def adamw_timing(cfg, dev) -> dict:
+    """Phase 6a, the times: one update of every tensor of the phase-3
+    model (resident, its moments dtype, no clip), the kernel, its plain
+    version and `torch._fused_adamw_` (fp32 moments), and the bound."""
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch.models.llama import LlamaModel
+
+    shapes = [tuple(p.shape) for p in
+              LlamaModel(cfg.model, device="meta").parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    mdt = (torch.bfloat16 if cfg.training.adam_moments_dtype == "bfloat16"
+           else torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ps = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    gs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    ms = [torch.zeros(s, dtype=mdt, device=dev) for s in shapes]
+    vs = [torch.zeros(s, dtype=mdt, device=dev) for s in shapes]
+    h = topt.step_hyper(cfg.training, topt.make_lr(cfg.training), 5)
+
+    def kernel():
+        for args in zip(ps, gs, ms, vs):
+            topt.adamw_update(*args, h)
+
+    def plain():
+        for args in zip(ps, gs, ms, vs):
+            topt.adamw_update_plain(*args, h)
+
+    ms_kernel = cuda_ms(kernel, iters=5, warmup=1)
+    ms_plain = cuda_ms(plain, iters=2, warmup=1)
+    del ms, vs
+    m32 = [torch.zeros(s, device=dev) for s in shapes]
+    v32 = [torch.zeros(s, device=dev) for s in shapes]
+    steps = [torch.tensor(6.0, device=dev) for _ in shapes]
+    t = cfg.training
+
+    def library():
+        torch._fused_adamw_(ps, gs, m32, v32, [], steps, lr=t.learning_rate,
+                            beta1=t.adam_beta1, beta2=t.adam_beta2,
+                            weight_decay=t.weight_decay, eps=t.adam_eps,
+                            amsgrad=False, maximize=False)
+
+    ms_lib = cuda_ms(library, iters=5, warmup=1)
+    moment = torch.empty((), dtype=mdt).element_size()
+    nbytes = n * (4 + 4 + 2 * moment + 4 + 2 * moment)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    del ps, gs, m32, v32
+    torch.cuda.empty_cache()
+    out = {"tensors": len(shapes), "params": n, "ms": ms_kernel,
+           "plain_ms": ms_plain, "library_ms": ms_lib, "bound_ms": bound,
+           "bytes": nbytes}
+    log(f"phase 6a adamw timing ({len(shapes)} tensors, {n} params, "
+        f"{mdt} moments): kernel {ms_kernel:.3f} ms, plain {ms_plain:.3f} "
+        f"ms, torch._fused_adamw_ (fp32 moments) {ms_lib:.3f} ms, bound "
+        f"{bound:.3f} ms ({nbytes / 1e9:.2f} GB), "
+        f"{nbytes / ms_kernel / 1e6:.1f} GB/s, "
+        f"{100 * bound / ms_kernel:.1f}% of bound")
+    return out
+
+
+def _host_masters(state) -> dict:
+    """{name: fp32 CPU copy} of a state's master params: the resident
+    model's params, or the offload state's host master."""
+    opt = state.optimizer
+    opt.synchronize()
+    src = opt.state_tensors().get("master") or dict(
+        state.model.named_parameters())
+    return {n: t.detach().to("cpu", torch.float32, copy=True)
+            for n, t in src.items()}
+
+
+@torch.no_grad()
+def _prints(tensors: dict) -> dict:
+    """{name: two int64 sums over the tensor's bits} (as `fingerprint`):
+    equal prints mean bit-identical tensors but for a vanishing chance."""
+    out = {}
+    for n, t in tensors.items():
+        v = t.detach().to("cuda").reshape(-1).view(
+            torch.int32 if t.element_size() == 4 else torch.int16).long()
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out[n] = (int(v.sum()), int((v * w).sum()))
+    return out
+
+
+@torch.no_grad()
+def _update_errors(p0: dict, got: dict, want: dict) -> dict:
+    """{name: ||(got - p0) - (want - p0)|| / ||want - p0||}: each
+    tensor's update against the reference's, in relative L2."""
+    out = {}
+    for n, w in want.items():
+        start = p0[n].to("cuda")
+        out[n] = rel_l2(got[n].to("cuda") - start, w.to("cuda") - start)
+    return out
+
+
+@contextlib.contextmanager
+def offload_roundings():
+    """The resident model computing as the offload one does. Offload's
+    params are the bf16 cast of their masters, so a norm weight enters
+    its product as its bf16 cast and its grad is rounded to bf16; the
+    embedding's rows are gathered from the bf16 table and repeated rows'
+    grads summed in bf16. Every other use is a bf16 cast in both. Under
+    this context the resident model's norms and embedding are used
+    through that cast (`models/llama.py` looks both functions up at call
+    time; the AD engine only)."""
+    from picotron_tpu_torch.models import llama
+
+    real_norm, real_embed = llama.rms_norm, llama.embed
+    llama.rms_norm = lambda x, w, eps=1e-5: real_norm(
+        x, w.to(torch.bfloat16), eps)
+    llama.embed = lambda model, ids: model.embedding.to(
+        torch.bfloat16)[ids].to(llama.compute_dtype(model.cfg))
+    try:
+        yield
+    finally:
+        llama.rms_norm, llama.embed = real_norm, real_embed
+
+
+def replay_offload_steps(opt, record: list) -> None:
+    """Wrap `opt.step` (an OffloadAdamW on the card) to hold each streamed
+    update exactly: before the step, copy master, mu and nu to the card;
+    after it, run `adamw_update_plain` over every whole tensor of those
+    copies from the same grad buffers, scale and norm, and append
+    {"step", "mismatched": {name: [what differs]}}: the master, mu, nu
+    or the compute copy (the model's param) that differs from the
+    streamed result in any bit. The kernel equals its plain version bit
+    for bit (phase 6a), so this covers the slices, staging buffers,
+    streams and events, and the copies back."""
+    from picotron_tpu_torch import optimizer as topt
+
+    real = opt.step
+    dev = opt.grads[0].device
+
+    def step(grad_scale, grad_norm=None, ok=None):
+        opt.synchronize()
+        before = [[t.to(dev, copy=True) for t in ts]
+                  for ts in (opt.master, opt.mu, opt.nu)]
+        count = opt.count
+        real(grad_scale, grad_norm=grad_norm, ok=ok)
+        opt.synchronize()
+        h = topt.step_hyper(opt.t, opt.lr, count)
+        clip = None
+        if opt.t.grad_clip_norm > 0:
+            clip = (grad_norm if grad_norm is not None
+                    else topt.global_norm(opt.grads))
+        bad = {}
+        with torch.no_grad():
+            for i, n in enumerate(opt.names):
+                m, mu, nu = (ts[i] for ts in before)
+                copy = torch.empty_like(m, dtype=torch.bfloat16)
+                topt.adamw_update_plain(m, opt.grads[i], mu, nu, h,
+                                        grad_norm=clip, grad_scale=grad_scale,
+                                        ok=ok, out=copy)
+                wrong = [what for what, a, b in (
+                    ("master", m, opt.master[i]), ("mu", mu, opt.mu[i]),
+                    ("nu", nu, opt.nu[i]), ("copy", copy, opt.params[i]))
+                    if not torch.equal(a, b.detach().to(dev))]
+                if wrong:
+                    bad[n] = wrong
+                for ts in before:
+                    ts[i] = None
+        record.append({"step": count + 1, "mismatched": bad})
+
+    opt.step = step
+
+
+def plant_offload_fault(opt, fault: str) -> None:
+    """A planted fault in an OffloadAdamW (tests/test_torch_cuda.py checks
+    that phase 6b fails each): "moments_not_copied_back" (the host mu and
+    nu keep their old values), "embedding_slices_skipped" (the
+    embedding's row groups never stream) or "embedding_grad_lost" (its
+    grad buffer is zeroed before the update)."""
+    if fault == "embedding_slices_skipped":
+        e = opt.names.index("embedding")
+        opt.slices = [s for s in opt.slices if s[0] != e]
+        return
+    if fault not in OFFLOAD_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    real = opt.step
+
+    def step(grad_scale, grad_norm=None, ok=None):
+        if fault == "embedding_grad_lost":
+            opt.grads[opt.names.index("embedding")].zero_()
+            real(grad_scale, grad_norm=grad_norm, ok=ok)
+            return
+        opt.synchronize()
+        kept = [t.clone() for t in opt.mu + opt.nu]
+        real(grad_scale, grad_norm=grad_norm, ok=ok)
+        opt.synchronize()
+        for t, k in zip(opt.mu + opt.nu, kept):
+            t.copy_(k)
+
+    opt.step = step
+
+
+def _three_steps(fa, cfg, on_build, on_step) -> dict:
+    """train.run of `cfg` with `on_build(state)` after the state is built
+    and `on_step(state, step)` after each step; checks the launches: each
+    flash kernel 24 x GA per step, the AdamW kernel once per tensor (or
+    streamed slice) per step. Returns the losses."""
+    import gc
+
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch import train
+
+    real_build = train.build_state
+    held = {}
+
+    def build(cfg, dev):
+        out = real_build(cfg, dev)
+        held["state"] = out[0]
+        on_build(out[0])
+        return out
+
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    try:
+        train.build_state = build
+        result = train.run(cfg, "cuda", on_step=lambda step, metrics: on_step(
+            held["state"], step))
+    finally:
+        train.build_state = real_build
+    torch.cuda.synchronize()
+    per = 24 * GA * OFFLOAD_STEPS
+    label = f"phase 6b offload {cfg.training.optimizer_offload}"
+    check_launches(launch_counts(fa), {
+        "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}, label)
+    opt = held.pop("state").optimizer
+    want = len(getattr(opt, "slices", opt.params)) * OFFLOAD_STEPS
+    if topt.launches["adamw"] != want:
+        raise AssertionError(f"{label}: adamw launched "
+                             f"{topt.launches['adamw']} times, want {want}")
+    losses = result["losses"]
+    del result, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _offload_cfg(here: str, offload: bool):
+    import dataclasses
+
+    from picotron_tpu_torch.config import load_config
+
+    base = load_config(os.path.join(here, CONFIG))
+    return dataclasses.replace(base, training=dataclasses.replace(
+        base.training, total_train_steps=OFFLOAD_STEPS,
+        optimizer_offload=offload))
+
+
+def offload_references(fa, here: str) -> dict:
+    """Phase 6b's references, 3 steps each of the phase-3 config from its
+    seed: the resident AdamW (losses; host copies of the params at steps
+    0, 1 and 3), and the resident AdamW under `offload_roundings`
+    (losses; prints of the params at steps 1 and 3)."""
+    ref = {"masters": {}, "prints": {}}
+    cfg = _offload_cfg(here, False)
+
+    def keep(state, step):
+        if step in (0, 1, OFFLOAD_STEPS):
+            ref["masters"][step] = _host_masters(state)
+
+    ref["losses"] = _three_steps(fa, cfg, lambda st: keep(st, 0), keep)
+
+    def prints(state, step):
+        if step in (1, OFFLOAD_STEPS):
+            ref["prints"][step] = _prints(dict(state.model.named_parameters()))
+
+    with offload_roundings():
+        ref["rounded_losses"] = _three_steps(fa, cfg, lambda st: None,
+                                             prints)
+    return ref
+
+
+def offload_vs_resident(fa, here: str, ref: Optional[dict] = None,
+                        fault: Optional[str] = None) -> dict:
+    """Phase 6b (the module docstring says what it checks); `ref` from
+    `offload_references` (made here when None), `fault` one of
+    OFFLOAD_FAULTS to plant. Raises with every gate that failed."""
+    ref = offload_references(fa, here) if ref is None else ref
+    p0 = ref["masters"][0]
+    replays, errors, prints, init = [], {}, {}, {}
+
+    def on_build(state):
+        opt = state.optimizer
+        init["equal"] = all(torch.equal(m, p0[n])
+                            for n, m in zip(opt.names, opt.master))
+        init["slices"] = len(opt.slices)
+        if fault is not None:
+            plant_offload_fault(opt, fault)
+        replay_offload_steps(opt, replays)
+
+    def on_step(state, step):
+        if step in (1, OFFLOAD_STEPS):
+            got = _host_masters(state)
+            errors[step] = _update_errors(p0, got, ref["masters"][step])
+            prints[step] = _prints(got)
+            del got
+
+    losses = _three_steps(fa, _offload_cfg(here, True), on_build, on_step)
+    first, last = errors[1], errors[OFFLOAD_STEPS]
+    norms = [n for n in first if n.endswith("norm")]
+    matmul = [n for n in first if n not in norms and n != "embedding"]
+    worst = lambda errs, names: max(names, key=errs.get)  # noqa: E731
+    w1, w1n, w3 = (worst(first, matmul), worst(first, norms),
+                   worst(last, list(last)))
+    mismatched = {r["step"]: r["mismatched"] for r in replays}
+    rounded = {step: sorted(n for n in prints[step]
+                            if prints[step][n] != ref["prints"][step][n])
+               for step in prints}
+    out = {"fault": fault, "losses_offload": losses,
+           "losses_resident": ref["losses"],
+           "losses_resident_rounded": ref["rounded_losses"],
+           "init_equal": init["equal"], "slices": init["slices"],
+           "replay_mismatched_tensors": {k: len(v)
+                                         for k, v in mismatched.items()},
+           "rounded_mismatched_tensors": {k: len(v)
+                                          for k, v in rounded.items()},
+           "step1_update_worst_matmul": [w1, first[w1]],
+           "step1_update_worst_norm": [w1n, first[w1n]],
+           "step1_update_embedding": first["embedding"],
+           f"step{OFFLOAD_STEPS}_update_worst": [w3, last[w3]],
+           f"step{OFFLOAD_STEPS}_update_by_class": {
+               cls: max(last[n] for n in names) for cls, names in (
+                   ("matmul", matmul), ("norm", norms),
+                   ("embedding", ["embedding"]))}}
+    fails = []
+    if not out["init_equal"]:
+        fails.append("offload master at init differs from the resident "
+                     "params")
+    if not losses[0] == ref["losses"][0] == ref["rounded_losses"][0]:
+        fails.append("step-1 losses differ")
+    for step, bad in mismatched.items():
+        if bad:
+            fails.append(f"replay: step {step}, {len(bad)} tensors differ "
+                         f"from the plain update (e.g. "
+                         f"{next(iter(bad.items()))})")
+    if losses != ref["rounded_losses"] or any(rounded.values()):
+        fails.append(f"resident with offload's roundings: losses "
+                     f"{ref['rounded_losses']} vs {losses}, tensors that "
+                     f"differ {dict((k, v[:3]) for k, v in rounded.items())}")
+    if not first[w1] <= OFFLOAD_RTOL:
+        fails.append(f"resident update: step 1, {w1} {first[w1]}")
+    for n in norms + ["embedding"]:
+        if not first[n] <= OFFLOAD_UPDATE_RTOL:
+            fails.append(f"resident update: step 1, {n} {first[n]}")
+    for n, e in last.items():
+        if not e <= OFFLOAD_UPDATE_RTOL:
+            fails.append(f"resident update: step {OFFLOAD_STEPS}, {n} {e}")
+    out["failures"] = fails
+    log(f"phase 6b offload vs resident{f' (fault {fault})' if fault else ''}"
+        f": losses {losses}, resident {ref['losses']}, resident with "
+        f"offload's roundings {ref['rounded_losses']}; replay mismatched "
+        f"tensors by step {out['replay_mismatched_tensors']}; vs the "
+        f"rounded resident {out['rounded_mismatched_tensors']}; updates vs "
+        f"resident (rel L2): step 1 worst matmul {first[w1]:.4g} ({w1}, "
+        f"limit {OFFLOAD_RTOL:g}), norm {first[w1n]:.4g} ({w1n}), "
+        f"embedding {first['embedding']:.4g} (limit "
+        f"{OFFLOAD_UPDATE_RTOL:g}); step {OFFLOAD_STEPS} by class "
+        f"{out[f'step{OFFLOAD_STEPS}_update_by_class']} (limit "
+        f"{OFFLOAD_UPDATE_RTOL:g}); {len(fails)} gates failed")
+    if fails:
+        raise AssertionError("phase 6b: " + "; ".join(fails[:12]))
+    return out
+
+
+def link_rates(dev, nbytes: int = 2 ** 30) -> dict:
+    """GB/s of one pinned-host copy of `nbytes` to the card, from it, and
+    both at once on two streams: the PCIe link the offloaded update
+    streams over."""
+    host = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    card = [torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+
+    def timed(h2d: bool, d2h: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if h2d:
+            with torch.cuda.stream(streams[0]):
+                card[0].copy_(host[0], non_blocking=True)
+        if d2h:
+            with torch.cuda.stream(streams[1]):
+                host[1].copy_(card[1], non_blocking=True)
+        torch.cuda.synchronize()
+        return nbytes / (time.perf_counter() - t0) / 1e9
+
+    timed(True, True)
+    out = {"h2d_alone": timed(True, False), "d2h_alone": timed(False, True),
+           "both_each_way": timed(True, True)}
+    del host, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def offload_config_run(fa, here: str, peak_flops: float) -> dict:
+    """Phase 6c (the docstring says what it checks)."""
+    import dataclasses
+    import gc
+
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.config import load_config
+    from picotron_tpu_torch.train_step import resolved_grad_engine
+    from picotron_tpu_torch.utils import flops_per_token
+
+    cfg = load_config(os.path.join(here, OFFLOAD_CONFIG))
+    t = cfg.training
+    if not t.optimizer_offload or resolved_grad_engine(cfg) != "fused":
+        raise AssertionError(f"{OFFLOAD_CONFIG}: offload "
+                             f"{t.optimizer_offload}, engine "
+                             f"{resolved_grad_engine(cfg)}")
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        t, max_tokens=OFFLOAD_STEPS * cfg.tokens_per_step))
+    real_build = train.build_state
+    held, timings = {}, []
+
+    def build(cfg, dev):
+        out = real_build(cfg, dev)
+        held["opt"] = out[0].optimizer
+        return out
+
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    try:
+        train.build_state = build
+        result = train.run(cfg, "cuda", on_step=lambda step, m: timings.append(
+            held["opt"].timings()))
+    finally:
+        train.build_state = real_build
+    torch.cuda.synchronize()
+    opt = held.pop("opt")
+    losses = result["losses"]
+    if len(losses) != OFFLOAD_STEPS or not all(
+            x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"phase 6c losses {losses}")
+    per = 24 * t.gradient_accumulation_steps * OFFLOAD_STEPS
+    counts = launch_counts(fa)
+    check_launches(counts, {"flash_fwd": per, "flash_bwd_dq": per,
+                            "flash_bwd_dkv": per}, "phase 6c")
+    if topt.launches["adamw"] != len(opt.slices) * OFFLOAD_STEPS:
+        raise AssertionError(f"phase 6c: adamw launched "
+                             f"{topt.launches['adamw']} times, want "
+                             f"{len(opt.slices) * OFFLOAD_STEPS}")
+    steady = statistics.median(result["step_seconds"][1:])
+    tps = result["tokens_per_step"] / steady
+    upd = statistics.median(x["update_ms"] for x in timings[1:]) / 1e3
+    h2d = statistics.median(x["h2d_ms"] for x in timings[1:]) / 1e3
+    d2h = statistics.median(x["d2h_ms"] for x in timings[1:]) / 1e3
+    each_way = opt.host_bytes
+    link = link_rates(torch.device("cuda"))
+    out = {"ga": t.gradient_accumulation_steps, "losses": losses,
+           "step_seconds": result["step_seconds"], "step_ms": steady * 1e3,
+           "tokens_per_s": tps,
+           "mfu": tps * flops_per_token(cfg.model, t.seq_length) / peak_flops,
+           "peak_memory_gb": result["peak_memory_gb"],
+           "update_s": upd, "h2d_s": h2d, "d2h_s": d2h,
+           "bytes_each_way": each_way,
+           "h2d_gb_per_s": each_way / h2d / 1e9,
+           "d2h_gb_per_s": each_way / d2h / 1e9,
+           "link_gb_per_s": link,
+           "update_timings_ms": timings, "slices": len(opt.slices),
+           "host_gib": opt.host_bytes / 2 ** 30,
+           "launches": {**counts["launches"], **topt.launches}}
+    log(f"phase 6c offload config (ga {out['ga']}): losses {losses}, step "
+        f"{out['step_ms']:.1f} ms (median of steps 2-{OFFLOAD_STEPS}), "
+        f"{tps:.1f} tokens/s, MFU {100 * out['mfu']:.2f}%, peak "
+        f"{out['peak_memory_gb']:.2f} GiB; update {upd:.3f} s/step, H2D "
+        f"{h2d:.3f} s ({out['h2d_gb_per_s']:.1f} GB/s), D2H {d2h:.3f} s "
+        f"({out['d2h_gb_per_s']:.1f} GB/s) for {each_way / 1e9:.2f} GB "
+        f"each way; pinned host {out['host_gib']:.2f} GiB; link (1 GiB "
+        f"pinned copies) H2D {link['h2d_alone']:.1f}, D2H "
+        f"{link['d2h_alone']:.1f}, both at once {link['both_each_way']:.1f} "
+        f"GB/s each way")
+    del result, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -806,12 +1453,16 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # phase 1: build
-    build.load("flash_attention")
-    for line in build.BUILD_LOGS.get("flash_attention", "").splitlines():
-        if ("entry function" in line or "registers" in line or "spill" in line
-                or "error" in line):
-            log(f"ptxas: {line.strip()}")
+    # phase 1: build (one nvcc per source, started together)
+    sources = ("flash_attention", "adamw")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    for name in sources:
+        build.load(name)
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line or "error" in line):
+                log(f"ptxas: {line.strip()}")
     hmma = sass_hmma(build)
     for fn, n in hmma.items():
         log(f"sass: {n} HMMA in {fn}")
@@ -878,14 +1529,24 @@ def main() -> int:
                         "flash_bwd_dkv": 2 * per_step}}
     phase4_launches = {}
 
+    from picotron_tpu_torch import optimizer as topt
+
+    n_tensors = result["launches"]["adamw"] // STEPS
+
     def on_launches(label):
         counts = launch_counts(fa)
         check_launches(counts, expect[label], f"phase 4 {label}")
-        phase4_launches[label] = counts["launches"]
+        if topt.launches["adamw"] != 2 * n_tensors:
+            raise AssertionError(f"phase 4 {label}: adamw launched "
+                                 f"{topt.launches['adamw']} times, want "
+                                 f"{2 * n_tensors}")
+        phase4_launches[label] = {**counts["launches"], **topt.launches}
         fa.reset_launch_counts()
+        topt.reset_launch_counts()
 
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
+    topt.reset_launch_counts()
     ckpt = checkpoint_resume(phase4_config(here), "cuda", result["losses"],
                              on_launches)
     ckpt["launches"] = phase4_launches
@@ -912,7 +1573,15 @@ def main() -> int:
     engines["chunked_ce"] = chunked_ce_check()
     log("phase 5 engines, remat and chunked CE: ok")
 
-    # phase 6: numbers
+    # phase 6: the AdamW kernel and the host-offloaded optimizer
+    adamw = adamw_vs_plain(dev)
+    adamw.update(adamw_timing(load_config(os.path.join(here, CONFIG)), dev))
+    offload = {"card": card, "adamw": adamw,
+               "vs_resident": offload_vs_resident(fa, here),
+               "config": offload_config_run(fa, here, H100_BF16_PEAK)}
+    log("phase 6 adamw kernel and offload: ok")
+
+    # phase 7: numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
                        ("fused path (fused, dots_attn)", fused)):
@@ -938,6 +1607,17 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
+        f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
+        f"{adamw['library_ms']:.3f} ms, bound {adamw['bound_ms']:.3f} ms "
+        f"(bytes)")
+    kernels.append({
+        "name": "adamw", "route": "cuda", "source": ADAMW_SOURCE,
+        "replaces": ADAMW_REPLACES, "launches": result["launches"]["adamw"],
+        "max_abs_err": adamw["max_abs_err"], "ms": adamw["ms"],
+        "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
+        "bound_by": "bytes", "library_ms": adamw["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
         "card": card, **engines["ad"],
@@ -946,6 +1626,7 @@ def main() -> int:
     engines["remat_peak_gb"] = {p: r["peak_memory_gb"]
                                 for p, r in engines["remat"].items()}
     print(json.dumps({"engines": engines}))
+    print(json.dumps({"offload": offload}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,12 @@ HF safetensors import/export.
 Layout, the JAX package's with a torch payload in place of Orbax's:
 
     <save_dir>/step_%08d/
-        state/params.pt      fp32 master params {name: tensor}
+        state/params.pt      fp32 master params {name: tensor}; under
+                              optimizer_offload the bf16 compute copy
         state/opt_state.pt   {"mu": {name: tensor}, "nu": {...}, "count",
                               "step"}: moments in their dtype (bf16 stays
-                              bf16), AdamW's count, TrainState.step
+                              bf16), AdamW's count, TrainState.step; under
+                              optimizer_offload also "master" {name: fp32}
         meta.json            step, trained_tokens, config, dataloader
         manifest.json        per-file sizes and digests + topology
 
@@ -20,7 +22,10 @@ step only when it is durable AND verifies against its manifest.
 Async saves (`checkpoint.async_save`, the default): `save()` returns once
 every tensor has been copied to host memory. The port updates params and
 moments in place, so a writer that read device tensors after `save()`
-returned would save a later step; the host copies are the snapshot. The
+returned would save a later step; the host copies are the snapshot (under
+offload the pinned master and moments are copied host to host, as the
+next step overwrites them in place). A checkpoint of the other
+optimizer_offload mode is refused, naming the option. The
 file write, manifest hash and retention GC then run on a thread that
 `wait_until_finished` joins (and re-raises a failed payload write from).
 
@@ -132,9 +137,10 @@ class CheckpointManager:
         model, opt = state.model, state.optimizer
         named = list(model.named_parameters())
         params = {n: _host(p) for n, p in named}
-        opt_state = {"mu": {n: _host(opt.moments(p)["mu"]) for n, p in named},
-                     "nu": {n: _host(opt.moments(p)["nu"]) for n, p in named},
-                     "count": int(opt.count), "step": step}
+        opt.synchronize()
+        opt_state = {kind: {n: _host(t) for n, t in tensors.items()}
+                     for kind, tensors in opt.state_tensors().items()}
+        opt_state.update(count=int(opt.count), step=step)
         self.timings = {"snapshot_s": time.perf_counter() - t0}
         meta = {"step": step, "trained_tokens": int(trained_tokens),
                 "config": self.cfg.to_json_dict()}
@@ -367,17 +373,23 @@ class CheckpointManager:
                                describe=f"checkpoint restore (step {step})")
         model, opt = state.model, state.optimizer
         named = list(model.named_parameters())
+        live = opt.state_tensors()
+        saved, wanted = "master" in opt_state, "master" in live
+        if saved != wanted:
+            raise ValueError(
+                f"checkpoint step {step} under {self.directory} was saved "
+                f"with training.optimizer_offload "
+                f"{'on' if saved else 'off'}; this run has it "
+                f"{'on' if wanted else 'off'}. Set "
+                f"training.optimizer_offload as the checkpoint was saved")
         _check_shapes(params, {n: p for n, p in named}, "param", step)
-        for kind in ("mu", "nu"):
-            _check_shapes(opt_state[kind],
-                          {n: opt.moments(p)[kind] for n, p in named},
-                          f"AdamW {kind}", step)
+        for kind, tensors in live.items():
+            _check_shapes(opt_state[kind], tensors, f"AdamW {kind}", step)
         with torch.no_grad():
             for n, p in named:
                 p.copy_(params[n])
-                st = opt.moments(p)
-                st["mu"].copy_(opt_state["mu"][n])
-                st["nu"].copy_(opt_state["nu"][n])
+                for kind, tensors in live.items():
+                    tensors[n].copy_(opt_state[kind][n])
         if model.embedding.is_cuda:
             torch.cuda.synchronize(model.embedding.device)
         opt.count = int(opt_state["count"])
@@ -410,14 +422,25 @@ def restore_params_only(cfg: Config, ckpt_dir: str,
     """Only the params of a training checkpoint ({name: CPU tensor}, the
     port's state_dict; cast to `dtype` when given) and the step: the
     generation/export path. Reads `state/params.pt` alone, never the
-    moments. With no step: the newest durable AND verified one."""
+    moments; under optimizer_offload, whose params.pt is the bf16 compute
+    copy, the fp32 master of `state/opt_state.pt` instead (memory-mapped:
+    the moments are not read), as the JAX package's restore_params_only.
+    With no step: the newest durable AND verified one."""
     mgr = CheckpointManager(cfg, directory=ckpt_dir)
     if step is None:
         step = mgr.latest_valid_step()
         if step is None:
             raise FileNotFoundError(f"no valid checkpoints under {ckpt_dir}")
-    params = _load_file(os.path.join(mgr._step_dir(step), "state",
-                                     PARAMS_FILE))
+    state_dir = os.path.join(mgr._step_dir(step), "state")
+    if cfg.training.optimizer_offload:
+        opt_state = _load_file(os.path.join(state_dir, OPT_FILE))
+        if "master" not in opt_state:
+            raise ValueError(
+                f"checkpoint step {step} under {ckpt_dir} was saved with "
+                f"training.optimizer_offload off; this config has it on")
+        params = opt_state["master"]
+    else:
+        params = _load_file(os.path.join(state_dir, PARAMS_FILE))
     if dtype is not None:
         params = {n: t.to(dtype) for n, t in params.items()}
     return params, step

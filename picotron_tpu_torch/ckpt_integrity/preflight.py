@@ -18,12 +18,16 @@ from picotron_tpu_torch.config import Config, num_params
 
 def checkpoint_nbytes(cfg: Config) -> int:
     """Estimated on-disk bytes of ONE training checkpoint of the port:
-    fp32 master params + both AdamW moments at their configured dtype.
+    fp32 master params + both AdamW moments at their configured dtype +
+    the bf16 compute copy that optimizer_offload saves as params.
     torch.save adds only per-tensor records on top, so this is a tight
     lower bound."""
     n = num_params(cfg.model)
     moment_bytes = 2 if cfg.training.adam_moments_dtype == "bfloat16" else 4
-    return 4 * n + 2 * moment_bytes * n
+    total = 4 * n + 2 * moment_bytes * n
+    if cfg.training.optimizer_offload:
+        total += 2 * n
+    return total
 
 
 def preflight_save_dir(cfg: Config) -> int:

@@ -8,7 +8,9 @@ RMSNorm -> untied or tied LM head. The functions below keep the JAX names
 `final_hidden`, `logits_from_hidden`, `forward`, `loss_sum_count`).
 
 Params are fp32 masters and are cast to the compute dtype where used (the
-JAX `.astype(dt)`), so autograd gives fp32 grads. Matmul weights use the
+JAX `.astype(dt)`), so autograd gives fp32 grads. Under optimizer_offload
+they are the bf16 compute copy (the master lives in the optimizer), the
+casts do nothing and the grads are bf16, as in the JAX package. Matmul weights use the
 PyTorch [out_features, in_features] layout (`F.linear`); `weights.py`
 converts to and from the JAX [in, out] stacked-layer pytree.
 

@@ -24,6 +24,12 @@ kernel runs once per layer, never again in the backward). Embedding,
 final-norm, head, norm and bias grads are added as the JAX engine adds
 its non-layer leaves.
 
+The accumulators are the optimizer's fp32 grad buffers (`grads`,
+{param: buffer}: the params' .grad, or under optimizer_offload, whose
+params are the bf16 compute copy, buffers of their own), left undivided:
+the 1 / token count rides to the update. Over bf16 params
+`ComputeWeights` are the params themselves, with no second copy.
+
 Eligibility is the JAX package's (`fused_bwd_supported`: one pipeline
 stage under remat "dots_attn"); of its branches only the single-device
 ones are ported: flash (`attn_impl` "auto"/"flash") and the plain
@@ -32,6 +38,8 @@ ones are ported: flash (`attn_impl` "auto"/"flash") and the plain
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +59,7 @@ from picotron_tpu_torch.ops.losses import (
 )
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.rope import apply_rope
+from picotron_tpu_torch.optimizer import param_grads
 
 _MATMULS = ("q", "k", "v", "o", "gate", "up", "down")
 
@@ -86,8 +95,9 @@ class ComputeWeights:
     copy per layer weight and the head, refreshed from the fp32 masters by
     one `torch._foreach_copy_` at the start of every step (so a restore or
     a rollback cannot leave them stale; a cast is deterministic, so this
-    equals casting at each use bit for bit). Under fp32 compute they are
-    the masters themselves."""
+    equals casting at each use bit for bit). Where the params already are
+    in the compute dtype (fp32 compute, or the bf16 compute copy of
+    optimizer_offload) they are the params themselves, with no refresh."""
 
     def __init__(self, model: LlamaModel):
         self.model = model
@@ -95,8 +105,9 @@ class ComputeWeights:
         self.masters = [getattr(lp, name).detach() for lp in model.layers
                         for name in _MATMULS]
         self.masters.append(model.head_weight().detach())
-        self.copies = (self.masters if dt == torch.float32 else
-                       [torch.empty_like(p, dtype=dt) for p in self.masters])
+        self.copies = (self.masters if all(p.dtype == dt for p in self.masters)
+                       else [torch.empty_like(p, dtype=dt)
+                             for p in self.masters])
 
     def refresh(self) -> None:
         if self.copies is not self.masters:
@@ -210,12 +221,12 @@ def forward_saved(model: LlamaModel, weights: ComputeWeights,
 
 
 def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
-                      ids: torch.Tensor, tgt: torch.Tensor,
+                      ids: torch.Tensor, tgt: torch.Tensor, acc: dict,
                       ce_chunk_size: int = 0, plain: bool = False):
-    """One microbatch: adds its NLL-sum grads into every `p.grad` (fp32
-    tensors the caller allocated) and returns (nll_sum, valid_count).
-    `plain=True` takes the weight grads by the plain form on CUDA too
-    (the comparison of the two forms on the card; never the main path)."""
+    """One microbatch: adds its NLL-sum grads into every param's fp32
+    accumulator `acc[p]` and returns (nll_sum, valid_count). `plain=True`
+    takes the weight grads by the plain form on CUDA too (the comparison
+    of the two forms on the card; never the main path)."""
     cfg = model.cfg
     eps = cfg.rms_norm_eps
     act = mlp_act(cfg)
@@ -234,8 +245,8 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
             total, count = cross_entropy_sum_count(F.linear(h, head_w), tgt)
     dy, d_final, d_head = torch.autograd.grad(
         total, (x_l, model.final_norm, head_w))
-    model.final_norm.grad.add_(d_final)
-    head.grad.add_(d_head.to(head.grad.dtype))
+    acc[model.final_norm].add_(d_final)
+    acc[head].add_(d_head.to(acc[head].dtype))
 
     # ---------------- backward, layer by layer in reverse ----------------
     for i in reversed(range(len(model.layers))):
@@ -254,19 +265,19 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
             up = _with_grad(F.linear(h2d, w["up"]))
             m = act(gate) * up
         dm = dy @ w["down"]
-        accumulate_weight_grad(lp.down.grad, dy, m.detach(), plain)
+        accumulate_weight_grad(acc[lp.down], dy, m.detach(), plain)
         d_gate, d_up = torch.autograd.grad(m, (gate, up), dm)
         # sums in autograd's order (the later consumer's grad first), so
         # the bf16 roundings are the AD engine's
         dh2 = d_up @ w["up"] + d_gate @ w["gate"]
-        accumulate_weight_grad(lp.gate.grad, d_gate, h2d, plain)
-        accumulate_weight_grad(lp.up.grad, d_up, h2d, plain)
+        accumulate_weight_grad(acc[lp.gate], d_gate, h2d, plain)
+        accumulate_weight_grad(acc[lp.up], d_up, h2d, plain)
         da, d_post = torch.autograd.grad(h2, (a_, lp.post_norm), dh2)
-        lp.post_norm.grad.add_(d_post)
+        acc[lp.post_norm].add_(d_post)
         da = dy + da
         # o-projection, then attention from the saved (out, lse)
         dout = (da @ w["o"]).reshape(out.shape)
-        accumulate_weight_grad(lp.o.grad, da, outf, plain)
+        accumulate_weight_grad(acc[lp.o], da, outf, plain)
         dq, dk, dv = attn_bwd(q, k, v, out, lse, dout)
         dq, dk, dv = _flat(dq), _flat(dk), _flat(dv)
         # qkv half: q/k/v = norm(x) @ W (+ b)
@@ -276,41 +287,39 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
         h1d = h1.detach()
         dh1 = dv @ w["v"] + dk @ w["k"] + dq @ w["q"]
         for name, g in (("q", dq), ("k", dk), ("v", dv)):
-            accumulate_weight_grad(getattr(lp, name).grad, g, h1d, plain)
+            accumulate_weight_grad(acc[getattr(lp, name)], g, h1d, plain)
             bias = getattr(lp, "b_" + name)
             if bias is not None:
-                bias.grad.add_(g.sum(dim=(0, 1)).to(bias.grad.dtype))
+                acc[bias].add_(g.sum(dim=(0, 1)).to(acc[bias].dtype))
         dx, d_in = torch.autograd.grad(h1, (x_, lp.input_norm), dh1)
-        lp.input_norm.grad.add_(d_in)
+        acc[lp.input_norm].add_(d_in)
         dy = da + dx
         del x, q, k, v, out, lse
 
     # ---------------- embedding ----------------
-    model.embedding.grad.index_put_((ids,), dy.to(model.embedding.dtype),
-                                    accumulate=True)
+    emb = acc[model.embedding]
+    emb.index_put_((ids,), dy.to(emb.dtype), accumulate=True)
     return total.detach(), count
 
 
 def fused_accumulate_grads(model: LlamaModel, weights: ComputeWeights,
                            batch, ce_chunk_size: int = 0,
-                           plain: bool = False) -> torch.Tensor:
+                           plain: bool = False, grads: Optional[dict] = None):
     """The fused engine's counterpart of `train_step.accumulate_grads`:
-    token-mean fp32 grads in every p.grad, the mean loss returned.
-    `weights` must have been refreshed for this step."""
+    zeroes the fp32 accumulators `grads` ({param: buffer}; the params'
+    .grad when None), sums the microbatches' NLL-sum grads into them and
+    returns (mean loss, 1 / token count). `weights` must have been
+    refreshed for this step."""
     ids, tgt = batch
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        else:
-            p.grad.zero_()
+    grads = param_grads(model.parameters()) if grads is None else grads
+    for buf in grads.values():
+        buf.zero_()
     nll_total = torch.zeros((), dtype=torch.float32, device=ids.device)
     count = torch.zeros((), dtype=torch.int64, device=ids.device)
     for i in range(ids.shape[0]):
-        total, c = fused_micro_grads(model, weights, ids[i], tgt[i],
+        total, c = fused_micro_grads(model, weights, ids[i], tgt[i], grads,
                                      ce_chunk_size, plain)
         nll_total += total
         count += c
     count = count.clamp(min=1)
-    for p in model.parameters():
-        p.grad.div_(count)
-    return nll_total / count
+    return nll_total / count, torch.reciprocal(count.float())

@@ -6,15 +6,25 @@
 
 Runs the trainer (`train.run`) for `warmup + steps` steps and traces the
 last `steps` under torch.profiler (CPU + CUDA activity), then prints per
-step: wall time, device-busy time (the sum of kernel durations: one
-stream, so kernels do not overlap), the idle share 1 - busy / wall, and
-device time by class (the three flash kernels, GEMMs, everything else) and
-by kernel name, and by part of the step: the kernels launched under the
-optimizer's and the guard's grad-norm host ranges, and the rest, the
-grads (forward and backward: autograd launches its backward kernels from
-its own thread, outside any range of the step's thread, so the grads are
-the busy time less the two ranges). The last line is one JSON object
-with the same numbers.
+step: wall time, device-busy time (the sum of kernel durations: the
+kernels run on one stream, so they do not overlap), the idle share 1 -
+busy / wall, and device time by class (the three flash kernels, the
+AdamW kernel, GEMMs, everything else; host-device copies, which the
+offloaded optimizer runs on two streams of their own beside the kernels,
+apart as "memcpy" and outside the busy time) and by kernel name, and by
+part of the step: the kernels launched under the optimizer's and the
+guard's grad-norm host ranges, and the rest, the grads (forward and
+backward: autograd launches its backward kernels from its own thread,
+outside any range of the step's thread, so the grads are the busy time
+less the two ranges). The flash and AdamW kernels are launched through
+ctypes, so the profiler ties them to no host range: the AdamW kernel's
+time, which launches only inside the optimizer's step, is added to that
+part by its class. Under optimizer_offload the optimizer's part counts
+the kernels on the compute stream, and beside it are its H2D copies, its
+kernel and its D2H copies (the ranges "offload.h2d", "offload.adamw",
+"offload.d2h"; the copies run on their own streams, overlapping each
+other and the kernel). The last line is one JSON object with the same
+numbers.
 Needs a CUDA card.
 """
 
@@ -39,6 +49,8 @@ _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
           ("bwd_dkv_kernel", "bwd_dkv_kernel"))
 _GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 RANGES = ("train_step.grad_norm", "Optimizer.step")
+# the offloaded update's pieces, inside its Optimizer.step range
+OFFLOAD_RANGES = ("offload.h2d", "offload.adamw", "offload.d2h")
 
 
 def kernel_class(name: str) -> str:
@@ -46,6 +58,10 @@ def kernel_class(name: str) -> str:
     for k, cls in _FLASH:
         if k in name:
             return "flash:" + cls
+    if "adamw_kernel" in name:
+        return "adamw"
+    if low.startswith("memcpy"):
+        return "memcpy"
     if any(g in low for g in _GEMM):
         return "gemm"
     return "other"
@@ -103,15 +119,27 @@ def main(argv=None) -> dict:
                            "card; time with CUDA events instead")
     # the kernels launched under the optimizer's and the grad norm's host
     # ranges; the grads are the rest
-    by_range = defaultdict(float)
+    by_range, offload = defaultdict(float), defaultdict(float)
     for evt in events:
-        if (evt.device_type == torch.autograd.DeviceType.CPU
-                and evt.name.startswith(RANGES)):
-            by_range[evt.name] += evt.device_time_total / 1e3 / args.steps
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        ms = evt.device_time_total / 1e3 / args.steps
+        if evt.name.startswith(RANGES):
+            by_range[evt.name] += ms
+        elif evt.name in OFFLOAD_RANGES:
+            offload[evt.name] += ms
     by_class = defaultdict(float)
     for name, ms in by_name.items():
         by_class[kernel_class(name)] += ms
-    busy = sum(by_name.values())
+    busy = sum(ms for name, ms in by_name.items()
+               if kernel_class(name) != "memcpy")
+    adamw = by_class.get("adamw", 0.0)
+    copies = offload.get("offload.h2d", 0.0) + offload.get("offload.d2h", 0.0)
+    for name in by_range:
+        if name.startswith("Optimizer.step"):
+            by_range[name] += adamw - copies
+    if offload:
+        offload["offload.adamw"] += adamw
     card = torch.cuda.get_device_name(0)
     print(f"card {card}: step wall {wall * 1e3:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
@@ -120,11 +148,15 @@ def main(argv=None) -> dict:
     by_range["grads (the rest)"] = busy - sum(by_range.values())
     for name, ms in sorted(by_range.items()):
         print(f"  part {name:29s} {ms:9.2f} ms/step")
+    for name in OFFLOAD_RANGES:
+        if name in offload:
+            print(f"    beside it: {name:20s} {offload[name]:9.2f} ms/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {ms:9.2f} ms/step  {name[:100]}")
     out = {"card": card, "step_wall_ms": wall * 1e3, "device_busy_ms": busy,
            "idle_share": 1 - busy / (wall * 1e3),
-           "by_class_ms": dict(by_class), "by_range_ms": dict(by_range)}
+           "by_class_ms": dict(by_class), "by_range_ms": dict(by_range),
+           "offload_ms": dict(offload)}
     print(json.dumps(out))
     return out
 

@@ -4,7 +4,8 @@
   step, an emergency checkpoint and exit `EXIT_PREEMPTED` (75);
 - **divergence**: `DivergenceGuard` answers NaN/Inf and loss spikes with
   skip / rollback / abort (`EXIT_DIVERGED`, 76); the in-step half of skip
-  is `train_step.guard_nonfinite`;
+  is the AdamW update's `ok` flag (`optimizer.adamw_update`: the kernel
+  writes nothing, the plain version selects with `guard_nonfinite`);
 - **flaky I/O**: `retry_call` wraps checkpoint writes and reads;
 - **hangs**: `Watchdog` dumps every thread's stack and exits
   `EXIT_WATCHDOG` (77).

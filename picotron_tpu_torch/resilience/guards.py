@@ -13,9 +13,9 @@ Two detectors over the per-step metrics:
 The response is the configured `resilience.guard_policy`:
 
 - ``skip`` — drop the batch, keep optimizer state. For non-finite steps
-  the update suppression happens *inside* the step
-  (train_step.guard_nonfinite, on params and AdamW's moments and count),
-  so the guard only reports. A spike under ``skip`` can only be
+  the update suppression happens *inside* the step (the AdamW update's
+  `ok` flag on params and moments, and the count), so the guard only
+  reports. A spike under ``skip`` can only be
   quarantined from the window — its update is already applied; use
   ``rollback`` when spikes must not touch the weights.
 - ``rollback`` — restore the last known-good checkpoint (durable AND

@@ -65,9 +65,6 @@ def unsupported(cfg: Config) -> list[str]:
     if m.attn_impl not in ("auto", "flash", "reference"):
         out.append(f"attn_impl={m.attn_impl!r} (context parallelism: "
                    "ROADMAP Queue 1 item 9)")
-    if t.optimizer_offload:
-        out.append("training.optimizer_offload (ROADMAP Queue 1 item 4, "
-                   "offload half)")
     if t.remat and t.remat_policy == "dots_offload":
         out.append("training.remat_policy='dots_offload' (saves in pinned "
                    "host memory: ROADMAP Queue 1 item 7)")
@@ -105,9 +102,13 @@ def build_state(cfg: Config, dev: torch.device):
     gen = torch.Generator(device=dev).manual_seed(cfg.training.seed)
     model = init_params(LlamaModel(cfg.model, device=dev), gen)
     state = init_train_state(cfg, model)
+    if cfg.training.optimizer_offload:
+        pinned = "pinned " if dev.type == "cuda" else ""
+        log_print(f"optimizer: offload ({pinned}host "
+                  f"{state.optimizer.host_bytes / 2 ** 30:.2f} GiB)")
     if ck.init_from_hf:
-        model.load_state_dict(load_hf_safetensors(ck.init_from_hf,
-                                                  cfg.model))
+        state.optimizer.install(load_hf_safetensors(ck.init_from_hf,
+                                                    cfg.model))
         log_print(f"initialized weights from {ck.init_from_hf}")
 
     load_dir, mgr, step, verify_s = ck.load_path, None, None, 0.0

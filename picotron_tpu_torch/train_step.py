@@ -5,34 +5,41 @@ microbatches, token-mean grads, one AdamW step.
 
 Two grad engines, resolved as the JAX package resolves them
 (`resolved_grad_engine`): "ad" runs autograd per microbatch, under the
-config's remat policy (`models/llama.py` `remat_layer`), and its backward
-passes sum into the params' fp32 .grad; "fused" is the manual backward of
-`parallel/fused_bwd.py`, which accumulates each layer's weight grads into
-.grad inside the GEMMs and reads per-step bf16 copies of the weights.
-"auto" takes "fused" when gradient accumulation is on and the config is
-eligible (remat "dots_attn"). Either way the sum of per-microbatch NLL
-sums and the grads are divided once by the total valid-token count, so
-uneven IGNORE_INDEX counts weigh microbatches correctly;
-`training.ce_chunk_size` streams the head's CE over vocab chunks.
+config's remat policy (`models/llama.py` `remat_layer`); "fused" is the
+manual backward of `parallel/fused_bwd.py`, which accumulates each
+layer's weight grads inside the GEMMs and reads per-step bf16 copies of
+the weights. "auto" takes "fused" when gradient accumulation is on and
+the config is eligible (remat "dots_attn"). Either engine sums the
+microbatches' NLL-sum grads into the optimizer's fp32 grad buffers
+(`grad_of`: the params' .grad under the resident AdamW; under
+optimizer_offload buffers that the bf16 params' post-accumulate-grad
+hooks fill) without dividing them, and returns the mean loss and 1 /
+the total valid-token count, which rides to the update as `grad_scale`,
+as in the JAX package's `_finish_grads`; so uneven IGNORE_INDEX counts
+weigh microbatches correctly. `training.ce_chunk_size` streams the
+head's CE over vocab chunks.
 
 With `resilience.guard_policy != "off"` the step also returns the grads'
-global norm (`grad_norm`, optax.global_norm) and an in-step `nonfinite`
-flag, as the JAX step does; the same norm feeds clipping. Under "skip" a
-non-finite step leaves params, moments and the AdamW count as they were.
+global norm (`grad_norm`, optax.global_norm: the buffers' norm times
+the scale) and an in-step `nonfinite` flag, as the JAX step does; the
+same norm feeds clipping. Under "skip" a non-finite step leaves params,
+moments and the AdamW count as they were.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch.profiler import record_function
 
 from picotron_tpu_torch.config import Config
-from picotron_tpu_torch.models.llama import LlamaModel, loss_sum_count
+from picotron_tpu_torch.models.llama import (
+    LlamaModel, compute_dtype, loss_sum_count,
+)
 from picotron_tpu_torch.optimizer import (
-    AdamW, global_norm, guard_nonfinite, make_optimizer,
+    AdamW, OffloadAdamW, global_norm, guard_nonfinite, param_grads,
 )
 from picotron_tpu_torch.parallel.fused_bwd import (
     ComputeWeights, check_ported, fused_accumulate_grads, fused_bwd_supported,
@@ -46,14 +53,20 @@ __all__ = ["TrainState", "accumulate_grads", "guard_nonfinite",
 @dataclass
 class TrainState:
     model: LlamaModel
-    optimizer: AdamW
+    optimizer: Union[AdamW, OffloadAdamW]
     step: int = 0
 
 
 def init_train_state(cfg: Config, model: LlamaModel) -> TrainState:
-    return TrainState(model=model,
-                      optimizer=make_optimizer(model.parameters(),
-                                               cfg.training))
+    """The model (fp32 params) and its optimizer. Under optimizer_offload
+    the params become the master of `OffloadAdamW` (host memory, pinned
+    on CUDA) and the model keeps their bf16 compute copy, as the JAX
+    package's `_init_offload_state`."""
+    if cfg.training.optimizer_offload:
+        opt = OffloadAdamW(model, cfg.training, compute_dtype(model.cfg))
+    else:
+        opt = AdamW(model, cfg.training)
+    return TrainState(model=model, optimizer=opt)
 
 
 def resolved_grad_engine(cfg: Config) -> str:
@@ -72,14 +85,17 @@ def resolved_grad_engine(cfg: Config) -> str:
 
 
 def accumulate_grads(model: LlamaModel, batch, remat: Optional[str] = None,
-                     ce_chunk_size: int = 0):
+                     ce_chunk_size: int = 0, grads: Optional[dict] = None):
     """The AD engine. batch: (input_ids, targets), each [n_micro, mbs,
-    seq] on the model's device; `remat` a remat policy name or None.
-    Leaves token-mean fp32 grads in p.grad; returns the mean loss (a 0-dim
-    fp32 tensor)."""
+    seq] on the model's device; `remat` a remat policy name or None;
+    `grads` the fp32 accumulators, {param: buffer} (the optimizer's
+    `grad_of`; the params' .grad when None). Zeroes them, leaves the
+    microbatches' summed NLL-sum grads there and returns (mean loss, 1 /
+    token count), each a 0-dim fp32 tensor."""
     ids, tgt = batch
-    for p in model.parameters():
-        p.grad = None
+    grads = param_grads(model.parameters()) if grads is None else grads
+    for buf in grads.values():
+        buf.zero_()
     nll_total = torch.zeros((), dtype=torch.float32, device=ids.device)
     count = torch.zeros((), dtype=torch.int64, device=ids.device)
     for i in range(ids.shape[0]):
@@ -89,31 +105,30 @@ def accumulate_grads(model: LlamaModel, batch, remat: Optional[str] = None,
         nll_total += total.detach()
         count += c
     count = count.clamp(min=1)
-    for p in model.parameters():
-        if p.grad is not None:
-            p.grad.div_(count)
-    return nll_total / count
+    return nll_total / count, torch.reciprocal(count.float())
 
 
 def make_grads_fn(cfg: Config):
-    """(model, batch) -> mean loss, leaving token-mean fp32 grads in
-    p.grad, by the config's resolved engine. The fused engine's bf16
-    weight copies are made for the model it first sees (again for another
-    model) and refreshed from the masters on every call."""
+    """(model, batch, grads=None) -> (mean loss, 1 / token count), the
+    summed grads left in `grads` (as `accumulate_grads`), by the config's
+    resolved engine. The fused engine's bf16 weight copies are made for
+    the model it first sees (again for another model) and refreshed from
+    the masters on every call; over bf16 params they are the params."""
     t = cfg.training
     if resolved_grad_engine(cfg) != "fused":
         remat = t.remat_policy if t.remat else None
-        return lambda model, batch: accumulate_grads(model, batch, remat,
-                                                     t.ce_chunk_size)
+        return lambda model, batch, grads=None: accumulate_grads(
+            model, batch, remat, t.ce_chunk_size, grads)
     check_ported(cfg)
     weights = None
 
-    def fused(model: LlamaModel, batch):
+    def fused(model: LlamaModel, batch, grads: Optional[dict] = None):
         nonlocal weights
         if weights is None or weights.model is not model:
             weights = ComputeWeights(model)
         weights.refresh()
-        return fused_accumulate_grads(model, weights, batch, t.ce_chunk_size)
+        return fused_accumulate_grads(model, weights, batch, t.ce_chunk_size,
+                                      grads=grads)
 
     return fused
 
@@ -127,22 +142,22 @@ def make_train_step(cfg: Config):
     guard_skip = cfg.resilience.guard_policy == "skip"
 
     def train_step(state: TrainState, batch) -> dict:
-        loss = grads_fn(state.model, batch)
+        opt = state.optimizer
+        loss, scale = grads_fn(state.model, batch, opt.grad_of)
         metrics = {"loss": loss}
         gnorm = ok = None
         if guards_on:
             # One global norm covers every grad: any NaN/Inf poisons it,
             # so non-finite detection is one scalar check.
             with record_function("train_step.grad_norm"):
-                gnorm = global_norm([p.grad for p in
-                                     state.model.parameters()
-                                     if p.grad is not None])
-            finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-            metrics["grad_norm"] = gnorm
+                gnorm = global_norm(opt.grads)
+            shown = gnorm * scale
+            finite = torch.isfinite(loss) & torch.isfinite(shown)
+            metrics["grad_norm"] = shown
             metrics["nonfinite"] = 1.0 - finite.float()
             if guard_skip:
                 ok = finite
-        state.optimizer.step(grad_norm=gnorm, ok=ok)
+        opt.step(scale, grad_norm=gnorm, ok=ok)
         state.step += 1
         return metrics
 

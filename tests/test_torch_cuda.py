@@ -14,7 +14,14 @@ chip_smoke.py's phase-2 limit, per row: ||kernel - plain||_2 <= 1e-2 *
 docstring says why). `test_planted_wrong_kernels_fail` shows that limit
 fails a kernel with a planted fault, and `test_mutant_sites` (which needs no
 card and runs in the CPU suite) that each planted fault still lands in the
-kernels it names, the tensor-core forward, dq and dk/dv included."""
+kernels it names, the tensor-core forward, dq and dk/dv included.
+
+The AdamW kernel (`csrc/adamw.cu`) is held to its plain version bit for
+bit (chip_smoke phase 6a); a copy with nu's bias correction dropped must
+fail that gate. The offloaded optimizer trains a debug-size model on the
+card with its state pinned on the host, each streamed step equal bit for
+bit to the plain update; and chip_smoke phase 6b, at its full size, fails
+each of three faults planted in the offloaded optimizer."""
 
 import re
 
@@ -465,3 +472,152 @@ def test_chunked_ce_on_the_card(dev):
     out = chip_smoke.chunked_ce_check(n=(2, 256), hidden=128, vocab=8192,
                                       chunk=1024)
     assert out["peak_gb"] < out["peak_gb_unchunked"]
+
+
+# -- the AdamW kernel (csrc/adamw.cu) ----------------------------------------
+
+# the bias correction of nu dropped: sqrt(v) in place of sqrt(v / c2)
+ADAMW_MUTANT = (r"__fsqrt_rn\(__fdiv_rn\(v, h\.c2\)\)", "__fsqrt_rn(v)")
+
+
+def test_adamw_mutant_site():
+    """The planted AdamW fault finds exactly one site; no card needed."""
+    src = (build.CSRC / "adamw.cu").read_text()
+    assert len(re.findall(ADAMW_MUTANT[0], src)) == 1
+
+
+@cuda
+def test_adamw_kernel_matches_plain(dev):
+    """chip_smoke phase 6(a)'s comparison: ragged sizes, both moment
+    dtypes, clip under and over, grad_scale, ok True and False, with and
+    without the compute copy, bit for bit."""
+    from picotron_tpu_torch import optimizer as topt
+
+    topt.reset_launch_counts()
+    out = chip_smoke.adamw_vs_plain(dev)
+    assert out["max_abs_err"] == 0.0 and out["max_ulp"] == 0
+    assert topt.launches["adamw"] == out["cases"]
+
+
+@cuda
+def test_adamw_wrapper_raises_instead_of_falling_back(dev):
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch.config import TrainingConfig
+
+    t = TrainingConfig()
+    h = topt.step_hyper(t, topt.make_lr(t), 0)
+    def z(n=64, dt=torch.float32):
+        return torch.zeros(n, dtype=dt, device=dev)
+
+    with pytest.raises(ValueError, match="aligned"):
+        topt.adamw_update(z(65)[1:], z(), z(), z(), h)
+    with pytest.raises(ValueError, match="contiguous"):
+        topt.adamw_update(z(128)[::2], z(), z(), z(), h)
+    with pytest.raises(ValueError, match="fp32"):
+        topt.adamw_update(z(dt=torch.bfloat16), z(), z(), z(), h)
+    with pytest.raises(ValueError, match="mu and nu"):
+        topt.adamw_update(z(), z(), z(dt=torch.float16), z(dt=torch.float16),
+                          h)
+    with pytest.raises(ValueError, match="grad_norm"):
+        topt.adamw_update(z(), z(), z(), z(), h, grad_norm=torch.ones(1))
+    with pytest.raises(ValueError, match="out"):
+        topt.adamw_update(z(), z(), z(), z(), h, out=z())
+
+
+@cuda
+def test_planted_adamw_fault_fails(dev, tmp_path, monkeypatch):
+    """A copy of adamw.cu with nu's bias correction dropped fails chip_smoke
+    phase 6(a)'s bit-for-bit gate."""
+    src = (build.CSRC / "adamw.cu").read_text()
+    mutated, n = re.subn(ADAMW_MUTANT[0], ADAMW_MUTANT[1], src)
+    assert n == 1
+    (tmp_path / "adamw.cu").write_text(mutated)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(AssertionError, match="adamw kernel vs plain"):
+        chip_smoke.adamw_vs_plain(dev)
+
+
+@cuda
+def test_offload_trains_on_the_card(dev):
+    """optimizer_offload at debug size on the card: the master and
+    moments pinned on the host; every streamed step equal bit for bit to
+    the plain update of the state before it (chip_smoke's
+    `replay_offload_steps`: master, mu, nu and the bf16 compute copy);
+    the masters moved; the AdamW kernel once per slice per step; and
+    step 1's loss equal to the resident AdamW's bit for bit."""
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch import train
+
+    topt.reset_launch_counts()
+    replays, state = [], {}
+    real = train.build_state
+
+    def build_state(cfg, d):
+        out = real(cfg, d)
+        state["opt"] = out[0].optimizer
+        state["init"] = [m.clone() for m in state["opt"].master]
+        chip_smoke.replay_offload_steps(state["opt"], replays)
+        return out
+
+    train.build_state = build_state
+    try:
+        off = train.run(_small_bf16_cfg(optimizer_offload=True,
+                                        total_train_steps=3,
+                                        learning_rate=1e-3), "cuda")
+    finally:
+        train.build_state = real
+    opt = off["state"].optimizer
+    assert isinstance(opt, topt.OffloadAdamW)
+    assert opt.master[0].is_pinned() and opt.mu[0].is_pinned()
+    assert opt.mu[0].device.type == "cpu"
+    assert [r["step"] for r in replays] == [1, 2, 3]
+    assert all(not r["mismatched"] for r in replays), replays
+    assert all(not torch.equal(m, m0)
+               for m, m0 in zip(opt.master, state["init"]))
+    assert topt.launches["adamw"] == 3 * len(opt.slices)
+    resident = train.run(_small_bf16_cfg(total_train_steps=1,
+                                         learning_rate=1e-3), "cuda")
+    assert resident["losses"][0] == off["losses"][0]
+
+
+# the gates of chip_smoke phase 6b that each planted fault must fail (its
+# failure messages), one entry per chip_smoke.OFFLOAD_FAULTS; the replay
+# reads the grad buffer the fault zeroed, so it cannot see a lost grad,
+# and the resident comparisons must
+OFFLOAD_FAULT_GATES = {
+    "moments_not_copied_back": ("replay:", "offload's roundings",
+                                "resident update: step 3"),
+    "embedding_slices_skipped": ("replay:", "offload's roundings",
+                                 "resident update: step 1, embedding"),
+    "embedding_grad_lost": ("offload's roundings",
+                            "resident update: step 1, embedding"),
+}
+
+
+def chip_smoke_dir() -> str:
+    import os
+
+    return os.path.dirname(os.path.abspath(chip_smoke.__file__))
+
+
+@pytest.fixture(scope="module")
+def offload_refs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return chip_smoke.offload_references(fa, chip_smoke_dir())
+
+
+@cuda
+@pytest.mark.parametrize("fault", chip_smoke.OFFLOAD_FAULTS)
+def test_planted_offload_faults_fail(fault, offload_refs):
+    """Phase 6b at its full size (the phase-3 config, 3 steps) with a
+    fault planted in the offloaded optimizer fails the gates named
+    above."""
+    with pytest.raises(AssertionError) as err:
+        chip_smoke.offload_vs_resident(fa, chip_smoke_dir(), offload_refs,
+                                       fault)
+    msg = str(err.value)
+    for gate in OFFLOAD_FAULT_GATES[fault]:
+        assert gate in msg, (gate, msg[:800])

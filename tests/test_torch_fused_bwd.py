@@ -69,8 +69,13 @@ def _port_model(tc, np_params):
 
 
 def _port_grads(tc, model, ids, tgt):
-    loss = tstep.make_grads_fn(tc)(model, (torch.from_numpy(ids),
-                                           torch.from_numpy(tgt)))
+    """The loss and the token-mean grads (the engine's sums times its
+    scale), as the JAX package's `_device_grads` returns them."""
+    loss, scale = tstep.make_grads_fn(tc)(model, (torch.from_numpy(ids),
+                                                  torch.from_numpy(tgt)))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.grad.mul_(scale)
     return float(loss), weights.params_to_numpy(model, grads=True)
 
 
@@ -209,10 +214,10 @@ def test_bf16_fused_grads_equal_ad_bit_for_bit_on_the_cpu():
     model = tllama.init_params(tllama.LlamaModel(tc.model, device="cpu"),
                                torch.Generator().manual_seed(0))
     ids, tgt = (torch.from_numpy(a) for a in _batch(tc))
-    loss_ad = tstep.make_grads_fn(ad)(model, (ids, tgt))
+    loss_ad, scale_ad = tstep.make_grads_fn(ad)(model, (ids, tgt))
     g_ad = {n: p.grad.clone() for n, p in model.named_parameters()}
-    loss = tstep.make_grads_fn(tc)(model, (ids, tgt))
-    assert torch.equal(loss, loss_ad)
+    loss, scale = tstep.make_grads_fn(tc)(model, (ids, tgt))
+    assert torch.equal(loss, loss_ad) and torch.equal(scale, scale_ad)
     for n, p in model.named_parameters():
         assert torch.equal(p.grad, g_ad[n]), n
 

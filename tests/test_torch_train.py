@@ -125,12 +125,6 @@ def test_lr_schedule_matches_optax(schedule, warmup):
         assert tl(0) == 0.0  # the first update uses lr = 0
 
 
-def test_optimizer_offload_is_refused():
-    t = tcfg.TrainingConfig(optimizer_offload=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.make_optimizer([torch.zeros(2, requires_grad=True)], t)
-
-
 def test_guard_nonfinite_keeps_old_tensors():
     new, old = [torch.ones(3)], [torch.zeros(3)]
     tstep.guard_nonfinite(torch.tensor(False), new, old)
@@ -262,6 +256,9 @@ def test_profile_step_kernel_classes():
     assert kernel_class("nvjet_tst_128x256_64x4_2x1_v_bz_coopB_TNT") == "gemm"
     assert kernel_class("void at::native::vectorized_elementwise_kernel") == (
         "other")
+    assert kernel_class("void {anon}::adamw_kernel<true, false>(...)") == (
+        "adamw")
+    assert kernel_class("Memcpy HtoD (Pinned -> Device)") == "memcpy"
 
 
 @pytest.mark.parametrize("preset", ["SmolLM-1.7B", "Llama-3.2-1B",
