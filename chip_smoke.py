@@ -14,12 +14,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
 2. Each of the three flash-attention kernels against its plain PyTorch
    version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
    D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
-   Hkv 8), and at a shifted-positions shape (a later q shard against the
-   whole K/V) with a nonzero LSE cotangent. Then each kernel's time at the
+   Hkv 8), at a shifted-positions shape (a later q shard against the
+   whole K/V) with a nonzero LSE cotangent, and at the per-rank heads of
+   tp 4 (SmolLM-1.7B: B 2, Hq = Hkv = 8, D 64; Llama-3-8B: B 1, Hq 8,
+   Hkv 2, D 128). Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
    (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and each
    kernel's time, achieved TFLOP/s and share of its bound at the training
-   and the GQA D 128 shapes, with and without RoPE.
+   and every other static shape, with and without RoPE.
 3. The main path: `python -m picotron_tpu_torch.train --config
    picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json` (its entry point,
    in process) on full-width, full-depth SmolLM-1.7B (24 layers), seq 2048, mbs 2, ga 2,
@@ -124,7 +126,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (CUDA events on the compute stream) and GB/s each way (8 B per param
    each way over the PCIe link), beside the link's own rate (1 GiB
    pinned copies, each way alone and both at once).
-7. Numbers, then the device line last.
+7. The parallel layouts' path (ZeRO-1, the data-group reduction) under a
+   one-rank NCCL process group, each through the trainer's entry point in
+   a child process, once as `python -m picotron_tpu_torch.train` and once
+   under `python -m torch.distributed.run --standalone --nproc_per_node 1`
+   (the card's machine has one GPU, and NCCL takes one rank per device):
+   (a) `picotron_tpu_torch/configs/smollm17-1gpu-dp-zero1.json`
+   (runs/smollm17-dp8 at full width and depth, mbs 4, ga 4, seq 2048,
+   remat "dots", with zero1; dp 8 -> 1 and 3 steps); (b) the offload
+   configuration with zero1 at ga 4 for 2 steps. Gates, for each: the
+   losses under NCCL equal to those without a process group bit for bit
+   (at world 1 every collective is a copy, tp 1 runs the single-device
+   model and CE, ZeRO-1 owns every row); the collectives per step one
+   all-reduce per grad tensor plus one of (NLL sum, count), one ZeRO-1
+   all-gather per tensor and no reduce-scatter; in both runs each flash
+   kernel launched 24 x ga x steps times on its tensor-core kernel and the
+   AdamW kernel once per tensor (offload: per streamed slice) per step.
+   Each run's step time, MFU and peak memory are printed.
+8. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -223,6 +242,12 @@ SHAPES = {
     "gqa B1 S2048 Hq32 Hkv8 D128 rope static": (1, 32, 8, SEQ, SEQ, 128, 0),
     "shifted B1 Sq1024 Sk2048 Hq8 Hkv2 D64 rope dlse": (1, 8, 2, 1024, SEQ,
                                                          64, 1024),
+    # the per-rank heads of tp 4: SmolLM-1.7B (32/32 heads) and Llama-3-8B
+    # (32/8 heads, D 128)
+    "smollm17 tp4 B2 S2048 Hq8 Hkv8 D64 rope static": (2, 8, 8, SEQ, SEQ,
+                                                       64, 0),
+    "llama3-8b tp4 B1 S2048 Hq8 Hkv2 D128 rope static": (1, 8, 2, SEQ, SEQ,
+                                                         128, 0),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -257,6 +282,11 @@ LOSS_ATOL = 1e-3               # step-1 loss across engines and policies
 CE_CHUNK = 8192
 CE_LOSS_RTOL = 1e-3            # chunked vs unchunked CE loss
 CE_GRAD_RTOL = 1e-2            # chunked vs unchunked CE grads, relative L2
+PARALLEL_CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-dp-zero1.json"
+PARALLEL_STEPS = 3             # the config's max_tokens
+PARALLEL_OFFLOAD_GA = 4        # phase 7b: the offload config at ga 4
+PARALLEL_OFFLOAD_STEPS = 2
+TRAIN_TIMEOUT_S = 300          # one child run of the trainer
 
 
 def log(msg: str) -> None:
@@ -1434,6 +1464,155 @@ def offload_config_run(fa, here: str, peak_flops: float) -> dict:
     return out
 
 
+def run_trainer(here: str, config: str, report: str,
+                torchrun: bool) -> dict:
+    """One run of the trainer's entry point in a child process, `python
+    -m picotron_tpu_torch.train` or the same under `python -m
+    torch.distributed.run --standalone --nproc_per_node 1` (a one-rank
+    NCCL group): its --report, with its stdout lines. The child's
+    session is killed on timeout, so no rank outlives the run."""
+    import signal
+
+    cmd = [sys.executable]
+    if torchrun:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    cmd += ["-m", "picotron_tpu_torch.train", "--config", config,
+            "--report", report]
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    if os.path.exists(report):
+        os.remove(report)
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TRAIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(cmd[1:])}: no exit within "
+                             f"{TRAIN_TIMEOUT_S} s")
+    label = "torchrun" if torchrun else "plain"
+    for line in out.splitlines():
+        if line.startswith(("[step", "layout:", "collectives", "grad engine",
+                            "optimizer:")):
+            log(f"  {label}: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}: {err[-3000:]}")
+    with open(report) as f:
+        return json.load(f)
+
+
+def expected_adamw_launches(cfg) -> int:
+    """AdamW launches per step: one per tensor, or under offload one per
+    streamed slice (optimizer.OffloadAdamW's slicing, from the shapes)."""
+    from picotron_tpu_torch.models.llama import LlamaModel
+    from picotron_tpu_torch.optimizer import row_group
+
+    model = LlamaModel(cfg.model, device="meta")
+    if not cfg.training.optimizer_offload:
+        return len(list(model.parameters()))
+    n = 0
+    for name, p in model.named_parameters():
+        grp = 0 if name.startswith("layers.") else row_group(tuple(p.shape))
+        n += -(-p.shape[0] // grp) if grp else 1
+    return n
+
+
+def parallel_pair(here: str, cfg_path: str, steps: int, label: str,
+                  peak_flops: float) -> dict:
+    """Phase 7a/7b: the config through the trainer without a process
+    group and under a one-rank NCCL group; the gates of the docstring."""
+    from picotron_tpu_torch.config import load_config
+    from picotron_tpu_torch.models.llama import LlamaModel
+    from picotron_tpu_torch.utils import flops_per_token
+
+    cfg = load_config(cfg_path)
+    t = cfg.training
+    build = os.path.join(here, "build")
+    plain = run_trainer(here, cfg_path, os.path.join(build, f"{label}_plain"
+                                                     ".json"), False)
+    ranks = run_trainer(here, cfg_path, os.path.join(build, f"{label}_nccl"
+                                                     ".json"), True)
+    per = 24 * t.gradient_accumulation_steps * steps
+    adamw = expected_adamw_launches(cfg) * steps
+    fails = []
+    if len(ranks["losses"]) != steps or not all(
+            x == x and abs(x) != float("inf") for x in ranks["losses"]):
+        fails.append(f"losses {ranks['losses']}")
+    if ranks["losses"] != plain["losses"]:
+        fails.append(f"losses under NCCL {ranks['losses']} != without a "
+                     f"process group {plain['losses']}")
+    for name, run in (("plain", plain), ("nccl", ranks)):
+        for k, v in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
+                     ("flash_bwd_dkv", "dkv")):
+            if run["launches"][k] != per or run["flash_variants"][v] != {
+                    "tensor_core": per, "cuda_core": 0}:
+                fails.append(f"{name}: {k} launched {run['launches'][k]} "
+                             f"({run['flash_variants'][v]}), want {per} on "
+                             f"the tensor cores")
+        if run["launches"]["adamw"] != adamw:
+            fails.append(f"{name}: adamw launched {run['launches']['adamw']}"
+                         f" times, want {adamw}")
+    coll = ranks["collectives_per_step"]
+    if plain["collectives_per_step"] is not None or ranks["world_size"] != 1:
+        fails.append(f"plain run collectives {plain['collectives_per_step']}"
+                     f", NCCL world {ranks['world_size']}")
+    tensors = len(list(LlamaModel(cfg.model, device="meta").parameters()))
+    if coll is None or coll != {"all_reduce": tensors + 1,
+                                "all_gather": tensors, "reduce_scatter": 0}:
+        fails.append(f"collectives per step {coll}: want one all-reduce per "
+                     f"grad tensor and one of (NLL, count), one ZeRO-1 "
+                     f"all-gather per tensor, no reduce-scatter")
+    steady = statistics.median(ranks["step_seconds"][1:])
+    tps = ranks["tokens_per_step"] / steady
+    out = {"config": os.path.relpath(cfg_path, here), "steps": steps,
+           "ga": t.gradient_accumulation_steps, "losses": ranks["losses"],
+           "losses_without_group": plain["losses"],
+           "bit_for_bit": ranks["losses"] == plain["losses"],
+           "collectives_per_step": coll, "launches": ranks["launches"],
+           "step_ms": steady * 1e3,
+           "step_ms_without_group": statistics.median(
+               plain["step_seconds"][1:]) * 1e3,
+           "tokens_per_s": tps,
+           "mfu": tps * flops_per_token(cfg.model, t.seq_length) / peak_flops,
+           "peak_memory_gb": ranks["peak_memory_gb"],
+           "peak_memory_gb_without_group": plain["peak_memory_gb"]}
+    log(f"phase {label}: losses {out['losses']} under NCCL world 1, "
+        f"{out['losses_without_group']} without a process group "
+        f"({'bit for bit' if out['bit_for_bit'] else 'DIFFERENT'}); "
+        f"collectives per step {coll}; step {out['step_ms']:.1f} ms "
+        f"(without a group {out['step_ms_without_group']:.1f} ms), "
+        f"{tps:.1f} tokens/s, MFU {100 * out['mfu']:.2f}%, peak "
+        f"{out['peak_memory_gb']:.2f} GiB (without a group "
+        f"{out['peak_memory_gb_without_group']:.2f} GiB); launches "
+        f"{out['launches']}")
+    if fails:
+        raise AssertionError(f"phase {label}: " + "; ".join(fails))
+    return out
+
+
+def parallel_phase(here: str, card: str, peak_flops: float) -> dict:
+    """Phase 7 (the docstring says what it checks)."""
+    a = parallel_pair(here, os.path.join(here, PARALLEL_CONFIG),
+                      PARALLEL_STEPS, "7a", peak_flops)
+    with open(os.path.join(here, OFFLOAD_CONFIG)) as f:
+        raw = json.load(f)
+    raw["distributed"]["zero1"] = True
+    raw["training"]["gradient_accumulation_steps"] = PARALLEL_OFFLOAD_GA
+    t = raw["training"]
+    raw["training"]["max_tokens"] = (PARALLEL_OFFLOAD_STEPS * t["seq_length"]
+                                     * t["micro_batch_size"]
+                                     * PARALLEL_OFFLOAD_GA)
+    path = os.path.join(here, "build", "phase7b_offload_zero1.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    b = parallel_pair(here, path, PARALLEL_OFFLOAD_STEPS, "7b", peak_flops)
+    return {"card": card, "zero1": a, "offload_zero1": b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1489,7 +1668,7 @@ def main() -> int:
     # the tensor-core kernels alone at each static shape: time, TFLOP/s,
     # share of bound; and without RoPE (the same products, no per-tile
     # rotation)
-    for label, shp in list(SHAPES.items())[:2]:
+    for label, shp in ((k, v) for k, v in SHAPES.items() if not v[-1]):
         case = make_case(fa, rope_tables, *shp, dev=dev, seed=7)
         q, k, v, qpos, kpos, tabs, do, dlse, static = case
         bnd_shape = bounds(*shp)
@@ -1581,7 +1760,12 @@ def main() -> int:
                "config": offload_config_run(fa, here, H100_BF16_PEAK)}
     log("phase 6 adamw kernel and offload: ok")
 
-    # phase 7: numbers
+    # phase 7: the parallel layouts' path under a one-rank NCCL group
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(here, card, H100_BF16_PEAK)
+    log("phase 7 parallel path (one-rank NCCL): ok")
+
+    # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
                        ("fused path (fused, dots_attn)", fused)):
@@ -1627,6 +1811,7 @@ def main() -> int:
                                 for p, r in engines["remat"].items()}
     print(json.dumps({"engines": engines}))
     print(json.dumps({"offload": offload}))
+    print(json.dumps({"parallel": parallel}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,20 @@ Restore reads with `torch.load(weights_only=True, mmap=True)` and copies
 into the live tensors, so it costs no second device copy. A checkpoint
 saved under another topology or model shape is refused, naming both.
 
+Under a parallel layout (`par`, the rank's `mesh.ParallelEnv`) each rank
+writes its own shards and no rank gathers the model: the ranks of data
+rank 0 write `params.rank<R>.pt` (their tp shards; the other data ranks
+hold copies), and each rank writes `opt_state.rank<R>.pt` under ZeRO-1
+(its rows of the moments and, under offload, of the master), else the
+data-rank-0 ranks do. All write into one shared `state.tmp/`; after the
+ranks agree on the checkpoint's gloo group that every write landed, rank
+0 renames it to `state/` and writes the manifest, which covers every
+rank's files, and the ranks agree again before `wait_until_finished`
+returns. The topology records dp x tp x zero1 and the process count;
+resume is into the same layout (another is refused, naming both, as the
+JAX package does with elastic off), each rank reading its own files.
+Rank 0 picks the step to restore and the others take its answer.
+
 HF safetensors (dense Llama/Qwen2 families): the port's [out, in] weight
 layout is HF's own, so nothing is transposed. The format (an 8-byte
 little-endian header length, a JSON header of dtype/shape/data_offsets,
@@ -55,6 +69,7 @@ import warnings
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from picotron_tpu_torch.ckpt_integrity import (
     MANIFEST_NAME, VerifyResult, atomic_write_text, build_manifest,
@@ -69,13 +84,36 @@ PARAMS_FILE = "params.pt"
 OPT_FILE = "opt_state.pt"
 
 
-def topology(cfg: Config) -> dict:
-    """The parallel layout a checkpoint is saved under (the port runs one
-    device: every size 1)."""
+def topology(cfg: Config, par=None) -> dict:
+    """The parallel layout a checkpoint is saved under; under a process
+    group (`par`) also its process count and whether ZeRO-1 shards the
+    optimizer state."""
     d = cfg.distributed
-    return {"dp": d.dp_size, "pp": d.pp_size, "ep": d.ep_size,
+    topo = {"dp": d.dp_size, "pp": d.pp_size, "ep": d.ep_size,
             "cp": d.cp_size, "tp": d.tp_size, "world_size": d.world_size,
             "process_count": 1}
+    if par is not None:
+        topo.update(process_count=par.world_size, zero1=bool(d.zero1))
+    return topo
+
+
+def _rank_file(kind: str, rank: int) -> str:
+    return f"{kind}.rank{rank:05d}.pt"
+
+
+def _agree(ok: bool, par) -> bool:
+    """True on every rank iff `ok` is True on every rank (the checkpoint's
+    gloo group: host-side, never queued behind the model's collectives)."""
+    flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=par.host_group)
+    return bool(flag.item())
+
+
+def _from_rank0(obj, par):
+    """Rank 0's `obj` on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=par.host_group)
+    return box[0]
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -103,10 +141,14 @@ class CheckpointManager:
     verified step. `timings` holds the seconds of the last save's host
     copy (`snapshot_s`), payload write (`write_s`) and manifest hash
     (`manifest_s`), and of the last restore's verification (`verify_s`)
-    and load (`load_s`)."""
+    and load (`load_s`). `par`: the rank's ParallelEnv under a layout
+    (every rank then makes the same calls: saves and restores agree over
+    the ranks)."""
 
-    def __init__(self, cfg: Config, directory: Optional[str] = None):
+    def __init__(self, cfg: Config, directory: Optional[str] = None,
+                 par=None):
         self.cfg = cfg
+        self.par = par
         self.directory = os.path.abspath(directory or cfg.checkpoint.save_dir)
         self._commit_thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -135,12 +177,16 @@ class CheckpointManager:
         path = self._step_dir(step)
         t0 = time.perf_counter()
         model, opt = state.model, state.optimizer
-        named = list(model.named_parameters())
-        params = {n: _host(p) for n, p in named}
+        par = self.par
+        first = par is None or par.data_rank == 0
+        params = opt_state = None
+        if first:
+            params = {n: _host(p) for n, p in model.named_parameters()}
         opt.synchronize()
-        opt_state = {kind: {n: _host(t) for n, t in tensors.items()}
-                     for kind, tensors in opt.state_tensors().items()}
-        opt_state.update(count=int(opt.count), step=step)
+        if first or self.cfg.distributed.zero1:
+            opt_state = {kind: {n: _host(t) for n, t in tensors.items()}
+                         for kind, tensors in opt.state_tensors().items()}
+            opt_state.update(count=int(opt.count), step=step)
         self.timings = {"snapshot_s": time.perf_counter() - t0}
         meta = {"step": step, "trained_tokens": int(trained_tokens),
                 "config": self.cfg.to_json_dict()}
@@ -152,8 +198,23 @@ class CheckpointManager:
             atomic_write_text(os.path.join(path, "meta.json"),
                               json.dumps(meta, indent=2))
 
-        retry_call(_write_meta, policy=self._retry,
-                   describe=f"checkpoint meta write (step {step})")
+        if par is None:
+            retry_call(_write_meta, policy=self._retry,
+                       describe=f"checkpoint meta write (step {step})")
+        elif par.is_main:
+            ok = False
+            try:
+                retry_call(_write_meta, policy=self._retry,
+                           describe=f"checkpoint meta write (step {step})")
+                tmp = os.path.join(path, "state.tmp")
+                if os.path.isdir(tmp):
+                    shutil.rmtree(tmp)
+                ok = True
+            finally:
+                _agree(ok, par)
+        elif not _agree(True, par):
+            raise RuntimeError(f"checkpoint step {step}: rank 0 could not "
+                               f"write {path}")
         if self.cfg.checkpoint.async_save:
             self._commit_thread = threading.Thread(
                 target=self._commit_async, args=(step, path, params,
@@ -183,22 +244,70 @@ class CheckpointManager:
         os.replace(tmp, final)
         fsync_dir(path)
 
+    def _write_rank_files(self, tmp: str, params, opt_state) -> None:
+        """This rank's files of a layout's checkpoint into the shared
+        `tmp` dir, fsynced."""
+        os.makedirs(tmp, exist_ok=True)
+        for kind, obj in (("params", params), ("opt_state", opt_state)):
+            if obj is not None:
+                _save_file(obj, os.path.join(
+                    tmp, _rank_file(kind, self.par.rank)))
+
+    def _commit_ranks(self, step: int, path: str, params, opt_state) -> None:
+        """A layout's payload: every rank writes its files, the ranks agree
+        that all landed, rank 0 renames the shared dir into place, and the
+        ranks agree again (raises on every rank if any part failed)."""
+        tmp = os.path.join(path, "state.tmp")
+        err = None
+        try:
+            retry_call(self._write_rank_files, tmp, params, opt_state,
+                       policy=self._retry,
+                       describe=f"checkpoint save (step {step})")
+        except Exception as e:  # noqa: BLE001 — raised after agreeing
+            err = e
+        if not _agree(err is None, self.par):
+            raise err or RuntimeError(
+                f"checkpoint step {step}: another rank failed to write "
+                f"its files; the step is not durable")
+        if self.par.is_main:
+            try:
+                final = os.path.join(path, "state")
+                fsync_dir(tmp)
+                stale_manifest = os.path.join(path, MANIFEST_NAME)
+                if os.path.exists(stale_manifest):
+                    os.remove(stale_manifest)
+                if os.path.isdir(final):
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
+                fsync_dir(path)
+            except Exception as e:  # noqa: BLE001 — raised after agreeing
+                err = e
+        if not _agree(err is None, self.par):
+            raise err or RuntimeError(
+                f"checkpoint step {step}: rank 0 could not commit {path}")
+
     def _commit(self, step: int, path: str, params: dict,
                 opt_state: dict) -> None:
         """Write the payload (raises on failure: the step is then not
         durable), then the manifest and GC (a failure there leaves the
-        step durable-but-legacy, reported as an event, not raised)."""
+        step durable-but-legacy, reported as an event, not raised; under
+        a layout they are rank 0's)."""
         t0 = time.perf_counter()
-        retry_call(self._write_payload, path, params, opt_state,
-                   policy=self._retry,
-                   describe=f"checkpoint save (step {step})")
+        if self.par is None:
+            retry_call(self._write_payload, path, params, opt_state,
+                       policy=self._retry,
+                       describe=f"checkpoint save (step {step})")
+        else:
+            self._commit_ranks(step, path, params, opt_state)
         t1 = time.perf_counter()
         self.timings["write_s"] = t1 - t0
         del params, opt_state
+        if self.par is not None and not self.par.is_main:
+            return
         try:
             def _hash_and_write():
-                manifest = build_manifest(path, step=step,
-                                          topology=topology(self.cfg))
+                manifest = build_manifest(
+                    path, step=step, topology=topology(self.cfg, self.par))
                 write_manifest(path, manifest)
                 return manifest
 
@@ -242,10 +351,15 @@ class CheckpointManager:
     # -- lineage ----------------------------------------------------------
 
     def _is_durable(self, step: int) -> bool:
-        """True when the step's payload was renamed into place."""
+        """True when the step's payload was renamed into place (a
+        layout's shared dir is renamed only after every rank's files
+        landed)."""
         state_dir = os.path.join(self._step_dir(step), "state")
-        return all(os.path.isfile(os.path.join(state_dir, f))
-                   for f in (PARAMS_FILE, OPT_FILE))
+        if not os.path.isdir(state_dir):
+            return False
+        names = os.listdir(state_dir)
+        return (any(n.startswith("params.rank") for n in names)
+                or (PARAMS_FILE in names and OPT_FILE in names))
 
     def steps(self) -> list:
         """All step numbers with a step_<n> dir, sorted (durable or not)."""
@@ -277,7 +391,15 @@ class CheckpointManager:
     def latest_valid_step(self) -> Optional[int]:
         """Newest step that is durable AND verifies against its manifest:
         what restore, auto-resume and rollback trust. Each corrupt step
-        skipped on the way down emits `ckpt_corrupt`."""
+        skipped on the way down emits `ckpt_corrupt`. Under a layout it is
+        rank 0's answer on every rank."""
+        if self.par is not None:
+            self.wait_until_finished()  # the commit thread's group
+            return _from_rank0(self._latest_valid_step()
+                               if self.par.is_main else None, self.par)
+        return self._latest_valid_step()
+
+    def _latest_valid_step(self) -> Optional[int]:
         for step in sorted(self.durable_steps(), reverse=True):
             res = self.verify_step(step)
             if res.ok:
@@ -295,7 +417,7 @@ class CheckpointManager:
         ck = self.cfg.checkpoint
         if ck.keep_last <= 0:
             return {"kept": self.steps(), "deleted": []}
-        last_valid = self.latest_valid_step()
+        last_valid = self._latest_valid_step()
         keep, delete = retention_plan(
             self.durable_steps(), keep_last=ck.keep_last,
             keep_every=ck.keep_every,
@@ -357,7 +479,7 @@ class CheckpointManager:
         saved_topo = None
         if os.path.exists(os.path.join(path, MANIFEST_NAME)):
             saved_topo = _read_json(MANIFEST_NAME).get("topology")
-        here = topology(self.cfg)
+        here = topology(self.cfg, self.par)
         if saved_topo is not None and any(
                 saved_topo.get(k) != v for k, v in here.items()):
             raise ValueError(
@@ -365,10 +487,18 @@ class CheckpointManager:
                 f"under topology {saved_topo}; this run is {here}. The "
                 f"port restores only into the layout it saved")
         state_dir = os.path.join(path, "state")
-        params = retry_call(_load_file, os.path.join(state_dir, PARAMS_FILE),
+        params_file, opt_file = PARAMS_FILE, OPT_FILE
+        if self.par is not None:
+            # the tp shards of data rank 0; the optimizer state is this
+            # rank's own under ZeRO-1
+            src = self.par.rank_at(dp=0, ep=0, cp=0)
+            params_file = _rank_file("params", src)
+            opt_file = _rank_file("opt_state", self.par.rank
+                                  if self.cfg.distributed.zero1 else src)
+        params = retry_call(_load_file, os.path.join(state_dir, params_file),
                             policy=self._retry,
                             describe=f"checkpoint restore (step {step})")
-        opt_state = retry_call(_load_file, os.path.join(state_dir, OPT_FILE),
+        opt_state = retry_call(_load_file, os.path.join(state_dir, opt_file),
                                policy=self._retry,
                                describe=f"checkpoint restore (step {step})")
         model, opt = state.model, state.optimizer
@@ -432,6 +562,11 @@ def restore_params_only(cfg: Config, ckpt_dir: str,
         if step is None:
             raise FileNotFoundError(f"no valid checkpoints under {ckpt_dir}")
     state_dir = os.path.join(mgr._step_dir(step), "state")
+    if any(f.startswith("params.rank") for f in os.listdir(state_dir)):
+        raise NotImplementedError(
+            f"checkpoint step {step} under {ckpt_dir} holds a parallel "
+            f"layout's per-rank shards; reading them whole is elastic "
+            f"restore (ROADMAP Queue 1 item 12)")
     if cfg.training.optimizer_offload:
         opt_state = _load_file(os.path.join(state_dir, OPT_FILE))
         if "master" not in opt_state:

@@ -1,12 +1,17 @@
-"""Data pipeline for one device (port of picotron_tpu/data.py).
+"""Data pipeline (port of picotron_tpu/data.py).
 
 `SyntheticSource` is the same numpy stream as the JAX package's (a pure
 function of (seed, epoch, start)), so both packages read the same tokens.
 `MicroBatchDataLoader` keeps the (epoch, cursor) state, `set_state` and
 `reset`, drops the epoch tail like the reference, and yields
 (input_ids, targets) shaped [grad_acc, mbs, seq] as int64 tensors on the
-loader's device. `build_eval_source` is the validation stream. HF
-datasets, the prefetch thread, chaos and I/O retry come in a later slice.
+loader's device. Under a dp layout each rank reads the same global batch
+([grad_acc, mbs * dp, seq], the JAX loader's) and keeps its dp rank's
+rows [r * mbs, (r + 1) * mbs) of every microbatch (the JAX batch
+sharding over ('dp', 'ep')); the cursor and `state` stay the global ones,
+so every rank holds the same state. tp ranks read the same rows.
+`build_eval_source` is the validation stream. HF datasets, the prefetch
+thread, chaos and I/O retry come in a later slice.
 """
 
 from __future__ import annotations
@@ -53,16 +58,21 @@ def build_eval_source(cfg: Config) -> SyntheticSource:
 
 class MicroBatchDataLoader:
     """Infinite iterator of (input_ids, targets) [grad_acc, mbs, seq] on
-    `device`; exhausting the source bumps the epoch. `state` is the
-    position after the last batch handed out."""
+    `device`: dp rank `dp_rank`'s rows of the global batch; exhausting
+    the source bumps the epoch. `state` is the position after the last
+    batch handed out."""
 
-    def __init__(self, cfg: Config, device, source=None):
+    def __init__(self, cfg: Config, device, source=None, dp_rank: int = 0):
         d = cfg.distributed
-        if d.dp_size * d.ep_size * d.cp_size * d.tp_size * d.pp_size != 1:
+        if d.ep_size * d.cp_size * d.pp_size != 1:
             raise NotImplementedError(
-                "the port's loader is single-device; parallel layouts are "
-                "ROADMAP Queue 1 item 9")
+                "the port's loader shards over dp only; cp, ep and pp "
+                "layouts are ROADMAP Queue 1 items 9 and 10")
+        if not 0 <= dp_rank < d.dp_size:
+            raise ValueError(f"dp_rank {dp_rank} outside dp_size "
+                             f"{d.dp_size}")
         self.cfg = cfg
+        self.dp_rank = dp_rank
         self.device = torch.device(device)
         self.global_batch_size = cfg.global_batch_size
         self.seq_length = cfg.training.seq_length
@@ -109,8 +119,11 @@ class MicroBatchDataLoader:
         rows = self.source.get_rows(self.epoch, self.cursor, n)
         self.cursor += n
         t = self.cfg.training
+        mbs = t.micro_batch_size
         blocks = rows.reshape(t.gradient_accumulation_steps,
-                              t.micro_batch_size, self.seq_length + 1)
+                              mbs * self.cfg.distributed.dp_size,
+                              self.seq_length + 1)
+        blocks = blocks[:, self.dp_rank * mbs:(self.dp_rank + 1) * mbs]
         blocks = torch.from_numpy(blocks.astype(np.int64)).to(self.device)
         self._consumed_state = {"epoch": self.epoch, "cursor": self.cursor}
         return blocks[..., :-1], blocks[..., 1:]

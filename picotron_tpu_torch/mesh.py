@@ -1,0 +1,200 @@
+"""The rank grid of the port (port of picotron_tpu/mesh.py).
+
+The JAX package names a device mesh over the axes ("dp", "pp", "ep",
+"cp", "tp"), tp fastest-varying, and reduces over named axes. Here each
+process is one rank of that grid, with `torch.distributed` groups for the
+collectives it needs:
+
+- the tp group: the ranks that differ only in their tp coordinate (the
+  Megatron f/g collectives, the vocab-parallel embedding and CE);
+- the data group: the ranks that differ only in (dp, ep, cp), the axes
+  the JAX package's `_data_axes_psum` reduces the grads over (and ZeRO-1
+  shards the optimizer state over);
+- a gloo group over every rank for the checkpoint's host-side agreement
+  (barriers and the step every rank restores), used by nothing else, so
+  that a save's commit thread never interleaves with the step's
+  collectives.
+
+Launch contract: torchrun's environment (`RANK`, `WORLD_SIZE`,
+`LOCAL_RANK`, `MASTER_ADDR`/`MASTER_PORT`), or a process group the
+caller has already initialized. The backend is NCCL for a CUDA device
+(each rank on `cuda:LOCAL_RANK`) and gloo for the CPU; a missing or
+failing NCCL raises and never becomes gloo. Without either, the run is
+one process with no group (`init_parallel` returns None), and its layout
+must then be one device.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# outermost to innermost, as the JAX package's AXES
+AXES = ("dp", "pp", "ep", "cp", "tp")
+# the axes the grads are summed over (and ZeRO-1 shards over)
+DATA_AXES = ("dp", "ep", "cp")
+_TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                  "MASTER_PORT")
+
+
+def layout_sizes(cfg) -> dict:
+    """{axis: size} of the config's layout, in AXES order."""
+    d = cfg.distributed
+    return {"dp": d.dp_size, "pp": d.pp_size, "ep": d.ep_size,
+            "cp": d.cp_size, "tp": d.tp_size}
+
+
+def rank_coords(rank: int, sizes: dict) -> dict:
+    """{axis: coordinate} of a rank: the row-major index over AXES, tp
+    fastest (the JAX grid `reshape(devices, (dp, pp, ep, cp, tp))`)."""
+    shape = tuple(sizes[a] for a in AXES)
+    return dict(zip(AXES, (int(c) for c in np.unravel_index(rank, shape))))
+
+
+def group_ranks(sizes: dict, axes) -> list:
+    """The rank lists of the groups that vary over `axes` (the other
+    coordinates fixed), each sorted, so a rank's place in its list is its
+    coordinate over `axes` (row-major)."""
+    shape = tuple(sizes[a] for a in AXES)
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    keep = [i for i, a in enumerate(AXES) if a not in axes]
+    moved = np.moveaxis(grid, keep, list(range(len(keep))))
+    n = int(np.prod([sizes[a] for a in axes]))
+    return [sorted(int(r) for r in row) for row in moved.reshape(-1, n)]
+
+
+@dataclass
+class ParallelEnv:
+    """This rank's place in the layout and its process groups."""
+
+    sizes: dict
+    rank: int
+    world_size: int
+    device: torch.device
+    backend: str
+    tp_group: object = field(repr=False)
+    data_group: object = field(repr=False)
+    host_group: object = field(repr=False)
+    coords: dict = field(default_factory=dict)
+
+    @property
+    def tp_size(self) -> int:
+        return self.sizes["tp"]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords["tp"]
+
+    @property
+    def data_size(self) -> int:
+        return self.sizes["dp"] * self.sizes["ep"] * self.sizes["cp"]
+
+    @property
+    def data_rank(self) -> int:
+        c, s = self.coords, self.sizes
+        return (c["dp"] * s["ep"] + c["ep"]) * s["cp"] + c["cp"]
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    def rank_at(self, **coords) -> int:
+        """The rank at this rank's coordinates with `coords` replaced."""
+        c = {**self.coords, **coords}
+        shape = tuple(self.sizes[a] for a in AXES)
+        return int(np.ravel_multi_index(tuple(c[a] for a in AXES), shape))
+
+
+def launcher_contract(env=None) -> Optional[tuple]:
+    """torchrun's (rank, world size, local rank), or None when no
+    torchrun variable is set; a partial set raises ValueError."""
+    env = os.environ if env is None else env
+    present = [n for n in _TORCHRUN_VARS if env.get(n)]
+    if not present:
+        return None
+    missing = [n for n in _TORCHRUN_VARS if not env.get(n)]
+    if missing:
+        raise ValueError(f"partial torchrun environment: {present} set but "
+                         f"{missing} missing; launch with torchrun or set "
+                         "none of them")
+    return int(env["RANK"]), int(env["WORLD_SIZE"]), int(env["LOCAL_RANK"])
+
+
+def check_world(cfg, world_size: int) -> None:
+    """Raise ValueError unless the world is the layout's dp*pp*ep*cp*tp
+    (picotron_tpu/train.py's check)."""
+    sizes = layout_sizes(cfg)
+    want = int(np.prod(list(sizes.values())))
+    if world_size != want:
+        raise ValueError(
+            f"world size {world_size} != dp*pp*ep*cp*tp = {want} "
+            f"({sizes}); launch with torchrun --nproc_per_node {want} (or "
+            f"change the layout)")
+
+
+_ENVS: dict = {}
+
+
+def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
+    """This rank's ParallelEnv: from an initialized default process group,
+    else from torchrun's environment (initializing the group: NCCL for a
+    CUDA `device`, on cuda:LOCAL_RANK, gloo for the CPU); None when there
+    is neither, which requires a one-device layout. The groups of one
+    layout are made once per process (every rank makes them in the same
+    order) and reused."""
+    if dist.is_initialized():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    else:
+        contract = launcher_contract()
+        if contract is None:
+            check_world(cfg, 1)
+            return None
+        rank, world, local = contract
+        check_world(cfg, world)
+        if device.type == "cuda":
+            if not dist.is_nccl_available():
+                raise RuntimeError(
+                    "a CUDA run needs the NCCL backend, which this torch "
+                    "lacks; pass --device cpu for a gloo run on the CPU")
+            torch.cuda.set_device(local)
+            dist.init_process_group("nccl", rank=rank, world_size=world)
+        elif device.type == "cpu":
+            dist.init_process_group("gloo", rank=rank, world_size=world)
+        else:
+            raise ValueError(f"no process-group backend for {device}")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    check_world(cfg, world)
+    backend = dist.get_backend()
+    if device.type == "cuda":
+        if backend != "nccl":
+            raise RuntimeError(f"a CUDA run needs an NCCL process group, "
+                               f"got {backend!r}")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    sizes = layout_sizes(cfg)
+    key = (tuple(sizes.values()), world, backend, str(device))
+    if key not in _ENVS:
+        tp_group, _ = dist.new_subgroups_by_enumeration(
+            group_ranks(sizes, ("tp",)))
+        data_group, _ = dist.new_subgroups_by_enumeration(
+            group_ranks(sizes, DATA_AXES))
+        # the checkpoint's own group: its commit thread's agreement must
+        # not interleave with the step's collectives on another group
+        host_group = dist.new_group(backend="gloo")
+        _ENVS[key] = ParallelEnv(
+            sizes=sizes, rank=rank, world_size=world, device=device,
+            backend=backend, tp_group=tp_group, data_group=data_group,
+            host_group=host_group, coords=rank_coords(rank, sizes))
+    return _ENVS[key]
+
+
+def shutdown() -> None:
+    """Destroy the default process group and forget the layouts' groups."""
+    _ENVS.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -14,8 +14,17 @@ casts do nothing and the grads are bf16, as in the JAX package. Matmul weights u
 PyTorch [out_features, in_features] layout (`F.linear`); `weights.py`
 converts to and from the JAX [in, out] stacked-layer pytree.
 
-Single device only in this slice: MoE and the tp/cp/pp hooks are rejected
-with an error naming the ROADMAP item.
+Tensor parallelism (port of the tp/SP hooks of `ParallelCtx` /
+`make_parallel_ctx`): a model built with a `parallel.tp.TPContext` holds
+this rank's shards (`parallel/sharding.py`: Hq/tp q heads and Hkv/tp kv
+heads, I/tp ffn columns, V/tp vocab rows) and calls the context's hooks
+where the JAX model calls ctx.f / ctx.g: f at the entry of qkv_proj and
+_gate_up (column-parallel), g at the exit of _o_proj and _act_down
+(row-parallel), the vocab-parallel lookup in `embed` and the
+vocab-parallel CE in `loss_sum_count`. Under sequence parallelism the
+residual stream between them is [B, S/tp, H]. Without a context (tp 1)
+the model is the single-device one, op for op. MoE and the cp/pp hooks
+are rejected with an error naming the ROADMAP item.
 
 Remat (port of `remat_policy_for` / `run_layers` under `ctx.remat`): each
 policy cuts the layer into `torch.utils.checkpoint` segments (non-reentrant)
@@ -36,15 +45,19 @@ sm_scale-folded q, the others the named JAX tensors; x is the layer input):
     dots_norms   + norm_out (input norm and post norm)         11
 
 Everything else is recomputed in the backward: the norms, the residual
-sum, the activation, and under "dots_attn" the o-projection and the MLP's
-gate/up products ("full" re-runs the whole layer, the forward kernel
-included). Autograd saves a matmul's input before it multiplies, and a
-segment's recompute stops once its last saved tensor is rebuilt, so the
-matmuls a segment recomputes are those before its last one: two of q/k/v
-under every policy but "full" and "dots_norms", and mlp_gate under "dots"
-and "dots_lean" (JAX recomputes none of these; the saved sets are equal).
+sum, the activation, the tp collectives inside a segment, and under
+"dots_attn" the o-projection and the MLP's gate/up products ("full"
+re-runs the whole layer, the forward kernel included). Autograd saves a
+matmul's input before it multiplies, and a segment's recompute stops
+once its last saved tensor is rebuilt, so the matmuls a segment
+recomputes are those before its last one: two of q/k/v under every
+policy but "full" and "dots_norms", and mlp_gate under "dots" and
+"dots_lean" (JAX recomputes none of these; the saved sets are equal).
 "dots_offload" (saves parked in pinned host memory) is not ported
-(ROADMAP Queue 1 item 7).
+(ROADMAP Queue 1 item 7). Under tp the saved q/k/v/out are this rank's
+heads; under sequence parallelism x (and "dots"' attn_proj_out) is the
+seq shard, and "dots_norms" keeps the gathered norm output that the
+column-parallel products read (autograd saves a matmul's input).
 """
 
 from __future__ import annotations
@@ -64,6 +77,9 @@ from picotron_tpu_torch.ops.losses import (
 )
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.rope import apply_rope, rope_tables
+from picotron_tpu_torch.parallel.tp import (
+    TPContext, gather_logits, vocab_parallel_embed,
+)
 
 
 def model_rope_tables(cfg: ModelConfig, max_len=None, device=None):
@@ -97,14 +113,23 @@ def mlp_act(cfg: ModelConfig):
     return lambda x: F.gelu(x, approximate=approx)
 
 
-class DecoderLayer(nn.Module):
-    """One decoder layer's parameters ([out, in] matmul weights)."""
+def _tp_size(tp: Optional[TPContext]) -> int:
+    return 1 if tp is None else tp.size
 
-    def __init__(self, cfg: ModelConfig, device=None):
+
+class DecoderLayer(nn.Module):
+    """One decoder layer's parameters ([out, in] matmul weights): this tp
+    rank's shards under a tp context (`tp`, kept on the layer for the
+    hooks)."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 tp: Optional[TPContext] = None):
         super().__init__()
-        h, i, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
-        q_out = cfg.num_attention_heads * d
-        kv_out = cfg.num_key_value_heads * d
+        n = _tp_size(tp)
+        h, i, d = cfg.hidden_size, cfg.intermediate_size // n, cfg.head_dim
+        q_out = cfg.num_attention_heads // n * d
+        kv_out = cfg.num_key_value_heads // n * d
+        self.tp = tp
 
         def p(*shape):
             return nn.Parameter(torch.empty(*shape, device=device,
@@ -123,14 +148,20 @@ class DecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """The model, whole, or this rank's tp shards of it under a tp context
+    (`tp`; None: one device)."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 tp: Optional[TPContext] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        h, v = cfg.hidden_size, cfg.vocab_size
+        self.tp = tp
+        h, v = cfg.hidden_size, cfg.vocab_size // _tp_size(tp)
         self.embedding = nn.Parameter(torch.empty(v, h, device=device))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.num_hidden_layers))
+            DecoderLayer(cfg, device, tp)
+            for _ in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.empty(h, device=device))
         self.lm_head = (None if cfg.tie_word_embeddings
                         else nn.Parameter(torch.empty(v, h, device=device)))
@@ -151,16 +182,22 @@ def init_params(model: LlamaModel, generator: torch.Generator) -> LlamaModel:
     """Initialise in place with the JAX package's distributions: linear
     weights ~ U(+-sqrt(1/fan_in)), embedding ~ N(0, 1), norms = 1, biases
     = 0. The numbers differ from jax.random's; tests transplant weights
-    with `weights.params_from_jax` instead of re-initialising."""
+    with `weights.params_from_jax` instead of re-initialising. Under tp
+    each rank draws its own shards (the caller seeds `generator` per tp
+    rank, so that the shards differ)."""
 
-    def uniform(w):
-        bound = (1.0 / w.shape[1]) ** 0.5
+    n = _tp_size(model.tp)
+
+    def uniform(w, fan_in):
+        bound = (1.0 / fan_in) ** 0.5
         w.uniform_(-bound, bound, generator=generator)
 
     model.embedding.normal_(0.0, 1.0, generator=generator)
     for lp in model.layers:
         for name in ("q", "k", "v", "o", "gate", "up", "down"):
-            uniform(getattr(lp, name))
+            w = getattr(lp, name)
+            # a row-parallel shard holds 1/tp of its fan-in
+            uniform(w, w.shape[1] * (n if name in ("o", "down") else 1))
         lp.input_norm.fill_(1.0)
         lp.post_norm.fill_(1.0)
         for b in (lp.b_q, lp.b_k, lp.b_v):
@@ -168,7 +205,7 @@ def init_params(model: LlamaModel, generator: torch.Generator) -> LlamaModel:
                 b.zero_()
     model.final_norm.fill_(1.0)
     if model.lm_head is not None:
-        uniform(model.lm_head)
+        uniform(model.lm_head, model.lm_head.shape[1])
     return model
 
 
@@ -182,12 +219,29 @@ def param_count(model: nn.Module) -> int:
 
 
 def embed(model: LlamaModel, input_ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding -> [B, S, H] in compute dtype."""
-    return model.embedding[input_ids].to(compute_dtype(model.cfg))
+    """Token embedding -> [B, S, H] in compute dtype (under tp the
+    vocab-parallel lookup; [B, S/tp, H] under SP)."""
+    if model.tp is not None:
+        x = vocab_parallel_embed(model.embedding, input_ids, model.tp)
+    else:
+        x = model.embedding[input_ids]
+    return x.to(compute_dtype(model.cfg))
+
+
+def _entry(h: torch.Tensor, lp: DecoderLayer) -> torch.Tensor:
+    """The column-parallel entry (tp's f; identity without tp)."""
+    return h if lp.tp is None else lp.tp.f(h)
+
+
+def _exit(y: torch.Tensor, lp: DecoderLayer) -> torch.Tensor:
+    """The row-parallel exit (tp's g; identity without tp)."""
+    return y if lp.tp is None else lp.tp.g(y)
 
 
 def qkv_proj(h: torch.Tensor, lp: DecoderLayer, d: int):
-    """q/k/v projections (+ optional bias) -> [B,S,Hq,D], [B,S,Hkv,D] x2."""
+    """q/k/v projections (+ optional bias) -> [B,S,Hq,D], [B,S,Hkv,D] x2
+    (this rank's heads under tp; h enters through f)."""
+    h = _entry(h, lp)
     dt = h.dtype
     b, s, _ = h.shape
     q = F.linear(h, lp.q.to(dt))
@@ -226,16 +280,18 @@ def _qkv_block(x, lp: DecoderLayer, cfg: ModelConfig):
 def _o_proj(out, lp: DecoderLayer):
     """[B, S, Hq, D] attention output -> o-projection [B, S, H]."""
     b, s = out.shape[:2]
-    return F.linear(out.reshape(b, s, -1), lp.o.to(out.dtype))
+    return _exit(F.linear(out.reshape(b, s, -1), lp.o.to(out.dtype)), lp)
 
 
 def _gate_up(h, lp: DecoderLayer):
+    h = _entry(h, lp)
     dt = h.dtype
     return F.linear(h, lp.gate.to(dt)), F.linear(h, lp.up.to(dt))
 
 
 def _act_down(gate, up, lp: DecoderLayer, cfg: ModelConfig):
-    return F.linear(mlp_act(cfg)(gate) * up, lp.down.to(gate.dtype))
+    return _exit(F.linear(mlp_act(cfg)(gate) * up, lp.down.to(gate.dtype)),
+                 lp)
 
 
 def _mlp_block(x, lp: DecoderLayer, cfg: ModelConfig):
@@ -325,7 +381,12 @@ def final_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
 
 
 def logits_from_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, model.head_weight().to(x.dtype))
+    """Full-vocab logits; under tp the sharded head's, gathered (eval)."""
+    if model.tp is None:
+        return F.linear(x, model.head_weight().to(x.dtype))
+    x = model.tp.f(x)
+    return gather_logits(F.linear(x, model.head_weight().to(x.dtype)),
+                         model.tp)
 
 
 def forward(model: LlamaModel, input_ids: torch.Tensor) -> torch.Tensor:
@@ -340,10 +401,15 @@ def loss_sum_count(model: LlamaModel, input_ids: torch.Tensor,
     """(sum of per-token NLL, valid-token count, extras) — the reduction
     pieces, summed over microbatches before one division. extras is {} for
     dense models. `remat`: a remat policy name or None; `ce_chunk_size`
-    > 0 streams the head's CE over vocab chunks (training.ce_chunk_size)."""
+    > 0 streams the head's CE over vocab chunks (training.ce_chunk_size).
+    Under tp both are the vocab-parallel CE's, the same on every tp
+    rank."""
     x = run_layers(model, embed(model, input_ids), remat)
     x = final_hidden(model, x)
-    if ce_chunk_size:
+    if model.tp is not None:
+        total, count = model.tp.head_ce(x, model.head_weight(), targets,
+                                        ce_chunk_size)
+    elif ce_chunk_size:
         total, count = chunked_cross_entropy_sum_count(
             x, model.head_weight(), targets, ce_chunk_size)
     else:

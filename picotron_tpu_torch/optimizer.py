@@ -27,6 +27,17 @@ of the class). Both take the same calls (`_AdamWState`): the grad
 engines fill their fp32 grad buffers, the train step calls `step`, the
 checkpoint reads `state_tensors`, so only `train_step.init_train_state`
 chooses between them.
+
+ZeRO-1 (`distributed.zero1`; port of the JAX package's `_zero1_placement`
+and `offload_adam_update(..., zero1_info=)`): under a parallel layout
+each rank of the data group owns a contiguous 1/dp of dim 0 of every
+tensor whose dim 0 divides (`zero1_rows`; a tensor that does not stays
+whole on every rank, as `_zero1_placement` leaves it replicated), keeps
+the moments (and under offload the fp32 master) of that slice only, runs
+`adamw_update` on it, and all-gathers the updated params (offload: the
+bf16 compute copy) over the data group. The update is elementwise, so
+the placement changes no number. The grads stay whole: the step
+all-reduces them over the data group first, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ import torch
 from torch.profiler import record_function
 
 from picotron_tpu_torch.config import TrainingConfig
+from picotron_tpu_torch.parallel import comm
+from picotron_tpu_torch.parallel.sharding import tp_shard_dim
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -64,6 +77,42 @@ def global_norm(tensors) -> torch.Tensor:
     sync. A NaN or Inf anywhere makes it non-finite."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def layout_grad_norm(names, grads, par=None) -> torch.Tensor:
+    """The global norm of the whole model's grads under a layout (each
+    rank holding whole, data-reduced grads): the squares of tp-sharded
+    grads summed over tp, the replicated ones counted once. Without tp
+    it is `global_norm`."""
+    if par is None or par.tp_size == 1:
+        return global_norm(grads)
+    parts = {True: [], False: []}
+    for n, g in zip(names, grads):
+        parts[tp_shard_dim(n) is not None].append(g)
+
+    def sq(ts):
+        if not ts:
+            return torch.zeros((), device=grads[0].device)
+        return torch.stack(torch._foreach_norm([t.float() for t in ts])
+                           ).square().sum()
+
+    total = comm.all_reduce(sq(parts[True]), par.tp_group)
+    return torch.sqrt(total + sq(parts[False]))
+
+
+def zero1_rows(shape, par=None) -> Optional[tuple]:
+    """(first row, end row) of dim 0 that this rank owns under ZeRO-1, or
+    None when the tensor stays whole: no layout, or dim 0 not divisible
+    by the data group's size, or a slice whose elements are not a
+    multiple of 8 (so that every slice, fp32 or bf16, starts 16-byte
+    aligned for the kernel's vector loads)."""
+    if par is None or not shape:
+        return None
+    n, rows = par.data_size, shape[0]
+    per = rows // n
+    if rows % n or (per * math.prod(shape[1:])) % 8:
+        return None
+    return par.data_rank * per, (par.data_rank + 1) * per
 
 
 def guard_nonfinite(ok: torch.Tensor, new_tensors, old_tensors) -> None:
@@ -296,13 +345,21 @@ class _AdamWState:
     is the checkpoint's view, {kind: {name: tensor}}; `install(params)`
     writes fp32 params ({name: tensor}, e.g. an HF import) into the state
     (the JAX package's `install_params`); `synchronize()` waits until the
-    state's tensors are final."""
+    state's tensors are final; `grad_norm()` is the buffers' global norm
+    over the whole model (`layout_grad_norm`). `par` is the rank's
+    `mesh.ParallelEnv` (None: one device); with `zero1`, `own[i]` is
+    the (first, end) rows of tensor i that this rank updates (None:
+    all of it), and its state tensors hold those rows only."""
 
-    def __init__(self, model: torch.nn.Module, t: TrainingConfig):
+    def __init__(self, model: torch.nn.Module, t: TrainingConfig,
+                 par=None, zero1: bool = False):
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.t = t
+        self.par = par
+        self.own = [zero1_rows(tuple(p.shape), par if zero1 else None)
+                    for p in self.params]
         self.lr = make_lr(t)
         self.moments_dtype = (torch.bfloat16
                               if t.adam_moments_dtype == "bfloat16"
@@ -311,6 +368,28 @@ class _AdamWState:
 
     def synchronize(self) -> None:
         pass
+
+    def grad_norm(self) -> torch.Tensor:
+        return layout_grad_norm(self.names, self.grads, self.par)
+
+    def owned_shape(self, i: int) -> tuple:
+        shape = tuple(self.params[i].shape)
+        own = self.own[i]
+        return shape if own is None else (own[1] - own[0],) + shape[1:]
+
+    def rows(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole tensor of param i (all of them
+        unless ZeRO-1 shards it)."""
+        own = self.own[i]
+        return t if own is None else t[own[0]:own[1]]
+
+    def _gather_params(self) -> None:
+        """ZeRO-1: every rank's updated rows into every rank's params."""
+        for i, own in enumerate(self.own):
+            if own is not None:
+                p = self.params[i].data
+                comm.all_gather_into(p, p[own[0]:own[1]],
+                                     self.par.data_group)
 
     @torch.no_grad()
     def step(self, grad_scale: torch.Tensor,
@@ -328,7 +407,7 @@ class _AdamWState:
             clip_norm = None
             if self.t.grad_clip_norm > 0:
                 clip_norm = (grad_norm if grad_norm is not None
-                             else global_norm(self.grads))
+                             else self.grad_norm())
             self._update(step_hyper(self.t, self.lr, self.count), clip_norm,
                          grad_scale, ok)
         if ok is None or bool(ok):
@@ -337,15 +416,16 @@ class _AdamWState:
 
 class AdamW(_AdamWState):
     """The optax chain above over the model's fp32 params, its moments
-    beside them on the params' device. The grad buffers are the params'
-    .grad, made here."""
+    beside them on the params' device (this rank's rows under ZeRO-1).
+    The grad buffers are the params' .grad, made here."""
 
-    def __init__(self, model: torch.nn.Module, t: TrainingConfig):
-        super().__init__(model, t)
-        self.mu = [torch.zeros_like(p, dtype=self.moments_dtype)
-                   for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=self.moments_dtype)
-                   for p in self.params]
+    def __init__(self, model: torch.nn.Module, t: TrainingConfig,
+                 par=None, zero1: bool = False):
+        super().__init__(model, t, par, zero1)
+        dev = self.params[0].device
+        self.mu = [torch.zeros(self.owned_shape(i), dtype=self.moments_dtype,
+                               device=dev) for i in range(len(self.params))]
+        self.nu = [torch.zeros_like(m) for m in self.mu]
         self.grad_of = param_grads(self.params)
         self.grads = list(self.grad_of.values())
         self._index = {p: i for i, p in enumerate(self.params)}
@@ -365,9 +445,11 @@ class AdamW(_AdamWState):
                 p.copy_(params[n])
 
     def _update(self, h: Hyper, clip_norm, grad_scale, ok) -> None:
-        for p, g, mu, nu in zip(self.params, self.grads, self.mu, self.nu):
-            adamw_update(p, g, mu, nu, h, grad_norm=clip_norm,
-                         grad_scale=grad_scale, ok=ok)
+        for i, (p, g, mu, nu) in enumerate(zip(self.params, self.grads,
+                                               self.mu, self.nu)):
+            adamw_update(self.rows(i, p), self.rows(i, g), mu, nu, h,
+                         grad_norm=clip_norm, grad_scale=grad_scale, ok=ok)
+        self._gather_params()
 
 
 # ---------------------------------------------------------------------------
@@ -483,18 +565,19 @@ class OffloadAdamW(_AdamWState):
     the copies of the next and the last slice overlap the kernel, and
     time the last step (`timings`). On the CPU the same slices run the
     same math in place, without placement (the JAX package's
-    `transfer=False`)."""
+    `transfer=False`). Under ZeRO-1 the host state holds this rank's
+    rows only (`own`), and the update all-gathers the compute copy."""
 
     def __init__(self, model: torch.nn.Module, t: TrainingConfig,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 pin: Optional[bool] = None):
-        super().__init__(model, t)
+                 pin: Optional[bool] = None, par=None, zero1: bool = False):
+        super().__init__(model, t, par, zero1)
         dev = self.params[0].device
         pin = dev.type == "cuda" if pin is None else pin
         if pin and not torch.cuda.is_available():
             raise RuntimeError("optimizer_offload: pinned host memory needs "
                                "CUDA; run on the CPU without pinning")
-        shapes = [tuple(p.shape) for p in self.params]
+        shapes = [self.owned_shape(i) for i in range(len(self.params))]
         self.host_bytes = offload_host_bytes(shapes, self.moments_dtype)
         if pin:
             check_host_room(self.host_bytes)
@@ -502,16 +585,16 @@ class OffloadAdamW(_AdamWState):
         self.mu = _flat_views(shapes, self.moments_dtype, pin)
         self.nu = _flat_views(shapes, self.moments_dtype, pin)
         with torch.no_grad():
-            for m, p in zip(self.master, self.params):
-                m.copy_(p)
+            for i, (m, p) in enumerate(zip(self.master, self.params)):
+                m.copy_(self.rows(i, p))
             for p in self.params:
                 p.data = p.data.to(compute_dtype)
-        self.grads = [torch.zeros(s, dtype=torch.float32, device=dev)
-                      for s in shapes]
+        self.grads = [torch.zeros_like(p, dtype=torch.float32)
+                      for p in self.params]
         self.grad_of = dict(zip(self.params, self.grads))
         for p, buf in self.grad_of.items():
             p.register_post_accumulate_grad_hook(_into(buf))
-        self.slices = []  # (tensor index, first row, end row)
+        self.slices = []  # (tensor index, first row, end row) of its rows
         for i, (name, s) in enumerate(zip(self.names, shapes)):
             # one tensor of a layer at a time (a slice of the JAX layer
             # stack); the embedding and head in row groups
@@ -529,9 +612,10 @@ class OffloadAdamW(_AdamWState):
     def install(self, params: dict) -> None:
         """Fill the master (fp32) and the compute copy (its cast)."""
         with torch.no_grad():
-            for n, m, p in zip(self.names, self.master, self.params):
-                m.copy_(params[n])
-                p.copy_(m)
+            for i, (n, m, p) in enumerate(zip(self.names, self.master,
+                                              self.params)):
+                m.copy_(self.rows(i, params[n]))
+                p.copy_(params[n])
 
     def synchronize(self) -> None:
         """Wait for the last step's D2H copies: the host state is then
@@ -544,10 +628,13 @@ class OffloadAdamW(_AdamWState):
             self._stream(h, clip_norm, grad_scale, ok)
             return
         for i, lo, hi in self.slices:
-            adamw_update(self.master[i][lo:hi], self.grads[i][lo:hi],
+            r0 = 0 if self.own[i] is None else self.own[i][0]
+            adamw_update(self.master[i][lo:hi],
+                         self.grads[i][r0 + lo:r0 + hi],
                          self.mu[i][lo:hi], self.nu[i][lo:hi], h,
                          grad_norm=clip_norm, grad_scale=grad_scale, ok=ok,
-                         out=self.params[i].data[lo:hi])
+                         out=self.params[i].data[r0 + lo:r0 + hi])
+        self._gather_params()
 
     def _staging(self, dev):
         if self._cuda is None:
@@ -602,10 +689,11 @@ class OffloadAdamW(_AdamWState):
                     ev["h2d_end"].record(h2d)
             with record_function("offload.adamw"):
                 compute.wait_event(st["loaded"][b])
-                adamw_update(stage[0], self.grads[i][lo:hi], stage[1],
-                             stage[2], h, grad_norm=clip_norm,
+                r0 = 0 if self.own[i] is None else self.own[i][0]
+                adamw_update(stage[0], self.grads[i][r0 + lo:r0 + hi],
+                             stage[1], stage[2], h, grad_norm=clip_norm,
                              grad_scale=grad_scale, ok=ok,
-                             out=self.params[i].data[lo:hi])
+                             out=self.params[i].data[r0 + lo:r0 + hi])
                 st["done"][b].record(compute)
             with record_function("offload.d2h"), torch.cuda.stream(d2h):
                 d2h.wait_event(st["done"][b])
@@ -615,6 +703,7 @@ class OffloadAdamW(_AdamWState):
                     t.copy_(s, non_blocking=True)
                 st["freed"][b].record(d2h)
         ev["d2h_end"].record(d2h)
+        self._gather_params()
         compute.wait_stream(d2h)
         ev["end"].record(compute)
         self._events = ev

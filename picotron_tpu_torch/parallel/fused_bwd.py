@@ -30,11 +30,24 @@ params are the bf16 compute copy, buffers of their own), left undivided:
 the 1 / token count rides to the update. Over bf16 params
 `ComputeWeights` are the params themselves, with no second copy.
 
+Under tp (the model's `TPContext`) the forward runs the model's hooks (f
+before the column-parallel products, g after the row-parallel ones, the
+vocab-parallel lookup and CE), and the manual backward takes their
+transposes: the grad of a g output through `g_transpose` (identity;
+under sequence parallelism an all-gather of the sequence) before the
+row-parallel dX and dW products, and the partial dX of the
+column-parallel products through `f_transpose` (an all-reduce; under SP
+a reduce-scatter) before the norm's transpose. The residual stream and
+the saved layer inputs stay seq-sharded under SP, the saved q/k/v/out
+are this rank's heads over the whole sequence, as under the AD engine.
+The accumulators are reduced over the data group once, at the seam
+(`parallel/api.GradSync`, the `reduce` argument).
+
 Eligibility is the JAX package's (`fused_bwd_supported`: one pipeline
-stage under remat "dots_attn"); of its branches only the single-device
-ones are ported: flash (`attn_impl` "auto"/"flash") and the plain
-"reference" attention. Context parallelism and tp/SP (ROADMAP Queue 1 item
-9) and MoE (item 10) are refused.
+stage under remat "dots_attn"); of its branches the ported ones are
+flash (`attn_impl` "auto"/"flash") and the plain "reference" attention,
+over dp and Megatron tp with or without SP. Context parallelism (ROADMAP
+Queue 1 item 9) and MoE (item 10) are refused.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ import torch.nn.functional as F
 
 from picotron_tpu_torch.config import Config
 from picotron_tpu_torch.models.llama import (
-    LlamaModel, compute_dtype, embed, mlp_act,
+    LlamaModel, _entry, _exit, compute_dtype, embed, mlp_act,
 )
 from picotron_tpu_torch.ops.attention import (
     sdpa_attention, sdpa_attention_bwd_from_saved,
@@ -60,6 +73,7 @@ from picotron_tpu_torch.ops.losses import (
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.rope import apply_rope
 from picotron_tpu_torch.optimizer import param_grads
+from picotron_tpu_torch.parallel.tp import vocab_parallel_embed_grad
 
 _MATMULS = ("q", "k", "v", "o", "gate", "up", "down")
 
@@ -79,10 +93,6 @@ def check_ported(cfg: Config) -> None:
     if d.cp_size > 1 or m.attn_impl not in ("auto", "flash", "reference"):
         raise NotImplementedError(
             "the fused grad engine's context-parallel branches are not "
-            "ported yet (ROADMAP Queue 1 item 9)")
-    if d.tp_size > 1 or d.sequence_parallel:
-        raise NotImplementedError(
-            "the fused grad engine under tp/sequence parallelism is not "
             "ported yet (ROADMAP Queue 1 item 9)")
     if m.num_experts:
         raise NotImplementedError(
@@ -179,7 +189,16 @@ def _attn_paths(model: LlamaModel):
     return attn_fwd, attn_bwd
 
 
+def _entry_t(dh, lp):
+    return dh if lp.tp is None else lp.tp.f_transpose(dh)
+
+
+def _exit_t(dy, lp):
+    return dy if lp.tp is None else lp.tp.g_transpose(dy)
+
+
 def _qkv(h, lp, w, d):
+    """q/k/v of the (already entered) h."""
     b, s, _ = h.shape
     q, k, v = F.linear(h, w["q"]), F.linear(h, w["k"]), F.linear(h, w["v"])
     if lp.b_q is not None:
@@ -210,13 +229,14 @@ def forward_saved(model: LlamaModel, weights: ComputeWeights,
     x = embed(model, ids)
     for i, lp in enumerate(model.layers):
         w = weights.layer(i)
-        q, k, v = _qkv(rms_norm(x, lp.input_norm, eps), lp, w, hd)
+        q, k, v = _qkv(_entry(rms_norm(x, lp.input_norm, eps), lp), lp, w,
+                       hd)
         out, lse = attn_fwd(q, k, v)
-        a = x + F.linear(_flat(out), w["o"])
-        h = rms_norm(a, lp.post_norm, eps)
+        a = x + _exit(F.linear(_flat(out), w["o"]), lp)
+        h = _entry(rms_norm(a, lp.post_norm, eps), lp)
         m = act(F.linear(h, w["gate"])) * F.linear(h, w["up"])
         saved.append((x, q, k, v, out, lse))
-        x = a + F.linear(m, w["down"])
+        x = a + _exit(F.linear(m, w["down"]), lp)
     return x, saved
 
 
@@ -238,7 +258,9 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
     with torch.enable_grad():
         x_l, head_w = _with_grad(x), _with_grad(weights.head)
         h = rms_norm(x_l, model.final_norm, eps)
-        if ce_chunk_size:
+        if model.tp is not None:
+            total, count = model.tp.head_ce(h, head_w, tgt, ce_chunk_size)
+        elif ce_chunk_size:
             total, count = chunked_cross_entropy_sum_count(
                 h, head_w, tgt, ce_chunk_size)
         else:
@@ -254,38 +276,42 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
         x, q, k, v, out, lse = saved.pop()
         with torch.no_grad():
             outf = _flat(out)
-            a = x + F.linear(outf, w["o"])
+            a = x + _exit(F.linear(outf, w["o"]), lp)
         # MLP half: y = a + down(act(gate) * up) with gate/up from norm(a)
         with torch.enable_grad():
             a_ = _with_grad(a)
             h2 = rms_norm(a_, lp.post_norm, eps)
-        h2d = h2.detach()
+        with torch.no_grad():
+            h2d = _entry(h2.detach(), lp)
         with torch.enable_grad():
             gate = _with_grad(F.linear(h2d, w["gate"]))
             up = _with_grad(F.linear(h2d, w["up"]))
             m = act(gate) * up
-        dm = dy @ w["down"]
-        accumulate_weight_grad(acc[lp.down], dy, m.detach(), plain)
+        dyg = _exit_t(dy, lp)
+        dm = dyg @ w["down"]
+        accumulate_weight_grad(acc[lp.down], dyg, m.detach(), plain)
         d_gate, d_up = torch.autograd.grad(m, (gate, up), dm)
         # sums in autograd's order (the later consumer's grad first), so
         # the bf16 roundings are the AD engine's
-        dh2 = d_up @ w["up"] + d_gate @ w["gate"]
+        dh2 = _entry_t(d_up @ w["up"] + d_gate @ w["gate"], lp)
         accumulate_weight_grad(acc[lp.gate], d_gate, h2d, plain)
         accumulate_weight_grad(acc[lp.up], d_up, h2d, plain)
         da, d_post = torch.autograd.grad(h2, (a_, lp.post_norm), dh2)
         acc[lp.post_norm].add_(d_post)
         da = dy + da
         # o-projection, then attention from the saved (out, lse)
-        dout = (da @ w["o"]).reshape(out.shape)
-        accumulate_weight_grad(acc[lp.o], da, outf, plain)
+        dag = _exit_t(da, lp)
+        dout = (dag @ w["o"]).reshape(out.shape)
+        accumulate_weight_grad(acc[lp.o], dag, outf, plain)
         dq, dk, dv = attn_bwd(q, k, v, out, lse, dout)
         dq, dk, dv = _flat(dq), _flat(dk), _flat(dv)
         # qkv half: q/k/v = norm(x) @ W (+ b)
         with torch.enable_grad():
             x_ = _with_grad(x)
             h1 = rms_norm(x_, lp.input_norm, eps)
-        h1d = h1.detach()
-        dh1 = dv @ w["v"] + dk @ w["k"] + dq @ w["q"]
+        with torch.no_grad():
+            h1d = _entry(h1.detach(), lp)
+        dh1 = _entry_t(dv @ w["v"] + dk @ w["k"] + dq @ w["q"], lp)
         for name, g in (("q", dq), ("k", dk), ("v", dv)):
             accumulate_weight_grad(acc[getattr(lp, name)], g, h1d, plain)
             bias = getattr(lp, "b_" + name)
@@ -298,18 +324,23 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
 
     # ---------------- embedding ----------------
     emb = acc[model.embedding]
-    emb.index_put_((ids,), dy.to(emb.dtype), accumulate=True)
+    if model.tp is not None:
+        vocab_parallel_embed_grad(emb, ids, dy, model.tp)
+    else:
+        emb.index_put_((ids,), dy.to(emb.dtype), accumulate=True)
     return total.detach(), count
 
 
 def fused_accumulate_grads(model: LlamaModel, weights: ComputeWeights,
                            batch, ce_chunk_size: int = 0,
-                           plain: bool = False, grads: Optional[dict] = None):
+                           plain: bool = False, grads: Optional[dict] = None,
+                           reduce=None):
     """The fused engine's counterpart of `train_step.accumulate_grads`:
     zeroes the fp32 accumulators `grads` ({param: buffer}; the params'
-    .grad when None), sums the microbatches' NLL-sum grads into them and
-    returns (mean loss, 1 / token count). `weights` must have been
-    refreshed for this step."""
+    .grad when None), sums the microbatches' NLL-sum grads into them,
+    passes the layout's seam (`reduce`, a `GradSync`) and returns (mean
+    loss, 1 / token count). `weights` must have been refreshed for this
+    step."""
     ids, tgt = batch
     grads = param_grads(model.parameters()) if grads is None else grads
     for buf in grads.values():
@@ -321,5 +352,7 @@ def fused_accumulate_grads(model: LlamaModel, weights: ComputeWeights,
                                      ce_chunk_size, plain)
         nll_total += total
         count += c
+    if reduce is not None:
+        nll_total, count = reduce(grads, nll_total, count)
     count = count.clamp(min=1)
     return nll_total / count, torch.reciprocal(count.float())

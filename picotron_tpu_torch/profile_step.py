@@ -3,13 +3,19 @@
     python -m picotron_tpu_torch.profile_step \
         --config picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json \
         [--warmup 2] [--steps 2] [--trace chiprun_out/step_trace.json]
+    python -m torch.distributed.run --standalone --nproc_per_node 1 \
+        -m picotron_tpu_torch.profile_step \
+        --config picotron_tpu_torch/configs/smollm17-1gpu-dp-zero1.json
 
 Runs the trainer (`train.run`) for `warmup + steps` steps and traces the
 last `steps` under torch.profiler (CPU + CUDA activity), then prints per
 step: wall time, device-busy time (the sum of kernel durations: the
 kernels run on one stream, so they do not overlap), the idle share 1 -
 busy / wall, and device time by class (the three flash kernels, the
-AdamW kernel, GEMMs, everything else; host-device copies, which the
+AdamW kernel, GEMMs, NCCL's collective kernels ("nccl": under torchrun
+the layout's grad all-reduces and ZeRO-1 all-gathers, which run on
+NCCL's own stream and may overlap the compute), everything else;
+host-device copies, which the
 offloaded optimizer runs on two streams of their own beside the kernels,
 apart as "memcpy" and outside the busy time) and by kernel name, and by
 part of the step: the kernels launched under the optimizer's and the
@@ -40,6 +46,7 @@ import torch
 
 from picotron_tpu_torch import train
 from picotron_tpu_torch.config import load_config
+from picotron_tpu_torch.mesh import launcher_contract, shutdown
 
 # (name substring, class): each kernel's two variants share its class
 _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
@@ -60,6 +67,8 @@ def kernel_class(name: str) -> str:
             return "flash:" + cls
     if "adamw_kernel" in name:
         return "adamw"
+    if "nccl" in low:
+        return "nccl"
     if low.startswith("memcpy"):
         return "memcpy"
     if any(g in low for g in _GEMM):
@@ -98,7 +107,12 @@ def main(argv=None) -> dict:
             clock["wall"] = (time.perf_counter() - clock["t0"]) / args.steps
             prof.stop()
 
-    train.run(cfg, "cuda", on_step=on_step)
+    launched = launcher_contract() is not None
+    try:
+        train.run(cfg, "cuda", on_step=on_step)
+    finally:
+        if launched:
+            shutdown()
     wall = clock["wall"]
     if args.trace:
         prof.export_chrome_trace(args.trace)

@@ -1,7 +1,8 @@
-"""Single-device trainer of the PyTorch port (counterpart of
-picotron_tpu/train.py):
+"""Trainer of the PyTorch port (counterpart of picotron_tpu/train.py):
 
     python -m picotron_tpu_torch.train --config cfg.json [--device cpu]
+    torchrun --nproc_per_node N -m picotron_tpu_torch.train --config cfg.json
+        [--device cpu] [--report out.json]
 
 Flow: load the config -> state (fresh init from training.seed, then HF
 weights, then an explicit `checkpoint.load_path` or `auto_resume` of the
@@ -14,6 +15,17 @@ or config `distributed.use_cpu: true` asks for the CPU; with no GPU and no
 such request it raises. MFU is printed as 0.00% on the CPU: it is a
 device metric and is not measured there.
 
+Under torchrun (any process group, world 1 included) the run takes the
+layout's path (`mesh.init_parallel`: NCCL on cuda:LOCAL_RANK, gloo with
+--device cpu; the world must be dp*pp*ep*cp*tp): each rank builds its tp
+shards, reads its dp rows, reduces the grads over the data group and, with
+distributed.zero1, updates its slice of the optimizer state. Only rank 0
+prints and writes the report; tokens/s is the global rate and MFU is over
+the world's devices (picotron_tpu/train.py's `utils.mfu(..., num_chips)`).
+After the first step rank 0 prints the collectives launched per step, by
+kind. `--report PATH` writes (rank 0) a JSON of the run's losses, step
+seconds, peak memory, collectives per step and the kernels' launches.
+
 Exit codes (the contract with a supervisor): 75 preempted with a durable
 emergency checkpoint (resubmit with auto_resume), 76 diverged, 77 the
 watchdog found no progress. What this slice does not run is refused up
@@ -23,6 +35,7 @@ front, naming the ROADMAP item that ports it (see `unsupported`).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -30,13 +43,19 @@ from typing import Callable, Optional
 
 import torch
 
+from picotron_tpu_torch import optimizer as topt
 from picotron_tpu_torch.checkpoint import (
     CheckpointManager, load_hf_safetensors,
 )
 from picotron_tpu_torch.ckpt_integrity import preflight_save_dir
 from picotron_tpu_torch.config import Config, load_config
 from picotron_tpu_torch.data import MicroBatchDataLoader, build_eval_source
+from picotron_tpu_torch.mesh import init_parallel, launcher_contract, shutdown
 from picotron_tpu_torch.models.llama import LlamaModel, init_params
+from picotron_tpu_torch.ops import flash_attention as fa
+from picotron_tpu_torch.parallel import comm
+from picotron_tpu_torch.parallel.sharding import shard_state_dict
+from picotron_tpu_torch.parallel.tp import tp_context
 from picotron_tpu_torch.resilience import (
     EXIT_DIVERGED, EXIT_PREEMPTED, DivergenceGuard, GuardAction,
     PreemptionHandler, Watchdog,
@@ -47,7 +66,7 @@ from picotron_tpu_torch.train_step import (
 )
 from picotron_tpu_torch.utils import (
     StepTimer, device_memory_gb, device_peak_flops, human_format, log_print,
-    mfu, training_log_line,
+    mfu, set_log_quiet, training_log_line,
 )
 
 
@@ -56,10 +75,23 @@ def unsupported(cfg: Config) -> list[str]:
     ROADMAP item (an empty list means the run is supported)."""
     d, m, t = cfg.distributed, cfg.model, cfg.training
     out = []
-    for name in ("dp_size", "tp_size", "pp_size", "cp_size", "ep_size"):
+    for name, what, item in (
+            ("pp_size", "pipeline parallelism", 9),
+            ("cp_size", "context parallelism", 9),
+            ("ep_size", "expert parallelism", 10)):
         if getattr(d, name) > 1:
-            out.append(f"distributed.{name} > 1 (parallel layouts: ROADMAP "
-                       "Queue 1 item 9)")
+            out.append(f"distributed.{name} > 1 ({what}: ROADMAP Queue 1 "
+                       f"item {item})")
+    if d.tp_strategy != "megatron":
+        out.append(f"distributed.tp_strategy={d.tp_strategy!r} (tp "
+                   "strategies: ROADMAP Queue 1 item 9)")
+    if d.tp_sync != "sync":
+        out.append(f"distributed.tp_sync={d.tp_sync!r} (deferred tp sync: "
+                   "ROADMAP Queue 1 item 9)")
+    if d.slices > 1 or d.hier_dp_reduce == "on":
+        out.append("distributed.slices > 1 / hier_dp_reduce (the "
+                   "hierarchical multi-slice dp reduction: ROADMAP Queue 1 "
+                   "item 9)")
     if m.num_experts:
         out.append("MoE models (ROADMAP Queue 1 item 10)")
     if m.attn_impl not in ("auto", "flash", "reference"):
@@ -92,28 +124,34 @@ def resolve_device(cfg: Config, device: Optional[str] = None) -> torch.device:
     return dev
 
 
-def build_state(cfg: Config, dev: torch.device):
+def build_state(cfg: Config, dev: torch.device, par=None):
     """(state, trained_tokens, ckpt_meta, resumed_from, restore_timings):
     fresh init, then HF weights, then resume, in the JAX driver's
     precedence. `resumed_from` is the checkpoint directory the state came
     from ("" when fresh): with auto_resume and no explicit load_path, the
-    newest durable AND verified checkpoint in save_dir wins."""
+    newest durable AND verified checkpoint in save_dir wins. Under a
+    layout (`par`) the model is this rank's tp shards, each tp rank
+    drawing its own (dp ranks draw the same)."""
     ck = cfg.checkpoint
-    gen = torch.Generator(device=dev).manual_seed(cfg.training.seed)
-    model = init_params(LlamaModel(cfg.model, device=dev), gen)
-    state = init_train_state(cfg, model)
+    tp = tp_context(par, cfg.distributed.sequence_parallel)
+    seed = cfg.training.seed + (0 if tp is None else 1_000_003 * tp.rank)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(LlamaModel(cfg.model, device=dev, tp=tp), gen)
+    state = init_train_state(cfg, model, par)
     if cfg.training.optimizer_offload:
         pinned = "pinned " if dev.type == "cuda" else ""
         log_print(f"optimizer: offload ({pinned}host "
                   f"{state.optimizer.host_bytes / 2 ** 30:.2f} GiB)")
     if ck.init_from_hf:
-        state.optimizer.install(load_hf_safetensors(ck.init_from_hf,
-                                                    cfg.model))
+        params = load_hf_safetensors(ck.init_from_hf, cfg.model)
+        if tp is not None:
+            params = shard_state_dict(params, tp.rank, tp.size)
+        state.optimizer.install(params)
         log_print(f"initialized weights from {ck.init_from_hf}")
 
     load_dir, mgr, step, verify_s = ck.load_path, None, None, 0.0
     if not load_dir and ck.auto_resume:
-        probe = CheckpointManager(cfg)
+        probe = CheckpointManager(cfg, par=par)
         t0 = time.perf_counter()
         step = probe.latest_valid_step()
         verify_s = time.perf_counter() - t0
@@ -123,7 +161,7 @@ def build_state(cfg: Config, dev: torch.device):
     if not load_dir:
         return state, 0, {}, "", {}
     if mgr is None:
-        mgr = CheckpointManager(cfg, directory=load_dir)
+        mgr = CheckpointManager(cfg, directory=load_dir, par=par)
         state, meta = mgr.restore(state)
     else:  # verified by latest_valid_step above
         state, meta = mgr.load_step(state, step)
@@ -147,7 +185,8 @@ def _emergency_checkpoint(cfg, ckpt_mgr, state, trained_tokens, dl,
     """Preemption landed: make the in-flight progress durable inside the
     grace window. Builds a manager on the spot when periodic saving was
     off: an emergency save must not depend on save_frequency."""
-    mgr = ckpt_mgr if ckpt_mgr is not None else CheckpointManager(cfg)
+    mgr = (ckpt_mgr if ckpt_mgr is not None
+           else CheckpointManager(cfg, par=state.optimizer.par))
     path = mgr._step_dir(state.step)
     if state.step not in saved_steps:
         path = mgr.save(state, trained_tokens, dataloader_state=dl.state)
@@ -179,28 +218,53 @@ def _rollback(ckpt_mgr, state, dl, step, trained_tokens, why):
     return state, state.step, tokens
 
 
+def _any_rank(flag: bool, par) -> bool:
+    """`flag` OR-ed over every rank (a host-control all-reduce, not one of
+    the model's counted collectives)."""
+    if par is None or par.world_size == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=par.device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def run(cfg: Config, device: Optional[str] = None,
         on_step: Optional[Callable[[int, dict], None]] = None) -> dict:
     """Train per the config; returns {"losses", "step_seconds",
     "tokens_per_step", "peak_memory_gb", "device", "state", "val_losses",
-    "start_step", "restore_timings", "save_timings"} (state: the trained
-    TrainState; val_losses: {step: val_loss}). `on_step(step, metrics)`
-    runs after each completed step with its metrics as floats, before the
-    preemption check. Raises SystemExit(75/76) on preemption/divergence."""
+    "start_step", "restore_timings", "save_timings", "world_size",
+    "collectives_per_step"} (state: the trained TrainState; val_losses:
+    {step: val_loss}; collectives_per_step: the first step's, by kind).
+    `on_step(step, metrics)` runs after each completed step with its
+    metrics as floats, before the preemption check. Raises
+    SystemExit(75/76) on preemption/divergence."""
     bad = unsupported(cfg)
     if bad:
         raise NotImplementedError(
             "not supported by this slice of the PyTorch port: "
             + "; ".join(bad))
     dev = resolve_device(cfg, device)
+    par = init_parallel(cfg, dev)
+    world = 1
+    if par is not None:
+        dev, world = par.device, par.world_size
+        set_log_quiet(not par.is_main)
+        log_print(f"layout: {par.sizes} over {world} rank(s), backend "
+                  f"{par.backend}, sequence_parallel "
+                  f"{cfg.distributed.sequence_parallel}, zero1 "
+                  f"{cfg.distributed.zero1}")
     t, ck = cfg.training, cfg.checkpoint
     if ck.save_frequency > 0:
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story
         log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
                   f"~{est / 1e9:.2f} GB/checkpoint)")
-    dl = MicroBatchDataLoader(cfg, dev)
+    dp_rank = 0 if par is None else par.coords["dp"]
+    dl = MicroBatchDataLoader(cfg, dev, dp_rank=dp_rank)
+    # without a layout the calls keep their one-device form, which
+    # callers may wrap
+    layout = () if par is None else (par,)
     state, trained_tokens, ckpt_meta, resumed_from, restore_timings = (
-        build_state(cfg, dev))
+        build_state(cfg, dev, *layout))
     start_step = state.step
     if start_step > 0:
         # Fast-forward the loader so resume does not replay consumed data;
@@ -213,7 +277,7 @@ def run(cfg: Config, device: Optional[str] = None,
                         "cursor": (start_step % per_epoch)
                         * cfg.global_batch_size}
         dl.set_state(dl_state)
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, *layout)
     log_print(f"grad engine: {resolved_grad_engine(cfg)} (grad_engine "
               f"{t.grad_engine!r}, remat "
               f"{t.remat_policy if t.remat else None!r}, ce_chunk_size "
@@ -222,10 +286,12 @@ def run(cfg: Config, device: Optional[str] = None,
     if t.eval_frequency > 0:
         # a FIXED validation set: every eval (and every resumed run) scores
         # the same batches
-        eval_dl = MicroBatchDataLoader(cfg, dev, source=build_eval_source(cfg))
+        eval_dl = MicroBatchDataLoader(cfg, dev, source=build_eval_source(cfg),
+                                       dp_rank=dp_rank)
         eval_batches = [next(eval_dl) for _ in range(t.eval_steps)]
-        eval_fn = make_eval_step(cfg)
-    ckpt_mgr = CheckpointManager(cfg) if ck.save_frequency > 0 else None
+        eval_fn = make_eval_step(cfg, par)
+    ckpt_mgr = (CheckpointManager(cfg, par=par) if ck.save_frequency > 0
+                else None)
     peak = device_peak_flops(dev) if dev.type == "cuda" else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -248,6 +314,7 @@ def run(cfg: Config, device: Optional[str] = None,
         os.path.abspath(resumed_from) == os.path.abspath(ck.save_dir))
     saved_steps = {start_step} if resumed_in_place else set()
     losses, step_seconds, val_losses = [], [], {}
+    per_step = None  # the collectives of the first step, by kind
     window = StepTimer()
     last_logged_step = start_step
     exit_code = None
@@ -259,6 +326,7 @@ def run(cfg: Config, device: Optional[str] = None,
         while step < total_steps:
             step += 1
             t0 = time.perf_counter()
+            before = dict(comm.collectives)
             watchdog.beat("data", step)
             batch = next(dl)
             watchdog.beat("step", step)
@@ -268,6 +336,12 @@ def run(cfg: Config, device: Optional[str] = None,
             fmetrics = dict(zip(metrics, torch.stack(
                 list(metrics.values())).tolist()))
             step_seconds.append(time.perf_counter() - t0)
+            if per_step is None and par is not None:
+                per_step = {k: comm.collectives[k] - before[k]
+                            for k in before}
+                log_print("collectives per step (rank 0): "
+                          + ", ".join(f"{k} {v}" for k, v in
+                                      per_step.items()))
             losses.append(fmetrics["loss"])
             trained_tokens += cfg.tokens_per_step
             if not watchdog.started:
@@ -313,10 +387,10 @@ def run(cfg: Config, device: Optional[str] = None,
                 dt = max(window.lap(), 1e-9)
                 tps = cfg.tokens_per_step * (step - last_logged_step) / dt
                 last_logged_step = step
-                mfu_frac = (mfu(tps, cfg.model, t.seq_length, 1, peak)
+                mfu_frac = (mfu(tps, cfg.model, t.seq_length, world, peak)
                             if peak else 0.0)
                 log_print(training_log_line(
-                    step, fmetrics["loss"], tps, tps, mfu_frac,
+                    step, fmetrics["loss"], tps, tps / world, mfu_frac,
                     trained_tokens, device_memory_gb(dev), extras=extras))
 
             if eval_fn is not None and (step % t.eval_frequency == 0
@@ -338,7 +412,7 @@ def run(cfg: Config, device: Optional[str] = None,
             if on_step is not None:
                 on_step(step, fmetrics)
 
-            if preempt.triggered:
+            if _any_rank(preempt.triggered, par):
                 # The in-flight step finished above; make it durable and
                 # hand control back to the supervisor.
                 watchdog.beat("preempt-save", step)
@@ -373,7 +447,22 @@ def run(cfg: Config, device: Optional[str] = None,
             "peak_memory_gb": device_memory_gb(dev), "device": str(dev),
             "state": state, "val_losses": val_losses,
             "start_step": start_step, "restore_timings": restore_timings,
-            "save_timings": dict(ckpt_mgr.timings) if ckpt_mgr else {}}
+            "save_timings": dict(ckpt_mgr.timings) if ckpt_mgr else {},
+            "world_size": world, "collectives_per_step": per_step}
+
+
+def write_report(result: dict, path: str) -> None:
+    """The run's numbers as one JSON object (rank 0 of a layout)."""
+    report = {k: result[k] for k in (
+        "losses", "step_seconds", "tokens_per_step", "peak_memory_gb",
+        "device", "world_size", "collectives_per_step", "start_step")}
+    report["launches"] = {**fa.launches, **topt.launches}
+    report["flash_variants"] = {"fwd": dict(fa.fwd_launches),
+                                "dq": dict(fa.dq_launches),
+                                "dkv": dict(fa.dkv_launches)}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f)
 
 
 def main(argv=None) -> dict:
@@ -381,9 +470,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--config", required=True, help="config JSON path")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--report", default=None,
+                    help="write the run's numbers here as JSON (rank 0)")
     args = ap.parse_args(argv)
-    result = run(load_config(args.config), args.device)
-    log_print("training done")
+    launched = launcher_contract() is not None
+    try:
+        result = run(load_config(args.config), args.device)
+        log_print("training done")
+        if args.report and (not launched
+                            or torch.distributed.get_rank() == 0):
+            write_report(result, args.report)
+    finally:
+        if launched:
+            shutdown()
     return result
 
 

@@ -24,6 +24,15 @@ global norm (`grad_norm`, optax.global_norm: the buffers' norm times
 the scale) and an in-step `nonfinite` flag, as the JAX step does; the
 same norm feeds clipping. Under "skip" a non-finite step leaves params,
 moments and the AdamW count as they were.
+
+Under a parallel layout (`par`, the rank's `mesh.ParallelEnv`) each rank
+runs its tp shards on its dp rows of the batch; the engines' sums then
+pass the seam (`parallel/api.GradSync`: one reduction over the data
+group after the last microbatch, and the norms' partial grads over tp
+under sequence parallelism) before the token count divides, the grad
+norm is the whole model's (`optimizer.layout_grad_norm`), and ZeRO-1
+shards the optimizer state (`optimizer.py`). The eval loss is summed
+over the data group the same way.
 """
 
 from __future__ import annotations
@@ -39,8 +48,9 @@ from picotron_tpu_torch.models.llama import (
     LlamaModel, compute_dtype, loss_sum_count,
 )
 from picotron_tpu_torch.optimizer import (
-    AdamW, OffloadAdamW, global_norm, guard_nonfinite, param_grads,
+    AdamW, OffloadAdamW, guard_nonfinite, param_grads,
 )
+from picotron_tpu_torch.parallel.api import GradSync, reduce_sum_count
 from picotron_tpu_torch.parallel.fused_bwd import (
     ComputeWeights, check_ported, fused_accumulate_grads, fused_bwd_supported,
 )
@@ -57,15 +67,19 @@ class TrainState:
     step: int = 0
 
 
-def init_train_state(cfg: Config, model: LlamaModel) -> TrainState:
+def init_train_state(cfg: Config, model: LlamaModel,
+                     par=None) -> TrainState:
     """The model (fp32 params) and its optimizer. Under optimizer_offload
     the params become the master of `OffloadAdamW` (host memory, pinned
     on CUDA) and the model keeps their bf16 compute copy, as the JAX
-    package's `_init_offload_state`."""
+    package's `_init_offload_state`. `par`: the rank's ParallelEnv, for
+    the grad norm and ZeRO-1 (distributed.zero1)."""
+    zero1 = cfg.distributed.zero1
     if cfg.training.optimizer_offload:
-        opt = OffloadAdamW(model, cfg.training, compute_dtype(model.cfg))
+        opt = OffloadAdamW(model, cfg.training, compute_dtype(model.cfg),
+                           par=par, zero1=zero1)
     else:
-        opt = AdamW(model, cfg.training)
+        opt = AdamW(model, cfg.training, par=par, zero1=zero1)
     return TrainState(model=model, optimizer=opt)
 
 
@@ -85,13 +99,15 @@ def resolved_grad_engine(cfg: Config) -> str:
 
 
 def accumulate_grads(model: LlamaModel, batch, remat: Optional[str] = None,
-                     ce_chunk_size: int = 0, grads: Optional[dict] = None):
+                     ce_chunk_size: int = 0, grads: Optional[dict] = None,
+                     reduce=None):
     """The AD engine. batch: (input_ids, targets), each [n_micro, mbs,
     seq] on the model's device; `remat` a remat policy name or None;
     `grads` the fp32 accumulators, {param: buffer} (the optimizer's
     `grad_of`; the params' .grad when None). Zeroes them, leaves the
     microbatches' summed NLL-sum grads there and returns (mean loss, 1 /
-    token count), each a 0-dim fp32 tensor."""
+    token count), each a 0-dim fp32 tensor. `reduce` (a `GradSync`) is
+    the layout's seam, run once before the division."""
     ids, tgt = batch
     grads = param_grads(model.parameters()) if grads is None else grads
     for buf in grads.values():
@@ -104,21 +120,35 @@ def accumulate_grads(model: LlamaModel, batch, remat: Optional[str] = None,
         total.backward()
         nll_total += total.detach()
         count += c
+    if reduce is not None:
+        nll_total, count = reduce(grads, nll_total, count)
     count = count.clamp(min=1)
     return nll_total / count, torch.reciprocal(count.float())
 
 
-def make_grads_fn(cfg: Config):
+def make_grads_fn(cfg: Config, par=None):
     """(model, batch, grads=None) -> (mean loss, 1 / token count), the
     summed grads left in `grads` (as `accumulate_grads`), by the config's
     resolved engine. The fused engine's bf16 weight copies are made for
     the model it first sees (again for another model) and refreshed from
-    the masters on every call; over bf16 params they are the params."""
+    the masters on every call; over bf16 params they are the params.
+    Under a layout (`par`) the sums pass the seam (`GradSync`) before the
+    division."""
     t = cfg.training
+    syncs = {}
+
+    def seam(model):
+        if par is None:
+            return None
+        if syncs.get("model") is not model:
+            syncs.update(model=model, sync=GradSync(
+                par, model, cfg.distributed.sequence_parallel))
+        return syncs["sync"]
+
     if resolved_grad_engine(cfg) != "fused":
         remat = t.remat_policy if t.remat else None
         return lambda model, batch, grads=None: accumulate_grads(
-            model, batch, remat, t.ce_chunk_size, grads)
+            model, batch, remat, t.ce_chunk_size, grads, seam(model))
     check_ported(cfg)
     weights = None
 
@@ -128,16 +158,18 @@ def make_grads_fn(cfg: Config):
             weights = ComputeWeights(model)
         weights.refresh()
         return fused_accumulate_grads(model, weights, batch, t.ce_chunk_size,
-                                      grads=grads)
+                                      grads=grads, reduce=seam(model))
 
     return fused
 
 
-def make_train_step(cfg: Config):
+def make_train_step(cfg: Config, par=None):
     """(state, batch) -> metrics: {"loss"} plus, with guards on,
     {"grad_norm", "nonfinite"}, each a 0-dim fp32 tensor on the device
-    (nothing here syncs the host, except the count under "skip")."""
-    grads_fn = make_grads_fn(cfg)
+    (nothing here syncs the host, except the count under "skip"). `par`:
+    the rank's ParallelEnv under a layout, whose batch is this rank's
+    rows."""
+    grads_fn = make_grads_fn(cfg, par)
     guards_on = cfg.resilience.guard_policy != "off"
     guard_skip = cfg.resilience.guard_policy == "skip"
 
@@ -150,7 +182,7 @@ def make_train_step(cfg: Config):
             # One global norm covers every grad: any NaN/Inf poisons it,
             # so non-finite detection is one scalar check.
             with record_function("train_step.grad_norm"):
-                gnorm = global_norm(opt.grads)
+                gnorm = opt.grad_norm()
             shown = gnorm * scale
             finite = torch.isfinite(loss) & torch.isfinite(shown)
             metrics["grad_norm"] = shown
@@ -164,10 +196,11 @@ def make_train_step(cfg: Config):
     return train_step
 
 
-def make_eval_step(cfg: Config):
+def make_eval_step(cfg: Config, par=None):
     """(model, batch) -> token-mean loss over the batch's microbatches, a
     0-dim fp32 tensor: forward only under no_grad (no graph, no grads), the
-    validation half of the train step."""
+    validation half of the train step (under a layout, summed over the
+    data group before the division)."""
     chunk = cfg.training.ce_chunk_size
 
     @torch.no_grad()
@@ -180,6 +213,8 @@ def make_eval_step(cfg: Config):
                                      ce_chunk_size=chunk)
             total += t
             count += c
+        if par is not None:
+            total, count = reduce_sum_count(total, count, par.data_group)
         return total / count.clamp(min=1)
 
     return eval_step

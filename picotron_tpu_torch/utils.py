@@ -54,7 +54,18 @@ def human_format(num: float) -> str:
     return f"{num:f}".rstrip("0").rstrip(".") + suffix
 
 
+_QUIET = [False]
+
+
+def set_log_quiet(quiet: bool) -> None:
+    """Silence `log_print` in this process (the ranks of a layout other
+    than rank 0)."""
+    _QUIET[0] = quiet
+
+
 def log_print(*args, **kwargs) -> None:
+    if _QUIET[0]:
+        return
     print(*args, **kwargs)
     sys.stdout.flush()
 

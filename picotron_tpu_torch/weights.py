@@ -13,15 +13,19 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.config import ModelConfig
+from picotron_tpu_torch.parallel.sharding import shard_state_dict
 
 # layer leaves that are matmul weights (transposed between the layouts)
 _MATMUL = ("q", "k", "v", "o", "gate", "up", "down")
 _VECTORS = ("input_norm", "post_norm", "b_q", "b_k", "b_v")
 
 
-def params_from_jax(np_tree: dict, cfg: ModelConfig) -> dict:
+def params_from_jax(np_tree: dict, cfg: ModelConfig, tp_rank: int = 0,
+                    tp_size: int = 1) -> dict:
     """JAX param pytree (numpy leaves) -> the port's state_dict (fp32
-    tensors on the CPU; load with `model.load_state_dict`)."""
+    tensors on the CPU; load with `model.load_state_dict`): the whole
+    model, or with `tp_size` > 1 tp rank `tp_rank`'s shards of it
+    (`parallel/sharding.py`)."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE weights are not ported yet (ROADMAP Queue 1 item 10)")
@@ -42,7 +46,7 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig) -> dict:
             elif name not in _VECTORS:
                 raise KeyError(f"unknown layer leaf {name!r}")
             sd[f"layers.{i}.{name}"] = t(a)
-    return sd
+    return shard_state_dict(sd, tp_rank, tp_size)
 
 
 def params_to_numpy(model: torch.nn.Module, grads: bool = False) -> dict:

@@ -236,7 +236,7 @@ def test_weight_grad_forms_on_the_cpu():
 
 
 @pytest.mark.parametrize("bad,match", [
-    ({"distributed": {"tp_size": 2}}, "item 9"),
+    ({"distributed": {"cp_size": 2}}, "item 9"),
     ({"model": {"name": "debug-tiny-moe"}}, "item 10"),
 ])
 def test_unported_branches_are_refused(bad, match):

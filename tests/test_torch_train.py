@@ -151,7 +151,7 @@ def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"distributed": {"dp_size": 2}}, "dp_size"),
+    ({"distributed": {"pp_size": 2}}, "pp_size"),
     ({"training": {"remat": True, "remat_policy": "dots_offload"}},
      "dots_offload"),
     ({"logging": {"use_wandb": True}}, "use_wandb"),
