@@ -143,7 +143,49 @@ Phases, each of which raises on failure (so the script exits non-zero):
    kernel launched 24 x ga x steps times on its tensor-core kernel and the
    AdamW kernel once per tensor (offload: per streamed slice) per step.
    Each run's step time, MFU and peak memory are printed.
-8. Numbers, then the device line last.
+8. Context parallelism (cp 4) in a thread world: the card has one GPU,
+   so `ThreadWorld` runs one thread per cp rank, all on cuda:0, and
+   their `ThreadComm`s exchange clones through a barrier and shared
+   slots (a harness: NCCL's send/recv and all-to-all are not on this
+   path); the schedules' code is the port's, unchanged, at the per-rank
+   shapes of runs/llama2-7b-cp4-seq8192. Only the schedules and their
+   `*_bwd_from_saved` run there (never `.backward()` through an
+   exchange: a device's autograd nodes share one engine thread).
+   (a) Attention at B 1, S 8192, Hq = Hkv = 32, D 128, bf16 (random
+   q/k/v/dO from a seed): ring with the zigzag and the contiguous
+   layout (per rank [1, 2048, 32, 128] blocks, 4 hops), Ulysses (inner
+   [1, 8192, 8, 128], positions None after seq_sort) and mesh 2x2 (row
+   domain [1, 4096, 16, 128], 2 hops), forward (merged lse) and backward
+   from the saved (out, lse), over the flash kernels. Gates, phase 2's
+   per-row limits: each rank's out, lse (merged, or in the inner or row
+   domain) and dq/dk/dv against the rows of the whole sequence through
+   the same kernels (`flash_attention` + `flash_attention_bwd_from_saved`
+   at S 8192, static causal) after the layout's permutation, and against
+   the schedule over the kernels' plain versions (`plain_flash`,
+   `plain_flash_bwd`; the backward from the plain forward's (out, lse),
+   so each kernel is held to its own plain version alone, as in phase
+   2); each rank's launches per call (ring zigzag 4 of each kernel, ring
+   contiguous r + 1 on rank r, whose blocks entirely in its future are
+   skipped on the host, Ulysses 1, mesh 2 x 2 2), every one on the
+   tensor-core kernel; and a planted fault, rank 1's zigzag chunks
+   swapped in its positions, must fail. Each rank's kernel time (its
+   recorded calls replayed one rank at a time, the visiting blocks
+   prepared beforehand, CUDA events) beside the whole sequence's / 4 and
+   its bound, and SDPA at the Ulysses inner shape.
+   (b) The model's cp path: Llama-2-7B width (hidden 4096, 32 heads,
+   intermediate 11008, vocab 32000) at CP_LAYERS = 2 layers (depth 32
+   -> 2, so that four rank copies fit on the card), seq 8192, one
+   microbatch, bf16 over fp32 params from one seed, through the fused
+   engine (`fused_micro_grads`) for each of the four schedules. Gates:
+   the ranks' NLL sums and token counts, summed by hand, against the
+   same model at cp 1 on the card (the loss within CP_LOSS_RTOL
+   relative, the count exactly), each grad tensor summed over the ranks
+   within CP_GRAD_RTOL in relative L2 of the cp-1 grad; each kernel
+   launched CP_LAYERS x the schedule's launches per rank, summed over
+   the ranks, all tensor-core; no torch.distributed call (the
+   communicator's exchanges only); and a planted fault, the zigzag
+   positions off by one chunk, must fail.
+9. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -211,19 +253,41 @@ embedding 5.2e-4; step 3 0.024 at worst; the planted faults 1.0 (the
 embedding's slices skipped or its grad lost, steps 1 and 3) and 0.46 to
 0.50 on every tensor after step 3 (the moments not copied back).
 
+Phase 8's limits: 8a uses phase 2's per-row limits. Against the whole
+sequence the ring and mesh add the merge (each block's out rounded to
+bf16, merged in fp32) and each block's grads rounded to bf16 before
+their fp32 sum: measured worst rows 4.9e-3 (out) and 7.9e-3 (dq)
+(NVIDIA H100 80GB HBM3, 700 W; PERF.md); Ulysses' inner call is the
+whole sequence's own (0 measured). 8b: CP_LOSS_RTOL = 5e-6 and
+CP_GRAD_RTOL = 2e-2, set between the measured readings (loss 1.3e-6,
+grads 6.7e-3 relative L2 at worst, layers.1.k) and the planted fault's
+(loss 1.1e-5, grads 1.24): the cp-1 model runs the same bf16 products
+but its attention in one kernel call per layer, where cp rounds each
+block's out and grads to bf16 before the fp32 merge or sum.
+
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
+
+    python3 chip_smoke.py --main-path TREE [TREE ...]
+
+runs only phase 3 of each tree's own chip_smoke.py (a checkout, or a
+commit unpacked with `git archive`), in the order given, and fails
+unless every tree's losses are equal bit for bit (a change that keeps
+the main path's ops shows it against its parent: parent, change,
+change, parent).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -287,6 +351,26 @@ PARALLEL_STEPS = 3             # the config's max_tokens
 PARALLEL_OFFLOAD_GA = 4        # phase 7b: the offload config at ga 4
 PARALLEL_OFFLOAD_STEPS = 2
 TRAIN_TIMEOUT_S = 300          # one child run of the trainer
+# phase 8: runs/llama2-7b-cp4-seq8192's attention (B 1, S 8192, Hq = Hkv
+# = 32, D 128) and model at depth CP_LAYERS, over CP ranks on one card
+CP, CP_SEQ, CP_LAYERS = 4, 8192, 2
+CP_SHAPE = (1, CP_SEQ, 32, 32, 128)
+CP_SCHEDULES = {  # name: (cp flavor, cp_layout, cp_mesh)
+    "ring zigzag": ("ring", "zigzag", ""),
+    "ring contiguous": ("ring", "contiguous", ""),
+    "ulysses zigzag": ("ulysses", "zigzag", ""),
+    "mesh 2x2 zigzag": ("mesh", "zigzag", "2x2"),
+}
+# each kernel's launches per rank per call: the contiguous ring skips the
+# blocks entirely in rank r's future on the host
+CP_LAUNCHES = {"ring zigzag": lambda r: CP,
+               "ring contiguous": lambda r: r + 1,
+               "ulysses zigzag": lambda r: 1,
+               "mesh 2x2 zigzag": lambda r: 2}
+CP_MODEL_SEED = 10
+CP_LOSS_RTOL = 5e-6            # phase 8b: loss, cp 4 vs cp 1, relative
+CP_GRAD_RTOL = 2e-2            # phase 8b: each grad tensor, relative L2
+THREAD_TIMEOUT_S = 600         # a thread world's barrier
 
 
 def log(msg: str) -> None:
@@ -381,9 +465,21 @@ def bounds(b, hq, hkv, sq, sk, d, shift) -> dict:
     """Least time per kernel, (ms, what bounds it, FLOPs): max(bytes / HBM
     rate, FLOPs / bf16 peak), counting each input read once and each output
     written once, and only the (q, k) pairs these positions make visible."""
-    pairs = b * hq * sum(min(sk, shift + i + 1) for i in range(sq))
+    return bounds_at(b, hq, hkv, d, range(shift, shift + sq), range(sk),
+                     rope=True)
+
+
+def bounds_at(b, hq, hkv, d, qpos, kpos, rope: bool) -> dict:
+    """`bounds` at explicit q and kv positions (any order): the pairs
+    with q position >= kv position, the RoPE tables' bytes only with
+    `rope`."""
+    import numpy as np
+
+    qpos, kpos = np.asarray(qpos), np.sort(np.asarray(kpos))
+    sq, sk = len(qpos), len(kpos)
+    pairs = b * hq * int(np.searchsorted(kpos, qpos, side="right").sum())
     qb, kvb = b * hq * sq * d * 2, b * hkv * sk * d * 2
-    tab = 2 * (sq + sk) * (d // 2) * 4 + (sq + sk) * 4
+    tab = (2 * (sq + sk) * (d // 2) * 4 if rope else 0) + (sq + sk) * 4
     row = b * hq * sq * 4
     work = {
         # S = QK^T and O = PV
@@ -1562,10 +1658,12 @@ def parallel_pair(here: str, cfg_path: str, steps: int, label: str,
                      f", NCCL world {ranks['world_size']}")
     tensors = len(list(LlamaModel(cfg.model, device="meta").parameters()))
     if coll is None or coll != {"all_reduce": tensors + 1,
-                                "all_gather": tensors, "reduce_scatter": 0}:
+                                "all_gather": tensors, "reduce_scatter": 0,
+                                "send_recv": 0, "all_to_all": 0}:
         fails.append(f"collectives per step {coll}: want one all-reduce per "
                      f"grad tensor and one of (NLL, count), one ZeRO-1 "
-                     f"all-gather per tensor, no reduce-scatter")
+                     f"all-gather per tensor, no reduce-scatter and no cp "
+                     f"exchange")
     steady = statistics.median(ranks["step_seconds"][1:])
     tps = ranks["tokens_per_step"] / steady
     out = {"config": os.path.relpath(cfg_path, here), "steps": steps,
@@ -1613,10 +1711,651 @@ def parallel_phase(here: str, card: str, peak_flops: float) -> dict:
     return {"card": card, "zero1": a, "offload_zero1": b}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the cp schedules in a thread world
+# ---------------------------------------------------------------------------
+
+
+class ThreadWorld:
+    """`n` threads standing for the n cp ranks of one process, all on one
+    card, exchanging tensors through `ThreadComm`s (a barrier and one
+    shared slot per rank). A harness for the card, which has one GPU:
+    the schedules' own code runs unchanged at the per-rank shapes; the
+    exchanges are clones on the one stream, not NCCL's send/recv and
+    all-to-all. Drive only the schedules and their `*_bwd_from_saved`
+    here, never `.backward()` through an exchange: a device's autograd
+    nodes run on one engine thread shared by every thread of the
+    process, and a node waiting at another thread's barrier would stall
+    the world."""
+
+    def __init__(self, n: int, timeout: float = THREAD_TIMEOUT_S):
+        self.n = n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+        self.slots = [None] * n
+
+    def comm(self, index: int) -> "ThreadComm":
+        return ThreadComm(self, index)
+
+    def run(self, fn) -> list:
+        """fn(rank) on one thread per rank; the results in rank order. A
+        failing rank aborts the barrier (so no rank waits forever) and its
+        error is raised here."""
+        out, errors = [None] * self.n, []
+
+        def target(rank):
+            try:
+                out[rank] = fn(rank)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append((rank, e))
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=target, args=(r,), daemon=True)
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            errors.sort(key=lambda re: isinstance(re[1],
+                                                  threading.BrokenBarrierError))
+            rank, err = errors[0]
+            raise AssertionError(f"thread world rank {rank}: {err!r}") from err
+        return out
+
+
+class ThreadComm:
+    """The communicator of rank `index` of a `ThreadWorld`: the methods of
+    `parallel.comm.CPComm`, handing over clones (every rank posts its
+    part, all meet at the barrier, each takes copies of what it needs,
+    all meet again). `counts` are this rank's calls by kind."""
+
+    def __init__(self, world: ThreadWorld, index: int):
+        self.world, self.index, self.size = world, index, world.n
+        self.counts = {"send_recv": 0, "all_to_all": 0, "all_gather": 0}
+
+    def _swap(self, item, read):
+        w = self.world
+        w.slots[self.index] = item
+        w.barrier.wait()
+        try:
+            return read(w.slots)
+        finally:
+            w.barrier.wait()
+
+    def hop(self, tensors, dst: int, src: int) -> list:
+        self.counts["send_recv"] += 1
+
+        def read(slots):
+            to, sent = slots[src]
+            if to != self.index:
+                raise AssertionError(f"rank {self.index} reads from {src}, "
+                                     f"which sends to {to}")
+            return [t.clone() for t in sent]
+
+        return self._swap((dst, list(tensors)), read)
+
+    def all_to_all(self, x, split_dim: int, concat_dim: int, members):
+        from picotron_tpu_torch.parallel.comm import (
+            concat_chunks, split_chunks,
+        )
+
+        self.counts["all_to_all"] += 1
+        members = tuple(members)
+        mine = members.index(self.index)
+        got = self._swap(split_chunks(x, split_dim, len(members)),
+                         lambda slots: torch.stack([slots[m][mine]
+                                                    for m in members]))
+        return concat_chunks(got, concat_dim)
+
+    def all_gather(self, x, members):
+        self.counts["all_gather"] += 1
+        members = tuple(members)
+        return self._swap(x.contiguous(), lambda slots: torch.cat(
+            [slots[m] for m in members]))
+
+
+def cp_raw(flavor: str = "", cp_layout: str = "zigzag", cp_mesh: str = "",
+           cp: int = CP) -> dict:
+    """Phase 8's configuration: runs/llama2-7b-cp4-seq8192 (and its mesh
+    twin) at depth CP_LAYERS, one microbatch of one sequence."""
+    d = {"cp_size": cp}
+    if cp > 1:
+        d.update(cp_layout=cp_layout, cp_flavor=flavor)
+        if cp_mesh:
+            d["cp_mesh"] = cp_mesh
+    return {"model": {"name": "Llama-2-7B", "num_hidden_layers": CP_LAYERS,
+                      "max_position_embeddings": CP_SEQ,
+                      "dtype": "bfloat16"},
+            "training": {"seq_length": CP_SEQ, "micro_batch_size": 1,
+                         "gradient_accumulation_steps": 1, "remat": True,
+                         "remat_policy": "dots_attn", "grad_engine": "fused"},
+            "distributed": d}
+
+
+def cp_layouts(seq: int = CP_SEQ) -> dict:
+    """{name: (flavor, cp_mesh, CPLayout)} of the four schedules."""
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.parallel.cp import layout_from_config
+
+    out = {}
+    for name, (flavor, lay, mesh) in CP_SCHEDULES.items():
+        raw = cp_raw(flavor, lay, mesh)
+        raw["training"]["seq_length"] = seq
+        cfg = config_from_dict(raw)
+        cp_mesh = (tuple(int(x) for x in mesh.split("x")) if mesh
+                   else (CP, 1))
+        out[name] = (flavor, cp_mesh, layout_from_config(cfg))
+    return out
+
+
+def zigzag_off_by_one_chunk(layout):
+    """Phase 8b's planted fault: every zigzag chunk index one too high
+    (mod 2cp), a permutation of the positions that is not the data's."""
+    from picotron_tpu_torch.ops.ring_attention import CPLayout
+
+    n, s_local = layout.positions.shape
+    half = s_local // 2
+    chunk = layout.positions // half
+    return CPLayout(((chunk + 1) % (2 * n)) * half + layout.positions % half)
+
+
+def zigzag_swapped_in_rank(layout, rank: int = 1):
+    """Phase 8a's planted fault: rank `rank`'s two zigzag chunks swapped
+    in its positions."""
+    from picotron_tpu_torch.ops.ring_attention import CPLayout
+
+    pos = layout.positions.copy()
+    half = pos.shape[1] // 2
+    pos[rank] = list(pos[rank, half:]) + list(pos[rank, :half])
+    return CPLayout(pos)
+
+
+class _Recorder:
+    """A schedule's block function, counted: each call runs under the
+    world's lock (so the flash wrappers' counts before and after it are
+    this rank's launches) and keeps its arguments for the timing."""
+
+    def __init__(self, fn, lock):
+        self.fn, self.lock = fn, lock
+        self.calls = []
+        self.launches = {}
+
+    def __call__(self, *args, **kw):
+        from picotron_tpu_torch.ops import flash_attention as fa
+
+        with self.lock:
+            before = launch_counts(fa)
+            res = self.fn(*args, **kw)
+            after = launch_counts(fa)
+        self.calls.append((args, kw))
+        for key, counts in after.items():
+            mine = self.launches.setdefault(key, {})
+            for k, v in counts.items():
+                mine[k] = mine.get(k, 0) + v - before[key][k]
+        return res
+
+
+def run_schedule(flavor, cp_mesh, layout, tensors, blocks, lock,
+                 saved=None):
+    """The schedule and its backward from the saved (out, lse) on every
+    rank of a thread world: per rank (out, lse, dq, dk, dv, forward
+    recorder, backward recorder, exchanges). `tensors[r]` is rank r's
+    (q, k, v, dout) slice, `blocks` the (forward, backward) block
+    functions; with `saved` (per rank (out, lse)) only the backward runs,
+    from those."""
+    from picotron_tpu_torch.ops import mesh_attention as ma
+    from picotron_tpu_torch.ops import ring_attention as ra
+    from picotron_tpu_torch.ops import ulysses as ul
+
+    world = ThreadWorld(CP)
+
+    def rank_fn(r):
+        comm = world.comm(r)
+        q, k, v, do = tensors[r]
+        fwd, bwd = _Recorder(blocks[0], lock), _Recorder(blocks[1], lock)
+        if flavor == "ulysses":
+            full, seq_sort = ul.ulysses_static_layout(layout.full())
+            kw = dict(seq_sort=seq_sort, full_positions=full,
+                      positions_static=True)
+            out, lse = saved[r] if saved else ul.ulysses_attention(
+                q, k, v, comm, attn_fn=fwd, return_lse=True, **kw)
+            grads = ul.ulysses_attention_bwd_from_saved(
+                q, k, v, out, lse, do, comm, attn_bwd=bwd, **kw)
+        else:
+            sched, sched_bwd, kw = (
+                (ra.ring_attention, ra.ring_attention_bwd_from_saved, {})
+                if flavor == "ring" else
+                (ma.mesh_attention, ma.mesh_attention_bwd_from_saved,
+                 {"cp_mesh": cp_mesh}))
+            out, lse = saved[r] if saved else sched(
+                q, k, v, comm, layout=layout,
+                attn_block=functools.partial(fwd, return_lse=True),
+                return_lse=True, **kw)
+            grads = sched_bwd(q, k, v, out, lse, do, comm, layout=layout,
+                              block_bwd=bwd, **kw)
+        return (out, lse, *grads, fwd, bwd, comm.counts)
+
+    res = world.run(rank_fn)
+    torch.cuda.synchronize()
+    return res
+
+
+def plain_flash(q, k, v, *, causal=True, q_positions=None,
+                kv_positions=None, return_lse=False, sm_scale=None,
+                rope=None):
+    """`flash_attention` with the forward kernel's plain version in its
+    place (`fwd_plain`), so that it rounds where the wrapper does (q
+    scaled in its dtype)."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    qpos = fa._positions(q_positions, q.shape[1], q.device)
+    kpos = fa._positions(kv_positions, k.shape[1], q.device)
+    scale = torch.tensor(sm_scale or q.shape[-1] ** -0.5, dtype=q.dtype)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    out4, lse = fa.fwd_plain(t(q * scale), t(k), t(v), qpos, kpos,
+                             fa._tables(rope, qpos, kpos), causal)
+    return (t(out4), lse) if return_lse else t(out4)
+
+
+def plain_flash_bwd(q, k, v, out, lse, dout, *, causal=True,
+                    q_positions=None, kv_positions=None, sm_scale=None,
+                    rope=None):
+    """`flash_attention_bwd_from_saved` with the backward kernels' plain
+    version in their place (`bwd_plain`)."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    qpos = fa._positions(q_positions, q.shape[1], q.device)
+    kpos = fa._positions(kv_positions, k.shape[1], q.device)
+    scale = torch.tensor(sm_scale or q.shape[-1] ** -0.5, dtype=q.dtype)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    dq4, dk4, dv4 = fa.bwd_plain(t(q * scale), t(k), t(v), t(out), lse,
+                                 t(dout), None, qpos, kpos,
+                                 fa._tables(rope, qpos, kpos), causal)
+    return t(dq4) * scale, t(dk4), t(dv4)
+
+
+def schedule_references(flavor, cp_mesh, layout, ref):
+    """Per rank, the rows of the whole-sequence (out, lse, dq, dk, dv)
+    that the schedule's outputs hold: out and the grads at the rank's
+    positions; lse merged (ring), in the inner domain (Ulysses: the
+    rank's heads, every position in order) or in the row domain (mesh:
+    the rank's head block at its row's positions)."""
+    out, lse, dq, dk, dv = ref
+    h = out.shape[2]
+    want = []
+    for r in range(CP):
+        idx = torch.as_tensor(layout.positions[r], device=out.device)
+        if flavor == "ring":
+            lse_r = lse[:, :, idx]
+        elif flavor == "ulysses":
+            lse_r = lse[:, r * h // CP:(r + 1) * h // CP]
+        else:
+            cp_x, cp_y = cp_mesh
+            x, y = divmod(r, cp_y)
+            rows = torch.as_tensor(layout.rows(cp_y).positions[x],
+                                   device=out.device)
+            lse_r = lse[:, y * h // cp_y:(y + 1) * h // cp_y][:, :, rows]
+        want.append((out[:, idx], lse_r, dq[:, idx], dk[:, idx],
+                     dv[:, idx]))
+    return want
+
+
+def schedule_errors(got, want) -> dict:
+    """{output: worst row error over the ranks} (phase 2's measure)."""
+    worst = {}
+    for g, w in zip(got, want):
+        for key, a, b in zip(("out", "lse", "dq", "dk", "dv"), g, w):
+            err = float(row_errors(a, b, lse=key == "lse").max())
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def over_limits(worst: dict) -> list:
+    return [f"{k} {v:.4g}" for k, v in worst.items()
+            if not v <= (LSE_ATOL if k == "lse" else ROW_RTOL)]
+
+
+def _kernel_operands(args, kw):
+    """A recorded block call's kernel operands ([B,H,S,D], q scaled)."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    q = args[0]
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    qp, kp = kw.get("q_positions"), kw.get("kv_positions")
+    static = qp is None and kp is None
+    qpos = fa._positions(qp, q.shape[1], q.device)
+    kpos = fa._positions(kp, args[1].shape[1], q.device)
+    return (t(q * scale), t(args[1]), t(args[2]),
+            *(t(x) for x in args[3:6] if x.dim() == 4)), qpos, kpos, static
+
+
+def rank_kernel_times(fwd_calls, bwd_calls) -> dict:
+    """One rank's kernel time per kernel (ms, CUDA events): its recorded
+    block calls replayed on the kernels alone, the visiting blocks
+    prepared beforehand; and their bound, summed over the calls."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    fwd_ops, bwd_ops, bound = [], [], {}
+    for args, kw in fwd_calls:
+        (q4, k4, v4), qpos, kpos, static = _kernel_operands(args, kw)
+        fwd_ops.append((q4, k4, v4, qpos, kpos, static))
+    for args, kw in bwd_calls:
+        (q4, k4, v4, o4, do4), qpos, kpos, static = _kernel_operands(args, kw)
+        lse = args[4]
+        bwd_ops.append((q4, k4, v4, do4, lse, fa._delta(do4, o4, None), qpos,
+                        kpos, static))
+        b, hq, _, d = q4.shape
+        for name, (ms, _, _) in bounds_at(b, hq, k4.shape[1], d,
+                                          qpos.cpu().numpy(),
+                                          kpos.cpu().numpy(),
+                                          rope=False).items():
+            bound[name] = bound.get(name, 0.0) + ms
+    times = {
+        "flash_fwd": cuda_ms(lambda: [fa.fwd_kernel(
+            q4, k4, v4, qp, kp, None, True, st)
+            for q4, k4, v4, qp, kp, st in fwd_ops]),
+        "flash_bwd_dq": cuda_ms(lambda: [fa.bwd_dq_kernel(
+            q4, k4, v4, do4, lse, dl, qp, kp, None, True, st)
+            for q4, k4, v4, do4, lse, dl, qp, kp, st in bwd_ops]),
+        "flash_bwd_dkv": cuda_ms(lambda: [fa.bwd_dkv_kernel(
+            q4, k4, v4, do4, lse, dl, qp, kp, None, True, st)
+            for q4, k4, v4, do4, lse, dl, qp, kp, st in bwd_ops]),
+    }
+    return {name: (times[name], bound[name]) for name in times}
+
+
+def whole_sequence(q, k, v, do):
+    """The whole sequence through the kernels (static causal): (out, lse,
+    dq, dk, dv)."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    grads = fa.flash_attention_bwd_from_saved(q, k, v, out, lse, do,
+                                              causal=True)
+    torch.cuda.synchronize()
+    return (out, lse, *grads)
+
+
+def cp_schedules_phase(card: str, shape: tuple = CP_SHAPE) -> dict:
+    """Phase 8a (the docstring says what it checks), at `shape` (B, S,
+    Hq, Hkv, D)."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    r = lambda *sh: torch.randn(*sh, generator=g,  # noqa: E731
+                                device="cuda").to(torch.bfloat16)
+    q, k, v, do = r(b, s, hq, d), r(b, s, hkv, d), r(b, s, hkv, d), r(b, s,
+                                                                       hq, d)
+    ref = whole_sequence(q, k, v, do)
+    # the whole sequence's kernel times (the forward's operands as the
+    # schedules' recorded calls would give them)
+    whole = rank_kernel_times(
+        [((q, k, v), {})], [((q, k, v, ref[0], ref[1], do), {})])
+    lock = threading.Lock()
+    flash = (fa.flash_attention, fa.flash_attention_bwd_from_saved)
+    plain = (plain_flash, plain_flash_bwd)
+    out = {"card": card, "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv,
+                                   "D": d, "cp": CP},
+           "whole_sequence_ms": {n: t for n, (t, _) in whole.items()},
+           "whole_sequence_bound_ms": {n: bd for n, (_, bd) in whole.items()},
+           "schedules": {}}
+    for name, (flavor, cp_mesh, layout) in cp_layouts(s).items():
+        tensors = [tuple(x[:, torch.as_tensor(layout.positions[rk],
+                                              device="cuda")].contiguous()
+                         for x in (q, k, v, do)) for rk in range(CP)]
+        want = schedule_references(flavor, cp_mesh, layout, ref)
+        got = run_schedule(flavor, cp_mesh, layout, tensors, flash, lock)
+        got_plain = run_schedule(flavor, cp_mesh, layout, tensors, plain,
+                                 lock)
+        # the backward kernels from the plain forward's (out, lse), as in
+        # phase 2, so that each is held to its own plain version alone
+        saved = [x[:2] for x in got_plain]
+        got_bwd = run_schedule(flavor, cp_mesh, layout, tensors, flash,
+                               lock, saved)
+        vs_whole = schedule_errors([x[:5] for x in got], want)
+        vs_plain = schedule_errors(
+            [x[:2] + y[2:5] for x, y in zip(got, got_bwd)],
+            [x[:5] for x in got_plain])
+        # launches per rank and call: the forward recorder saw the
+        # forward kernel only, the backward recorder dq and dk/dv
+        per_rank = []
+        for rk, res in enumerate(got):
+            fwd_rec, bwd_rec = res[5], res[6]
+            n_f, n_b = len(fwd_rec.calls), len(bwd_rec.calls)
+            want_n = CP_LAUNCHES[name](rk)
+            lf, lb = fwd_rec.launches, bwd_rec.launches
+            ok = (n_f == n_b == want_n
+                  and lf["launches"]["flash_fwd"] == want_n
+                  and lf["fwd_launches"] == {"tensor_core": want_n,
+                                             "cuda_core": 0}
+                  and lb["launches"]["flash_bwd_dq"] == want_n
+                  and lb["launches"]["flash_bwd_dkv"] == want_n
+                  and lb["dq_launches"] == {"tensor_core": want_n,
+                                            "cuda_core": 0}
+                  and lb["dkv_launches"] == {"tensor_core": want_n,
+                                             "cuda_core": 0}
+                  and lf["launches"]["flash_bwd_dq"] == 0
+                  and lb["launches"]["flash_fwd"] == 0)
+            if not ok:
+                raise AssertionError(
+                    f"phase 8a {name} rank {rk}: {n_f} forward and {n_b} "
+                    f"backward block calls, launches {lf} / {lb}; want "
+                    f"{want_n} of each kernel, all on the tensor cores")
+            per_rank.append(want_n)
+        times = [rank_kernel_times(res[5].calls, res[6].calls)
+                 for res in got]
+        exchanges = got[0][7]
+        entry = {"worst_row_vs_whole_sequence": vs_whole,
+                 "worst_row_vs_plain_blocks": vs_plain,
+                 "launches_per_rank": per_rank,
+                 "exchanges_rank0": exchanges,
+                 "rank_ms": [{n: t for n, (t, _) in tm.items()}
+                             for tm in times],
+                 "rank_bound_ms": [{n: bd for n, (_, bd) in tm.items()}
+                                   for tm in times]}
+        log(f"phase 8a {name}: worst row vs the whole sequence {vs_whole}, "
+            f"vs the plain blocks {vs_plain}; launches per rank {per_rank} "
+            f"(each kernel, all tensor-core); rank 0 exchanges {exchanges}")
+        for rk, tm in enumerate(times):
+            log(f"  rank {rk} kernels ({card}): " + ", ".join(
+                f"{n} {t:.3f} ms (bound {bd:.3f}, whole sequence / {CP} "
+                f"{whole[n][0] / CP:.3f})" for n, (t, bd) in tm.items()))
+        fails = over_limits(vs_whole) + over_limits(vs_plain)
+        if fails:
+            raise AssertionError(f"phase 8a {name}: rows over the limits: "
+                                 + ", ".join(fails))
+        if name == "ulysses zigzag":
+            entry["sdpa_ms"] = sdpa_times(*[x for x in got[0][5].calls[0][0]
+                                            [:3]], got[0][6].calls[0][0][5])
+        out["schedules"][name] = entry
+        del got, got_plain, got_bwd, saved, tensors
+        torch.cuda.empty_cache()
+    # the planted fault: rank 1's zigzag chunks swapped in its positions
+    flavor, cp_mesh, layout = cp_layouts(s)["ring zigzag"]
+    bad = zigzag_swapped_in_rank(layout)
+    tensors = [tuple(x[:, torch.as_tensor(layout.positions[rk],
+                                          device="cuda")].contiguous()
+                     for x in (q, k, v, do)) for rk in range(CP)]
+    got = run_schedule(flavor, cp_mesh, bad, tensors, flash, lock)
+    fault = schedule_errors([x[:5] for x in got],
+                            schedule_references(flavor, cp_mesh, layout, ref))
+    log(f"phase 8a planted fault (rank 1's zigzag chunks swapped): worst "
+        f"rows {fault}")
+    if not over_limits(fault):
+        raise AssertionError(f"phase 8a: the planted fault passed the "
+                             f"limits: {fault}")
+    out["planted_fault"] = fault
+    return out
+
+
+def sdpa_times(q, k, v, do) -> dict:
+    """PyTorch's SDPA at a Ulysses inner call's shape (static causal, no
+    RoPE): forward, and one backward computing dq, dk and dv."""
+    import torch.nn.functional as F
+
+    t = lambda x: x.transpose(1, 2).detach().requires_grad_()  # noqa: E731
+    qt, kt, vt = t(q), t(k), t(v)
+    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    o = fn()
+    dot = do.transpose(1, 2)
+    return {"fwd": cuda_ms(fn), "bwd": cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True))}
+
+
+def cp_model_phase(card: str) -> dict:
+    """Phase 8b (the docstring says what it checks)."""
+    import numpy as np
+
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+    from picotron_tpu_torch.ops import flash_attention as fa
+    from picotron_tpu_torch.parallel import comm
+    from picotron_tpu_torch.parallel.cp import CPContext
+    from picotron_tpu_torch.parallel.fused_bwd import (
+        ComputeWeights, fused_micro_grads,
+    )
+
+    cfg1 = config_from_dict(cp_raw(cp=1))
+    gen = torch.Generator(device="cuda").manual_seed(CP_MODEL_SEED)
+    model1 = init_params(LlamaModel(cfg1.model, device="cuda"), gen)
+    toks = np.random.default_rng(CP_MODEL_SEED).integers(
+        0, cfg1.model.vocab_size, (1, CP_SEQ + 1))
+    ids = torch.from_numpy(toks[:, :-1]).cuda()
+    tgt = torch.from_numpy(toks[:, 1:]).cuda()
+    names = [n for n, _ in model1.named_parameters()]
+
+    def micro(model, ids_, tgt_):
+        weights = ComputeWeights(model)
+        weights.refresh()
+        acc = {p: torch.zeros_like(p) for p in model.parameters()}
+        total, count = fused_micro_grads(model, weights, ids_, tgt_, acc)
+        return float(total), int(count), {n: acc[p] for n, p in zip(
+            names, model.parameters())}
+
+    total1, count1, grads1 = micro(model1, ids, tgt)
+    loss1 = total1 / count1
+    state = model1.state_dict()
+    out = {"card": card, "layers": CP_LAYERS, "seq": CP_SEQ,
+           "cp1_loss": loss1, "layouts": {}}
+    runs = dict(cp_layouts())
+    flavor, cp_mesh, layout = runs["ring zigzag"]
+    runs["planted fault: ring zigzag off by one chunk"] = (
+        flavor, cp_mesh, zigzag_off_by_one_chunk(layout), layout)
+    for name, spec in runs.items():
+        flavor, cp_mesh, layout = spec[:3]
+        data_layout = spec[3] if len(spec) > 3 else layout
+        world = ThreadWorld(CP)
+        ctxs = [CPContext(world.comm(r), flavor, layout, cp_mesh)
+                for r in range(CP)]
+        models = []
+        for ctx in ctxs:
+            m = LlamaModel(cfg1.model, device="cuda", cp=ctx)
+            m.load_state_dict(state)
+            models.append(m)
+        sl = [torch.as_tensor(data_layout.positions[r], device="cuda")
+              for r in range(CP)]
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        comm.reset_collective_counts()
+        res = world.run(lambda r: micro(models[r], ids[:, sl[r]],
+                                        tgt[:, sl[r]]))
+        torch.cuda.synchronize()
+        counts = launch_counts(fa)
+        dist_calls = dict(comm.collectives)
+        total = sum(x[0] for x in res)
+        count = sum(x[1] for x in res)
+        loss_err = abs(total / count - loss1) / abs(loss1)
+        grad_errs = {n: rel_l2(sum(x[2][n] for x in res), grads1[n])
+                     for n in names}
+        worst = max(grad_errs, key=grad_errs.get)
+        entry = {"loss": total / count, "count": count, "cp1_count": count1,
+                 "loss_rel_err": loss_err,
+                 "worst_grad_rel_l2": grad_errs[worst], "worst_grad": worst,
+                 "grad_rel_l2": grad_errs, "launches": counts,
+                 "exchanges_rank0": ctxs[0].comm.counts,
+                 "torch_distributed_calls": dist_calls}
+        log(f"phase 8b {name}: loss {total / count} (cp 1: {loss1}, rel "
+            f"err {loss_err:.3g}), tokens {count} (cp 1: {count1}), worst "
+            f"grad rel L2 {grad_errs[worst]:.3g} ({worst}); launches "
+            f"{counts['launches']}; rank 0 exchanges {ctxs[0].comm.counts}")
+        out["layouts"][name] = entry
+        passed = (count == count1 and loss_err <= CP_LOSS_RTOL
+                  and grad_errs[worst] <= CP_GRAD_RTOL)
+        if name.startswith("planted fault"):
+            if passed:
+                raise AssertionError(f"phase 8b: the planted fault passed "
+                                     f"the limits ({entry['loss_rel_err']}, "
+                                     f"{grad_errs[worst]})")
+        else:
+            want = CP_LAYERS * sum(CP_LAUNCHES[name](r) for r in range(CP))
+            fails = []
+            if not passed:
+                fails.append(f"loss rel err {loss_err:.3g} (limit "
+                             f"{CP_LOSS_RTOL}), tokens {count} vs {count1}, "
+                             f"grad {worst} rel L2 {grad_errs[worst]:.3g} "
+                             f"(limit {CP_GRAD_RTOL})")
+            try:
+                check_launches(counts, {k: want for k, _ in KERNELS},
+                               f"phase 8b {name}")
+            except AssertionError as e:
+                fails.append(str(e))
+            if any(dist_calls.values()):
+                fails.append(f"torch.distributed calls in the thread world: "
+                             f"{dist_calls}")
+            if fails:
+                raise AssertionError(f"phase 8b {name}: " + "; ".join(fails))
+        del models, ctxs, res
+        torch.cuda.empty_cache()
+    return out
+
+
+_MAIN_PATH_CHILD = """
+import json, os, sys
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+os.chdir(tree)
+import chip_smoke
+from picotron_tpu_torch.kernels import build
+from picotron_tpu_torch.ops import flash_attention as fa
+for name in ("flash_attention", "adamw"):
+    build.build(name)
+res = chip_smoke.main_path(fa, tree)
+print("MAIN_PATH " + json.dumps({"tree": sys.argv[1], "losses": res["losses"],
+                                 "step_seconds": res["step_seconds"]}))
+"""
+
+
+def compare_main_paths(trees: list) -> int:
+    """`--main-path TREE...`: phase 3 of each tree's own chip_smoke.py
+    (e.g. an unpacked parent commit and this checkout, in turns), one
+    child process each on the one card; prints each tree's losses and
+    fails unless they are equal bit for bit."""
+    runs = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", _MAIN_PATH_CHILD, tree],
+                              capture_output=True, text=True,
+                              timeout=TRAIN_TIMEOUT_S)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("MAIN_PATH ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(lines[-1][len("MAIN_PATH "):]))
+        log(json.dumps(runs[-1]))
+    same = all(r["losses"] == runs[0]["losses"] for r in runs)
+    log(json.dumps({"main_path_losses_equal": same, "trees": trees}))
+    return 0 if same else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--main-path"]:
+        return compare_main_paths(sys.argv[2:])
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from picotron_tpu_torch.kernels import build
@@ -1765,6 +2504,14 @@ def main() -> int:
     parallel = parallel_phase(here, card, H100_BF16_PEAK)
     log("phase 7 parallel path (one-rank NCCL): ok")
 
+    # phase 8: the cp schedules and the model's cp path in a thread world
+    torch.cuda.empty_cache()
+    context_parallel = {"schedules": cp_schedules_phase(card)}
+    log("phase 8a cp schedules: ok")
+    torch.cuda.empty_cache()
+    context_parallel["model"] = cp_model_phase(card)
+    log("phase 8b the model's cp path (fused engine, thread world): ok")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -1790,6 +2537,10 @@ def main() -> int:
             "replaces": replaces, "launches": result["launches"][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "cp_launches": {
+                lay: res["launches"]["launches"][name]
+                for lay, res in context_parallel["model"]["layouts"].items()
+                if not lay.startswith("planted")},
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
@@ -1812,6 +2563,7 @@ def main() -> int:
     print(json.dumps({"engines": engines}))
     print(json.dumps({"offload": offload}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"context_parallel": context_parallel}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

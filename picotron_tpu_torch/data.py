@@ -9,7 +9,12 @@ loader's device. Under a dp layout each rank reads the same global batch
 ([grad_acc, mbs * dp, seq], the JAX loader's) and keeps its dp rank's
 rows [r * mbs, (r + 1) * mbs) of every microbatch (the JAX batch
 sharding over ('dp', 'ep')); the cursor and `state` stay the global ones,
-so every rank holds the same state. tp ranks read the same rows.
+so every rank holds the same state. tp ranks read the same rows. Under
+context parallelism the ids and targets are permuted along the sequence
+after the shift (`cp_sequence_permutation`: the zigzag layout, or none
+for the contiguous one), and each rank keeps its cp index's contiguous
+slice [c * S/cp, (c + 1) * S/cp) of the permuted sequence (the JAX
+loader's P(None, 'dp', 'cp') sharding after its permutation).
 `build_eval_source` is the validation stream. HF datasets, the prefetch
 thread, chaos and I/O retry come in a later slice.
 """
@@ -22,6 +27,25 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.config import Config
+
+
+def cp_sequence_permutation(cfg: Config):
+    """The permutation of the sequence axis before the cp slicing, or None
+    for the identity (the contiguous layout). Zigzag: of 2*cp equal chunks,
+    cp index r receives chunks (r, 2cp-1-r), one early and one late, so
+    that the causal work is balanced around the ring (port of
+    picotron_tpu/data.py:53-72). The model reads each token's global
+    position from the same layout (`parallel/cp.CPLayout`)."""
+    d, s = cfg.distributed, cfg.training.seq_length
+    if d.cp_size <= 1 or d.cp_layout != "zigzag":
+        return None
+    half = s // (2 * d.cp_size)
+    chunks = []
+    for r in range(d.cp_size):
+        chunks.append(np.arange(r * half, (r + 1) * half))
+        hi = 2 * d.cp_size - 1 - r
+        chunks.append(np.arange(hi * half, (hi + 1) * half))
+    return np.concatenate(chunks)
 
 
 class SyntheticSource:
@@ -57,22 +81,27 @@ def build_eval_source(cfg: Config) -> SyntheticSource:
 
 
 class MicroBatchDataLoader:
-    """Infinite iterator of (input_ids, targets) [grad_acc, mbs, seq] on
-    `device`: dp rank `dp_rank`'s rows of the global batch; exhausting
+    """Infinite iterator of (input_ids, targets) [grad_acc, mbs,
+    seq / cp] on `device`: dp rank `dp_rank`'s rows of the global batch,
+    cp index `cp_rank`'s slice of their (permuted) sequence; exhausting
     the source bumps the epoch. `state` is the position after the last
     batch handed out."""
 
-    def __init__(self, cfg: Config, device, source=None, dp_rank: int = 0):
+    def __init__(self, cfg: Config, device, source=None, dp_rank: int = 0,
+                 cp_rank: int = 0):
         d = cfg.distributed
-        if d.ep_size * d.cp_size * d.pp_size != 1:
+        if d.ep_size * d.pp_size != 1:
             raise NotImplementedError(
-                "the port's loader shards over dp only; cp, ep and pp "
+                "the port's loader shards over dp and cp only; ep and pp "
                 "layouts are ROADMAP Queue 1 items 9 and 10")
-        if not 0 <= dp_rank < d.dp_size:
-            raise ValueError(f"dp_rank {dp_rank} outside dp_size "
-                             f"{d.dp_size}")
+        for name, r, n in (("dp_rank", dp_rank, d.dp_size),
+                           ("cp_rank", cp_rank, d.cp_size)):
+            if not 0 <= r < n:
+                raise ValueError(f"{name} {r} outside {n}")
         self.cfg = cfg
         self.dp_rank = dp_rank
+        self.cp_rank = cp_rank
+        self.cp_perm = cp_sequence_permutation(cfg)
         self.device = torch.device(device)
         self.global_batch_size = cfg.global_batch_size
         self.seq_length = cfg.training.seq_length
@@ -124,6 +153,13 @@ class MicroBatchDataLoader:
                               mbs * self.cfg.distributed.dp_size,
                               self.seq_length + 1)
         blocks = blocks[:, self.dp_rank * mbs:(self.dp_rank + 1) * mbs]
-        blocks = torch.from_numpy(blocks.astype(np.int64)).to(self.device)
+        ids, tgt = blocks[..., :-1], blocks[..., 1:]
+        if self.cp_perm is not None:
+            # permuted after the shift, so each token still predicts its
+            # true successor
+            ids, tgt = ids[..., self.cp_perm], tgt[..., self.cp_perm]
+        s_local = self.seq_length // self.cfg.distributed.cp_size
+        sl = slice(self.cp_rank * s_local, (self.cp_rank + 1) * s_local)
         self._consumed_state = {"epoch": self.epoch, "cursor": self.cursor}
-        return blocks[..., :-1], blocks[..., 1:]
+        return tuple(torch.from_numpy(np.ascontiguousarray(
+            a[..., sl]).astype(np.int64)).to(self.device) for a in (ids, tgt))

@@ -10,6 +10,14 @@ collectives it needs:
 - the data group: the ranks that differ only in (dp, ep, cp), the axes
   the JAX package's `_data_axes_psum` reduces the grads over (and ZeRO-1
   shards the optimizer state over);
+- the cp group: the ranks that differ only in cp (the context-parallel
+  exchanges: the ring's hops, Ulysses' all-to-alls), with `cp_ranks`,
+  its global ranks in cp order, from which the ring neighbours
+  (`cp_next`, `cp_prev`) are named; under the mesh cp flavor
+  (cp = cp_x x cp_y) also the row groups, cp_y contiguous cp indices each,
+  row-major, index i = x * cp_y + y, as the JAX package's
+  `ops/mesh_attention.mesh_groups` (the column rings need no group of
+  their own: their hops are point to point);
 - a gloo group over every rank for the checkpoint's host-side agreement
   (barriers and the step every rank restores), used by nothing else, so
   that a save's commit thread never interleaves with the step's
@@ -33,6 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from picotron_tpu_torch.config import resolved_cp_flavor, resolved_cp_mesh
+from picotron_tpu_torch.ops.mesh_attention import mesh_groups
 
 # outermost to innermost, as the JAX package's AXES
 AXES = ("dp", "pp", "ep", "cp", "tp")
@@ -81,6 +92,13 @@ class ParallelEnv:
     data_group: object = field(repr=False)
     host_group: object = field(repr=False)
     coords: dict = field(default_factory=dict)
+    cp_group: object = field(default=None, repr=False)
+    # the global ranks of this rank's cp group, in cp order
+    cp_ranks: tuple = ()
+    # (cp_x, cp_y) of the mesh cp flavor, and this rank's row group
+    # (None when cp_y is 1 or the whole cp group)
+    cp_mesh: tuple = (1, 1)
+    cp_row_group: object = field(default=None, repr=False)
 
     @property
     def tp_size(self) -> int:
@@ -98,6 +116,24 @@ class ParallelEnv:
     def data_rank(self) -> int:
         c, s = self.coords, self.sizes
         return (c["dp"] * s["ep"] + c["ep"]) * s["cp"] + c["cp"]
+
+    @property
+    def cp_size(self) -> int:
+        return self.sizes["cp"]
+
+    @property
+    def cp_rank(self) -> int:
+        return self.coords["cp"]
+
+    @property
+    def cp_next(self) -> int:
+        """The global rank of the next cp index on the ring."""
+        return self.cp_ranks[(self.cp_rank + 1) % self.cp_size]
+
+    @property
+    def cp_prev(self) -> int:
+        """The global rank of the previous cp index on the ring."""
+        return self.cp_ranks[(self.cp_rank - 1) % self.cp_size]
 
     @property
     def is_main(self) -> bool:
@@ -135,6 +171,21 @@ def check_world(cfg, world_size: int) -> None:
             f"world size {world_size} != dp*pp*ep*cp*tp = {want} "
             f"({sizes}); launch with torchrun --nproc_per_node {want} (or "
             f"change the layout)")
+
+
+def cp_row_ranks(cp_ranks, cp_x: int, cp_y: int) -> list:
+    """The row groups of one cp group under the mesh cp flavor (the cp
+    indices of `mesh_attention.mesh_groups`'s rows), as global ranks."""
+    return [[cp_ranks[i] for i in row] for row in mesh_groups(cp_x, cp_y)[0]]
+
+
+def _cp_mesh(cfg) -> tuple:
+    """(cp_x, cp_y) of the config's mesh cp flavor; (cp, 1) otherwise (the
+    ring's own factorization: no rows)."""
+    cp = cfg.distributed.cp_size
+    if resolved_cp_flavor(cfg) == "mesh":
+        return tuple(resolved_cp_mesh(cfg))
+    return (cp, 1)
 
 
 _ENVS: dict = {}
@@ -177,19 +228,30 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
     sizes = layout_sizes(cfg)
-    key = (tuple(sizes.values()), world, backend, str(device))
+    cp_x, cp_y = _cp_mesh(cfg)
+    key = (tuple(sizes.values()), (cp_x, cp_y), world, backend, str(device))
     if key not in _ENVS:
         tp_group, _ = dist.new_subgroups_by_enumeration(
             group_ranks(sizes, ("tp",)))
         data_group, _ = dist.new_subgroups_by_enumeration(
             group_ranks(sizes, DATA_AXES))
+        cp_lists = group_ranks(sizes, ("cp",))
+        cp_ranks = next(tuple(g) for g in cp_lists if rank in g)
+        cp_group = row_group = None
+        if sizes["cp"] > 1:
+            cp_group, _ = dist.new_subgroups_by_enumeration(cp_lists)
+        if 1 < cp_y < sizes["cp"]:
+            rows = [r for g in cp_lists for r in cp_row_ranks(g, cp_x, cp_y)]
+            row_group, _ = dist.new_subgroups_by_enumeration(rows)
         # the checkpoint's own group: its commit thread's agreement must
         # not interleave with the step's collectives on another group
         host_group = dist.new_group(backend="gloo")
         _ENVS[key] = ParallelEnv(
             sizes=sizes, rank=rank, world_size=world, device=device,
             backend=backend, tp_group=tp_group, data_group=data_group,
-            host_group=host_group, coords=rank_coords(rank, sizes))
+            host_group=host_group, coords=rank_coords(rank, sizes),
+            cp_group=cp_group, cp_ranks=cp_ranks, cp_mesh=(cp_x, cp_y),
+            cp_row_group=row_group)
     return _ENVS[key]
 
 

@@ -23,8 +23,24 @@ _gate_up (column-parallel), g at the exit of _o_proj and _act_down
 (row-parallel), the vocab-parallel lookup in `embed` and the
 vocab-parallel CE in `loss_sum_count`. Under sequence parallelism the
 residual stream between them is [B, S/tp, H]. Without a context (tp 1)
-the model is the single-device one, op for op. MoE and the cp/pp hooks
-are rejected with an error naming the ROADMAP item.
+the model is the single-device one, op for op. MoE and the pp hooks are
+rejected with an error naming the ROADMAP item.
+
+Context parallelism (port of `make_parallel_ctx`'s cp positions and
+attention dispatch, picotron_tpu/parallel/api.py:61-170): a model built
+with a `parallel.cp.CPContext` reads its cp index's slice of the
+(permuted) sequence, [B, S/cp], and runs attention through the
+context's schedule (`CPContext.attention`): ring and mesh rotate q and k
+at the rank's global positions before the schedule (the blocks travel
+pre-rotated), Ulysses rotates inside the flash kernels at the gathered
+positions, and the schedule's autograd node (`ScheduleFunction`) runs its
+backward from the saved (out, lse). Everything else is per token and
+needs no change; the grads, the NLL sum and the count are summed over
+the data group, which spans cp (`parallel/api.GradSync`). Without a
+context (cp 1) the positions stay None: the static-causal path, op for
+op the model without context parallelism. Under sequence parallelism
+the residual stream is [B, S/(cp tp), H] and f gathers the cp-local
+sequence.
 
 Remat (port of `remat_policy_for` / `run_layers` under `ctx.remat`): each
 policy cuts the layer into `torch.utils.checkpoint` segments (non-reentrant)
@@ -76,7 +92,9 @@ from picotron_tpu_torch.ops.losses import (
     chunked_cross_entropy_sum_count, cross_entropy_sum_count,
 )
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
+from picotron_tpu_torch.ops.ring_attention import ScheduleFunction
 from picotron_tpu_torch.ops.rope import apply_rope, rope_tables
+from picotron_tpu_torch.parallel.cp import CPContext
 from picotron_tpu_torch.parallel.tp import (
     TPContext, gather_logits, vocab_parallel_embed,
 )
@@ -94,15 +112,19 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
+def check_supported(cfg: ModelConfig,
+                    cp: Optional[CPContext] = None) -> None:
+    """Raise for what this slice of the port does not run, and for a
+    context-parallel schedule without its cp context (the JAX
+    `make_parallel_ctx`'s check)."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE models are not ported yet (ROADMAP Queue 1 item 10)")
-    if cfg.attn_impl not in ("auto", "flash", "reference"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is a context-parallel schedule, not "
-            "ported yet (ROADMAP Queue 1 item 9)")
+    if cfg.attn_impl in ("ring", "ulysses", "mesh") and cp is None:
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} is a context-parallel schedule: "
+            "it needs cp_size > 1 and the model built with its cp context "
+            "(parallel.cp.cp_context)")
 
 
 def mlp_act(cfg: ModelConfig):
@@ -120,16 +142,18 @@ def _tp_size(tp: Optional[TPContext]) -> int:
 class DecoderLayer(nn.Module):
     """One decoder layer's parameters ([out, in] matmul weights): this tp
     rank's shards under a tp context (`tp`, kept on the layer for the
-    hooks)."""
+    hooks, as the cp context `cp` for the attention)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 tp: Optional[TPContext] = None):
+                 tp: Optional[TPContext] = None,
+                 cp: Optional[CPContext] = None):
         super().__init__()
         n = _tp_size(tp)
         h, i, d = cfg.hidden_size, cfg.intermediate_size // n, cfg.head_dim
         q_out = cfg.num_attention_heads // n * d
         kv_out = cfg.num_key_value_heads // n * d
         self.tp = tp
+        self.cp = cp
 
         def p(*shape):
             return nn.Parameter(torch.empty(*shape, device=device,
@@ -149,18 +173,21 @@ class DecoderLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """The model, whole, or this rank's tp shards of it under a tp context
-    (`tp`; None: one device)."""
+    (`tp`; None: one device), reading its cp slice of the sequence under
+    a cp context (`cp`; None: cp 1)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 tp: Optional[TPContext] = None):
+                 tp: Optional[TPContext] = None,
+                 cp: Optional[CPContext] = None):
         super().__init__()
-        check_supported(cfg)
+        check_supported(cfg, cp)
         self.cfg = cfg
         self.tp = tp
+        self.cp = cp
         h, v = cfg.hidden_size, cfg.vocab_size // _tp_size(tp)
         self.embedding = nn.Parameter(torch.empty(v, h, device=device))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, tp)
+            DecoderLayer(cfg, device, tp, cp)
             for _ in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.empty(h, device=device))
         self.lm_head = (None if cfg.tie_word_embeddings
@@ -255,10 +282,18 @@ def qkv_proj(h: torch.Tensor, lp: DecoderLayer, d: int):
             v.reshape(b, s, -1, d))
 
 
-def _attention(q, k, v, cfg: ModelConfig, rope):
-    """The attention impl by cfg.attn_impl: "auto"/"flash" -> the flash
-    kernels with RoPE fused and positions None (static causal);
-    "reference" -> apply_rope + sdpa_attention."""
+def _attention(q, k, v, cfg: ModelConfig, rope,
+               cp: Optional[CPContext] = None):
+    """The attention impl: under a cp context (`cp`) its schedule
+    (pre-rotation, then the schedule's autograd node); else by
+    cfg.attn_impl: "auto"/"flash" -> the flash kernels with RoPE fused and
+    positions None (static causal); "reference" -> apply_rope +
+    sdpa_attention."""
+    if cp is not None:
+        pre, fwd, bwd = cp.attention(cfg.attn_impl, rope)
+        if pre is not None:
+            q, k = pre(q, k)
+        return ScheduleFunction.apply(q, k, v, fwd, bwd)
     if cfg.attn_impl in ("auto", "flash"):
         return flash_attention(q, k, v, causal=True, rope=rope)
     q = apply_rope(q, *rope)
@@ -269,7 +304,7 @@ def _attention(q, k, v, cfg: ModelConfig, rope):
 def _attention_block(x, lp: DecoderLayer, cfg: ModelConfig, rope):
     """RMSNorm -> qkv -> attention (RoPE inside) -> o-proj."""
     q, k, v = _qkv_block(x, lp, cfg)
-    return _o_proj(_attention(q, k, v, cfg, rope), lp)
+    return _o_proj(_attention(q, k, v, cfg, rope, lp.cp), lp)
 
 
 def _qkv_block(x, lp: DecoderLayer, cfg: ModelConfig):
@@ -342,7 +377,7 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
         q, k, v = qkv_proj(h, lp, cfg.head_dim)
     else:
         q, k, v = _segment(_qkv_block, x, lp, cfg)
-    out = _attention(q, k, v, cfg, rope)
+    out = _attention(q, k, v, cfg, rope, lp.cp)
     if policy == "dots_attn":
         return _segment(_after_attention, x, out, lp, cfg)
     if policy == "dots_lean":

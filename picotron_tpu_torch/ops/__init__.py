@@ -3,7 +3,10 @@
 RMSNorm, RoPE outside the kernel and cross-entropy are plain torch ops (the
 JAX package left them to XLA). Flash attention is the hand-written CUDA
 kernels of `csrc/flash_attention.cu` (`ops.flash_attention`, not re-exported
-here so the module name stays importable), built on first launch.
+here so the module name stays importable), built on first launch. The
+context-parallel schedules (`ops.ring_attention`, `ops.ulysses`,
+`ops.mesh_attention`) call those kernels per block and are likewise
+imported by module.
 """
 
 from picotron_tpu_torch.ops.attention import (  # noqa: F401

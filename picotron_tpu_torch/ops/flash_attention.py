@@ -31,6 +31,7 @@ on CUDA cores); plain runs never count.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -39,7 +40,8 @@ from picotron_tpu_torch.ops.attention import (
     sdpa_attention, sdpa_attention_bwd_from_saved,
 )
 
-# launches of each kernel since the last reset (plain integers)
+# launches of each kernel since the last reset (plain integers, counted
+# under a lock so that threads launching at once lose no count)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 # the forward's launches by the kernel that ran: `fwd_mma_kernel` (bf16,
 # tensor cores) or `fwd_kernel` (fp32, CUDA cores)
@@ -53,10 +55,22 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for counts in (launches, fwd_launches, dq_launches, dkv_launches):
-        for key in counts:
-            counts[key] = 0
+    with _COUNT_LOCK:
+        for counts in (launches, fwd_launches, dq_launches, dkv_launches):
+            for key in counts:
+                counts[key] = 0
+
+
+def _count(name: str, variants: dict, dtype) -> None:
+    """One launch of kernel `name` (its variant by dtype)."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+        variants["tensor_core" if dtype == torch.bfloat16
+                 else "cuda_core"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +177,7 @@ def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
         _ptr(kpos), *map(_ptr, tabs), b, hq, hkv, sq, sk, d, int(causal),
         int(static_causal), int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_fwd")
-    launches["flash_fwd"] += 1
-    fwd_launches["tensor_core" if q4.dtype == torch.bfloat16
-                 else "cuda_core"] += 1
+    _count("flash_fwd", fwd_launches, q4.dtype)
     return out, lse
 
 
@@ -187,9 +199,7 @@ def bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
         sk, d, int(causal), int(static_causal),
         int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
-    dq_launches["tensor_core" if q4.dtype == torch.bfloat16
-                else "cuda_core"] += 1
+    _count("flash_bwd_dq", dq_launches, q4.dtype)
     return dq
 
 
@@ -212,9 +222,7 @@ def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
         hkv, sq, sk, d, int(causal), int(static_causal),
         int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
-    dkv_launches["tensor_core" if q4.dtype == torch.bfloat16
-                 else "cuda_core"] += 1
+    _count("flash_bwd_dkv", dkv_launches, q4.dtype)
     return dk, dv
 
 

@@ -11,6 +11,13 @@ engine seam, `fused_bwd.py:45-51` of the JAX package). The count is
 clamped at 1 after the sum, so shards whose IGNORE_INDEX counts differ
 weigh correctly. Under a process group this runs at every size, world 1
 included, so that the path is the same one the layouts run.
+
+Context parallelism needs nothing more here: the data group spans cp
+(`mesh.DATA_AXES`), each cp rank's grads, NLL sum and count are those of
+its slice of the sequence, and their sum over the group is the whole
+sequence's; ZeRO-1 shards over the same group. Under tp x cp with
+sequence parallelism the SP pair gathers and scatters the cp-local
+sequence within the tp group.
 """
 
 from __future__ import annotations

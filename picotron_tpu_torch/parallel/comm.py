@@ -7,6 +7,23 @@ port's counterpart of the JAX package's named-axis `lax.psum` /
 trainer reports them per step; `chip_smoke.py` checks that the layouts
 launched them). Host-side agreement on the checkpoint group (barriers,
 object broadcasts) is not counted: it moves no tensor of the model.
+
+The context-parallel schedules (`ops/ring_attention.py`,
+`ops/ulysses.py`, `ops/mesh_attention.py`) reach their exchanges through
+a communicator, the counterpart of the JAX package's named `axis`
+argument: `CPComm` here, on the rank's cp process group, or any object
+with the same `size`, `index`, `hop`, `all_to_all` and `all_gather`
+(`chip_smoke.py`'s thread world drives the same schedule code through
+one that hands tensors between threads). A communicator speaks in cp
+indices (0..cp-1); `CPComm` maps them to global ranks:
+
+- `hop` (`lax.ppermute`): one `dist.batch_isend_irecv` per hop that
+  carries every tensor of the hop, counted once as "send_recv";
+- `all_to_all` (`lax.all_to_all(..., tiled=True)`, optionally over row
+  subgroups, `axis_index_groups`): `dist.all_to_all_single` with the
+  split axis moved to dim 0, counted as "all_to_all";
+- `all_gather` (dim 0, the positions' gather where a layout is not
+  static): counted as "all_gather".
 """
 
 from __future__ import annotations
@@ -14,8 +31,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from picotron_tpu_torch.ops.mesh_attention import mesh_groups
+
 # calls since the last reset, by kind
-collectives = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+collectives = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+               "send_recv": 0, "all_to_all": 0}
 
 # the newer names where this torch has them (the older ones warn there)
 _all_gather = getattr(dist, "all_gather_single", None) \
@@ -48,3 +68,79 @@ def reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """`out` <- this rank's dim-0 slice of the sum of every rank's `inp`."""
     collectives["reduce_scatter"] += 1
     _reduce_scatter(out, inp, group=group)
+
+
+def split_chunks(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """[..., H, ...] (H at `dim`) -> [n, ..., H/n, ...] contiguous: chunk j
+    of dim `dim` at index j, the send buffer of a tiled all-to-all."""
+    shape = x.shape
+    parts = x.reshape(shape[:dim] + (n, shape[dim] // n) + shape[dim + 1:])
+    return parts.movedim(dim, 0).contiguous()
+
+
+def concat_chunks(parts: torch.Tensor, dim: int) -> torch.Tensor:
+    """[n, ..., C, ...] -> [..., n*C, ...]: the n chunks concatenated
+    along `dim` in index order, the receive side of a tiled all-to-all."""
+    n, rest = parts.shape[0], parts.shape[1:]
+    out = parts.movedim(0, dim)
+    return out.reshape(rest[:dim] + (n * rest[dim],) + rest[dim + 1:])
+
+
+class CPComm:
+    """The cp exchanges of one rank over its process groups (`par`, a
+    `mesh.ParallelEnv` with cp > 1): the ring over its cp group and, under
+    the mesh cp flavor, its row group."""
+
+    def __init__(self, par):
+        self.size = par.cp_size
+        self.index = par.cp_rank
+        self.ranks = par.cp_ranks
+        self.group = par.cp_group
+        self.row_group = par.cp_row_group
+        cp_x, cp_y = par.cp_mesh
+        self.row = tuple(mesh_groups(cp_x, cp_y)[0][self.index // cp_y])
+
+    def _group(self, members) -> object:
+        members = tuple(members)
+        if len(members) == self.size:
+            return self.group
+        if members == self.row and self.row_group is not None:
+            return self.row_group
+        raise ValueError(f"cp index {self.index}: no process group for cp "
+                         f"indices {members} (the cp group, or the row "
+                         f"{self.row})")
+
+    def hop(self, tensors, dst: int, src: int) -> list:
+        """Send each tensor to cp index `dst` and receive a tensor of the
+        same shape and dtype from cp index `src`, in one batch."""
+        collectives["send_recv"] += 1
+        ops, out = [], []
+        for t in tensors:
+            t = t.contiguous()
+            r = torch.empty_like(t)
+            ops.append(dist.P2POp(dist.isend, t, self.ranks[dst], self.group))
+            ops.append(dist.P2POp(dist.irecv, r, self.ranks[src], self.group))
+            out.append(r)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
+                   members) -> torch.Tensor:
+        """Tiled all-to-all among the cp indices `members` (this rank's
+        row, or every cp index): chunk j of `split_dim` goes to members[j],
+        and the chunks received concatenate along `concat_dim` in member
+        order."""
+        group = self._group(members)
+        collectives["all_to_all"] += 1
+        send = split_chunks(x, split_dim, len(members))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return concat_chunks(recv, concat_dim)
+
+    def all_gather(self, x: torch.Tensor, members) -> torch.Tensor:
+        """Every member's x concatenated along dim 0, in member order."""
+        x = x.contiguous()
+        out = x.new_empty((len(members) * x.shape[0],) + x.shape[1:])
+        all_gather_into(out, x, self._group(members))
+        return out

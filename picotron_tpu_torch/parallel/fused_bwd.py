@@ -43,15 +43,28 @@ are this rank's heads over the whole sequence, as under the AD engine.
 The accumulators are reduced over the data group once, at the seam
 (`parallel/api.GradSync`, the `reduce` argument).
 
+Under context parallelism (the model's `CPContext`) the attention is the
+context's schedule from the saved statistics (`CPContext.attention`,
+the JAX `_attn_paths`' cp branches): the ring's and the mesh's globally
+merged (row-domain for the mesh) lse, or Ulysses' inner-domain lse, saved
+by the forward and consumed by the schedule's `*_bwd_from_saved`, so the
+forward kernel never re-runs. Ring and mesh rotate q and k before the
+schedule; the rotation's transpose is taken by autograd over the
+rotation, as for the plain "reference" attention. The residual stream,
+the saved layer inputs and q/k/v/out are the rank's cp slice of the
+sequence; every other transpose is per token.
+
 Eligibility is the JAX package's (`fused_bwd_supported`: one pipeline
 stage under remat "dots_attn"); of its branches the ported ones are
-flash (`attn_impl` "auto"/"flash") and the plain "reference" attention,
-over dp and Megatron tp with or without SP. Context parallelism (ROADMAP
-Queue 1 item 9) and MoE (item 10) are refused.
+flash (`attn_impl` "auto"/"flash"), the plain "reference" attention and
+the three cp schedules (ring, Ulysses, mesh), over dp, cp and Megatron
+tp with or without SP. MoE (ROADMAP Queue 1 item 10) and the tp
+strategies' hooks (item 9) are refused.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -90,10 +103,10 @@ def fused_bwd_supported(cfg: Config) -> bool:
 def check_ported(cfg: Config) -> None:
     """Raise for the JAX engine's branches this port lacks."""
     d, m = cfg.distributed, cfg.model
-    if d.cp_size > 1 or m.attn_impl not in ("auto", "flash", "reference"):
+    if d.tp_strategy != "megatron":
         raise NotImplementedError(
-            "the fused grad engine's context-parallel branches are not "
-            "ported yet (ROADMAP Queue 1 item 9)")
+            "the fused grad engine's tp-strategy hooks (qkv_mm, o_mm, "
+            "mlp_mm) are not ported yet (ROADMAP Queue 1 item 9)")
     if m.num_experts:
         raise NotImplementedError(
             "the fused grad engine's MoE branch is not ported yet (ROADMAP "
@@ -158,6 +171,12 @@ def _attn_paths(model: LlamaModel):
     domains."""
     cfg = model.cfg
     rope = (model.rope_cos, model.rope_sin)
+    if model.cp is not None:
+        pre, fwd, bwd = model.cp.attention(cfg.attn_impl, rope)
+        if pre is None:
+            return fwd, bwd
+        return (lambda q, k, v: fwd(*pre(q, k), v),
+                _through_pre(pre, bwd))
     if cfg.attn_impl in ("auto", "flash"):
         def attn_fwd(q, k, v):
             return flash_attention(q, k, v, causal=True, rope=rope,
@@ -176,17 +195,22 @@ def _attn_paths(model: LlamaModel):
         qr, kr = rotated(q, k)
         return sdpa_attention(qr, kr, v, causal=True, return_lse=True)
 
+    return attn_fwd, _through_pre(rotated, partial(
+        sdpa_attention_bwd_from_saved, causal=True))
+
+
+def _through_pre(pre, bwd):
+    """attn_bwd over unrotated q/k of `bwd`, which takes q/k as `pre`
+    makes them: the rotation's transpose by autograd over the rotation."""
     def attn_bwd(q, k, v, out, lse, dout):
         with torch.enable_grad():
             q_, k_ = q.detach().requires_grad_(), k.detach().requires_grad_()
-            qr, kr = rotated(q_, k_)
-        dqr, dkr, dv = sdpa_attention_bwd_from_saved(
-            qr.detach(), kr.detach(), v, out, lse, dout, causal=True)
-        # the rotation's transpose, by autograd over the rotation
+            qr, kr = pre(q_, k_)
+        dqr, dkr, dv = bwd(qr.detach(), kr.detach(), v, out, lse, dout)
         dq, dk = torch.autograd.grad((qr, kr), (q_, k_), (dqr, dkr))
         return dq, dk, dv
 
-    return attn_fwd, attn_bwd
+    return attn_bwd
 
 
 def _entry_t(dh, lp):

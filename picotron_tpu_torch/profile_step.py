@@ -12,9 +12,11 @@ last `steps` under torch.profiler (CPU + CUDA activity), then prints per
 step: wall time, device-busy time (the sum of kernel durations: the
 kernels run on one stream, so they do not overlap), the idle share 1 -
 busy / wall, and device time by class (the three flash kernels, the
-AdamW kernel, GEMMs, NCCL's collective kernels ("nccl": under torchrun
-the layout's grad all-reduces and ZeRO-1 all-gathers, which run on
-NCCL's own stream and may overlap the compute), everything else;
+AdamW kernel, GEMMs, NCCL's kernels ("nccl", every kernel whose name
+holds "nccl": under torchrun the layout's grad all-reduces and ZeRO-1
+all-gathers, and under context parallelism the ring's SendRecv and
+Ulysses' all-to-all, which run on NCCL's own streams and may overlap
+the compute), everything else;
 host-device copies, which the
 offloaded optimizer runs on two streams of their own beside the kernels,
 apart as "memcpy" and outside the busy time) and by kernel name, and by

@@ -18,12 +18,14 @@ device metric and is not measured there.
 Under torchrun (any process group, world 1 included) the run takes the
 layout's path (`mesh.init_parallel`: NCCL on cuda:LOCAL_RANK, gloo with
 --device cpu; the world must be dp*pp*ep*cp*tp): each rank builds its tp
-shards, reads its dp rows, reduces the grads over the data group and, with
-distributed.zero1, updates its slice of the optimizer state. Only rank 0
+shards, reads its dp rows and its cp slice of their sequence (the cp
+schedules exchange K/V or heads over the cp group), reduces the grads
+over the data group and, with distributed.zero1, updates its slice of
+the optimizer state. Only rank 0
 prints and writes the report; tokens/s is the global rate and MFU is over
 the world's devices (picotron_tpu/train.py's `utils.mfu(..., num_chips)`).
 After the first step rank 0 prints the collectives launched per step, by
-kind. `--report PATH` writes (rank 0) a JSON of the run's losses, step
+kind (the cp exchanges as "send_recv" and "all_to_all"). `--report PATH` writes (rank 0) a JSON of the run's losses, step
 seconds, peak memory, collectives per step and the kernels' launches.
 
 Exit codes (the contract with a supervisor): 75 preempted with a durable
@@ -48,12 +50,13 @@ from picotron_tpu_torch.checkpoint import (
     CheckpointManager, load_hf_safetensors,
 )
 from picotron_tpu_torch.ckpt_integrity import preflight_save_dir
-from picotron_tpu_torch.config import Config, load_config
+from picotron_tpu_torch.config import Config, load_config, resolved_cp_flavor
 from picotron_tpu_torch.data import MicroBatchDataLoader, build_eval_source
 from picotron_tpu_torch.mesh import init_parallel, launcher_contract, shutdown
 from picotron_tpu_torch.models.llama import LlamaModel, init_params
 from picotron_tpu_torch.ops import flash_attention as fa
 from picotron_tpu_torch.parallel import comm
+from picotron_tpu_torch.parallel.cp import cp_context
 from picotron_tpu_torch.parallel.sharding import shard_state_dict
 from picotron_tpu_torch.parallel.tp import tp_context
 from picotron_tpu_torch.resilience import (
@@ -77,7 +80,6 @@ def unsupported(cfg: Config) -> list[str]:
     out = []
     for name, what, item in (
             ("pp_size", "pipeline parallelism", 9),
-            ("cp_size", "context parallelism", 9),
             ("ep_size", "expert parallelism", 10)):
         if getattr(d, name) > 1:
             out.append(f"distributed.{name} > 1 ({what}: ROADMAP Queue 1 "
@@ -94,9 +96,6 @@ def unsupported(cfg: Config) -> list[str]:
                    "item 9)")
     if m.num_experts:
         out.append("MoE models (ROADMAP Queue 1 item 10)")
-    if m.attn_impl not in ("auto", "flash", "reference"):
-        out.append(f"attn_impl={m.attn_impl!r} (context parallelism: "
-                   "ROADMAP Queue 1 item 9)")
     if t.remat and t.remat_policy == "dots_offload":
         out.append("training.remat_policy='dots_offload' (saves in pinned "
                    "host memory: ROADMAP Queue 1 item 7)")
@@ -131,12 +130,14 @@ def build_state(cfg: Config, dev: torch.device, par=None):
     from ("" when fresh): with auto_resume and no explicit load_path, the
     newest durable AND verified checkpoint in save_dir wins. Under a
     layout (`par`) the model is this rank's tp shards, each tp rank
-    drawing its own (dp ranks draw the same)."""
+    drawing its own (dp and cp ranks draw the same), and reads its cp
+    slice of the sequence under context parallelism."""
     ck = cfg.checkpoint
     tp = tp_context(par, cfg.distributed.sequence_parallel)
     seed = cfg.training.seed + (0 if tp is None else 1_000_003 * tp.rank)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = init_params(LlamaModel(cfg.model, device=dev, tp=tp), gen)
+    model = init_params(LlamaModel(cfg.model, device=dev, tp=tp,
+                                   cp=cp_context(par, cfg)), gen)
     state = init_train_state(cfg, model, par)
     if cfg.training.optimizer_offload:
         pinned = "pinned " if dev.type == "cuda" else ""
@@ -252,14 +253,19 @@ def run(cfg: Config, device: Optional[str] = None,
         log_print(f"layout: {par.sizes} over {world} rank(s), backend "
                   f"{par.backend}, sequence_parallel "
                   f"{cfg.distributed.sequence_parallel}, zero1 "
-                  f"{cfg.distributed.zero1}")
+                  f"{cfg.distributed.zero1}"
+                  + (f", cp {resolved_cp_flavor(cfg)} "
+                     f"{'x'.join(map(str, par.cp_mesh))} "
+                     f"{cfg.distributed.cp_layout}"
+                     if par.cp_size > 1 else ""))
     t, ck = cfg.training, cfg.checkpoint
     if ck.save_frequency > 0:
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story
         log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
                   f"~{est / 1e9:.2f} GB/checkpoint)")
-    dp_rank = 0 if par is None else par.coords["dp"]
-    dl = MicroBatchDataLoader(cfg, dev, dp_rank=dp_rank)
+    ranks = ({} if par is None else
+             {"dp_rank": par.coords["dp"], "cp_rank": par.coords["cp"]})
+    dl = MicroBatchDataLoader(cfg, dev, **ranks)
     # without a layout the calls keep their one-device form, which
     # callers may wrap
     layout = () if par is None else (par,)
@@ -287,7 +293,7 @@ def run(cfg: Config, device: Optional[str] = None,
         # a FIXED validation set: every eval (and every resumed run) scores
         # the same batches
         eval_dl = MicroBatchDataLoader(cfg, dev, source=build_eval_source(cfg),
-                                       dp_rank=dp_rank)
+                                       **ranks)
         eval_batches = [next(eval_dl) for _ in range(t.eval_steps)]
         eval_fn = make_eval_step(cfg, par)
     ckpt_mgr = (CheckpointManager(cfg, par=par) if ck.save_frequency > 0

@@ -26,7 +26,8 @@ same norm feeds clipping. Under "skip" a non-finite step leaves params,
 moments and the AdamW count as they were.
 
 Under a parallel layout (`par`, the rank's `mesh.ParallelEnv`) each rank
-runs its tp shards on its dp rows of the batch; the engines' sums then
+runs its tp shards on its dp rows of the batch (its cp slice of their
+sequence under context parallelism); the engines' sums then
 pass the seam (`parallel/api.GradSync`: one reduction over the data
 group after the last microbatch, and the norms' partial grads over tp
 under sequence parallelism) before the token count divides, the grad

@@ -21,7 +21,13 @@ bit (chip_smoke phase 6a); a copy with nu's bias correction dropped must
 fail that gate. The offloaded optimizer trains a debug-size model on the
 card with its state pinned on the host, each streamed step equal bit for
 bit to the plain update; and chip_smoke phase 6b, at its full size, fails
-each of three faults planted in the offloaded optimizer."""
+each of three faults planted in the offloaded optimizer.
+
+The context-parallel schedules (chip_smoke phase 8a) run in its thread
+world at S 2048 (the phase runs S 8192): ring (zigzag and contiguous),
+Ulysses and mesh 2x2 within the per-row limit of the whole sequence and
+of the kernels' plain versions, with their launches per rank, and the
+planted fault (rank 1's zigzag chunks swapped) over the limit."""
 
 import re
 
@@ -621,3 +627,17 @@ def test_planted_offload_faults_fail(fault, offload_refs):
     msg = str(err.value)
     for gate in OFFLOAD_FAULT_GATES[fault]:
         assert gate in msg, (gate, msg[:800])
+
+
+@cuda
+def test_cp_schedules_at_s2048_and_their_planted_fault(dev):
+    """chip_smoke phase 8a at B 1, S 2048, Hq = Hkv = 32, D 128: the
+    phase raises if a schedule leaves the per-row limits, launches other
+    than its per-rank counts, or if the planted fault passes."""
+    res = chip_smoke.cp_schedules_phase("test", shape=(1, 2048, 32, 32, 128))
+    assert set(res["schedules"]) == set(chip_smoke.CP_SCHEDULES)
+    for name, entry in res["schedules"].items():
+        assert entry["launches_per_rank"] == [
+            chip_smoke.CP_LAUNCHES[name](r) for r in range(chip_smoke.CP)]
+        assert not chip_smoke.over_limits(entry["worst_row_vs_plain_blocks"])
+    assert chip_smoke.over_limits(res["planted_fault"])

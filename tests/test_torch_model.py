@@ -125,5 +125,11 @@ def test_init_distributions():
 def test_unported_model_features_raise(bad):
     tc = tcfg.config_from_dict({"model": bad, "distributed": {"cp_size": 2}}
                                if bad.get("attn_impl") else {"model": bad})
+    if bad.get("attn_impl"):
+        # a cp schedule is ported; without its cp context the model cannot
+        # run it (the JAX make_parallel_ctx's cp_size check)
+        with pytest.raises(ValueError, match="cp context"):
+            tllama.LlamaModel(tc.model, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllama.LlamaModel(tc.model, device="cpu")

@@ -10,7 +10,13 @@
 - typed errors: heads % tp, a world that is not the layout, a partial
   torchrun environment, and a CUDA run without NCCL (which never becomes
   gloo);
-- every option the port still refuses names its ROADMAP item.
+- every option the port still refuses names its ROADMAP item, and the
+  context-parallel layouts (ported since) are no longer refused;
+- `torchrun --nproc_per_node 4 ... --device cpu` at cp 4: the tiny
+  versions of runs/llama2-7b-cp4-seq8192 (ring, zigzag, fused, zero1)
+  and runs/llama2-7b-cp4-mesh-seq8192 (mesh 2x2), and Ulysses, each
+  exit 0 with the cp exchanges in its report; the loader's cp slices
+  against the JAX loader's permuted global batch.
 """
 
 import json
@@ -64,6 +70,46 @@ def test_torchrun_cli_trains_dp2_tp2_on_cpu(tmp_path):
     assert per["reduce_scatter"] > 0  # sequence parallelism
 
 
+# the tiny versions of runs/llama2-7b-cp4-seq8192 (ring, zigzag, fused,
+# zero1) and runs/llama2-7b-cp4-mesh-seq8192 (mesh 2x2), and Ulysses
+CP_CLI = {
+    "ring_zigzag_fused_zero1": dict(cp_size=4, zero1=True),
+    "mesh_2x2_fused_zero1": dict(cp_size=4, zero1=True, cp_flavor="mesh",
+                                 cp_mesh="2x2"),
+    "ulysses_fused": dict(cp_size=4, cp_flavor="ulysses"),
+}
+
+
+@pytest.mark.parametrize("layout", list(CP_CLI))
+def test_torchrun_cli_trains_cp4_on_cpu(tmp_path, layout):
+    raw = tiny_raw(training={"total_train_steps": 2, "remat": True,
+                             "remat_policy": "dots_attn",
+                             "grad_engine": "fused"}, **CP_CLI[layout])
+    cfg_path, report = tmp_path / "cfg.json", tmp_path / "report.json"
+    cfg_path.write_text(json.dumps(raw))
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    env.pop("WORLD_SIZE", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "4", "-m", "picotron_tpu_torch.train",
+         "--config", str(cfg_path), "--device", "cpu",
+         "--report", str(report)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout.splitlines()
+    flavor = CP_CLI[layout].get("cp_flavor", "ring")
+    assert sum(line.startswith("layout: ") and f"cp {flavor}" in line
+               for line in out) == 1, out
+    assert "grad engine: fused" in proc.stdout
+    rep = json.loads(report.read_text())
+    assert rep["world_size"] == 4 and len(rep["losses"]) == 2
+    assert all(np.isfinite(rep["losses"]))
+    per = rep["collectives_per_step"]
+    assert (per["send_recv"] > 0) == (flavor != "ulysses")
+    assert (per["all_to_all"] > 0) == (flavor != "ring")
+    assert per["all_reduce"] > 0
+
+
 @pytest.mark.parametrize("sizes", [
     dict(dp=2, tp=4), dict(dp=2, pp=2, tp=2), dict(dp=2, cp=2, tp=2),
     dict(dp=8), dict(pp=2, ep=2, cp=2)])
@@ -107,6 +153,31 @@ def test_loader_rows_match_the_jax_global_batch():
         tdata.MicroBatchDataLoader(tc, "cpu", dp_rank=2)
 
 
+@pytest.mark.parametrize("cp_layout", ["zigzag", "contiguous"])
+def test_loader_cp_slices_match_the_jax_global_batch(cp_layout):
+    """Each (dp, cp) rank's ids and targets are its rows and its cp slice
+    of the JAX loader's permuted global batch, token for token."""
+    raw = tiny_raw(dp_size=2, cp_size=2, cp_layout=cp_layout,
+                   training={"num_samples": 20})
+    jc, tc = jcfg.config_from_dict(raw), tcfg.config_from_dict(raw)
+    jl = jdata.MicroBatchDataLoader(jc, MeshEnv.from_config(jc))
+    loaders = {(r, c): tdata.MicroBatchDataLoader(tc, "cpu", dp_rank=r,
+                                                  cp_rank=c)
+               for r in range(2) for c in range(2)}
+    mbs, s = tc.training.micro_batch_size, tc.training.seq_length // 2
+    for _ in range(3):
+        ji, jt = (np.asarray(a) for a in next(jl))
+        for (r, c), tl in loaders.items():
+            ti, tt = next(tl)
+            rows, cols = slice(r * mbs, (r + 1) * mbs), slice(c * s,
+                                                              (c + 1) * s)
+            np.testing.assert_array_equal(ti.numpy(), ji[:, rows, cols])
+            np.testing.assert_array_equal(tt.numpy(), jt[:, rows, cols])
+            assert tl.state == jl.state
+    with pytest.raises(ValueError, match="cp_rank 2"):
+        tdata.MicroBatchDataLoader(tc, "cpu", cp_rank=2)
+
+
 def test_layout_errors_are_typed(monkeypatch):
     with pytest.raises(ValueError, match="num_attention_heads"):
         tcfg.config_from_dict(tiny_raw(tp_size=3))
@@ -131,9 +202,15 @@ def test_layout_errors_are_typed(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+# the two context-parallel cases were refusals until cp was ported; they
+# keep their ids and now check that nothing refuses them (match None)
+_CP_PORTED = "context parallelism: ROADMAP Queue 1 item 9"
+
+
 @pytest.mark.parametrize("dist_kw,model_kw,match", [
     ({"pp_size": 2}, {}, "pipeline parallelism: ROADMAP Queue 1 item 9"),
-    ({"cp_size": 2}, {}, "context parallelism: ROADMAP Queue 1 item 9"),
+    pytest.param({"cp_size": 2}, {}, None,
+                 id=f"dist_kw1-model_kw1-{_CP_PORTED}"),
     ({"ep_size": 2}, {"name": "debug-tiny-moe"},
      "expert parallelism: ROADMAP Queue 1 item 10"),
     ({"tp_size": 2, "tp_strategy": "row"}, {},
@@ -142,13 +219,22 @@ def test_layout_errors_are_typed(monkeypatch):
      "deferred tp sync: ROADMAP Queue 1 item 9"),
     ({"dp_size": 2, "slices": 2}, {},
      "multi-slice dp reduction: ROADMAP Queue 1 item 9"),
-    ({"cp_size": 2}, {"attn_impl": "ring"},
-     "context parallelism: ROADMAP Queue 1 item 9"),
+    pytest.param({"cp_size": 2}, {"attn_impl": "ring"}, None,
+                 id=f"dist_kw6-model_kw6-{_CP_PORTED}"),
 ])
 def test_still_refused_options_name_their_item(dist_kw, model_kw, match):
     raw = tiny_raw(**dist_kw)
     raw["model"].update(model_kw)
     cfg = tcfg.config_from_dict(raw)
+    if match is None:
+        # ported: no refusal names cp; without torchrun the run stops at
+        # the world check
+        assert not any("context parallelism" in why
+                       for why in ttrain.unsupported(cfg))
+        assert ttrain.unsupported(cfg) == []
+        with pytest.raises(ValueError, match="world size 1"):
+            ttrain.run(cfg, "cpu")
+        return
     assert any(match in why for why in ttrain.unsupported(cfg)), \
         ttrain.unsupported(cfg)
     with pytest.raises(NotImplementedError, match="item"):
@@ -157,7 +243,11 @@ def test_still_refused_options_name_their_item(dist_kw, model_kw, match):
 
 def test_layouts_the_slice_runs_are_supported():
     for kw in (dict(dp_size=2), dict(tp_size=4, sequence_parallel=True),
-               dict(dp_size=2, tp_size=2, zero1=True)):
+               dict(dp_size=2, tp_size=2, zero1=True), dict(cp_size=4),
+               dict(cp_size=4, cp_flavor="ulysses"),
+               dict(cp_size=4, cp_flavor="mesh", cp_mesh="2x2"),
+               dict(cp_size=2, tp_size=2, sequence_parallel=True,
+                    cp_flavor="ulysses")):
         cfg = tcfg.config_from_dict(tiny_raw(**kw))
         assert ttrain.unsupported(cfg) == []
         fused = tcfg.config_from_dict(tiny_raw(
