@@ -185,7 +185,36 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the ranks, all tensor-core; no torch.distributed call (the
    communicator's exchanges only); and a planted fault, the zigzag
    positions off by one chunk, must fail.
-9. Numbers, then the device line last.
+9. Pipeline parallelism (pp 2) in a thread world: one thread per stage
+   on cuda:0 (the card has one GPU, and NCCL takes one rank per device),
+   exchanging through the same `ThreadComm`'s `exchange` and
+   `all_reduce`; the walk, the stage ops and the optimizer are the
+   port's (`parallel/pp.PipelineGrads`, `optimizer.AdamW` with the grad
+   norm summed over the stages), the stages' ops taken one at a time so
+   that each stage's launches and memory read off the card's counters.
+   `picotron_tpu_torch/configs/llama2-7b-pp2-1gpu.json`:
+   runs/llama2-7b-dp4tp2pp2-1f1b at its full width (hidden 4096,
+   intermediate 11008, 32/32 heads, D 128, vocab 32000, seq 4096, mbs
+   1, ga 8, bf16 over fp32 masters, bf16 moments, remat "dots"), dp 4
+   -> 1, tp 2 -> 1, 32 layers -> 4 (2 per stage). Five walks, each on
+   the same params (one seed) and batch as pp 1 on the card (the AD
+   engine, the same remat): spmd afab, spmd 1f1b, mpmd 1f1b, mpmd gpipe
+   and mpmd interleaved v 2 (one layer per virtual stage). Gates: each
+   microbatch's loss within PP_LOSS_RTOL relative, every grad tensor
+   within PP_GRAD_RTOL in relative L2, the same token count, the grad
+   norm summed over the stages within PP_GRAD_RTOL; per stage its
+   layers x n_micro forward launches (twice under remat "full") and its
+   layers x n_micro of each backward kernel, all on the tensor cores,
+   one AdamW launch per tensor it holds, and under the spmd 1f1b at
+   most `pp_1f1b_ring_slots` graphs in flight; and a planted fault
+   (stage 1 fed microbatch m+1's activation as m's) must fail. Printed
+   per stage: its peak GiB (its state, the graphs it holds and an op's
+   transient, read off the card around its own ops), the most graphs in
+   flight against the ring slots, its launches and exchanges; each
+   walk's wall time on the one card, with the stages serialised (not a
+   pipeline's speed), beside `schedule_stats`'s predicted bubble; and a
+   `pipeline` JSON line.
+10. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -265,6 +294,14 @@ grads 6.7e-3 relative L2 at worst, layers.1.k) and the planted fault's
 but its attention in one kernel call per layer, where cp rounds each
 block's out and grads to bf16 before the fp32 merge or sum.
 
+Phase 9's limits: the stages run the same bf16 products on the same
+shapes as pp 1, and the boundary tensor keeps pp 1's dtype (bf16), so
+the losses and grads are expected bit for bit where the schedule keeps
+pp 1's order of the microbatches' grad sums (1f1b, gpipe, interleaved);
+afab sums them in reverse. PP_LOSS_RTOL = 1e-6 and PP_GRAD_RTOL = 1e-3
+bound what the order of fp32 sums can move; the actual errors print
+beside them.
+
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
 
@@ -312,6 +349,9 @@ SHAPES = {
                                                        64, 0),
     "llama3-8b tp4 B1 S2048 Hq8 Hkv2 D128 rope static": (1, 8, 2, SEQ, SEQ,
                                                          128, 0),
+    # each pipeline stage of phase 9 (PP_CONFIG: Llama-2-7B, 32/32 heads)
+    "llama2-7b pp B1 S4096 H32 D128 rope static": (1, 32, 32, 4096, 4096,
+                                                   128, 0),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -371,6 +411,22 @@ CP_MODEL_SEED = 10
 CP_LOSS_RTOL = 5e-6            # phase 8b: loss, cp 4 vs cp 1, relative
 CP_GRAD_RTOL = 2e-2            # phase 8b: each grad tensor, relative L2
 THREAD_TIMEOUT_S = 600         # a thread world's barrier
+# phase 9: runs/llama2-7b-dp4tp2pp2-1f1b at full width, 4 layers, pp 2 in
+# a thread world, each walk against pp 1 on the same params and batch
+PP_CONFIG = "picotron_tpu_torch/configs/llama2-7b-pp2-1gpu.json"
+PP_WALKS = {  # name: config sections over PP_CONFIG's
+    "spmd afab": {"distributed": {"pp_engine": "afab"}},
+    "spmd 1f1b": {},
+    "mpmd 1f1b": {"pipeline": {"executor": "mpmd", "schedule": "1f1b"}},
+    "mpmd gpipe": {"pipeline": {"executor": "mpmd", "schedule": "gpipe"}},
+    "mpmd interleaved v2": {"pipeline": {"executor": "mpmd",
+                                         "schedule": "interleaved",
+                                         "interleave": 2}},
+}
+PP_FAULT = "planted fault: spmd 1f1b, stage 1 fed microbatch m+1 as m"
+PP_SEED = 11
+PP_LOSS_RTOL = 1e-6            # phase 9: each microbatch's loss, relative
+PP_GRAD_RTOL = 1e-3            # phase 9: each grad tensor, relative L2
 
 
 def log(msg: str) -> None:
@@ -420,18 +476,74 @@ def row_errors(got, want, lse: bool = False) -> torch.Tensor:
             ).flatten()
 
 
+def bwd_fp64(fa, q, k, v, out, lse, do, dlse, qpos, kpos, tabs):
+    """The backward kernels' function (`fa.bwd_plain`'s) in fp64, one
+    (batch, q head) at a time: q and k rotated and rounded as the kernels
+    and `fa.bwd_plain` rotate them, every product and the inverse rotation
+    in fp64, nothing rounded after. The kernels' dq, dk and dv are held to
+    it: `fa.bwd_plain` runs in fp32, and on a row whose exact dq is 0 (a
+    row that sees one key, its dS = dO.v - dO.out cancels) its own fp32
+    noise is as large as the kernel's, so that the two can differ by more
+    than the row limit where neither is wrong. Returns fp64 [B, H, S, D]
+    tensors."""
+    if tabs is not None:
+        q = fa._rot(q, tabs[0], tabs[1], 1.0)
+        k = fa._rot(k, tabs[2], tabs[3], 1.0)
+    q, k, v, do, out = (x.double() for x in (q, k, v, do, out))
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    visible = qpos[:, None].long() >= kpos[None, :].long()
+    dq = torch.empty_like(q)
+    dk = torch.zeros(b, hq, k.shape[2], d, dtype=torch.float64,
+                     device=q.device)
+    dv = torch.zeros_like(dk)
+    for i in range(b):
+        for h in range(hq):
+            kh, vh = k[i, h // rep], v[i, h // rep]
+            lse_h = lse[i, h, :, None].double()
+            p = torch.exp(torch.where(visible, q[i, h] @ kh.T,
+                                      float("-inf")) - lse_h)
+            p = torch.where(torch.isneginf(lse_h), 0.0, p)
+            delta = ((do[i, h] * out[i, h]).sum(-1, keepdim=True)
+                     - dlse[i, h, :, None].double())
+            ds = p * (do[i, h] @ vh.T - delta)
+            dq[i, h] = ds @ kh
+            dk[i, h] = ds.T @ q[i, h]
+            dv[i, h] = p.T @ do[i, h]
+    dk = dk.view(b, hkv, rep, -1, d).sum(2)
+    dv = dv.view(b, hkv, rep, -1, d).sum(2)
+    if tabs is not None:
+        def unrotate(x, c, sn):
+            c, sn = c.double(), sn.double()
+            x1, x2 = x[..., :d // 2], x[..., d // 2:]
+            return torch.cat([x1 * c + x2 * sn, x2 * c - x1 * sn], dim=-1)
+
+        dq = unrotate(dq, tabs[0], tabs[1])
+        dk = unrotate(dk, tabs[2], tabs[3])
+    return dq, dk, dv
+
+
 def kernel_errors(fa, case) -> dict:
     """Each kernel output against its plain version on one case:
     {output: (kernel name, row errors, max abs error, max |plain|)}. The
     backward kernels start from the plain forward's (out, lse), so each
-    kernel is held to its own plain version alone."""
+    kernel is held to its own plain version alone: the forward to
+    `fa.fwd_plain`, the backward to its function in fp64 (`bwd_fp64`;
+    `fa.bwd_plain`'s own worst row against it is logged beside)."""
     q, k, v, qpos, kpos, tabs, do, dlse, static = case
     out, lse = fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static)
     out_p, lse_p = fa.fwd_plain(q, k, v, qpos, kpos, tabs, True)
     dq, dk, dv = fa._bwd(q, k, v, out_p, lse_p, do, dlse, qpos, kpos, tabs,
                          True, static)
-    dq_p, dk_p, dv_p = fa.bwd_plain(q, k, v, out_p, lse_p, do, dlse, qpos,
-                                    kpos, tabs, True)
+    dq_p, dk_p, dv_p = bwd_fp64(fa, q, k, v, out_p, lse_p, do, dlse, qpos,
+                                kpos, tabs)
+    fp32 = fa.bwd_plain(q, k, v, out_p, lse_p, do, dlse, qpos, kpos, tabs,
+                        True)
+    log("  fa.bwd_plain against fp64, worst row: " + ", ".join(
+        f"{key} {float(row_errors(g, w).max()):.4g}"
+        for key, g, w in zip(("dq", "dk", "dv"), fp32, (dq_p, dk_p, dv_p))))
+    del fp32
     res = {}
     for key, name, got, want in (
             ("out", "flash_fwd", out, out_p), ("lse", "flash_fwd", lse, lse_p),
@@ -1732,6 +1844,8 @@ class ThreadWorld:
         self.n = n
         self.barrier = threading.Barrier(n, timeout=timeout)
         self.slots = [None] * n
+        # for a harness that runs the ranks' work one at a time
+        self.lock = threading.Lock()
 
     def comm(self, index: int) -> "ThreadComm":
         return ThreadComm(self, index)
@@ -1771,7 +1885,8 @@ class ThreadComm:
 
     def __init__(self, world: ThreadWorld, index: int):
         self.world, self.index, self.size = world, index, world.n
-        self.counts = {"send_recv": 0, "all_to_all": 0, "all_gather": 0}
+        self.counts = {"send_recv": 0, "all_to_all": 0, "all_gather": 0,
+                       "all_reduce": 0}
 
     def _swap(self, item, read):
         w = self.world
@@ -1812,6 +1927,54 @@ class ThreadComm:
         members = tuple(members)
         return self._swap(x.contiguous(), lambda slots: torch.cat(
             [slots[m] for m in members]))
+
+    def exchange(self, sends, recvs) -> list:
+        """`parallel.comm.PPComm.exchange` between the world's threads
+        (one per pipeline stage): every rank meets at each tick boundary,
+        whether it moves a tensor there or not; a receive takes a clone
+        of what its source stage addressed to it, in list order, and must
+        find the shape and dtype it expects."""
+        if sends or recvs:
+            self.counts["send_recv"] += 1
+
+        def read(slots):
+            out, taken = [], {}
+            for src, shape, dtype in recvs:
+                mine = [t for dst, t in slots[src] if dst == self.index]
+                k = taken.get(src, 0)
+                taken[src] = k + 1
+                if k >= len(mine):
+                    raise AssertionError(f"stage {self.index} expects a "
+                                         f"tensor from stage {src}, which "
+                                         f"sent it {len(mine)}")
+                t = mine[k]
+                if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+                    raise AssertionError(
+                        f"stage {self.index} expects {tuple(shape)} "
+                        f"{dtype} from stage {src}, got "
+                        f"{tuple(t.shape)} {t.dtype}")
+                out.append(t.clone())
+            return out
+
+        return self._swap(list(sends), read)
+
+    def all_reduce(self, t, ends: bool = False):
+        """`parallel.comm.PPComm.all_reduce`: t summed in place over the
+        world's ranks, in rank order (`ends`: a world of 2 stages, whose
+        ends are all of it)."""
+        if ends and self.size != 2:
+            raise ValueError("a thread world sums over its ends only at "
+                             "2 stages")
+        self.counts["all_reduce"] += 1
+
+        def read(slots):
+            out = slots[0].clone()
+            for s in slots[1:]:
+                out += s
+            return out
+
+        t.copy_(self._swap(t, read))
+        return t
 
 
 def cp_raw(flavor: str = "", cp_layout: str = "zigzag", cp_mesh: str = "",
@@ -2312,6 +2475,283 @@ def cp_model_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the pipeline's walks in a thread world
+# ---------------------------------------------------------------------------
+
+
+def _pp_runner(lock, ledger: dict, fault: bool):
+    """The pipeline's stage ops (`parallel.pp.StageRunner`) run one at a
+    time under `lock`, so that each stage's kernel launches and memory
+    can be read off the card's counters around its own ops: per stage,
+    the flash launches of its ops, the bytes its ops leave allocated
+    (the graphs it holds), and its peak (held bytes + an op's
+    transient). With `fault`, the first virtual stage embeds microbatch
+    m+1 in place of m (the last wraps to 0), so that stage 1 is fed
+    microbatch m+1's activation as m's."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+    from picotron_tpu_torch.parallel.pp import StageRunner
+
+    class Serial(StageRunner):
+        def _op(self, fn, *args):
+            rec = ledger[self.model.stage.index]
+            with lock:
+                before = dict(fa.launches)
+                m0 = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = fn(*args)
+                peak = torch.cuda.max_memory_allocated() - m0
+                rec["peak"] = max(rec["peak"], rec["held"] + peak)
+                rec["held"] += torch.cuda.memory_allocated() - m0
+                for k, v in fa.launches.items():
+                    rec["launches"][k] = (rec["launches"].get(k, 0)
+                                          + v - before[k])
+            return out
+
+        def _received(self, t):
+            # a boundary tensor the exchange allocated for this stage
+            if t is not None:
+                with lock:
+                    ledger[self.model.stage.index]["held"] += (
+                        t.numel() * t.element_size())
+
+        def forward(self, j, mb, x):
+            self._received(x)
+            if fault and j == 0:
+                mb = (mb + 1) % self.ids.shape[0]
+            return self._op(super().forward, j, mb, x)
+
+        def backward(self, j, mb, graph, g):
+            self._received(g)
+            return self._op(super().backward, j, mb, graph, g)
+
+    return Serial
+
+
+def pp_launches(pipeline: dict, name: str) -> dict:
+    """{walk: [launches of kernel `name` per stage]} of phase 9's walks."""
+    return {walk: [st["adamw"] if name == "adamw" else st["flash"][name]
+                   for st in entry["stages"]]
+            for walk, entry in pipeline["walks"].items()
+            if not walk.startswith("planted")}
+
+
+def pp_walk(raw: dict, state: dict, batch, fault: bool = False) -> dict:
+    """One step of the pipeline (`raw`, pp 2) in a thread world on the
+    card: each stage built from `state` (a whole model's state dict),
+    its walk (`parallel.pp.PipelineGrads` over a `ThreadComm`), its grad
+    norm summed over the stages and its AdamW update; per stage the
+    walk's stats, its grads before the update, its launches and memory."""
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.models.llama import LlamaModel, pipeline_stage
+    from picotron_tpu_torch.optimizer import AdamW
+    from picotron_tpu_torch.parallel.pp import PipelineGrads
+    from picotron_tpu_torch.weights import stage_params
+
+    cfg = config_from_dict(raw)
+    d = cfg.distributed
+    world = ThreadWorld(d.pp_size)
+    ledger = {r: {"held": 0, "peak": 0, "launches": {}}
+              for r in range(d.pp_size)}
+    stages = []
+    for r in range(d.pp_size):
+        m0 = torch.cuda.memory_allocated()
+        model = LlamaModel(cfg.model, device="cuda", stage=pipeline_stage(
+            cfg.model.num_hidden_layers, d.pp_size, r,
+            cfg.pipeline.interleave))
+        model.load_state_dict(stage_params(state, model))
+        comm = world.comm(r)
+        opt = AdamW(model, cfg.training, pp=comm)
+        grads = PipelineGrads(cfg, comm=comm,
+                              runner=_pp_runner(world.lock, ledger, fault))
+        ledger[r]["state"] = torch.cuda.memory_allocated() - m0
+        stages.append((model, opt, grads))
+    adamw = [0] * d.pp_size
+
+    def rank(r):
+        model, opt, grads = stages[r]
+        loss, scale = grads(model, batch, opt.grad_of, step=1)
+        norm = opt.grad_norm()
+        got = {n: opt.grad_of[p].detach().clone()
+               for n, p in model.named_parameters()}
+        with world.lock:
+            before = topt.launches["adamw"]
+            opt.step(scale, grad_norm=norm)
+            adamw[r] = topt.launches["adamw"] - before
+        return {"loss": float(loss), "count": int(round(1 / float(scale))),
+                "grad_norm": float(norm) * float(scale), "grads": got,
+                "stats": grads.stats, "layers": model.stage.layers}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = world.run(rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(out):
+        res.update(adamw=adamw[r], **{k: ledger[r][k] for k in (
+            "launches", "state", "peak")})
+    del stages
+    torch.cuda.empty_cache()
+    return {"stages": out, "wall_s": wall}
+
+
+def pp_phase(card: str, raw: Optional[dict] = None) -> dict:
+    """Phase 9: the pipeline's five walks (PP_WALKS) of PP_CONFIG, or of
+    `raw`, in a thread world of 2 on the card, each against pp 1 on the
+    same params and batch (AD, the config's remat policy): each
+    microbatch's loss within PP_LOSS_RTOL, every grad tensor within
+    PP_GRAD_RTOL in relative L2, the same token count, and the grad norm
+    summed over the stages within PP_GRAD_RTOL; per stage its layers x
+    n_micro forward launches (twice under remat "full") and its layers x
+    n_micro of each backward kernel, all on the tensor cores, and one
+    AdamW launch per tensor it holds; and the planted fault (PP_FAULT)
+    must fail the limits."""
+    import numpy as np
+
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.models.llama import (
+        LlamaModel, init_params, loss_sum_count,
+    )
+    from picotron_tpu_torch.ops import flash_attention as fa
+    from picotron_tpu_torch.optimizer import global_norm
+    from picotron_tpu_torch.parallel.mpmd import schedule_stats
+    from picotron_tpu_torch.parallel.pp import pp_1f1b_ring_slots
+
+    if raw is None:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               PP_CONFIG)) as f:
+            raw = json.load(f)
+    one = {**raw, "distributed": {**raw["distributed"], "pp_size": 1}}
+    cfg1 = config_from_dict(one)
+    t = cfg1.training
+    remat = t.remat_policy if t.remat else None
+    gen = torch.Generator(device="cuda").manual_seed(PP_SEED)
+    model1 = init_params(LlamaModel(cfg1.model, device="cuda"), gen)
+    n, mbs, seq = t.gradient_accumulation_steps, t.micro_batch_size, \
+        t.seq_length
+    toks = np.random.default_rng(PP_SEED).integers(
+        0, cfg1.model.vocab_size, (n, mbs, seq + 1))
+    batch = (torch.from_numpy(toks[..., :-1]).cuda(),
+             torch.from_numpy(toks[..., 1:]).cuda())
+    mb1 = []
+    for i in range(n):
+        total, count, _ = loss_sum_count(model1, batch[0][i], batch[1][i],
+                                         remat, t.ce_chunk_size)
+        total.backward()
+        mb1.append((float(total.detach()), int(count)))
+    grads1 = grads_of(model1)
+    count1 = sum(c for _, c in mb1)
+    norm1 = float(global_norm(list(grads1.values()))) / count1
+    state = {k: v.detach().clone() for k, v in model1.state_dict().items()}
+    del model1
+    torch.cuda.empty_cache()
+    recomputes = 1 if remat == "full" else 0
+    out = {"card": card, "layers": cfg1.model.num_hidden_layers,
+           "seq": seq, "n_micro": n, "remat": remat,
+           "limits": {"loss_rtol": PP_LOSS_RTOL, "grad_rtol": PP_GRAD_RTOL},
+           "walks": {}}
+    walks = dict(PP_WALKS)
+    walks[PP_FAULT] = {}
+    for name, over in walks.items():
+        wraw = {**raw, **{k: {**raw.get(k, {}), **v} for k, v in
+                          over.items()}}
+        cfg = config_from_dict(wraw)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        topt.reset_launch_counts()
+        res = pp_walk(wraw, state, batch, fault=name == PP_FAULT)
+        counts = launch_counts(fa)
+        stages = res["stages"]
+        last = stages[-1]["stats"].mb_losses
+        mb_err = max(abs(float(last[m][0]) - mb1[m][0]) / abs(mb1[m][0])
+                     for m in range(n))
+        count = sum(int(last[m][1]) for m in range(n))
+        got = {k: g for s in stages for k, g in s["grads"].items()}
+        grad_errs = {k: rel_l2(got[k], grads1[k]) for k in grads1}
+        worst = max(grad_errs, key=grad_errs.get)
+        norm_err = abs(stages[0]["grad_norm"] - norm1) / norm1
+        pl = cfg.pipeline
+        kind = (pl.schedule if pl.executor == "mpmd" else "spmd")
+        bubble = schedule_stats(kind, n, 2, pl.interleave)["bubble_fraction"]
+        entry = {
+            "loss_rel_err_max": mb_err, "count": count, "pp1_count": count1,
+            "worst_grad_rel_l2": grad_errs[worst], "worst_grad": worst,
+            "grad_norm_rel_err": norm_err,
+            "bit_for_bit": (mb_err == 0.0 and grad_errs[worst] == 0.0),
+            "wall_s_one_card_stages_serialised": res["wall_s"],
+            "predicted_bubble_fraction": bubble,
+            "ring_slots": pp_1f1b_ring_slots(n, 2),
+            "stages": [{
+                "layers": s["layers"],
+                "peak_gib": (s["state"] + s["peak"]) / 2 ** 30,
+                "state_gib": s["state"] / 2 ** 30,
+                "max_in_flight": s["stats"].max_in_flight,
+                "exchanges": s["stats"].exchanges,
+                "flash": s["launches"], "adamw": s["adamw"]}
+                for s in stages]}
+        out["walks"][name] = entry
+        st = entry["stages"]
+        log(f"phase 9 {name}: loss rel err {mb_err:.3g} (limit "
+            f"{PP_LOSS_RTOL}), tokens {count} (pp 1: {count1}), worst grad "
+            f"rel L2 {grad_errs[worst]:.3g} ({worst}; limit "
+            f"{PP_GRAD_RTOL}), grad norm rel err {norm_err:.3g}, bit for "
+            f"bit {entry['bit_for_bit']}; wall {res['wall_s']:.3f} s on "
+            f"one card with the stages serialised, not a pipeline's speed "
+            f"(predicted bubble {bubble:.3f})")
+        for r, s in enumerate(st):
+            log(f"phase 9 {name} stage {r} (layers {s['layers']}): peak "
+                f"{s['peak_gib']:.2f} GiB (state {s['state_gib']:.2f}), "
+                f"graphs in flight {s['max_in_flight']} (1f1b ring slots "
+                f"{entry['ring_slots']}), exchanges {s['exchanges']}, flash "
+                f"{s['flash']}, adamw {s['adamw']} ({card})")
+        passed = (count == count1 and mb_err <= PP_LOSS_RTOL
+                  and grad_errs[worst] <= PP_GRAD_RTOL
+                  and norm_err <= PP_GRAD_RTOL)
+        if name == PP_FAULT:
+            if passed:
+                raise AssertionError(f"phase 9: the planted fault passed the "
+                                     f"limits ({mb_err}, {grad_errs[worst]})")
+            continue
+        fails = []
+        k_all = sum(len(x["layers"]) for x in stages) * n
+        try:
+            check_launches(counts, {"flash_fwd": k_all * (1 + recomputes),
+                                    "flash_bwd_dq": k_all,
+                                    "flash_bwd_dkv": k_all},
+                           f"phase 9 {name}")
+        except AssertionError as e:
+            fails.append(str(e))
+        if topt.launches["adamw"] != sum(x["adamw"] for x in stages):
+            fails.append(f"adamw launched {topt.launches['adamw']} times, "
+                         f"the stages counted "
+                         f"{[x['adamw'] for x in stages]}")
+        if not passed:
+            fails.append(f"loss rel err {mb_err:.3g}, tokens {count} vs "
+                         f"{count1}, grad {worst} rel L2 "
+                         f"{grad_errs[worst]:.3g}, grad norm rel err "
+                         f"{norm_err:.3g}")
+        for r, s in enumerate(stages):
+            k = len(s["layers"]) * n
+            want = {"flash_fwd": k * (1 + recomputes), "flash_bwd_dq": k,
+                    "flash_bwd_dkv": k}
+            if s["launches"] != want:
+                fails.append(f"stage {r} flash launches {s['launches']}, "
+                             f"want {want}")
+            if s["adamw"] != len(s["grads"]):
+                fails.append(f"stage {r} adamw launched {s['adamw']} times, "
+                             f"want {len(s['grads'])}")
+            if (kind == "spmd" and cfg.distributed.pp_engine == "1f1b"
+                    and s["stats"].max_in_flight > entry["ring_slots"]):
+                fails.append(f"stage {r} held {s['stats'].max_in_flight} "
+                             f"graphs, over the ring's "
+                             f"{entry['ring_slots']}")
+        if fails:
+            raise AssertionError(f"phase 9 {name}: " + "; ".join(fails))
+    return out
+
+
 _MAIN_PATH_CHILD = """
 import json, os, sys
 tree = os.path.abspath(sys.argv[1])
@@ -2512,6 +2952,13 @@ def main() -> int:
     context_parallel["model"] = cp_model_phase(card)
     log("phase 8b the model's cp path (fused engine, thread world): ok")
 
+    # phase 9: the pipeline's walks in a thread world
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    pipeline = pp_phase(card)
+    log(f"phase 9 the pipeline's walks (thread world of 2 stages): ok in "
+        f"{time.perf_counter() - t9:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -2541,6 +2988,7 @@ def main() -> int:
                 lay: res["launches"]["launches"][name]
                 for lay, res in context_parallel["model"]["layouts"].items()
                 if not lay.startswith("planted")},
+            "pp_launches": pp_launches(pipeline, name),
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
@@ -2552,6 +3000,7 @@ def main() -> int:
         "max_abs_err": adamw["max_abs_err"], "ms": adamw["ms"],
         "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
         "bound_by": "bytes", "library_ms": adamw["library_ms"],
+        "pp_launches": pp_launches(pipeline, "adamw"),
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
@@ -2564,6 +3013,7 @@ def main() -> int:
     print(json.dumps({"offload": offload}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"context_parallel": context_parallel}))
+    print(json.dumps({"pipeline": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

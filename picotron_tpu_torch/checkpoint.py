@@ -520,8 +520,9 @@ class CheckpointManager:
                 p.copy_(params[n])
                 for kind, tensors in live.items():
                     tensors[n].copy_(opt_state[kind][n])
-        if model.embedding.is_cuda:
-            torch.cuda.synchronize(model.embedding.device)
+        dev = next(model.parameters()).device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         opt.count = int(opt_state["count"])
         state.step = int(opt_state["step"])
         self.timings["load_s"] = time.perf_counter() - t0

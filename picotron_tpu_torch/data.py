@@ -14,8 +14,11 @@ context parallelism the ids and targets are permuted along the sequence
 after the shift (`cp_sequence_permutation`: the zigzag layout, or none
 for the contiguous one), and each rank keeps its cp index's contiguous
 slice [c * S/cp, (c + 1) * S/cp) of the permuted sequence (the JAX
-loader's P(None, 'dp', 'cp') sharding after its permutation).
-`build_eval_source` is the validation stream. HF datasets, the prefetch
+loader's P(None, 'dp', 'cp') sharding after its permutation). Under
+pipeline parallelism every stage reads its (dp, cp) rows, replicated
+over pp, with the same cursor on every stage (the JAX loader's batch
+sharding leaves pp out; the first stage reads the ids, the last the
+targets). `build_eval_source` is the validation stream. HF datasets, the prefetch
 thread, chaos and I/O retry come in a later slice.
 """
 
@@ -90,10 +93,10 @@ class MicroBatchDataLoader:
     def __init__(self, cfg: Config, device, source=None, dp_rank: int = 0,
                  cp_rank: int = 0):
         d = cfg.distributed
-        if d.ep_size * d.pp_size != 1:
+        if d.ep_size != 1:
             raise NotImplementedError(
-                "the port's loader shards over dp and cp only; ep and pp "
-                "layouts are ROADMAP Queue 1 items 9 and 10")
+                "the port's loader shards over dp and cp (and replicates "
+                "over pp) only; ep layouts are ROADMAP Queue 1 item 10")
         for name, r, n in (("dp_rank", dp_rank, d.dp_size),
                            ("cp_rank", cp_rank, d.cp_size)):
             if not 0 <= r < n:

@@ -18,6 +18,15 @@ collectives it needs:
   row-major, index i = x * cp_y + y, as the JAX package's
   `ops/mesh_attention.mesh_groups` (the column rings need no group of
   their own: their hops are point to point);
+- the pp group: the ranks that differ only in pp (the pipeline's
+  boundary exchanges, `parallel.comm.PPComm`, and the sums of the loss,
+  the token count and the grad norm over the stages), with `pp_ranks`,
+  its global ranks in stage order, from which the stage neighbours
+  (`pp_next`, `pp_prev`; None past either end) are named; for a model
+  with tied embeddings also the ends group, the first and the last
+  stage, which both hold the embedding and sum its grads. pp is not a
+  data axis: each stage's data group and tp group are its own, and ZeRO-1
+  shards a stage's state over its data group;
 - a gloo group over every rank for the checkpoint's host-side agreement
   (barriers and the step every rank restores), used by nothing else, so
   that a save's commit thread never interleaves with the step's
@@ -99,6 +108,12 @@ class ParallelEnv:
     # (None when cp_y is 1 or the whole cp group)
     cp_mesh: tuple = (1, 1)
     cp_row_group: object = field(default=None, repr=False)
+    pp_group: object = field(default=None, repr=False)
+    # the global ranks of this rank's pp group, in stage order
+    pp_ranks: tuple = ()
+    # the first and last stage of this rank's pp group (tied embeddings
+    # under pp > 1; None otherwise, and on the middle stages)
+    pp_ends_group: object = field(default=None, repr=False)
 
     @property
     def tp_size(self) -> int:
@@ -134,6 +149,26 @@ class ParallelEnv:
     def cp_prev(self) -> int:
         """The global rank of the previous cp index on the ring."""
         return self.cp_ranks[(self.cp_rank - 1) % self.cp_size]
+
+    @property
+    def pp_size(self) -> int:
+        return self.sizes["pp"]
+
+    @property
+    def pp_rank(self) -> int:
+        return self.coords["pp"]
+
+    @property
+    def pp_next(self) -> Optional[int]:
+        """The global rank of the next stage (None on the last)."""
+        s = self.pp_rank + 1
+        return self.pp_ranks[s] if s < self.pp_size else None
+
+    @property
+    def pp_prev(self) -> Optional[int]:
+        """The global rank of the previous stage (None on the first)."""
+        s = self.pp_rank - 1
+        return self.pp_ranks[s] if s >= 0 else None
 
     @property
     def is_main(self) -> bool:
@@ -229,7 +264,9 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
         torch.cuda.set_device(device)
     sizes = layout_sizes(cfg)
     cp_x, cp_y = _cp_mesh(cfg)
-    key = (tuple(sizes.values()), (cp_x, cp_y), world, backend, str(device))
+    tied = sizes["pp"] > 1 and cfg.model.tie_word_embeddings
+    key = (tuple(sizes.values()), (cp_x, cp_y), tied, world, backend,
+           str(device))
     if key not in _ENVS:
         tp_group, _ = dist.new_subgroups_by_enumeration(
             group_ranks(sizes, ("tp",)))
@@ -243,6 +280,20 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
         if 1 < cp_y < sizes["cp"]:
             rows = [r for g in cp_lists for r in cp_row_ranks(g, cp_x, cp_y)]
             row_group, _ = dist.new_subgroups_by_enumeration(rows)
+        pp_lists = group_ranks(sizes, ("pp",))
+        pp_ranks = next(tuple(g) for g in pp_lists if rank in g)
+        pp_group = ends_group = None
+        if sizes["pp"] > 1:
+            pp_group, _ = dist.new_subgroups_by_enumeration(pp_lists)
+            if tied:
+                ends_group = pp_group
+                if sizes["pp"] > 2:
+                    ends_group, _ = dist.new_subgroups_by_enumeration(
+                        [[g[0], g[-1]] for g in pp_lists])
+            # NCCL: a batched send/recv that is a group's first call must
+            # involve every rank of the group, which a pipeline tick does
+            # not; one all-reduce sets the communicator up first
+            dist.all_reduce(torch.zeros(1, device=device), group=pp_group)
         # the checkpoint's own group: its commit thread's agreement must
         # not interleave with the step's collectives on another group
         host_group = dist.new_group(backend="gloo")
@@ -251,7 +302,8 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
             backend=backend, tp_group=tp_group, data_group=data_group,
             host_group=host_group, coords=rank_coords(rank, sizes),
             cp_group=cp_group, cp_ranks=cp_ranks, cp_mesh=(cp_x, cp_y),
-            cp_row_group=row_group)
+            cp_row_group=row_group, pp_group=pp_group, pp_ranks=pp_ranks,
+            pp_ends_group=ends_group)
     return _ENVS[key]
 
 

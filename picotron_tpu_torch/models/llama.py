@@ -23,8 +23,8 @@ _gate_up (column-parallel), g at the exit of _o_proj and _act_down
 (row-parallel), the vocab-parallel lookup in `embed` and the
 vocab-parallel CE in `loss_sum_count`. Under sequence parallelism the
 residual stream between them is [B, S/tp, H]. Without a context (tp 1)
-the model is the single-device one, op for op. MoE and the pp hooks are
-rejected with an error naming the ROADMAP item.
+the model is the single-device one, op for op. MoE is rejected with an
+error naming the ROADMAP item.
 
 Context parallelism (port of `make_parallel_ctx`'s cp positions and
 attention dispatch, picotron_tpu/parallel/api.py:61-170): a model built
@@ -41,6 +41,24 @@ context (cp 1) the positions stay None: the static-causal path, op for
 op the model without context parallelism. Under sequence parallelism
 the residual stream is [B, S/(cp tp), H] and f gathers the cp-local
 sequence.
+
+Pipeline stages (port of `pp_layer_placement` and the stage slicing of
+the JAX package's `parallel/pp.py` and `parallel/mpmd.py`): a model built
+with a `Stage` holds one pipeline rank's share, as the original picotron
+does: its decoder layers, named by their global layer index (so that a
+stage's state dict says which layers it holds), the embedding on the
+first stage only, the final norm and the head on the last (a tied
+embedding on both ends, whose grads `parallel/pp.py` sums). Stage k of pp
+holds the contiguous L // pp layers, plus one on the first L % pp stages
+(`pp_layer_placement`'s rule); the JAX package pads its stacked layers
+with identity layers under an uneven split, the port holds no pad layers.
+Under the interleaved schedule a rank holds `interleave` chunks, virtual
+stage j on rank j % pp (`stage_layers`). The walk of `parallel/pp.py`
+runs a stage's pieces: `embed`, `run_layers` over a chunk, and
+`head_sum_count`, which scores only on the last stage: every tp rank of a
+stage takes the same branch, so tp/SP collectives inside it are safe
+(the JAX `lax.cond` constraint, `parallel/pp.py:104-137` there, does not
+arise).
 
 Remat (port of `remat_policy_for` / `run_layers` under `ctx.remat`): each
 policy cuts the layer into `torch.utils.checkpoint` segments (non-reentrant)
@@ -78,6 +96,7 @@ column-parallel products read (autograd saves a matmul's input).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -139,6 +158,84 @@ def _tp_size(tp: Optional[TPContext]) -> int:
     return 1 if tp is None else tp.size
 
 
+def pp_layer_placement(num_layers: int, pp: int):
+    """(padded size, slots): the JAX package's stacked layer axis, padded
+    to pp * ceil(L / pp), and each real layer's slot in it (stage k's
+    L // pp layers, plus one on the first L % pp stages, fill the leading
+    slots of its ceil(L / pp)); port of the JAX function of this name."""
+    per = -(-num_layers // pp)
+    counts = [num_layers // pp + (1 if k < num_layers % pp else 0)
+              for k in range(pp)]
+    slots = [s for k in range(pp) for s in range(k * per, k * per + counts[k])]
+    return per * pp, slots
+
+
+def stage_layers(num_layers: int, pp: int, interleave: int = 1) -> list:
+    """The global layer indices of each virtual stage j < pp * interleave
+    (run by pipeline rank j % pp): the real layers among the padded
+    slots [j * n, (j + 1) * n) with n = padded / (pp * interleave), as
+    the JAX package's `_stage_blocks` cuts its padded stack. At
+    interleave 1, stage k's contiguous layers."""
+    padded, slots = pp_layer_placement(num_layers, pp)
+    chunks = pp * interleave
+    if padded % chunks:
+        raise ValueError(f"interleave {interleave} does not divide the "
+                         f"per-stage slot count {padded // pp} (pp {pp})")
+    n = padded // chunks
+    return [[i for i, s in enumerate(slots) if j * n <= s < (j + 1) * n]
+            for j in range(chunks)]
+
+
+@dataclass(frozen=True)
+class Stage:
+    """Pipeline rank `index` of `size`: its virtual stages' layers
+    (`chunks`, one list of global layer indices per virtual stage j =
+    index + k * size), whether it holds the embedding (`first`) and the
+    final norm and head (`last`)."""
+
+    index: int
+    size: int
+    chunks: tuple
+
+    @property
+    def first(self) -> bool:
+        return self.index == 0
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.size - 1
+
+    @property
+    def layers(self) -> list:
+        return sorted(i for c in self.chunks for i in c)
+
+
+def pipeline_stage(num_layers: int, pp: int, index: int,
+                   interleave: int = 1) -> Stage:
+    """Rank `index`'s Stage of a pp-stage pipeline."""
+    blocks = stage_layers(num_layers, pp, interleave)
+    return Stage(index=index, size=pp,
+                 chunks=tuple(tuple(b) for b in blocks[index::pp]))
+
+
+class LayerStack(nn.ModuleList):
+    """The decoder layers a model holds, in order, each registered under
+    its global layer index (so "layers.5.q" is layer 5 on whichever stage
+    holds it); indexing and iteration are by position."""
+
+    def __init__(self, layers: dict):
+        super().__init__()
+        for i, lp in layers.items():
+            self.add_module(str(i), lp)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+    def at(self, layer: int) -> nn.Module:
+        """The layer of global index `layer`."""
+        return self._modules[str(layer)]
+
+
 class DecoderLayer(nn.Module):
     """One decoder layer's parameters ([out, in] matmul weights): this tp
     rank's shards under a tp context (`tp`, kept on the layer for the
@@ -174,24 +271,35 @@ class DecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """The model, whole, or this rank's tp shards of it under a tp context
     (`tp`; None: one device), reading its cp slice of the sequence under
-    a cp context (`cp`; None: cp 1)."""
+    a cp context (`cp`; None: cp 1), holding one pipeline rank's share
+    under a `stage` (None: every layer, the embedding and the head).
+    A part the stage does not hold is None."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  tp: Optional[TPContext] = None,
-                 cp: Optional[CPContext] = None):
+                 cp: Optional[CPContext] = None,
+                 stage: Optional[Stage] = None):
         super().__init__()
         check_supported(cfg, cp)
         self.cfg = cfg
         self.tp = tp
         self.cp = cp
+        self.stage = stage
+        first = stage is None or stage.first
+        last = stage is None or stage.last
+        layers = (range(cfg.num_hidden_layers) if stage is None
+                  else stage.layers)
         h, v = cfg.hidden_size, cfg.vocab_size // _tp_size(tp)
-        self.embedding = nn.Parameter(torch.empty(v, h, device=device))
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, tp, cp)
-            for _ in range(cfg.num_hidden_layers))
-        self.final_norm = nn.Parameter(torch.empty(h, device=device))
-        self.lm_head = (None if cfg.tie_word_embeddings
-                        else nn.Parameter(torch.empty(v, h, device=device)))
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(*shape, device=device))
+
+        tied = cfg.tie_word_embeddings
+        self.embedding = p(v, h) if first or (last and tied) else None
+        self.layers = LayerStack(
+            {i: DecoderLayer(cfg, device, tp, cp) for i in layers})
+        self.final_norm = p(h) if last else None
+        self.lm_head = p(v, h) if last and not tied else None
         cos, sin = model_rope_tables(cfg, device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -205,13 +313,18 @@ class LlamaModel(nn.Module):
 
 
 @torch.no_grad()
-def init_params(model: LlamaModel, generator: torch.Generator) -> LlamaModel:
+def init_params(model: LlamaModel, generator: torch.Generator,
+                embedding_generator: Optional[torch.Generator] = None
+                ) -> LlamaModel:
     """Initialise in place with the JAX package's distributions: linear
     weights ~ U(+-sqrt(1/fan_in)), embedding ~ N(0, 1), norms = 1, biases
     = 0. The numbers differ from jax.random's; tests transplant weights
     with `weights.params_from_jax` instead of re-initialising. Under tp
     each rank draws its own shards (the caller seeds `generator` per tp
-    rank, so that the shards differ)."""
+    rank, so that the shards differ); a pipeline stage draws only the
+    parts it holds (the caller seeds it per stage as well). The embedding
+    is drawn from `embedding_generator` when given: a tied embedding's
+    two copies, on the first and the last stage, must draw alike."""
 
     n = _tp_size(model.tp)
 
@@ -219,7 +332,9 @@ def init_params(model: LlamaModel, generator: torch.Generator) -> LlamaModel:
         bound = (1.0 / fan_in) ** 0.5
         w.uniform_(-bound, bound, generator=generator)
 
-    model.embedding.normal_(0.0, 1.0, generator=generator)
+    if model.embedding is not None:
+        model.embedding.normal_(0.0, 1.0,
+                                generator=embedding_generator or generator)
     for lp in model.layers:
         for name in ("q", "k", "v", "o", "gate", "up", "down"):
             w = getattr(lp, name)
@@ -230,7 +345,8 @@ def init_params(model: LlamaModel, generator: torch.Generator) -> LlamaModel:
         for b in (lp.b_q, lp.b_k, lp.b_v):
             if b is not None:
                 b.zero_()
-    model.final_norm.fill_(1.0)
+    if model.final_norm is not None:
+        model.final_norm.fill_(1.0)
     if model.lm_head is not None:
         uniform(model.lm_head, model.lm_head.shape[1])
     return model
@@ -399,11 +515,12 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
 
 
 def run_layers(model: LlamaModel, x: torch.Tensor,
-               remat: Optional[str] = None) -> torch.Tensor:
-    """The decoder layers over x; `remat` is a remat policy name, or None
-    for none."""
+               remat: Optional[str] = None, layers=None) -> torch.Tensor:
+    """The decoder layers over x (`layers`, the modules of one pipeline
+    chunk; default every layer the model holds); `remat` is a remat
+    policy name, or None for none."""
     rope = (model.rope_cos, model.rope_sin)
-    for lp in model.layers:
+    for lp in (model.layers if layers is None else layers):
         if remat is None:
             x = decoder_layer(x, lp, model.cfg, rope)
         else:
@@ -440,6 +557,14 @@ def loss_sum_count(model: LlamaModel, input_ids: torch.Tensor,
     Under tp both are the vocab-parallel CE's, the same on every tp
     rank."""
     x = run_layers(model, embed(model, input_ids), remat)
+    return (*head_sum_count(model, x, targets, ce_chunk_size), {})
+
+
+def head_sum_count(model: LlamaModel, x: torch.Tensor,
+                   targets: torch.Tensor, ce_chunk_size: int = 0):
+    """(sum of per-token NLL, valid-token count) of the last layer's
+    output x: the final norm, then the head's CE (vocab-parallel under
+    tp, in vocab chunks with `ce_chunk_size`)."""
     x = final_hidden(model, x)
     if model.tp is not None:
         total, count = model.tp.head_ce(x, model.head_weight(), targets,
@@ -450,7 +575,7 @@ def loss_sum_count(model: LlamaModel, input_ids: torch.Tensor,
     else:
         total, count = cross_entropy_sum_count(logits_from_hidden(model, x),
                                                targets)
-    return total, count, {}
+    return total, count
 
 
 def loss_fn(model: LlamaModel, input_ids: torch.Tensor,

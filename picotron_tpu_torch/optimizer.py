@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
@@ -79,16 +80,20 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def layout_grad_norm(names, grads, par=None) -> torch.Tensor:
+def layout_grad_norm(names, grads, par=None, pp=None) -> torch.Tensor:
     """The global norm of the whole model's grads under a layout (each
     rank holding whole, data-reduced grads): the squares of tp-sharded
-    grads summed over tp, the replicated ones counted once. Without tp
-    it is `global_norm`."""
-    if par is None or par.tp_size == 1:
+    grads summed over tp, the replicated ones counted once, and under
+    pipeline parallelism (`pp`, the stage's communicator) the squares
+    summed over the stages, whose grads are disjoint (the caller leaves
+    out a stage's copy of a tensor another stage holds). Without tp and
+    pp it is `global_norm`."""
+    tp = par is not None and par.tp_size > 1
+    if not tp and pp is None:
         return global_norm(grads)
     parts = {True: [], False: []}
     for n, g in zip(names, grads):
-        parts[tp_shard_dim(n) is not None].append(g)
+        parts[tp and tp_shard_dim(n) is not None].append(g)
 
     def sq(ts):
         if not ts:
@@ -96,8 +101,12 @@ def layout_grad_norm(names, grads, par=None) -> torch.Tensor:
         return torch.stack(torch._foreach_norm([t.float() for t in ts])
                            ).square().sum()
 
-    total = comm.all_reduce(sq(parts[True]), par.tp_group)
-    return torch.sqrt(total + sq(parts[False]))
+    total = sq(parts[False])
+    if tp:
+        total = total + comm.all_reduce(sq(parts[True]), par.tp_group)
+    if pp is not None:
+        total = pp.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def zero1_rows(shape, par=None) -> Optional[tuple]:
@@ -177,12 +186,15 @@ def step_hyper(t: TrainingConfig, lr, count: int) -> Hyper:
 # The update of one tensor: the kernel, and its plain version
 # ---------------------------------------------------------------------------
 
-# launches of the kernel since the last reset (plain runs never count)
+# launches of the kernel since the last reset (plain runs never count),
+# under a lock: the stages of a thread world update from several threads
 launches = {"adamw": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    launches["adamw"] = 0
+    with _COUNT_LOCK:
+        launches["adamw"] = 0
 
 
 _P = ctypes.c_void_p
@@ -314,7 +326,8 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         torch.cuda.current_stream(p.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"adamw: CUDA launch failed with cudaError {rc}")
-    launches["adamw"] += 1
+    with _COUNT_LOCK:
+        launches["adamw"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -349,15 +362,25 @@ class _AdamWState:
     over the whole model (`layout_grad_norm`). `par` is the rank's
     `mesh.ParallelEnv` (None: one device); with `zero1`, `own[i]` is
     the (first, end) rows of tensor i that this rank updates (None:
-    all of it), and its state tensors hold those rows only."""
+    all of it), and its state tensors hold those rows only. `pp`: a
+    pipeline stage's communicator (`comm.PPComm`, or a thread world's),
+    over which the grad norm sums; a stage's copy of a tensor that an
+    earlier stage holds (the last stage's tied embedding) is left out
+    of the norm."""
 
     def __init__(self, model: torch.nn.Module, t: TrainingConfig,
-                 par=None, zero1: bool = False):
+                 par=None, zero1: bool = False, pp=None):
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.t = t
         self.par = par
+        self.pp = pp
+        stage = getattr(model, "stage", None)
+        copy = (stage is not None and stage.last and not stage.first
+                and model.cfg.tie_word_embeddings)
+        self._in_norm = [i for i, n in enumerate(self.names)
+                         if not (copy and n == "embedding")]
         self.own = [zero1_rows(tuple(p.shape), par if zero1 else None)
                     for p in self.params]
         self.lr = make_lr(t)
@@ -370,7 +393,9 @@ class _AdamWState:
         pass
 
     def grad_norm(self) -> torch.Tensor:
-        return layout_grad_norm(self.names, self.grads, self.par)
+        return layout_grad_norm([self.names[i] for i in self._in_norm],
+                                [self.grads[i] for i in self._in_norm],
+                                self.par, self.pp)
 
     def owned_shape(self, i: int) -> tuple:
         shape = tuple(self.params[i].shape)
@@ -420,8 +445,8 @@ class AdamW(_AdamWState):
     The grad buffers are the params' .grad, made here."""
 
     def __init__(self, model: torch.nn.Module, t: TrainingConfig,
-                 par=None, zero1: bool = False):
-        super().__init__(model, t, par, zero1)
+                 par=None, zero1: bool = False, pp=None):
+        super().__init__(model, t, par, zero1, pp)
         dev = self.params[0].device
         self.mu = [torch.zeros(self.owned_shape(i), dtype=self.moments_dtype,
                                device=dev) for i in range(len(self.params))]
@@ -570,8 +595,9 @@ class OffloadAdamW(_AdamWState):
 
     def __init__(self, model: torch.nn.Module, t: TrainingConfig,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 pin: Optional[bool] = None, par=None, zero1: bool = False):
-        super().__init__(model, t, par, zero1)
+                 pin: Optional[bool] = None, par=None, zero1: bool = False,
+                 pp=None):
+        super().__init__(model, t, par, zero1, pp)
         dev = self.params[0].device
         pin = dev.type == "cuda" if pin is None else pin
         if pin and not torch.cuda.is_available():

@@ -53,3 +53,19 @@ class GradSync:
         for buf in grads.values():
             comm.all_reduce(buf, self.par.data_group)
         return reduce_sum_count(nll_total, count, self.par.data_group)
+
+
+def grad_seam(par, sequence_parallel: bool):
+    """model -> its `GradSync` over `par`, made once per model (again for
+    another model); None without a layout."""
+    made: dict = {}
+
+    def seam(model):
+        if par is None:
+            return None
+        if made.get("model") is not model:
+            made.update(model=model,
+                        sync=GradSync(par, model, sequence_parallel))
+        return made["sync"]
+
+    return seam

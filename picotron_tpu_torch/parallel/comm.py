@@ -24,6 +24,18 @@ indices (0..cp-1); `CPComm` maps them to global ranks:
   split axis moved to dim 0, counted as "all_to_all";
 - `all_gather` (dim 0, the positions' gather where a layout is not
   static): counted as "all_gather".
+
+The pipeline's walk (`parallel/pp.py`) reaches its exchanges the same
+way: `PPComm` on the rank's pp group, or the thread world's
+communicator, with the same `exchange` and `all_reduce`. A pipeline
+communicator speaks in stage indices (0..pp-1). `exchange(sends, recvs)`
+is `hop` for the two directions of a tick: every send and receive that
+the schedule table places at one tick boundary (activations to later
+stages, cotangents to earlier ones) goes in one
+`dist.batch_isend_irecv`, counted once as "send_recv", which is the JAX
+package's pair of `ppermute`s per tick. Both sides of every exchange are
+derived from the same table, so each send meets its receive in the same
+batch and no rank blocks on a peer that is itself blocked sending.
 """
 
 from __future__ import annotations
@@ -144,3 +156,46 @@ class CPComm:
         out = x.new_empty((len(members) * x.shape[0],) + x.shape[1:])
         all_gather_into(out, x, self._group(members))
         return out
+
+
+class PPComm:
+    """The pipeline exchanges of one rank over its process groups (`par`,
+    a `mesh.ParallelEnv` with pp > 1): the boundary tensors of a tick with
+    the same (dp, ep, cp, tp) coordinates on the other stages, the sums
+    over the stages, and under tied embeddings the sum of the embedding's
+    grads over the first and the last stage."""
+
+    def __init__(self, par):
+        self.size = par.pp_size
+        self.index = par.pp_rank
+        self.ranks = par.pp_ranks
+        self.group = par.pp_group
+        self.ends_group = par.pp_ends_group
+        self.device = par.device
+
+    def exchange(self, sends, recvs) -> list:
+        """Send each (stage, tensor) of `sends` and receive one tensor per
+        (stage, shape, dtype) of `recvs`, all in one batch; the received
+        tensors in `recvs` order. Between two stages the sends and the
+        receives pair up in list order, so both sides must list them in
+        the same order. Nothing to move: no call."""
+        if not sends and not recvs:
+            return []
+        collectives["send_recv"] += 1
+        ops, out = [], []
+        for stage, t in sends:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  self.ranks[stage], self.group))
+        for stage, shape, dtype in recvs:
+            r = torch.empty(shape, dtype=dtype, device=self.device)
+            ops.append(dist.P2POp(dist.irecv, r, self.ranks[stage],
+                                  self.group))
+            out.append(r)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    def all_reduce(self, t: torch.Tensor, ends: bool = False) -> torch.Tensor:
+        """`t` summed in place over the stages (`ends`: over the first
+        and the last stage only); returns `t`."""
+        return all_reduce(t, self.ends_group if ends else self.group)

@@ -18,15 +18,24 @@ device metric and is not measured there.
 Under torchrun (any process group, world 1 included) the run takes the
 layout's path (`mesh.init_parallel`: NCCL on cuda:LOCAL_RANK, gloo with
 --device cpu; the world must be dp*pp*ep*cp*tp): each rank builds its tp
-shards, reads its dp rows and its cp slice of their sequence (the cp
-schedules exchange K/V or heads over the cp group), reduces the grads
-over the data group and, with distributed.zero1, updates its slice of
-the optimizer state. Only rank 0
+shards of its pipeline stage's layers (pp > 1: `parallel/pp.py` walks
+the pp_engine's or the mpmd schedule's table, exchanging boundary
+tensors with the neighbouring stages), reads its dp rows and its cp
+slice of their sequence (the cp schedules exchange K/V or heads over the
+cp group), reduces the grads over the data group and, with
+distributed.zero1, updates its slice of the optimizer state. Only rank 0
 prints and writes the report; tokens/s is the global rate and MFU is over
 the world's devices (picotron_tpu/train.py's `utils.mfu(..., num_chips)`).
 After the first step rank 0 prints the collectives launched per step, by
-kind (the cp exchanges as "send_recv" and "all_to_all"). `--report PATH` writes (rank 0) a JSON of the run's losses, step
-seconds, peak memory, collectives per step and the kernels' launches.
+kind (the cp exchanges and the pp ticks' exchanges as "send_recv", the
+cp all-to-alls as "all_to_all"), and under pp its walk: the exchanges,
+the most graphs in flight and the table's bubble. `--report PATH`
+writes (rank 0) a JSON of the run's losses, step seconds, peak memory,
+collectives per step, the pipeline's walk and the kernels' launches.
+
+The JAX trainer writes a `telemetry.jsonl` event stream by default; the
+port writes none yet (ROADMAP Queue 1 item 12) and says so once at the
+start. The telemetry fields it cannot honour are refused.
 
 Exit codes (the contract with a supervisor): 75 preempted with a durable
 emergency checkpoint (resubmit with auto_resume), 76 diverged, 77 the
@@ -50,13 +59,18 @@ from picotron_tpu_torch.checkpoint import (
     CheckpointManager, load_hf_safetensors,
 )
 from picotron_tpu_torch.ckpt_integrity import preflight_save_dir
-from picotron_tpu_torch.config import Config, load_config, resolved_cp_flavor
+from picotron_tpu_torch.config import (
+    Config, LoggingConfig, load_config, resolved_cp_flavor,
+)
 from picotron_tpu_torch.data import MicroBatchDataLoader, build_eval_source
 from picotron_tpu_torch.mesh import init_parallel, launcher_contract, shutdown
-from picotron_tpu_torch.models.llama import LlamaModel, init_params
+from picotron_tpu_torch.models.llama import (
+    LlamaModel, init_params, pipeline_stage,
+)
 from picotron_tpu_torch.ops import flash_attention as fa
 from picotron_tpu_torch.parallel import comm
 from picotron_tpu_torch.parallel.cp import cp_context
+from picotron_tpu_torch.parallel.mpmd import pipeline_bubble_fraction
 from picotron_tpu_torch.parallel.sharding import shard_state_dict
 from picotron_tpu_torch.parallel.tp import tp_context
 from picotron_tpu_torch.resilience import (
@@ -78,12 +92,9 @@ def unsupported(cfg: Config) -> list[str]:
     ROADMAP item (an empty list means the run is supported)."""
     d, m, t = cfg.distributed, cfg.model, cfg.training
     out = []
-    for name, what, item in (
-            ("pp_size", "pipeline parallelism", 9),
-            ("ep_size", "expert parallelism", 10)):
-        if getattr(d, name) > 1:
-            out.append(f"distributed.{name} > 1 ({what}: ROADMAP Queue 1 "
-                       f"item {item})")
+    if d.ep_size > 1:
+        out.append("distributed.ep_size > 1 (expert parallelism: ROADMAP "
+                   "Queue 1 item 10)")
     if d.tp_strategy != "megatron":
         out.append(f"distributed.tp_strategy={d.tp_strategy!r} (tp "
                    "strategies: ROADMAP Queue 1 item 9)")
@@ -108,7 +119,18 @@ def unsupported(cfg: Config) -> list[str]:
     if cfg.logging.use_wandb or cfg.logging.profile_dir:
         out.append("logging.use_wandb / profile_dir (telemetry: ROADMAP "
                    "Queue 1 item 12)")
+    lg, default = cfg.logging, LoggingConfig()
+    for name in TELEMETRY_FIELDS:
+        if getattr(lg, name) != getattr(default, name):
+            out.append(f"logging.{name}={getattr(lg, name)!r} (telemetry: "
+                       f"ROADMAP Queue 1 item 12)")
     return out
+
+
+# the logging fields that only the JAX package's telemetry reads: a run
+# that sets one away from its default is refused, not run without it
+TELEMETRY_FIELDS = ("trace_dir", "sentinel", "telemetry_dir",
+                    "telemetry_max_mb", "flight_steps")
 
 
 def resolve_device(cfg: Config, device: Optional[str] = None) -> torch.device:
@@ -129,15 +151,27 @@ def build_state(cfg: Config, dev: torch.device, par=None):
     precedence. `resumed_from` is the checkpoint directory the state came
     from ("" when fresh): with auto_resume and no explicit load_path, the
     newest durable AND verified checkpoint in save_dir wins. Under a
-    layout (`par`) the model is this rank's tp shards, each tp rank
-    drawing its own (dp and cp ranks draw the same), and reads its cp
-    slice of the sequence under context parallelism."""
+    layout (`par`) the model is this rank's tp shards of its pipeline
+    stage, each (tp, pp) rank drawing its own (dp and cp ranks draw the
+    same), and reads its cp slice of the sequence under context
+    parallelism."""
     ck = cfg.checkpoint
     tp = tp_context(par, cfg.distributed.sequence_parallel)
+    stage = stage_of(cfg, par)
     seed = cfg.training.seed + (0 if tp is None else 1_000_003 * tp.rank)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    embed_gen = None
+    if stage is not None:
+        # each stage draws its layers from its own seed, and the embedding
+        # from the stage-free one: a tied embedding's copies on the first
+        # and the last stage start equal, and stay so (PipelineGrads sums
+        # their grads)
+        embed_gen = gen
+        gen = torch.Generator(device=dev).manual_seed(
+            seed + 2_000_003 * (stage.index + 1))
     model = init_params(LlamaModel(cfg.model, device=dev, tp=tp,
-                                   cp=cp_context(par, cfg)), gen)
+                                   cp=cp_context(par, cfg), stage=stage),
+                        gen, embed_gen)
     state = init_train_state(cfg, model, par)
     if cfg.training.optimizer_offload:
         pinned = "pinned " if dev.type == "cuda" else ""
@@ -173,6 +207,25 @@ def build_state(cfg: Config, dev: torch.device, par=None):
               f"{mgr.timings['verify_s']:.2f}s, load "
               f"{mgr.timings['load_s']:.2f}s)")
     return state, tokens, meta, load_dir, dict(mgr.timings)
+
+
+def stage_of(cfg: Config, par=None):
+    """This rank's pipeline `Stage` (None without pp): its layers, and
+    under the mpmd executor's interleaved schedule its `interleave`
+    chunks."""
+    d = cfg.distributed
+    if par is None or d.pp_size == 1:
+        return None
+    return pipeline_stage(cfg.model.num_hidden_layers, d.pp_size,
+                          par.pp_rank, cfg.pipeline.interleave)
+
+
+def pipeline_line(cfg: Config) -> str:
+    """The layout log's pipeline part: the executor and its table."""
+    pl = cfg.pipeline
+    if pl.executor == "spmd":
+        return f", pp spmd {cfg.distributed.pp_engine}"
+    return f", pp mpmd {pl.schedule} interleave {pl.interleave}"
 
 
 def _save_line(what: str, path: str, timings: dict) -> str:
@@ -234,8 +287,11 @@ def run(cfg: Config, device: Optional[str] = None,
     """Train per the config; returns {"losses", "step_seconds",
     "tokens_per_step", "peak_memory_gb", "device", "state", "val_losses",
     "start_step", "restore_timings", "save_timings", "world_size",
-    "collectives_per_step"} (state: the trained TrainState; val_losses:
-    {step: val_loss}; collectives_per_step: the first step's, by kind).
+    "collectives_per_step", "pipeline", "dataloader_state"} (state: the
+    trained TrainState; val_losses: {step: val_loss};
+    collectives_per_step: the first step's, by kind; pipeline: the first
+    step's walk on this rank under pp, else None; dataloader_state: the
+    loader's cursor at the end).
     `on_step(step, metrics)` runs after each completed step with its
     metrics as floats, before the preemption check. Raises
     SystemExit(75/76) on preemption/divergence."""
@@ -257,7 +313,15 @@ def run(cfg: Config, device: Optional[str] = None,
                   + (f", cp {resolved_cp_flavor(cfg)} "
                      f"{'x'.join(map(str, par.cp_mesh))} "
                      f"{cfg.distributed.cp_layout}"
-                     if par.cp_size > 1 else ""))
+                     if par.cp_size > 1 else "")
+                  + (pipeline_line(cfg) if par.pp_size > 1 else ""))
+    if cfg.logging.telemetry_jsonl:
+        log_print("telemetry: no telemetry.jsonl is written (the port has "
+                  "no event stream yet: ROADMAP Queue 1 item 12)")
+    if cfg.dataset.num_workers > 0:
+        log_print(f"dataset.num_workers={cfg.dataset.num_workers} ignored: "
+                  "the port's loader has no prefetch workers yet (ROADMAP "
+                  "Queue 1 item 5); batches are made on the step's thread")
     t, ck = cfg.training, cfg.checkpoint
     if ck.save_frequency > 0:
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story
@@ -321,6 +385,7 @@ def run(cfg: Config, device: Optional[str] = None,
     saved_steps = {start_step} if resumed_in_place else set()
     losses, step_seconds, val_losses = [], [], {}
     per_step = None  # the collectives of the first step, by kind
+    pipeline = None  # the pipeline's walk of the first step
     window = StepTimer()
     last_logged_step = start_step
     exit_code = None
@@ -348,6 +413,14 @@ def run(cfg: Config, device: Optional[str] = None,
                 log_print("collectives per step (rank 0): "
                           + ", ".join(f"{k} {v}" for k, v in
                                       per_step.items()))
+                walked = getattr(step_fn, "pipeline", None)
+                if walked is not None:
+                    pipeline = {"exchanges_per_step": walked.stats.exchanges,
+                                "max_in_flight": walked.stats.max_in_flight,
+                                "bubble_fraction":
+                                    pipeline_bubble_fraction(cfg)}
+                    log_print(f"pipeline (rank 0, stage "
+                              f"{par.pp_rank}): {pipeline}")
             losses.append(fmetrics["loss"])
             trained_tokens += cfg.tokens_per_step
             if not watchdog.started:
@@ -454,14 +527,16 @@ def run(cfg: Config, device: Optional[str] = None,
             "state": state, "val_losses": val_losses,
             "start_step": start_step, "restore_timings": restore_timings,
             "save_timings": dict(ckpt_mgr.timings) if ckpt_mgr else {},
-            "world_size": world, "collectives_per_step": per_step}
+            "world_size": world, "collectives_per_step": per_step,
+            "pipeline": pipeline, "dataloader_state": dl.state}
 
 
 def write_report(result: dict, path: str) -> None:
     """The run's numbers as one JSON object (rank 0 of a layout)."""
     report = {k: result[k] for k in (
         "losses", "step_seconds", "tokens_per_step", "peak_memory_gb",
-        "device", "world_size", "collectives_per_step", "start_step")}
+        "device", "world_size", "collectives_per_step", "pipeline",
+        "start_step")}
     report["launches"] = {**fa.launches, **topt.launches}
     report["flash_variants"] = {"fwd": dict(fa.fwd_launches),
                                 "dq": dict(fa.dq_launches),

@@ -34,6 +34,15 @@ under sequence parallelism) before the token count divides, the grad
 norm is the whole model's (`optimizer.layout_grad_norm`), and ZeRO-1
 shards the optimizer state (`optimizer.py`). The eval loss is summed
 over the data group the same way.
+
+Under pipeline parallelism (pp > 1) the model is the rank's stage and
+the step's grads come from the pipeline's walk of its schedule table
+(`parallel/pp.PipelineGrads`: the spmd engines "1f1b"/"afab", or the mpmd
+schedules), an AD engine: `resolved_grad_engine` names the pp_engine, as
+the JAX package's. The loss and the token count reach every stage, and
+the grad norm sums over the stages, so every stage takes the same
+update decision. The eval step walks the forwards alone
+(`parallel/pp.PipelineEval`).
 """
 
 from __future__ import annotations
@@ -51,10 +60,12 @@ from picotron_tpu_torch.models.llama import (
 from picotron_tpu_torch.optimizer import (
     AdamW, OffloadAdamW, guard_nonfinite, param_grads,
 )
-from picotron_tpu_torch.parallel.api import GradSync, reduce_sum_count
+from picotron_tpu_torch.parallel.api import grad_seam, reduce_sum_count
+from picotron_tpu_torch.parallel.comm import PPComm
 from picotron_tpu_torch.parallel.fused_bwd import (
     ComputeWeights, check_ported, fused_accumulate_grads, fused_bwd_supported,
 )
+from picotron_tpu_torch.parallel.pp import PipelineEval, PipelineGrads
 
 __all__ = ["TrainState", "accumulate_grads", "guard_nonfinite",
            "init_train_state", "make_eval_step", "make_grads_fn",
@@ -74,13 +85,15 @@ def init_train_state(cfg: Config, model: LlamaModel,
     the params become the master of `OffloadAdamW` (host memory, pinned
     on CUDA) and the model keeps their bf16 compute copy, as the JAX
     package's `_init_offload_state`. `par`: the rank's ParallelEnv, for
-    the grad norm and ZeRO-1 (distributed.zero1)."""
+    the grad norm (summed over the stages under pp) and ZeRO-1
+    (distributed.zero1)."""
     zero1 = cfg.distributed.zero1
+    pp = PPComm(par) if par is not None and par.pp_size > 1 else None
     if cfg.training.optimizer_offload:
         opt = OffloadAdamW(model, cfg.training, compute_dtype(model.cfg),
-                           par=par, zero1=zero1)
+                           par=par, zero1=zero1, pp=pp)
     else:
-        opt = AdamW(model, cfg.training, par=par, zero1=zero1)
+        opt = AdamW(model, cfg.training, par=par, zero1=zero1, pp=pp)
     return TrainState(model=model, optimizer=opt)
 
 
@@ -134,18 +147,11 @@ def make_grads_fn(cfg: Config, par=None):
     the model it first sees (again for another model) and refreshed from
     the masters on every call; over bf16 params they are the params.
     Under a layout (`par`) the sums pass the seam (`GradSync`) before the
-    division."""
+    division; under pp > 1 it is the pipeline's `PipelineGrads`."""
     t = cfg.training
-    syncs = {}
-
-    def seam(model):
-        if par is None:
-            return None
-        if syncs.get("model") is not model:
-            syncs.update(model=model, sync=GradSync(
-                par, model, cfg.distributed.sequence_parallel))
-        return syncs["sync"]
-
+    if cfg.distributed.pp_size > 1:
+        return PipelineGrads(cfg, par)
+    seam = grad_seam(par, cfg.distributed.sequence_parallel)
     if resolved_grad_engine(cfg) != "fused":
         remat = t.remat_policy if t.remat else None
         return lambda model, batch, grads=None: accumulate_grads(
@@ -173,10 +179,13 @@ def make_train_step(cfg: Config, par=None):
     grads_fn = make_grads_fn(cfg, par)
     guards_on = cfg.resilience.guard_policy != "off"
     guard_skip = cfg.resilience.guard_policy == "skip"
+    # the pipeline's walk names the step in its watchdog beats
+    piped = isinstance(grads_fn, PipelineGrads)
 
     def train_step(state: TrainState, batch) -> dict:
         opt = state.optimizer
-        loss, scale = grads_fn(state.model, batch, opt.grad_of)
+        kw = {"step": state.step + 1} if piped else {}
+        loss, scale = grads_fn(state.model, batch, opt.grad_of, **kw)
         metrics = {"loss": loss}
         gnorm = ok = None
         if guards_on:
@@ -194,6 +203,8 @@ def make_train_step(cfg: Config, par=None):
         state.step += 1
         return metrics
 
+    if piped:
+        train_step.pipeline = grads_fn  # its last walk's stats
     return train_step
 
 
@@ -201,7 +212,10 @@ def make_eval_step(cfg: Config, par=None):
     """(model, batch) -> token-mean loss over the batch's microbatches, a
     0-dim fp32 tensor: forward only under no_grad (no graph, no grads), the
     validation half of the train step (under a layout, summed over the
-    data group before the division)."""
+    data group before the division; under pp > 1 the pipeline's forward
+    walk, `PipelineEval`)."""
+    if cfg.distributed.pp_size > 1:
+        return PipelineEval(cfg, par)
     chunk = cfg.training.ce_chunk_size
 
     @torch.no_grad()

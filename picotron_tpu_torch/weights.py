@@ -4,7 +4,9 @@ The JAX pytree (picotron_tpu/models/llama.py init_params) stacks layer
 params on a leading [L, ...] axis and stores matmul weights [in, out]
 (x @ w); the port keeps one `DecoderLayer` per layer with [out, in]
 weights (F.linear). Both take numpy arrays, so tests feed the same numbers
-to both frameworks.
+to both frameworks. Under an uneven pipeline split the JAX stack is padded
+with identity layers (`pp_layer_placement`); the port holds no pad
+layers, so the transplant reads each real layer from its slot.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from picotron_tpu_torch.config import ModelConfig
+from picotron_tpu_torch.models.llama import pp_layer_placement
 from picotron_tpu_torch.parallel.sharding import shard_state_dict
 
 # layer leaves that are matmul weights (transposed between the layouts)
@@ -21,11 +24,14 @@ _VECTORS = ("input_norm", "post_norm", "b_q", "b_k", "b_v")
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, tp_rank: int = 0,
-                    tp_size: int = 1) -> dict:
+                    tp_size: int = 1, pp_size: int = 1) -> dict:
     """JAX param pytree (numpy leaves) -> the port's state_dict (fp32
-    tensors on the CPU; load with `model.load_state_dict`): the whole
-    model, or with `tp_size` > 1 tp rank `tp_rank`'s shards of it
-    (`parallel/sharding.py`)."""
+    tensors on the CPU; load with `model.load_state_dict`, or
+    `stage_params` for a pipeline stage): the whole model, or with
+    `tp_size` > 1 tp rank `tp_rank`'s shards of it
+    (`parallel/sharding.py`). A layer stack padded for `pp_size` stages
+    (the JAX state under an uneven split) is read through the real
+    layers' slots."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE weights are not ported yet (ROADMAP Queue 1 item 10)")
@@ -38,15 +44,23 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, tp_rank: int = 0,
     else:
         sd["lm_head"] = t(np.asarray(np_tree["lm_head"]).T)
     layers = np_tree["layers"]
+    padded, slots = pp_layer_placement(cfg.num_hidden_layers, pp_size)
     for i in range(cfg.num_hidden_layers):
         for name, stacked in layers.items():
-            a = np.asarray(stacked)[i]
+            stacked = np.asarray(stacked)
+            a = stacked[slots[i] if stacked.shape[0] == padded else i]
             if name in _MATMUL:
                 a = a.T
             elif name not in _VECTORS:
                 raise KeyError(f"unknown layer leaf {name!r}")
             sd[f"layers.{i}.{name}"] = t(a)
     return shard_state_dict(sd, tp_rank, tp_size)
+
+
+def stage_params(sd: dict, model: torch.nn.Module) -> dict:
+    """The entries of a whole model's state dict `sd` that `model` (a
+    pipeline stage) holds."""
+    return {n: sd[n] for n, _ in model.named_parameters()}
 
 
 def params_to_numpy(model: torch.nn.Module, grads: bool = False) -> dict:

@@ -507,24 +507,18 @@ def test_profile_step_puts_the_cp_exchanges_in_nccl(name):
     assert kernel_class(name) == "nccl"
 
 
-def test_flash_launch_counts_lose_nothing_under_threads():
-    """The thread world launches from several threads at once: the flash
-    wrappers' counts (read-modify-write under a lock) must lose no
-    update, with more threads than cores and a short switch interval."""
-    import os
+def _hammer(count, n_threads: int, per: int) -> None:
+    """`count()` from n_threads threads, per times each, with more threads
+    than cores and a short switch interval (restored after)."""
     import sys
     import threading
 
-    from picotron_tpu_torch.ops import flash_attention as fa
-
-    n_threads, per = 2 * (os.cpu_count() or 4) + 1, 2000
     old = sys.getswitchinterval()
-    fa.reset_launch_counts()
     try:
         sys.setswitchinterval(1e-6)
-        threads = [threading.Thread(target=lambda: [
-            fa._count("flash_fwd", fa.fwd_launches, torch.bfloat16)
-            for _ in range(per)]) for _ in range(n_threads)]
+        threads = [threading.Thread(target=lambda: [count()
+                                                    for _ in range(per)])
+                   for _ in range(n_threads)]
         for t in threads:
             t.start()
         for t in threads:
@@ -532,6 +526,40 @@ def test_flash_launch_counts_lose_nothing_under_threads():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
+
+
+def test_flash_launch_counts_lose_nothing_under_threads():
+    """The thread worlds launch from several threads at once: the flash
+    wrappers' counts (read-modify-write under a lock) must lose no
+    update, with more threads than cores and a short switch interval.
+
+    The gate can fail: the same harness runs a planted lock-free counter
+    that yields the interpreter lock between its read and its write (any
+    call there can, on CPython 3.12), and must catch it losing updates.
+    `_count`'s own `+=` on a dict entry makes no call between its read
+    and its write, so on CPython 3.12 it would lose nothing even without
+    its lock; the lock, and this gate, guard a body that can switch
+    threads inside the update, which the planted counter stands for."""
+    import os
+    import time
+
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    n_threads, per = 2 * (os.cpu_count() or 4) + 1, 2000
+    planted = {"flash_fwd": 0}
+
+    def lock_free():
+        n = planted["flash_fwd"]
+        time.sleep(0)  # yields the interpreter lock mid-update
+        planted["flash_fwd"] = n + 1
+
+    _hammer(lock_free, n_threads, 200)
+    assert planted["flash_fwd"] < n_threads * 200, \
+        "the harness missed the planted lock-free counter's lost updates"
+
+    fa.reset_launch_counts()
+    _hammer(lambda: fa._count("flash_fwd", fa.fwd_launches, torch.bfloat16),
+            n_threads, per)
     assert fa.launches["flash_fwd"] == n_threads * per
     assert fa.fwd_launches == {"tensor_core": n_threads * per, "cuda_core": 0}
     fa.reset_launch_counts()

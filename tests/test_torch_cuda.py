@@ -641,3 +641,29 @@ def test_cp_schedules_at_s2048_and_their_planted_fault(dev):
             chip_smoke.CP_LAUNCHES[name](r) for r in range(chip_smoke.CP)]
         assert not chip_smoke.over_limits(entry["worst_row_vs_plain_blocks"])
     assert chip_smoke.over_limits(res["planted_fault"])
+
+
+@cuda
+def test_pipeline_walks_at_a_small_size_and_their_planted_fault(dev):
+    """chip_smoke phase 9 at a small width (hidden 512, 8 heads of D 64,
+    4 layers, seq 512, ga 4, bf16): the five walks of a 2-stage thread
+    world against pp 1 on the card; the phase raises if a walk leaves
+    the limits or a stage's launch counts, or if the planted fault
+    passes."""
+    raw = {"model": {"name": "Llama-2-7B", "hidden_size": 512,
+                     "intermediate_size": 1376, "num_hidden_layers": 4,
+                     "num_attention_heads": 8, "num_key_value_heads": 8,
+                     "vocab_size": 1024, "max_position_embeddings": 512,
+                     "dtype": "bfloat16"},
+           "training": {"seq_length": 512, "micro_batch_size": 1,
+                        "gradient_accumulation_steps": 4, "remat": True,
+                        "adam_moments_dtype": "bfloat16"},
+           "distributed": {"pp_size": 2}}
+    res = chip_smoke.pp_phase("test", raw)
+    assert set(res["walks"]) == set(chip_smoke.PP_WALKS) | {
+        chip_smoke.PP_FAULT}
+    for name in chip_smoke.PP_WALKS:
+        entry = res["walks"][name]
+        assert entry["loss_rel_err_max"] <= chip_smoke.PP_LOSS_RTOL
+        assert [s["flash"]["flash_bwd_dq"] for s in entry["stages"]] == [
+            len(s["layers"]) * 4 for s in entry["stages"]]

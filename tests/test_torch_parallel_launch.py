@@ -202,13 +202,16 @@ def test_layout_errors_are_typed(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-# the two context-parallel cases were refusals until cp was ported; they
-# keep their ids and now check that nothing refuses them (match None)
+# the two context-parallel cases and the pipeline case were refusals
+# until cp and pp were ported; they keep their ids and now check that
+# nothing refuses them (match None)
 _CP_PORTED = "context parallelism: ROADMAP Queue 1 item 9"
+_PP_PORTED = "pipeline parallelism: ROADMAP Queue 1 item 9"
 
 
 @pytest.mark.parametrize("dist_kw,model_kw,match", [
-    ({"pp_size": 2}, {}, "pipeline parallelism: ROADMAP Queue 1 item 9"),
+    pytest.param({"pp_size": 2}, {}, None,
+                 id=f"dist_kw0-model_kw0-{_PP_PORTED}"),
     pytest.param({"cp_size": 2}, {}, None,
                  id=f"dist_kw1-model_kw1-{_CP_PORTED}"),
     ({"ep_size": 2}, {"name": "debug-tiny-moe"},
@@ -227,10 +230,8 @@ def test_still_refused_options_name_their_item(dist_kw, model_kw, match):
     raw["model"].update(model_kw)
     cfg = tcfg.config_from_dict(raw)
     if match is None:
-        # ported: no refusal names cp; without torchrun the run stops at
-        # the world check
-        assert not any("context parallelism" in why
-                       for why in ttrain.unsupported(cfg))
+        # ported: no refusal names cp or pp; without torchrun the run
+        # stops at the world check
         assert ttrain.unsupported(cfg) == []
         with pytest.raises(ValueError, match="world size 1"):
             ttrain.run(cfg, "cpu")

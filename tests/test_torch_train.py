@@ -151,21 +151,64 @@ def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"distributed": {"pp_size": 2}}, "pp_size"),
+    # pp is ported: not refused, the run stops at the world-size check
+    pytest.param({"distributed": {"pp_size": 2}}, None,
+                 id="override0-pp_size"),
     ({"training": {"remat": True, "remat_policy": "dots_offload"}},
      "dots_offload"),
     ({"logging": {"use_wandb": True}}, "use_wandb"),
     ({"resilience": {"chaos": "sigterm@2"}}, "chaos"),
     ({"dataset": {"name": "HuggingFaceTB/smollm-corpus"}}, "HF datasets"),
     ({"model": {"name": "debug-tiny-moe"}}, "MoE"),
+    ({"logging": {"trace_dir": "trace"}}, "logging.trace_dir"),
+    ({"logging": {"sentinel": True}}, "logging.sentinel"),
+    ({"logging": {"telemetry_dir": "tel"}}, "logging.telemetry_dir"),
+    ({"logging": {"telemetry_max_mb": 8.0}}, "logging.telemetry_max_mb"),
+    ({"logging": {"flight_steps": 0}}, "logging.flight_steps"),
 ])
 def test_trainer_refuses_what_the_slice_lacks(override, match):
     raw = _raw("float32")
     for section, vals in override.items():
         raw.setdefault(section, {}).update(vals)
     cfg = tcfg.config_from_dict(raw)
+    if match is None:
+        assert ttrain.unsupported(cfg) == []
+        with pytest.raises(ValueError, match="world size 1"):
+            ttrain.run(cfg, "cpu")
+        return
     with pytest.raises(NotImplementedError, match=match):
         ttrain.run(cfg, "cpu")
+
+
+def test_trainer_says_what_it_does_not_write(tmp_path, capsys):
+    """No telemetry.jsonl (the JAX trainer's default stream), said once;
+    dataset.num_workers, which only sets the JAX loader's prefetch, is
+    said to be ignored."""
+    raw = _raw("float32", total_train_steps=1)
+    raw["dataset"] = {"num_workers": 2}
+    ttrain.run(tcfg.config_from_dict(raw), "cpu")
+    out = capsys.readouterr().out
+    assert out.count("no telemetry.jsonl is written") == 1
+    assert out.count("dataset.num_workers=2 ignored") == 1
+    raw["logging"] = {"telemetry_jsonl": False}
+    raw["dataset"] = {}
+    ttrain.run(tcfg.config_from_dict(raw), "cpu")
+    out = capsys.readouterr().out
+    assert "telemetry.jsonl" not in out and "num_workers" not in out
+
+
+def test_pp_configs_are_supported():
+    """The four pipeline configs of runs/ pass the refusals (pp is the
+    port's now); each needs its world (dp*pp*ep*cp*tp ranks)."""
+    import os
+
+    runs = os.path.join(os.path.dirname(__file__), "..", "runs")
+    for name in ("llama2-7b-dp4tp2pp2-1f1b", "llama3-8b-4d-v5p64",
+                 "smollm17-cpu-dp2tp2pp2", "smollm17-cpu-pp2-mpmd"):
+        cfg = tcfg.load_config(os.path.join(runs, name, "config.json"))
+        assert cfg.distributed.pp_size == 2
+        assert ttrain.unsupported(cfg) == [], name
+        assert tstep.resolved_grad_engine(cfg) == cfg.distributed.pp_engine
 
 
 def test_smoke_config_is_the_supported_main_path():
