@@ -214,7 +214,41 @@ Phases, each of which raises on failure (so the script exits non-zero):
    walk's wall time on the one card, with the stages serialised (not a
    pipeline's speed), beside `schedule_stats`'s predicted bubble; and a
    `pipeline` JSON line.
-10. Numbers, then the device line last.
+10. Generation and the serving engine (`generate.py`, `serve/`) on the
+   main path's model, SmolLM-1.7B at full width and depth (CONFIG:
+   24 layers, hidden 2048, 32/32 heads, D 64, vocab 49152), initialised
+   on the card from SERVE_SEED (fp32, and a bf16 copy of the same
+   params: the `--load-dtype bfloat16` load); decode is plain torch and
+   launches no kernel of the port (asserted).
+   (a) `generate` at batch 8, prompt 512, 128 new tokens, greedy, bf16:
+   prefill ms, decode ms per step, tokens/s and the step's share of its
+   bound (bf16 weight bytes plus the live K/V read, over 3.35 TB/s).
+   Gates: the teacher-forced forward (`models/llama.forward` on prompt
+   plus generated tokens, through the flash forward kernel: 24 launches,
+   all tensor-core) puts each chosen token's logit within DECODE_MARGIN
+   of its row's max; the cache-decode logits (the prompt prefilled, the
+   generated tokens decoded one at a time: `generate`'s own steps) lie
+   within DECODE_LOGIT_ATOL of the full forward's; and a planted fault,
+   each token's K/V written one cache slot late, must fail.
+   (b) In fp32 with TF32 off, the same 8 requests through `ServeEngine`
+   (8 slots, block 16, prefill chunk 64, decode interval 4, a pool of
+   SERVE_PARITY_BLOCKS blocks where the requests need 320 at their end,
+   so at least one is preempted) and through `generate`: greedy tokens
+   equal request by request, or, where a request parts, the offline
+   logits' top-2 gap at that token below NEAR_TIE (the count printed);
+   the n-gram speculative engine (draft_len 4) equal to the plain one;
+   no block leaked.
+   (c) bench.py's serve trace shape in bf16 (32 requests at t = 0,
+   prompts 64-512, budgets 16-128; the same engine settings with the
+   pool at its default): every decode dispatch runs under
+   `torch.cuda.set_sync_debug_mode("error")`, so a host sync inside one
+   fails the phase; no block leaked; the JSONL stream holds one
+   serve_request per request and one serve_summary. Printed: TTFT and
+   TPOT p50/p95, output tokens/s, ms per decode dispatch against its
+   bound (and the capacity-sized view copy beside it), slot occupancy,
+   pool utilisation, peak GiB, decode_compiles; and a `serving` JSON
+   line.
+11. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -301,6 +335,18 @@ pp 1's order of the microbatches' grad sums (1f1b, gpipe, interleaved);
 afab sums them in reverse. PP_LOSS_RTOL = 1e-6 and PP_GRAD_RTOL = 1e-3
 bound what the order of fp32 sums can move; the actual errors print
 beside them.
+
+Phase 10's limits: the cache decode and the full forward take the same
+bf16 params and tokens, and differ in their op order and shapes (the
+einsum attention against the flash kernel, one token against 640 per
+GEMM), so their bf16 logits (std ~0.6 on these random weights) differ
+at round-off: measured 0.033 (logits) and 0.031 (margin), against the
+planted fault's 0.236 and 0.141 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+DECODE_LOGIT_ATOL = 0.1 and DECODE_MARGIN = 0.07 sit between. In fp32
+with TF32 off the engine's chunked prefill and the offline one-pass
+prefill differ at fp32 round-off (~1e-5 on the logits): a request may
+part from `generate` only where the offline top-2 gap is below
+NEAR_TIE = 1e-3, 100 times that (none parted in the measured run).
 
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
@@ -427,6 +473,17 @@ PP_FAULT = "planted fault: spmd 1f1b, stage 1 fed microbatch m+1 as m"
 PP_SEED = 11
 PP_LOSS_RTOL = 1e-6            # phase 9: each microbatch's loss, relative
 PP_GRAD_RTOL = 1e-3            # phase 9: each grad tensor, relative L2
+# phase 10: serving on CONFIG's model (SmolLM-1.7B, full width and depth)
+SERVE_SEED = 12
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 128
+SERVE_SCFG = {"decode_slots": 8, "block_size": 16, "prefill_chunk": 64,
+              "decode_interval": 4, "max_model_len": 640}
+SERVE_PARITY_BLOCKS = 288      # 10b: the 8 requests need 320 at the end
+SERVE_DRAFT_LEN = 4
+SERVE_TRACE = (32, 512, 128)   # 10c: requests, most prompt, most budget
+DECODE_MARGIN = 0.07           # 10a: chosen logit below its row's max
+DECODE_LOGIT_ATOL = 0.1        # 10a: cache-decode vs full forward logits
+NEAR_TIE = 1e-3                # 10b: top-2 gap where a request may part
 
 
 def log(msg: str) -> None:
@@ -2768,6 +2825,408 @@ print("MAIN_PATH " + json.dumps({"tree": sys.argv[1], "losses": res["losses"],
 """
 
 
+# ---------------------------------------------------------------------------
+# phase 10: generation and the serving engine
+# ---------------------------------------------------------------------------
+
+
+def make_serve_trace(n_requests: int, prompt_len: int, max_new: int,
+                     vocab: int, seed: int) -> list:
+    """bench.py's `make_serve_trace` at rate 0 (every request arrives at
+    t = 0): prompts of [prompt_len / 8, prompt_len] tokens, budgets of
+    [max_new / 8, max_new], drawn from the seed with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_requests):
+        plen = int(rng.integers(max(prompt_len // 8, 1), prompt_len + 1))
+        olen = int(rng.integers(max(max_new // 8, 1), max_new + 1))
+        out.append((rng.integers(0, vocab, size=plen).tolist(), olen, 0.0))
+    return out
+
+
+def serve_models(seed: int, config: str, device: str):
+    """(fp32 model, bf16 model) of the config's model (CONFIG: SmolLM-1.7B),
+    initialised on `device` from the seed; the bf16 one holds the fp32
+    one's params rounded (the `--load-dtype bfloat16` load)."""
+    import dataclasses
+
+    from picotron_tpu_torch.config import load_config
+    from picotron_tpu_torch.generate import load_for_decode
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg16 = load_config(os.path.join(here, config)).model
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    model32 = LlamaModel(cfg32, device=device)
+    init_params(model32, torch.Generator(device=device).manual_seed(seed))
+    model16 = load_for_decode({n: t.to(torch.bfloat16) for n, t in
+                               model32.state_dict().items()}, cfg16, device)
+    return model32, model16
+
+
+def decode_bytes(model, batch: int, kv_tokens: int) -> int:
+    """Least bytes one decode step moves: every weight the step reads once
+    (the embedding only for its `batch` rows) and `kv_tokens` tokens of
+    K and V per layer, read (plus the step's own K/V written)."""
+    cfg = model.cfg
+    el = next(model.parameters()).element_size()
+    weights = sum(p.numel() for n, p in model.named_parameters()
+                  if n != "embedding") * el
+    if model.lm_head is None:  # tied: the head reads the embedding
+        weights += model.embedding.numel() * el
+    weights += batch * cfg.hidden_size * el
+    per_token = (2 * cfg.num_hidden_layers * cfg.num_key_value_heads
+                 * cfg.head_dim * el)
+    return weights + (kv_tokens + batch) * per_token
+
+
+@torch.no_grad()
+def cache_logits(model, prompt, tokens, cache_cls=None):
+    """The logits the offline decode sees [B, N, V] fp32, teacher-forced:
+    the prompt prefilled in one pass, then tokens[:, :N-1] decoded one
+    at a time (the ops and shapes of `generate`'s steps). `cache_cls`
+    wraps the cache (a planted fault)."""
+    from picotron_tpu_torch import generate as gen
+    from picotron_tpu_torch.models.llama import embed, model_rope_tables
+
+    b, p = prompt.shape
+    n = tokens.shape[1]
+    cfg, dev = model.cfg, prompt.device
+    cos, sin = model_rope_tables(cfg, max_len=p + n + 1, device=dev)
+    cache = gen.init_cache(cfg, b, p + n + 1, device=dev,
+                           heads=gen.kv_heads(model))
+    if cache_cls is not None:
+        cache = cache_cls(cache.k, cache.v)
+    pos = torch.arange(p + n, device=dev)
+    x = gen._decode_layers(model, embed(model, prompt), cache, pos[:p],
+                           cos, sin)
+    out = [gen._logits_last(model, x)]
+    for i in range(n - 1):
+        x = gen._decode_layers(model, embed(model, tokens[:, i:i + 1]),
+                               cache, pos[p + i:p + i + 1], cos, sin)
+        out.append(gen._logits_last(model, x))
+    return torch.stack(out, dim=1)
+
+
+def late_cache():
+    """The planted fault of 10a: a cache that writes each token's K/V one
+    slot late."""
+    from picotron_tpu_torch.generate import KVCache
+
+    class LateCache(KVCache):
+        def slots(self, q_pos):
+            return q_pos + 1
+
+    return LateCache
+
+
+def device_busy(fn) -> tuple:
+    """(device-busy ms, kernels launched) of fn() under torch.profiler: the
+    sum of its kernels' durations (one stream: they do not overlap),
+    copies left out, as profile_step.py counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from picotron_tpu_torch.profile_step import device_kernels, kernel_class
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in device_kernels(prof.events())
+               if kernel_class(e.name) != "memcpy"]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return sum(e.device_time_total for e in kernels) / 1e3, len(kernels)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def offline_phase(fa, model16, prompt, card: str) -> dict:
+    """10a: `generate` at batch 8, prompt 512, 128 new tokens, greedy,
+    bf16; times, bound share, the teacher-forced checks through the
+    flash forward kernel, and the planted fault."""
+    from picotron_tpu_torch.generate import generate
+    from picotron_tpu_torch.models.llama import forward
+
+    from picotron_tpu_torch import optimizer as topt
+
+    b, p, n = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    generate(model16, prompt, 2)  # warm-up (cuBLAS handles, allocator)
+    _, prefill_s = timed(lambda: generate(model16, prompt, 1))
+    out, total_s = timed(lambda: generate(model16, prompt, n))
+    decode_launches = {**fa.launches, **topt.launches}
+    if any(decode_launches.values()):
+        raise AssertionError(f"10a: the decode path launched kernels: "
+                             f"{decode_launches}")
+    step_ms = 1e3 * (total_s - prefill_s) / (n - 1)
+    # the device's share of a decode step: 16 steps traced, less prefill
+    busy, launched = device_busy(lambda: generate(model16, prompt, 17))
+    busy1, launched1 = device_busy(lambda: generate(model16, prompt, 1))
+    busy_ms, kernels = (busy - busy1) / 16, (launched - launched1) / 16
+    # step i attends to p + i tokens, i = 1 .. n - 1
+    kv = sum(b * (p + i) for i in range(1, n)) / (n - 1)
+    bound_ms = 1e3 * decode_bytes(model16, b, kv) / HBM_BYTES_PER_S
+    gen_tokens = out[:, p:]
+
+    with torch.no_grad():
+        full = forward(model16, out)[:, p - 1:p - 1 + n].float()  # [B,N,V]
+    fwd_launches = {**fa.launches, **topt.launches}
+    check_launches(launch_counts(fa), {"flash_fwd": 24, "flash_bwd_dq": 0,
+                                       "flash_bwd_dkv": 0}, "10a forward")
+    chosen = full.gather(-1, gen_tokens[..., None])[..., 0]
+    margin = float((full.max(dim=-1).values - chosen).max())
+    dec = cache_logits(model16, prompt, gen_tokens)
+    atol = float((dec - full).abs().max())
+    # the fault shows from the first decoded token: 16 suffice
+    fault = cache_logits(model16, prompt, gen_tokens[:, :16], late_cache())
+    fault_atol = float((fault - full[:, :16]).abs().max())
+    fault_tok = fault.argmax(dim=-1)[..., None]
+    fault_margin = float((full[:, :16].max(dim=-1).values
+                          - full[:, :16].gather(-1, fault_tok)[..., 0]).max())
+    res = {"card": card, "batch": b, "prompt": p, "new_tokens": n,
+           "prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": step_ms,
+           "decode_tokens_per_s": b * (n - 1) / (total_s - prefill_s),
+           "decode_bound_ms": bound_ms, "decode_bound_share":
+           bound_ms / step_ms, "decode_device_busy_ms": busy_ms,
+           "decode_idle_share": 1 - busy_ms / step_ms,
+           "decode_kernels_per_step": kernels,
+           "forward_launches": fwd_launches,
+           "margin": margin, "logit_atol": atol,
+           "fault_margin": fault_margin, "fault_logit_atol": fault_atol,
+           "limits": {"DECODE_MARGIN": DECODE_MARGIN,
+                      "DECODE_LOGIT_ATOL": DECODE_LOGIT_ATOL}}
+    log(f"phase 10a generate ({card}): prefill {res['prefill_ms']:.1f} ms "
+        f"(B {b}, P {p}), decode {step_ms:.3f} ms/step, "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s, bound {bound_ms:.3f} "
+        f"ms (bytes), {100 * bound_ms / step_ms:.1f}% of bound, device "
+        f"busy {busy_ms:.3f} ms/step ({kernels:.0f} kernels), idle share "
+        f"{1 - busy_ms / step_ms:.3f}; "
+        f"teacher-forced margin {margin} (limit {DECODE_MARGIN}), cache vs "
+        f"forward logits {atol} (limit {DECODE_LOGIT_ATOL}); planted fault "
+        f"(K/V a slot late): margin {fault_margin}, logits {fault_atol}")
+    if margin > DECODE_MARGIN or atol > DECODE_LOGIT_ATOL:
+        raise AssertionError(f"10a: decode against the full forward: margin "
+                             f"{margin}, logits {atol}")
+    if fault_atol <= DECODE_LOGIT_ATOL:
+        raise AssertionError(f"10a: the planted fault passed ({fault_atol})")
+    return res
+
+
+def first_part(a: list, b: list):
+    """Index of the first token where two streams differ (None: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def parity_phase(model32, prompt, card: str) -> dict:
+    """10b: in fp32 with TF32 off, the 8 requests through `ServeEngine`
+    (a pool cut below their need, so requests are preempted) against
+    offline `generate`, and the n-gram speculative engine against the
+    plain one."""
+    import dataclasses
+
+    from picotron_tpu_torch.config import ServeConfig
+    from picotron_tpu_torch.generate import generate
+    from picotron_tpu_torch.serve import ServeEngine
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        n = SERVE_NEW
+        offline, off_s = timed(lambda: generate(model32, prompt, n))
+        offline = offline[:, SERVE_PROMPT:].tolist()
+        reqs = [(row, n) for row in prompt.tolist()]
+        scfg = ServeConfig(**SERVE_SCFG, num_blocks=SERVE_PARITY_BLOCKS)
+        runs = {}
+        for name, sc in (("engine", scfg), ("ngram", dataclasses.replace(
+                scfg, speculator="ngram", draft_len=SERVE_DRAFT_LEN))):
+            eng = ServeEngine(model32, sc, device=prompt.device)
+            res, secs = timed(lambda: eng.run(reqs))
+            eng.close()
+            if eng.pool.in_use or eng.pool.free_blocks != eng.num_blocks:
+                raise AssertionError(f"10b {name}: {eng.pool.in_use} blocks "
+                                     f"leaked")
+            runs[name] = {"tokens": [r["tokens"] for r in res], "s": secs,
+                          "preemptions": eng.sched.n_preempted,
+                          "summary": eng.summary}
+        parts = {i: first_part(t, offline[i])
+                 for i, t in enumerate(runs["engine"]["tokens"])}
+        parts = {i: j for i, j in parts.items() if j is not None}
+        gaps = {}
+        if parts:
+            logits = cache_logits(model32, prompt,
+                                  torch.tensor(offline, device=prompt.device))
+            for i, j in parts.items():
+                top2 = logits[i, j].topk(2).values
+                gaps[i] = float(top2[0] - top2[1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    spec_equal = runs["ngram"]["tokens"] == runs["engine"]["tokens"]
+    out = {"card": card, "offline_s": off_s,
+           "engine_s": runs["engine"]["s"], "ngram_s": runs["ngram"]["s"],
+           "preemptions": runs["engine"]["preemptions"],
+           "ngram_preemptions": runs["ngram"]["preemptions"],
+           "parted": len(parts), "parted_at": parts, "top2_gaps": gaps,
+           "ngram_equal": spec_equal, "acceptance_rate":
+           runs["ngram"]["summary"]["acceptance_rate"],
+           "limits": {"NEAR_TIE": NEAR_TIE}}
+    log(f"phase 10b fp32 parity ({card}): offline {off_s:.2f} s, engine "
+        f"{out['engine_s']:.2f} s ({out['preemptions']} preemptions), "
+        f"n-gram {out['ngram_s']:.2f} s (acceptance "
+        f"{out['acceptance_rate']}); {len(parts)} of {len(reqs)} requests "
+        f"part from generate {parts}, top-2 gaps there {gaps} (limit "
+        f"{NEAR_TIE}); n-gram tokens equal to the engine's: {spec_equal}")
+    if not out["preemptions"]:
+        raise AssertionError("10b: the cut pool preempted nothing")
+    if any(g >= NEAR_TIE for g in gaps.values()):
+        raise AssertionError(f"10b: a request parts from generate away "
+                             f"from a near tie: {gaps}")
+    if not spec_equal:
+        raise AssertionError("10b: n-gram speculation changed the tokens")
+    return out
+
+
+def trace_phase(model16, card: str) -> dict:
+    """10c: bench.py's serve trace shape through `ServeEngine` in bf16,
+    each decode dispatch under torch.cuda.set_sync_debug_mode("error"),
+    its events in a JSONL stream."""
+    from picotron_tpu_torch.config import ServeConfig
+    from picotron_tpu_torch.serve import ServeEngine
+    from picotron_tpu_torch.telemetry import JsonlSink, Telemetry
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    path = os.path.join(here, "build", "serve_telemetry.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    cfg = model16.cfg
+    n_req, plen, budget = SERVE_TRACE
+    trace = make_serve_trace(n_req, plen, budget, cfg.vocab_size,
+                             SERVE_SEED)
+    dev = model16.final_norm.device
+    warm = ServeEngine(model16, ServeConfig(**SERVE_SCFG), device=dev)
+    warm.run(trace[:2])  # the allocator and cuBLAS at these shapes
+    warm.close()
+    del warm
+    torch.cuda.empty_cache()
+    tel = Telemetry(sinks=[JsonlSink(path)])
+    eng = ServeEngine(model16, ServeConfig(**SERVE_SCFG), telemetry=tel,
+                      device=dev)
+    inner = eng._decode_fn
+    checked = [0]
+
+    def no_host_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            checked[0] += 1
+
+    eng._decode_fn = no_host_sync
+    torch.cuda.reset_peak_memory_stats()
+    res = eng.run(trace)
+    tel.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(path) as f:
+        events = [json.loads(line) for line in f]
+    kinds = [e["kind"] for e in events]
+    decode = [e for e in events if e["kind"] == "phase"
+              and e["phase"] == "decode"]
+    s = eng.summary
+    interval = SERVE_SCFG["decode_interval"]
+    # least bytes of the run's decode: each dispatch's `interval` steps
+    # read every weight; each decoded token reads its sequence's K/V
+    steps = len(decode) * interval
+    kv = sum(r["prompt_len"] + t for r in res
+             for t in range(1, r["output_tokens"]))
+    w = decode_bytes(model16, 0, 0)
+    per_tok = decode_bytes(model16, 0, 1) - w
+    bound_ms = (1e3 * (steps * w + kv * per_tok) / HBM_BYTES_PER_S
+                / len(decode))
+    cap = eng.max_blocks * eng.block_size
+    view_ms = (1e3 * interval * eng.num_slots * cap * per_tok * 2
+               / HBM_BYTES_PER_S)
+    dispatch_ms = 1e3 * sum(e["secs"] for e in decode) / len(decode)
+    out = {"card": card, "requests": s["requests"],
+           "output_tokens": s["output_tokens"],
+           "tokens_per_s": s["tokens_per_sec"], "wall_s": s["wall_s"],
+           "ttft_p50_s": s["ttft_p50_s"], "ttft_p95_s": s["ttft_p95_s"],
+           "tpot_p50_s": s["tpot_p50_s"], "tpot_p95_s": s["tpot_p95_s"],
+           "decode_dispatches": len(decode), "ms_per_decode_dispatch":
+           dispatch_ms, "decode_bound_ms": bound_ms, "decode_bound_share":
+           bound_ms / dispatch_ms, "view_copy_ms": view_ms,
+           "decode_bound_with_view_ms": bound_ms + view_ms,
+           "slot_occupancy": s["slot_occupancy"],
+           "pool_peak_utilization": s["pool_peak_utilization"],
+           "preemptions": s["preemptions"], "peak_gib": peak,
+           "decode_compiles": s["decode_compiles"],
+           "sync_checked_dispatches": checked[0]}
+    log(f"phase 10c serve trace ({card}): {s['requests']} requests, "
+        f"{s['output_tokens']} tokens in {s['wall_s']:.2f} s, "
+        f"{s['tokens_per_sec']} tokens/s; TTFT p50/p95 {s['ttft_p50_s']:.4f}"
+        f"/{s['ttft_p95_s']:.4f} s, TPOT {s['tpot_p50_s']:.5f}/"
+        f"{s['tpot_p95_s']:.5f} s; {dispatch_ms:.2f} ms per decode dispatch "
+        f"of {interval} steps, bound {bound_ms:.3f} ms (bytes: weights and "
+        f"live K/V), {100 * bound_ms / dispatch_ms:.1f}% of bound, the "
+        f"capacity-sized view copies {view_ms:.3f} ms more; occupancy "
+        f"{s['slot_occupancy']}, pool peak {s['pool_peak_utilization']}, "
+        f"{s['preemptions']} preemptions, peak {peak:.2f} GiB, "
+        f"decode_compiles {s['decode_compiles']}, {checked[0]} decode "
+        f"dispatches under sync debug mode 'error'")
+    if eng.pool.in_use:
+        raise AssertionError(f"10c: {eng.pool.in_use} blocks leaked")
+    if (kinds.count("serve_request") != n_req
+            or kinds.count("serve_summary") != 1 or len(res) != n_req):
+        raise AssertionError(
+            f"10c: {kinds.count('serve_request')} serve_request and "
+            f"{kinds.count('serve_summary')} serve_summary events for "
+            f"{n_req} requests")
+    if sum(r["output_tokens"] for r in res) != sum(t[1] for t in trace):
+        raise AssertionError("10c: a request stopped short of its budget")
+    return out
+
+
+def serve_phase(fa, card: str, config: str = CONFIG,
+                device: str = "cuda") -> dict:
+    """Phase 10: offline generation, fp32 engine parity and a serve trace
+    on SmolLM-1.7B at full width and depth, random weights from the seed."""
+    model32, model16 = serve_models(SERVE_SEED, config, device)
+    g = torch.Generator().manual_seed(SERVE_SEED)
+    prompt = torch.randint(0, model16.cfg.vocab_size,
+                           (SERVE_BATCH, SERVE_PROMPT), generator=g)
+    prompt = prompt.to(device)
+    from picotron_tpu_torch import optimizer as topt
+
+    out = {"offline": offline_phase(fa, model16, prompt, card)}
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    out["parity"] = parity_phase(model32, prompt, card)
+    del model32
+    torch.cuda.empty_cache()
+    out["trace"] = trace_phase(model16, card)
+    out["engine_launches"] = {**fa.launches, **topt.launches}
+    if any(out["engine_launches"].values()):
+        raise AssertionError(f"10b-c: the engine launched kernels: "
+                             f"{out['engine_launches']}")
+    return out
+
+
 def compare_main_paths(trees: list) -> int:
     """`--main-path TREE...`: phase 3 of each tree's own chip_smoke.py
     (e.g. an unpacked parent commit and this checkout, in turns), one
@@ -2959,6 +3418,13 @@ def main() -> int:
     log(f"phase 9 the pipeline's walks (thread world of 2 stages): ok in "
         f"{time.perf_counter() - t9:.1f} s")
 
+    # phase 10: generation and the serving engine
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    serving = serve_phase(fa, card)
+    serving["seconds"] = time.perf_counter() - t10
+    log(f"phase 10 generation and serving: ok in {serving['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -2989,6 +3455,7 @@ def main() -> int:
                 for lay, res in context_parallel["model"]["layouts"].items()
                 if not lay.startswith("planted")},
             "pp_launches": pp_launches(pipeline, name),
+            "serve_launches": serving["offline"]["forward_launches"][name],
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
@@ -3001,6 +3468,7 @@ def main() -> int:
         "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
         "bound_by": "bytes", "library_ms": adamw["library_ms"],
         "pp_launches": pp_launches(pipeline, "adamw"),
+        "serve_launches": serving["offline"]["forward_launches"]["adamw"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
@@ -3014,6 +3482,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"context_parallel": context_parallel}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"serving": serving}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,9 @@ into `build/` at the repository root (listed in .gitignore). The library
 name carries a hash of the source, so an edited source is rebuilt and a
 stale library is never loaded. A failed build raises with nvcc's output;
 there is no fallback. Nothing is built when this module is imported.
+Each nvcc run that succeeds reports (source name, seconds) to every
+callable in `BUILD_LISTENERS` (telemetry/recompile.py's CompileWatch
+books them as compile time); a library found on disk reports nothing.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -32,6 +36,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # nvcc's output of each build in this process (ptxas register / shared
 # memory / spill report), by source name
 BUILD_LOGS: dict[str, str] = {}
+# callables (name, seconds) told of each successful nvcc build
+BUILD_LISTENERS: list = []
 
 
 def nvcc_path() -> str:
@@ -57,13 +63,17 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
     BUILD_LOGS[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed building {src} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
+    for listener in list(BUILD_LISTENERS):
+        listener(name, secs)
     return out
 
 

@@ -78,6 +78,19 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def device_kernels(events) -> list:
+    """The device events of a torch.profiler trace that are kernels or
+    copies, not ranges: a host range such as "Optimizer.step#AdamW.step"
+    is mirrored on the GPU track under the same name and spans the
+    kernels it launched, so device events whose name a host event
+    carries are left out."""
+    host_names = {evt.name for evt in events
+                  if evt.device_type == torch.autograd.DeviceType.CPU}
+    return [evt for evt in events
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.name not in host_names]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", required=True)
@@ -120,16 +133,9 @@ def main(argv=None) -> dict:
         prof.export_chrome_trace(args.trace)
 
     events = prof.events()
-    # a host range such as "Optimizer.step#AdamW.step" is mirrored on the
-    # GPU track under the same name and spans the kernels it launched:
-    # count device events whose name no host event carries
-    host_names = {evt.name for evt in events
-                  if evt.device_type == torch.autograd.DeviceType.CPU}
     by_name = defaultdict(float)
-    for evt in events:
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and evt.name not in host_names):
-            by_name[evt.name] += evt.device_time_total / 1e3 / args.steps
+    for evt in device_kernels(events):
+        by_name[evt.name] += evt.device_time_total / 1e3 / args.steps
     if not by_name:
         raise RuntimeError("torch.profiler recorded no device time on this "
                            "card; time with CUDA events instead")

@@ -40,6 +40,12 @@ def touch(phase: str = "touch", step: Optional[int] = None) -> None:
         w.beat(phase, step)
 
 
+def active() -> bool:
+    """Whether any watchdog is armed (lets a caller skip building a
+    phase label for `touch` when none would read it)."""
+    return bool(_ACTIVE)
+
+
 class Watchdog:
     def __init__(self, timeout: float,
                  on_timeout: Optional[Callable[[], None]] = None,

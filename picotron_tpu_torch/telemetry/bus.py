@@ -4,10 +4,11 @@ plumbing (the port's copy of picotron_tpu/telemetry/bus.py).
 Checkpoint and resilience code calls `bus.emit(...)` unconditionally
 (`ckpt_commit`, `ckpt_corrupt`, `ckpt_gc`, `ckpt_probe_failed`, `guard`,
 `preempt_signal`, `retry`, `watchdog_timeout`); with no sink installed the
-call is a None check and nothing else. The sinks themselves (JSONL,
-wandb, the goodput ledger) are not ported yet (ROADMAP Queue 1 item 12),
-so `install` takes any object with an `emit(kind, category=, secs=,
-**fields)` method; tests install a recorder.
+call is a None check and nothing else. `install` takes the
+`telemetry.Telemetry` facade, or any object with an `emit(kind,
+category=, secs=, **fields)` method (tests install a recorder). The
+trainer installs none yet: wiring it to the facade is ROADMAP Queue 1
+item 12.
 """
 
 from __future__ import annotations

@@ -1,0 +1,175 @@
+"""Goodput/badput ledger: where did the wall-clock actually go? (The
+port's copy of picotron_tpu/telemetry/goodput.py: pure Python, the same
+tables, so the port's streams and the JAX package's are booked alike.)
+
+Every timed second of the run is booked to exactly one category:
+
+- ``compute``      — the train step doing productive work. The ONLY
+                     goodput category: goodput% = compute / accounted.
+- ``compile``      — kernel builds (in the port: the lazy nvcc builds
+                     of kernels/build.py, measured exactly by
+                     recompile.CompileWatch, subtracted from whichever
+                     phase they occurred inside).
+- ``replay``       — re-training steps at-or-below the high-water mark:
+                     after a divergence-guard rollback those steps ran
+                     before, so their time buys back lost ground, not new
+                     progress.
+- ``restore``      — checkpoint restore (rollback or resume).
+- ``resize``       — an elastic restore: resuming a checkpoint saved at a
+                     different topology (resilience/elastic.py), booked
+                     apart from plain restores so shrink/grow cost is
+                     measured, not guessed.
+- ``ckpt_io``      — periodic checkpoint saves.
+- ``preempt``      — preemption drain: the emergency save between SIGTERM
+                     and exit 75.
+- ``retry_backoff``— sleeps between I/O retry attempts.
+- ``data_wait``    — the step loop blocked on the data producer (covers
+                     injected/real data stalls).
+- ``host_sync``    — device->host metric fetch for guards/logging.
+- ``pp_bubble``    — the pipeline-parallel bubble share of the step
+                     phase: fill/drain ticks where stages sit idle.
+                     Analytic (schedule-table fraction from
+                     parallel/mpmd.py, both executors), carved out of
+                     the step's compute so goodput%% reflects that a
+                     pp run's devices are not busy wall-to-wall.
+- ``eval``         — validation passes.
+- ``other``        — anything booked without a better class.
+- ``prefill`` / ``decode`` / ``queue_wait`` — serving streams only
+                     (picotron_tpu_torch/serve): the engine's two device
+                     programs (both goodput — tokens leaving the system)
+                     and time requests sat queued before admission.
+- ``handoff``      — disaggregated serving only (serve/disagg.py): the
+                     prefill->decode KV-block transfer across the pool
+                     boundary. Transport overhead, NOT goodput — the
+                     number the cost model's price_kv_handoff predicts
+                     and the decode pool must never wait on.
+- ``shed``         — serving only (serve/fleet.py deadline admission):
+                     queue seconds burned by requests REJECTED because
+                     their wait already exceeded their deadline. Pure
+                     badput — the time bought nothing, the request never
+                     ran — booked apart from queue_wait (which admitted
+                     requests recover by finishing) so an overload run's
+                     report shows exactly what the load shedder threw
+                     away.
+
+The per-phase -> category mapping is shared with tools/telemetry_report.py
+(PHASE_CATEGORY) so in-process booking and post-hoc JSONL analysis can
+never disagree. Badput sources that KILL the process mid-phase (watchdog
+stall, hard crash) never complete a phase, so their time shows up in the
+report's `unaccounted` bucket (wall - accounted) plus the explicit
+watchdog/stall events — the ledger only books what it observed end-to-end.
+"""
+
+from __future__ import annotations
+
+# Training streams book "compute" only; serving streams (picotron_tpu_torch/
+# serve) book "prefill" and "decode" — both are the serving engine's
+# productive device work. The two kinds of stream never book each
+# other's categories, so adding the serving pair leaves every training
+# report's goodput % untouched.
+GOODPUT_CATEGORIES = ("compute", "prefill", "decode")
+
+# Step-loop phase name -> ledger category. "step" is special-cased in
+# book_phase (compute vs replay vs compile split); everything else maps
+# statically. Shared with tools/telemetry_report.py.
+PHASE_CATEGORY = {
+    "data": "data_wait",
+    "step": "compute",
+    "sync": "host_sync",
+    "eval": "eval",
+    "save": "ckpt_io",
+    "rollback": "restore",
+    "restore": "restore",
+    # elastic restore across a topology change (resilience/elastic.py):
+    # train.py books the restore phase as "resize" when the checkpoint's
+    # source topology differs from the run's mesh
+    "resize": "resize",
+    "preempt-save": "preempt",
+}
+
+CATEGORIES = (
+    "compute", "compile", "replay", "restore", "resize", "ckpt_io",
+    "preempt",
+    "retry_backoff", "data_wait", "host_sync", "pp_bubble", "eval",
+    "other",
+    # serving (picotron_tpu_torch/serve): device time in the two device
+    # programs (goodput), the admission-latency badput, the
+    # disaggregated engines' cross-pool KV transfer (badput: transport),
+    # and queue seconds thrown away by deadline load shedding (badput)
+    "prefill", "decode", "queue_wait", "handoff", "shed",
+)
+
+
+class GoodputLedger:
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = {}
+        # Highest step whose "step" phase completed: a later booking at or
+        # below it is re-training after a rollback -> replay, not compute.
+        self.high_water_step = 0
+
+    def book(self, category: str, secs: float) -> None:
+        if secs <= 0:
+            return
+        if category not in CATEGORIES:
+            category = "other"
+        self.seconds[category] = self.seconds.get(category, 0.0) + secs
+
+    def book_phase(self, phase: str, secs: float, step=None,
+                   compile_secs: float = 0.0,
+                   bubble_secs: float = 0.0) -> str:
+        """Book one completed phase; returns the category the NON-compile
+        remainder was booked under (what the phase event should carry).
+        `compile_secs` is the exactly-measured build time that
+        occurred inside this phase (recompile.CompileWatch) — booked as
+        `compile` and subtracted, so step 1's wall does not masquerade as
+        productive compute. `bubble_secs` is the pipeline-bubble share of
+        a step phase (fraction × step wall, from the schedule table) —
+        carved out of `compute` into `pp_bubble` so a pp run's goodput%%
+        reflects the fill/drain idle time. Only compute is carved:
+        a replayed step is already badput wall-to-wall."""
+        compile_secs = min(max(compile_secs, 0.0), max(secs, 0.0))
+        if compile_secs:
+            self.book("compile", compile_secs)
+            secs -= compile_secs
+        category = PHASE_CATEGORY.get(phase, "other")
+        if phase == "step" and step is not None:
+            if step <= self.high_water_step:
+                category = "replay"
+            else:
+                self.high_water_step = step
+        if category == "compute":
+            bubble_secs = min(max(bubble_secs, 0.0), max(secs, 0.0))
+            if bubble_secs:
+                self.book("pp_bubble", bubble_secs)
+                secs -= bubble_secs
+        self.book(category, secs)
+        return category
+
+    def resume_from(self, step: int) -> None:
+        """Seed the high-water mark on an in-process restore (build_state
+        resume): the restored step count is ground already covered."""
+        self.high_water_step = max(self.high_water_step, int(step))
+
+    @property
+    def accounted(self) -> float:
+        return sum(self.seconds.values())
+
+    @property
+    def goodput_seconds(self) -> float:
+        return sum(self.seconds.get(c, 0.0) for c in GOODPUT_CATEGORIES)
+
+    def goodput_fraction(self):
+        total = self.accounted
+        return (self.goodput_seconds / total) if total > 0 else None
+
+    def summary(self) -> dict:
+        frac = self.goodput_fraction()
+        return {
+            "accounted_seconds": round(self.accounted, 6),
+            "goodput_seconds": round(self.goodput_seconds, 6),
+            "goodput_pct": (round(100.0 * frac, 2)
+                            if frac is not None else None),
+            "seconds_by_category": {
+                k: round(v, 6) for k, v in sorted(self.seconds.items())},
+            "high_water_step": self.high_water_step,
+        }

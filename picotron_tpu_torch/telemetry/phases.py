@@ -1,0 +1,64 @@
+"""Step-phase timer: one clock for timing AND watchdog liveness (the
+port's copy of picotron_tpu/telemetry/phases.py: pure Python).
+
+PR 2 interleaved `watchdog.beat(phase, step)` calls with ad-hoc wall-clock
+reads; the two could drift (a new loop section timed but never beating, or
+beating but invisible to timing). The phase timer is the single source:
+entering a phase beats the watchdog with that phase name, leaving it hands
+the measured duration to a callback (the Telemetry facade books it into
+the histogram registry + goodput ledger and emits the JSONL phase event).
+A section that exists for the timer therefore cannot be missed by the
+watchdog, and vice versa.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Callable, Optional
+
+
+class PhaseTimer:
+    def __init__(self, on_phase: Callable[[str, float, Optional[int]], None],
+                 watchdog=None,
+                 on_enter: Optional[Callable[[str, Optional[int]], None]]
+                 = None,
+                 on_section: Optional[
+                     Callable[[str, float, Optional[int]], None]] = None):
+        self._on_phase = on_phase
+        self._on_enter = on_enter
+        self._on_section = on_section
+        self.watchdog = watchdog
+
+    @contextmanager
+    def phase(self, name: str, step: Optional[int] = None):
+        """Time one loop section. Beats the watchdog on ENTRY (the beat
+        must land before the potentially-hanging work, not after) and
+        books the duration on exit — including the exceptional exit, so a
+        phase that dies mid-flight still accounts for the time it burned
+        before the exception unwound. `on_enter` fires before the clock
+        starts (the facade uses it to drain compile time that accrued
+        OUTSIDE any phase, so it cannot be mis-attributed to this one)."""
+        if self.watchdog is not None:
+            self.watchdog.beat(name, step)
+        if self._on_enter is not None:
+            self._on_enter(name, step)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._on_phase(name, time.perf_counter() - t0, step)
+
+    @contextmanager
+    def section(self, name: str, step: Optional[int] = None):
+        """Time a sub-span INSIDE a phase (a pipeline stage's ticks, a
+        loss post-process). Sections feed the histogram registry only:
+        no watchdog beat (the enclosing phase already armed it) and no
+        ledger booking (their wall is part of the enclosing phase — a
+        second booking would double-count the same seconds)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self._on_section is not None:
+                self._on_section(name, time.perf_counter() - t0, step)

@@ -82,8 +82,8 @@ from picotron_tpu_torch.train_step import (
     init_train_state, make_eval_step, make_train_step, resolved_grad_engine,
 )
 from picotron_tpu_torch.utils import (
-    StepTimer, device_memory_gb, device_peak_flops, human_format, log_print,
-    mfu, set_log_quiet, training_log_line,
+    StepTimer, cuda_or_cpu, device_memory_gb, device_peak_flops,
+    human_format, log_print, mfu, set_log_quiet, training_log_line,
 )
 
 
@@ -137,12 +137,8 @@ def resolve_device(cfg: Config, device: Optional[str] = None) -> torch.device:
     """CUDA unless the caller asks for the CPU; never a silent fallback."""
     if device is None:
         device = "cpu" if cfg.distributed.use_cpu else "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass --device cpu (or set "
-            "distributed.use_cpu) to run on the CPU")
-    return dev
+    return cuda_or_cpu(device,
+                       "pass --device cpu (or set distributed.use_cpu)")
 
 
 def build_state(cfg: Config, dev: torch.device, par=None):

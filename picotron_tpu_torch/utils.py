@@ -16,6 +16,17 @@ from picotron_tpu_torch.config import ModelConfig, num_params
 H100_BF16_PEAK = 989.5e12
 
 
+def cuda_or_cpu(device: str, cpu_hint: str = "pass --device cpu"
+                ) -> torch.device:
+    """`device` as a torch.device; a CUDA one must exist (no silent
+    fallback to the CPU: `cpu_hint` says how to ask for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"CUDA is not available; {cpu_hint} to run on "
+                           "the CPU")
+    return dev
+
+
 def device_peak_flops(device=None) -> float:
     """bf16 peak FLOP/s of a CUDA device. Raises for a card it does not
     know rather than guessing, and for a non-CUDA device."""

@@ -39,7 +39,10 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "picotron_tpu_torch/ops/flash_attention.py",
                  "picotron_tpu_torch/kernels/build.py",
-                 "picotron_tpu_torch/train.py"):
+                 "picotron_tpu_torch/train.py",
+                 "picotron_tpu_torch/generate.py",
+                 "picotron_tpu_torch/serve/engine.py",
+                 "picotron_tpu_torch/telemetry/__init__.py"):
         assert want in names
     assert (ROOT / "picotron_tpu_torch/csrc/flash_attention.cu").exists()
 
@@ -54,6 +57,8 @@ def test_no_jax_or_jax_package_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, picotron_tpu_torch, picotron_tpu_torch.train, "
             "picotron_tpu_torch.weights, picotron_tpu_torch.ops.flash_attention"
+            ", picotron_tpu_torch.generate, picotron_tpu_torch.serve, "
+            "picotron_tpu_torch.serve.spec_decode, picotron_tpu_torch.telemetry"
             "\nbad = [m for m in sys.modules if m == 'jax' or m.startswith"
             "('jax.') or m == 'picotron_tpu' or m.startswith('picotron_tpu.')]"
             "\nassert not bad, bad\nimport torch"
@@ -85,6 +90,25 @@ def test_entry_point_without_cpu_request_raises_when_cuda_absent(monkeypatch):
     assert train.resolve_device(cfg, "cpu").type == "cpu"
     cpu_cfg = config.config_from_dict({"distributed": {"use_cpu": True}})
     assert train.resolve_device(cpu_cfg).type == "cpu"
+
+
+def test_generation_and_serving_refuse_without_cuda(monkeypatch):
+    """`python -m picotron_tpu_torch.generate` without --device cpu, and a
+    ServeEngine without device="cpu", refuse when CUDA is absent; neither
+    falls back to the CPU."""
+    from picotron_tpu_torch import config, generate
+    from picotron_tpu_torch.models.llama import LlamaModel
+    from picotron_tpu_torch.serve import ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate.main(["--hf-dir", "unused", "--model", "debug-tiny",
+                       "--prompt-ids", "1,2"])
+    cfg = config.config_from_dict({"model": {"name": "debug-tiny"}}).model
+    model = LlamaModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(model)
+    assert ServeEngine(model, device="cpu").device.type == "cpu"
 
 
 def test_peak_flops_refuses_to_guess(monkeypatch):
