@@ -248,7 +248,46 @@ Phases, each of which raises on failure (so the script exits non-zero):
    bound (and the capacity-sized view copy beside it), slot occupancy,
    pool utilisation, peak GiB, decode_compiles; and a `serving` JSON
    line.
-11. Numbers, then the device line last.
+11. Mixture of experts (`ops/moe.py`, the MoE model, ep) on
+   `picotron_tpu_torch/configs/mixtral-8x7b-2l-1gpu.json`: the
+   `mistralai/Mixtral-8x7B-v0.1` preset (hidden 4096, ffn 14336, 32/8
+   heads, D 128, vocab 32000, 8 experts, top-2, rope theta 1e6) at
+   bench.py's Mixtral row (seq 2048, mbs 2, remat "dots"), cut to 2 of
+   its 32 layers, ga 64 -> 2, bf16 moments resident (no offload);
+   weights from training.seed.
+   (a) 3 steps through `train.run` with the counts from 0: ms/step,
+   tokens/s, MFU (active params), peak GiB, `moe_drop_frac` per step,
+   each flash kernel's launches (layers x ga x steps, all tensor-core)
+   and the AdamW kernel's (one per tensor per step); the same 3 steps
+   under the plain attention (`attn_impl: "reference"`), each step's
+   loss within MOE_LOSS_ATOL; on the first microbatch, the share of
+   (token, choice) assignments both paths route alike, at least
+   MOE_ROUTE_AGREE; and a planted fault (the gates not renormalised over
+   the k) must fail the loss limit.
+   (b) The fused engine (remat "dots_attn") against the AD engine of
+   (a) on its first step (the same params and batch; the AD loss must be
+   (a)'s step-1 loss bit for bit), at phase 5's limits.
+   (c) `moe_mlp` twice on one input at (a)'s shapes: out, expert_idx and
+   slot bit for bit (the recompute contract of remat and the fused
+   engine); its forward time.
+   (d) ep 2 as a thread world of 2 ranks on the card (`ThreadEPComm`,
+   `ThreadMean`: the ranks' graphs join at the exchanges, one backward
+   over their summed losses), depth 1, capacity factor 8 (drop-free),
+   against ep 1 on the same params and global batch (2 rows, one per
+   rank): loss and grads at phase 8b's limits, 2 x layers all-to-alls
+   per rank, the flash launches. It bypasses NCCL.
+   (e) `generate` at B 8, prompt 512, 64 new tokens, greedy, capacity
+   factor 8: prefill and decode ms, the bound share; in bf16 every
+   chosen token within DECODE_MARGIN of the training forward's row max
+   (flash) and the share of routes alike on the two paths; in fp32 with
+   TF32 off the teacher-forced cache logits within MOE_DECODE_ATOL of
+   the training forward's, and the planted fault of 10a past it.
+   (f) The flash kernels alone at the Mixtral attention shape (B 2, S
+   2048, Hq 32, Hkv 8, D 128, bf16, causal, fused RoPE): ms against the
+   bound and SDPA's (phase 2 holds them to their plain versions there).
+   A `moe` JSON line; the kernel JSON line gains each kernel's
+   `moe_launches` and its `moe_shape` times.
+12. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -348,6 +387,25 @@ prefill differ at fp32 round-off (~1e-5 on the logits): a request may
 part from `generate` only where the offline top-2 gap is below
 NEAR_TIE = 1e-3, 100 times that (none parted in the measured run).
 
+Phase 11's limits: (a) MOE_LOSS_ATOL = 1e-4 on each step's loss, flash
+against the plain attention: the same bf16 products but attention's
+(the per-row limit of phase 2), and a route that flips on a near tie.
+Measured 3.6e-5 at worst over 3 steps, the planted fault (gates not
+renormalised) 2.4e-4 at step 1 (the loss of random weights near ln V
+moves little with the MoE output's scale); routes alike on 0.99927 of
+the assignments, MOE_ROUTE_AGREE = 0.99 (NVIDIA H100 80GB HBM3, 700 W;
+PERF.md). (b), (d): phases 5 and 8b's limits (measured: fused against
+AD 6.5e-3 at worst, layers.0.input_norm, the loss bit for bit; ep 2
+against ep 1 the loss bit for bit, grads 2.4e-3 at worst). (e) In bf16
+the cache and the forward route 0.13% of the assignments apart on near
+ties, and a token routed elsewhere moves its logits by more than phase
+10's limit (0.168 measured), so the logits are held in fp32 with TF32
+off, where no route flips: MOE_DECODE_ATOL = 1e-4, measured 9.5e-6, the
+planted fault 3.2e-3 over 16 tokens (2 layers of random weights attend
+nearly uniformly over 512+ keys, so one missing key moves the logits
+far less than phase 10's 24 layers do; phase 10's 0.1 could not see
+it). The greedy tokens are held in bf16 by the margin (0.0 measured).
+
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
 
@@ -398,6 +456,9 @@ SHAPES = {
     # each pipeline stage of phase 9 (PP_CONFIG: Llama-2-7B, 32/32 heads)
     "llama2-7b pp B1 S4096 H32 D128 rope static": (1, 32, 32, 4096, 4096,
                                                    128, 0),
+    # phase 11's attention (Mixtral-8x7B: 32/8 heads, D 128)
+    "mixtral B2 S2048 Hq32 Hkv8 D128 rope static": (2, 32, 8, SEQ, SEQ,
+                                                    128, 0),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -484,6 +545,14 @@ SERVE_TRACE = (32, 512, 128)   # 10c: requests, most prompt, most budget
 DECODE_MARGIN = 0.07           # 10a: chosen logit below its row's max
 DECODE_LOGIT_ATOL = 0.1        # 10a: cache-decode vs full forward logits
 NEAR_TIE = 1e-3                # 10b: top-2 gap where a request may part
+# phase 11: Mixtral-8x7B's full-width layers (2 of 32), seq 2048, mbs 2
+MOE_CONFIG = "picotron_tpu_torch/configs/mixtral-8x7b-2l-1gpu.json"
+MOE_SHAPE = (2, 32, 8, SEQ, SEQ, 128, 0)  # its attention: GQA 32:8, D 128
+MOE_SEED = 13
+MOE_NEW = 64                   # 11e: new tokens
+MOE_LOSS_ATOL = 1e-4           # 11a: flash vs plain attention, each step
+MOE_ROUTE_AGREE = 0.99         # 11a: share of assignments alike
+MOE_DECODE_ATOL = 1e-4         # 11e: fp32 cache vs forward logits
 
 
 def log(msg: str) -> None:
@@ -829,11 +898,13 @@ def gemm_accumulate_in_place(dev) -> float:
     return err
 
 
-def engine_parity(cfg, seed: int = 1234, dev: str = "cuda") -> dict:
-    """Phase 5(a) on `cfg` (an AD config without remat; its fused twin is
-    the same config with remat "dots_attn" and grad_engine "fused"): one
-    step's grads from one seed under both engines, and the fused engine's
-    GEMM-accumulate against its plain form. Raises past the limits."""
+def engine_parity(cfg, seed: int = 1234, dev: str = "cuda",
+                  fused_cfg=None, label: str = "5a") -> dict:
+    """Phase 5(a) on `cfg` (an AD config; its fused twin `fused_cfg`, by
+    default the same config with remat "dots_attn" and grad_engine
+    "fused"): one step's grads from one seed under both engines, and
+    (phase 5a, not 11b) the fused engine's GEMM-accumulate against its
+    plain form. Raises past the limits."""
     import dataclasses
 
     from picotron_tpu_torch.data import MicroBatchDataLoader
@@ -845,9 +916,10 @@ def engine_parity(cfg, seed: int = 1234, dev: str = "cuda") -> dict:
         make_grads_fn, resolved_grad_engine,
     )
 
-    fused_cfg = dataclasses.replace(cfg, training=dataclasses.replace(
-        cfg.training, remat=True, remat_policy="dots_attn",
-        grad_engine="fused"))
+    fused_cfg = fused_cfg or dataclasses.replace(
+        cfg, training=dataclasses.replace(
+            cfg.training, remat=True, remat_policy="dots_attn",
+            grad_engine="fused"))
     if (resolved_grad_engine(cfg), resolved_grad_engine(fused_cfg)) != (
             "ad", "fused"):
         raise AssertionError("engine parity needs an AD config")
@@ -858,6 +930,19 @@ def engine_parity(cfg, seed: int = 1234, dev: str = "cuda") -> dict:
     loss_ad = float(make_grads_fn(cfg)(model, batch)[0])
     g_ad = grads_of(model)
     loss_fused = float(make_grads_fn(fused_cfg)(model, batch)[0])
+    if label != "5a":
+        err, name = worst_grad(grads_of(model), g_ad)
+        del g_ad, model
+        torch.cuda.empty_cache()
+        log(f"phase {label} engine parity: loss AD {loss_ad}, fused "
+            f"{loss_fused}; worst grad fused vs AD {err:.4g} ({name}) "
+            f"(limit {GRAD_RTOL:g})")
+        if not (abs(loss_ad - loss_fused) <= LOSS_ATOL and err <= GRAD_RTOL):
+            raise AssertionError(f"{label}: engine losses {loss_ad} vs "
+                                 f"{loss_fused}, grads {err} ({name})")
+        return {"loss_ad": loss_ad, "loss_fused": loss_fused,
+                "bitwise": loss_ad == loss_fused,
+                "worst_grad_rel_l2": err, "worst_grad": name}
     g_fused = grads_of(model)
     err, name = worst_grad(g_fused, g_ad)
     del g_ad
@@ -2032,6 +2117,48 @@ class ThreadComm:
 
         t.copy_(self._swap(t, read))
         return t
+
+
+class ThreadEPComm:
+    """The ep communicator of rank `index` of a `ThreadWorld`
+    (`parallel.comm.EPComm`'s `size`, `index` and `all_to_all`): chunk j
+    of x goes to rank j. Where `EPComm` is an autograd node whose
+    backward is the reverse exchange, this one is differentiable as it
+    stands: each rank stacks the chunks the others posted, which keeps
+    their autograd history, so the ranks' graphs join at the exchanges
+    and ONE backward, from one thread, over the sum of the ranks' losses
+    takes every rank's grads (a backward per thread would stall: a
+    device's autograd nodes run on one engine thread). `counts` are this
+    rank's calls."""
+
+    def __init__(self, world: ThreadWorld, index: int):
+        self.world, self.index, self.size = world, index, world.n
+        self.counts = {"all_to_all": 0}
+        self._comm = ThreadComm(world, index)
+
+    def all_to_all(self, x):
+        self.counts["all_to_all"] += 1
+        me = self.index
+        return self._comm._swap(x, lambda slots: torch.stack(
+            [slots[m][me] for m in range(self.size)]))
+
+
+class ThreadMean:
+    """`parallel.comm.GroupMean` over the ranks of a `ThreadWorld`: the
+    mean of every rank's tensor, summed in rank order, differentiable as
+    `ThreadEPComm` is."""
+
+    def __init__(self, world: ThreadWorld, index: int):
+        self._comm = ThreadComm(world, index)
+
+    def mean(self, t):
+        def read(slots):
+            out = slots[0]
+            for s in slots[1:]:
+                out = out + s
+            return out / len(slots)
+
+        return self._comm._swap(t, read)
 
 
 def cp_raw(flavor: str = "", cp_layout: str = "zigzag", cp_mesh: str = "",
@@ -3227,6 +3354,459 @@ def serve_phase(fa, card: str, config: str = CONFIG,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: mixture of experts on Mixtral-8x7B's full-width layers
+# ---------------------------------------------------------------------------
+
+
+def moe_config(here: str, **sections):
+    """MOE_CONFIG, each section of `sections` updated over the file's."""
+    import dataclasses
+
+    from picotron_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(here, MOE_CONFIG))
+    for name, vals in sections.items():
+        cfg = dataclasses.replace(cfg, **{name: dataclasses.replace(
+            getattr(cfg, name), **vals)})
+    cfg.validate()
+    return cfg
+
+
+def moe_model(cfg, dev, seed=None):
+    """The config's model on `dev`, initialised as the trainer's
+    `build_state` initialises it without a layout (training.seed)."""
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+
+    gen = torch.Generator(device=dev).manual_seed(
+        cfg.training.seed if seed is None else seed)
+    return init_params(LlamaModel(cfg.model, device=dev), gen)
+
+
+@contextlib.contextmanager
+def unrenormalised_gates():
+    """The planted fault of 11a: the top-k gates left as the router's
+    probabilities, not renormalised over the k."""
+    from picotron_tpu_torch.ops import moe
+
+    real = moe.route_topk
+
+    def fault(logits, k, stats=None):
+        r = real(logits, k, stats)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return r._replace(gate=probs.gather(-1, r.expert_idx))
+
+    moe.route_topk = fault
+    try:
+        yield
+    finally:
+        moe.route_topk = real
+
+
+@contextlib.contextmanager
+def recorded_routes(out: list):
+    """Each MoE block's chosen experts [N, k], appended to `out`."""
+    from picotron_tpu_torch.models import llama
+    from picotron_tpu_torch.ops.moe import route_topk
+
+    real = llama.moe_mlp
+
+    def recording(x, router_w, *args, **kw):
+        logits = kw.get("logits")
+        if logits is None:
+            logits = x.reshape(-1, x.shape[-1]).float() @ router_w.float()
+        out.append(route_topk(logits, kw["top_k"]).expert_idx)
+        return real(x, router_w, *args, **kw)
+
+    llama.moe_mlp = recording
+    try:
+        yield
+    finally:
+        llama.moe_mlp = real
+
+
+def _moe_run(cfg, on_step=None) -> dict:
+    """`train.run` on cfg (the trainer's entry point), the state dropped."""
+    from picotron_tpu_torch import train
+
+    result = train.run(cfg, on_step=on_step)
+    torch.cuda.synchronize()
+    result.pop("state")
+    torch.cuda.empty_cache()
+    return result
+
+
+def moe_train_phase(fa, here: str, card: str, peak_flops: float) -> dict:
+    """11a: MOE_STEPS AD steps of MOE_CONFIG (remat "dots") through the
+    trainer with its counts from 0, against the same steps under the
+    plain attention, the route agreement of the two on one microbatch,
+    and the planted fault."""
+    import dataclasses
+
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch.data import MicroBatchDataLoader
+    from picotron_tpu_torch.models.llama import loss_sum_count
+
+    cfg = moe_config(here)
+    t = cfg.training
+    drops = []
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    result = _moe_run(cfg, lambda step, m: drops.append(m["moe_drop_frac"]))
+    counts = launch_counts(fa)
+    adamw = topt.launches["adamw"]
+    per = cfg.model.num_hidden_layers * t.gradient_accumulation_steps \
+        * t.total_train_steps
+    check_launches(counts, {name: per for name, _ in KERNELS}, "phase 11a")
+    n_tensors = len(cfg_param_names(cfg))
+    if adamw != n_tensors * t.total_train_steps:
+        raise AssertionError(f"11a: adamw launched {adamw} times, want "
+                             f"{n_tensors * t.total_train_steps}")
+    losses = result["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        raise AssertionError(f"11a losses {losses}")
+    nums = path_numbers(result, cfg.model, peak_flops)
+
+    ref_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attn_impl="reference"))
+    ref = _moe_run(ref_cfg)["losses"]
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    with unrenormalised_gates():
+        fault = _moe_run(dataclasses.replace(cfg, training=dataclasses.replace(
+            t, total_train_steps=1)))["losses"]
+    fault_diff = abs(fault[0] - ref[0])
+
+    # the routes of both attention paths on the first microbatch
+    dev = torch.device("cuda")
+    model = moe_model(cfg, dev)
+    ids, tgt = next(MicroBatchDataLoader(cfg, dev))
+    routes = {}
+    for impl in ("auto", "reference"):
+        model.cfg = dataclasses.replace(cfg.model, attn_impl=impl)
+        rec = []
+        with torch.no_grad(), recorded_routes(rec):
+            loss_sum_count(model, ids[0], tgt[0])
+        routes[impl] = torch.stack(rec)
+    agree = float((routes["auto"] == routes["reference"]).float().mean())
+    del model, routes
+    torch.cuda.empty_cache()
+
+    res = {"card": card, "losses": losses, "plain_attention_losses": ref,
+           "loss_diffs": diffs, "fault_loss_diff": fault_diff,
+           "moe_drop_frac": drops, "route_agreement": agree,
+           "launches": {**counts["launches"], "adamw": adamw},
+           "step_seconds": result["step_seconds"], **nums,
+           "limits": {"MOE_LOSS_ATOL": MOE_LOSS_ATOL,
+                      "MOE_ROUTE_AGREE": MOE_ROUTE_AGREE}}
+    log(f"phase 11a Mixtral-8x7B 2 layers, AD, remat dots ({card}): step "
+        f"{nums['step_ms']:.1f} ms (median of steps 2-{t.total_train_steps}), "
+        f"{nums['tokens_per_s']:.1f} tokens/s, MFU {100 * nums['mfu']:.2f}% "
+        f"(active params), peak {nums['peak_memory_gb']:.2f} GiB, "
+        f"moe_drop_frac {drops}, launches {res['launches']}; losses "
+        f"{losses}, plain attention {ref}, diffs {diffs} (limit "
+        f"{MOE_LOSS_ATOL}); routes agree on {agree:.5f} of the assignments "
+        f"(limit {MOE_ROUTE_AGREE}); planted fault (gates not "
+        f"renormalised) step-1 diff {fault_diff}")
+    if not max(diffs) <= MOE_LOSS_ATOL:
+        raise AssertionError(f"11a: flash vs plain attention losses {diffs}")
+    if not agree >= MOE_ROUTE_AGREE:
+        raise AssertionError(f"11a: routes agree on {agree}")
+    if fault_diff <= MOE_LOSS_ATOL:
+        raise AssertionError(f"11a: the planted fault passed ({fault_diff})")
+    return res
+
+
+def cfg_param_names(cfg) -> list:
+    """The parameter names of the config's model (built on meta)."""
+    from picotron_tpu_torch.models.llama import LlamaModel
+
+    return [n for n, _ in LlamaModel(cfg.model, device="meta")
+            .named_parameters()]
+
+
+def moe_determinism(cfg, dev, seed: int = MOE_SEED) -> dict:
+    """11c: `moe_mlp` run twice on one input at 11a's shapes (layer 0's
+    weights, bf16 tokens [MBS, SEQ, H] from a seed): out, expert_idx and
+    slot bit for bit (the recompute contract remat and the fused engine
+    rely on); and its forward time."""
+    from picotron_tpu_torch.models.llama import mlp_act
+    from picotron_tpu_torch.ops.moe import moe_mlp, route_topk
+
+    m = cfg.model
+    model = moe_model(cfg, dev)
+    lp = model.layers[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(MBS, SEQ, m.hidden_size, generator=g,
+                    device=dev).bfloat16()
+    kw = dict(num_experts=m.num_experts, top_k=m.num_experts_per_token,
+              capacity_factor=m.capacity_factor, act=mlp_act(m),
+              router_aux_coef=m.router_aux_coef,
+              router_z_coef=m.router_z_coef)
+    with torch.no_grad():
+        def once():
+            logits = x.reshape(-1, m.hidden_size).float() @ lp.router.float()
+            r = route_topk(logits, m.num_experts_per_token)
+            out = moe_mlp(x, lp.router, lp.w_gate, lp.w_up, lp.w_down, **kw)
+            return out[0], r.expert_idx, r.slot, out[2]
+
+        a, b = once(), once()
+        same = {name: bool(torch.equal(u, v)) for name, u, v in zip(
+            ("out", "expert_idx", "slot"), a, b)}
+        ms = cuda_ms(lambda: moe_mlp(x, lp.router, lp.w_gate, lp.w_up,
+                                     lp.w_down, **kw), iters=5, warmup=1)
+    res = {"bitwise": same, "drop_frac": float(a[3]), "moe_mlp_ms": ms}
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 11c recompute determinism: {same}, drop frac "
+        f"{res['drop_frac']}, moe_mlp forward {ms:.3f} ms at N "
+        f"{MBS * SEQ}")
+    if not all(same.values()):
+        raise AssertionError(f"11c: moe_mlp twice differs: {same}")
+    return res
+
+
+def moe_ep_phase(fa, here: str, card: str, cfg=None, dev="cuda",
+                 seq: int = SEQ) -> dict:
+    """11d: ep 2 as a thread world of 2 ranks on the card (depth 1,
+    capacity factor 8: drop-free) against ep 1 on the same params and
+    global batch (MBS rows of SEQ, one per rank at ep 2): the loss within
+    CP_LOSS_RTOL, every grad tensor (a bank's against ep 1's rows of the
+    rank's experts, the others summed over the ranks) within CP_GRAD_RTOL
+    in relative L2, 2 x layers all-to-alls per rank per forward, and the
+    flash launches. The ranks' graphs join at the exchanges (the thread
+    world's communicators are differentiable), so one backward over the
+    ranks' summed losses takes every rank's grads. `cfg`, `dev` and
+    `seq` replace the configuration (a tiny model on the CPU in the
+    tests, where the launches are not counted)."""
+    from picotron_tpu_torch.models.llama import LlamaModel, loss_sum_count
+    from picotron_tpu_torch.parallel.ep import EPContext
+    from picotron_tpu_torch.parallel.sharding import (
+        ep_shard_dim, shard_state_dict,
+    )
+
+    cfg = cfg or moe_config(here, model={"num_hidden_layers": 1,
+                                         "capacity_factor": 8.0})
+    dev = torch.device(dev)
+    n_ep = 2
+    model1 = moe_model(cfg, dev, MOE_SEED)
+    toks = torch.from_numpy(__import__("numpy").random.default_rng(
+        MOE_SEED).integers(0, cfg.model.vocab_size, (n_ep, seq + 1))).to(dev)
+    ids, tgt = toks[:, :-1], toks[:, 1:]
+    fa.reset_launch_counts()
+    total1, count1, _ = loss_sum_count(model1, ids, tgt)
+    total1.backward()
+    loss1 = float(total1) / int(count1)
+    grads1 = {n: p.grad for n, p in model1.named_parameters()}
+    sd = {n: p.detach() for n, p in model1.named_parameters()}
+
+    world = ThreadWorld(n_ep)
+    comms = [ThreadEPComm(world, r) for r in range(n_ep)]
+    models = []
+    for r in range(n_ep):
+        m = LlamaModel(cfg.model, device="meta",
+                       ep=EPContext(comms[r], ThreadMean(world, r)))
+        m.load_state_dict(shard_state_dict(sd, 0, 1, r, n_ep), assign=True)
+        m.rope_cos, m.rope_sin = model1.rope_cos, model1.rope_sin
+        models.append(m)
+    for m in models:  # leaves of their own: the ranks' grads apart
+        for p in m.parameters():
+            p.data = p.data.clone()
+            p.requires_grad_(True)
+
+    def rank(r):
+        return loss_sum_count(models[r], ids[r:r + 1], tgt[r:r + 1])[:2]
+
+    outs = world.run(rank)
+    sum(t for t, _ in outs).backward()
+    counts = launch_counts(fa)
+    loss2 = sum(float(t) for t, _ in outs) / sum(int(c) for _, c in outs)
+    errs = {}
+    for n, g1 in grads1.items():
+        if ep_shard_dim(n) is None:
+            got = sum(dict(m.named_parameters())[n].grad for m in models)
+        else:
+            got = torch.cat([dict(m.named_parameters())[n].grad
+                             for m in models])
+        errs[n] = rel_l2(got, g1)
+    worst = max(errs, key=errs.get)
+    rel = abs(loss2 - loss1) / abs(loss1)
+    a2a = [c.counts["all_to_all"] for c in comms]
+    layers = cfg.model.num_hidden_layers
+    res = {"card": card, "loss_ep1": loss1, "loss_ep2": loss2,
+           "loss_rel_err": rel, "worst_grad_rel_l2": errs[worst],
+           "worst_grad": worst, "all_to_all_per_rank": a2a,
+           "launches": counts["launches"],
+           "limits": {"CP_LOSS_RTOL": CP_LOSS_RTOL,
+                      "CP_GRAD_RTOL": CP_GRAD_RTOL}}
+    log(f"phase 11d ep 2 thread world ({card}): loss {loss2} (ep 1: "
+        f"{loss1}, rel err {rel:.3g}, limit {CP_LOSS_RTOL:g}), worst grad "
+        f"{errs[worst]:.4g} ({worst}, limit {CP_GRAD_RTOL:g}), all-to-alls "
+        f"per rank {a2a}, launches {counts['launches']}")
+    del model1, models, grads1, sd, outs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if not rel <= CP_LOSS_RTOL or not errs[worst] <= CP_GRAD_RTOL:
+        raise AssertionError(f"11d: ep 2 vs ep 1: loss {rel}, grads "
+                             f"{errs[worst]} ({worst})")
+    if a2a != [2 * layers] * n_ep:
+        raise AssertionError(f"11d: all-to-alls per rank {a2a}, want "
+                             f"{2 * layers} each")
+    if dev.type == "cuda":
+        check_launches(counts, {name: layers * (1 + n_ep)
+                                for name, _ in KERNELS}, "phase 11d")
+    return res
+
+
+def moe_decode_phase(fa, here: str, card: str) -> dict:
+    """11e: `generate` on MOE_CONFIG's model (params from a seed, capacity
+    factor 8: drop-free at every call) at batch SERVE_BATCH, prompt
+    SERVE_PROMPT, MOE_NEW new tokens, greedy, in bf16: decode ms/step and
+    its bound share, each chosen token within DECODE_MARGIN of the
+    training forward's row max (flash), and the share of routes alike on
+    the two paths. The teacher-forced cache logits are held to the
+    training forward in fp32 with TF32 off at MOE_DECODE_ATOL, tighter
+    than phase 10's bf16 DECODE_LOGIT_ATOL: in bf16 the two paths'
+    round-off flips near-tie routes (a different expert for a token
+    moves its logits by more than phase 10's limit), in fp32 it does
+    not; the planted fault (K/V a slot late) must fail there."""
+    from picotron_tpu_torch.generate import generate, load_for_decode
+    from picotron_tpu_torch.models.llama import forward
+
+    cfg = moe_config(here, model={"capacity_factor": 8.0})
+    dev = torch.device("cuda")
+    # fp32 params and compute; the bf16 model holds their cast
+    model32 = moe_model(moe_config(here, model={"capacity_factor": 8.0,
+                                                "dtype": "float32"}),
+                        dev, SERVE_SEED)
+    model16 = load_for_decode({n: t.to(torch.bfloat16) for n, t in
+                               model32.state_dict().items()}, cfg.model, dev)
+    b, p, n = SERVE_BATCH, SERVE_PROMPT, MOE_NEW
+    prompt = torch.from_numpy(__import__("numpy").random.default_rng(
+        SERVE_SEED).integers(0, cfg.model.vocab_size, (b, p))).to(dev)
+    generate(model16, prompt, 2)  # warm-up
+    _, prefill_s = timed(lambda: generate(model16, prompt, 1))
+    out, total_s = timed(lambda: generate(model16, prompt, n))
+    step_ms = 1e3 * (total_s - prefill_s) / (n - 1)
+    kv = sum(b * (p + i) for i in range(1, n)) / (n - 1)
+    bound_ms = 1e3 * decode_bytes(model16, b, kv) / HBM_BYTES_PER_S
+    gen_tokens = out[:, p:]
+    fa.reset_launch_counts()
+    routes_full, routes_dec = [], []
+    with torch.no_grad(), recorded_routes(routes_full):
+        full = forward(model16, out)[:, p - 1:p - 1 + n].float()
+    check_launches(launch_counts(fa), {
+        "flash_fwd": cfg.model.num_hidden_layers, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0}, "11e forward")
+    chosen = full.gather(-1, gen_tokens[..., None])[..., 0]
+    margin = float((full.max(dim=-1).values - chosen).max())
+    with recorded_routes(routes_dec):
+        atol16 = float((cache_logits(model16, prompt, gen_tokens) - full)
+                       .abs().max())
+    layers = cfg.model.num_hidden_layers
+    k = cfg.model.num_experts_per_token
+    agree = []
+    for li in range(layers):  # the prefill's call, then one per token
+        dec = torch.cat([r.reshape(b, -1, k)
+                         for r in routes_dec[li::layers]], dim=1)
+        agree.append(dec == routes_full[li].reshape(b, -1, k)[:, :dec.shape[1]])
+    agree = float(torch.stack(agree).float().mean())
+    del model16, full
+    torch.cuda.empty_cache()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            full32 = forward(model32, out)[:, p - 1:p - 1 + n].float()
+        atol = float((cache_logits(model32, prompt, gen_tokens) - full32)
+                     .abs().max())
+        fault = cache_logits(model32, prompt, gen_tokens[:, :16],
+                             late_cache())
+        fault_atol = float((fault - full32[:, :16]).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    res = {"card": card, "batch": b, "prompt": p, "new_tokens": n,
+           "prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": step_ms,
+           "decode_tokens_per_s": b * (n - 1) / (total_s - prefill_s),
+           "decode_bound_ms": bound_ms, "decode_bound_share":
+           bound_ms / step_ms, "margin": margin, "bf16_logit_atol": atol16,
+           "route_agreement": agree, "logit_atol_fp32": atol,
+           "fault_logit_atol_fp32": fault_atol,
+           "limits": {"DECODE_MARGIN": DECODE_MARGIN,
+                      "MOE_DECODE_ATOL": MOE_DECODE_ATOL}}
+    log(f"phase 11e generate Mixtral-8x7B 2 layers ({card}): prefill "
+        f"{res['prefill_ms']:.1f} ms (B {b}, P {p}), decode {step_ms:.3f} "
+        f"ms/step, {res['decode_tokens_per_s']:.1f} tokens/s, bound "
+        f"{bound_ms:.3f} ms (bytes), {100 * bound_ms / step_ms:.1f}% of "
+        f"bound; bf16: teacher-forced margin {margin} (limit "
+        f"{DECODE_MARGIN}), cache vs forward logits {atol16}, routes alike "
+        f"on {agree:.5f} of the assignments; fp32: cache vs forward logits "
+        f"{atol} (limit {MOE_DECODE_ATOL}), planted fault (K/V a slot "
+        f"late) {fault_atol}")
+    del model32, full32, fault
+    torch.cuda.empty_cache()
+    if margin > DECODE_MARGIN or atol > MOE_DECODE_ATOL:
+        raise AssertionError(f"11e: decode against the full forward: margin "
+                             f"{margin}, fp32 logits {atol}")
+    if fault_atol <= MOE_DECODE_ATOL:
+        raise AssertionError(f"11e: the planted fault passed ({fault_atol})")
+    return res
+
+
+def moe_kernel_times(fa, card: str) -> dict:
+    """11f: the flash kernels alone at the Mixtral attention shape
+    (MOE_SHAPE: B 2, S 2048, Hq 32, Hkv 8, D 128, bf16, causal, fused
+    RoPE): ms against the bound and SDPA's (phase 2 holds them to their
+    plain versions at this shape)."""
+    from picotron_tpu_torch.ops.rope import rope_tables
+
+    case = make_case(fa, rope_tables, *MOE_SHAPE, dev=torch.device("cuda"),
+                     seed=7)
+    times = time_kernels(fa, case)
+    bnd = bounds(*MOE_SHAPE)
+    del case
+    torch.cuda.empty_cache()
+    res = {}
+    for name, _ in KERNELS:
+        ms, plain_ms, lib_ms = times[name]
+        bound_ms, bound_by, flops = bnd[name]
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "tflops": flops / ms / 1e9}
+        log(f"phase 11f {name} at B2 S2048 Hq32 Hkv8 D128 ({card}): "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f}% of bound")
+    return res
+
+
+def moe_phase(fa, here: str, card: str, peak_flops: float) -> dict:
+    """Phase 11: 11a-11f on MOE_CONFIG."""
+    import dataclasses
+
+    out = {"train": moe_train_phase(fa, here, card, peak_flops)}
+    torch.cuda.empty_cache()
+    cfg = moe_config(here)
+    fused = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, remat=True, remat_policy="dots_attn",
+        grad_engine="fused"))
+    out["engines"] = engine_parity(cfg, seed=cfg.training.seed,
+                                   fused_cfg=fused, label="11b")
+    # the AD engine's loss there is 11a's first step's: the same params
+    # (the trainer's init from training.seed) and batch
+    if out["engines"]["loss_ad"] != out["train"]["losses"][0]:
+        raise AssertionError(f"11b: the AD loss {out['engines']['loss_ad']} "
+                             f"is not 11a's first step's "
+                             f"{out['train']['losses'][0]}")
+    torch.cuda.empty_cache()
+    out["determinism"] = moe_determinism(cfg, torch.device("cuda"))
+    out["ep"] = moe_ep_phase(fa, here, card)
+    out["decode"] = moe_decode_phase(fa, here, card)
+    out["kernels"] = moe_kernel_times(fa, card)
+    return out
+
+
 def compare_main_paths(trees: list) -> int:
     """`--main-path TREE...`: phase 3 of each tree's own chip_smoke.py
     (e.g. an unpacked parent commit and this checkout, in turns), one
@@ -3425,6 +4005,13 @@ def main() -> int:
     serving["seconds"] = time.perf_counter() - t10
     log(f"phase 10 generation and serving: ok in {serving['seconds']:.1f} s")
 
+    # phase 11: mixture of experts at Mixtral-8x7B's full width
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    moe = moe_phase(fa, here, card, H100_BF16_PEAK)
+    moe["seconds"] = time.perf_counter() - t11
+    log(f"phase 11 mixture of experts: ok in {moe['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -3456,6 +4043,9 @@ def main() -> int:
                 if not lay.startswith("planted")},
             "pp_launches": pp_launches(pipeline, name),
             "serve_launches": serving["offline"]["forward_launches"][name],
+            "moe_launches": moe["train"]["launches"][name],
+            "moe_shape": {k: moe["kernels"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
@@ -3469,6 +4059,7 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": adamw["library_ms"],
         "pp_launches": pp_launches(pipeline, "adamw"),
         "serve_launches": serving["offline"]["forward_launches"]["adamw"],
+        "moe_launches": moe["train"]["launches"]["adamw"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
@@ -3483,6 +4074,7 @@ def main() -> int:
     print(json.dumps({"context_parallel": context_parallel}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"moe": moe}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

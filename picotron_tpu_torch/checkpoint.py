@@ -34,21 +34,26 @@ into the live tensors, so it costs no second device copy. A checkpoint
 saved under another topology or model shape is refused, naming both.
 
 Under a parallel layout (`par`, the rank's `mesh.ParallelEnv`) each rank
-writes its own shards and no rank gathers the model: the ranks of data
-rank 0 write `params.rank<R>.pt` (their tp shards; the other data ranks
+writes its own shards and no rank gathers the model: the ranks at dp 0
+and cp 0 write `params.rank<R>.pt` (their tp shards, and under expert
+parallelism their ep shard of the MoE banks; the other dp and cp ranks
 hold copies), and each rank writes `opt_state.rank<R>.pt` under ZeRO-1
 (its rows of the moments and, under offload, of the master), else the
-data-rank-0 ranks do. All write into one shared `state.tmp/`; after the
+ranks at dp 0 and cp 0 do. All write into one shared `state.tmp/`; after the
 ranks agree on the checkpoint's gloo group that every write landed, rank
 0 renames it to `state/` and writes the manifest, which covers every
 rank's files, and the ranks agree again before `wait_until_finished`
-returns. The topology records dp x tp x zero1 and the process count;
+returns. The topology records the layout's sizes (ep included), zero1 and the
+process count;
 resume is into the same layout (another is refused, naming both, as the
 JAX package does with elastic off), each rank reading its own files.
 Rank 0 picks the step to restore and the others take its answer.
 
-HF safetensors (dense Llama/Qwen2 families): the port's [out, in] weight
-layout is HF's own, so nothing is transposed. The format (an 8-byte
+HF safetensors (Llama/Qwen2 families, and Mixtral's MoE names:
+`block_sparse_moe.gate` the router, `experts.<j>.{w1,w3,w2}` expert j's
+gate, up and down projections): the port's [out, in] weight layout is
+HF's own, so nothing is transposed but the MoE router and banks, which
+keep the JAX [in, out] layout. The format (an 8-byte
 little-endian header length, a JSON header of dtype/shape/data_offsets,
 then the raw bytes) is read and written here, without the `safetensors`
 package.
@@ -178,7 +183,7 @@ class CheckpointManager:
         t0 = time.perf_counter()
         model, opt = state.model, state.optimizer
         par = self.par
-        first = par is None or par.data_rank == 0
+        first = par is None or par.bank_rank == 0
         params = opt_state = None
         if first:
             params = {n: _host(p) for n, p in model.named_parameters()}
@@ -489,9 +494,9 @@ class CheckpointManager:
         state_dir = os.path.join(path, "state")
         params_file, opt_file = PARAMS_FILE, OPT_FILE
         if self.par is not None:
-            # the tp shards of data rank 0; the optimizer state is this
-            # rank's own under ZeRO-1
-            src = self.par.rank_at(dp=0, ep=0, cp=0)
+            # the tp (and ep) shards of this rank's dp 0, cp 0 peer; the
+            # optimizer state is this rank's own under ZeRO-1
+            src = self.par.rank_at(dp=0, cp=0)
             params_file = _rank_file("params", src)
             opt_file = _rank_file("opt_state", self.par.rank
                                   if self.cfg.distributed.zero1 else src)
@@ -598,6 +603,9 @@ _LAYER_MAP = {
     "mlp.up_proj.weight": "up",
     "mlp.down_proj.weight": "down",
 }
+# Mixtral's MoE names: block_sparse_moe.experts.<j>.{w1,w2,w3} hold expert
+# j's gate/down/up projections, block_sparse_moe.gate is the router
+_MOE_EXPERT_MAP = {"w1": "w_gate", "w2": "w_down", "w3": "w_up"}
 # Qwen2-style qkv bias
 _BIAS_MAP = {
     "self_attn.q_proj.bias": "b_q",
@@ -684,12 +692,9 @@ def _read_safetensors_dir(path: str) -> dict[str, torch.Tensor]:
 
 def load_hf_safetensors(path: str, cfg: ModelConfig,
                         dtype: torch.dtype = torch.float32) -> dict:
-    """An HF Llama-family safetensors checkpoint as the port's state_dict
-    ({name: CPU tensor}, fp32 by default; load with
+    """An HF Llama-family (or Mixtral) safetensors checkpoint as the
+    port's state_dict ({name: CPU tensor}, fp32 by default; load with
     `model.load_state_dict`)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE weights are not ported yet (ROADMAP Queue 1 item 10)")
     raw = _read_safetensors_dir(path)
     nl = cfg.num_hidden_layers
     file_layers = {int(m.group(1)) for k in raw
@@ -706,7 +711,8 @@ def load_hf_safetensors(path: str, cfg: ModelConfig,
                            f"(found {len(raw)} tensors)")
         return raw[name].to(dtype)
 
-    lmap = dict(_LAYER_MAP)
+    lmap = {k: v for k, v in _LAYER_MAP.items()
+            if not (cfg.num_experts and k.startswith("mlp."))}
     if cfg.attention_bias:
         lmap.update(_BIAS_MAP)
     sd = {"embedding": get("model.embed_tokens.weight"),
@@ -714,6 +720,13 @@ def load_hf_safetensors(path: str, cfg: ModelConfig,
     for i in range(nl):
         for suffix, key in lmap.items():
             sd[f"layers.{i}.{key}"] = get(f"model.layers.{i}.{suffix}")
+        if cfg.num_experts:
+            moe = f"model.layers.{i}.block_sparse_moe."
+            sd[f"layers.{i}.router"] = get(moe + "gate.weight").t()
+            for short, key in _MOE_EXPERT_MAP.items():
+                sd[f"layers.{i}.{key}"] = torch.stack([
+                    get(f"{moe}experts.{j}.{short}.weight").t()
+                    for j in range(cfg.num_experts)]).contiguous()
     if not cfg.tie_word_embeddings:
         # a tied-head file loaded as an untied model: untie by copying
         sd["lm_head"] = (get("lm_head.weight") if "lm_head.weight" in raw
@@ -724,11 +737,13 @@ def load_hf_safetensors(path: str, cfg: ModelConfig,
 def save_hf_safetensors(params: Union[torch.nn.Module, dict],
                         path: str) -> None:
     """Export the port's params (a model or its state_dict) to HF Llama
-    naming in `<path>/model.safetensors`, at the params' dtype."""
+    (and Mixtral) naming in `<path>/model.safetensors`, at the params'
+    dtype."""
     sd = (dict(params.named_parameters())
           if isinstance(params, torch.nn.Module) else params)
     os.makedirs(path, exist_ok=True)
     inv = {v: k for k, v in {**_LAYER_MAP, **_BIAS_MAP}.items()}
+    moe_inv = {v: k for k, v in _MOE_EXPERT_MAP.items()}
     out = {}
     for name, t in sd.items():
         if name == "embedding":
@@ -739,7 +754,16 @@ def save_hf_safetensors(params: Union[torch.nn.Module, dict],
             out["lm_head.weight"] = t
         else:
             m = re.fullmatch(r"layers\.(\d+)\.(\w+)", name)
-            if m is None or m.group(2) not in inv:
+            key = None if m is None else m.group(2)
+            moe = f"model.layers.{m.group(1)}.block_sparse_moe." if m else ""
+            if key == "router":
+                out[moe + "gate.weight"] = t.t().contiguous()
+            elif key in moe_inv:
+                for j in range(t.shape[0]):
+                    out[f"{moe}experts.{j}.{moe_inv[key]}.weight"] = (
+                        t[j].t().contiguous())
+            elif key in inv:
+                out[f"model.layers.{m.group(1)}.{inv[key]}"] = t
+            else:
                 raise KeyError(f"no HF name for param {name!r}")
-            out[f"model.layers.{m.group(1)}.{inv[m.group(2)]}"] = t
     write_safetensors(out, os.path.join(path, "model.safetensors"))

@@ -5,12 +5,13 @@ function of (seed, epoch, start)), so both packages read the same tokens.
 `MicroBatchDataLoader` keeps the (epoch, cursor) state, `set_state` and
 `reset`, drops the epoch tail like the reference, and yields
 (input_ids, targets) shaped [grad_acc, mbs, seq] as int64 tensors on the
-loader's device. Under a dp layout each rank reads the same global batch
-([grad_acc, mbs * dp, seq], the JAX loader's) and keeps its dp rank's
-rows [r * mbs, (r + 1) * mbs) of every microbatch (the JAX batch
-sharding over ('dp', 'ep')); the cursor and `state` stay the global ones,
-so every rank holds the same state. tp ranks read the same rows. Under
-context parallelism the ids and targets are permuted along the sequence
+loader's device. Under a dp (and ep) layout each rank reads the same
+global batch ([grad_acc, mbs * dp * ep, seq], the JAX loader's) and keeps
+its data index's rows [d * mbs, (d + 1) * mbs) of every microbatch, d =
+dp rank * ep + ep rank (the JAX batch sharding over the fused ('dp',
+'ep') axis, `P(None, ("dp", "ep"), "cp")`); the cursor and `state` stay
+the global ones, so every rank holds the same state. tp ranks read the
+same rows. Under context parallelism the ids and targets are permuted along the sequence
 after the shift (`cp_sequence_permutation`: the zigzag layout, or none
 for the contiguous one), and each rank keeps its cp index's contiguous
 slice [c * S/cp, (c + 1) * S/cp) of the permuted sequence (the JAX
@@ -85,25 +86,23 @@ def build_eval_source(cfg: Config) -> SyntheticSource:
 
 class MicroBatchDataLoader:
     """Infinite iterator of (input_ids, targets) [grad_acc, mbs,
-    seq / cp] on `device`: dp rank `dp_rank`'s rows of the global batch,
-    cp index `cp_rank`'s slice of their (permuted) sequence; exhausting
-    the source bumps the epoch. `state` is the position after the last
-    batch handed out."""
+    seq / cp] on `device`: the rows of data index dp_rank * ep + ep_rank
+    of the global batch, cp index `cp_rank`'s slice of their (permuted)
+    sequence; exhausting the source bumps the epoch. `state` is the
+    position after the last batch handed out."""
 
     def __init__(self, cfg: Config, device, source=None, dp_rank: int = 0,
-                 cp_rank: int = 0):
+                 cp_rank: int = 0, ep_rank: int = 0):
         d = cfg.distributed
-        if d.ep_size != 1:
-            raise NotImplementedError(
-                "the port's loader shards over dp and cp (and replicates "
-                "over pp) only; ep layouts are ROADMAP Queue 1 item 10")
         for name, r, n in (("dp_rank", dp_rank, d.dp_size),
-                           ("cp_rank", cp_rank, d.cp_size)):
+                           ("cp_rank", cp_rank, d.cp_size),
+                           ("ep_rank", ep_rank, d.ep_size)):
             if not 0 <= r < n:
                 raise ValueError(f"{name} {r} outside {n}")
         self.cfg = cfg
         self.dp_rank = dp_rank
         self.cp_rank = cp_rank
+        self.row = dp_rank * d.ep_size + ep_rank
         self.cp_perm = cp_sequence_permutation(cfg)
         self.device = torch.device(device)
         self.global_batch_size = cfg.global_batch_size
@@ -152,10 +151,11 @@ class MicroBatchDataLoader:
         self.cursor += n
         t = self.cfg.training
         mbs = t.micro_batch_size
+        d = self.cfg.distributed
         blocks = rows.reshape(t.gradient_accumulation_steps,
-                              mbs * self.cfg.distributed.dp_size,
+                              mbs * d.dp_size * d.ep_size,
                               self.seq_length + 1)
-        blocks = blocks[:, self.dp_rank * mbs:(self.dp_rank + 1) * mbs]
+        blocks = blocks[:, self.row * mbs:(self.row + 1) * mbs]
         ids, tgt = blocks[..., :-1], blocks[..., 1:]
         if self.cp_perm is not None:
             # permuted after the shift, so each token still predicts its

@@ -21,7 +21,7 @@ The decode design is the JAX package's:
   decode kernel to port. GQA stays unexpanded in the cache (Hkv heads);
   queries are grouped at score time.
 - The layers are the training model's (`models/llama.py`: `qkv_proj`,
-  `_o_proj`, `_mlp_block`, `embed`, `final_hidden`,
+  `_o_proj`, `_mlp_block` or `_moe_block`, `embed`, `final_hidden`,
   `logits_from_hidden`), so decode runs on the trained params unchanged,
   and under tp on a rank's shards through the model's own f/g hooks and
   vocab-parallel embedding and head (`place_for_decode`). Each rank's
@@ -41,8 +41,12 @@ The decode design is the JAX package's:
 Sampling: greedy (temperature 0), temperature and top-k, drawing from an
 explicit `torch.Generator` (Gumbel noise, then argmax). The JAX package's
 RNG cannot be matched; greedy tokens are held to it, sampled ones are
-deterministic under a fixed generator. MoE models are refused (ROADMAP
-Queue 1 item 10).
+deterministic under a fixed generator.
+
+MoE models decode through `_moe_block`, as the JAX `_decode_layers` does,
+so the expert capacity is per call: N = B * s tokens of that call (the
+prompt's in the prefill, B in a decode step), without expert
+parallelism and with per-call router statistics.
 """
 
 from __future__ import annotations
@@ -55,8 +59,8 @@ import torch
 
 from picotron_tpu_torch.config import ModelConfig
 from picotron_tpu_torch.models.llama import (
-    LlamaModel, _mlp_block, _o_proj, compute_dtype, embed, final_hidden,
-    logits_from_hidden, model_rope_tables, qkv_proj,
+    LlamaModel, _mlp_block, _moe_block, _o_proj, compute_dtype, embed,
+    final_hidden, logits_from_hidden, model_rope_tables, qkv_proj,
 )
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 
@@ -64,14 +68,6 @@ from picotron_tpu_torch.ops.rmsnorm import rms_norm
 # that is done keeps emitting EOS, so exiting at the next check gives the
 # same tokens as exiting at the first step where every row is done
 EOS_CHECK_EVERY = 8
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "generation of MoE models is not ported yet (ROADMAP Queue 1 "
-            "item 10): the JAX decode runs the capacity-bounded expert "
-            "dispatch (_moe_block) in each layer")
 
 
 def kv_heads(model: LlamaModel) -> int:
@@ -195,7 +191,10 @@ def _decode_layers(model: LlamaModel, x, cache, q_pos, cos, sin):
         if masked is None:
             masked = masked_slots(q_pos, ck.shape[1])
         x = x + _o_proj(_cached_attention(q, ck, cv, masked), lp)
-        x = x + _mlp_block(x, lp, cfg)
+        if lp.moe:
+            x = x + _moe_block(x, lp, cfg)[0]
+        else:
+            x = x + _mlp_block(x, lp, cfg)
     return x
 
 
@@ -239,7 +238,6 @@ def generate(model: LlamaModel, prompt_ids, max_new_tokens: int, *,
     greedy when temperature == 0. `generator` (on the model's device)
     draws the samples; default: seeded 0."""
     cfg = model.cfg
-    check_dense(cfg)
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     dev = model_device(model)
@@ -308,7 +306,6 @@ def place_for_decode(params: dict, model_cfg: ModelConfig, tp: int = 1,
     from picotron_tpu_torch.parallel.sharding import shard_state_dict
     from picotron_tpu_torch.parallel.tp import tp_context
 
-    check_dense(model_cfg)
     # the training section is irrelevant to decode; seq_length=1 keeps
     # validate() on what matters here (heads and vocab % tp)
     cfg = Config(distributed=DistributedConfig(tp_size=tp), model=model_cfg,

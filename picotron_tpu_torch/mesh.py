@@ -27,6 +27,12 @@ collectives it needs:
   stage, which both hold the embedding and sum its grads. pp is not a
   data axis: each stage's data group and tp group are its own, and ZeRO-1
   shards a stage's state over its data group;
+- the ep group: the ranks that differ only in ep (the MoE dispatch's
+  all-to-all pair, `parallel.comm.EPComm`), and the bank group: the
+  ranks that differ only in (dp, cp), over which the expert banks,
+  sharded over ep, reduce their grads and ZeRO-1 shards their moments
+  (the JAX `_data_axes_psum` leaves ep out for a tensor sharded over
+  it); at ep 1 neither exists and the bank group is the data group;
 - a gloo group over every rank for the checkpoint's host-side agreement
   (barriers and the step every rank restores), used by nothing else, so
   that a save's commit thread never interleaves with the step's
@@ -58,6 +64,8 @@ from picotron_tpu_torch.ops.mesh_attention import mesh_groups
 AXES = ("dp", "pp", "ep", "cp", "tp")
 # the axes the grads are summed over (and ZeRO-1 shards over)
 DATA_AXES = ("dp", "ep", "cp")
+# the data axes of the expert banks, which are sharded over ep
+BANK_AXES = ("dp", "cp")
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                   "MASTER_PORT")
 
@@ -114,6 +122,9 @@ class ParallelEnv:
     # the first and last stage of this rank's pp group (tied embeddings
     # under pp > 1; None otherwise, and on the middle stages)
     pp_ends_group: object = field(default=None, repr=False)
+    # the ep group, and the bank group (the data group at ep 1)
+    ep_group: object = field(default=None, repr=False)
+    bank_group: object = field(default=None, repr=False)
 
     @property
     def tp_size(self) -> int:
@@ -131,6 +142,24 @@ class ParallelEnv:
     def data_rank(self) -> int:
         c, s = self.coords, self.sizes
         return (c["dp"] * s["ep"] + c["ep"]) * s["cp"] + c["cp"]
+
+    @property
+    def ep_size(self) -> int:
+        return self.sizes["ep"]
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coords["ep"]
+
+    @property
+    def bank_size(self) -> int:
+        return self.sizes["dp"] * self.sizes["cp"]
+
+    @property
+    def bank_rank(self) -> int:
+        """This rank's index in its bank group (dp-major, as in the data
+        group)."""
+        return self.coords["dp"] * self.sizes["cp"] + self.coords["cp"]
 
     @property
     def cp_size(self) -> int:
@@ -294,6 +323,12 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
             # involve every rank of the group, which a pipeline tick does
             # not; one all-reduce sets the communicator up first
             dist.all_reduce(torch.zeros(1, device=device), group=pp_group)
+        ep_group, bank_group = None, data_group
+        if sizes["ep"] > 1:
+            ep_group, _ = dist.new_subgroups_by_enumeration(
+                group_ranks(sizes, ("ep",)))
+            bank_group, _ = dist.new_subgroups_by_enumeration(
+                group_ranks(sizes, BANK_AXES))
         # the checkpoint's own group: its commit thread's agreement must
         # not interleave with the step's collectives on another group
         host_group = dist.new_group(backend="gloo")
@@ -303,7 +338,8 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
             host_group=host_group, coords=rank_coords(rank, sizes),
             cp_group=cp_group, cp_ranks=cp_ranks, cp_mesh=(cp_x, cp_y),
             cp_row_group=row_group, pp_group=pp_group, pp_ranks=pp_ranks,
-            pp_ends_group=ends_group)
+            pp_ends_group=ends_group, ep_group=ep_group,
+            bank_group=bank_group)
     return _ENVS[key]
 
 

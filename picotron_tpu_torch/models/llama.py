@@ -23,8 +23,24 @@ _gate_up (column-parallel), g at the exit of _o_proj and _act_down
 (row-parallel), the vocab-parallel lookup in `embed` and the
 vocab-parallel CE in `loss_sum_count`. Under sequence parallelism the
 residual stream between them is [B, S/tp, H]. Without a context (tp 1)
-the model is the single-device one, op for op. MoE is rejected with an
-error naming the ROADMAP item.
+the model is the single-device one, op for op.
+
+Mixture of experts (port of the JAX `_moe_block`, :401-425 there): with
+`num_experts` > 0 each layer's MLP is `ops/moe.moe_mlp` over the router
+[H, E] and the expert banks w_gate/w_up [E_local, H, F/tp] and w_down
+[E_local, F/tp, H] (the JAX [in, out] layout; E_local = E/ep under an
+`parallel.ep.EPContext`, whose communicators carry the ep all-to-all and
+the router statistics' mean over the data group). The block enters
+through f and leaves through g like the dense MLP (the banks' ffn dim is
+sharded over tp). An MoE layer returns (x, aux [2]): the pre-weighted
+router loss and the capacity drop fraction; `run_layers` sums them over
+the layers and `loss_sum_count` folds `aux[0] * count` into the NLL sum
+(so the token mean is CE + router loss) and returns the token-weighted
+drop sum as extras["moe_drop_weighted"]. Under tp the router loss,
+computed alike on every tp rank, enters the loss through
+`TPContext.replicated` (its grad split over tp), so that the router's
+grads are partial over tp, as the expert path's are, and the step sums
+them over tp (`parallel/sharding.tp_partial`).
 
 Context parallelism (port of `make_parallel_ctx`'s cp positions and
 attention dispatch, picotron_tpu/parallel/api.py:61-170): a model built
@@ -77,6 +93,12 @@ sm_scale-folded q, the others the named JAX tensors; x is the layer input):
     dots_lean    + mlp_gate, mlp_up                            8
     dots         + attn_proj_out                               9
     dots_norms   + norm_out (input norm and post norm)         11
+    MoE layers:
+    full         x                                             1
+    dots_attn,   x, q, k, v, attn_out, attn_lse                6
+     dots_lean
+    dots         + attn_proj_out, router logits                8
+    dots_norms   + norm_out (input norm and post norm)         10
 
 Everything else is recomputed in the backward: the norms, the residual
 sum, the activation, the tp collectives inside a segment, and under
@@ -87,6 +109,15 @@ once its last saved tensor is rebuilt, so the matmuls a segment
 recomputes are those before its last one: two of q/k/v under every
 policy but "full" and "dots_norms", and mlp_gate under "dots" and
 "dots_lean" (JAX recomputes none of these; the saved sets are equal).
+The MoE block's expert products have a batch dim (the expert), so no
+JAX policy saves them ("dots" saves only dots without batch dims, the
+router product among them; "dots_lean" names mlp_gate/mlp_up, which the
+MoE block does not produce): under every policy the dispatch, the
+experts and the combine are recomputed in the backward from the block's
+input, and the routing with them, bit for bit (`ops/moe.py`'s recompute
+contract). Under "dots" and "dots_norms" the router logits are saved (a
+segment makes them, the next reads them); "dots" recomputes the post
+norm in both segments, so under tp the block's f runs twice there.
 "dots_offload" (saves parked in pinned host memory) is not ported
 (ROADMAP Queue 1 item 7). Under tp the saved q/k/v/out are this rank's
 heads; under sequence parallelism x (and "dots"' attn_proj_out) is the
@@ -110,10 +141,12 @@ from picotron_tpu_torch.ops.flash_attention import flash_attention
 from picotron_tpu_torch.ops.losses import (
     chunked_cross_entropy_sum_count, cross_entropy_sum_count,
 )
+from picotron_tpu_torch.ops.moe import moe_mlp
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.ring_attention import ScheduleFunction
 from picotron_tpu_torch.ops.rope import apply_rope, rope_tables
 from picotron_tpu_torch.parallel.cp import CPContext
+from picotron_tpu_torch.parallel.ep import EPContext
 from picotron_tpu_torch.parallel.tp import (
     TPContext, gather_logits, vocab_parallel_embed,
 )
@@ -133,12 +166,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig,
                     cp: Optional[CPContext] = None) -> None:
-    """Raise for what this slice of the port does not run, and for a
-    context-parallel schedule without its cp context (the JAX
-    `make_parallel_ctx`'s check)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE models are not ported yet (ROADMAP Queue 1 item 10)")
+    """Raise for a context-parallel schedule without its cp context (the
+    JAX `make_parallel_ctx`'s check)."""
     if cfg.attn_impl in ("ring", "ulysses", "mesh") and cp is None:
         raise ValueError(
             f"attn_impl={cfg.attn_impl!r} is a context-parallel schedule: "
@@ -237,13 +266,16 @@ class LayerStack(nn.ModuleList):
 
 
 class DecoderLayer(nn.Module):
-    """One decoder layer's parameters ([out, in] matmul weights): this tp
-    rank's shards under a tp context (`tp`, kept on the layer for the
-    hooks, as the cp context `cp` for the attention)."""
+    """One decoder layer's parameters ([out, in] matmul weights; the MoE
+    router and banks in the JAX [in, out] layout): this tp rank's shards
+    under a tp context (`tp`, kept on the layer for the hooks, as the cp
+    context `cp` for the attention and the ep context `ep` for the MoE
+    block), its E/ep experts under expert parallelism."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  tp: Optional[TPContext] = None,
-                 cp: Optional[CPContext] = None):
+                 cp: Optional[CPContext] = None,
+                 ep: Optional[EPContext] = None):
         super().__init__()
         n = _tp_size(tp)
         h, i, d = cfg.hidden_size, cfg.intermediate_size // n, cfg.head_dim
@@ -251,6 +283,8 @@ class DecoderLayer(nn.Module):
         kv_out = cfg.num_key_value_heads // n * d
         self.tp = tp
         self.cp = cp
+        self.ep = ep
+        self.moe = bool(cfg.num_experts)
 
         def p(*shape):
             return nn.Parameter(torch.empty(*shape, device=device,
@@ -264,26 +298,38 @@ class DecoderLayer(nn.Module):
             self.b_q, self.b_k, self.b_v = p(q_out), p(kv_out), p(kv_out)
         else:
             self.b_q = self.b_k = self.b_v = None
-        self.gate, self.up = p(i, h), p(i, h)
-        self.down = p(h, i)
+        if self.moe:
+            e = cfg.num_experts
+            e_local = e // (1 if ep is None else ep.size)
+            f = cfg.expert_ffn_size // n
+            self.router = p(h, e)
+            self.w_gate, self.w_up = p(e_local, h, f), p(e_local, h, f)
+            self.w_down = p(e_local, f, h)
+        else:
+            self.gate, self.up = p(i, h), p(i, h)
+            self.down = p(h, i)
 
 
 class LlamaModel(nn.Module):
     """The model, whole, or this rank's tp shards of it under a tp context
     (`tp`; None: one device), reading its cp slice of the sequence under
-    a cp context (`cp`; None: cp 1), holding one pipeline rank's share
-    under a `stage` (None: every layer, the embedding and the head).
-    A part the stage does not hold is None."""
+    a cp context (`cp`; None: cp 1), holding its E/ep experts and
+    exchanging slots and averaging router statistics under an ep context
+    (`ep`; None: as one device), holding one pipeline rank's share under
+    a `stage` (None: every layer, the embedding and the head). A part the
+    stage does not hold is None."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  tp: Optional[TPContext] = None,
                  cp: Optional[CPContext] = None,
-                 stage: Optional[Stage] = None):
+                 stage: Optional[Stage] = None,
+                 ep: Optional[EPContext] = None):
         super().__init__()
         check_supported(cfg, cp)
         self.cfg = cfg
         self.tp = tp
         self.cp = cp
+        self.ep = ep
         self.stage = stage
         first = stage is None or stage.first
         last = stage is None or stage.last
@@ -297,7 +343,7 @@ class LlamaModel(nn.Module):
         tied = cfg.tie_word_embeddings
         self.embedding = p(v, h) if first or (last and tied) else None
         self.layers = LayerStack(
-            {i: DecoderLayer(cfg, device, tp, cp) for i in layers})
+            {i: DecoderLayer(cfg, device, tp, cp, ep) for i in layers})
         self.final_norm = p(h) if last else None
         self.lm_head = p(v, h) if last and not tied else None
         cos, sin = model_rope_tables(cfg, device=device)
@@ -314,7 +360,8 @@ class LlamaModel(nn.Module):
 
 @torch.no_grad()
 def init_params(model: LlamaModel, generator: torch.Generator,
-                embedding_generator: Optional[torch.Generator] = None
+                embedding_generator: Optional[torch.Generator] = None,
+                bank_generator: Optional[torch.Generator] = None
                 ) -> LlamaModel:
     """Initialise in place with the JAX package's distributions: linear
     weights ~ U(+-sqrt(1/fan_in)), embedding ~ N(0, 1), norms = 1, biases
@@ -324,22 +371,32 @@ def init_params(model: LlamaModel, generator: torch.Generator,
     rank, so that the shards differ); a pipeline stage draws only the
     parts it holds (the caller seeds it per stage as well). The embedding
     is drawn from `embedding_generator` when given: a tied embedding's
-    two copies, on the first and the last stage, must draw alike."""
+    two copies, on the first and the last stage, must draw alike. The
+    MoE banks are drawn from `bank_generator` when given (under ep each
+    rank's experts are its own, where every other tensor draws alike)."""
 
     n = _tp_size(model.tp)
 
-    def uniform(w, fan_in):
+    def uniform(w, fan_in, gen=None):
         bound = (1.0 / fan_in) ** 0.5
-        w.uniform_(-bound, bound, generator=generator)
+        w.uniform_(-bound, bound, generator=gen or generator)
 
     if model.embedding is not None:
         model.embedding.normal_(0.0, 1.0,
                                 generator=embedding_generator or generator)
     for lp in model.layers:
-        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        names = ("q", "k", "v", "o") + (() if lp.moe else
+                                        ("gate", "up", "down"))
+        for name in names:
             w = getattr(lp, name)
             # a row-parallel shard holds 1/tp of its fan-in
             uniform(w, w.shape[1] * (n if name in ("o", "down") else 1))
+        if lp.moe:
+            uniform(lp.router, lp.router.shape[0])
+            for name in ("w_gate", "w_up", "w_down"):
+                w = getattr(lp, name)
+                uniform(w, w.shape[1] * (n if name == "w_down" else 1),
+                        bank_generator)
         lp.input_norm.fill_(1.0)
         lp.post_norm.fill_(1.0)
         for b in (lp.b_q, lp.b_k, lp.b_v):
@@ -451,8 +508,45 @@ def _mlp_block(x, lp: DecoderLayer, cfg: ModelConfig):
     return _act_down(*_gate_up(h, lp), lp, cfg)
 
 
+def _moe_entry(x, lp: DecoderLayer, cfg: ModelConfig):
+    """RMSNorm -> the column-parallel entry: the MoE block's tokens."""
+    return _entry(rms_norm(x, lp.post_norm, cfg.rms_norm_eps), lp)
+
+
+def router_logits(h, lp: DecoderLayer) -> torch.Tensor:
+    """[N, E] fp32 router logits of the entered tokens h [B, S, H]."""
+    return h.reshape(-1, h.shape[-1]).float() @ lp.router.float()
+
+
+def _moe_tokens(h, lp: DecoderLayer, cfg: ModelConfig, logits=None):
+    """The MoE block over entered tokens h (routing from `logits` when
+    given) -> (out through the row-parallel exit, aux [2])."""
+    ep = lp.ep
+    out, aux, drop = moe_mlp(
+        h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
+        num_experts=cfg.num_experts, top_k=cfg.num_experts_per_token,
+        capacity_factor=cfg.capacity_factor, act=mlp_act(cfg),
+        ep=None if ep is None else ep.comm,
+        router_aux_coef=cfg.router_aux_coef,
+        router_z_coef=cfg.router_z_coef,
+        stats=None if ep is None else ep.stats, logits=logits)
+    if lp.tp is not None:
+        aux = lp.tp.replicated(aux)
+    return _exit(out, lp), torch.stack([aux, drop])
+
+
+def _moe_block(x, lp: DecoderLayer, cfg: ModelConfig):
+    """RMSNorm -> top-k routed expert bank -> (out, aux [2]): the
+    pre-weighted router loss and the capacity drop fraction."""
+    return _moe_tokens(_moe_entry(x, lp, cfg), lp, cfg)
+
+
 def decoder_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope):
+    """The layer over x: x, and for an MoE layer (x, aux [2])."""
     x = x + _attention_block(x, lp, cfg, rope)
+    if lp.moe:
+        mo, aux = _moe_block(x, lp, cfg)
+        return x + mo, aux
     return x + _mlp_block(x, lp, cfg)
 
 
@@ -460,9 +554,22 @@ def decoder_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope):
 
 
 def _after_attention(x, out, lp, cfg):
-    """o-proj -> residual -> MLP -> residual ("dots_attn")."""
+    """o-proj -> residual -> MLP (or MoE) -> residual ("dots_attn")."""
     a = x + _o_proj(out, lp)
+    if lp.moe:
+        mo, aux = _moe_block(a, lp, cfg)
+        return a + mo, aux
     return a + _mlp_block(a, lp, cfg)
+
+
+def _res_router(x, o, lp, cfg):
+    return router_logits(_moe_entry(x + o, lp, cfg), lp)
+
+
+def _res_moe(x, o, logits, lp, cfg):
+    a = x + o
+    mo, aux = _moe_tokens(_moe_entry(a, lp, cfg), lp, cfg, logits)
+    return a + mo, aux
 
 
 def _res_norm(x, o, lp, cfg):
@@ -494,8 +601,19 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
     else:
         q, k, v = _segment(_qkv_block, x, lp, cfg)
     out = _attention(q, k, v, cfg, rope, lp.cp)
-    if policy == "dots_attn":
+    if policy == "dots_attn" or (lp.moe and policy == "dots_lean"):
         return _segment(_after_attention, x, out, lp, cfg)
+    if lp.moe and policy == "dots":
+        o = _segment(_o_proj, out, lp)
+        logits = _segment(_res_router, x, o, lp, cfg)
+        return _segment(_res_moe, x, o, logits, lp, cfg)
+    if lp.moe and policy == "dots_norms":
+        o = _segment(_o_proj, out, lp)
+        a, h = _segment(_res_norm, x, o, lp, cfg)
+        h = _entry(h, lp)
+        logits = _segment(router_logits, h, lp)
+        mo, aux = _segment(_moe_tokens, h, lp, cfg, logits)
+        return a + mo, aux
     if policy == "dots_lean":
         a, gate, up = _segment(_o_res_norm_gate_up, x, out, lp, cfg)
     elif policy == "dots":
@@ -515,17 +633,23 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
 
 
 def run_layers(model: LlamaModel, x: torch.Tensor,
-               remat: Optional[str] = None, layers=None) -> torch.Tensor:
+               remat: Optional[str] = None, layers=None):
     """The decoder layers over x (`layers`, the modules of one pipeline
     chunk; default every layer the model holds); `remat` is a remat
-    policy name, or None for none."""
+    policy name, or None for none. Returns (x, aux): for an MoE model
+    aux [2] summed over the layers (the pre-weighted router loss, the
+    drop fraction), else None."""
     rope = (model.rope_cos, model.rope_sin)
+    aux = None
     for lp in (model.layers if layers is None else layers):
         if remat is None:
             x = decoder_layer(x, lp, model.cfg, rope)
         else:
             x = remat_layer(x, lp, model.cfg, rope, remat)
-    return x
+        if lp.moe:
+            x, a = x
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def final_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
@@ -543,7 +667,7 @@ def logits_from_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
 
 def forward(model: LlamaModel, input_ids: torch.Tensor) -> torch.Tensor:
     """input_ids [B, S] -> logits [B, S, V]."""
-    x = run_layers(model, embed(model, input_ids))
+    x, _ = run_layers(model, embed(model, input_ids))
     return logits_from_hidden(model, final_hidden(model, x))
 
 
@@ -551,13 +675,19 @@ def loss_sum_count(model: LlamaModel, input_ids: torch.Tensor,
                    targets: torch.Tensor, remat: Optional[str] = None,
                    ce_chunk_size: int = 0):
     """(sum of per-token NLL, valid-token count, extras) — the reduction
-    pieces, summed over microbatches before one division. extras is {} for
-    dense models. `remat`: a remat policy name or None; `ce_chunk_size`
-    > 0 streams the head's CE over vocab chunks (training.ce_chunk_size).
-    Under tp both are the vocab-parallel CE's, the same on every tp
-    rank."""
-    x = run_layers(model, embed(model, input_ids), remat)
-    return (*head_sum_count(model, x, targets, ce_chunk_size), {})
+    pieces, summed over microbatches before one division. For an MoE
+    model the router loss is folded in as NLL sum + aux * count, so the
+    token mean is CE + router loss, and extras is {"moe_drop_weighted":
+    drop fraction summed over the layers * count}; {} for dense models.
+    `remat`: a remat policy name or None; `ce_chunk_size` > 0 streams the
+    head's CE over vocab chunks (training.ce_chunk_size). Under tp both
+    are the vocab-parallel CE's, the same on every tp rank."""
+    x, aux = run_layers(model, embed(model, input_ids), remat)
+    total, count = head_sum_count(model, x, targets, ce_chunk_size)
+    if aux is None:
+        return total, count, {}
+    return (total + aux[0] * count, count,
+            {"moe_drop_weighted": aux[1].detach() * count})
 
 
 def head_sum_count(model: LlamaModel, x: torch.Tensor,

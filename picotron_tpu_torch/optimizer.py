@@ -38,6 +38,10 @@ the moments (and under offload the fp32 master) of that slice only, runs
 bf16 compute copy) over the data group. The update is elementwise, so
 the placement changes no number. The grads stay whole: the step
 all-reduces them over the data group first, as the JAX package does.
+The MoE expert banks, already sharded over ep, are not sharded over ep
+again: their rows are owned over the bank group (dp, cp), as the JAX
+`_zero1_placement` leaves out the axes a tensor is sharded on
+(`parallel/api.py:774-795` there).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from torch.profiler import record_function
 
 from picotron_tpu_torch.config import TrainingConfig
 from picotron_tpu_torch.parallel import comm
-from picotron_tpu_torch.parallel.sharding import tp_shard_dim
+from picotron_tpu_torch.parallel.sharding import ep_shard_dim, tp_shard_dim
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -83,17 +87,20 @@ def global_norm(tensors) -> torch.Tensor:
 def layout_grad_norm(names, grads, par=None, pp=None) -> torch.Tensor:
     """The global norm of the whole model's grads under a layout (each
     rank holding whole, data-reduced grads): the squares of tp-sharded
-    grads summed over tp, the replicated ones counted once, and under
-    pipeline parallelism (`pp`, the stage's communicator) the squares
-    summed over the stages, whose grads are disjoint (the caller leaves
-    out a stage's copy of a tensor another stage holds). Without tp and
-    pp it is `global_norm`."""
+    grads summed over tp, those of the MoE banks under ep summed over ep
+    (and tp), the replicated ones counted once, and under pipeline
+    parallelism (`pp`, the stage's communicator) the squares summed over
+    the stages, whose grads are disjoint (the caller leaves out a stage's
+    copy of a tensor another stage holds). Without tp, ep and pp it is
+    `global_norm`."""
     tp = par is not None and par.tp_size > 1
-    if not tp and pp is None:
+    ep = par is not None and par.ep_size > 1
+    if not tp and not ep and pp is None:
         return global_norm(grads)
-    parts = {True: [], False: []}
+    parts = {"rep": [], "tp": [], "ep": []}
     for n, g in zip(names, grads):
-        parts[tp and tp_shard_dim(n) is not None].append(g)
+        parts["ep" if ep and ep_shard_dim(n) is not None else
+              "tp" if tp and tp_shard_dim(n) is not None else "rep"].append(g)
 
     def sq(ts):
         if not ts:
@@ -101,27 +108,37 @@ def layout_grad_norm(names, grads, par=None, pp=None) -> torch.Tensor:
         return torch.stack(torch._foreach_norm([t.float() for t in ts])
                            ).square().sum()
 
-    total = sq(parts[False])
+    total = sq(parts["rep"])
+    sharded = sq(parts["tp"])
+    if ep:
+        banks = comm.all_reduce(sq(parts["ep"]), par.ep_group)
+        if tp:
+            sharded = sharded + banks
+        else:
+            total = total + banks
     if tp:
-        total = total + comm.all_reduce(sq(parts[True]), par.tp_group)
+        total = total + comm.all_reduce(sharded, par.tp_group)
     if pp is not None:
         total = pp.all_reduce(total)
     return torch.sqrt(total)
 
 
-def zero1_rows(shape, par=None) -> Optional[tuple]:
+def zero1_rows(shape, par=None, bank: bool = False) -> Optional[tuple]:
     """(first row, end row) of dim 0 that this rank owns under ZeRO-1, or
     None when the tensor stays whole: no layout, or dim 0 not divisible
-    by the data group's size, or a slice whose elements are not a
-    multiple of 8 (so that every slice, fp32 or bf16, starts 16-byte
-    aligned for the kernel's vector loads)."""
+    by the size of its group (the data group; for an MoE bank, `bank`,
+    the bank group), or a slice whose elements are not a multiple of 8
+    (so that every slice, fp32 or bf16, starts 16-byte aligned for the
+    kernel's vector loads)."""
     if par is None or not shape:
         return None
-    n, rows = par.data_size, shape[0]
+    n, r = ((par.bank_size, par.bank_rank) if bank
+            else (par.data_size, par.data_rank))
+    rows = shape[0]
     per = rows // n
     if rows % n or (per * math.prod(shape[1:])) % 8:
         return None
-    return par.data_rank * per, (par.data_rank + 1) * per
+    return r * per, (r + 1) * per
 
 
 def guard_nonfinite(ok: torch.Tensor, new_tensors, old_tensors) -> None:
@@ -362,7 +379,8 @@ class _AdamWState:
     over the whole model (`layout_grad_norm`). `par` is the rank's
     `mesh.ParallelEnv` (None: one device); with `zero1`, `own[i]` is
     the (first, end) rows of tensor i that this rank updates (None:
-    all of it), and its state tensors hold those rows only. `pp`: a
+    all of it; an MoE bank's, `banks[i]`, over the bank group), and its
+    state tensors hold those rows only. `pp`: a
     pipeline stage's communicator (`comm.PPComm`, or a thread world's),
     over which the grad norm sums; a stage's copy of a tensor that an
     earlier stage holds (the last stage's tied embedding) is left out
@@ -381,8 +399,9 @@ class _AdamWState:
                 and model.cfg.tie_word_embeddings)
         self._in_norm = [i for i, n in enumerate(self.names)
                          if not (copy and n == "embedding")]
-        self.own = [zero1_rows(tuple(p.shape), par if zero1 else None)
-                    for p in self.params]
+        self.banks = [ep_shard_dim(n) is not None for n in self.names]
+        self.own = [zero1_rows(tuple(p.shape), par if zero1 else None, b)
+                    for p, b in zip(self.params, self.banks)]
         self.lr = make_lr(t)
         self.moments_dtype = (torch.bfloat16
                               if t.adam_moments_dtype == "bfloat16"
@@ -414,7 +433,8 @@ class _AdamWState:
             if own is not None:
                 p = self.params[i].data
                 comm.all_gather_into(p, p[own[0]:own[1]],
-                                     self.par.data_group)
+                                     self.par.bank_group if self.banks[i]
+                                     else self.par.data_group)
 
     @torch.no_grad()
     def step(self, grad_scale: torch.Tensor,

@@ -4,12 +4,17 @@ picotron_tpu/parallel/api.py `_data_axes_psum` and the reductions of
 
 Either grad engine sums the microbatches' NLL-sum grads into each
 rank's fp32 buffers; `GradSync` then reduces them once, after the last
-microbatch: under sequence parallelism the norms' partial grads over tp
-(`parallel/sharding.sp_partial`), then every grad, the NLL sum and the
-valid-token count over the data group, one all-reduce each (the JAX
-engine seam, `fused_bwd.py:45-51` of the JAX package). The count is
-clamped at 1 after the sum, so shards whose IGNORE_INDEX counts differ
-weigh correctly. Under a process group this runs at every size, world 1
+microbatch: the grads partial over tp (`parallel/sharding.tp_partial`:
+the norms' under sequence parallelism, the MoE router's under any tp)
+over tp, then every grad, the NLL sum and the valid-token count over
+the data group, one all-reduce each (the JAX engine seam,
+`fused_bwd.py:45-51` of the JAX package). The MoE expert banks, sharded
+over ep, sum over their bank group (dp, cp) instead: each rank's bank
+grads already hold every ep peer's tokens through the dispatch
+all-to-all (the JAX `_data_axes_psum`, `api.py:243-262` there). An
+MoE model's token-weighted drop sum rides the NLL sum's all-reduce. The
+count is clamped at 1 after the sum, so shards whose IGNORE_INDEX counts
+differ weigh correctly. Under a process group this runs at every size, world 1
 included, so that the path is the same one the layouts run.
 
 Context parallelism needs nothing more here: the data group spans cp
@@ -25,34 +30,64 @@ from __future__ import annotations
 import torch
 
 from picotron_tpu_torch.parallel import comm
-from picotron_tpu_torch.parallel.sharding import sp_partial
+from picotron_tpu_torch.parallel.sharding import ep_shard_dim, tp_partial
 
 
-def reduce_sum_count(total: torch.Tensor, count: torch.Tensor, group):
-    """(total, count) summed over `group` in one all-reduce (the count is
-    exact in fp32 below 2^24 tokens per step)."""
-    both = comm.all_reduce(torch.stack([total.float(), count.float()]),
-                           group)
-    return both[0], both[1].round().to(count.dtype)
+def reduce_sum_count(total: torch.Tensor, count: torch.Tensor, group,
+                     *more: torch.Tensor):
+    """(total, count, *more) summed over `group` in one all-reduce (the
+    count is exact in fp32 below 2^24 tokens per step)."""
+    both = comm.all_reduce(torch.stack([total.float(), count.float(),
+                                        *(m.float() for m in more)]), group)
+    return (both[0], both[1].round().to(count.dtype), *both[2:])
 
 
 class GradSync:
-    """The seam: `sync(grads, nll_total, count)` -> the reduced (nll_total,
-    count), the buffers `grads` ({param: buffer}) reduced in place."""
+    """The seam: `sync(grads, nll_total, count, *more)` -> the reduced
+    (nll_total, count, *more), the buffers `grads` ({param: buffer})
+    reduced in place."""
 
     def __init__(self, par, model: torch.nn.Module, sequence_parallel: bool):
         self.par = par
-        self.sp_params = ([p for n, p in model.named_parameters()
-                           if sp_partial(n)]
-                          if sequence_parallel and par.tp_size > 1 else [])
+        named = list(model.named_parameters())
+        self.tp_params = ([p for n, p in named
+                           if tp_partial(n, sequence_parallel)]
+                          if par.tp_size > 1 else [])
+        self.banks = {p for n, p in named if ep_shard_dim(n) is not None}
 
     def __call__(self, grads: dict, nll_total: torch.Tensor,
-                 count: torch.Tensor):
-        for p in self.sp_params:
+                 count: torch.Tensor, *more: torch.Tensor):
+        for p in self.tp_params:
             comm.all_reduce(grads[p], self.par.tp_group)
-        for buf in grads.values():
-            comm.all_reduce(buf, self.par.data_group)
-        return reduce_sum_count(nll_total, count, self.par.data_group)
+        for p, buf in grads.items():
+            comm.all_reduce(buf, self.par.bank_group if p in self.banks
+                            else self.par.data_group)
+        return reduce_sum_count(nll_total, count, self.par.data_group, *more)
+
+
+def moe_extras(dropw: torch.Tensor, count: torch.Tensor, cfg) -> dict:
+    """{"moe_drop_frac"}: the token-weighted drop sum (summed over the
+    microbatches of count * sum over the layers of the drop fraction)
+    over count * L, the token-weighted mean per-layer share of the
+    assignments the capacity dropped (the JAX `_normalize_extras`). `cfg`
+    is the model config; `count` the clamped global token count."""
+    return {"moe_drop_frac": dropw / (count * cfg.num_hidden_layers)}
+
+
+def finish_grads(cfg, grads: dict, nll_total: torch.Tensor,
+                 count: torch.Tensor, more: list, reduce=None,
+                 extras=None):
+    """A grad engine's last part: the seam (`reduce`, a `GradSync`) over
+    the grads, the NLL sum, the count and `more` (an MoE model's drop sum,
+    else empty), the count clamped at 1, `extras` (a dict, when given)
+    filled with `moe_extras`, and (mean loss, 1 / token count). `cfg` is
+    the model config."""
+    if reduce is not None:
+        nll_total, count, *more = reduce(grads, nll_total, count, *more)
+    count = count.clamp(min=1)
+    if more and extras is not None:
+        extras.update(moe_extras(more[0], count, cfg))
+    return nll_total / count, torch.reciprocal(count.float())
 
 
 def grad_seam(par, sequence_parallel: bool):

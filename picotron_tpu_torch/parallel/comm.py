@@ -36,6 +36,15 @@ stages, cotangents to earlier ones) goes in one
 package's pair of `ppermute`s per tick. Both sides of every exchange are
 derived from the same table, so each send meets its receive in the same
 batch and no rank blocks on a peer that is itself blocked sending.
+
+Expert parallelism (`ops/moe.py`) reaches its exchange through `EPComm`
+on the rank's ep group, or the thread world's: `size`, `index` and
+`all_to_all(x)`, x [ep, ...] with chunk j sent to ep index j (the JAX
+`lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=False)`), one
+`dist.all_to_all_single` counted as "all_to_all", differentiable (its
+transpose is the same exchange). The MoE router statistics' mean over
+the data group is `GroupMean.mean` (one all-reduce each way, counted as
+"all_reduce"; the JAX `lax.pmean`, whose transpose is again a mean).
 """
 
 from __future__ import annotations
@@ -156,6 +165,65 @@ class CPComm:
         out = x.new_empty((len(members) * x.shape[0],) + x.shape[1:])
         all_gather_into(out, x, self._group(members))
         return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    collectives["all_to_all"] += 1
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class EPComm:
+    """The ep exchange of one rank over its ep group (`par`, a
+    `mesh.ParallelEnv` with ep > 1)."""
+
+    def __init__(self, par):
+        self.size = par.ep_size
+        self.index = par.ep_rank
+        self.group = par.ep_group
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x [size, ...]: chunk j goes to ep index j; chunk j of the
+        result came from ep index j. Differentiable."""
+        return _AllToAll.apply(x, self.group)
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return all_reduce(x.detach().clone(), group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group) / ctx.n, \
+            None, None
+
+
+class GroupMean:
+    """The mean of a tensor over a process group of `size` ranks,
+    differentiable (each rank's grad is the mean of the ranks'
+    cotangents, so that a layout's grads sum to the single device's)."""
+
+    def __init__(self, group, size: int):
+        self.group = group
+        self.size = size
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        return _MeanOver.apply(t, self.group, self.size)
 
 
 class PPComm:

@@ -54,12 +54,25 @@ rotation, as for the plain "reference" attention. The residual stream,
 the saved layer inputs and q/k/v/out are the rank's cp slice of the
 sequence; every other transpose is per token.
 
+MoE (the JAX engine's MoE branch, `fused_bwd.py:292-417` there): the
+forward runs `models/llama._moe_block` and sums its aux over the layers;
+the loss folds in aux[0] * count as `loss_sum_count` does. In the
+backward the block is one segment over `post_norm` and the four MoE
+weights (router, w_gate, w_up, w_down), recomputed from the recomputed
+a = x + o-proj (routing bit for bit: `ops/moe.py`'s recompute contract)
+and differentiated by `torch.autograd.grad` with the cotangents (dy,
+1.0 on the fold aux[0] * count), so the router loss's grads flow as the
+AD engine's do, through the block's own f/g, ep exchanges and
+statistics' mean. Its weight grads come from the fp32 masters' casts,
+as under the AD engine; `ComputeWeights` holds the attention matmuls and
+the head for an MoE layer.
+
 Eligibility is the JAX package's (`fused_bwd_supported`: one pipeline
 stage under remat "dots_attn"); of its branches the ported ones are
 flash (`attn_impl` "auto"/"flash"), the plain "reference" attention and
-the three cp schedules (ring, Ulysses, mesh), over dp, cp and Megatron
-tp with or without SP. MoE (ROADMAP Queue 1 item 10) and the tp
-strategies' hooks (item 9) are refused.
+the three cp schedules (ring, Ulysses, mesh), over dp, cp, ep, MoE and
+Megatron tp with or without SP. The tp strategies' hooks (ROADMAP Queue
+1 item 9) are refused.
 """
 
 from __future__ import annotations
@@ -72,7 +85,7 @@ import torch.nn.functional as F
 
 from picotron_tpu_torch.config import Config
 from picotron_tpu_torch.models.llama import (
-    LlamaModel, _entry, _exit, compute_dtype, embed, mlp_act,
+    LlamaModel, _entry, _exit, _moe_block, compute_dtype, embed, mlp_act,
 )
 from picotron_tpu_torch.ops.attention import (
     sdpa_attention, sdpa_attention_bwd_from_saved,
@@ -86,9 +99,12 @@ from picotron_tpu_torch.ops.losses import (
 from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.rope import apply_rope
 from picotron_tpu_torch.optimizer import param_grads
+from picotron_tpu_torch.parallel.api import finish_grads
 from picotron_tpu_torch.parallel.tp import vocab_parallel_embed_grad
 
 _MATMULS = ("q", "k", "v", "o", "gate", "up", "down")
+_ATTN = ("q", "k", "v", "o")
+_MOE = ("post_norm", "router", "w_gate", "w_up", "w_down")
 
 
 def fused_bwd_supported(cfg: Config) -> bool:
@@ -102,15 +118,10 @@ def fused_bwd_supported(cfg: Config) -> bool:
 
 def check_ported(cfg: Config) -> None:
     """Raise for the JAX engine's branches this port lacks."""
-    d, m = cfg.distributed, cfg.model
-    if d.tp_strategy != "megatron":
+    if cfg.distributed.tp_strategy != "megatron":
         raise NotImplementedError(
             "the fused grad engine's tp-strategy hooks (qkv_mm, o_mm, "
             "mlp_mm) are not ported yet (ROADMAP Queue 1 item 9)")
-    if m.num_experts:
-        raise NotImplementedError(
-            "the fused grad engine's MoE branch is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
 
 
 class ComputeWeights:
@@ -125,8 +136,9 @@ class ComputeWeights:
     def __init__(self, model: LlamaModel):
         self.model = model
         dt = compute_dtype(model.cfg)
+        self.names = _ATTN if model.cfg.num_experts else _MATMULS
         self.masters = [getattr(lp, name).detach() for lp in model.layers
-                        for name in _MATMULS]
+                        for name in self.names]
         self.masters.append(model.head_weight().detach())
         self.copies = (self.masters if all(p.dtype == dt for p in self.masters)
                        else [torch.empty_like(p, dtype=dt)
@@ -137,8 +149,8 @@ class ComputeWeights:
             torch._foreach_copy_(self.copies, self.masters)
 
     def layer(self, i: int) -> dict:
-        n = len(_MATMULS)
-        return dict(zip(_MATMULS, self.copies[i * n:(i + 1) * n]))
+        n = len(self.names)
+        return dict(zip(self.names, self.copies[i * n:(i + 1) * n]))
 
     @property
     def head(self) -> torch.Tensor:
@@ -243,13 +255,17 @@ def _with_grad(t):
 
 @torch.no_grad()
 def forward_saved(model: LlamaModel, weights: ComputeWeights,
-                  ids: torch.Tensor, attn_fwd=None):
+                  ids: torch.Tensor, attn_fwd=None,
+                  aux: Optional[list] = None):
     """The engine's forward through the compute weights: (the last layer's
-    output, per layer (x, q, k, v, out, lse), the "dots_attn" set)."""
+    output, per layer (x, q, k, v, out, lse), the "dots_attn" set). For
+    an MoE model the aux [2] summed over the layers is appended to `aux`
+    (a list, when given)."""
     cfg = model.cfg
     eps, hd, act = cfg.rms_norm_eps, cfg.head_dim, mlp_act(cfg)
     attn_fwd = attn_fwd or _attn_paths(model)[0]
     saved = []
+    aux_sum = None
     x = embed(model, ids)
     for i, lp in enumerate(model.layers):
         w = weights.layer(i)
@@ -257,25 +273,82 @@ def forward_saved(model: LlamaModel, weights: ComputeWeights,
                        hd)
         out, lse = attn_fwd(q, k, v)
         a = x + _exit(F.linear(_flat(out), w["o"]), lp)
+        saved.append((x, q, k, v, out, lse))
+        if lp.moe:
+            mo, a_l = _moe_block(a, lp, cfg)
+            aux_sum = a_l if aux_sum is None else aux_sum + a_l
+            x = a + mo
+            continue
         h = _entry(rms_norm(a, lp.post_norm, eps), lp)
         m = act(F.linear(h, w["gate"])) * F.linear(h, w["up"])
-        saved.append((x, q, k, v, out, lse))
         x = a + _exit(F.linear(m, w["down"]), lp)
+    if aux is not None and aux_sum is not None:
+        aux.append(aux_sum)
     return x, saved
+
+
+def _mlp_grads(a, dy, lp, w, cfg, acc, plain):
+    """The dense MLP half, y = a + down(act(gate) * up) with gate/up from
+    norm(a): adds its weight and norm grads into `acc` and returns
+    d a (the residual's dy included)."""
+    with torch.enable_grad():
+        a_ = _with_grad(a)
+        h2 = rms_norm(a_, lp.post_norm, cfg.rms_norm_eps)
+    with torch.no_grad():
+        h2d = _entry(h2.detach(), lp)
+    with torch.enable_grad():
+        gate = _with_grad(F.linear(h2d, w["gate"]))
+        up = _with_grad(F.linear(h2d, w["up"]))
+        m = mlp_act(cfg)(gate) * up
+    dyg = _exit_t(dy, lp)
+    dm = dyg @ w["down"]
+    accumulate_weight_grad(acc[lp.down], dyg, m.detach(), plain)
+    d_gate, d_up = torch.autograd.grad(m, (gate, up), dm)
+    # sums in autograd's order (the later consumer's grad first), so
+    # the bf16 roundings are the AD engine's
+    dh2 = _entry_t(d_up @ w["up"] + d_gate @ w["gate"], lp)
+    accumulate_weight_grad(acc[lp.gate], d_gate, h2d, plain)
+    accumulate_weight_grad(acc[lp.up], d_up, h2d, plain)
+    da, d_post = torch.autograd.grad(h2, (a_, lp.post_norm), dh2)
+    acc[lp.post_norm].add_(d_post)
+    return dy + da
+
+
+def _moe_segment_grads(a, dy, count_f, lp, cfg, acc):
+    """The MoE half as one segment: `_moe_block` recomputed from a under
+    autograd, differentiated with cotangent dy on its output and 1 on
+    its router loss's fold aux[0] * count; adds the grads of post_norm
+    and the MoE weights into `acc` and returns the block's d a (without
+    the residual's dy)."""
+    ws = [getattr(lp, name) for name in _MOE]
+    with torch.enable_grad():
+        a_ = _with_grad(a)
+        mo, aux = _moe_block(a_, lp, cfg)
+        fold = aux[0] * count_f
+    da, *dws = torch.autograd.grad((mo, fold), (a_, *ws),
+                                   (dy, torch.ones_like(fold)))
+    for p, g in zip(ws, dws):
+        acc[p].add_(g.to(acc[p].dtype))
+    return da
 
 
 def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
                       ids: torch.Tensor, tgt: torch.Tensor, acc: dict,
-                      ce_chunk_size: int = 0, plain: bool = False):
+                      ce_chunk_size: int = 0, plain: bool = False,
+                      extras: Optional[dict] = None):
     """One microbatch: adds its NLL-sum grads into every param's fp32
-    accumulator `acc[p]` and returns (nll_sum, valid_count). `plain=True`
-    takes the weight grads by the plain form on CUDA too (the comparison
-    of the two forms on the card; never the main path)."""
+    accumulator `acc[p]` and returns (nll_sum, valid_count); for an MoE
+    model the NLL sum holds the router loss's fold and `extras` (when
+    given) gains the token-weighted drop sum, "moe_drop_weighted", as
+    `loss_sum_count`'s. `plain=True` takes the weight grads by the plain
+    form on CUDA too (the comparison of the two forms on the card; never
+    the main path)."""
     cfg = model.cfg
     eps = cfg.rms_norm_eps
-    act = mlp_act(cfg)
     attn_fwd, attn_bwd = _attn_paths(model)
-    x, saved = forward_saved(model, weights, ids, attn_fwd)
+    auxes: list = []
+    x, saved = forward_saved(model, weights, ids, attn_fwd, auxes)
+    aux_sum = auxes[0] if auxes else None
 
     # ---------------- head + CE ----------------
     head = model.head_weight()
@@ -293,6 +366,14 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
         total, (x_l, model.final_norm, head_w))
     acc[model.final_norm].add_(d_final)
     acc[head].add_(d_head.to(acc[head].dtype))
+    total = total.detach()
+    if aux_sum is not None:
+        # the loss_sum_count fold: the reported total is nll + aux * count,
+        # and each layer's segment takes cotangent 1 on its aux * count
+        count_f = count.float()
+        total = total + aux_sum[0] * count_f
+        if extras is not None:
+            extras["moe_drop_weighted"] = aux_sum[1] * count_f
 
     # ---------------- backward, layer by layer in reverse ----------------
     for i in reversed(range(len(model.layers))):
@@ -301,28 +382,10 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
         with torch.no_grad():
             outf = _flat(out)
             a = x + _exit(F.linear(outf, w["o"]), lp)
-        # MLP half: y = a + down(act(gate) * up) with gate/up from norm(a)
-        with torch.enable_grad():
-            a_ = _with_grad(a)
-            h2 = rms_norm(a_, lp.post_norm, eps)
-        with torch.no_grad():
-            h2d = _entry(h2.detach(), lp)
-        with torch.enable_grad():
-            gate = _with_grad(F.linear(h2d, w["gate"]))
-            up = _with_grad(F.linear(h2d, w["up"]))
-            m = act(gate) * up
-        dyg = _exit_t(dy, lp)
-        dm = dyg @ w["down"]
-        accumulate_weight_grad(acc[lp.down], dyg, m.detach(), plain)
-        d_gate, d_up = torch.autograd.grad(m, (gate, up), dm)
-        # sums in autograd's order (the later consumer's grad first), so
-        # the bf16 roundings are the AD engine's
-        dh2 = _entry_t(d_up @ w["up"] + d_gate @ w["gate"], lp)
-        accumulate_weight_grad(acc[lp.gate], d_gate, h2d, plain)
-        accumulate_weight_grad(acc[lp.up], d_up, h2d, plain)
-        da, d_post = torch.autograd.grad(h2, (a_, lp.post_norm), dh2)
-        acc[lp.post_norm].add_(d_post)
-        da = dy + da
+        if lp.moe:
+            da = dy + _moe_segment_grads(a, dy, count_f, lp, cfg, acc)
+        else:
+            da = _mlp_grads(a, dy, lp, w, cfg, acc, plain)
         # o-projection, then attention from the saved (out, lse)
         dag = _exit_t(da, lp)
         dout = (dag @ w["o"]).reshape(out.shape)
@@ -358,25 +421,28 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
 def fused_accumulate_grads(model: LlamaModel, weights: ComputeWeights,
                            batch, ce_chunk_size: int = 0,
                            plain: bool = False, grads: Optional[dict] = None,
-                           reduce=None):
+                           reduce=None, extras: Optional[dict] = None):
     """The fused engine's counterpart of `train_step.accumulate_grads`:
     zeroes the fp32 accumulators `grads` ({param: buffer}; the params'
     .grad when None), sums the microbatches' NLL-sum grads into them,
     passes the layout's seam (`reduce`, a `GradSync`) and returns (mean
-    loss, 1 / token count). `weights` must have been refreshed for this
-    step."""
+    loss, 1 / token count); an MoE model's `moe_extras` go into `extras`.
+    `weights` must have been refreshed for this step."""
     ids, tgt = batch
     grads = param_grads(model.parameters()) if grads is None else grads
     for buf in grads.values():
         buf.zero_()
     nll_total = torch.zeros((), dtype=torch.float32, device=ids.device)
     count = torch.zeros((), dtype=torch.int64, device=ids.device)
+    more = ([torch.zeros((), dtype=torch.float32, device=ids.device)]
+            if model.cfg.num_experts else [])
     for i in range(ids.shape[0]):
+        ex: dict = {}
         total, c = fused_micro_grads(model, weights, ids[i], tgt[i], grads,
-                                     ce_chunk_size, plain)
+                                     ce_chunk_size, plain, ex)
         nll_total += total
         count += c
-    if reduce is not None:
-        nll_total, count = reduce(grads, nll_total, count)
-    count = count.clamp(min=1)
-    return nll_total / count, torch.reciprocal(count.float())
+        if more:
+            more[0] += ex["moe_drop_weighted"]
+    return finish_grads(model.cfg, grads, nll_total, count, more, reduce,
+                        extras)

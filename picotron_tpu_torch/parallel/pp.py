@@ -50,6 +50,14 @@ grad norm sums its squares over the stages
 (`optimizer.layout_grad_norm`), so every stage clips, and takes the
 guard's skip or apply decision, alike.
 
+Mixture of experts (the JAX `stage_fn`'s contribution, `pp.py:209-220`
+there): each stage adds its own layers' router loss as aux[0] * count
+of the microbatch to its share of the NLL sum, which the sum over the
+stages assembles, and its drop sum aux[1] * count rides the same sums.
+A stage's B then differentiates its boundary output with the received
+cotangent and its fold with 1. The port holds no pad layers, so the
+JAX `layer_is_real` mask has nothing to mask.
+
 The walk beats the watchdog with the live (stage, tick, op, mb) before
 each op (`_run_schedule`, `mpmd.py:667-700` there). A SIGTERM mid-walk
 only sets the preemption handler's flag, so the walk drains to the step
@@ -66,8 +74,11 @@ import torch
 from picotron_tpu_torch.models.llama import (
     compute_dtype, embed, head_sum_count, run_layers,
 )
+from picotron_tpu_torch.ops.losses import IGNORE_INDEX
 from picotron_tpu_torch.optimizer import param_grads
-from picotron_tpu_torch.parallel.api import grad_seam, reduce_sum_count
+from picotron_tpu_torch.parallel.api import (
+    grad_seam, moe_extras, reduce_sum_count,
+)
 from picotron_tpu_torch.parallel.comm import PPComm
 from picotron_tpu_torch.parallel.mpmd import (
     ScheduleBufferError, TickOp, build_schedule, lint_schedule,
@@ -244,7 +255,9 @@ class StageRunner:
     s]): virtual stage j runs `model.stage.chunks` in order. F of the
     first virtual stage embeds its microbatch, F of the last scores it
     (`head_sum_count`) and keeps the NLL sum and count; B runs
-    `torch.autograd.backward` from the kept graph."""
+    `torch.autograd.backward` from the kept graph. For an MoE model every
+    F adds its layers' router-loss fold to the NLL sum and their drop sum
+    to `dropw`."""
 
     def __init__(self, model, batch, remat: Optional[str] = None,
                  ce_chunk_size: int = 0):
@@ -260,6 +273,7 @@ class StageRunner:
         dev = self.ids.device
         self.nll = torch.zeros((), dtype=torch.float32, device=dev)
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.dropw = torch.zeros((), dtype=torch.float32, device=dev)
         self.mb_losses: dict = {}
 
     def boundary(self) -> tuple:
@@ -277,29 +291,38 @@ class StageRunner:
             x = embed(self.model, self.ids[mb])
         else:
             x_in = x.requires_grad_(torch.is_grad_enabled())
-        y = run_layers(self.model, x, self.remat, self.layers[j])
+        y, aux = run_layers(self.model, x, self.remat, self.layers[j])
+        fold = None
+        if aux is not None:
+            count = (self.tgt[mb] != IGNORE_INDEX).sum().float()
+            fold = aux[0] * count
+            self.dropw += aux[1].detach() * count
+            self.nll += fold.detach()
         if j < self.V - 1:
-            return (x_in, y), y.detach()
+            return (x_in, y, fold), y.detach()
         total, count = head_sum_count(self.model, y, self.tgt[mb],
                                       self.chunk)
         self.nll += total.detach()
         self.count += count
         self.mb_losses[mb] = (total.detach(), count)
-        return (x_in, total), None
+        return (x_in, total if fold is None else total + fold, None), None
 
     def backward(self, j: int, mb: int, graph, g):
-        x_in, out = graph
+        x_in, out, fold = graph
         if j == self.V - 1:
             out.backward()
-        else:
+        elif fold is None:
             torch.autograd.backward(out, g)
+        else:
+            torch.autograd.backward([out, fold], [g, torch.ones_like(fold)])
         return None if x_in is None else x_in.grad
 
 
 class PipelineGrads:
-    """The pipeline's grad function: `(model, batch, grads=None, step=None)`
-    -> (mean loss, 1 / token count), the summed grads left in `grads` (as
-    `train_step.accumulate_grads`), on every stage. `par`: the rank's
+    """The pipeline's grad function: `(model, batch, grads=None, step=None,
+    extras=None)` -> (mean loss, 1 / token count), the summed grads left
+    in `grads` (as `train_step.accumulate_grads`; an MoE model's
+    `moe_extras` in `extras`), on every stage. `par`: the rank's
     ParallelEnv (None in a thread world, where `comm` is given and there
     is no data group); `stats` is the last walk's `WalkStats`. `runner`
     makes each step's stage ops, as `StageRunner` does (a harness may
@@ -317,7 +340,7 @@ class PipelineGrads:
         self.seam = grad_seam(par, cfg.distributed.sequence_parallel)
 
     def __call__(self, model, batch, grads: Optional[dict] = None,
-                 step: Optional[int] = None):
+                 step: Optional[int] = None, extras: Optional[dict] = None):
         grads = param_grads(model.parameters()) if grads is None else grads
         for buf in grads.values():
             buf.zero_()
@@ -329,20 +352,26 @@ class PipelineGrads:
         st = model.stage
         if model.cfg.tie_word_embeddings and (st.first or st.last):
             self.comm.all_reduce(grads[model.embedding], ends=True)
+        moe = bool(model.cfg.num_experts)
         nll, count = runner.nll, runner.count
+        more = [runner.dropw] if moe else []
         sync = self.seam(model)
         if sync is not None:
-            nll, count = sync(grads, nll, count)
-        nll, count = sum_over_stages(nll, count, self.comm)
+            nll, count, *more = sync(grads, nll, count, *more)
+        nll, count, *more = sum_over_stages(nll, count, self.comm, *more)
         count = count.clamp(min=1)
+        if more and extras is not None:
+            extras.update(moe_extras(more[0], count, model.cfg))
         return nll / count, torch.reciprocal(count.float())
 
 
-def sum_over_stages(nll: torch.Tensor, count: torch.Tensor, comm):
-    """(nll, count) summed over the stages in one all-reduce (only the
-    last stage's are nonzero)."""
-    both = comm.all_reduce(torch.stack([nll.float(), count.float()]))
-    return both[0], both[1].round().to(count.dtype)
+def sum_over_stages(nll: torch.Tensor, count: torch.Tensor, comm,
+                    *more: torch.Tensor):
+    """(nll, count, *more) summed over the stages in one all-reduce (the
+    count is nonzero on the last stage only)."""
+    both = comm.all_reduce(torch.stack([nll.float(), count.float(),
+                                        *(m.float() for m in more)]))
+    return (both[0], both[1].round().to(count.dtype), *both[2:])
 
 
 class PipelineEval:

@@ -110,6 +110,17 @@ class _ScatterSeq(torch.autograd.Function):
         return gather_dim1(g, ctx.group, ctx.n), None, None
 
 
+class _SplitOverTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 @dataclass(frozen=True)
 class TPContext:
     """The tp hooks of one rank: its tp group, its coordinate and the
@@ -147,6 +158,14 @@ class TPContext:
         if self.sequence_parallel:
             return gather_dim1(dy, self.group, self.size)
         return dy
+
+    def replicated(self, t: torch.Tensor) -> torch.Tensor:
+        """A value computed alike on every tp rank from the gathered
+        tokens (the MoE router loss) entering each rank's loss: identity
+        forward, its grad divided by tp backward, so that the router's
+        grads, partial over tp like the expert path's, sum over tp to
+        the whole (the transpose of the JAX `moe_aux_sync` pmean)."""
+        return _SplitOverTP.apply(t, self.size)
 
     def head_ce(self, x, head_shard, targets, chunk_size: int = 0):
         """(NLL sum, valid count) of x against the vocab-sharded head; x

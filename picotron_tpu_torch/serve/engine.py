@@ -204,7 +204,8 @@ class ServeEngine:
                 "capacity-bounded expert dispatch, so routing — and "
                 "therefore tokens — depends on the chunking; parity with "
                 "the offline sampler cannot be guaranteed. Serve dense "
-                "models only.")
+                "models only (the JAX engine refuses them too; "
+                "picotron_tpu_torch.generate decodes MoE models).")
         dev = cuda_or_cpu("cuda" if device is None else str(device))
         if model_device(model).type != dev.type:
             raise ValueError(f"the model is on {model_device(model)}, not "

@@ -18,7 +18,9 @@ device metric and is not measured there.
 Under torchrun (any process group, world 1 included) the run takes the
 layout's path (`mesh.init_parallel`: NCCL on cuda:LOCAL_RANK, gloo with
 --device cpu; the world must be dp*pp*ep*cp*tp): each rank builds its tp
-shards of its pipeline stage's layers (pp > 1: `parallel/pp.py` walks
+shards (and for an MoE model its ep shard of the expert banks, its
+dispatch exchanging slots over the ep group) of its pipeline stage's
+layers (pp > 1: `parallel/pp.py` walks
 the pp_engine's or the mpmd schedule's table, exchanging boundary
 tensors with the neighbouring stages), reads its dp rows and its cp
 slice of their sequence (the cp schedules exchange K/V or heads over the
@@ -70,6 +72,7 @@ from picotron_tpu_torch.models.llama import (
 from picotron_tpu_torch.ops import flash_attention as fa
 from picotron_tpu_torch.parallel import comm
 from picotron_tpu_torch.parallel.cp import cp_context
+from picotron_tpu_torch.parallel.ep import ep_context
 from picotron_tpu_torch.parallel.mpmd import pipeline_bubble_fraction
 from picotron_tpu_torch.parallel.sharding import shard_state_dict
 from picotron_tpu_torch.parallel.tp import tp_context
@@ -90,11 +93,8 @@ from picotron_tpu_torch.utils import (
 def unsupported(cfg: Config) -> list[str]:
     """What the config asks for that this slice lacks, each with its
     ROADMAP item (an empty list means the run is supported)."""
-    d, m, t = cfg.distributed, cfg.model, cfg.training
+    d, t = cfg.distributed, cfg.training
     out = []
-    if d.ep_size > 1:
-        out.append("distributed.ep_size > 1 (expert parallelism: ROADMAP "
-                   "Queue 1 item 10)")
     if d.tp_strategy != "megatron":
         out.append(f"distributed.tp_strategy={d.tp_strategy!r} (tp "
                    "strategies: ROADMAP Queue 1 item 9)")
@@ -105,8 +105,6 @@ def unsupported(cfg: Config) -> list[str]:
         out.append("distributed.slices > 1 / hier_dp_reduce (the "
                    "hierarchical multi-slice dp reduction: ROADMAP Queue 1 "
                    "item 9)")
-    if m.num_experts:
-        out.append("MoE models (ROADMAP Queue 1 item 10)")
     if t.remat and t.remat_policy == "dots_offload":
         out.append("training.remat_policy='dots_offload' (saves in pinned "
                    "host memory: ROADMAP Queue 1 item 7)")
@@ -149,8 +147,8 @@ def build_state(cfg: Config, dev: torch.device, par=None):
     newest durable AND verified checkpoint in save_dir wins. Under a
     layout (`par`) the model is this rank's tp shards of its pipeline
     stage, each (tp, pp) rank drawing its own (dp and cp ranks draw the
-    same), and reads its cp slice of the sequence under context
-    parallelism."""
+    same; ep ranks draw alike but for their expert banks), and reads its
+    cp slice of the sequence under context parallelism."""
     ck = cfg.checkpoint
     tp = tp_context(par, cfg.distributed.sequence_parallel)
     stage = stage_of(cfg, par)
@@ -165,9 +163,16 @@ def build_state(cfg: Config, dev: torch.device, par=None):
         embed_gen = gen
         gen = torch.Generator(device=dev).manual_seed(
             seed + 2_000_003 * (stage.index + 1))
+    ep = ep_context(par, cfg)
+    bank_gen = None
+    if ep is not None and ep.size > 1:
+        # the layers' seed (per tp rank and stage), per ep rank
+        bank_gen = torch.Generator(device=dev).manual_seed(
+            gen.initial_seed() + 3_000_017 * (ep.index + 1))
     model = init_params(LlamaModel(cfg.model, device=dev, tp=tp,
-                                   cp=cp_context(par, cfg), stage=stage),
-                        gen, embed_gen)
+                                   cp=cp_context(par, cfg), stage=stage,
+                                   ep=ep),
+                        gen, embed_gen, bank_gen)
     state = init_train_state(cfg, model, par)
     if cfg.training.optimizer_offload:
         pinned = "pinned " if dev.type == "cuda" else ""
@@ -175,8 +180,9 @@ def build_state(cfg: Config, dev: torch.device, par=None):
                   f"{state.optimizer.host_bytes / 2 ** 30:.2f} GiB)")
     if ck.init_from_hf:
         params = load_hf_safetensors(ck.init_from_hf, cfg.model)
-        if tp is not None:
-            params = shard_state_dict(params, tp.rank, tp.size)
+        if par is not None:
+            params = shard_state_dict(params, par.tp_rank, par.tp_size,
+                                      par.ep_rank, par.ep_size)
         state.optimizer.install(params)
         log_print(f"initialized weights from {ck.init_from_hf}")
 
@@ -324,7 +330,8 @@ def run(cfg: Config, device: Optional[str] = None,
         log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
                   f"~{est / 1e9:.2f} GB/checkpoint)")
     ranks = ({} if par is None else
-             {"dp_rank": par.coords["dp"], "cp_rank": par.coords["cp"]})
+             {"dp_rank": par.coords["dp"], "cp_rank": par.coords["cp"],
+              "ep_rank": par.ep_rank})
     dl = MicroBatchDataLoader(cfg, dev, **ranks)
     # without a layout the calls keep their one-device form, which
     # callers may wrap

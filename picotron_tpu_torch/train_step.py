@@ -17,7 +17,10 @@ hooks fill) without dividing them, and returns the mean loss and 1 /
 the total valid-token count, which rides to the update as `grad_scale`,
 as in the JAX package's `_finish_grads`; so uneven IGNORE_INDEX counts
 weigh microbatches correctly. `training.ce_chunk_size` streams the
-head's CE over vocab chunks.
+head's CE over vocab chunks. For an MoE model the loss includes the
+router loss (`models/llama.loss_sum_count`'s fold) and the step's
+metrics gain `moe_drop_frac` (`parallel/api.moe_extras`, the JAX
+`_normalize_extras`), which the trainer prints on its log line.
 
 With `resilience.guard_policy != "off"` the step also returns the grads'
 global norm (`grad_norm`, optax.global_norm: the buffers' norm times
@@ -60,7 +63,9 @@ from picotron_tpu_torch.models.llama import (
 from picotron_tpu_torch.optimizer import (
     AdamW, OffloadAdamW, guard_nonfinite, param_grads,
 )
-from picotron_tpu_torch.parallel.api import grad_seam, reduce_sum_count
+from picotron_tpu_torch.parallel.api import (
+    finish_grads, grad_seam, reduce_sum_count,
+)
 from picotron_tpu_torch.parallel.comm import PPComm
 from picotron_tpu_torch.parallel.fused_bwd import (
     ComputeWeights, check_ported, fused_accumulate_grads, fused_bwd_supported,
@@ -114,35 +119,39 @@ def resolved_grad_engine(cfg: Config) -> str:
 
 def accumulate_grads(model: LlamaModel, batch, remat: Optional[str] = None,
                      ce_chunk_size: int = 0, grads: Optional[dict] = None,
-                     reduce=None):
+                     reduce=None, extras: Optional[dict] = None):
     """The AD engine. batch: (input_ids, targets), each [n_micro, mbs,
     seq] on the model's device; `remat` a remat policy name or None;
     `grads` the fp32 accumulators, {param: buffer} (the optimizer's
     `grad_of`; the params' .grad when None). Zeroes them, leaves the
     microbatches' summed NLL-sum grads there and returns (mean loss, 1 /
     token count), each a 0-dim fp32 tensor. `reduce` (a `GradSync`) is
-    the layout's seam, run once before the division."""
+    the layout's seam, run once before the division. For an MoE model
+    `extras` (a dict, when given) receives `moe_extras`."""
     ids, tgt = batch
     grads = param_grads(model.parameters()) if grads is None else grads
     for buf in grads.values():
         buf.zero_()
     nll_total = torch.zeros((), dtype=torch.float32, device=ids.device)
     count = torch.zeros((), dtype=torch.int64, device=ids.device)
+    more = ([torch.zeros((), dtype=torch.float32, device=ids.device)]
+            if model.cfg.num_experts else [])
     for i in range(ids.shape[0]):
-        total, c, _ = loss_sum_count(model, ids[i], tgt[i], remat,
-                                     ce_chunk_size)
+        total, c, ex = loss_sum_count(model, ids[i], tgt[i], remat,
+                                      ce_chunk_size)
         total.backward()
         nll_total += total.detach()
         count += c
-    if reduce is not None:
-        nll_total, count = reduce(grads, nll_total, count)
-    count = count.clamp(min=1)
-    return nll_total / count, torch.reciprocal(count.float())
+        if more:
+            more[0] += ex["moe_drop_weighted"]
+    return finish_grads(model.cfg, grads, nll_total, count, more, reduce,
+                        extras)
 
 
 def make_grads_fn(cfg: Config, par=None):
-    """(model, batch, grads=None) -> (mean loss, 1 / token count), the
-    summed grads left in `grads` (as `accumulate_grads`), by the config's
+    """(model, batch, grads=None, extras=None) -> (mean loss, 1 / token
+    count), the summed grads left in `grads` (as `accumulate_grads`; MoE
+    extras in `extras`), by the config's
     resolved engine. The fused engine's bf16 weight copies are made for
     the model it first sees (again for another model) and refreshed from
     the masters on every call; over bf16 params they are the params.
@@ -154,25 +163,29 @@ def make_grads_fn(cfg: Config, par=None):
     seam = grad_seam(par, cfg.distributed.sequence_parallel)
     if resolved_grad_engine(cfg) != "fused":
         remat = t.remat_policy if t.remat else None
-        return lambda model, batch, grads=None: accumulate_grads(
-            model, batch, remat, t.ce_chunk_size, grads, seam(model))
+        return lambda model, batch, grads=None, extras=None: \
+            accumulate_grads(model, batch, remat, t.ce_chunk_size, grads,
+                             seam(model), extras)
     check_ported(cfg)
     weights = None
 
-    def fused(model: LlamaModel, batch, grads: Optional[dict] = None):
+    def fused(model: LlamaModel, batch, grads: Optional[dict] = None,
+              extras: Optional[dict] = None):
         nonlocal weights
         if weights is None or weights.model is not model:
             weights = ComputeWeights(model)
         weights.refresh()
         return fused_accumulate_grads(model, weights, batch, t.ce_chunk_size,
-                                      grads=grads, reduce=seam(model))
+                                      grads=grads, reduce=seam(model),
+                                      extras=extras)
 
     return fused
 
 
 def make_train_step(cfg: Config, par=None):
     """(state, batch) -> metrics: {"loss"} plus, with guards on,
-    {"grad_norm", "nonfinite"}, each a 0-dim fp32 tensor on the device
+    {"grad_norm", "nonfinite"}, and for an MoE model {"moe_drop_frac"},
+    each a 0-dim fp32 tensor on the device
     (nothing here syncs the host, except the count under "skip"). `par`:
     the rank's ParallelEnv under a layout, whose batch is this rank's
     rows."""
@@ -185,7 +198,9 @@ def make_train_step(cfg: Config, par=None):
     def train_step(state: TrainState, batch) -> dict:
         opt = state.optimizer
         kw = {"step": state.step + 1} if piped else {}
-        loss, scale = grads_fn(state.model, batch, opt.grad_of, **kw)
+        extras: dict = {}
+        loss, scale = grads_fn(state.model, batch, opt.grad_of,
+                               extras=extras, **kw)
         metrics = {"loss": loss}
         gnorm = ok = None
         if guards_on:
@@ -201,6 +216,7 @@ def make_train_step(cfg: Config, par=None):
                 ok = finite
         opt.step(scale, grad_norm=gnorm, ok=ok)
         state.step += 1
+        metrics.update(extras)
         return metrics
 
     if piped:

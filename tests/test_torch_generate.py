@@ -8,8 +8,9 @@ package's on the CPU, fp32, with the JAX params transplanted
   (qkv bias, tied head), and the per-sequence [B, s] positions form;
 - greedy `generate` tokens equal to the JAX `generate`, with and without
   EOS (early exit, EOS padding), and the single-token case;
-- cache shapes, the MoE refusal, sampling determinism under a fixed
-  generator;
+- cache shapes, MoE decode (once refused, now run; its tokens are held
+  to the JAX package's in tests/test_torch_moe.py), sampling
+  determinism under a fixed generator;
 - the CLI (`python -m picotron_tpu_torch.generate`) on --prompt-ids from
   a port checkpoint against `generate`, its --load-dtype bfloat16 load,
   and its --prompt refusal without a tokenizer directory.
@@ -213,18 +214,18 @@ def test_cache_shapes(tiny):
 
 
 def test_moe_refused_naming_item_10(tiny):
-    _, _, model, _ = tiny
+    """Once the MoE refusal naming ROADMAP item 10; MoE decode is ported
+    now, so the test keeps its name and checks that `place_for_decode`
+    and `generate` take an MoE model (tests/test_torch_moe.py holds the
+    tokens to the JAX package's)."""
     moe = tcfg.config_from_dict({"model": {"name": "debug-tiny-moe"}}).model
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tgen.check_dense(moe)
-    model_moe = tgen.load_for_decode(
-        {n: p.detach() for n, p in model.named_parameters()}, model.cfg,
-        "cpu")
-    model_moe.cfg = moe
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tgen.generate(model_moe, [[1, 2]], 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tgen.place_for_decode({}, moe)
+    params = tllama.init_params(tllama.LlamaModel(moe, device="cpu"),
+                                torch.Generator().manual_seed(0))
+    model_moe = tgen.place_for_decode(
+        {n: p.detach() for n, p in params.named_parameters()}, moe,
+        device="cpu")
+    out = tgen.generate(model_moe, [[1, 2]], 2)
+    assert out.shape == (1, 4) and out[0, :2].tolist() == [1, 2]
 
 
 def test_sampling_deterministic_under_a_generator(tiny):

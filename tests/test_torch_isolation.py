@@ -42,6 +42,8 @@ def test_port_files_exist():
                  "picotron_tpu_torch/train.py",
                  "picotron_tpu_torch/generate.py",
                  "picotron_tpu_torch/serve/engine.py",
+                 "picotron_tpu_torch/ops/moe.py",
+                 "picotron_tpu_torch/parallel/ep.py",
                  "picotron_tpu_torch/telemetry/__init__.py"):
         assert want in names
     assert (ROOT / "picotron_tpu_torch/csrc/flash_attention.cu").exists()

@@ -131,5 +131,13 @@ def test_unported_model_features_raise(bad):
         with pytest.raises(ValueError, match="cp context"):
             tllama.LlamaModel(tc.model, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.LlamaModel(tc.model, device="cpu")
+    # MoE is ported: the model builds with the router and the expert banks
+    # in place of the dense MLP (tests/test_torch_moe.py holds its numbers)
+    m = tc.model
+    lp = tllama.LlamaModel(m, device="cpu").layers[0]
+    assert tuple(lp.router.shape) == (m.hidden_size, m.num_experts)
+    assert tuple(lp.w_gate.shape) == (m.num_experts, m.hidden_size,
+                                      m.expert_ffn_size)
+    assert tuple(lp.w_down.shape) == (m.num_experts, m.expert_ffn_size,
+                                      m.hidden_size)
+    assert not hasattr(lp, "gate")

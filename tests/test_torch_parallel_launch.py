@@ -202,11 +202,12 @@ def test_layout_errors_are_typed(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-# the two context-parallel cases and the pipeline case were refusals
-# until cp and pp were ported; they keep their ids and now check that
-# nothing refuses them (match None)
+# the two context-parallel cases, the pipeline case and the expert-
+# parallel case were refusals until cp, pp and MoE were ported; they keep
+# their ids and now check that nothing refuses them (match None)
 _CP_PORTED = "context parallelism: ROADMAP Queue 1 item 9"
 _PP_PORTED = "pipeline parallelism: ROADMAP Queue 1 item 9"
+_EP_PORTED = "expert parallelism: ROADMAP Queue 1 item 10"
 
 
 @pytest.mark.parametrize("dist_kw,model_kw,match", [
@@ -214,8 +215,8 @@ _PP_PORTED = "pipeline parallelism: ROADMAP Queue 1 item 9"
                  id=f"dist_kw0-model_kw0-{_PP_PORTED}"),
     pytest.param({"cp_size": 2}, {}, None,
                  id=f"dist_kw1-model_kw1-{_CP_PORTED}"),
-    ({"ep_size": 2}, {"name": "debug-tiny-moe"},
-     "expert parallelism: ROADMAP Queue 1 item 10"),
+    pytest.param({"ep_size": 2}, {"name": "debug-tiny-moe"}, None,
+                 id=f"dist_kw2-model_kw2-{_EP_PORTED}"),
     ({"tp_size": 2, "tp_strategy": "row"}, {},
      "tp strategies: ROADMAP Queue 1 item 9"),
     ({"tp_size": 2, "tp_sync": "deferred"}, {},

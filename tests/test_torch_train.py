@@ -159,7 +159,9 @@ def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
     ({"logging": {"use_wandb": True}}, "use_wandb"),
     ({"resilience": {"chaos": "sigterm@2"}}, "chaos"),
     ({"dataset": {"name": "HuggingFaceTB/smollm-corpus"}}, "HF datasets"),
-    ({"model": {"name": "debug-tiny-moe"}}, "MoE"),
+    # MoE is ported: not refused, the run trains
+    pytest.param({"model": {"name": "debug-tiny-moe"}}, None,
+                 id="override5-MoE"),
     ({"logging": {"trace_dir": "trace"}}, "logging.trace_dir"),
     ({"logging": {"sentinel": True}}, "logging.sentinel"),
     ({"logging": {"telemetry_dir": "tel"}}, "logging.telemetry_dir"),
@@ -173,6 +175,11 @@ def test_trainer_refuses_what_the_slice_lacks(override, match):
     cfg = tcfg.config_from_dict(raw)
     if match is None:
         assert ttrain.unsupported(cfg) == []
+        if cfg.distributed.world_size == 1:
+            result = ttrain.run(cfg, "cpu")
+            assert len(result["losses"]) == cfg.training.total_train_steps
+            assert all(np.isfinite(result["losses"]))
+            return
         with pytest.raises(ValueError, match="world size 1"):
             ttrain.run(cfg, "cpu")
         return
