@@ -287,7 +287,35 @@ Phases, each of which raises on failure (so the script exits non-zero):
    bound and SDPA's (phase 2 holds them to their plain versions there).
    A `moe` JSON line; the kernel JSON line gains each kernel's
    `moe_launches` and its `moe_shape` times.
-12. Numbers, then the device line last.
+12. The trainer as the JAX package runs it: telemetry, chaos, the packer.
+   (a) Phase 3's config through the trainer's entry point (in process,
+   the counts from 0) with the stream in `logging.telemetry_dir`, the
+   span tracer (`trace_dir`), the sentinel, the flight recorder (8 steps)
+   and two prefetch workers (`dataset.num_workers`). Gates: the losses
+   are phase 3's bit for bit; each flash kernel launched 24 x ga x steps
+   times on its tensor-core kernel and AdamW once per tensor per step;
+   the stream holds run_start, each step's data/step/sync phases, the
+   step records and run_summary; `tools/telemetry_report` accounts no
+   more than the stream's wall (REPORT_SLACK_S); the trace holds one
+   `step` span per step on the train lane; the median step (steps 2-4)
+   within TELEMETRY_STEP_RTOL of phase 3's (both printed).
+   (b) Chaos at full width and CHAOS_LAYERS layers, each run a child
+   process of `python -m picotron_tpu_torch.train`, against one run
+   without chaos: nan_grad@3 under guard "abort" exits 76 with a
+   `divergence_abort` postmortem and steps 1-2 bit for bit; data_io@2x2
+   with prefetch gives two `retry` events and the same losses;
+   sigterm@3 exits 75 with a `preempted` postmortem and a restart under
+   PICOTRON_CHAOS="" resumes at step 3 bit for bit; ckpt_io@2x1 with
+   ckpt_corrupt_bitflip@4 (save_frequency 2) retries the step-2 save,
+   and the restart reports `ckpt_corrupt` for step 4 and resumes from
+   step 2 bit for bit; hang@3 under a WATCHDOG_S watchdog exits 77 with
+   a `watchdog` postmortem. The save, retry, verify and load seconds are
+   kept.
+   (c) The native packer (csrc/packer.cpp, built with g++) against
+   PyBlockPacker on PACKER_TOKENS tokens fed in ragged chunks: equal
+   blocks; both throughputs (the host CPU's).
+   A `telemetry` JSON line before the kernel line.
+13. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -553,6 +581,14 @@ MOE_NEW = 64                   # 11e: new tokens
 MOE_LOSS_ATOL = 1e-4           # 11a: flash vs plain attention, each step
 MOE_ROUTE_AGREE = 0.99         # 11a: share of assignments alike
 MOE_DECODE_ATOL = 1e-4         # 11e: fp32 cache vs forward logits
+# phase 12: the trainer's telemetry, chaos and the native packer
+TELEMETRY_DIR = "build/smoke_telemetry"
+TELEMETRY_STEP_RTOL = 0.05     # 12a: median step vs phase 3's, relative
+REPORT_SLACK_S = 1e-3          # 12a: the report's accounted <= its wall
+CHAOS_DIR = "build/smoke_chaos"
+CHAOS_LAYERS = 4               # 12b: CONFIG's model cut to 4 layers
+WATCHDOG_S, HANG_S = 5.0, 120  # 12b: hang@3~HANG_S under this watchdog
+PACKER_TOKENS = 100_000_000    # 12c: tokens through both packers
 
 
 def log(msg: str) -> None:
@@ -3807,6 +3843,339 @@ def moe_phase(fa, here: str, card: str, peak_flops: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the trainer as the JAX package runs it
+# ---------------------------------------------------------------------------
+
+
+def read_events(path: str) -> list:
+    """A JSONL stream's events, a torn last line (a killed run) dropped."""
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except json.JSONDecodeError:
+                    pass
+    return out
+
+
+def read_postmortem(save_dir: str) -> Optional[dict]:
+    path = os.path.join(save_dir, "flightdeck_postmortem.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def telemetry_main_path(fa, here: str, phase3: dict) -> dict:
+    """12a: the phase-3 config with the stream moved (telemetry_dir), the
+    span tracer, the sentinel, the flight recorder and two prefetch
+    workers, through the trainer's entry point in process, with the
+    launch counts from 0."""
+    import shutil
+
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.tools import telemetry_report
+
+    base = os.path.join(here, TELEMETRY_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    with open(os.path.join(here, CONFIG)) as f:
+        raw = json.load(f)
+    raw["logging"] = {"telemetry_dir": os.path.join(base, "tel"),
+                      "trace_dir": os.path.join(base, "trace"),
+                      "sentinel": True, "flight_steps": 8}
+    raw["dataset"] = {"num_workers": 2}
+    raw["checkpoint"] = {"save_dir": os.path.join(base, "ckpt")}
+    path = os.path.join(base, "config.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    result = train.main(["--config", path])
+    torch.cuda.synchronize()
+    launches = {**fa.launches, **topt.launches}
+    counts = launch_counts(fa)
+    n_tensors = len(list(result.pop("state").model.parameters()))
+    if result["losses"] != phase3["losses"]:
+        raise AssertionError(f"12a losses {result['losses']} are not phase "
+                             f"3's {phase3['losses']} bit for bit")
+    want = 24 * GA * STEPS
+    check_launches(counts, {name: want for name, _ in KERNELS}, "phase 12a")
+    if launches["adamw"] != n_tensors * STEPS:
+        raise AssertionError(f"12a: adamw launched {launches['adamw']} "
+                             f"times, want {n_tensors * STEPS}")
+    events = read_events(result["telemetry_path"])
+    kinds = [e["kind"] for e in events]
+    phases = [(e["phase"], e["step"]) for e in events
+              if e["kind"] == "phase"]
+    steps = [e["step"] for e in events if e["kind"] == "step"]
+    want_phases = [(p, s) for s in range(1, STEPS + 1)
+                   for p in ("data", "step", "sync")]
+    if (kinds[0] != "run_start" or kinds[-1] != "run_summary"
+            or phases != want_phases or steps != list(range(1, STEPS + 1))):
+        raise AssertionError(f"12a stream: kinds {kinds}, phases {phases}")
+    report = telemetry_report.summarize(events)
+    if not (report["accounted_s"] <= report["wall_s"] + REPORT_SLACK_S
+            and report["steps"]["count"] == STEPS):
+        raise AssertionError(f"12a report: accounted "
+                             f"{report['accounted_s']} s of a wall of "
+                             f"{report['wall_s']} s, {report['steps']}")
+    with open(result["trace_path"]) as f:
+        trace = json.load(f)
+    step_spans = [e["args"]["step"] for e in trace["traceEvents"]
+                  if e.get("name") == "step" and e.get("ph") == "X"
+                  and e.get("tid") == 0]
+    if step_spans != list(range(1, STEPS + 1)):
+        raise AssertionError(f"12a trace: step spans {step_spans}")
+    ms = statistics.median(result["step_seconds"][1:]) * 1e3
+    ms3 = statistics.median(phase3["step_seconds"][1:]) * 1e3
+    wall = {p: sum(e["secs"] for e in events if e.get("phase") == p)
+            for p in ("data", "step", "sync")}
+    out = {"losses": result["losses"], "step_ms": ms, "phase3_step_ms": ms3,
+           "overhead": ms / ms3 - 1.0, "launches": launches,
+           "data_wait_share": wall["data"] / sum(wall.values()),
+           "phase_seconds": wall, "goodput_pct": report["goodput_pct"],
+           "accounted_s": report["accounted_s"], "wall_s": report["wall_s"],
+           "unaccounted_s": report["unaccounted_s"],
+           "sentinel": events[-1].get("sentinel"),
+           "trace_events": len(trace["traceEvents"])}
+    log(f"phase 12a telemetry main path: losses bit for bit phase 3's, "
+        f"step {ms:.1f} ms (phase 3 {ms3:.1f} ms, {100 * out['overhead']:+.2f}"
+        f"%), data wait {100 * out['data_wait_share']:.3f}% of the phases, "
+        f"report accounted {report['accounted_s']:.3f} s of a "
+        f"{report['wall_s']:.3f} s wall, {len(trace['traceEvents'])} trace "
+        f"events, launches {launches}")
+    if not ms <= (1 + TELEMETRY_STEP_RTOL) * ms3:
+        raise AssertionError(f"12a step {ms:.1f} ms over phase 3's "
+                             f"{ms3:.1f} ms by more than "
+                             f"{100 * TELEMETRY_STEP_RTOL:.0f}%")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def chaos_trainer(here: str, name: str, sections: dict,
+                  chaos_env: Optional[str] = None) -> dict:
+    """One child run of `python -m picotron_tpu_torch.train` on the
+    phase-12b config (CONFIG at CHAOS_LAYERS layers) with `sections`
+    over it, PICOTRON_CHAOS set to `chaos_env` when given (else unset):
+    its exit code, report (when it exits 0), stream, postmortem and the
+    losses its stream logged, by step."""
+    import signal
+
+    base = os.path.join(here, CHAOS_DIR)
+    with open(os.path.join(here, CONFIG)) as f:
+        raw = json.load(f)
+    raw["model"]["num_hidden_layers"] = CHAOS_LAYERS
+    raw["checkpoint"] = {"save_dir": os.path.join(base, name)}
+    for section, vals in sections.items():
+        raw.setdefault(section, {}).update(vals)
+    path = os.path.join(base, f"{name}.{len(os.listdir(base))}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    report = path + ".report"
+    env = {k: v for k, v in os.environ.items() if k != "PICOTRON_CHAOS"}
+    if chaos_env is not None:
+        env["PICOTRON_CHAOS"] = chaos_env
+    cmd = [sys.executable, "-m", "picotron_tpu_torch.train", "--config",
+           path, "--report", report]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TRAIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"12b {name}: no exit within "
+                             f"{TRAIN_TIMEOUT_S} s")
+    save_dir = raw["checkpoint"]["save_dir"]
+    events = read_events(os.path.join(save_dir, "telemetry.jsonl"))
+    run = {"code": proc.returncode, "events": events,
+           "seconds": time.perf_counter() - t0,
+           "postmortem": read_postmortem(save_dir), "err": err[-3000:],
+           "losses": {}, "report": None}
+    # this run's part of an append-mode stream: after its run_start
+    starts = [i for i, e in enumerate(events) if e["kind"] == "run_start"]
+    for e in events[starts[-1] if starts else 0:]:
+        if e["kind"] == "step":
+            run["losses"][e["step"]] = e["loss"]
+    if proc.returncode == 0:
+        with open(report) as f:
+            run["report"] = json.load(f)
+    return run
+
+
+def _expect(run: dict, name: str, code: int, reason: Optional[str] = None,
+            step: Optional[int] = None) -> None:
+    if run["code"] != code:
+        raise AssertionError(f"12b {name}: exit {run['code']}, want {code}: "
+                             f"{run['err']}")
+    if reason is not None:
+        pm = run["postmortem"]
+        if pm is None or (pm["reason"], pm["step"]) != (reason, step):
+            got = pm and (pm["reason"], pm["step"])
+            raise AssertionError(f"12b {name}: postmortem {got}, want "
+                                 f"{(reason, step)}")
+
+
+def _kinds_after(run: dict, start: int) -> list:
+    """The kinds of the stream from its `start`-th run_start on."""
+    starts = [i for i, e in enumerate(run["events"])
+              if e["kind"] == "run_start"]
+    return [e["kind"] for e in run["events"][starts[start]:]]
+
+
+def chaos_phase(here: str) -> dict:
+    """12b: each chaos kind the trainer fires, at full width and
+    CHAOS_LAYERS layers, against one run without chaos."""
+    import shutil
+
+    base = os.path.join(here, CHAOS_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out = {}
+    try:
+        clean = chaos_trainer(here, "clean", {})
+        _expect(clean, "clean", 0)
+        want = clean["losses"]
+        if sorted(want) != list(range(1, STEPS + 1)):
+            raise AssertionError(f"12b clean: losses {want}")
+        out["clean"] = {"losses": want, "seconds": clean["seconds"]}
+
+        nan = chaos_trainer(here, "nan_abort",
+                            {"resilience": {"chaos": "nan_grad@3"}})
+        _expect(nan, "nan_grad@3", 76, "divergence_abort", 3)
+        if nan["losses"] != {s: want[s] for s in (1, 2)}:
+            raise AssertionError(f"12b nan_grad@3: steps 1-2 "
+                                 f"{nan['losses']}, want {want}")
+        guard = [e for e in nan["events"] if e["kind"] == "guard"]
+        out["nan_abort"] = {"guard": guard[-1]["why"] if guard else None,
+                            "seconds": nan["seconds"]}
+
+        data = chaos_trainer(here, "data_io", {
+            "resilience": {"chaos": "data_io@2x2"},
+            "dataset": {"num_workers": 2}})
+        _expect(data, "data_io@2x2", 0)
+        retries = [e for e in data["events"] if e["kind"] == "retry"]
+        if len(retries) != 2 or data["losses"] != want:
+            raise AssertionError(f"12b data_io@2x2: {len(retries)} retries, "
+                                 f"losses {data['losses']} vs {want}")
+        out["data_io"] = {"retry_backoff_s": sum(e["secs"] for e in retries),
+                          "seconds": data["seconds"]}
+
+        term = chaos_trainer(here, "sigterm",
+                             {"resilience": {"chaos": "sigterm@3"},
+                              "checkpoint": {"auto_resume": True}})
+        _expect(term, "sigterm@3", 75, "preempted", 3)
+        again = chaos_trainer(here, "sigterm",
+                              {"resilience": {"chaos": "sigterm@3"},
+                               "checkpoint": {"auto_resume": True}},
+                              chaos_env="")
+        _expect(again, "sigterm@3 restart", 0)
+        if (term["losses"] != {s: want[s] for s in (1, 2, 3)}
+                or again["report"]["start_step"] != 3
+                or again["losses"] != {4: want[4]}):
+            raise AssertionError(f"12b sigterm@3: {term['losses']}, restart "
+                                 f"{again['losses']}, want {want}")
+        save = [e["secs"] for e in term["events"]
+                if e.get("phase") == "preempt-save"]
+        out["sigterm"] = {"preempt_save_s": save,
+                          "restore_timings": again["report"][
+                              "restore_timings"],
+                          "seconds": term["seconds"] + again["seconds"]}
+
+        sections = {"resilience": {"chaos": "ckpt_io@2x1,"
+                                            "ckpt_corrupt_bitflip@4"},
+                    "checkpoint": {"save_frequency": 2, "auto_resume": True}}
+        ckpt = chaos_trainer(here, "ckpt", sections)
+        _expect(ckpt, "ckpt_io@2x1,ckpt_corrupt_bitflip@4", 0)
+        kinds = _kinds_after(ckpt, 0)
+        if kinds.count("retry") != 1 or ckpt["losses"] != want:
+            raise AssertionError(f"12b ckpt run: kinds {kinds}, losses "
+                                 f"{ckpt['losses']}")
+        back = chaos_trainer(here, "ckpt", sections, chaos_env="")
+        _expect(back, "ckpt restart", 0)
+        kinds = _kinds_after(back, 1)
+        corrupt = [e for e in back["events"] if e["kind"] == "ckpt_corrupt"]
+        if (not corrupt or corrupt[-1]["step"] != 4
+                or back["report"]["start_step"] != 2
+                or back["losses"] != {s: want[s] for s in (3, 4)}):
+            raise AssertionError(f"12b ckpt restart: kinds {kinds}, losses "
+                                 f"{back['losses']}, start "
+                                 f"{back['report']['start_step']}")
+        out["ckpt"] = {
+            "save_s": [e["secs"] for e in ckpt["events"]
+                       if e.get("phase") == "save"],
+            "retry_backoff_s": [e["secs"] for e in ckpt["events"]
+                                if e["kind"] == "retry"],
+            "restore_timings": back["report"]["restore_timings"],
+            "corrupt": corrupt[-1]["failures"],
+            "seconds": ckpt["seconds"] + back["seconds"]}
+
+        hang = chaos_trainer(here, "hang", {"resilience": {
+            "chaos": f"hang@3~{HANG_S}",
+            "watchdog_timeout": WATCHDOG_S}})
+        _expect(hang, f"hang@3~{HANG_S}", 77, "watchdog", 2)
+        if hang["events"][-1]["kind"] != "watchdog_timeout":
+            raise AssertionError(f"12b hang: last event "
+                                 f"{hang['events'][-1]}")
+        out["hang"] = {"stalled_s": hang["postmortem"]["extra"]["stalled_s"],
+                       "seconds": hang["seconds"]}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"phase 12b chaos at {CHAOS_LAYERS} layers: nan_grad@3 -> 76, "
+        f"data_io@2x2 2 retries, sigterm@3 -> 75 and a bit-for-bit resume, "
+        f"ckpt_io@2x1 retried and ckpt_corrupt_bitflip@4 -> resume from "
+        f"step 2, hang@3 -> 77; {json.dumps(out)}")
+    return out
+
+
+def packer_phase() -> dict:
+    """12c: the native packer (csrc/packer.cpp) against PyBlockPacker on
+    PACKER_TOKENS tokens fed in ragged chunks, each feed followed by a
+    take, as tokenize_and_chunk drives it."""
+    from picotron_tpu_torch.native import PyBlockPacker, make_packer
+
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    tokens = rng.integers(0, 49152, PACKER_TOKENS, dtype=np.int32)
+    cuts = [0]
+    while cuts[-1] < PACKER_TOKENS:
+        cuts.append(min(PACKER_TOKENS,
+                        cuts[-1] + int(rng.integers(1, 2_000_000))))
+    out, secs = {}, {}
+    for label, packer in (("native", make_packer(SEQ + 1)),
+                          ("plain", PyBlockPacker(SEQ + 1))):
+        blocks = []
+        t0 = time.perf_counter()
+        for a, b in zip(cuts, cuts[1:]):
+            packer.feed(tokens[a:b])
+            blocks.append(packer.take())
+        secs[label] = time.perf_counter() - t0
+        out[label] = (np.concatenate(blocks), packer.carry_len)
+    if not (np.array_equal(out["native"][0], out["plain"][0])
+            and out["native"][1] == out["plain"][1]):
+        raise AssertionError("12c: the native packer's blocks differ from "
+                             "PyBlockPacker's")
+    n_blocks = out["native"][0].shape[0]
+    if n_blocks != PACKER_TOKENS // (SEQ + 1):
+        raise AssertionError(f"12c: {n_blocks} blocks")
+    res = {"tokens": PACKER_TOKENS, "feeds": len(cuts) - 1,
+           "blocks": n_blocks,
+           "native_tokens_per_s": PACKER_TOKENS / secs["native"],
+           "plain_tokens_per_s": PACKER_TOKENS / secs["plain"]}
+    log(f"phase 12c packer: {n_blocks} blocks of {SEQ + 1} equal, native "
+        f"{res['native_tokens_per_s'] / 1e6:.1f} M tokens/s, plain "
+        f"{res['plain_tokens_per_s'] / 1e6:.1f} M tokens/s (host CPU)")
+    return res
+
+
 def compare_main_paths(trees: list) -> int:
     """`--main-path TREE...`: phase 3 of each tree's own chip_smoke.py
     (e.g. an unpacked parent commit and this checkout, in turns), one
@@ -3835,6 +4204,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--main-path"]:
         return compare_main_paths(sys.argv[2:])
+    # chaos is process-wide: only phase 12b's child runs get a spec
+    os.environ.pop("PICOTRON_CHAOS", None)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from picotron_tpu_torch.kernels import build
@@ -4012,6 +4383,17 @@ def main() -> int:
     moe["seconds"] = time.perf_counter() - t11
     log(f"phase 11 mixture of experts: ok in {moe['seconds']:.1f} s")
 
+    # phase 12: the trainer as the JAX package runs it
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    telemetry = {"card": card,
+                 "main_path": telemetry_main_path(fa, here, result)}
+    telemetry["chaos"] = chaos_phase(here)
+    telemetry["packer"] = packer_phase()
+    telemetry["seconds"] = time.perf_counter() - t12
+    log(f"phase 12 telemetry, chaos and the packer: ok in "
+        f"{telemetry['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -4061,6 +4443,7 @@ def main() -> int:
         "serve_launches": serving["offline"]["forward_launches"]["adamw"],
         "moe_launches": moe["train"]["launches"]["adamw"],
     })
+    print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
         "card": card, **engines["ad"],

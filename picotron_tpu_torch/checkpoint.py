@@ -17,7 +17,12 @@ Layout, the JAX package's with a torch payload in place of Orbax's:
 Durability: the payload is written under `state.tmp.<pid>/`, fsynced, and
 renamed to `state/` last; a step dir whose `state/` exists is durable.
 The manifest is written after the rename; `latest_valid_step` trusts a
-step only when it is durable AND verifies against its manifest.
+step only when it is durable AND verifies against its manifest. Two
+chaos points (resilience/chaos.py) sit on this path: `ckpt_save` inside
+the retried payload write (`ckpt_io` raises there), and
+`ckpt_committed` after the manifest commits (the corruption kinds flip a
+byte in, or truncate, the largest file under `state/`, or tear
+meta.json, which verification then catches).
 
 Async saves (`checkpoint.async_save`, the default): `save()` returns once
 every tensor has been copied to host memory. The port updates params and
@@ -81,6 +86,7 @@ from picotron_tpu_torch.ckpt_integrity import (
     fsync_dir, retention_plan, verify_step_dir, write_manifest,
 )
 from picotron_tpu_torch.config import Config, ModelConfig
+from picotron_tpu_torch.resilience import chaos
 from picotron_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from picotron_tpu_torch.telemetry import bus as telemetry_bus
 from picotron_tpu_torch.train_step import TrainState
@@ -230,9 +236,13 @@ class CheckpointManager:
             self._commit(step, path, params, opt_state)
         return path
 
-    def _write_payload(self, path: str, params: dict, opt_state: dict):
+    def _write_payload(self, path: str, params: dict, opt_state: dict,
+                       step: int):
         """state.tmp.<pid>/ -> fsync -> rename to state/ (replacing a
-        stale payload of the same step, whose manifest goes first)."""
+        stale payload of the same step, whose manifest goes first). The
+        chaos point `ckpt_save` sits inside this retried write, so an
+        injected store failure costs a backoff, not the run."""
+        chaos.fire("ckpt_save", step=step)
         tmp = os.path.join(path, f"state.tmp.{os.getpid()}")
         final = os.path.join(path, "state")
         if os.path.isdir(tmp):
@@ -249,9 +259,12 @@ class CheckpointManager:
         os.replace(tmp, final)
         fsync_dir(path)
 
-    def _write_rank_files(self, tmp: str, params, opt_state) -> None:
+    def _write_rank_files(self, tmp: str, params, opt_state,
+                          step: int) -> None:
         """This rank's files of a layout's checkpoint into the shared
-        `tmp` dir, fsynced."""
+        `tmp` dir, fsynced (with the `ckpt_save` chaos point, as
+        `_write_payload`)."""
+        chaos.fire("ckpt_save", step=step)
         os.makedirs(tmp, exist_ok=True)
         for kind, obj in (("params", params), ("opt_state", opt_state)):
             if obj is not None:
@@ -266,7 +279,7 @@ class CheckpointManager:
         err = None
         try:
             retry_call(self._write_rank_files, tmp, params, opt_state,
-                       policy=self._retry,
+                       step, policy=self._retry,
                        describe=f"checkpoint save (step {step})")
         except Exception as e:  # noqa: BLE001 — raised after agreeing
             err = e
@@ -299,7 +312,7 @@ class CheckpointManager:
         a layout they are rank 0's)."""
         t0 = time.perf_counter()
         if self.par is None:
-            retry_call(self._write_payload, path, params, opt_state,
+            retry_call(self._write_payload, path, params, opt_state, step,
                        policy=self._retry,
                        describe=f"checkpoint save (step {step})")
         else:
@@ -323,6 +336,9 @@ class CheckpointManager:
             telemetry_bus.emit("ckpt_commit", step=step,
                                files=manifest["file_count"],
                                bytes=manifest["total_bytes"])
+            # Corruption chaos mutates the *committed* bytes: the fault
+            # the manifest machinery exists to catch.
+            chaos.fire("ckpt_committed", step=step, path=path)
             self.gc()
         except Exception as e:  # noqa: BLE001
             self._probe_failed(path, e, what="manifest commit")

@@ -3,9 +3,9 @@
 A copy of `picotron_tpu/config.py` (same dataclasses, JSON schema, presets,
 `validate` errors and `num_params`), kept in the port's own tree because
 importing `picotron_tpu.config` runs `picotron_tpu/__init__.py`, which
-imports jax. The three lazy imports of the original are replaced here:
-the chaos-spec grammar check is inlined (`_parse_chaos_spec`), the fused
-grad engine's eligibility rule is inlined, and `resolved_tp_strategy`'s
+imports jax. Of the original's three lazy imports, the chaos-spec grammar
+check calls the port's own `resilience/chaos.parse_spec`; the fused grad
+engine's eligibility rule is inlined, and `resolved_tp_strategy`'s
 "adaptive" cost-model branch raises until `analysis/` is ported.
 Comments below that name `picotron_tpu/...` modules describe the
 reference's subsystems that each field configures.
@@ -30,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import re
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -819,46 +818,6 @@ class CheckpointConfig:
     elastic: bool = False
 
 
-# The chaos-spec grammar of picotron_tpu/resilience/chaos.py (KINDS,
-# _TICK_KINDS, _EVENT_RE, parse_spec), copied so that a bad spec fails at
-# config load with the same errors; the port has no chaos runtime yet.
-_CHAOS_KINDS = ("sigterm", "sigint", "kill", "slice_lost", "hang", "ckpt_io",
-                "data_io", "data_stall", "nan_grad", "ckpt_corrupt_bitflip",
-                "ckpt_truncate", "ckpt_torn_meta",
-                "engine_dead", "decode_hang", "shed_storm")
-_CHAOS_TICK_KINDS = ("sigterm", "sigint", "kill", "hang")
-_CHAOS_EVENT_RE = re.compile(
-    r"^(?P<kind>[a-z_]+)@(?P<step>\d+)"
-    r"(?:x(?P<count>\d+))?(?:~(?P<secs>\d+(?:\.\d+)?))?"
-    r"(?:#(?P<tick>\d+))?$")
-
-
-def _parse_chaos_spec(spec: str) -> None:
-    """Validate a chaos spec; raises ValueError naming the bad event."""
-    for item in (spec or "").replace(" ", "").split(","):
-        if not item:
-            continue
-        m = _CHAOS_EVENT_RE.match(item)
-        if not m:
-            raise ValueError(
-                f"bad chaos event {item!r}: expected "
-                f"KIND@STEP[xCOUNT][~SECS][#TICK] with KIND in {_CHAOS_KINDS}")
-        kind = m.group("kind")
-        if kind not in _CHAOS_KINDS:
-            raise ValueError(
-                f"unknown chaos kind {kind!r} in {item!r}; known: "
-                f"{_CHAOS_KINDS}")
-        secs = float(m.group("secs") or 0.0)
-        if kind in ("hang", "data_stall", "decode_hang") and secs <= 0:
-            raise ValueError(
-                f"chaos event {item!r} needs a ~SECS duration (e.g. "
-                f"{kind}@{m.group('step')}~5)")
-        if m.group("tick") is not None and kind not in _CHAOS_TICK_KINDS:
-            raise ValueError(
-                f"chaos event {item!r}: #TICK (mid-schedule injection) "
-                f"only applies to {_CHAOS_TICK_KINDS}, not {kind!r}")
-
-
 @dataclass(frozen=True)
 class ResilienceConfig:
     """Runtime fault tolerance (picotron_tpu/resilience; beyond the
@@ -926,7 +885,9 @@ class ResilienceConfig:
                 f"watchdog_timeout must be >= 0, got {self.watchdog_timeout}")
         if self.chaos:
             # Parse errors at config load, not at step N mid-run.
-            _parse_chaos_spec(self.chaos)
+            from picotron_tpu_torch.resilience.chaos import parse_spec
+
+            parse_spec(self.chaos)
 
 
 @dataclass(frozen=True)

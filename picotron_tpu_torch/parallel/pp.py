@@ -59,13 +59,22 @@ cotangent and its fold with 1. The port holds no pad layers, so the
 JAX `layer_is_real` mask has nothing to mask.
 
 The walk beats the watchdog with the live (stage, tick, op, mb) before
-each op (`_run_schedule`, `mpmd.py:667-700` there). A SIGTERM mid-walk
-only sets the preemption handler's flag, so the walk drains to the step
-boundary and a checkpoint then holds whole steps only.
+each op (`_run_schedule`, `mpmd.py:667-760` there). On a walk of an mpmd
+table (`pipeline.executor == "mpmd"`) it then fires the `schedule_tick`
+chaos point with the same coordinates, so `sigterm@S#T` or `hang@S~X#T`
+lands mid-schedule; the spmd engines have no ticks in the JAX package
+and their walks do not fire it. A SIGTERM mid-walk only sets the
+preemption handler's flag, so the walk drains to the step boundary and a
+checkpoint then holds whole steps only. With a span tracer installed
+(telemetry/flightdeck, `logging.trace_dir`) each op is synced and
+recorded as one span `stage{j}/tick{t}/{op}/mb{mb}` on the lane
+`TID_PP_BASE + rank`: the sync is an opt-in perturbation of the traced
+run, as in the JAX package, and the untraced walk adds none.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -83,7 +92,9 @@ from picotron_tpu_torch.parallel.comm import PPComm
 from picotron_tpu_torch.parallel.mpmd import (
     ScheduleBufferError, TickOp, build_schedule, lint_schedule,
 )
-from picotron_tpu_torch.resilience import watchdog
+from picotron_tpu_torch.resilience import chaos, watchdog
+from picotron_tpu_torch.telemetry import bus as telemetry_bus
+from picotron_tpu_torch.telemetry.flightdeck.tracer import TID_PP_BASE
 
 
 def pp_1f1b_ticks(n_micro: int, pp: int) -> int:
@@ -182,15 +193,19 @@ def _messages(table: list, pp: int) -> dict:
 
 
 def walk(table: list, index: int, stage, comm, step: Optional[int] = None,
-         forward_only: bool = False) -> WalkStats:
+         forward_only: bool = False, ticks: bool = False) -> WalkStats:
     """Rank `index`'s walk of `table` (ops in `_tick_order`, over
     `comm.size` pipeline ranks): its ops, tick by tick, each followed by
     one exchange of the tick's boundary tensors. `stage` runs the ops:
     `forward(vstage, mb, x)` -> (graph, y to send or None) and
     `backward(vstage, mb, graph, g)` -> the input's cotangent or None;
     `boundary()` -> (shape, dtype) of a boundary tensor. The walk keeps
-    each graph from its F to its B (none when `forward_only`). Raises
-    `ScheduleBufferError` naming the buffers the table left live."""
+    each graph from its F to its B (none when `forward_only`). `ticks`:
+    fire the `schedule_tick` chaos point before each op (a walk of an
+    mpmd table with a step number). Raises `ScheduleBufferError` naming
+    the buffers the table left live."""
+    tel = telemetry_bus.active()
+    tracer = getattr(tel, "tracer", None) if tel is not None else None
     pp = comm.size
     stats = WalkStats()
     messages = _messages(table, pp)
@@ -209,6 +224,10 @@ def walk(table: list, index: int, stage, comm, step: Optional[int] = None,
             j, mb = o.vstage, o.mb
             watchdog.touch(f"pp_schedule stage={j} tick={t} op={o.op} "
                            f"mb={mb}", step)
+            if ticks and step is not None:
+                chaos.fire("schedule_tick", step=step, tick=t, stage=j,
+                           op=o.op, mb=mb)
+            t0 = time.perf_counter() if tracer is not None else 0.0
             if o.op == "F":
                 graph, y = stage.forward(j, mb, xbuf.pop((j, mb), None))
                 if y is not None:
@@ -225,6 +244,13 @@ def walk(table: list, index: int, stage, comm, step: Optional[int] = None,
             else:
                 raise ValueError(f"op {o.op!r} has no walk op (the zb "
                                  f"split is a table only)")
+            if tracer is not None:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                tracer.complete(f"stage{j}/tick{t}/{o.op}/mb{mb}",
+                                tid=TID_PP_BASE + index,
+                                dur_s=time.perf_counter() - t0, stage=j,
+                                tick=t, op=o.op, mb=mb, step=step)
         sends, recvs, keys = [], [], []
         for src, dst, buf, j, mb in messages.get(t, ()):
             if src == index:
@@ -334,6 +360,8 @@ class PipelineGrads:
         self.cfg = cfg
         self.comm = comm if comm is not None else PPComm(par)
         self.table = table if table is not None else schedule_table(cfg)
+        # the schedule_tick chaos point fires on the mpmd tables' walks
+        self.ticks = cfg.pipeline.executor == "mpmd"
         self.remat = t.remat_policy if t.remat else None
         self.runner = runner
         self.stats = WalkStats()
@@ -347,7 +375,7 @@ class PipelineGrads:
         runner = self.runner(model, batch, self.remat,
                              self.cfg.training.ce_chunk_size)
         self.stats = walk(self.table, self.comm.index, runner, self.comm,
-                          step)
+                          step, ticks=self.ticks)
         self.stats.mb_losses = runner.mb_losses
         st = model.stage
         if model.cfg.tie_word_embeddings and (st.first or st.last):

@@ -7,13 +7,16 @@
   is the AdamW update's `ok` flag (`optimizer.adamw_update`: the kernel
   writes nothing, the plain version selects with `guard_nonfinite`);
 - **flaky I/O**: `retry_call` wraps checkpoint writes and reads;
-- **hangs**: `Watchdog` dumps every thread's stack and exits
-  `EXIT_WATCHDOG` (77).
+- **hangs**: `Watchdog` dumps every thread's stack, dumps the flight
+  recorder's postmortem and exits `EXIT_WATCHDOG` (77);
+- **testability**: `chaos` injects each of these failures
+  deterministically by step (`PICOTRON_CHAOS` / `resilience.chaos`), so
+  every recovery path above runs on the CPU in the tests.
 
-Chaos injection and elastic resize are not ported yet (ROADMAP Queue 1
-item 12); the trainer refuses `resilience.chaos`.
+Elastic resize is not ported yet (ROADMAP Queue 1 item 12).
 """
 
+from picotron_tpu_torch.resilience import chaos
 from picotron_tpu_torch.resilience.guards import (
     EXIT_DIVERGED, DivergenceGuard, GuardAction,
 )
@@ -28,5 +31,5 @@ from picotron_tpu_torch.resilience.watchdog import EXIT_WATCHDOG, Watchdog
 __all__ = [
     "EXIT_DIVERGED", "EXIT_PREEMPTED", "EXIT_WATCHDOG", "DivergenceGuard",
     "GuardAction", "PreemptionHandler", "RetryPolicy", "Watchdog",
-    "backoff_delays", "retry_call",
+    "backoff_delays", "chaos", "retry_call",
 ]

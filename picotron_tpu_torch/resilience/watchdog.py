@@ -5,10 +5,12 @@ A wedged kernel or a stuck data read leaves the step loop blocked forever
 with no signal: the job burns its reservation until a human notices. The
 watchdog is a daemon thread that expects the step loop to `beat()` at
 each phase (data fetch, step, metric sync, eval, save); when no beat
-arrives within the configured timeout it dumps every thread's Python
-stack plus the last-known (phase, step) to stderr and exits
-`EXIT_WATCHDOG`, so an external supervisor restarts the job into
-checkpoint auto_resume.
+arrives within the configured timeout it emits a `watchdog_timeout`
+event (booked as data_wait when the data phase hung, else other), dumps
+the flight recorder's postmortem (telemetry/flightdeck, reason
+"watchdog"), dumps every thread's Python stack plus the
+last-known (phase, step) to stderr and exits `EXIT_WATCHDOG`, so an
+external supervisor restarts the job into checkpoint auto_resume.
 
 The driver arms the watchdog only after the first step completes: step 1
 includes the kernels' nvcc build and cuBLAS set-up, whose duration is
@@ -107,9 +109,23 @@ class Watchdog:
               f"{self.timeout:g}s); last {where} — dumping stacks and "
               f"exiting {EXIT_WATCHDOG} for supervisor restart",
               file=sys.stderr, flush=True)
+        # The hung phase never completes, so its PhaseTimer booking never
+        # happens: this event is the only accounting of the burned time.
+        # JSONL flushes per event, so it is durable before the os._exit.
         try:
-            bus.emit("watchdog_timeout", secs=age, phase=phase, step=step,
-                     timeout=self.timeout)
+            bus.emit("watchdog_timeout", secs=age,
+                     category=("data_wait" if phase == "data" else "other"),
+                     phase=phase, step=step, timeout=self.timeout)
+        except Exception:  # noqa: BLE001 — the exit below must still happen
+            pass
+        # Flight-recorder postmortem: the last-K-steps window, written
+        # before the exit below (os._exit runs no cleanup handlers, so
+        # this is the only chance).
+        try:
+            tel = bus.active()
+            if tel is not None and getattr(tel, "flight", None) is not None:
+                tel.flight.dump("watchdog", step=step, phase=phase,
+                                stalled_s=round(age, 3))
         except Exception:  # noqa: BLE001 — the exit below must still happen
             pass
         try:

@@ -52,12 +52,13 @@ Every timed second of the run is booked to exactly one category:
                      report shows exactly what the load shedder threw
                      away.
 
-The per-phase -> category mapping is shared with tools/telemetry_report.py
-(PHASE_CATEGORY) so in-process booking and post-hoc JSONL analysis can
-never disagree. Badput sources that KILL the process mid-phase (watchdog
-stall, hard crash) never complete a phase, so their time shows up in the
-report's `unaccounted` bucket (wall - accounted) plus the explicit
-watchdog/stall events — the ledger only books what it observed end-to-end.
+The per-phase -> category mapping is shared with the port's
+tools/telemetry_report.py (PHASE_CATEGORY) so in-process booking and
+post-hoc JSONL analysis can never disagree. Badput sources that KILL
+the process mid-phase (watchdog stall, hard crash) never complete a
+phase, so their time shows up in the report's `unaccounted` bucket
+(wall - accounted) plus the explicit watchdog/stall events — the ledger
+only books what it observed end-to-end.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ GOODPUT_CATEGORIES = ("compute", "prefill", "decode")
 
 # Step-loop phase name -> ledger category. "step" is special-cased in
 # book_phase (compute vs replay vs compile split); everything else maps
-# statically. Shared with tools/telemetry_report.py.
+# statically. Shared with the telemetry_report tools.
 PHASE_CATEGORY = {
     "data": "data_wait",
     "step": "compute",

@@ -14,9 +14,9 @@ serializes what it cares about:
   per event: the interesting events are exactly the ones right before a
   crash/exit. Thread-safe (the watchdog/retry threads emit too).
 
-The JAX package's ``WandbSink`` is not ported: the port's trainer
-refuses ``logging.use_wandb`` (train.unsupported, ROADMAP Queue 1 item
-12), so nothing would attach one.
+The JAX package's ``WandbSink`` is not ported: the card's machine has no
+``wandb``, and the port's trainer refuses ``logging.use_wandb``
+(train.unsupported), so nothing would attach one.
 """
 
 from __future__ import annotations

@@ -1,0 +1,471 @@
+"""Post-hoc run triage from a telemetry JSONL stream (the port's copy of
+tools/telemetry_report.py).
+
+Summarizes a `telemetry.jsonl` (picotron_tpu_torch/telemetry; written next
+to the checkpoints by the trainer) into the questions a run post-mortem
+actually asks: how many distinct steps trained, where did the wall-clock
+go (phase breakdown with p50/p95), what fraction was goodput, what did
+the badput consist of (compile / checkpoint I/O / restore + replayed
+steps / preemption drain / retry backoff / data stall), and which events
+(chaos, guard trips, rollbacks, preemptions, retries, recompiles) fired.
+
+The stream is append-mode across supervised restarts, so one file covers
+a whole preempt/kill/resume saga; steps whose compute phase appears more
+than once (an in-process rollback already reclassified in the ledger, a
+cross-restart replay only visible here) are booked as `replay` badput.
+The port's stream books the JAX stream's categories (the port's
+`telemetry/goodput.py` is a copy), so this tool and the JAX package's
+give the same report on it. The JAX tool's `--config` row (its ICI cost
+model's predicted comm time) waits for the port's `analysis/` (ROADMAP
+Queue 1 item 13).
+
+Usage:
+
+  python -m picotron_tpu_torch.tools.telemetry_report RUN_DIR_OR_JSONL
+  python -m picotron_tpu_torch.tools.telemetry_report run/ --markdown
+  python -m picotron_tpu_torch.tools.telemetry_report run/telemetry.jsonl \
+      --json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from picotron_tpu_torch.telemetry.goodput import GOODPUT_CATEGORIES
+from picotron_tpu_torch.telemetry.sinks import jsonl_segments
+
+
+def resolve_path(path: str) -> str:
+    """Accept the JSONL itself or a run directory containing one."""
+    if os.path.isdir(path):
+        cand = os.path.join(path, "telemetry.jsonl")
+        if not os.path.exists(cand):
+            raise FileNotFoundError(f"no telemetry.jsonl under {path}")
+        return cand
+    return path
+
+
+def load_events(path: str) -> list[dict]:
+    """Read the stream, including a rotated `.1` segment first when
+    logging.telemetry_max_mb rotation left one — event ORDER across
+    segments is what keeps cross-restart replay counting correct."""
+    events = []
+    for seg in jsonl_segments(path) or [path]:
+        with open(seg) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    ev = json.loads(line)
+                except json.JSONDecodeError:
+                    continue  # torn final line of a killed run is expected
+                if isinstance(ev, dict):
+                    events.append(ev)
+    return events
+
+
+def _pctile(xs: list[float], q: float) -> float:
+    """Nearest-rank percentile (same definition as registry.Histogram)."""
+    xs = sorted(xs)
+    rank = max(1, -(-int(q * len(xs)) // 100)) if q > 0 else 1
+    return xs[min(rank, len(xs)) - 1]
+
+
+def summarize(events: list[dict]) -> dict:
+    """Aggregate a stream into {steps, phases, categories, goodput_pct,
+    events, training, wall}. Summing the (category, secs) pairs off the
+    events reproduces the in-process ledger by construction (the phase
+    events carry their resolved category; compile time rides separate
+    category="compile" events) — plus the cross-restart replay
+    reclassification only the whole stream can see."""
+    categories: dict[str, float] = {}
+    phases: dict[str, list[float]] = {}
+    counts: dict[str, int] = {}
+    steps_seen: set[int] = set()
+    replayed = 0
+    step_rows: list[dict] = []
+    eval_rows: list[dict] = []
+    serve_reqs: list[dict] = []
+    serve_summary: dict | None = None
+    run_summary: dict | None = None
+    sentinel_alerts: list[dict] = []
+    ts = [e["ts"] for e in events if isinstance(e.get("ts"), (int, float))]
+
+    for e in events:
+        kind = e.get("kind")
+        counts[kind] = counts.get(kind, 0) + 1
+        cat, secs = e.get("category"), e.get("secs")
+        if kind == "phase":
+            phases.setdefault(e.get("phase", "?"), []).append(secs or 0.0)
+            step = e.get("step")
+            if e.get("phase") == "step" and step is not None:
+                if cat in ("compute", "replay") and step in steps_seen:
+                    # a step number training twice = lost ground being
+                    # re-bought, whichever process it happened in
+                    cat = "replay"
+                    replayed += 1
+                steps_seen.add(step)
+        if cat is not None and isinstance(secs, (int, float)):
+            categories[cat] = categories.get(cat, 0.0) + secs
+        elif kind == "step":
+            step_rows.append(e)
+        elif kind == "eval":
+            eval_rows.append(e)
+        elif kind == "bench_step" and isinstance(secs, (int, float)):
+            # bench.py --telemetry streams: per-step samples, no phases
+            phases.setdefault("bench_step", []).append(secs)
+        elif kind == "serve_request":
+            serve_reqs.append(e)
+        elif kind == "serve_summary":
+            serve_summary = e  # last wins (one per engine run)
+        elif kind == "run_summary":
+            run_summary = e  # last wins (one per process lifetime)
+        elif kind == "sentinel_alert":
+            sentinel_alerts.append(e)
+
+    accounted = sum(categories.values())
+    goodput = sum(categories.get(c, 0.0) for c in GOODPUT_CATEGORIES)
+    wall = (max(ts) - min(ts)) if len(ts) >= 2 else 0.0
+    out = {
+        "steps": {
+            "count": len(steps_seen),
+            "max": max(steps_seen) if steps_seen else 0,
+            "replayed": replayed,
+        },
+        "phases": {
+            name: {
+                "count": len(xs),
+                "total_s": round(sum(xs), 4),
+                "p50_ms": round(_pctile(xs, 50) * 1e3, 2),
+                "p95_ms": round(_pctile(xs, 95) * 1e3, 2),
+            }
+            for name, xs in sorted(phases.items())
+        },
+        "categories": {k: round(v, 4)
+                       for k, v in sorted(categories.items())},
+        "goodput_pct": (round(100.0 * goodput / accounted, 2)
+                        if accounted > 0 else None),
+        "badput_s": round(accounted - goodput, 4),
+        "accounted_s": round(accounted, 4),
+        "wall_s": round(wall, 4),
+        # Time the stream never saw end-to-end: pre-loop setup, the
+        # warm-up outside phases, and phases killed mid-flight (crash,
+        # watchdog os._exit).
+        "unaccounted_s": round(max(wall - accounted, 0.0), 4),
+        "events": dict(sorted(counts.items())),
+    }
+    if step_rows:
+        losses = [r["loss"] for r in step_rows if "loss" in r]
+        tps = [r["tokens_per_sec"] for r in step_rows
+               if "tokens_per_sec" in r]
+        out["training"] = {
+            "records": len(step_rows),
+            "final_step": step_rows[-1].get("step"),
+            "final_loss": losses[-1] if losses else None,
+            "mean_tokens_per_sec": (round(sum(tps) / len(tps), 1)
+                                    if tps else None),
+            "final_trained_tokens": step_rows[-1].get("trained_tokens"),
+        }
+    if eval_rows:
+        out["training"] = out.get("training", {})
+        out["training"]["final_val_loss"] = eval_rows[-1].get("val_loss")
+    if serve_reqs or serve_summary:
+        out["serving"] = serving_view(serve_reqs, serve_summary, counts)
+    # Elastic-resize row: the resize category already sums into the table
+    # above (the phase event carries its resolved category); this pairs
+    # the seconds with the elastic_resize events so a shrink/grow saga is
+    # one row, not a grep.
+    n_resize = counts.get("elastic_resize", 0)
+    resize_s = categories.get("resize", 0.0)
+    if n_resize or resize_s:
+        out["resize"] = {"events": n_resize,
+                         "seconds": round(resize_s, 4)}
+    pp = pipeline_view(categories, run_summary)
+    if pp:
+        out["pipeline"] = pp
+    if sentinel_alerts:
+        # Drift-sentinel row (telemetry/flightdeck/sentinel.py): one
+        # alert per drifting run — the worst measured/baseline ratio
+        # names the quantity to chase.
+        worst = max(sentinel_alerts,
+                    key=lambda a: a.get("ratio") or 0.0)
+        out["sentinel"] = {
+            "alerts": len(sentinel_alerts),
+            "quantity": worst.get("quantity"),
+            "worst_ratio": round(float(worst.get("ratio") or 0.0), 4),
+        }
+    return out
+
+
+def pipeline_view(categories: dict[str, float],
+                  run_summary: dict | None) -> dict:
+    """Pipeline-parallel row: the bubble's share of step wall (the
+    pp_bubble category next to the compute/replay it was carved from)
+    plus per-stage tick-time percentiles from the run_summary's
+    section/pp_stage* histograms (fed by the MPMD executor's sampled
+    per-stage timings). Empty dict when the run had no pipeline."""
+    view: dict = {}
+    bubble = categories.get("pp_bubble", 0.0)
+    if bubble > 0.0:
+        step_wall = (bubble + categories.get("compute", 0.0)
+                     + categories.get("replay", 0.0))
+        view["bubble_s"] = round(bubble, 4)
+        view["bubble_fraction"] = round(bubble / step_wall, 4) \
+            if step_wall > 0 else None
+    hists = ((run_summary or {}).get("metrics") or {}).get("histograms",
+                                                           {})
+    stages = {}
+    for name, h in sorted(hists.items()):
+        if not name.startswith("section/pp_stage"):
+            continue
+        stage = name[len("section/"):]
+        stages[stage] = {
+            "count": h.get("count"),
+            "p50_ms": (round(h["p50"] * 1e3, 3)
+                       if isinstance(h.get("p50"), (int, float)) else None),
+            "p95_ms": (round(h["p95"] * 1e3, 3)
+                       if isinstance(h.get("p95"), (int, float)) else None),
+        }
+    if stages:
+        view["stages"] = stages
+    return view
+
+
+def serving_view(reqs: list[dict], summary: dict | None,
+                 counts: dict | None = None) -> dict:
+    """SLO view of a serving stream: per-request TTFT/queue-wait
+    percentiles recomputed from the serve_request events (so the view
+    works even on a stream truncated before its serve_summary), plus the
+    engine-level aggregates (tok/s, per-token latency, slot occupancy,
+    pool utilization) from the serve_summary when present. Fleet runs
+    (serve/fleet.py) add shed/redispatch/engine-death counters and
+    per-engine rows; on a truncated stream those fall back to counting
+    the serve_shed / serve_redispatch events directly."""
+    view: dict = {"requests": len(reqs)}
+    ttfts = [r["ttft_s"] for r in reqs
+             if isinstance(r.get("ttft_s"), (int, float))]
+    waits = [r["queue_wait_s"] for r in reqs
+             if isinstance(r.get("queue_wait_s"), (int, float))]
+    toks = [r["output_tokens"] for r in reqs
+            if isinstance(r.get("output_tokens"), (int, float))]
+    if ttfts:
+        view["ttft_p50_ms"] = round(_pctile(ttfts, 50) * 1e3, 2)
+        view["ttft_p95_ms"] = round(_pctile(ttfts, 95) * 1e3, 2)
+    if waits:
+        view["queue_wait_p50_ms"] = round(_pctile(waits, 50) * 1e3, 2)
+        view["queue_wait_p95_ms"] = round(_pctile(waits, 95) * 1e3, 2)
+    if toks:
+        view["output_tokens"] = int(sum(toks))
+    if summary:
+        for src, dst, scale in (
+                ("tokens_per_sec", "tokens_per_sec", 1),
+                ("token_latency_p50_s", "token_latency_p50_ms", 1e3),
+                ("token_latency_p95_s", "token_latency_p95_ms", 1e3),
+                ("tpot_p50_s", "tpot_p50_ms", 1e3),
+                ("tpot_p95_s", "tpot_p95_ms", 1e3),
+                ("slot_occupancy", "slot_occupancy", 1),
+                ("pool_peak_utilization", "pool_peak_utilization", 1),
+                ("decode_steps", "decode_steps", 1),
+                ("decode_compiles", "decode_compiles", 1),
+                ("preemptions", "preemptions", 1),
+                ("decode_stall_ticks_max", "decode_stall_ticks_max", 1),
+                # disaggregated engines only (serve/disagg.py)
+                ("prefill_slot_occupancy", "prefill_slot_occupancy", 1),
+                ("prefill_pool_peak_utilization",
+                 "prefill_pool_peak_utilization", 1),
+                ("handoffs", "handoffs", 1),
+                ("handoff_s", "handoff_s", 1),
+                ("handoff_blocks", "handoff_blocks", 1),
+                # speculative decode (serve/spec_decode.py)
+                ("acceptance_rate", "acceptance_rate", 1),
+                ("draft_tokens", "draft_tokens", 1),
+                ("accepted_draft_tokens", "accepted_draft_tokens", 1),
+                # fleet serving (serve/fleet.py)
+                ("fleet_size", "fleet_size", 1),
+                ("shed", "shed", 1),
+                ("redispatched", "redispatched", 1),
+                ("engines_dead", "engines_dead", 1),
+                ("drains", "drains", 1),
+                ("leaked_blocks", "leaked_blocks", 1),
+                ("wall_s", "wall_s", 1)):
+            val = summary.get(src)
+            if isinstance(val, (int, float)):
+                view[dst] = round(val * scale, 4)
+        view.setdefault("requests", summary.get("requests"))
+        view.setdefault("output_tokens", summary.get("output_tokens"))
+        if summary.get("per_engine"):
+            view["per_engine"] = summary["per_engine"]
+    if counts:
+        # stream truncated before the fleet summary: the events still tell
+        # the robustness story
+        for dst, kind in (("shed", "serve_shed"),
+                          ("redispatched", "serve_redispatch"),
+                          ("engines_dead", "serve_engine_dead"),
+                          ("drains", "serve_drain")):
+            if dst not in view and counts.get(kind):
+                view[dst] = counts[kind]
+    return view
+
+
+def render(s: dict, markdown: bool = False) -> str:
+    lines = []
+    gp = s["goodput_pct"]
+    hdr = (f"goodput {gp:.2f}%" if gp is not None else "goodput n/a")
+    lines.append(
+        f"{'## Telemetry report' if markdown else 'telemetry report'} — "
+        f"{hdr} | steps {s['steps']['count']} "
+        f"(max {s['steps']['max']}, replayed {s['steps']['replayed']}) | "
+        f"wall {s['wall_s']:.1f}s "
+        f"(accounted {s['accounted_s']:.1f}s, "
+        f"unaccounted {s['unaccounted_s']:.1f}s)")
+    lines.append("")
+    if markdown:
+        lines += ["| category | seconds | share |", "|---|---|---|"]
+    else:
+        lines.append("time by category:")
+    total = s["accounted_s"] or 1.0
+    for cat, secs in sorted(s["categories"].items(),
+                            key=lambda kv: -kv[1]):
+        share = 100.0 * secs / total
+        if markdown:
+            lines.append(f"| {cat} | {secs:.3f} | {share:.1f}% |")
+        else:
+            lines.append(f"  {cat:14s} {secs:10.3f}s  {share:5.1f}%")
+    lines.append("")
+    if markdown:
+        lines += ["| phase | count | total s | p50 ms | p95 ms |",
+                  "|---|---|---|---|---|"]
+    else:
+        lines.append("phase breakdown:")
+    for name, p in s["phases"].items():
+        if markdown:
+            lines.append(f"| {name} | {p['count']} | {p['total_s']:.3f} | "
+                         f"{p['p50_ms']:.2f} | {p['p95_ms']:.2f} |")
+        else:
+            lines.append(f"  {name:14s} x{p['count']:<6d} "
+                         f"{p['total_s']:10.3f}s  p50 {p['p50_ms']:.2f}ms  "
+                         f"p95 {p['p95_ms']:.2f}ms")
+    lines.append("")
+    pp = s.get("pipeline")
+    if pp:
+        frac = pp.get("bubble_fraction")
+        msg = "pipeline:"
+        if frac is not None:
+            msg += (f" bubble {100.0 * frac:.1f}% of step wall "
+                    f"({pp['bubble_s']:.3f}s)")
+        lines.append(f"**{msg}**" if markdown else msg)
+        for stage, st in pp.get("stages", {}).items():
+            lines.append(
+                f"  {stage:14s} x{st['count'] or 0:<6d} tick p50 "
+                f"{st['p50_ms']} ms  p95 {st['p95_ms']} ms")
+        lines.append("")
+    sv = s.get("serving")
+    if sv:
+        hdr = "### Serving" if markdown else "serving:"
+        lines.append(hdr)
+        pair = lambda k: (f"{sv[k]}" if k in sv else "n/a")  # noqa: E731
+        lines.append(
+            f"  {sv.get('requests', 0)} requests, "
+            f"{sv.get('output_tokens', 0)} output tokens @ "
+            f"{pair('tokens_per_sec')} tok/s | "
+            f"TTFT p50 {pair('ttft_p50_ms')} ms p95 {pair('ttft_p95_ms')} "
+            f"ms | token latency p50 {pair('token_latency_p50_ms')} ms "
+            f"p95 {pair('token_latency_p95_ms')} ms")
+        lines.append(
+            f"  queue wait p50 {pair('queue_wait_p50_ms')} ms p95 "
+            f"{pair('queue_wait_p95_ms')} ms | slot occupancy "
+            f"{pair('slot_occupancy')} | pool peak util "
+            f"{pair('pool_peak_utilization')} | decode steps "
+            f"{pair('decode_steps')} (compiles {pair('decode_compiles')}) "
+            f"| preemptions {pair('preemptions')}")
+        if "tpot_p50_ms" in sv or "decode_stall_ticks_max" in sv:
+            lines.append(
+                f"  TPOT p50 {pair('tpot_p50_ms')} ms p95 "
+                f"{pair('tpot_p95_ms')} ms | max decode stall "
+                f"{pair('decode_stall_ticks_max')} ticks")
+        if "handoffs" in sv or "prefill_slot_occupancy" in sv:
+            lines.append(
+                f"  disagg: prefill occupancy "
+                f"{pair('prefill_slot_occupancy')} (pool peak "
+                f"{pair('prefill_pool_peak_utilization')}) | handoffs "
+                f"{pair('handoffs')} ({pair('handoff_blocks')} blocks, "
+                f"{pair('handoff_s')} s)")
+        if "acceptance_rate" in sv or "draft_tokens" in sv:
+            lines.append(
+                f"  speculative: acceptance {pair('acceptance_rate')} "
+                f"({pair('accepted_draft_tokens')}/{pair('draft_tokens')} "
+                f"draft tokens accepted)")
+        if any(k in sv for k in ("fleet_size", "shed", "redispatched",
+                                 "engines_dead", "drains")):
+            lines.append(
+                f"  fleet: size {pair('fleet_size')} | shed {pair('shed')} "
+                f"| redispatched {pair('redispatched')} | engines dead "
+                f"{pair('engines_dead')} | drains {pair('drains')} | "
+                f"leaked blocks {pair('leaked_blocks')}")
+        for pe in sv.get("per_engine", []) or []:
+            state = ("drained" if pe.get("drained")
+                     else "alive" if pe.get("alive") else "dead")
+            lines.append(
+                f"    engine {pe.get('engine')}: {state}, "
+                f"{pe.get('requests')} requests, shed {pe.get('shed')}, "
+                f"{pe.get('decode_steps')} decode steps, preemptions "
+                f"{pe.get('preemptions')}, pool in_use "
+                f"{pe.get('pool_in_use')} (peak util "
+                f"{pe.get('pool_peak_utilization')})")
+        lines.append("")
+    rz = s.get("resize")
+    if rz:
+        msg = (f"elastic resize: {rz['events']} topology-change "
+               f"restore(s), {rz['seconds']:.3f}s booked as resize")
+        lines.append(f"**{msg}**" if markdown else msg)
+        lines.append("")
+    sn = s.get("sentinel")
+    if sn:
+        msg = (f"sentinel: {sn['alerts']} alert(s) — worst "
+               f"{sn['quantity']} at {sn['worst_ratio']:.2f}x baseline "
+               f"(flight recorder auto-dumped; see "
+               f"flightdeck_postmortem.json)")
+        lines.append(f"**{msg}**" if markdown else msg)
+        lines.append("")
+    ev = ", ".join(f"{k}={v}" for k, v in s["events"].items())
+    lines.append(f"events: {ev}" if not markdown else f"**events:** {ev}")
+    tr = s.get("training")
+    if tr:
+        msg = (f"training: {tr['records']} log records, final step "
+               f"{tr['final_step']}, final loss {tr['final_loss']}, "
+               f"mean tokens/s {tr['mean_tokens_per_sec']}")
+        if tr.get("final_val_loss") is not None:
+            msg += f", final val_loss {tr['final_val_loss']}"
+        lines.append(f"**{msg}**" if markdown else msg)
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="summarize a telemetry.jsonl stream of the PyTorch port")
+    ap.add_argument("path", help="telemetry.jsonl or a run directory "
+                    "containing one")
+    ap.add_argument("--markdown", action="store_true",
+                    help="emit markdown tables (PERF.md format)")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the summary as one JSON object")
+    args = ap.parse_args(argv)
+
+    events = load_events(resolve_path(args.path))
+    if not events:
+        print(f"no events in {args.path}", file=sys.stderr)
+        return 1
+    s = summarize(events)
+    try:
+        print(json.dumps(s) if args.json else render(s, args.markdown))
+    except BrokenPipeError:  # `... | head` is a supported way to read this
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

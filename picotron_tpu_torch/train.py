@@ -4,16 +4,19 @@
     torchrun --nproc_per_node N -m picotron_tpu_torch.train --config cfg.json
         [--device cpu] [--report out.json]
 
-Flow: load the config -> state (fresh init from training.seed, then HF
+Flow: load the config -> telemetry (`Telemetry.from_config`, installed on
+the bus) -> loader (synthetic, or an HF dataset: a `save_to_disk`
+directory or a `load_dataset` name, with prefetch when
+dataset.num_workers > 0) -> state (fresh init from training.seed, then HF
 weights, then an explicit `checkpoint.load_path` or `auto_resume` of the
-newest verified checkpoint in save_dir) -> synthetic loader fast-forwarded
-to the checkpoint's cursor -> step loop: divergence guard, one
-`training_log_line` per logged step (with the `grad_norm` extra and
-tokens/s over the window since the last logged step), eval, periodic
-save, preemption check -> final save. Runs on CUDA unless `--device cpu`
-or config `distributed.use_cpu: true` asks for the CPU; with no GPU and no
-such request it raises. MFU is printed as 0.00% on the CPU: it is a
-device metric and is not measured there.
+newest verified checkpoint in save_dir) -> the loader fast-forwarded to
+the checkpoint's cursor -> chaos installed -> step loop: divergence
+guard, one `training_log_line` per logged step (with the `grad_norm`
+extra and tokens/s over the window since the last logged step), eval,
+periodic save, preemption check -> final save. Runs on CUDA unless
+`--device cpu` or config `distributed.use_cpu: true` asks for the CPU;
+with no GPU and no such request it raises. MFU is printed as 0.00% on
+the CPU: it is a device metric and is not measured there.
 
 Under torchrun (any process group, world 1 included) the run takes the
 layout's path (`mesh.init_parallel`: NCCL on cuda:LOCAL_RANK, gloo with
@@ -35,9 +38,31 @@ the most graphs in flight and the table's bubble. `--report PATH`
 writes (rank 0) a JSON of the run's losses, step seconds, peak memory,
 collectives per step, the pipeline's walk and the kernels' launches.
 
-The JAX trainer writes a `telemetry.jsonl` event stream by default; the
-port writes none yet (ROADMAP Queue 1 item 12) and says so once at the
-start. The telemetry fields it cannot honour are refused.
+Observability, as the JAX trainer's (`picotron_tpu/train.py`): the
+frozen stdout line, a per-process `telemetry.jsonl` event stream next to
+the checkpoints (logging.telemetry_dir moves it, telemetry_max_mb
+rotates it, telemetry_jsonl: false turns it off), and the flightdeck:
+the span tracer (logging.trace_dir -> `trace.json` at exit), the flight
+recorder (logging.flight_steps, on by default: `flightdeck_postmortem.json`
+on divergence abort, rollback, preemption, an exception or the
+watchdog) and the drift sentinel (logging.sentinel). Each loop section
+runs under `tel.phases.phase(name, step)`, which times it for the
+goodput ledger and beats the watchdog. On the card a phase is the host's
+clock: the `step` phase ends once the step's kernels are queued, and
+the card's remaining work is booked to the `sync` phase, where the
+metrics (which the guard and the log line read) are copied to the host;
+nothing is synced for the sake of timing. The port syncs the metrics
+every step (its `losses` record every step's loss), where the JAX
+trainer skips the sync phase when the guard is off and the step is not
+logged. `python -m picotron_tpu_torch.tools.telemetry_report` and
+`python -m picotron_tpu_torch.tools.trace_export` read the stream.
+
+Fault injection (resilience/chaos.py, `resilience.chaos` or the
+PICOTRON_CHAOS environment variable): `step_begin` fires at the top of
+each step, `nan_grad` calls the step with `poison=True` on the poisoned
+executions, and the loader, the checkpoint
+manager and the pipeline's walk carry their own points. The controller
+is reset to inactive when the run ends.
 
 Exit codes (the contract with a supervisor): 75 preempted with a durable
 emergency checkpoint (resubmit with auto_resume), 76 diverged, 77 the
@@ -48,6 +73,7 @@ front, naming the ROADMAP item that ports it (see `unsupported`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -62,7 +88,7 @@ from picotron_tpu_torch.checkpoint import (
 )
 from picotron_tpu_torch.ckpt_integrity import preflight_save_dir
 from picotron_tpu_torch.config import (
-    Config, LoggingConfig, load_config, resolved_cp_flavor,
+    Config, load_config, resolved_cp_flavor,
 )
 from picotron_tpu_torch.data import MicroBatchDataLoader, build_eval_source
 from picotron_tpu_torch.mesh import init_parallel, launcher_contract, shutdown
@@ -78,9 +104,9 @@ from picotron_tpu_torch.parallel.sharding import shard_state_dict
 from picotron_tpu_torch.parallel.tp import tp_context
 from picotron_tpu_torch.resilience import (
     EXIT_DIVERGED, EXIT_PREEMPTED, DivergenceGuard, GuardAction,
-    PreemptionHandler, Watchdog,
+    PreemptionHandler, Watchdog, chaos,
 )
-from picotron_tpu_torch.telemetry import bus as telemetry_bus
+from picotron_tpu_torch.telemetry import Telemetry, bus as telemetry_bus
 from picotron_tpu_torch.train_step import (
     init_train_state, make_eval_step, make_train_step, resolved_grad_engine,
 )
@@ -108,27 +134,10 @@ def unsupported(cfg: Config) -> list[str]:
     if t.remat and t.remat_policy == "dots_offload":
         out.append("training.remat_policy='dots_offload' (saves in pinned "
                    "host memory: ROADMAP Queue 1 item 7)")
-    if cfg.dataset.name != "synthetic":
-        out.append(f"dataset {cfg.dataset.name!r} (HF datasets: ROADMAP "
-                   "Queue 1 item 5)")
-    if cfg.resilience.chaos:
-        out.append("resilience.chaos (fault injection: ROADMAP Queue 1 "
-                   "item 12)")
     if cfg.logging.use_wandb or cfg.logging.profile_dir:
         out.append("logging.use_wandb / profile_dir (telemetry: ROADMAP "
                    "Queue 1 item 12)")
-    lg, default = cfg.logging, LoggingConfig()
-    for name in TELEMETRY_FIELDS:
-        if getattr(lg, name) != getattr(default, name):
-            out.append(f"logging.{name}={getattr(lg, name)!r} (telemetry: "
-                       f"ROADMAP Queue 1 item 12)")
     return out
-
-
-# the logging fields that only the JAX package's telemetry reads: a run
-# that sets one away from its default is refused, not run without it
-TELEMETRY_FIELDS = ("trace_dir", "sentinel", "telemetry_dir",
-                    "telemetry_max_mb", "flight_steps")
 
 
 def resolve_device(cfg: Config, device: Optional[str] = None) -> torch.device:
@@ -148,7 +157,11 @@ def build_state(cfg: Config, dev: torch.device, par=None):
     layout (`par`) the model is this rank's tp shards of its pipeline
     stage, each (tp, pp) rank drawing its own (dp and cp ranks draw the
     same; ep ranks draw alike but for their expert banks), and reads its
-    cp slice of the sequence under context parallelism."""
+    cp slice of the sequence under context parallelism. With a Telemetry
+    facade on the bus the load runs under its "restore" phase (booked as
+    restore; the probe's verification before it, which emits
+    `ckpt_corrupt` for each corrupt step it passes, stays outside, as in
+    the JAX trainer)."""
     ck = cfg.checkpoint
     tp = tp_context(par, cfg.distributed.sequence_parallel)
     stage = stage_of(cfg, par)
@@ -197,12 +210,15 @@ def build_state(cfg: Config, dev: torch.device, par=None):
             log_print(f"auto_resume: found checkpoints in {load_dir}")
     if not load_dir:
         return state, 0, {}, "", {}
-    if mgr is None:
-        mgr = CheckpointManager(cfg, directory=load_dir, par=par)
-        state, meta = mgr.restore(state)
-    else:  # verified by latest_valid_step above
-        state, meta = mgr.load_step(state, step)
-        mgr.timings["verify_s"] = verify_s
+    phases = getattr(telemetry_bus.active(), "phases", None)
+    with (phases.phase("restore") if phases is not None
+          else contextlib.nullcontext()):
+        if mgr is None:
+            mgr = CheckpointManager(cfg, directory=load_dir, par=par)
+            state, meta = mgr.restore(state)
+        else:  # verified by latest_valid_step above
+            state, meta = mgr.load_step(state, step)
+            mgr.timings["verify_s"] = verify_s
     tokens = int(meta.get("trained_tokens", 0))
     log_print(f"resumed from {load_dir} at step {state.step} "
               f"({human_format(tokens)} tokens; verify "
@@ -289,11 +305,13 @@ def run(cfg: Config, device: Optional[str] = None,
     """Train per the config; returns {"losses", "step_seconds",
     "tokens_per_step", "peak_memory_gb", "device", "state", "val_losses",
     "start_step", "restore_timings", "save_timings", "world_size",
-    "collectives_per_step", "pipeline", "dataloader_state"} (state: the
-    trained TrainState; val_losses: {step: val_loss};
-    collectives_per_step: the first step's, by kind; pipeline: the first
-    step's walk on this rank under pp, else None; dataloader_state: the
-    loader's cursor at the end).
+    "collectives_per_step", "pipeline", "dataloader_state",
+    "telemetry_path", "trace_path"} (state: the trained TrainState;
+    val_losses: {step: val_loss}; collectives_per_step: the first step's,
+    by kind; pipeline: the first step's walk on this rank under pp, else
+    None; dataloader_state: the loader's cursor at the end;
+    telemetry_path / trace_path: this process's JSONL stream and span
+    trace, or None).
     `on_step(step, metrics)` runs after each completed step with its
     metrics as floats, before the preemption check. Raises
     SystemExit(75/76) on preemption/divergence."""
@@ -317,98 +335,124 @@ def run(cfg: Config, device: Optional[str] = None,
                      f"{cfg.distributed.cp_layout}"
                      if par.cp_size > 1 else "")
                   + (pipeline_line(cfg) if par.pp_size > 1 else ""))
-    if cfg.logging.telemetry_jsonl:
-        log_print("telemetry: no telemetry.jsonl is written (the port has "
-                  "no event stream yet: ROADMAP Queue 1 item 12)")
-    if cfg.dataset.num_workers > 0:
-        log_print(f"dataset.num_workers={cfg.dataset.num_workers} ignored: "
-                  "the port's loader has no prefetch workers yet (ROADMAP "
-                  "Queue 1 item 5); batches are made on the step's thread")
     t, ck = cfg.training, cfg.checkpoint
     if ck.save_frequency > 0:
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story
         log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
                   f"~{est / 1e9:.2f} GB/checkpoint)")
-    ranks = ({} if par is None else
-             {"dp_rank": par.coords["dp"], "cp_rank": par.coords["cp"],
-              "ep_rank": par.ep_rank})
-    dl = MicroBatchDataLoader(cfg, dev, **ranks)
-    # without a layout the calls keep their one-device form, which
-    # callers may wrap
-    layout = () if par is None else (par,)
-    state, trained_tokens, ckpt_meta, resumed_from, restore_timings = (
-        build_state(cfg, dev, *layout))
-    start_step = state.step
-    if start_step > 0:
-        # Fast-forward the loader so resume does not replay consumed data;
-        # a checkpoint without a recorded position gets it from the step
-        # count and the tail-dropping epoch arithmetic.
-        dl_state = ckpt_meta.get("dataloader")
-        if dl_state is None:
-            per_epoch = max(1, len(dl.source) // cfg.global_batch_size)
-            dl_state = {"epoch": start_step // per_epoch,
-                        "cursor": (start_step % per_epoch)
-                        * cfg.global_batch_size}
-        dl.set_state(dl_state)
-    step_fn = make_train_step(cfg, *layout)
-    log_print(f"grad engine: {resolved_grad_engine(cfg)} (grad_engine "
-              f"{t.grad_engine!r}, remat "
-              f"{t.remat_policy if t.remat else None!r}, ce_chunk_size "
-              f"{t.ce_chunk_size})")
-    eval_batches = eval_fn = None
-    if t.eval_frequency > 0:
-        # a FIXED validation set: every eval (and every resumed run) scores
-        # the same batches
-        eval_dl = MicroBatchDataLoader(cfg, dev, source=build_eval_source(cfg),
-                                       **ranks)
-        eval_batches = [next(eval_dl) for _ in range(t.eval_steps)]
-        eval_fn = make_eval_step(cfg, par)
-    ckpt_mgr = (CheckpointManager(cfg, par=par) if ck.save_frequency > 0
-                else None)
-    peak = device_peak_flops(dev) if dev.type == "cuda" else None
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-
-    # two stop conditions, whichever bites first: steps and tokens
-    total_steps = t.total_train_steps
-    if t.max_tokens is not None:
-        remaining = max(0, t.max_tokens - trained_tokens)
-        total_steps = min(total_steps,
-                          start_step + -(-remaining // cfg.tokens_per_step))
-
-    rcfg = cfg.resilience
-    guard = (DivergenceGuard.from_config(rcfg)
-             if rcfg.guard_policy != "off" else None)
-    preempt = PreemptionHandler()
-    watchdog = Watchdog(rcfg.watchdog_timeout)
-    # Steps whose checkpoint already exists in the SAVE directory: the
-    # loaded step counts only when the resume source IS the save dir.
-    resumed_in_place = bool(resumed_from) and (
-        os.path.abspath(resumed_from) == os.path.abspath(ck.save_dir))
-    saved_steps = {start_step} if resumed_in_place else set()
-    losses, step_seconds, val_losses = [], [], {}
-    per_step = None  # the collectives of the first step, by kind
-    pipeline = None  # the pipeline's walk of the first step
-    window = StepTimer()
-    last_logged_step = start_step
+    # Installed on the bus BEFORE the loader and the state are built, so
+    # restore retries and chaos events are captured from the first
+    # second.
+    tel = telemetry_bus.install(Telemetry.from_config(cfg))
+    if tel.jsonl_path:
+        log_print(f"telemetry -> {tel.jsonl_path}")
+    if tel.trace_path:
+        log_print(f"flightdeck trace -> {tel.trace_path}")
+    if cfg.distributed.pp_size > 1:
+        # the schedule table's fill/drain share of every step phase,
+        # booked to the pp_bubble category
+        tel.set_pp_bubble_fraction(pipeline_bubble_fraction(cfg))
+        log_print(f"pipeline: executor={cfg.pipeline.executor} "
+                  f"schedule={cfg.pipeline.schedule} "
+                  f"v={cfg.pipeline.interleave} — predicted bubble "
+                  f"{tel.pp_bubble_fraction * 100:.1f}% of step wall")
+    watchdog = preempt = ckpt_mgr = dl = None
+    step = 0
     exit_code = None
-    step = start_step
-    # A while loop, not a range: rollback rewinds `step` to the restored
-    # checkpoint and the loop re-trains from there.
     try:
+        ranks = ({} if par is None else
+                 {"dp_rank": par.coords["dp"], "cp_rank": par.coords["cp"],
+                  "ep_rank": par.ep_rank})
+        dl = MicroBatchDataLoader(cfg, dev, **ranks)
+        # without a layout the calls keep their one-device form, which
+        # callers may wrap
+        layout = () if par is None else (par,)
+        state, trained_tokens, ckpt_meta, resumed_from, restore_timings = (
+            build_state(cfg, dev, *layout))
+        start_step = state.step
+        tel.ledger.resume_from(start_step)
+        if start_step > 0:
+            # Fast-forward the loader so resume does not replay consumed
+            # data; a checkpoint without a recorded position gets it from
+            # the step count and the tail-dropping epoch arithmetic.
+            dl_state = ckpt_meta.get("dataloader")
+            if dl_state is None:
+                per_epoch = max(1, len(dl.source) // cfg.global_batch_size)
+                dl_state = {"epoch": start_step // per_epoch,
+                            "cursor": (start_step % per_epoch)
+                            * cfg.global_batch_size}
+            dl.set_state(dl_state)
+        step_fn = make_train_step(cfg, *layout)
+        log_print(f"grad engine: {resolved_grad_engine(cfg)} (grad_engine "
+                  f"{t.grad_engine!r}, remat "
+                  f"{t.remat_policy if t.remat else None!r}, ce_chunk_size "
+                  f"{t.ce_chunk_size})")
+        eval_batches = eval_fn = None
+        if t.eval_frequency > 0:
+            # a FIXED validation set: every eval (and every resumed run)
+            # scores the same batches
+            eval_dl = MicroBatchDataLoader(
+                cfg, dev, source=build_eval_source(cfg), **ranks)
+            eval_batches = [next(eval_dl) for _ in range(t.eval_steps)]
+            eval_dl.close()
+            eval_fn = make_eval_step(cfg, par)
+        ckpt_mgr = (CheckpointManager(cfg, par=par)
+                    if ck.save_frequency > 0 else None)
+        peak = device_peak_flops(dev) if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        # two stop conditions, whichever bites first: steps and tokens
+        total_steps = t.total_train_steps
+        if t.max_tokens is not None:
+            remaining = max(0, t.max_tokens - trained_tokens)
+            total_steps = min(total_steps, start_step
+                              + -(-remaining // cfg.tokens_per_step))
+
+        rcfg = cfg.resilience
+        # Chaos installs LAST, so that the eval batches made above cannot
+        # consume a data event meant for the training stream.
+        ctrl = chaos.install(rcfg.chaos)
+        if ctrl.active:
+            log_print(f"chaos: {ctrl.describe()}")
+        guard = (DivergenceGuard.from_config(rcfg)
+                 if rcfg.guard_policy != "off" else None)
+        preempt = PreemptionHandler()
+        watchdog = Watchdog(rcfg.watchdog_timeout)
+        # one clock for liveness and timing: every phase entry below
+        # beats the watchdog AND times the section for the ledger
+        tel.attach_watchdog(watchdog)
+        ph = tel.phases
+        # Steps whose checkpoint already exists in the SAVE directory: the
+        # loaded step counts only when the resume source IS the save dir.
+        resumed_in_place = bool(resumed_from) and (
+            os.path.abspath(resumed_from) == os.path.abspath(ck.save_dir))
+        saved_steps = {start_step} if resumed_in_place else set()
+        losses, step_seconds, val_losses = [], [], {}
+        per_step = None  # the collectives of the first step, by kind
+        pipeline = None  # the pipeline's walk of the first step
+        window = StepTimer()
+        last_logged_step = start_step
+        step = start_step
+        # A while loop, not a range: rollback rewinds `step` to the
+        # restored checkpoint and the loop re-trains from there.
         preempt.install()
         while step < total_steps:
             step += 1
+            chaos.fire("step_begin", step=step)
             t0 = time.perf_counter()
             before = dict(comm.collectives)
-            watchdog.beat("data", step)
-            batch = next(dl)
-            watchdog.beat("step", step)
-            metrics = step_fn(state, batch)
-            watchdog.beat("sync", step)
-            # one device->host copy (and sync) for all of the metrics
-            fmetrics = dict(zip(metrics, torch.stack(
-                list(metrics.values())).tolist()))
+            with ph.phase("data", step):
+                batch = next(dl)
+            with ph.phase("step", step):
+                if ctrl.poison_step(step):
+                    metrics = step_fn(state, batch, poison=True)
+                else:
+                    metrics = step_fn(state, batch)
+            with ph.phase("sync", step):
+                # one device->host copy (and sync) for all of the metrics
+                fmetrics = dict(zip(metrics, torch.stack(
+                    list(metrics.values())).tolist()))
             step_seconds.append(time.perf_counter() - t0)
             if per_step is None and par is not None:
                 per_step = {k: comm.collectives[k] - before[k]
@@ -437,11 +481,14 @@ def run(cfg: Config, device: Optional[str] = None,
                     grad_norm=fmetrics.get("grad_norm"),
                     nonfinite=fmetrics.get("nonfinite"))
                 if action is not GuardAction.OK:
-                    telemetry_bus.emit("guard", action=action.value,
-                                       step=step, why=why)
+                    tel.emit("guard", action=action.value, step=step,
+                             why=why)
                 if action is GuardAction.ABORT:
                     log_print(f"[guard {step:06d}] {why}; aborting "
                               f"(exit {EXIT_DIVERGED})")
+                    if tel.flight is not None:
+                        tel.flight.dump("divergence_abort", step=step,
+                                        why=why)
                     exit_code = EXIT_DIVERGED
                     break
                 if action is GuardAction.SKIP:
@@ -454,9 +501,18 @@ def run(cfg: Config, device: Optional[str] = None,
                                   f"(update suppressed in-step, optimizer "
                                   f"state preserved)")
                 elif action is GuardAction.ROLLBACK:
-                    watchdog.beat("rollback", step)
-                    state, step, trained_tokens = _rollback(
-                        ckpt_mgr, state, dl, step, trained_tokens, why)
+                    bad_step = step
+                    if tel.flight is not None:
+                        # before restoring: the window still holds the
+                        # diverging steps, and _rollback can itself exit
+                        tel.flight.dump("rollback", step=bad_step, why=why)
+                    with ph.phase("rollback", step):
+                        state, step, trained_tokens = _rollback(
+                            ckpt_mgr, state, dl, step, trained_tokens, why)
+                    # steps (restored, bad_step] now re-run at or below
+                    # the ledger's high-water mark: booked as replay
+                    tel.emit("rollback", step=bad_step, restored=step,
+                             why=why)
                     saved_steps.add(step)
                     last_logged_step = step
                     window.lap()  # restart the throughput window
@@ -471,23 +527,31 @@ def run(cfg: Config, device: Optional[str] = None,
                 last_logged_step = step
                 mfu_frac = (mfu(tps, cfg.model, t.seq_length, world, peak)
                             if peak else 0.0)
-                log_print(training_log_line(
-                    step, fmetrics["loss"], tps, tps / world, mfu_frac,
-                    trained_tokens, device_memory_gb(dev), extras=extras))
+                mem_gb = device_memory_gb(dev)
+                # one record, every sink: stdout gets the preformatted
+                # line byte for byte, the JSONL the structured fields
+                tel.record_step(
+                    step, training_log_line(
+                        step, fmetrics["loss"], tps, tps / world, mfu_frac,
+                        trained_tokens, mem_gb, extras=extras),
+                    loss=fmetrics["loss"], tokens_per_sec=tps,
+                    tokens_per_sec_per_chip=tps / world, mfu=mfu_frac,
+                    trained_tokens=trained_tokens, memory_gb=mem_gb,
+                    **extras)
 
             if eval_fn is not None and (step % t.eval_frequency == 0
                                         or step == total_steps):
-                watchdog.beat("eval", step)
-                val = (sum(float(eval_fn(state.model, b))
-                           for b in eval_batches) / len(eval_batches))
+                with ph.phase("eval", step):
+                    val = (sum(float(eval_fn(state.model, b))
+                               for b in eval_batches) / len(eval_batches))
                 val_losses[step] = val
-                log_print(f"[eval  {step:06d}] val_loss: {val:.4f} "
-                          f"({t.eval_steps} batches)")
+                tel.record_eval(step, val, f"[eval  {step:06d}] val_loss: "
+                                f"{val:.4f} ({t.eval_steps} batches)")
 
             if ckpt_mgr is not None and step % ck.save_frequency == 0:
-                watchdog.beat("save", step)
-                path = ckpt_mgr.save(state, trained_tokens,
-                                     dataloader_state=dl.state)
+                with ph.phase("save", step):
+                    path = ckpt_mgr.save(state, trained_tokens,
+                                         dataloader_state=dl.state)
                 saved_steps.add(step)
                 log_print(f"saved checkpoint -> {path}")
 
@@ -497,9 +561,13 @@ def run(cfg: Config, device: Optional[str] = None,
             if _any_rank(preempt.triggered, par):
                 # The in-flight step finished above; make it durable and
                 # hand control back to the supervisor.
-                watchdog.beat("preempt-save", step)
-                ckpt_mgr = _emergency_checkpoint(
-                    cfg, ckpt_mgr, state, trained_tokens, dl, saved_steps)
+                with ph.phase("preempt-save", step):
+                    ckpt_mgr = _emergency_checkpoint(
+                        cfg, ckpt_mgr, state, trained_tokens, dl,
+                        saved_steps)
+                tel.emit("preempted", step=step)
+                if tel.flight is not None:
+                    tel.flight.dump("preempted", step=step)
                 log_print(f"preempted at step {step}; state is durable — "
                           f"exiting {EXIT_PREEMPTED} for auto_resume")
                 exit_code = EXIT_PREEMPTED
@@ -508,20 +576,41 @@ def run(cfg: Config, device: Optional[str] = None,
         if exit_code is None and ckpt_mgr is not None \
                 and state.step not in saved_steps:
             # Final save, unless this run already wrote this exact step.
-            watchdog.beat("save", state.step)
-            ckpt_mgr.save(state, trained_tokens, dataloader_state=dl.state)
+            with ph.phase("save", state.step):
+                ckpt_mgr.save(state, trained_tokens,
+                              dataloader_state=dl.state)
+    except SystemExit:
+        raise  # deliberate exits (rollback without a checkpoint) dumped above
+    except BaseException as e:  # noqa: BLE001
+        # an unhandled crash leaves the last-K-steps window next to the
+        # checkpoints before the teardown below runs
+        if tel.flight is not None:
+            tel.flight.dump("exception", step=step, error=repr(e))
+        raise
     finally:
-        # A mid-run crash must not leak the watchdog, the signal handlers
-        # or a half-written async checkpoint; each cleanup is fenced so
-        # one failure cannot mask the original exception.
-        watchdog.stop()
-        preempt.uninstall()
+        # A crash must not leak the watchdog, the signal handlers, the
+        # producer thread, a half-written async checkpoint, the chaos
+        # controller or the bus; each cleanup is fenced so one failure
+        # cannot mask the original exception.
+        if watchdog is not None:
+            watchdog.stop()
+        if preempt is not None:
+            preempt.uninstall()
         if ckpt_mgr is not None:
             try:
                 ckpt_mgr.wait_until_finished()
             except Exception as e:  # noqa: BLE001
                 log_print(f"checkpoint finalization failed during "
                           f"shutdown: {e!r}")
+        if dl is not None:
+            dl.close()
+        chaos.uninstall()
+        # writes run_summary (ledger + metrics), exports the trace, closes
+        # the JSONL stream and uninstalls the bus
+        try:
+            tel.close()
+        except Exception as e:  # noqa: BLE001
+            log_print(f"telemetry close failed during shutdown: {e!r}")
     if exit_code is not None:
         raise SystemExit(exit_code)
     return {"losses": losses, "step_seconds": step_seconds,
@@ -531,7 +620,8 @@ def run(cfg: Config, device: Optional[str] = None,
             "start_step": start_step, "restore_timings": restore_timings,
             "save_timings": dict(ckpt_mgr.timings) if ckpt_mgr else {},
             "world_size": world, "collectives_per_step": per_step,
-            "pipeline": pipeline, "dataloader_state": dl.state}
+            "pipeline": pipeline, "dataloader_state": dl.state,
+            "telemetry_path": tel.jsonl_path, "trace_path": tel.trace_path}
 
 
 def write_report(result: dict, path: str) -> None:
@@ -539,7 +629,7 @@ def write_report(result: dict, path: str) -> None:
     report = {k: result[k] for k in (
         "losses", "step_seconds", "tokens_per_step", "peak_memory_gb",
         "device", "world_size", "collectives_per_step", "pipeline",
-        "start_step")}
+        "start_step", "restore_timings", "save_timings")}
     report["launches"] = {**fa.launches, **topt.launches}
     report["flash_variants"] = {"fwd": dict(fa.fwd_launches),
                                 "dq": dict(fa.dq_launches),

@@ -188,19 +188,34 @@ def make_train_step(cfg: Config, par=None):
     each a 0-dim fp32 tensor on the device
     (nothing here syncs the host, except the count under "skip"). `par`:
     the rank's ParallelEnv under a layout, whose batch is this rank's
-    rows."""
+    rows.
+
+    `poison=True` poisons this call's grads and loss (NaN added to each
+    summed grad buffer and to the loss, after the engine and before the
+    norm): the chaos harness's `nan_grad` event, the counterpart of the
+    JAX `make_train_step(..., inject_nan=True)`, which needs a second
+    program where an eager step needs only the argument. The poison then
+    takes the path of a real non-finite step: the in-step `nonfinite`
+    flag, the guard, and under "skip" the update's `ok` flag (the AdamW
+    kernel writes nothing). It lands after either grad engine, and under
+    pp on every stage's grads after the walk."""
     grads_fn = make_grads_fn(cfg, par)
     guards_on = cfg.resilience.guard_policy != "off"
     guard_skip = cfg.resilience.guard_policy == "skip"
     # the pipeline's walk names the step in its watchdog beats
     piped = isinstance(grads_fn, PipelineGrads)
 
-    def train_step(state: TrainState, batch) -> dict:
+    def train_step(state: TrainState, batch, poison: bool = False) -> dict:
         opt = state.optimizer
         kw = {"step": state.step + 1} if piped else {}
         extras: dict = {}
         loss, scale = grads_fn(state.model, batch, opt.grad_of,
                                extras=extras, **kw)
+        if poison:
+            nan = float("nan")
+            for buf in opt.grad_of.values():
+                buf.add_(nan)
+            loss = loss + nan
         metrics = {"loss": loss}
         gnorm = ok = None
         if guards_on:

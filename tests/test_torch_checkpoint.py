@@ -3,8 +3,10 @@ debug size: the save/restore round trip bit for bit (params, fp32 and bf16
 moments, count, step, tokens, cursor), async saves snapshotting the step
 they were taken at, lineage fallback past corrupt steps, explicit-step
 validation, retention, HF safetensors in both directions, params-only
-restore, eval against `make_eval_step`, and both drivers end to end from
-one locally written HF file (fp32 rtol/atol 1e-5 across frameworks)."""
+restore, eval against `make_eval_step`, both drivers end to end from
+one locally written HF file (fp32 rtol/atol 1e-5 across frameworks), and
+the chaos points of a save (`ckpt_save` retried, the corruption kinds at
+`ckpt_committed` caught by the manifest and the lineage fallback)."""
 
 import json
 import os
@@ -191,6 +193,78 @@ def test_lineage_falls_back_past_a_corrupt_newest_step(tmp_path, how):
     else:
         assert mgr.durable_steps() == [2]
     assert mgr.valid_steps() == [2]
+
+
+@pytest.mark.parametrize("kind", ["ckpt_corrupt_bitflip", "ckpt_truncate",
+                                  "ckpt_torn_meta"])
+def test_chaos_corrupts_the_committed_step_and_lineage_falls_back(
+        tmp_path, kind):
+    """The corruption kinds fire at the `ckpt_committed` point (after
+    the manifest commits) on the port's own files: the largest payload
+    under state/ (opt_state.pt: both moments) or meta.json. The
+    manifest then fails the step, `latest_valid_step` emits
+    ckpt_corrupt and falls back to step 2, and restore reads step 2."""
+    from picotron_tpu_torch.resilience import chaos
+
+    cfg = tcfg.config_from_dict(_raw(tmp_path,
+                                     checkpoint={"async_save": False}))
+    state, dl = _trained(cfg, steps=2)
+    mgr = tckpt.CheckpointManager(cfg)
+    want = _tensors(state)
+    rec = bus.install(_Recorder())
+    try:
+        chaos.install(f"{kind}@4")
+        mgr.save(state, 128, dl.state)
+        step_fn = tstep.make_train_step(cfg)
+        for _ in range(2):
+            step_fn(state, next(dl))
+        # step 2's twin of the payload step 4's corruptor targets
+        size = os.path.getsize(os.path.join(mgr._step_dir(2), "state",
+                                            "opt_state.pt"))
+        mgr.save(state, 256, dl.state)
+        chaos.uninstall()
+        assert mgr.latest_valid_step() == 2
+        restored, meta = mgr.restore(_fresh(cfg))
+    finally:
+        chaos.uninstall()
+        bus.install(None)
+    kinds = [k for k, _ in rec.events]
+    assert kinds[:3] == ["ckpt_commit", "ckpt_commit", "chaos"]
+    assert ("ckpt_corrupt", 4) in [(k, f.get("step")) for k, f in rec.events]
+    _assert_same(_tensors(restored), want)
+    assert restored.step == 2 and meta["trained_tokens"] == 128
+    if kind == "ckpt_truncate":
+        assert os.path.getsize(os.path.join(
+            mgr._step_dir(4), "state", "opt_state.pt")) == size // 2
+    assert mgr.valid_steps() == [2]
+
+
+def test_chaos_ckpt_io_is_retried_then_surfaces(tmp_path):
+    """`ckpt_io` raises inside the retried payload write: two failures
+    fit the default 3 attempts (two `retry` events, the step commits),
+    a budget-outlasting one surfaces and leaves the step not durable."""
+    from picotron_tpu_torch.resilience import chaos
+
+    cfg = tcfg.config_from_dict(_raw(tmp_path, checkpoint={
+        "async_save": False}, resilience={"retry_base_delay": 0.01,
+                                          "retry_max_delay": 0.01}))
+    state, dl = _trained(cfg, steps=2)
+    mgr = tckpt.CheckpointManager(cfg)
+    rec = bus.install(_Recorder())
+    try:
+        chaos.install("ckpt_io@2x2")
+        mgr.save(state, 128, dl.state)
+        assert [k for k, _ in rec.events] == [
+            "chaos", "retry", "chaos", "retry", "ckpt_commit"]
+        assert mgr.latest_valid_step() == 2
+        state.step = 3
+        chaos.install("ckpt_io@3x99")
+        with pytest.raises(OSError, match="chaos-injected ckpt_io"):
+            mgr.save(state, 192, dl.state)
+    finally:
+        chaos.uninstall()
+        bus.install(None)
+    assert mgr.durable_steps() == [2]
 
 
 @pytest.mark.parametrize("algo", ["xxh64", "crc32"])

@@ -70,6 +70,22 @@ def test_illegal_configs_raise_in_both(raw):
     assert str(et.value) == str(ej.value)
 
 
+def test_chaos_specs_are_parsed_by_the_chaos_module(monkeypatch):
+    """The chaos cases above reach `resilience/chaos.parse_spec`, the
+    runtime's own grammar (the copied validator is gone)."""
+    from picotron_tpu_torch.resilience import chaos
+
+    seen = []
+    real = chaos.parse_spec
+    monkeypatch.setattr(chaos, "parse_spec",
+                        lambda spec: seen.append(spec) or real(spec))
+    tcfg.config_from_dict({"resilience": {"chaos": "sigterm@2,hang@3~1"}})
+    with pytest.raises(ValueError, match="needs a ~SECS"):
+        tcfg.config_from_dict({"resilience": {"chaos": "hang@3"}})
+    assert seen == ["sigterm@2,hang@3~1", "hang@3"]
+    assert not hasattr(tcfg, "_parse_chaos_spec")
+
+
 def test_config_json_roundtrip(tmp_path):
     raw = {"model": {"name": "Llama-3.1-8B"}, "training": {"seq_length": 256}}
     t = tcfg.config_from_dict(raw)

@@ -44,9 +44,15 @@ def test_port_files_exist():
                  "picotron_tpu_torch/serve/engine.py",
                  "picotron_tpu_torch/ops/moe.py",
                  "picotron_tpu_torch/parallel/ep.py",
-                 "picotron_tpu_torch/telemetry/__init__.py"):
+                 "picotron_tpu_torch/telemetry/__init__.py",
+                 "picotron_tpu_torch/resilience/chaos.py",
+                 "picotron_tpu_torch/telemetry/flightdeck/__init__.py",
+                 "picotron_tpu_torch/native.py",
+                 "picotron_tpu_torch/tools/telemetry_report.py",
+                 "picotron_tpu_torch/tools/trace_export.py"):
         assert want in names
     assert (ROOT / "picotron_tpu_torch/csrc/flash_attention.cu").exists()
+    assert (ROOT / "picotron_tpu_torch/csrc/packer.cpp").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -61,8 +67,14 @@ def test_import_leaves_jax_unloaded():
             "picotron_tpu_torch.weights, picotron_tpu_torch.ops.flash_attention"
             ", picotron_tpu_torch.generate, picotron_tpu_torch.serve, "
             "picotron_tpu_torch.serve.spec_decode, picotron_tpu_torch.telemetry"
+            ", picotron_tpu_torch.native, picotron_tpu_torch.data, "
+            "picotron_tpu_torch.resilience.chaos, "
+            "picotron_tpu_torch.telemetry.flightdeck, "
+            "picotron_tpu_torch.tools.telemetry_report, "
+            "picotron_tpu_torch.tools.trace_export"
             "\nbad = [m for m in sys.modules if m == 'jax' or m.startswith"
-            "('jax.') or m == 'picotron_tpu' or m.startswith('picotron_tpu.')]"
+            "('jax.') or m == 'picotron_tpu' or m.startswith('picotron_tpu.')"
+            " or m in ('datasets', 'transformers')]"
             "\nassert not bad, bad\nimport torch"
             "\nassert not torch.backends.cuda.matmul.allow_tf32"
             "\nassert not torch.backends.cudnn.allow_tf32\nprint('ok')")

@@ -32,7 +32,11 @@ world of 8 with dp:
   2, auto-resume to 4, equal to an uninterrupted run bit for bit;
 - a tied embedding at pp 2 x tp 2 (x dp 2) from the trainer's fresh
   init: the first and the last stage's copies equal after init and after
-  two steps.
+  two steps;
+- the mpmd 1f1b table through `train.run` with a span tracer and the
+  chaos event `sigterm@2#1`: one span per op per walk on each stage's
+  lane, the SIGTERM fired at tick 1 of step 2's walk, and exit 75 on
+  every rank.
 
 One world runs every rank-side check; the JAX side runs in this process
 meanwhile. The worker code imports no jax.
@@ -209,7 +213,42 @@ def tied_job(job: dict, spec: dict) -> dict:
             "trained": out["state"].model.embedding.detach().clone()}
 
 
-JOBS = {"train": train_pp_job, "ckpt": ckpt_job, "tied": tied_job}
+def flightdeck_job(job: dict, spec: dict) -> dict:
+    """The mpmd 1f1b table at pp 2 (x dp 4) through train.run with a span
+    tracer and `sigterm@2#1`: the exit code, this rank's trace and
+    stream."""
+    import json
+    import os
+
+    from picotron_tpu_torch.resilience import chaos
+
+    raw = dict(LAYOUTS["mpmd_1f1b"])
+    raw["training"] = {**raw["training"], "total_train_steps": 4}
+    raw["checkpoint"] = {"save_dir": job["dir"] + "/ckpt"}
+    raw["logging"] = {"trace_dir": job["dir"] + "/trace"}
+    raw["resilience"] = {"chaos": "sigterm@2#1"}
+    os.environ.pop("PICOTRON_CHAOS", None)
+    code = None
+    try:
+        ttrain.run(tcfg.config_from_dict(raw), "cpu")
+    except SystemExit as e:
+        code = e.code
+    assert not chaos.controller().active
+    rank = torch.distributed.get_rank()
+    suffix = "" if rank == 0 else f".p{rank}"
+    with open(f"{job['dir']}/trace/trace{suffix}.json") as f:
+        trace = json.load(f)
+    with open(f"{job['dir']}/ckpt/telemetry{suffix}.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    par_pp = tcfg.config_from_dict(raw).distributed.pp_size
+    return {"code": code, "trace": trace, "pp_size": par_pp,
+            "events": events,
+            "pp_rank": mesh.rank_coords(
+                rank, {"dp": 4, "pp": 2, "ep": 1, "cp": 1, "tp": 1})["pp"]}
+
+
+JOBS = {"train": train_pp_job, "ckpt": ckpt_job, "tied": tied_job,
+        "flightdeck": flightdeck_job}
 
 
 def jax_pp_run(raw: dict, batch) -> dict:
@@ -262,6 +301,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ppworld")
     jobs.append({"name": "ckpt", "kind": "ckpt", "dir": str(tmp / "ckpt")})
     jobs.append({"name": "tied", "kind": "tied"})
+    jobs.append({"name": "flightdeck", "kind": "flightdeck",
+                 "dir": str(tmp / "flightdeck")})
     world = World(tmp, WORLD, {"params": params, "jobs": jobs}, JOBS)
     want = {name: jax_pp_run(raw, batch_of(raw))
             for name, raw in LAYOUTS.items()}
@@ -478,6 +519,40 @@ def test_pp_tied_embedding_starts_and_stays_tied(runs):
         assert torch.equal(first["trained"], last["trained"]), key
         assert not torch.equal(first["init"], first["trained"]), key
     assert not torch.equal(by[(0, 0)][0]["init"], by[(0, 1)][0]["init"])
+
+
+def test_pp_trace_spans_and_mid_schedule_sigterm(runs):
+    """Each rank's trace holds one span per op of its stage's table per
+    walk on its stage's lane, named stage/tick/op/mb; `sigterm@2#1`
+    fires inside step 2's walk at tick 1 (on the ranks with an op
+    there), the walk drains, and every rank exits 75 after step 2."""
+    from picotron_tpu_torch.telemetry.flightdeck import TID_PP_BASE
+
+    table = _table("mpmd_1f1b")
+    fired_ranks = 0
+    for rank in range(WORLD):
+        res = runs["port"][rank]["flightdeck"]
+        assert res["code"] == 75
+        stage = res["pp_rank"]
+        spans = [e for e in res["trace"]["traceEvents"]
+                 if e.get("ph") == "X" and e["tid"] >= TID_PP_BASE]
+        assert {e["tid"] for e in spans} == {TID_PP_BASE + stage}
+        mine = [o for o in table if o.group == stage]
+        want = [f"stage{o.vstage}/tick{o.tick}/{o.op}/mb{o.mb}"
+                for o in mine]
+        for step in (1, 2):
+            got = [e["name"] for e in spans if e["args"]["step"] == step]
+            assert sorted(got) == sorted(want), (rank, step)
+        assert {e["args"]["step"] for e in spans} == {1, 2}
+        fired = [e for e in res["events"] if e["kind"] == "chaos"]
+        for e in fired:
+            assert (e["point"], e["step"], e["tick"]) == (
+                "schedule_tick", 2, 1)
+            assert e["stage"] == stage
+        fired_ranks += bool(fired)
+        assert [e["step"] for e in res["events"]
+                if e["kind"] == "preempted"] == [2]
+    assert fired_ranks >= WORLD // 2
 
 
 def test_pp_neighbours_are_the_rank_grids():

@@ -1,11 +1,16 @@
 """The port's telemetry (picotron_tpu_torch/telemetry/) against the JAX
 package's: the registry's percentiles, the goodput ledger's
 classification and goodput fraction, and the facade's event stream on
-the same observations and event sequences; the JSONL sink's round trip
+the same observations and event sequences; a retry's backoff booked
+once, not in its phase too; the JSONL sink's round trip
 and rotation; the phase timer's booking through an exception; and the
 port's CompileWatch, which books the nvcc builds of kernels/build.py (a
 planted build here: a stand-in nvcc script, since this machine has
-none)."""
+none); the trainer's half: `Telemetry.from_config` streaming where the
+JAX one does (per rank, moved, rotated, off), and the tools on a port
+trainer stream with a rollback and retries: `telemetry_report` equal to
+the JAX tool's summary and rendering, `trace_export` equal to the JAX
+converter, merging ranks' streams and traces, and validating alike."""
 
 import json
 import os
@@ -143,6 +148,40 @@ def test_facade_stream_matches_jax():
         assert booked[cat] == pytest.approx(secs, abs=1e-5)
 
 
+def test_retry_backoff_in_a_phase_is_booked_once():
+    """A retry's backoff slept inside a phase on the phase's own thread
+    is booked once, as retry_backoff, and taken off the phase's seconds;
+    one slept on another thread (a prefetch producer) leaves the phase
+    whole."""
+    import threading
+    import time
+
+    cap = _Capture()
+    tel = Telemetry(sinks=[cap])
+    t0 = time.perf_counter()
+    with tel.phases.phase("save", step=1):
+        tel.emit("retry", category="retry_backoff", secs=0.05, what="save")
+        time.sleep(0.05)
+    outer = time.perf_counter() - t0
+
+    def producer():
+        tel.emit("retry", category="retry_backoff", secs=0.05, what="data")
+
+    with tel.phases.phase("data", step=2):
+        th = threading.Thread(target=producer)
+        th.start()
+        th.join()
+        time.sleep(0.05)
+    tel.close()
+    secs = {e["phase"]: e["secs"] for e in cap.events
+            if e["kind"] == "phase"}
+    assert 0.0 <= secs["save"] <= outer - 0.05 + 1e-6
+    assert secs["data"] >= 0.05
+    assert tel.ledger.seconds["retry_backoff"] == pytest.approx(0.1)
+    assert tel.ledger.seconds["ckpt_io"] == pytest.approx(secs["save"],
+                                                          abs=1e-6)
+
+
 def test_jsonl_sink_round_trip_and_rotation(tmp_path):
     path = str(tmp_path / "telemetry.jsonl")
     sink = JsonlSink(path, max_bytes=400)
@@ -236,3 +275,150 @@ def test_compile_watch_books_a_planted_build(planted_build):
     (planted_build.parent / "csrc" / "planted.cu").write_text("// v2\n")
     build.build("planted")
     assert tel.compile_watch.total_count == 1
+
+
+# -- the trainer's half: from_config, the tools -----------------------------
+
+
+def _load_tool(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", os.path.join(os.path.dirname(__file__), "..",
+                                    "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("logging", [
+    {}, {"telemetry_dir": "<tmp>/tel"}, {"telemetry_jsonl": False},
+    {"telemetry_max_mb": 0.0002}], ids=["default", "dir", "off", "rotated"])
+@pytest.mark.parametrize("rank", [0, 3])
+def test_from_config_streams_where_jax_does(logging, rank, tmp_path,
+                                            monkeypatch):
+    """`Telemetry.from_config`: the JAX path (`telemetry.jsonl`, or
+    `telemetry.p<rank>.jsonl` off rank 0), its rotation past
+    telemetry_max_mb, stdout from rank 0 only."""
+    from picotron_tpu import config as jcfg
+    from picotron_tpu.telemetry import sinks as jsinks
+    from picotron_tpu_torch import config as tcfg
+    from picotron_tpu_torch import telemetry as ttel
+
+    logging = {k: v.replace("<tmp>", str(tmp_path))
+               if isinstance(v, str) else v for k, v in logging.items()}
+    raw = {"checkpoint": {"save_dir": str(tmp_path / "ckpt")},
+           "logging": {**logging, "flight_steps": 0}}
+    want = jsinks.telemetry_jsonl_path(jcfg.config_from_dict(raw), rank)
+    monkeypatch.setattr(ttel, "process_index", lambda: rank)
+    tel = ttel.Telemetry.from_config(tcfg.config_from_dict(raw))
+    assert tel.jsonl_path == want
+    assert tel.sinks[0].is_primary == (rank == 0)
+    for i in range(6):
+        tel.emit("retry", category="retry_backoff", secs=0.01, attempt=i)
+    tel.close()
+    if want is None:
+        return
+    segs = jsonl_segments(want)
+    assert segs == ([want + ".1", want] if "telemetry_max_mb" in logging
+                    else [want])
+    kinds = [json.loads(line)["kind"] for p in segs for line in open(p)]
+    assert kinds[-1] == "run_summary"
+
+
+@pytest.fixture(scope="module")
+def chaos_stream(tmp_path_factory):
+    """A port trainer run with a rollback, a retried save and a data
+    retry: a stream with replayed steps and badput in several
+    categories."""
+    from picotron_tpu_torch import config as tcfg
+    from picotron_tpu_torch import train as ttrain
+
+    base = tmp_path_factory.mktemp("stream")
+    raw = {"model": {"name": "debug-tiny", "dtype": "float32"},
+           "training": {"seq_length": 16, "micro_batch_size": 2,
+                        "gradient_accumulation_steps": 2,
+                        "total_train_steps": 5, "remat": False,
+                        "eval_frequency": 5, "eval_steps": 1},
+           "checkpoint": {"save_dir": str(base / "ckpt"),
+                          "save_frequency": 2, "async_save": False},
+           "resilience": {"chaos": "nan_grad@3,ckpt_io@4,data_io@5",
+                          "guard_policy": "rollback",
+                          "retry_base_delay": 0.01,
+                          "retry_max_delay": 0.01}}
+    os.environ.pop("PICOTRON_CHAOS", None)
+    ttrain.run(tcfg.config_from_dict(raw), "cpu")
+    return str(base / "ckpt")
+
+
+def test_telemetry_report_matches_the_jax_tool(chaos_stream, capsys):
+    """The port's stream books the JAX stream's categories: the JAX tool
+    and the port's tool give the same summary and the same rendering."""
+    from picotron_tpu_torch.tools import telemetry_report as rep
+
+    jrep = _load_tool("telemetry_report")
+    events = rep.load_events(rep.resolve_path(chaos_stream))
+    assert events == jrep.load_events(jrep.resolve_path(chaos_stream))
+    got, want = rep.summarize(events), jrep.summarize(events)
+    assert got == want
+    assert got["steps"]["replayed"] >= 1 and got["steps"]["max"] == 5
+    for cat in ("compute", "replay", "restore", "retry_backoff", "ckpt_io",
+                "data_wait", "host_sync", "eval"):
+        assert got["categories"].get(cat, 0.0) > 0.0, cat
+    for md in (False, True):
+        assert rep.render(got, md) == jrep.render(want, md)
+    assert rep.main([chaos_stream, "--json"]) == 0
+    assert json.loads(capsys.readouterr().out) == got
+    # the ledger and the stream agree: accounted time within the wall
+    assert got["accounted_s"] <= got["wall_s"] + 1e-3
+
+
+def test_trace_export_matches_the_jax_tool_and_merges_ranks(chaos_stream,
+                                                            tmp_path,
+                                                            capsys):
+    from picotron_tpu_torch.tools import trace_export as tx
+
+    jtx = _load_tool("trace_export")
+    events = tx.load_events(os.path.join(chaos_stream, "telemetry.jsonl"))
+    assert tx.convert({0: events}) == jtx.convert(events, pid=0)
+    # two ranks' streams: one document, rank r on pid r, one wall clock
+    run = tmp_path / "run"
+    run.mkdir()
+    shifted = [{**e, "ts": e["ts"] + 0.5} for e in events]
+    for name, evs in (("telemetry.jsonl", events),
+                      ("telemetry.p1.jsonl", shifted)):
+        (run / name).write_text("".join(json.dumps(e) + "\n" for e in evs))
+    assert tx.main([str(run)]) == 0
+    doc = json.loads((run / "trace.json").read_text())
+    spans = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    assert {e["pid"] for e in spans} == {0, 1}
+    assert len(spans) == 2 * len(tx.convert({0: events})["traceEvents"][2:])
+    assert tx.validate(str(run / "trace.json")) == []
+    # per-rank flightdeck traces: merged with their drops summed
+    from picotron_tpu_torch.telemetry.flightdeck import SpanTracer
+
+    tdir = tmp_path / "traces"
+    tdir.mkdir()
+    for rank in (0, 1):
+        tr = SpanTracer(pid=rank, max_events=3)
+        for i in range(5):
+            tr.complete("step", dur_s=0.001, step=i)
+        tr.export(str(tdir / ("trace.json" if rank == 0
+                              else f"trace.p{rank}.json")))
+    assert tx.main(["--merge", str(tdir)]) == 0
+    merged = json.loads((tdir / "trace.merged.json").read_text())
+    assert merged["otherData"]["dropped_events"] == 4
+    assert {e["pid"] for e in merged["traceEvents"]} == {0, 1}
+    assert tx.main(["--validate", str(tdir / "trace.merged.json")]) == 0
+    capsys.readouterr()
+    # validation agrees with the JAX tool's on a broken trace
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps({"traceEvents": [
+        {"name": "a", "ph": "X", "pid": 0, "tid": 0, "ts": 5, "dur": -1},
+        {"name": "b", "ph": "B", "pid": 0, "tid": 0, "ts": 3},
+        {"name": "c", "ph": "E", "pid": "x", "tid": 0, "ts": 4},
+        {"name": "d", "ph": "Q", "pid": 0, "tid": 0, "ts": 6}]}))
+    assert tx.validate(str(bad)) == jtx.validate(str(bad))
+    assert len(tx.validate(str(bad))) >= 3
+    assert tx.main(["--validate", str(bad)]) == 1

@@ -150,58 +150,164 @@ def test_cli_runs_on_cpu_and_prints_log_lines(tmp_path, capsys):
     assert result["device"] == "cpu"
 
 
+def _placeholders(obj, tmp_path, corpus):
+    """`obj` with "<tmp>" and "<corpus>" filled in."""
+    if isinstance(obj, dict):
+        return {k: _placeholders(v, tmp_path, corpus) for k, v in obj.items()}
+    if isinstance(obj, str):
+        return obj.replace("<corpus>", corpus).replace("<tmp>", str(tmp_path))
+    return obj
+
+
+def _events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_chaos(tmp_path, result):
+    """sigterm@2: the preemption path (exit 75, emergency checkpoint),
+    with the chaos firing and the preemption in the stream."""
+    assert result == 75
+    kinds = [e["kind"] for e in _events(tmp_path / "ckpt/telemetry.jsonl")]
+    assert {"chaos", "preempt_signal", "preempted"} <= set(kinds)
+    assert (tmp_path / "ckpt/step_00000002/state").is_dir()
+
+
+def _check_dataset(tmp_path, result):
+    """A save_to_disk corpus of pre-chunked rows trains (its batches are
+    held to the JAX loader's in test_torch_data.py)."""
+    assert len(result["losses"]) == 3 and all(np.isfinite(result["losses"]))
+
+
+def _check_trace(tmp_path, result):
+    doc = json.loads((tmp_path / "trace/trace.json").read_text())
+    steps = [e for e in doc["traceEvents"] if e.get("name") == "step"
+             and e.get("ph") == "X"]
+    assert [e["args"]["step"] for e in steps] == [1, 2, 3]
+
+
+def _check_sentinel(tmp_path, result):
+    summary = _events(tmp_path / "ckpt/telemetry.jsonl")[-1]
+    assert summary["kind"] == "run_summary"
+    assert summary["sentinel"]["window"] == 3
+
+
+def _check_telemetry_dir(tmp_path, result):
+    kinds = [e["kind"] for e in _events(tmp_path / "tel/telemetry.jsonl")]
+    assert kinds[0] == "run_start" and kinds[-1] == "run_summary"
+    assert not (tmp_path / "ckpt/telemetry.jsonl").exists()
+
+
+def _check_rotation(tmp_path, result):
+    """A 500-byte cap rotates the stream: the rotated `.1` segment holds
+    the run's last event (run_summary outgrows the cap alone) and the
+    live file is the fresh segment after it."""
+    rotated = _events(tmp_path / "ckpt/telemetry.jsonl.1")
+    assert rotated and rotated[-1]["kind"] == "run_summary"
+    assert (tmp_path / "ckpt/telemetry.jsonl").exists()
+
+
+def _check_no_flight(tmp_path, result):
+    """flight_steps 0: a divergence abort (nan_grad@2 under the default
+    'abort') leaves no postmortem."""
+    assert result == 76
+    assert not (tmp_path / "ckpt/flightdeck_postmortem.json").exists()
+    kinds = [e["kind"] for e in _events(tmp_path / "ckpt/telemetry.jsonl")]
+    assert "guard" in kinds
+
+
 @pytest.mark.parametrize("override,match", [
     # pp is ported: not refused, the run stops at the world-size check
     pytest.param({"distributed": {"pp_size": 2}}, None,
                  id="override0-pp_size"),
-    ({"training": {"remat": True, "remat_policy": "dots_offload"}},
-     "dots_offload"),
-    ({"logging": {"use_wandb": True}}, "use_wandb"),
-    ({"resilience": {"chaos": "sigterm@2"}}, "chaos"),
-    ({"dataset": {"name": "HuggingFaceTB/smollm-corpus"}}, "HF datasets"),
+    pytest.param({"training": {"remat": True, "remat_policy":
+                               "dots_offload"}}, "dots_offload",
+                 id="override1-dots_offload"),
+    pytest.param({"logging": {"use_wandb": True}}, "use_wandb",
+                 id="override2-use_wandb"),
+    # chaos, HF datasets and the telemetry fields are ported: each run
+    # exercises its feature (`check`)
+    pytest.param({"resilience": {"chaos": "sigterm@2"}}, _check_chaos,
+                 id="override3-chaos"),
+    pytest.param({"dataset": {"name": "<corpus>"}}, _check_dataset,
+                 id="override4-HF datasets"),
     # MoE is ported: not refused, the run trains
     pytest.param({"model": {"name": "debug-tiny-moe"}}, None,
                  id="override5-MoE"),
-    ({"logging": {"trace_dir": "trace"}}, "logging.trace_dir"),
-    ({"logging": {"sentinel": True}}, "logging.sentinel"),
-    ({"logging": {"telemetry_dir": "tel"}}, "logging.telemetry_dir"),
-    ({"logging": {"telemetry_max_mb": 8.0}}, "logging.telemetry_max_mb"),
-    ({"logging": {"flight_steps": 0}}, "logging.flight_steps"),
+    pytest.param({"logging": {"trace_dir": "<tmp>/trace"}}, _check_trace,
+                 id="override6-logging.trace_dir"),
+    pytest.param({"logging": {"sentinel": True}}, _check_sentinel,
+                 id="override7-logging.sentinel"),
+    pytest.param({"logging": {"telemetry_dir": "<tmp>/tel"}},
+                 _check_telemetry_dir, id="override8-logging.telemetry_dir"),
+    pytest.param({"logging": {"telemetry_max_mb": 0.0005}}, _check_rotation,
+                 id="override9-logging.telemetry_max_mb"),
+    pytest.param({"logging": {"flight_steps": 0},
+                  "resilience": {"chaos": "nan_grad@2"}}, _check_no_flight,
+                 id="override10-logging.flight_steps"),
 ])
-def test_trainer_refuses_what_the_slice_lacks(override, match):
+def test_trainer_refuses_what_the_slice_lacks(override, match, tmp_path):
     raw = _raw("float32")
-    for section, vals in override.items():
+    raw["checkpoint"] = {"save_dir": str(tmp_path / "ckpt")}
+    corpus = ""
+    if "dataset" in override:
+        corpus = str(tmp_path / "corpus")
+        _save_corpus(corpus, rows=24, block=17, vocab=256)
+    for section, vals in _placeholders(override, tmp_path, corpus).items():
         raw.setdefault(section, {}).update(vals)
     cfg = tcfg.config_from_dict(raw)
-    if match is None:
-        assert ttrain.unsupported(cfg) == []
-        if cfg.distributed.world_size == 1:
-            result = ttrain.run(cfg, "cpu")
-            assert len(result["losses"]) == cfg.training.total_train_steps
-            assert all(np.isfinite(result["losses"]))
-            return
+    if isinstance(match, str):
+        with pytest.raises(NotImplementedError, match=match):
+            ttrain.run(cfg, "cpu")
+        return
+    assert ttrain.unsupported(cfg) == []
+    if cfg.distributed.world_size > 1:
         with pytest.raises(ValueError, match="world size 1"):
             ttrain.run(cfg, "cpu")
         return
-    with pytest.raises(NotImplementedError, match=match):
-        ttrain.run(cfg, "cpu")
+    try:
+        result = ttrain.run(cfg, "cpu")
+    except SystemExit as e:
+        result = e.code
+    if match is None:
+        assert len(result["losses"]) == cfg.training.total_train_steps
+        assert all(np.isfinite(result["losses"]))
+    else:
+        match(tmp_path, result)
+
+
+def _save_corpus(path, rows, block, vocab, seed=0):
+    """A pre-chunked `save_to_disk` corpus of `rows` random blocks."""
+    import datasets
+
+    ids = np.random.default_rng(seed).integers(0, vocab, (rows, block))
+    datasets.Dataset.from_dict({"input_ids": ids.tolist()}).save_to_disk(
+        path)
 
 
 def test_trainer_says_what_it_does_not_write(tmp_path, capsys):
-    """No telemetry.jsonl (the JAX trainer's default stream), said once;
-    dataset.num_workers, which only sets the JAX loader's prefetch, is
-    said to be ignored."""
+    """The JAX trainer's default stream: `telemetry.jsonl` next to the
+    checkpoints, said once at the start, with a run_start, each step's
+    phases and its step record, and a run_summary; none under
+    telemetry_jsonl: false. dataset.num_workers now runs the prefetch
+    thread and is not said to be ignored."""
     raw = _raw("float32", total_train_steps=1)
     raw["dataset"] = {"num_workers": 2}
+    raw["checkpoint"] = {"save_dir": str(tmp_path / "on")}
     ttrain.run(tcfg.config_from_dict(raw), "cpu")
     out = capsys.readouterr().out
-    assert out.count("no telemetry.jsonl is written") == 1
-    assert out.count("dataset.num_workers=2 ignored") == 1
+    path = tmp_path / "on" / "telemetry.jsonl"
+    assert out.count(f"telemetry -> {path}") == 1
+    assert "ignored" not in out
+    kinds = [e["kind"] for e in _events(path)]
+    assert kinds == ["run_start", "phase", "phase", "phase", "step",
+                     "run_summary"]
     raw["logging"] = {"telemetry_jsonl": False}
-    raw["dataset"] = {}
+    raw["checkpoint"] = {"save_dir": str(tmp_path / "off")}
     ttrain.run(tcfg.config_from_dict(raw), "cpu")
     out = capsys.readouterr().out
-    assert "telemetry.jsonl" not in out and "num_workers" not in out
+    assert "telemetry" not in out
+    assert not (tmp_path / "off" / "telemetry.jsonl").exists()
 
 
 def test_pp_configs_are_supported():
