@@ -315,7 +315,31 @@ Phases, each of which raises on failure (so the script exits non-zero):
    PyBlockPacker on PACKER_TOKENS tokens fed in ragged chunks: equal
    blocks; both throughputs (the host CPU's).
    A `telemetry` JSON line before the kernel line.
-13. Numbers, then the device line last.
+13. `logging.profile_dir`, elastic resize and the checkpoint tools.
+   (a) Phase 3's config through the trainer's entry point (in process)
+   with a torch.profiler window over steps PROFILE_WINDOW: the losses are
+   phase 3's bit for bit; `tools.trace_summary` on its trace finds steps
+   3-4 and, by `profile_step.kernel_class`, 24 x ga x 2 launches of each
+   flash kernel and one AdamW launch per tensor per step (438); the top
+   rows are printed.
+   (b) CONFIG at ELASTIC_LAYERS layers (full width), mbs 2 x ga
+   ELASTIC_GA, under a one-rank NCCL group with zero1 (phase 7a's
+   layout), as child runs of the trainer: an uninterrupted run of 4
+   steps; a run saved at step 2; `tools.elastic_resize --dp 2` then
+   `--dp 1` (state/ byte for byte as before, meta.json back at mbs 2 x
+   ga ELASTIC_GA, the step re-verified); step 2 restored without a
+   process group and with zero1 off under checkpoint.elastic, and
+   resumed under the group, each to step 4 with steps 3-4 bit for bit the
+   uninterrupted run's. (One card: the multi-rank resizes stay in the
+   CPU gloo tests, tests/test_torch_elastic.py.)
+   (c) `tools.export_hf` of that store, read back with
+   `load_hf_safetensors`: bit for bit `restore_params_only`'s params, and
+   greedy `generate` (GEN_NEW tokens from a seeded prompt) equal from both.
+   (d) `python -m picotron_tpu_torch.tools.chaos --device cuda --scenario
+   ckpt_corrupt_bitflip` at the tool's own scenario config exits 0.
+   An `elastic` JSON line with each sub-phase's seconds (the save, deep
+   verify, re-split read/write and restore seconds among them).
+14. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -589,6 +613,13 @@ CHAOS_DIR = "build/smoke_chaos"
 CHAOS_LAYERS = 4               # 12b: CONFIG's model cut to 4 layers
 WATCHDOG_S, HANG_S = 5.0, 120  # 12b: hang@3~HANG_S under this watchdog
 PACKER_TOKENS = 100_000_000    # 12c: tokens through both packers
+# phase 13: logging.profile_dir, elastic resize and the checkpoint tools
+PROFILE_DIR = "build/smoke_profile"
+PROFILE_WINDOW = (3, 2)        # 13a: the run-relative steps 3-4
+ELASTIC_DIR = "build/smoke_elastic"
+ELASTIC_LAYERS, ELASTIC_GA = 4, 4  # 13b: CONFIG at 4 layers, mbs 2 x ga 4
+ELASTIC_SEED = 14              # 13c: the prompt
+GEN_NEW = 16                   # 13c: greedy tokens from each load
 
 
 def log(msg: str) -> None:
@@ -4176,6 +4207,295 @@ def packer_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: logging.profile_dir, elastic resize and the checkpoint tools
+# ---------------------------------------------------------------------------
+
+
+def profile_phase(fa, here: str, phase3: dict) -> dict:
+    """13a: phase 3's config with logging.profile_dir over steps
+    PROFILE_WINDOW, through the trainer's entry point in process: losses
+    bit for bit phase 3's, and `tools.trace_summary` on the trace finds
+    the window's steps and each kernel's launches in it."""
+    import shutil
+
+    from picotron_tpu_torch import optimizer as topt
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.profile_step import kernel_class
+    from picotron_tpu_torch.tools import trace_summary
+
+    base = os.path.join(here, PROFILE_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    with open(os.path.join(here, CONFIG)) as f:
+        raw = json.load(f)
+    first, n = PROFILE_WINDOW
+    raw["logging"] = {"profile_dir": os.path.join(base, "trace"),
+                      "profile_start_step": first, "profile_num_steps": n}
+    raw["checkpoint"] = {"save_dir": os.path.join(base, "ckpt")}
+    path = os.path.join(base, "config.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train.main(["--config", path])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_tensors = len(list(result.pop("state").model.parameters()))
+    if result["losses"] != phase3["losses"]:
+        raise AssertionError(f"13a losses {result['losses']} are not phase "
+                             f"3's {phase3['losses']} bit for bit")
+    t1 = time.perf_counter()
+    summary = trace_summary.summarize(trace_summary.load_events(
+        trace_summary.newest_trace(os.path.join(base, "trace"))))
+    summary_s = time.perf_counter() - t1
+    by_class: dict = {}
+    for name, k in summary["kernels"].items():
+        c = by_class.setdefault(kernel_class(name), {"launches": 0, "ms": 0.0})
+        c["launches"] += k["launches"]
+        c["ms"] += k["us"] / 1e3
+    want = {"flash:fwd_kernel": 24 * GA * n, "flash:bwd_dq_kernel": 24 * GA * n,
+            "flash:bwd_dkv_kernel": 24 * GA * n, "adamw": n_tensors * n}
+    got = {c: by_class.get(c, {}).get("launches") for c in want}
+    top = sorted(summary["kernels"].items(), key=lambda kv: -kv[1]["us"])[:8]
+    for name, k in top:
+        log(f"  13a trace: {k['us'] / 1e3 / n:9.3f} ms/step "
+            f"{k['launches']:6d} launches  {name[:90]}")
+    out = {"losses": result["losses"], "steps": summary["steps"],
+           "device": summary["device"], "launches": got,
+           "class_ms_per_step": {c: v["ms"] / n for c, v in by_class.items()},
+           "step_seconds": result["step_seconds"],
+           "trace": os.path.relpath(result["profile_path"], here),
+           "trace_mb": os.path.getsize(result["profile_path"]) / 2 ** 20,
+           "top": [{"name": nm[:120], "ms_per_step": k["us"] / 1e3 / n,
+                    "launches": k["launches"]} for nm, k in top],
+           "run_s": run_s, "summary_s": summary_s}
+    log(f"phase 13a profile_dir: losses bit for bit phase 3's, trace steps "
+        f"{summary['steps']} ({summary['device']}), launches {got} (want "
+        f"{want}), {out['trace_mb']:.1f} MiB, step seconds "
+        f"{result['step_seconds']}")
+    if summary["steps"] != list(range(first, first + n)) or got != want:
+        raise AssertionError(f"13a trace: steps {summary['steps']}, launches "
+                             f"{got}, want {want}")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _state_digests(step_dir: str) -> dict:
+    import hashlib
+
+    state = os.path.join(step_dir, "state")
+    out = {}
+    for name in sorted(os.listdir(state)):
+        h = hashlib.sha256()
+        with open(os.path.join(state, name), "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 24), b""):
+                h.update(chunk)
+        out[name] = h.hexdigest()
+    return out
+
+
+def _restamp(save_dir: str, *flags: str) -> dict:
+    """`tools.elastic_resize` in process: its seconds and its re-split's
+    read and write seconds (parsed from its report)."""
+    import contextlib
+    import io
+    import re
+
+    from picotron_tpu_torch.tools import elastic_resize
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = elastic_resize.main([save_dir, *flags])
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  elastic_resize {' '.join(flags)}: {line}")
+    if rc != 0:
+        raise AssertionError(f"13b: elastic_resize {' '.join(flags)} exited "
+                             f"{rc}")
+    m = re.search(r"re-split in ([\d.]+)s read \+ ([\d.]+)s write", text)
+    return {"seconds": secs, "read_s": float(m.group(1)),
+            "write_s": float(m.group(2))}
+
+
+def elastic_phase(here: str) -> dict:
+    """13b and 13c: CONFIG at ELASTIC_LAYERS layers under a one-rank NCCL
+    group with zero1 (mbs 2, ga ELASTIC_GA): an uninterrupted run, a run
+    saved at step 2, the re-stamps --dp 2 and --dp 1 (state/ byte for byte
+    as before, meta.json back at mbs 2 x ga ELASTIC_GA), a restore of step
+    2 without a group and with zero1 off under checkpoint.elastic, and the
+    resume under the group, both to step 4 bit for bit; then export_hf of
+    the store against restore_params_only and greedy `generate` from
+    both."""
+    import shutil
+
+    from picotron_tpu_torch.checkpoint import (
+        load_hf_safetensors, restore_params_only,
+    )
+    from picotron_tpu_torch.ckpt_integrity import verify_step_dir
+    from picotron_tpu_torch.config import load_config
+    from picotron_tpu_torch.generate import generate, load_for_decode
+    from picotron_tpu_torch.tools import export_hf
+
+    base = os.path.join(here, ELASTIC_DIR)
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    with open(os.path.join(here, CONFIG)) as f:
+        raw = json.load(f)
+    raw["model"]["num_hidden_layers"] = ELASTIC_LAYERS
+    raw["training"]["gradient_accumulation_steps"] = ELASTIC_GA
+    ckpt = os.path.join(base, "ckpt")
+
+    def config(name, save_dir, zero1=True, **ck):
+        r = json.loads(json.dumps(raw))
+        r["distributed"] = {"zero1": zero1}
+        r["checkpoint"] = {"save_dir": save_dir, "async_save": False, **ck}
+        if name == "a":
+            t = r["training"]
+            t["max_tokens"] = (2 * t["seq_length"] * t["micro_batch_size"]
+                               * ELASTIC_GA)
+        path = os.path.join(base, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(r, f)
+        return path
+
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        whole = run_trainer(here, config("u", os.path.join(base, "u")),
+                            os.path.join(base, "u.report"), True)
+        ta = time.perf_counter()
+        a = run_trainer(here, config("a", ckpt, save_frequency=2),
+                        os.path.join(base, "a.report"), True)
+        out["runs_s"] = {"uninterrupted": ta - t0,
+                         "saved_at_2": time.perf_counter() - ta}
+        if a["losses"] != whole["losses"][:2]:
+            raise AssertionError(f"13b run A {a['losses']} vs uninterrupted "
+                                 f"{whole['losses']}")
+        step_dir = os.path.join(ckpt, "step_00000002")
+        before = _state_digests(step_dir)
+        t1 = time.perf_counter()
+        verify = verify_step_dir(step_dir, deep=True)
+        verify_s = time.perf_counter() - t1
+        there = _restamp(ckpt, "--dp", "2")
+        mid = sorted(os.listdir(os.path.join(step_dir, "state")))
+        back = _restamp(ckpt, "--dp", "1")
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            tr = json.load(f)["config"]["training"]
+        same = _state_digests(step_dir) == before
+        if (verify.status != "verified" or not same
+                or mid != ["opt_state.rank00000.pt", "opt_state.rank00001.pt",
+                           "params.rank00000.pt"]
+                or (tr["micro_batch_size"], tr["gradient_accumulation_steps"])
+                != (2, ELASTIC_GA)):
+            raise AssertionError(f"13b re-stamps: verify {verify.status}, "
+                                 f"dp 2 files {mid}, state back byte for "
+                                 f"byte {same}, meta mbs/ga "
+                                 f"{tr['micro_batch_size']}/"
+                                 f"{tr['gradient_accumulation_steps']}")
+        t2 = time.perf_counter()
+        c = run_trainer(here, config("c", ckpt, zero1=False, auto_resume=True,
+                                     elastic=True),
+                        os.path.join(base, "c.report"), False)
+        t3 = time.perf_counter()
+        b = run_trainer(here, config("b", ckpt, auto_resume=True),
+                        os.path.join(base, "b.report"), True)
+        t4 = time.perf_counter()
+        for label, run in (("no group, zero1 off", c), ("resume", b)):
+            if run["start_step"] != 2 or run["losses"] != whole["losses"][2:]:
+                raise AssertionError(
+                    f"13b {label}: start {run['start_step']}, losses "
+                    f"{run['losses']}, uninterrupted {whole['losses']}")
+        out.update({
+            "losses": whole["losses"], "resumed": b["losses"],
+            "no_group_zero1_off": c["losses"], "bit_for_bit": True,
+            "state_back_byte_for_byte": same,
+            "save_timings": a["save_timings"], "deep_verify_s": verify_s,
+            "restamp_dp2": there, "restamp_dp1": back,
+            "restore_no_group": c["restore_timings"],
+            "restore_resume": b["restore_timings"],
+            "checkpoint_gb": sum(
+                os.path.getsize(os.path.join(step_dir, "state", f))
+                for f in os.listdir(os.path.join(step_dir, "state"))) / 1e9})
+        out["runs_s"].update(no_group=t3 - t2, resume=t4 - t3)
+        log(f"phase 13b elastic: re-stamps dp 1 -> 2 ({there['seconds']:.2f}"
+            f" s) -> 1 ({back['seconds']:.2f} s), state/ byte for byte, "
+            f"resumed {b['losses']} and without a group, zero1 off "
+            f"{c['losses']} = uninterrupted {whole['losses'][2:]}; save "
+            f"{a['save_timings']}, deep verify {verify_s:.2f} s, restores "
+            f"{c['restore_timings']} / {b['restore_timings']}")
+
+        # 13c: export_hf of the store (step 2) against restore_params_only
+        t5 = time.perf_counter()
+        cfg_path = os.path.join(base, "b.json")
+        hf = os.path.join(base, "hf")
+        if export_hf.main(["--config", cfg_path, "--ckpt-dir", ckpt,
+                           "--out", hf]) != 0:
+            raise AssertionError("13c: export_hf failed")
+        export_s = time.perf_counter() - t5
+        cfg = load_config(cfg_path)
+        params, step = restore_params_only(cfg, ckpt)
+        loaded = load_hf_safetensors(hf, cfg.model)
+        if step != 2 or sorted(loaded) != sorted(params) or not all(
+                torch.equal(loaded[n], params[n]) for n in params):
+            raise AssertionError(f"13c: the exported step {step} differs from "
+                                 f"restore_params_only")
+        gen = torch.Generator().manual_seed(ELASTIC_SEED)
+        prompt = torch.randint(0, cfg.model.vocab_size, (2, 32),
+                               generator=gen).cuda()
+        tokens = []
+        for sd in (params, loaded):
+            model = load_for_decode({n: t.to(torch.bfloat16)
+                                     for n, t in sd.items()}, cfg.model,
+                                    "cuda")
+            tokens.append(generate(model, prompt, GEN_NEW).cpu())
+            del model
+        torch.cuda.empty_cache()
+        if not torch.equal(tokens[0], tokens[1]):
+            raise AssertionError("13c: greedy tokens differ between the "
+                                 "export and restore_params_only")
+        out["export"] = {"seconds": export_s, "step": step,
+                         "hf_gb": os.path.getsize(os.path.join(
+                             hf, "model.safetensors")) / 1e9,
+                         "tokens": tokens[0][:, 32:].tolist()}
+        log(f"phase 13c export_hf: step {step}, {out['export']['hf_gb']:.2f} "
+            f"GB in {export_s:.2f} s, params bit for bit "
+            f"restore_params_only's, greedy tokens equal")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def chaos_tool_phase(here: str) -> dict:
+    """13d: `python -m picotron_tpu_torch.tools.chaos --device cuda
+    --scenario ckpt_corrupt_bitflip` at its own scenario config."""
+    import shutil
+
+    work = os.path.join(here, ELASTIC_DIR + "_chaos")
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = [sys.executable, "-m", "picotron_tpu_torch.tools.chaos",
+           "--device", "cuda", "--scenario", "ckpt_corrupt_bitflip",
+           "--workdir", work]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                          timeout=3 * TRAIN_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[chaos-cli]")]
+    for ln in lines:
+        log(f"  13d {ln}")
+    shutil.rmtree(work, ignore_errors=True)
+    if proc.returncode != 0 or not any(
+            "ckpt_corrupt_bitflip: OK" in ln for ln in lines):
+        raise AssertionError(f"13d chaos exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    log(f"phase 13d chaos ckpt_corrupt_bitflip (cuda): ok in {secs:.1f} s")
+    return {"seconds": secs, "lines": lines}
+
+
 def compare_main_paths(trees: list) -> int:
     """`--main-path TREE...`: phase 3 of each tree's own chip_smoke.py
     (e.g. an unpacked parent commit and this checkout, in turns), one
@@ -4394,6 +4714,18 @@ def main() -> int:
     log(f"phase 12 telemetry, chaos and the packer: ok in "
         f"{telemetry['seconds']:.1f} s")
 
+    # phase 13: profile_dir, elastic resize and the checkpoint tools
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    elastic = {"card": card, "profile": profile_phase(fa, here, result)}
+    torch.cuda.empty_cache()
+    elastic.update(elastic_phase(here))
+    torch.cuda.empty_cache()
+    elastic["chaos"] = chaos_tool_phase(here)
+    elastic["seconds"] = time.perf_counter() - t13
+    log(f"phase 13 profile_dir, elastic resize and the tools: ok in "
+        f"{elastic['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -4458,6 +4790,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"elastic": elastic}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,12 @@ file write, manifest hash and retention GC then run on a thread that
 
 Restore reads with `torch.load(weights_only=True, mmap=True)` and copies
 into the live tensors, so it costs no second device copy. A checkpoint
-saved under another topology or model shape is refused, naming both.
+of another model shape is refused, naming both. A topology change goes
+through `resilience/elastic.check_restore_topology`, as in the JAX
+package: tp/cp/ep refused, dp/pp refused naming the `elastic_resize`
+re-stamp unless `checkpoint.elastic` is on, and then only at a constant
+global batch; an uneven pp split whose layer slots differ is refused
+(`elastic.check_pp_slots`).
 
 Under a parallel layout (`par`, the rank's `mesh.ParallelEnv`) each rank
 writes its own shards and no rank gathers the model: the ranks at dp 0
@@ -49,9 +54,13 @@ ranks agree on the checkpoint's gloo group that every write landed, rank
 0 renames it to `state/` and writes the manifest, which covers every
 rank's files, and the ranks agree again before `wait_until_finished`
 returns. The topology records the layout's sizes (ep included), zero1 and the
-process count;
-resume is into the same layout (another is refused, naming both, as the
-JAX package does with elastic off), each rank reading its own files.
+process count.
+A rank of the same layout reads its own files; when the files lie
+otherwise (another dp or pp under `checkpoint.elastic`, ZeRO-1 toggled,
+or saved with a process group and restored without one, or the other
+way round) each rank regathers its (ep, tp) coordinate's tensors whole
+from the saved files and keeps its own stage's tensors and ZeRO-1 rows
+(`elastic.read_whole`), the re-split that replaces Orbax's reshard.
 Rank 0 picks the step to restore and the others take its answer.
 
 HF safetensors (Llama/Qwen2 families, and Mixtral's MoE names:
@@ -86,13 +95,13 @@ from picotron_tpu_torch.ckpt_integrity import (
     fsync_dir, retention_plan, verify_step_dir, write_manifest,
 )
 from picotron_tpu_torch.config import Config, ModelConfig
-from picotron_tpu_torch.resilience import chaos
+from picotron_tpu_torch.resilience import chaos, elastic
 from picotron_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from picotron_tpu_torch.telemetry import bus as telemetry_bus
 from picotron_tpu_torch.train_step import TrainState
 
-PARAMS_FILE = "params.pt"
-OPT_FILE = "opt_state.pt"
+PARAMS_FILE = elastic.PARAMS_FILE
+OPT_FILE = elastic.OPT_FILE
 
 
 def topology(cfg: Config, par=None) -> dict:
@@ -108,8 +117,7 @@ def topology(cfg: Config, par=None) -> dict:
     return topo
 
 
-def _rank_file(kind: str, rank: int) -> str:
-    return f"{kind}.rank{rank:05d}.pt"
+_rank_file = elastic.rank_file
 
 
 def _agree(ok: bool, par) -> bool:
@@ -497,31 +505,36 @@ class CheckpointManager:
 
         meta = retry_call(_read_json, "meta.json", policy=self._retry,
                           describe=f"checkpoint meta read (step {step})")
-        saved_topo = None
-        if os.path.exists(os.path.join(path, MANIFEST_NAME)):
-            saved_topo = _read_json(MANIFEST_NAME).get("topology")
-        here = topology(self.cfg, self.par)
-        if saved_topo is not None and any(
-                saved_topo.get(k) != v for k, v in here.items()):
-            raise ValueError(
-                f"checkpoint step {step} under {self.directory} was saved "
-                f"under topology {saved_topo}; this run is {here}. The "
-                f"port restores only into the layout it saved")
+        resize = elastic.check_restore_topology(
+            path, meta, self.cfg, step=step, save_dir=self.directory)
+        if resize is not None:
+            # for the caller (train.build_state books and emits it);
+            # never written back to disk
+            meta["elastic_resize"] = resize
+        elastic.check_pp_slots(meta, self.cfg)
         state_dir = os.path.join(path, "state")
-        params_file, opt_file = PARAMS_FILE, OPT_FILE
-        if self.par is not None:
-            # the tp (and ep) shards of this rank's dp 0, cp 0 peer; the
-            # optimizer state is this rank's own under ZeRO-1
-            src = self.par.rank_at(dp=0, cp=0)
-            params_file = _rank_file("params", src)
-            opt_file = _rank_file("opt_state", self.par.rank
-                                  if self.cfg.distributed.zero1 else src)
-        params = retry_call(_load_file, os.path.join(state_dir, params_file),
-                            policy=self._retry,
-                            describe=f"checkpoint restore (step {step})")
-        opt_state = retry_call(_load_file, os.path.join(state_dir, opt_file),
-                               policy=self._retry,
-                               describe=f"checkpoint restore (step {step})")
+        src = elastic.step_layout(state_dir, elastic.saved_topology(path),
+                                  meta)
+        dst = elastic.FileLayout.of_config(self.cfg, self.par is not None)
+
+        def load(p):
+            return retry_call(_load_file, p, policy=self._retry,
+                              describe=f"checkpoint restore (step {step})")
+
+        if src == dst:
+            params_file, opt_file = PARAMS_FILE, OPT_FILE
+            if self.par is not None:
+                # the tp (and ep) shards of this rank's dp 0, cp 0 peer;
+                # the optimizer state is this rank's own under ZeRO-1
+                src_rank = self.par.rank_at(dp=0, cp=0)
+                params_file = _rank_file("params", src_rank)
+                opt_file = _rank_file("opt_state", self.par.rank
+                                      if self.cfg.distributed.zero1
+                                      else src_rank)
+            params = load(os.path.join(state_dir, params_file))
+            opt_state = load(os.path.join(state_dir, opt_file))
+        else:
+            params, opt_state = self._share_of(state, state_dir, src, load)
         model, opt = state.model, state.optimizer
         named = list(model.named_parameters())
         live = opt.state_tensors()
@@ -549,6 +562,23 @@ class CheckpointManager:
         self.timings["load_s"] = time.perf_counter() - t0
         return state, meta
 
+    def _share_of(self, state: TrainState, state_dir: str,
+                  src: "elastic.FileLayout", load) -> tuple[dict, dict]:
+        """This rank's params and optimizer state out of files written in
+        another layout: its (ep, tp) coordinate regathered whole, then its
+        stage's tensors and its ZeRO-1 rows (`opt.rows`)."""
+        par, opt = self.par, state.optimizer
+        coord = (0, 0) if par is None else (par.ep_rank, par.tp_rank)
+        whole = elastic.read_whole(state_dir, src, [coord], load)[coord]
+        names = [n for n, _ in state.model.named_parameters()]
+        params = {n: whole["params"][n] for n in names
+                  if n in whole["params"]}
+        opt_state = {kind: {n: opt.rows(i, tensors[n])
+                            for i, n in enumerate(names) if n in tensors}
+                     for kind, tensors in whole["opt"].items()}
+        opt_state.update(count=whole["count"], step=whole["step"])
+        return params, opt_state
+
 
 def _check_shapes(saved: dict, live: dict, what: str, step: int) -> None:
     """Raise ValueError naming both sides when the saved tensors' names,
@@ -572,34 +602,51 @@ def restore_params_only(cfg: Config, ckpt_dir: str,
                         dtype: Optional[torch.dtype] = None
                         ) -> tuple[dict, int]:
     """Only the params of a training checkpoint ({name: CPU tensor}, the
-    port's state_dict; cast to `dtype` when given) and the step: the
-    generation/export path. Reads `state/params.pt` alone, never the
-    moments; under optimizer_offload, whose params.pt is the bf16 compute
-    copy, the fp32 master of `state/opt_state.pt` instead (memory-mapped:
-    the moments are not read), as the JAX package's restore_params_only.
-    With no step: the newest durable AND verified one."""
+    whole model's state_dict; cast to `dtype` when given) and the step:
+    the generation/export path. Reads the params files alone, never the
+    moments; under optimizer_offload, whose params files hold the bf16
+    compute copy, the fp32 master of the optimizer files instead
+    (memory-mapped: the moments are not read), as the JAX package's
+    restore_params_only. A parallel layout's per-rank files are read
+    whole: the union of the pp stages, the tp shards concatenated along
+    their split dims, the ep shards of the MoE banks along the expert
+    dim. With no step: the newest durable AND verified one."""
+    from picotron_tpu_torch.parallel.sharding import (
+        ep_shard_dim, tp_shard_dim,
+    )
+
     mgr = CheckpointManager(cfg, directory=ckpt_dir)
     if step is None:
         step = mgr.latest_valid_step()
         if step is None:
             raise FileNotFoundError(f"no valid checkpoints under {ckpt_dir}")
-    state_dir = os.path.join(mgr._step_dir(step), "state")
-    if any(f.startswith("params.rank") for f in os.listdir(state_dir)):
-        raise NotImplementedError(
-            f"checkpoint step {step} under {ckpt_dir} holds a parallel "
-            f"layout's per-rank shards; reading them whole is elastic "
-            f"restore (ROADMAP Queue 1 item 12)")
+    path = mgr._step_dir(step)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    state_dir = os.path.join(path, "state")
+    layout = elastic.step_layout(state_dir, elastic.saved_topology(path),
+                                 meta)
+    whole = elastic.read_whole(state_dir, layout)
     if cfg.training.optimizer_offload:
-        opt_state = _load_file(os.path.join(state_dir, OPT_FILE))
-        if "master" not in opt_state:
+        if "master" not in whole[(0, 0)]["opt"]:
             raise ValueError(
                 f"checkpoint step {step} under {ckpt_dir} was saved with "
                 f"training.optimizer_offload off; this config has it on")
-        params = opt_state["master"]
+        parts = {c: w["opt"]["master"] for c, w in whole.items()}
     else:
-        params = _load_file(os.path.join(state_dir, PARAMS_FILE))
-    if dtype is not None:
-        params = {n: t.to(dtype) for n, t in params.items()}
+        parts = {c: w["params"] for c, w in whole.items()}
+    size = layout.size
+    params = {}
+    for n in elastic.order_names(parts[(0, 0)]):
+        tpd, epd = tp_shard_dim(n), ep_shard_dim(n)
+        banks = []
+        for e in range(size["ep"] if epd is not None else 1):
+            shards = [parts[(e, t)][n] for t in range(
+                size["tp"] if tpd is not None else 1)]
+            banks.append(shards[0] if len(shards) == 1
+                         else torch.cat(shards, dim=tpd))
+        t = banks[0] if len(banks) == 1 else torch.cat(banks, dim=epd)
+        params[n] = t.to(dtype) if dtype is not None else t.clone()
     return params, step
 
 

@@ -807,14 +807,14 @@ class CheckpointConfig:
     # newest step keeps the restore fallback alive.
     keep_last: int = 0
     keep_every: int = 0
-    # Elastic resume (picotron_tpu/resilience/elastic.py): allow restore
-    # into a mesh whose topology differs from the one the checkpoint was
-    # saved under (e.g. dp=2 -> dp=4 after a fleet resize). Orbax reshards
-    # the global arrays onto the new mesh; the restore validates that
+    # Elastic resume (resilience/elastic.py): allow restore into a layout
+    # whose dp or pp differs from the one the checkpoint was saved under
+    # (e.g. dp=2 -> dp=4 after a fleet resize). Each rank re-splits its
+    # share out of the saved per-rank files; the restore validates that
     # global_batch_size is unchanged (the token-exact cursor / loss-parity
     # invariant) and books the restore under the `resize` goodput
     # category. False = a topology mismatch at restore time is a hard
-    # error naming the tools/elastic_resize.py re-stamp that would fix it.
+    # error naming the tools.elastic_resize re-stamp that would fix it.
     elastic: bool = False
 
 
@@ -1036,10 +1036,11 @@ class LoggingConfig:
     project_name: str = "picotron-tpu"
     run_name: Optional[str] = None
     log_frequency: int = 1
-    # jax.profiler trace capture (SURVEY.md §5: the reference has no
-    # profiler story; on TPU xprof traces are how compute/collective
-    # overlap is verified). None disables; a directory enables capture of
-    # steps [profile_start_step, profile_start_step + profile_num_steps).
+    # torch.profiler trace capture (telemetry/profiler.py; the JAX
+    # package's jax.profiler window): CPU and CUDA activity, a Chrome
+    # trace per rank that tools.trace_summary reads. None disables; a
+    # directory enables capture of the run-relative steps
+    # [profile_start_step, profile_start_step + profile_num_steps).
     profile_dir: Optional[str] = None
     profile_start_step: int = 3
     profile_num_steps: int = 3

@@ -11,12 +11,14 @@
   recorder's postmortem and exits `EXIT_WATCHDOG` (77);
 - **testability**: `chaos` injects each of these failures
   deterministically by step (`PICOTRON_CHAOS` / `resilience.chaos`), so
-  every recovery path above runs on the CPU in the tests.
-
-Elastic resize is not ported yet (ROADMAP Queue 1 item 12).
+  every recovery path above runs on the CPU in the tests;
+- **elastic resize**: `elastic` restores a checkpoint into another dp or
+  pp layout at a constant global batch (`checkpoint.elastic`, or the
+  offline `tools.elastic_resize` re-stamp), re-splitting the per-rank
+  files where the JAX package lets Orbax reshard.
 """
 
-from picotron_tpu_torch.resilience import chaos
+from picotron_tpu_torch.resilience import chaos, elastic
 from picotron_tpu_torch.resilience.guards import (
     EXIT_DIVERGED, DivergenceGuard, GuardAction,
 )
@@ -31,5 +33,5 @@ from picotron_tpu_torch.resilience.watchdog import EXIT_WATCHDOG, Watchdog
 __all__ = [
     "EXIT_DIVERGED", "EXIT_PREEMPTED", "EXIT_WATCHDOG", "DivergenceGuard",
     "GuardAction", "PreemptionHandler", "RetryPolicy", "Watchdog",
-    "backoff_delays", "chaos", "retry_call",
+    "backoff_delays", "chaos", "elastic", "retry_call",
 ]

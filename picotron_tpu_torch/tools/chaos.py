@@ -1,0 +1,716 @@
+"""Does the port's trainer survive the failure you fear? Scenario runs
+(the port's copy of tools/chaos.py).
+
+Each named scenario runs a short training job under a chaos spec
+(`resilience/chaos.py`) as child processes of `python -m
+picotron_tpu_torch.train`, plays the external supervisor (restarts on
+the resilience exit codes with the fault disabled, `PICOTRON_CHAOS=""`,
+as a resubmission does not re-live a preemption), and verifies recovery:
+exit 0 within the restart budget, the mechanism's marker in the log, and
+the final checkpoint's step and trained_tokens equal to a fault-free
+baseline run of the same config; the resize scenarios also hold the
+per-step loss trajectory to the baseline at the JAX tool's rtol 1e-3,
+atol 1e-4 and require the `resize` goodput booking.
+
+Scenarios (`--list`):
+
+  sigterm, ckpt_io, nan_skip, nan_rollback, data_stall,
+  ckpt_corrupt_bitflip (ckpt_doctor must flag exactly the injected step),
+  dp_resize   dp 2 killed, re-stamped to dp 1 offline
+              (`tools.elastic_resize`), killed again, finished at dp 4
+              via checkpoint.elastic
+  pp_resize   pp 2 mpmd killed, re-stamped to pp 1, killed again,
+              finished at pp 2 mpmd via checkpoint.elastic (the JAX
+              tool's compile-once prover has no counterpart: the port
+              compiles nothing per stage)
+  mpmd_sigterm  SIGTERM at a named (stage, tick, op) of a pp 2 mpmd walk
+              drains to the step boundary (exit 75, no replayed step); a
+              forced mid-schedule hang is named by the watchdog (77)
+
+Refused, each naming the ROADMAP Queue 1 item that ports it:
+`slice_lost` (item 9: the port runs one slice) and `serve_engine_dead`,
+`serve_overload` (item 11: the fleet and its bench entry point).
+
+The scenario layout is the JAX tool's dp 2 x tp 2 on four ranks: four
+gloo processes with `--device cpu`; with `--device cuda` (the default)
+four NCCL ranks when the machine has four cards, else one rank (dp 1,
+tp 1, mbs 2 x ga 2: the same global batch), one attention head of 64
+(the flash kernels take head_dim 64 or 128). The ranks are launched as
+processes with torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR/PORT on localhost), so each rank's own exit code reaches the
+supervisor. The dp/pp resize and mpmd scenarios need 2 to 8 ranks and
+run on the CPU (or on a machine with that many cards).
+
+    python -m picotron_tpu_torch.tools.chaos --list
+    python -m picotron_tpu_torch.tools.chaos --scenario nan_skip \
+        --device cpu
+    python -m picotron_tpu_torch.tools.chaos --all --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+from picotron_tpu_torch.resilience.preemption import EXIT_PREEMPTED
+from picotron_tpu_torch.resilience.watchdog import EXIT_WATCHDOG
+
+STEPS = 6  # total_train_steps of every scenario (the fault lands mid-run)
+LOSS_TOL = dict(rtol=1e-3, atol=1e-4)  # the JAX tool's loss parity
+RUN_TIMEOUT_S = 600
+
+REFUSED = {
+    "slice_lost": "whole-slice loss needs slices > 1, which the port "
+                  "refuses (ROADMAP Queue 1 item 9)",
+    "serve_engine_dead": "the serving fleet (serve/fleet.py) and its "
+                         "bench entry point are not ported (ROADMAP Queue 1 "
+                         "item 11)",
+    "serve_overload": "the serving fleet's deadline shedding is not "
+                      "ported (ROADMAP Queue 1 item 11)",
+}
+
+
+@dataclass
+class Scenario:
+    chaos: str                      # resilience.chaos spec of the first run
+    marker: str                     # log regex proving the mechanism engaged
+    note: str
+    expect_exits: tuple = ()        # nonzero exits the supervisor restarts on
+    max_restarts: int = 0
+    overrides: dict = field(default_factory=dict)
+    # over save_dir right after the FIRST exit (before a restart repairs
+    # anything): an error string or None
+    check_after_fault: Optional[Callable] = None
+
+
+def _postmortem_matches(save_dir: str, reason: str, fault_step: int):
+    """The flight recorder's postmortem next to the checkpoints must name
+    the injected fault's reason and step."""
+    path = os.path.join(save_dir, "flightdeck_postmortem.json")
+    if not os.path.exists(path):
+        return f"no flightdeck_postmortem.json under {save_dir}"
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        return f"unreadable postmortem {path}: {e}"
+    if doc.get("reason") != reason:
+        return (f"postmortem reason {doc.get('reason')!r} != expected "
+                f"{reason!r}")
+    if doc.get("step") != fault_step:
+        return (f"postmortem last recorded step {doc.get('step')!r} != "
+                f"fault step {fault_step}")
+    if not doc.get("steps"):
+        return "postmortem carries an empty last-K-steps window"
+    return None
+
+
+def _doctor_flags_exactly(save_dir: str, corrupt_step: int):
+    """`tools.ckpt_doctor` over the faulted store flags exactly the
+    injected step and passes another."""
+    from picotron_tpu_torch.tools import ckpt_doctor
+
+    rows = ckpt_doctor.scan(save_dir)
+    bad = [r["step"] for r in rows if r["verdict"] == "corrupt"]
+    good = [r["step"] for r in rows
+            if r["verdict"] in ("verified", "legacy")]
+    if bad != [corrupt_step]:
+        return (f"ckpt_doctor flagged corrupt steps {bad}, expected "
+                f"exactly [{corrupt_step}] (rows: {rows})")
+    if not good:
+        return "ckpt_doctor found no restorable step besides the corrupt one"
+    return None
+
+
+SCENARIOS: dict[str, Scenario] = {
+    "sigterm": Scenario(
+        chaos=f"sigterm@{STEPS // 2}",
+        expect_exits=(EXIT_PREEMPTED,), max_restarts=2,
+        marker=r"emergency checkpoint ->",
+        note="preemption mid-run: finish step, emergency ckpt, exit "
+             f"{EXIT_PREEMPTED}, auto_resume",
+        check_after_fault=lambda d: _postmortem_matches(
+            d, reason="preempted", fault_step=STEPS // 2)),
+    "ckpt_io": Scenario(
+        chaos="ckpt_io@2x2",
+        marker=r"\[retry\] checkpoint save",
+        note="transient checkpoint-write I/O errors absorbed by "
+             "retry-with-backoff"),
+    "nan_skip": Scenario(
+        chaos=f"nan_grad@{STEPS // 2}",
+        overrides={"resilience": {"guard_policy": "skip"}},
+        marker=r"batch skipped",
+        note="NaN gradients dropped in-step (optimizer state preserved), "
+             "run continues"),
+    "nan_rollback": Scenario(
+        chaos=f"nan_grad@{STEPS - 2}",
+        overrides={"resilience": {"guard_policy": "rollback"}},
+        marker=r"rolled back to step",
+        note="NaN gradients: restore last durable ckpt, skip the poison "
+             "data range, re-train",
+        check_after_fault=lambda d: _postmortem_matches(
+            d, reason="rollback", fault_step=STEPS - 2)),
+    "data_stall": Scenario(
+        chaos=f"data_stall@{STEPS // 2}~120",
+        expect_exits=(EXIT_WATCHDOG,), max_restarts=2,
+        overrides={"dataset": {"num_workers": 2},
+                   "resilience": {"watchdog_timeout": 5.0}},
+        marker=r"\[watchdog\] no progress",
+        note="stalled data producer: watchdog stack-dump + exit "
+             f"{EXIT_WATCHDOG}, supervisor restart, auto_resume",
+        check_after_fault=lambda d: _postmortem_matches(
+            d, reason="watchdog", fault_step=STEPS // 2)),
+    "ckpt_corrupt_bitflip": Scenario(
+        # the step-4 save commits, a byte of its largest payload flips on
+        # disk, SIGKILL at step 5: the restart must verify, fall back to
+        # the step-2 save and re-train to the baseline's final step
+        chaos=f"ckpt_corrupt_bitflip@{STEPS - 2},kill@{STEPS - 1}",
+        expect_exits=(-signal.SIGKILL,), max_restarts=2,
+        overrides={"checkpoint": {"async_save": False}},
+        marker=r"failed verification",
+        note="newest committed checkpoint bit-flipped, then SIGKILL: "
+             "restart verifies, falls back to the prior verified step, "
+             "re-trains to the baseline's final step",
+        check_after_fault=lambda d: _doctor_flags_exactly(
+            d, corrupt_step=STEPS - 2)),
+}
+
+
+# ---------------------------------------------------------------------------
+# the layout, the config and the trainer's child processes
+# ---------------------------------------------------------------------------
+
+
+def scenario_world(device: str) -> int:
+    """Ranks of the scenario layout: 4 (dp 2 x tp 2) on the CPU or on a
+    machine with four cards, else 1."""
+    if device == "cpu":
+        return 4
+    import torch
+
+    return 4 if torch.cuda.device_count() >= 4 else 1
+
+
+def scenario_config(workdir: str, chaos_spec: str, overrides: dict,
+                    device: str = "cpu") -> dict:
+    world = scenario_world(device)
+    dist = ({"dp_size": 2, "tp_size": 2} if world == 4
+            else {"dp_size": 1, "tp_size": 1})
+    model = {"name": "debug-tiny", "dtype": "float32"}
+    if device != "cpu":
+        # the flash kernels take head_dim 64 or 128
+        model.update(num_attention_heads=1, num_key_value_heads=1)
+    cfg = {
+        "distributed": {**dist, "use_cpu": device == "cpu"},
+        "model": model,
+        "training": {"total_train_steps": STEPS, "seq_length": 32,
+                     "micro_batch_size": 2,
+                     "gradient_accumulation_steps": 1 if world == 4 else 2,
+                     "remat": False, "seed": 5},
+        "dataset": {"name": "synthetic", "num_workers": 0},
+        "checkpoint": {"save_dir": os.path.join(workdir, "ckpt"),
+                       "save_frequency": 2, "auto_resume": True},
+        "logging": {"log_frequency": 1},
+        "resilience": {"chaos": chaos_spec,
+                       "retry_base_delay": 0.05, "retry_max_delay": 0.2},
+    }
+    for section, vals in overrides.items():
+        cfg.setdefault(section, {}).update(vals)
+    return cfg
+
+
+def world_of(cfg: dict) -> int:
+    d = cfg["distributed"]
+    n = 1
+    for ax in ("dp", "pp", "ep", "cp", "tp"):
+        n *= int(d.get(f"{ax}_size", 1))
+    return n
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_trainer(cfg_path: str, log_path: str, extra_env: dict,
+                 device: str = "cpu") -> int:
+    """The trainer on `cfg_path` as one process per rank (torchrun's
+    environment when the layout has more than one), their output appended
+    to `log_path`; the exit code: 0 when every rank exits 0, else the
+    first rank's nonzero code (a SIGKILL is -9)."""
+    with open(cfg_path) as f:
+        world = world_of(json.load(f))
+    env = dict(os.environ)
+    env.update(extra_env)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    if device == "cpu" and world > 1:
+        # one intra-op thread per rank: the ranks share the host's cores
+        env.setdefault("OMP_NUM_THREADS", "1")
+    cmd = [sys.executable, "-m", "picotron_tpu_torch.train", "--config",
+           cfg_path, "--device", device]
+    port = _free_port()
+    procs = []
+    with open(log_path, "ab") as log:
+        for rank in range(world):
+            renv = dict(env)
+            if world > 1:
+                renv.update(RANK=str(rank), WORLD_SIZE=str(world),
+                            LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                            MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, env=renv,
+                start_new_session=True))
+        codes = []
+        try:
+            for p in procs:
+                codes.append(p.wait(timeout=RUN_TIMEOUT_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+    bad = [c for c in codes if c != 0]
+    return bad[0] if bad else 0
+
+
+def _final_meta(save_dir: str) -> dict:
+    """meta.json of the newest step dir with a committed state/."""
+    steps = sorted(
+        int(m.group(1)) for d in os.listdir(save_dir)
+        if (m := re.fullmatch(r"step_(\d+)", d))
+        and os.path.isdir(os.path.join(save_dir, d, "state")))
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {save_dir}")
+    with open(os.path.join(save_dir, f"step_{steps[-1]:08d}",
+                           "meta.json")) as f:
+        return json.load(f)
+
+
+def _step_losses(jsonl_path: str) -> dict:
+    losses = {}
+    with open(jsonl_path) as f:
+        for line in f:
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError:
+                continue  # torn final line of a killed leg
+            if ev.get("kind") == "step" and "loss" in ev:
+                losses[ev["step"]] = ev["loss"]  # last wins (replay)
+    return losses
+
+
+def _write(cfg: dict, path: str) -> str:
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_scenario(name: str, workdir: str, verbose: bool = False,
+                 device: str = "cpu") -> bool:
+    sc = SCENARIOS[name]
+    fail = lambda msg: (print(f"[chaos-cli] {name}: FAIL — {msg}"),  # noqa: E731
+                        False)[1]
+
+    base_dir = os.path.join(workdir, "baseline")
+    os.makedirs(base_dir, exist_ok=True)
+    base_cfg = scenario_config(base_dir, "", sc.overrides, device)
+    rc = _run_trainer(_write(base_cfg, os.path.join(base_dir, "config.json")),
+                      os.path.join(base_dir, "run.log"), {}, device)
+    if rc != 0:
+        return fail(f"baseline run exited {rc}")
+    base_meta = _final_meta(base_cfg["checkpoint"]["save_dir"])
+
+    fault_dir = os.path.join(workdir, "fault")
+    os.makedirs(fault_dir, exist_ok=True)
+    cfg = scenario_config(fault_dir, sc.chaos, sc.overrides, device)
+    cfg_path = _write(cfg, os.path.join(fault_dir, "config.json"))
+    log_path = os.path.join(fault_dir, "run.log")
+    exits = []
+    for attempt in range(sc.max_restarts + 1):
+        extra = {} if attempt == 0 else {"PICOTRON_CHAOS": ""}
+        rc = _run_trainer(cfg_path, log_path, extra, device)
+        exits.append(rc)
+        if attempt == 0 and sc.check_after_fault is not None:
+            err = sc.check_after_fault(cfg["checkpoint"]["save_dir"])
+            if err:
+                return fail(err)
+        if rc == 0:
+            break
+        if rc not in sc.expect_exits:
+            return fail(f"unexpected exit {rc} (allowed: 0 or "
+                        f"{sc.expect_exits}); exits so far {exits}")
+    if exits[-1] != 0:
+        return fail(f"did not recover within {sc.max_restarts} restarts "
+                    f"(exits {exits})")
+    with open(log_path) as f:
+        log_text = f.read()
+    if verbose:
+        print(log_text)
+    if not re.search(sc.marker, log_text):
+        return fail(f"recovery marker /{sc.marker}/ absent from {log_path}")
+    meta = _final_meta(cfg["checkpoint"]["save_dir"])
+    for key in ("step", "trained_tokens"):
+        if meta[key] != base_meta[key]:
+            return fail(f"final {key} {meta[key]} != fault-free baseline "
+                        f"{base_meta[key]}")
+    print(f"[chaos-cli] {name}: OK — exits {exits}, final step "
+          f"{meta['step']} / {meta['trained_tokens']} tokens match "
+          f"baseline")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# the elastic and mpmd scenarios
+# ---------------------------------------------------------------------------
+
+
+def _restamp(ckpt_dir: str, log_path: str, *flags: str) -> int:
+    from picotron_tpu_torch.tools import elastic_resize
+
+    with open(log_path, "a") as log:
+        old = sys.stdout, sys.stderr
+        sys.stdout = sys.stderr = log
+        try:
+            return elastic_resize.main([ckpt_dir, *flags])
+        finally:
+            sys.stdout, sys.stderr = old
+
+
+def _resize_saga(name: str, workdir: str, legs: list, restamp: tuple,
+                 verbose: bool, device: str) -> bool:
+    """baseline (legs[0]'s layout, fault-free) -> leg 1 killed at step
+    STEPS // 2 -> the offline re-stamp -> leg 2 killed at step STEPS - 1
+    -> leg 3 under checkpoint.elastic to the end; the final step, tokens
+    and per-step losses held to the baseline, the resize booked."""
+    import numpy as np
+
+    from picotron_tpu_torch.tools import telemetry_report
+
+    fail = lambda msg: (print(f"[chaos-cli] {name}: FAIL — {msg}"),  # noqa: E731
+                        False)[1]
+
+    def leg(ckpt_dir, sections, chaos_spec="", elastic=False):
+        cfg = scenario_config(os.path.dirname(ckpt_dir), chaos_spec,
+                              {"checkpoint": {"async_save": False}}, device)
+        for section, vals in sections.items():
+            cfg.setdefault(section, {}).update(vals)
+        cfg["checkpoint"]["save_dir"] = ckpt_dir
+        if elastic:
+            cfg["checkpoint"]["elastic"] = True
+        return cfg
+
+    base_dir = os.path.join(workdir, "baseline")
+    os.makedirs(base_dir, exist_ok=True)
+    base_ckpt = os.path.join(base_dir, "ckpt")
+    rc = _run_trainer(_write(leg(base_ckpt, legs[0]),
+                             os.path.join(base_dir, "config.json")),
+                      os.path.join(base_dir, "run.log"), {}, device)
+    if rc != 0:
+        return fail(f"baseline run exited {rc}")
+    base_meta = _final_meta(base_ckpt)
+
+    fault_dir = os.path.join(workdir, "fault")
+    os.makedirs(fault_dir, exist_ok=True)
+    ckpt_dir = os.path.join(fault_dir, "ckpt")
+    log_path = os.path.join(fault_dir, "run.log")
+    rc = _run_trainer(_write(leg(ckpt_dir, legs[0], f"kill@{STEPS // 2}"),
+                             os.path.join(fault_dir, "config_leg1.json")),
+                      log_path, {}, device)
+    if rc != -signal.SIGKILL:
+        return fail(f"leg 1 exited {rc}, expected {-signal.SIGKILL}")
+    resize_log = os.path.join(fault_dir, "resize.log")
+    rc = _restamp(ckpt_dir, resize_log, *restamp)
+    if rc != 0:
+        return fail(f"elastic_resize {' '.join(restamp)} exited {rc} (see "
+                    f"{resize_log})")
+    rc = _run_trainer(_write(leg(ckpt_dir, legs[1], f"kill@{STEPS - 1}"),
+                             os.path.join(fault_dir, "config_leg2.json")),
+                      log_path, {}, device)
+    if rc != -signal.SIGKILL:
+        return fail(f"leg 2 exited {rc}, expected {-signal.SIGKILL}")
+    rc = _run_trainer(_write(leg(ckpt_dir, legs[2], elastic=True),
+                             os.path.join(fault_dir, "config_leg3.json")),
+                      log_path, {}, device)
+    if rc != 0:
+        return fail(f"leg 3 (checkpoint.elastic) exited {rc}, expected 0")
+    with open(log_path) as f:
+        log_text = f.read()
+    if verbose:
+        print(log_text)
+    if not re.search(r"elastic resize:", log_text):
+        return fail("marker /elastic resize:/ absent from the leg-3 log")
+    meta = _final_meta(ckpt_dir)
+    for key in ("step", "trained_tokens"):
+        if meta[key] != base_meta[key]:
+            return fail(f"final {key} {meta[key]} != fault-free baseline "
+                        f"{base_meta[key]}")
+    base_losses = _step_losses(os.path.join(base_ckpt, "telemetry.jsonl"))
+    fault_losses = _step_losses(os.path.join(ckpt_dir, "telemetry.jsonl"))
+    if set(fault_losses) != set(base_losses):
+        return fail(f"step sets differ: fault {sorted(fault_losses)} vs "
+                    f"baseline {sorted(base_losses)}")
+    steps = sorted(base_losses)
+    bl = np.array([base_losses[s] for s in steps])
+    fl = np.array([fault_losses[s] for s in steps])
+    if not np.allclose(fl, bl, **LOSS_TOL):
+        return fail(f"loss trajectory diverged from baseline: "
+                    f"{list(zip(steps, fl.tolist(), bl.tolist()))}")
+    summary = telemetry_report.summarize(telemetry_report.load_events(
+        os.path.join(ckpt_dir, "telemetry.jsonl")))
+    if summary["categories"].get("resize", 0.0) <= 0.0:
+        return fail(f"no `resize` seconds in the goodput categories "
+                    f"({summary['categories']})")
+    if not summary.get("resize", {}).get("events"):
+        return fail("no elastic_resize event in the telemetry stream")
+    print(f"[chaos-cli] {name}: OK — {' '.join(restamp)} offline, then "
+          f"checkpoint.elastic; final step {meta['step']} / "
+          f"{meta['trained_tokens']} tokens and loss trajectory match "
+          f"baseline; resize booked {summary['categories']['resize']:.3f}s")
+    return True
+
+
+def run_dp_resize(workdir: str, verbose: bool = False,
+                  device: str = "cpu") -> bool:
+    """dp 2 (mbs 2, ga 1) killed at step 3, re-stamped to dp 1 (mbs 2,
+    ga 2), killed at step 5, finished at dp 4 (mbs 1, ga 1) under
+    checkpoint.elastic: global batch 4 throughout, tp 2 as the scenario
+    layout."""
+    return _resize_saga("dp_resize", workdir, [
+        {"distributed": {"dp_size": 2},
+         "training": {"micro_batch_size": 2,
+                      "gradient_accumulation_steps": 1}},
+        {"distributed": {"dp_size": 1},
+         "training": {"micro_batch_size": 2,
+                      "gradient_accumulation_steps": 2}},
+        {"distributed": {"dp_size": 4},
+         "training": {"micro_batch_size": 1,
+                      "gradient_accumulation_steps": 1}}],
+        ("--dp", "1"), verbose, device)
+
+
+def _pp(pp: int) -> dict:
+    out = {"distributed": {"dp_size": 1, "tp_size": 1, "pp_size": pp},
+           "training": {"micro_batch_size": 2,
+                        "gradient_accumulation_steps": 2}}
+    if pp > 1:
+        out["pipeline"] = {"executor": "mpmd"}
+    return out
+
+
+def run_pp_resize(workdir: str, verbose: bool = False,
+                  device: str = "cpu") -> bool:
+    """pp 2 mpmd killed at step 3, re-stamped to pp 1 (the stages' layers
+    re-bucketed), killed at step 5, finished at pp 2 mpmd under
+    checkpoint.elastic."""
+    return _resize_saga("pp_resize", workdir, [_pp(2), _pp(1), _pp(2)],
+                        ("--pp", "1"), verbose, device)
+
+
+def run_mpmd_sigterm(workdir: str, verbose: bool = False,
+                     device: str = "cpu") -> bool:
+    """SIGTERM at tick 2 of step 3's pp 2 mpmd walk drains to the step
+    boundary (exit 75, the restart replays no step); a hang at tick 1 of
+    step 4 is named by the watchdog (77) and the restart finishes at the
+    baseline's step."""
+    from picotron_tpu_torch.tools import telemetry_report
+
+    fail = lambda msg: (print(f"[chaos-cli] mpmd_sigterm: FAIL — {msg}"),  # noqa: E731
+                        False)[1]
+
+    def leg(ckpt_dir, chaos_spec, overrides):
+        cfg = scenario_config(os.path.dirname(ckpt_dir), chaos_spec,
+                              {"checkpoint": {"async_save": False},
+                               **overrides}, device)
+        for section, vals in _pp(2).items():
+            cfg.setdefault(section, {}).update(vals)
+        cfg["checkpoint"]["save_dir"] = ckpt_dir
+        return cfg
+
+    def run(cfg, leg_dir, env):
+        return _run_trainer(_write(cfg, os.path.join(leg_dir, "config.json")),
+                            os.path.join(leg_dir, "run.log"), env, device)
+
+    base_dir = os.path.join(workdir, "baseline")
+    os.makedirs(base_dir, exist_ok=True)
+    base_ckpt = os.path.join(base_dir, "ckpt")
+    if run(leg(base_ckpt, "", {}), base_dir, {}) != 0:
+        return fail("baseline run (pp 2 mpmd) failed")
+    base_meta = _final_meta(base_ckpt)
+
+    st_dir = os.path.join(workdir, "sigterm")
+    os.makedirs(st_dir, exist_ok=True)
+    st_ckpt = os.path.join(st_dir, "ckpt")
+    st_cfg = leg(st_ckpt, f"sigterm@{STEPS // 2}#2", {})
+    rc = run(st_cfg, st_dir, {})
+    if rc != EXIT_PREEMPTED:
+        return fail(f"sigterm leg exited {rc}, expected {EXIT_PREEMPTED}")
+    rc = run(st_cfg, st_dir, {"PICOTRON_CHAOS": ""})
+    if rc != 0:
+        return fail(f"sigterm-leg restart exited {rc}, expected 0")
+    with open(os.path.join(st_dir, "run.log")) as f:
+        st_log = f.read()
+    if verbose:
+        print(st_log)
+    if not re.search(r"firing sigterm at schedule_tick step "
+                     rf"{STEPS // 2} \(stage=\d+ tick=2 op=\w+", st_log):
+        return fail("no mid-schedule sigterm firing (schedule_tick with "
+                    "stage/tick/op) in the sigterm-leg log")
+    if not re.search(r"emergency checkpoint ->", st_log):
+        return fail("marker /emergency checkpoint ->/ absent")
+    meta = _final_meta(st_ckpt)
+    for key in ("step", "trained_tokens"):
+        if meta[key] != base_meta[key]:
+            return fail(f"sigterm leg final {key} {meta[key]} != baseline "
+                        f"{base_meta[key]}")
+    summary = telemetry_report.summarize(telemetry_report.load_events(
+        os.path.join(st_ckpt, "telemetry.jsonl")))
+    st = summary.get("steps") or {}
+    if st.get("count") != STEPS or st.get("max") != STEPS:
+        return fail(f"sigterm leg trained steps {st}, expected "
+                    f"count=max={STEPS}")
+    if st.get("replayed"):
+        return fail(f"sigterm leg replayed {st['replayed']} step(s)")
+
+    hg_dir = os.path.join(workdir, "hang")
+    os.makedirs(hg_dir, exist_ok=True)
+    hg_ckpt = os.path.join(hg_dir, "ckpt")
+    hg_cfg = leg(hg_ckpt, f"hang@{STEPS - 2}~120#1",
+                 {"resilience": {"watchdog_timeout": 5.0}})
+    rc = run(hg_cfg, hg_dir, {})
+    if rc != EXIT_WATCHDOG:
+        return fail(f"hang leg exited {rc}, expected {EXIT_WATCHDOG}")
+    rc = run(hg_cfg, hg_dir, {"PICOTRON_CHAOS": ""})
+    if rc != 0:
+        return fail(f"hang-leg restart exited {rc}, expected 0")
+    with open(os.path.join(hg_dir, "run.log")) as f:
+        hg_log = f.read()
+    if verbose:
+        print(hg_log)
+    m = re.search(r"\[watchdog\] no progress .* last "
+                  r"phase='pp_schedule stage=\d+ tick=\d+ op=\w+ mb=\d+'",
+                  hg_log)
+    if not m:
+        return fail("watchdog report does not name the live (stage, tick, "
+                    "op): /pp_schedule stage=/ absent from the hang log")
+    meta = _final_meta(hg_ckpt)
+    for key in ("step", "trained_tokens"):
+        if meta[key] != base_meta[key]:
+            return fail(f"hang leg final {key} {meta[key]} != baseline "
+                        f"{base_meta[key]}")
+    print(f"[chaos-cli] mpmd_sigterm: OK — mid-schedule SIGTERM drained "
+          f"to the step boundary (exit {EXIT_PREEMPTED}, 0 replayed "
+          f"steps) and the mid-schedule hang was watchdog-named "
+          f"({m.group(0).split('last ')[-1]}); both legs finished at "
+          f"baseline step {base_meta['step']}")
+    return True
+
+
+CUSTOM_SCENARIOS: dict[str, tuple[Callable, str]] = {
+    "dp_resize": (run_dp_resize,
+                  "elastic scale-out: SIGKILL a dp=2 run, re-stamp to "
+                  "dp=1 offline (files re-split), SIGKILL again, finish at "
+                  "dp=4 via checkpoint.elastic; loss-trajectory parity vs "
+                  "the dp=2 baseline, resize seconds booked"),
+    "pp_resize": (run_pp_resize,
+                  "elastic pipeline resize: SIGKILL a pp=2 MPMD run, "
+                  "re-stamp to pp=1 offline (layers re-bucketed), SIGKILL "
+                  "again, finish at pp=2 via checkpoint.elastic; loss "
+                  "parity vs the pp=2 baseline, resize booked"),
+    "mpmd_sigterm": (run_mpmd_sigterm,
+                     "mid-schedule MPMD faults: SIGTERM at a named "
+                     "(stage, tick, op) drains to the step boundary "
+                     "(exit 75, zero replayed steps on resume); forced "
+                     "hang is watchdog-reported naming the live op"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="picotron-tpu port fault-recovery scenario runner")
+    ap.add_argument("--scenario", action="append", default=[],
+                    choices=sorted(set(SCENARIOS) | set(CUSTOM_SCENARIOS)
+                                   | set(REFUSED)),
+                    help="scenario to run (repeatable)")
+    ap.add_argument("--all", action="store_true",
+                    help="run every scenario the port runs")
+    ap.add_argument("--list", action="store_true",
+                    help="list scenarios and exit")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the trainer runs (default cuda)")
+    ap.add_argument("--workdir", default=None,
+                    help="scratch directory (default: a fresh tempdir)")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the fault run's log")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.list:
+        for name, sc in SCENARIOS.items():
+            print(f"{name:14s} chaos={sc.chaos!r:24s} {sc.note}")
+        for name, (_fn, note) in CUSTOM_SCENARIOS.items():
+            print(f"{name:14s} chaos={'custom':26s} {note}")
+        for name, why in REFUSED.items():
+            print(f"{name:14s} {'refused':33s} {why}")
+        return 0
+    names = sorted(set(args.scenario))
+    if args.all:
+        names = sorted(set(SCENARIOS) | set(CUSTOM_SCENARIOS))
+    if not names:
+        build_parser().error("pick --scenario NAME (repeatable), --all, "
+                             "or --list")
+    refused = [n for n in names if n in REFUSED]
+    if refused:
+        for n in refused:
+            print(f"[chaos-cli] {n}: refused — {REFUSED[n]}",
+                  file=sys.stderr)
+        return 2
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("[chaos-cli] --device cuda: CUDA is not available; pass "
+                  "--device cpu", file=sys.stderr)
+            return 2
+        n = torch.cuda.device_count()
+        short = [s for s in names if s in CUSTOM_SCENARIOS and n < 8]
+        if short:
+            print(f"[chaos-cli] {', '.join(short)}: the layouts need 2 to 8 "
+                  f"ranks and NCCL takes one per card ({n} here); run them "
+                  f"with --device cpu", file=sys.stderr)
+            return 2
+    workdir = args.workdir or tempfile.mkdtemp(prefix="picotron-chaos-")
+    ok = True
+    for name in names:
+        sub = os.path.join(workdir, name)
+        os.makedirs(sub, exist_ok=True)
+        if name in CUSTOM_SCENARIOS:
+            ok &= CUSTOM_SCENARIOS[name][0](sub, verbose=args.verbose,
+                                            device=args.device)
+        else:
+            ok &= run_scenario(name, sub, verbose=args.verbose,
+                               device=args.device)
+    print(f"[chaos-cli] {'all scenarios recovered' if ok else 'FAILURES'} "
+          f"(workdir {workdir})")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

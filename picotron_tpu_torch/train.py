@@ -45,7 +45,10 @@ rotates it, telemetry_jsonl: false turns it off), and the flightdeck:
 the span tracer (logging.trace_dir -> `trace.json` at exit), the flight
 recorder (logging.flight_steps, on by default: `flightdeck_postmortem.json`
 on divergence abort, rollback, preemption, an exception or the
-watchdog) and the drift sentinel (logging.sentinel). Each loop section
+watchdog) and the drift sentinel (logging.sentinel); logging.profile_dir
+records a torch.profiler trace of the run-relative steps
+[profile_start_step, + profile_num_steps) (`telemetry/profiler.py`; read
+it with `tools.trace_summary`). Each loop section
 runs under `tel.phases.phase(name, step)`, which times it for the
 goodput ledger and beats the watchdog. On the card a phase is the host's
 clock: the `step` phase ends once the step's kernels are queued, and
@@ -104,9 +107,10 @@ from picotron_tpu_torch.parallel.sharding import shard_state_dict
 from picotron_tpu_torch.parallel.tp import tp_context
 from picotron_tpu_torch.resilience import (
     EXIT_DIVERGED, EXIT_PREEMPTED, DivergenceGuard, GuardAction,
-    PreemptionHandler, Watchdog, chaos,
+    PreemptionHandler, Watchdog, chaos, elastic,
 )
 from picotron_tpu_torch.telemetry import Telemetry, bus as telemetry_bus
+from picotron_tpu_torch.telemetry.profiler import ProfileWindow
 from picotron_tpu_torch.train_step import (
     init_train_state, make_eval_step, make_train_step, resolved_grad_engine,
 )
@@ -134,9 +138,9 @@ def unsupported(cfg: Config) -> list[str]:
     if t.remat and t.remat_policy == "dots_offload":
         out.append("training.remat_policy='dots_offload' (saves in pinned "
                    "host memory: ROADMAP Queue 1 item 7)")
-    if cfg.logging.use_wandb or cfg.logging.profile_dir:
-        out.append("logging.use_wandb / profile_dir (telemetry: ROADMAP "
-                   "Queue 1 item 12)")
+    if cfg.logging.use_wandb:
+        out.append("logging.use_wandb (the card's machine has no wandb: "
+                   "ROADMAP Queue 1 item 12)")
     return out
 
 
@@ -161,7 +165,10 @@ def build_state(cfg: Config, dev: torch.device, par=None):
     facade on the bus the load runs under its "restore" phase (booked as
     restore; the probe's verification before it, which emits
     `ckpt_corrupt` for each corrupt step it passes, stays outside, as in
-    the JAX trainer)."""
+    the JAX trainer), or, under `checkpoint.elastic` when the step was
+    saved at another topology, its "resize" phase (booked as resize); an
+    elastic restore emits `elastic_resize` and prints the JAX trainer's
+    line."""
     ck = cfg.checkpoint
     tp = tp_context(par, cfg.distributed.sequence_parallel)
     stage = stage_of(cfg, par)
@@ -210,16 +217,38 @@ def build_state(cfg: Config, dev: torch.device, par=None):
             log_print(f"auto_resume: found checkpoints in {load_dir}")
     if not load_dir:
         return state, 0, {}, "", {}
-    phases = getattr(telemetry_bus.active(), "phases", None)
-    with (phases.phase("restore") if phases is not None
+    tel = telemetry_bus.active()
+    phases = getattr(tel, "phases", None)
+    if mgr is None:
+        mgr = CheckpointManager(cfg, directory=load_dir, par=par)
+    # The phase name is chosen before the phase opens: probe the step's
+    # saved topology (restore re-checks it)
+    phase_name = "restore"
+    if ck.elastic:
+        probe_step = step if step is not None else mgr.latest_valid_step()
+        if probe_step is not None and elastic.topology_mismatch(
+                elastic.saved_topology(mgr._step_dir(probe_step)),
+                elastic.topology_from_distributed(cfg.distributed)):
+            phase_name = "resize"
+    with (phases.phase(phase_name) if phases is not None
           else contextlib.nullcontext()):
-        if mgr is None:
-            mgr = CheckpointManager(cfg, directory=load_dir, par=par)
+        if step is None:
             state, meta = mgr.restore(state)
         else:  # verified by latest_valid_step above
             state, meta = mgr.load_step(state, step)
             mgr.timings["verify_s"] = verify_s
     tokens = int(meta.get("trained_tokens", 0))
+    resize = meta.get("elastic_resize")
+    if resize:
+        if tel is not None:
+            tel.emit("elastic_resize", step=int(state.step),
+                     **{k: resize[k] for k in ("from", "to", "axes")})
+        log_print(
+            f"elastic resize: restored step {int(state.step)} saved "
+            f"at [{elastic.describe_topology(resize['from'])}] into "
+            f"[{elastic.describe_topology(resize['to'])}] "
+            f"(axes: {', '.join(resize['axes'])}; global batch "
+            f"{cfg.global_batch_size} unchanged)")
     log_print(f"resumed from {load_dir} at step {state.step} "
               f"({human_format(tokens)} tokens; verify "
               f"{mgr.timings['verify_s']:.2f}s, load "
@@ -306,12 +335,14 @@ def run(cfg: Config, device: Optional[str] = None,
     "tokens_per_step", "peak_memory_gb", "device", "state", "val_losses",
     "start_step", "restore_timings", "save_timings", "world_size",
     "collectives_per_step", "pipeline", "dataloader_state",
-    "telemetry_path", "trace_path"} (state: the trained TrainState;
+    "telemetry_path", "trace_path", "profile_path"} (state: the trained
+    TrainState;
     val_losses: {step: val_loss}; collectives_per_step: the first step's,
     by kind; pipeline: the first step's walk on this rank under pp, else
     None; dataloader_state: the loader's cursor at the end;
     telemetry_path / trace_path: this process's JSONL stream and span
-    trace, or None).
+    trace, or None; profile_path: the logging.profile_dir Chrome trace, or
+    None).
     `on_step(step, metrics)` runs after each completed step with its
     metrics as floats, before the preemption check. Raises
     SystemExit(75/76) on preemption/divergence."""
@@ -356,7 +387,7 @@ def run(cfg: Config, device: Optional[str] = None,
                   f"schedule={cfg.pipeline.schedule} "
                   f"v={cfg.pipeline.interleave} — predicted bubble "
                   f"{tel.pp_bubble_fraction * 100:.1f}% of step wall")
-    watchdog = preempt = ckpt_mgr = dl = None
+    watchdog = preempt = ckpt_mgr = dl = profiler = None
     step = 0
     exit_code = None
     try:
@@ -423,6 +454,10 @@ def run(cfg: Config, device: Optional[str] = None,
         # beats the watchdog AND times the section for the ledger
         tel.attach_watchdog(watchdog)
         ph = tel.phases
+        # logging.profile_dir: torch.profiler over the run-relative steps
+        # [profile_start_step, + profile_num_steps)
+        profiler = ProfileWindow(cfg.logging, start_step, dev,
+                                 0 if par is None else par.rank)
         # Steps whose checkpoint already exists in the SAVE directory: the
         # loaded step counts only when the resume source IS the save dir.
         resumed_in_place = bool(resumed_from) and (
@@ -440,6 +475,7 @@ def run(cfg: Config, device: Optional[str] = None,
         while step < total_steps:
             step += 1
             chaos.fire("step_begin", step=step)
+            profiler.begin(step)
             t0 = time.perf_counter()
             before = dict(comm.collectives)
             with ph.phase("data", step):
@@ -454,6 +490,8 @@ def run(cfg: Config, device: Optional[str] = None,
                 fmetrics = dict(zip(metrics, torch.stack(
                     list(metrics.values())).tolist()))
             step_seconds.append(time.perf_counter() - t0)
+            if profiler.end(step):
+                log_print(f"profiler trace -> {profiler.path}")
             if per_step is None and par is not None:
                 per_step = {k: comm.collectives[k] - before[k]
                             for k in before}
@@ -596,6 +634,12 @@ def run(cfg: Config, device: Optional[str] = None,
             watchdog.stop()
         if preempt is not None:
             preempt.uninstall()
+        if profiler is not None and profiler.tracing:
+            try:
+                profiler.close(step)
+                log_print(f"profiler trace -> {profiler.path}")
+            except Exception as e:  # noqa: BLE001
+                log_print(f"profiler stop failed during shutdown: {e!r}")
         if ckpt_mgr is not None:
             try:
                 ckpt_mgr.wait_until_finished()
@@ -621,7 +665,8 @@ def run(cfg: Config, device: Optional[str] = None,
             "save_timings": dict(ckpt_mgr.timings) if ckpt_mgr else {},
             "world_size": world, "collectives_per_step": per_step,
             "pipeline": pipeline, "dataloader_state": dl.state,
-            "telemetry_path": tel.jsonl_path, "trace_path": tel.trace_path}
+            "telemetry_path": tel.jsonl_path, "trace_path": tel.trace_path,
+            "profile_path": profiler.path}
 
 
 def write_report(result: dict, path: str) -> None:

@@ -316,7 +316,8 @@ def test_explicit_step_restore_is_validated(tmp_path):
     man = json.load(open(man_path))
     man["topology"]["dp"] = 2
     json.dump(man, open(man_path, "w"))
-    with pytest.raises(ValueError, match="topology .*'dp': 2.*this run"):
+    with pytest.raises(RuntimeError, match=r"topology \[dp2 pp1 ep1 cp1 "
+                       r"tp1\] but this run's mesh is \[dp1 pp1"):
         mgr.load_step(_fresh(cfg), 2)
 
 

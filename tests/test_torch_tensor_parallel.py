@@ -26,8 +26,8 @@ world of 4 ranks, against the JAX package on its simulated host devices
 - Checkpoints at dp2 x tp2 x zero1 through `train.run`: save after step
   2, auto-resume to step 4, equal to an uninterrupted run bit for bit
   (losses and every rank's params); restoring it under tp4 is refused,
-  naming both layouts, and reading its params whole (elastic restore)
-  is refused, naming its ROADMAP item.
+  naming both layouts (tp is not elastic-resizable), and
+  `restore_params_only` reads its per-rank tp shards whole.
 """
 
 import numpy as np
@@ -140,14 +140,11 @@ def ckpt_job(job: dict, spec: dict) -> dict:
             cfg(job["dir"] + "/c", tp4=True, load_path=job["dir"] + "/a")),
             "cpu")
         refused = None
-    except ValueError as e:
+    except RuntimeError as e:
         refused = str(e)
-    try:
-        tckpt.restore_params_only(tcfg.config_from_dict(resumable),
-                                  job["dir"] + "/a")
-        whole_params = None
-    except NotImplementedError as e:
-        whole_params = str(e)
+    whole_params, _ = tckpt.restore_params_only(
+        tcfg.config_from_dict(resumable), job["dir"] + "/a")
+    whole_params = {n: tuple(t.shape) for n, t in whole_params.items()}
     return {"resumed": first["losses"] + second["losses"],
             "start_step": second["start_step"], "whole": whole["losses"],
             "params_equal": same, "refused": refused,
@@ -250,5 +247,11 @@ def test_checkpoint_resumes_bit_for_bit_and_refuses_another_layout(runs):
         assert res["resumed"] == res["whole"]
         assert res["params_equal"]
         msg = res["refused"]
-        assert msg is not None and "'tp': 2" in msg and "'tp': 4" in msg, msg
-        assert "item 12" in res["params_only"]
+        assert msg is not None and "dp2 pp1 ep1 cp1 tp2" in msg \
+            and "dp1 pp1 ep1 cp1 tp4" in msg and "not elastic-resizable" \
+            in msg, msg
+        # the per-rank tp shards read whole (elastic restore)
+        whole = tllama.LlamaModel(tcfg.config_from_dict(tiny_raw()).model,
+                                  device="meta")
+        assert res["params_only"] == {n: tuple(p.shape) for n, p in
+                                      whole.named_parameters()}
