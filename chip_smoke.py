@@ -339,7 +339,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ckpt_corrupt_bitflip` at the tool's own scenario config exits 0.
    An `elastic` JSON line with each sub-phase's seconds (the save, deep
    verify, re-split read/write and restore seconds among them).
-14. Numbers, then the device line last.
+14. Disaggregated serving and the serving fleet (`serve/disagg.py`,
+   `serve/fleet.py`, `tools/serve_bench.py`) on phase 10's SmolLM-1.7B
+   (full width and depth, the same seeded weights), every replica and
+   both pools on the one card. (a) In fp32 with TF32 off, phase 10b's
+   8 requests under its cut pool through `DisaggServeEngine` and
+   `ServeEngine`: greedy tokens equal, both preempting, no block leaked;
+   in bf16 the long-prefill burst (`serve_bench.make_burst_trace`, 8
+   short and 8 long FLEET_BURST prompts) through both engines: the max
+   consecutive decode-stall ticks of each (disagg below colocated), the
+   handoffs, and each handoff's device ms by CUDA events around
+   `_copy_blocks` against its bound; every decode dispatch and every
+   handoff under `torch.cuda.set_sync_debug_mode("error")`. (b)
+   `serve_bench.run_serve_fleet` at temperature 0.7 on FLEET_TRACE
+   (Poisson arrivals on the virtual clock): a fleet of 2 with FLEET_KILL
+   fired mid-burst against a fleet of 1: every request's token digest
+   equal, 0 leaked blocks, the killed engine holding requests in flight,
+   a `serve_engine_dead` postmortem, the peak GiB. (c) The
+   `serve_overload` shape on the card (OVERLOAD: a burst into 1 slot
+   under a deadline), twice: the shed ids and digests equal, completed +
+   shed = submitted, the admitted queue wait within the deadline. No
+   flash or AdamW kernel launches in the phase. A `serving_fleet` JSON
+   line before the card line.
+15. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -620,6 +642,13 @@ ELASTIC_DIR = "build/smoke_elastic"
 ELASTIC_LAYERS, ELASTIC_GA = 4, 4  # 13b: CONFIG at 4 layers, mbs 2 x ga 4
 ELASTIC_SEED = 14              # 13c: the prompt
 GEN_NEW = 16                   # 13c: greedy tokens from each load
+# phase 14: disaggregated serving and the fleet on phase 10's model
+FLEET_DIR = "build/smoke_fleet"
+FLEET_BURST = (512, 128)       # 14a: the burst's long prompt, most budget
+FLEET_TRACE = (16, 512, 64, 500.0)  # 14b: requests, most prompt, most
+#                                     budget, arrivals/s (virtual clock)
+FLEET_KILL = "engine_dead@5"   # 14b: request 5's engine dies as it routes
+OVERLOAD = (10, 6.0)           # 14c: a burst into 1 slot, deadline ms
 
 
 def log(msg: str) -> None:
@@ -4518,6 +4547,307 @@ def compare_main_paths(trees: list) -> int:
     return 0 if same else 1
 
 
+# ---------------------------------------------------------------------------
+# phase 14: disaggregated serving and the serving fleet
+# ---------------------------------------------------------------------------
+
+
+def sync_checked(fn, counter: list):
+    """fn under torch.cuda.set_sync_debug_mode("error"): a host sync
+    inside it raises. counter[0] counts the calls."""
+    def run(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            counter[0] += 1
+
+    return run
+
+
+def leaked(eng) -> int:
+    return eng.pool.in_use + (eng.pool_p.in_use if hasattr(eng, "pool_p")
+                              else 0)
+
+
+def disagg_parity(model32, prompt, card: str) -> dict:
+    """14a: in fp32 with TF32 off, phase 10b's 8 requests (its cut pool)
+    through the disaggregated and the colocated engine: greedy tokens
+    equal."""
+    import dataclasses
+
+    from picotron_tpu_torch.config import ServeConfig
+    from picotron_tpu_torch.serve import DisaggServeEngine, ServeEngine
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        reqs = [(row, SERVE_NEW) for row in prompt.tolist()]
+        scfg = ServeConfig(**SERVE_SCFG, num_blocks=SERVE_PARITY_BLOCKS)
+        runs = {}
+        for name, cls, sc in (
+                ("colocated", ServeEngine, scfg),
+                ("disagg", DisaggServeEngine,
+                 dataclasses.replace(scfg, disagg=True))):
+            eng = cls(model32, sc, device=prompt.device)
+            res, secs = timed(lambda: eng.run(reqs))
+            eng.close()
+            if leaked(eng):
+                raise AssertionError(f"14a {name}: {leaked(eng)} blocks "
+                                     f"leaked")
+            runs[name] = {"tokens": [r["tokens"] for r in res], "s": secs,
+                          "preemptions": eng.sched.n_preempted,
+                          "handoffs": eng.summary.get("handoffs", 0)}
+            del eng
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    parts = {i: first_part(a, b) for i, (a, b) in enumerate(zip(
+        runs["disagg"]["tokens"], runs["colocated"]["tokens"]))}
+    parts = {i: j for i, j in parts.items() if j is not None}
+    out = {"card": card, "colocated_s": runs["colocated"]["s"],
+           "disagg_s": runs["disagg"]["s"],
+           "preemptions": {k: r["preemptions"] for k, r in runs.items()},
+           "handoffs": runs["disagg"]["handoffs"], "parted_at": parts,
+           "tokens_equal": not parts}
+    log(f"phase 14a fp32 parity ({card}): colocated {out['colocated_s']:.2f}"
+        f" s, disagg {out['disagg_s']:.2f} s ({out['handoffs']} handoffs), "
+        f"preemptions {out['preemptions']}; tokens equal: "
+        f"{out['tokens_equal']} (parted {parts})")
+    if parts:
+        raise AssertionError(f"14a: disagg tokens part from colocated at "
+                             f"{parts}")
+    if min(out["preemptions"].values()) == 0:
+        raise AssertionError(f"14a: the cut pool preempted nothing: "
+                             f"{out['preemptions']}")
+    if out["handoffs"] <= len(reqs):
+        raise AssertionError("14a: no preempted request crossed the "
+                             "boundary again")
+    return out
+
+
+def disagg_burst(model16, card: str) -> dict:
+    """14a: the long-prefill burst in bf16 through the colocated and the
+    disaggregated engine: stall ticks, handoffs and each handoff's device
+    time against its bound, every decode dispatch and handoff checked for
+    host syncs."""
+    from picotron_tpu_torch.config import ServeConfig
+    from picotron_tpu_torch.serve import DisaggServeEngine, ServeEngine
+    from picotron_tpu_torch.tools.serve_bench import make_burst_trace
+
+    dev = model16.final_norm.device
+    plen, budget = FLEET_BURST
+    burst = make_burst_trace(
+        SERVE_SCFG["decode_slots"], plen, SERVE_SCFG["prefill_chunk"],
+        SERVE_SCFG["decode_interval"], budget, model16.cfg.vocab_size,
+        SERVE_SEED)
+    out = {"card": card, "requests": len(burst), "long_prompt": plen}
+    tokens = {}
+    for name, cls, sc in (
+            ("colocated", ServeEngine, ServeConfig(**SERVE_SCFG)),
+            ("disagg", DisaggServeEngine,
+             ServeConfig(**SERVE_SCFG, disagg=True))):
+        warm = cls(model16, sc, device=dev)  # the allocator, cuBLAS
+        warm.run([(burst[0][0], 2), (burst[-1][0], 2)])
+        warm.close()
+        del warm
+        eng = cls(model16, sc, device=dev)
+        checked = [0, 0]
+        eng._decode_fn = sync_checked(eng._decode_fn, checked)
+        copies = []
+        if name == "disagg":
+            inner = sync_checked(eng._copy_blocks, checked[1:])
+            counter = checked
+
+            def timed_copy(src, dst, inner=inner, counter=counter):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                inner(src, dst)
+                b.record()
+                copies.append((a, b, len(src)))
+                counter[1] = len(copies)
+
+            eng._copy_blocks = timed_copy
+        res, secs = timed(lambda: eng.run(burst))
+        eng.close()
+        s = eng.summary
+        tokens[name] = [r["tokens"] for r in res]
+        out[name] = {"s": secs, "stall_ticks_max":
+                     s["decode_stall_ticks_max"], "decode_steps":
+                     s["decode_steps"], "ttft_p50_s": s["ttft_p50_s"],
+                     "ttft_p95_s": s["ttft_p95_s"], "tpot_p50_s":
+                     s["tpot_p50_s"], "sync_checked_dispatches": checked[0]}
+        if leaked(eng):
+            raise AssertionError(f"14a {name}: {leaked(eng)} blocks leaked")
+        if name == "disagg":
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b, _ in copies]
+            blocks = [n for _, _, n in copies]
+            # one block of K and V over every layer
+            block_bytes = 2 * eng._k[:, 0].numel() * eng._k.element_size()
+            # least bytes: each real block read once and written once
+            bound = [1e3 * 2 * n * block_bytes / HBM_BYTES_PER_S
+                     for n in blocks]
+            # as built: max_blocks rows gathered into the staging buffer
+            # and written into the pool (read + write, twice)
+            width_bound = (1e3 * 4 * eng.max_blocks * block_bytes
+                           / HBM_BYTES_PER_S)
+            out[name].update(
+                handoffs=s["handoffs"], handoff_blocks=s["handoff_blocks"],
+                handoff_enqueue_s=s["handoff_s"],
+                handoff_ms_mean=sum(ms) / len(ms), handoff_ms_max=max(ms),
+                handoff_bound_ms_mean=sum(bound) / len(bound),
+                handoff_width_bound_ms=width_bound,
+                handoff_block_mb=block_bytes / 1e6,
+                max_blocks=eng.max_blocks,
+                sync_checked_handoffs=checked[1])
+        del eng
+        torch.cuda.empty_cache()
+    d, c = out["disagg"], out["colocated"]
+    out["stall_drop"] = c["stall_ticks_max"] - d["stall_ticks_max"]
+    out["tokens_equal"] = tokens["disagg"] == tokens["colocated"]
+    log(f"phase 14a burst bf16 ({card}): {len(burst)} requests, stall "
+        f"ticks max colocated {c['stall_ticks_max']} -> disagg "
+        f"{d['stall_ticks_max']} (drop {out['stall_drop']}); colocated "
+        f"{c['s']:.2f} s, disagg {d['s']:.2f} s; {d['handoffs']} handoffs "
+        f"of {d['handoff_blocks']} blocks, device {d['handoff_ms_mean']:.4f}"
+        f" ms mean ({d['handoff_ms_max']:.4f} max) per handoff against a "
+        f"bound of {d['handoff_bound_ms_mean']:.4f} ms for its real blocks "
+        f"and {d['handoff_width_bound_ms']:.4f} ms for the {d['max_blocks']}"
+        f"-block-wide copy as built; host enqueue {d['handoff_enqueue_s']:.4f}"
+        f" s in all; TTFT p50 colocated {c['ttft_p50_s']:.3f} s, disagg "
+        f"{d['ttft_p50_s']:.3f} s; tokens equal: {out['tokens_equal']}; "
+        f"{c['sync_checked_dispatches'] + d['sync_checked_dispatches']} "
+        f"decode dispatches and {d['sync_checked_handoffs']} handoffs under "
+        f"sync debug mode 'error'")
+    if out["stall_drop"] <= 0:
+        raise AssertionError(f"14a: disagg did not cut the decode stall "
+                             f"({c['stall_ticks_max']} -> "
+                             f"{d['stall_ticks_max']})")
+    if d["handoffs"] < len(burst) or d["sync_checked_handoffs"] != \
+            d["handoffs"]:
+        raise AssertionError(f"14a: {d['handoffs']} handoffs for "
+                             f"{len(burst)} requests")
+    return out
+
+
+def fleet_runs(model16, card: str) -> dict:
+    """14b-c: `serve_bench.run_serve_fleet` on phase 10's bf16 weights: a
+    fleet of 2 losing an engine mid-burst against a fleet of 1, and the
+    serve_overload shape twice."""
+    import shutil
+
+    from picotron_tpu_torch.tools import chaos as chaos_tool
+    from picotron_tpu_torch.tools import serve_bench
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, FLEET_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n, plen, budget, rate = FLEET_TRACE
+    kw = dict(slots=SERVE_SCFG["decode_slots"],
+              block_size=SERVE_SCFG["block_size"], num_blocks=0,
+              prefill_chunk=SERVE_SCFG["prefill_chunk"], prompt_len=plen,
+              max_new=budget, decode_interval=SERVE_SCFG["decode_interval"],
+              seed=SERVE_SEED, temperature=0.7,
+              device=model16.final_norm.device.type,
+              state_dict=model16.state_dict())
+    name = model16.cfg.name
+    oracle, oracle_s = timed(lambda: serve_bench.run_serve_fleet(
+        name, 0, fleet=1, n_requests=n, rate=rate, **kw))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tel = os.path.join(root, "telemetry.jsonl")
+    fault, fault_s = timed(lambda: serve_bench.run_serve_fleet(
+        name, 0, fleet=2, n_requests=n, rate=rate, chaos_spec=FLEET_KILL,
+        telemetry=tel, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = read_events(tel)
+    dead = [e for e in events if e["kind"] == "serve_engine_dead"]
+    moved = [e for e in events if e["kind"] == "serve_redispatch"]
+    pm = read_postmortem(root) or {}
+    out = {"card": card, "oracle_s": oracle_s, "fault_s": fault_s,
+           "requests": n, "completed": fault["completed"],
+           "redispatched": fault["redispatched"],
+           "engines_dead": fault["engines_dead"],
+           "leaked_blocks": fault["leaked_blocks"],
+           "inflight_at_death": [e["inflight"] for e in dead],
+           "redispatched_tokens": [e["tokens"] for e in moved],
+           "per_engine_requests": fault["per_engine_requests"],
+           "postmortem_reason": pm.get("reason"), "peak_gib": peak,
+           "digests_equal": fault["request_digests"]
+           == oracle["request_digests"],
+           "ttft_p50_ms": {"fleet1": oracle["ttft_p50_ms"],
+                           "fleet2_killed": fault["ttft_p50_ms"]}}
+    log(f"phase 14b fleet ({card}): fleet of 1 {oracle_s:.2f} s, fleet of 2 "
+        f"with {FLEET_KILL} {fault_s:.2f} s; {out['completed']}/{n} "
+        f"completed, digests equal: {out['digests_equal']}, engine death "
+        f"with {out['inflight_at_death']} in flight, {out['redispatched']} "
+        f"re-dispatched carrying {out['redispatched_tokens']} tokens, "
+        f"leaked {out['leaked_blocks']}, postmortem "
+        f"{out['postmortem_reason']!r}, peak {peak:.2f} GiB")
+    err = chaos_tool.check_engine_dead(oracle, fault, n)
+    if err:
+        raise AssertionError(f"14b: {err}")
+    if out["postmortem_reason"] != "serve_engine_dead" or not any(
+            out["redispatched_tokens"]):
+        raise AssertionError(f"14b: postmortem {out['postmortem_reason']!r}"
+                             f", tokens carried {out['redispatched_tokens']}"
+                             f" (the kill must land mid-decode)")
+
+    count, deadline = OVERLOAD
+    over = dict(kw, slots=1)
+    legs = [timed(lambda: serve_bench.run_serve_fleet(
+        name, 0, fleet=1, n_requests=count, rate=0.0, deadline_ms=deadline,
+        **over)) for _ in range(2)]
+    (a, a_s), (b, _) = legs
+    out["overload"] = {"requests": count, "deadline_ms": deadline,
+                       "shed_ids": a["shed_ids"], "completed":
+                       a["completed"], "queue_wait_p95_ms":
+                       a["queue_wait_p95_ms"], "s": a_s,
+                       "repeat_equal": (a["shed_ids"], a["request_digests"])
+                       == (b["shed_ids"], b["request_digests"])}
+    o = out["overload"]
+    log(f"phase 14c overload ({card}): {count} requests into 1 slot under "
+        f"{deadline} ms: shed {o['shed_ids']}, completed {o['completed']}, "
+        f"queue wait p95 {o['queue_wait_p95_ms']} ms, {a_s:.2f} s; the "
+        f"repeat equal: {o['repeat_equal']}")
+    if (not o["repeat_equal"] or not a["shed"]
+            or a["completed"] + a["shed"] != count
+            or a["queue_wait_p95_ms"] > deadline + 1e-6):
+        raise AssertionError(f"14c: {o}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def fleet_phase(fa, card: str, config: str = CONFIG,
+                device: str = "cuda") -> dict:
+    """Phase 14: the disaggregated engine and the serving fleet on phase
+    10's SmolLM-1.7B (full width and depth, the same seeded weights)."""
+    from picotron_tpu_torch import optimizer as topt
+
+    fa.reset_launch_counts()
+    topt.reset_launch_counts()
+    model32, model16 = serve_models(SERVE_SEED, config, device)
+    g = torch.Generator().manual_seed(SERVE_SEED)
+    prompt = torch.randint(0, model16.cfg.vocab_size,
+                           (SERVE_BATCH, SERVE_PROMPT), generator=g)
+    out = {"parity": disagg_parity(model32, prompt.to(device), card)}
+    del model32
+    torch.cuda.empty_cache()
+    out["burst"] = disagg_burst(model16, card)
+    out["fleet"] = fleet_runs(model16, card)
+    out["launches"] = {**fa.launches, **topt.launches}
+    if any(out["launches"].values()):
+        raise AssertionError(f"14: the serving path launched kernels: "
+                             f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4726,6 +5056,14 @@ def main() -> int:
     log(f"phase 13 profile_dir, elastic resize and the tools: ok in "
         f"{elastic['seconds']:.1f} s")
 
+    # phase 14: disaggregated serving and the serving fleet
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    fleet = fleet_phase(fa, card)
+    fleet["seconds"] = time.perf_counter() - t14
+    log(f"phase 14 disaggregated serving and the fleet: ok in "
+        f"{fleet['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -4757,6 +5095,7 @@ def main() -> int:
                 if not lay.startswith("planted")},
             "pp_launches": pp_launches(pipeline, name),
             "serve_launches": serving["offline"]["forward_launches"][name],
+            "fleet_launches": fleet["launches"][name],
             "moe_launches": moe["train"]["launches"][name],
             "moe_shape": {k: moe["kernels"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -4773,6 +5112,7 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": adamw["library_ms"],
         "pp_launches": pp_launches(pipeline, "adamw"),
         "serve_launches": serving["offline"]["forward_launches"]["adamw"],
+        "fleet_launches": fleet["launches"]["adamw"],
         "moe_launches": moe["train"]["launches"]["adamw"],
     })
     print(json.dumps({"telemetry": telemetry}))
@@ -4791,6 +5131,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"elastic": elastic}))
+    print(json.dumps({"serving_fleet": fleet}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

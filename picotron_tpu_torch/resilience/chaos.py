@@ -45,9 +45,8 @@ routed to, or decoding on, dies abruptly: `ChaosEngineDead`),
 ``decode_hang@REQ~SECS`` (sleep SECS inside the decode dispatch while
 request REQ is resident), and ``shed_storm@REQ`` (force the deadline shed
 of request REQ, and with ``xCOUNT`` of the next COUNT routed requests:
-`ChaosShed`). The port has no fleet yet (serve/fleet.py is a later
-slice), so these kinds parse and have no fire point, as in a training
-run of the JAX package.
+`ChaosShed`). The fleet (serve/fleet.py) fires them; in a training run
+they parse and never fire, as in the JAX package.
 
 Examples: ``sigterm@3``, ``ckpt_io@2x2,nan_grad@4``, ``data_stall@3~10``,
 ``ckpt_corrupt_bitflip@4,kill@5``, ``sigterm@3#2`` (mid-schedule),

@@ -8,7 +8,8 @@ each phase (data fetch, step, metric sync, eval, save); when no beat
 arrives within the configured timeout it emits a `watchdog_timeout`
 event (booked as data_wait when the data phase hung, else other), dumps
 the flight recorder's postmortem (telemetry/flightdeck, reason
-"watchdog"), dumps every thread's Python stack plus the
+`reason`: "watchdog" by default, "serve_hang" from the serving engine and
+fleet), dumps every thread's Python stack plus the
 last-known (phase, step) to stderr and exits `EXIT_WATCHDOG`, so an
 external supervisor restarts the job into checkpoint auto_resume.
 
@@ -51,10 +52,15 @@ def active() -> bool:
 class Watchdog:
     def __init__(self, timeout: float,
                  on_timeout: Optional[Callable[[], None]] = None,
-                 poll: Optional[float] = None):
+                 poll: Optional[float] = None,
+                 reason: str = "watchdog"):
         self.timeout = timeout
         self.enabled = timeout > 0
         self._on_timeout = on_timeout
+        # the postmortem's reason: the serving engine and fleet arm with
+        # "serve_hang", so a hung decode dispatch reads apart from a
+        # wedged training step in the dump
+        self.reason = reason
         self._poll = (poll or max(0.05, min(timeout / 4.0, 1.0))
                       if self.enabled else 1.0)
         self._stop = threading.Event()
@@ -124,7 +130,7 @@ class Watchdog:
         try:
             tel = bus.active()
             if tel is not None and getattr(tel, "flight", None) is not None:
-                tel.flight.dump("watchdog", step=step, phase=phase,
+                tel.flight.dump(self.reason, step=step, phase=phase,
                                 stalled_s=round(age, 3))
         except Exception:  # noqa: BLE001 — the exit below must still happen
             pass

@@ -13,26 +13,32 @@ batching over a paged KV cache on the decode path.
   mid-prefill slot) plus telemetry (queue_wait/prefill/decode in the
   GoodputLedger, TTFT/TPOT histograms, serve_request/serve_summary
   JSONL).
+- `disagg`: `DisaggServeEngine`, prefill and decode as separately placed
+  pools over block pools of their own, with a paged-KV block handoff
+  between them, so a burst of long prefills cannot stall the decode
+  dispatches; `DisaggScheduler` (in `scheduler`) is its host logic.
 - `spec_decode`: self-drafting n-gram speculation, verify-and-accept in
   one dispatch; its tokens are the non-speculative ones.
-
-Not ported yet (the rest of ROADMAP Queue 1 item 11): the JAX package's
-`DisaggServeEngine` and `DisaggScheduler` (serve/disagg.py: prefill and
-decode as separately placed pools with KV block handoff) and
-`FleetSupervisor` (serve/fleet.py: engine replicas behind one queue with
-failover, deadline shedding and drain).
+- `fleet`: `FleetSupervisor`, N engine replicas behind one queue, with
+  failover re-dispatch (bit-identical continuations), deadline load
+  shedding, hang detection and graceful drain.
 """
 
+from picotron_tpu_torch.serve.disagg import DisaggServeEngine
 from picotron_tpu_torch.serve.engine import ServeEngine
+from picotron_tpu_torch.serve.fleet import FleetSupervisor
 from picotron_tpu_torch.serve.paged_cache import (
     BlockPool, PagedKVCache, init_paged_cache,
 )
 from picotron_tpu_torch.serve.scheduler import (
-    Request, RequestState, Scheduler, blocks_for,
+    DisaggScheduler, Request, RequestState, Scheduler, blocks_for,
 )
 
 __all__ = [
     "BlockPool",
+    "DisaggScheduler",
+    "DisaggServeEngine",
+    "FleetSupervisor",
     "PagedKVCache",
     "Request",
     "RequestState",

@@ -193,7 +193,8 @@ class ServeEngine:
     def __init__(self, model, serve_cfg: Optional[ServeConfig] = None, *,
                  eos_token_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-                 telemetry: Optional[Telemetry] = None, device=None):
+                 telemetry: Optional[Telemetry] = None, device=None,
+                 engine_id: int = 0):
         scfg = serve_cfg or ServeConfig()
         scfg.validate()
         cfg = model.cfg
@@ -255,9 +256,7 @@ class ServeEngine:
         self._owns_telemetry = telemetry is None
         self.telemetry = telemetry or Telemetry(sinks=[])
         self._t0 = time.perf_counter()  # trace clock zero (run() resets)
-        # the JAX fleet's replica index, which the events carry; the
-        # fleet is not ported (ROADMAP Queue 1 item 11): one engine, 0
-        self.engine_id = 0
+        self.engine_id = int(engine_id)  # fleet replica index (0 = solo)
         # steady-state decode fast path: device-resident step inputs,
         # valid while the slot roster and block tables are unchanged
         self._decode_state: Optional[dict] = None
@@ -296,6 +295,8 @@ class ServeEngine:
         where, idx, st = got
         if where == "slot":
             self._sync_table(idx)
+        elif where == "pslot":  # the disaggregated engine's prefill side
+            self._sync_ptable(idx)
         self.stats["cancelled"] += 1
         self.telemetry.emit("serve_cancel", id=request_id, where=where,
                             tokens=len(st.generated))
@@ -303,10 +304,10 @@ class ServeEngine:
 
     # -- helpers -----------------------------------------------------------
 
-    def _up(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array copied to the device (never aliasing the host
-        mirror, which later ticks mutate)."""
-        return torch.tensor(arr, device=self.device)
+    def _up(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """A host array copied to the device (the engine's, or `device`),
+        never aliasing the host mirror, which later ticks mutate."""
+        return torch.tensor(arr, device=device or self.device)
 
     def _cache(self, tables: torch.Tensor) -> PagedKVCache:
         return PagedKVCache(self._k, self._v, tables)
@@ -605,10 +606,11 @@ class ServeEngine:
         watchdog_timeout > 0 arms a resilience watchdog for the trace:
         every dispatch heartbeats with a phase naming this engine and
         dispatch kind, so a wedged device call is reported as `serve
-        engine=K dispatch=decode` before the exit 77."""
+        engine=K dispatch=decode`, the flightdeck postmortem's reason is
+        `serve_hang`, and the process exits 77."""
         wd = None
         if watchdog_timeout > 0:
-            wd = watchdog.Watchdog(watchdog_timeout)
+            wd = watchdog.Watchdog(watchdog_timeout, reason="serve_hang")
             wd.start()
         try:
             pending = sorted(requests,

@@ -2,8 +2,9 @@
 block-budgeted admission and preemption (the port's copy of
 picotron_tpu/serve/scheduler.py). Pure host logic, so every policy
 decision is unit-testable without touching a device, and the tests hold
-it to the JAX package's decision by decision. `DisaggScheduler` (the
-disaggregated engine's) is not ported yet (ROADMAP Queue 1 item 11).
+it to the JAX package's decision by decision. `DisaggScheduler` splits
+the slot set in two, prefill and decode, with a handoff boundary between
+their pools (the disaggregated engine's, serve/disagg.py).
 
 Lifecycle: submitted requests wait in a FIFO queue; admission takes the
 HEAD request whenever a decode slot is free AND the block pool can cover
@@ -297,6 +298,281 @@ class Scheduler:
 
     def should_retire(self, slot: int, eos_token_id: Optional[int]) -> bool:
         st = self.slots[slot]
+        return (len(st.generated) >= st.req.max_new_tokens
+                or (eos_token_id is not None
+                    and st.last_token == eos_token_id))
+
+    def retire(self, slot: int) -> RequestState:
+        st = self.slots[slot]
+        self.pool.free(st.blocks)
+        st.blocks = []
+        self.slots[slot] = None
+        self.n_retired += 1
+        return st
+
+
+class DisaggScheduler:
+    """Scheduler for the disaggregated engine (serve/disagg.py): a
+    PREFILL slot set backed by its own block pool, a DECODE slot set
+    backed by another, and a handoff boundary between them.
+
+    Lifecycle: queue -> prefill slot (chunked prefill against the
+    prefill pool) -> handoff-ready (prefill complete, first token
+    sampled) -> handoff (decode-pool blocks allocated, K/V copied by the
+    engine, prefill blocks + slot freed) -> decode slot -> retirement.
+    Admission is the same head-of-line FIFO as the colocated scheduler,
+    but budgeted against the PREFILL pool and gated on a free PREFILL
+    slot — which is the whole point: a burst of long prompts saturates
+    the prefill side and leaves decode slots untouched.
+
+    Preemption stays youngest-first ACROSS the handoff boundary: decode
+    block growth preempts the youngest decode resident (as before), and
+    a handoff candidate that cannot get a decode slot/blocks may preempt
+    decode residents STRICTLY YOUNGER than itself — so the oldest
+    request always makes progress whether it is decoding or waiting at
+    the boundary, and the no-livelock argument carries over. Preempted
+    requests requeue at the front and recompute through the prefill pool
+    (generated tokens fold into the prefix; the (request id, token
+    index) key fold keeps the continuation token-identical)."""
+
+    def __init__(self, prefill_slots: int, decode_slots: int,
+                 prefill_pool, decode_pool, block_size: int,
+                 max_blocks: int):
+        if prefill_slots < 1 or decode_slots < 1:
+            raise ValueError(
+                f"prefill_slots and decode_slots must be >= 1, got "
+                f"{prefill_slots}/{decode_slots}")
+        self.num_pslots = prefill_slots
+        self.num_slots = decode_slots
+        self.prefill_pool = prefill_pool
+        self.pool = decode_pool  # name-compatible with Scheduler users
+        self.block_size = block_size
+        self.max_blocks = max_blocks
+        self.queue: deque = deque()
+        self.pslots: list = [None] * prefill_slots
+        self.slots: list = [None] * decode_slots
+        self._admit_seq = 0
+        self.n_admitted = 0
+        self.n_preempted = 0
+        self.n_retired = 0
+        self.n_handoffs = 0
+        self.n_shed = 0
+        self.n_cancelled = 0
+        self.shed: list = []
+
+    # deadline shedding is a queue-head policy, identical on both sides
+    # of the disaggregation split — share the colocated implementation
+    _shed_expired_head = Scheduler._shed_expired_head
+    drain_shed = Scheduler.drain_shed
+
+    def cancel(self, request_id: int):
+        """Scheduler.cancel plus the prefill side: a request caught
+        mid-prefill frees back to the PREFILL pool."""
+        for i, s in enumerate(self.pslots):
+            if s is not None and s.req.id == request_id:
+                self.prefill_pool.free(s.blocks)
+                s.blocks = []
+                self.pslots[i] = None
+                self.n_cancelled += 1
+                return "pslot", i, s
+        return Scheduler.cancel(self, request_id)
+
+    # -- intake ------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        """Reject anything that could NEVER be served: the prefill pool
+        must hold the whole prefix, the decode pool the prefix plus the
+        token budget (each bounded by per-slot table capacity)."""
+        prefix = blocks_for(len(req.prompt) + req.max_new_tokens - 1,
+                            self.block_size)
+        need = blocks_for(len(req.prompt) + req.max_new_tokens,
+                          self.block_size)
+        if need > self.max_blocks:
+            raise ValueError(
+                f"request {req.id}: {len(req.prompt)} prompt + "
+                f"{req.max_new_tokens} new tokens needs {need} blocks, "
+                f"over the per-slot table capacity ({self.max_blocks}); "
+                f"raise serve.max_model_len")
+        if prefix > self.prefill_pool.num_blocks:
+            raise ValueError(
+                f"request {req.id}: prefix needs {prefix} blocks but the "
+                f"prefill pool holds {self.prefill_pool.num_blocks}; "
+                f"raise serve.prefill_num_blocks")
+        if need > self.pool.num_blocks:
+            raise ValueError(
+                f"request {req.id}: needs {need} blocks but the decode "
+                f"pool holds {self.pool.num_blocks}; raise "
+                f"serve.num_blocks")
+        self.queue.append(RequestState(req))
+
+    def has_work(self) -> bool:
+        return (bool(self.queue)
+                or any(s is not None for s in self.pslots)
+                or any(s is not None for s in self.slots))
+
+    # -- admission (into the prefill pool) ---------------------------------
+
+    def admit(self, now: float = 0.0) -> list:
+        """Head-of-line FIFO into free PREFILL slots while the prefill
+        pool covers the head's whole prefill prefix (prompt + any
+        recompute tokens, + 1 growth block for the sampled first token
+        when the prefix ends block-aligned)."""
+        out = []
+        while self.queue:
+            if self._shed_expired_head(now):
+                continue
+            free = [i for i, s in enumerate(self.pslots) if s is None]
+            if not free:
+                break
+            st = self.queue[0]
+            st.prefill_ids = st.req.prompt + tuple(st.generated)
+            # the final chunk samples the first token, whose K/V lands
+            # at position len(prefill_ids) on the NEXT dispatch — but
+            # the handoff must carry every written position, so size to
+            # the prefix only; the first generated token's write happens
+            # decode-side after handoff
+            blocks = self.prefill_pool.alloc(
+                blocks_for(len(st.prefill_ids), self.block_size))
+            if blocks is None:
+                break
+            self.queue.popleft()
+            st.blocks = blocks
+            st.n_prefilled = 0
+            st.admit_seq = self._admit_seq
+            st.t_admit = now
+            self._admit_seq += 1
+            self.n_admitted += 1
+            slot = free[0]
+            self.pslots[slot] = st
+            out.append((slot, st))
+        return out
+
+    # -- prefill -----------------------------------------------------------
+
+    def prefill_slots(self) -> list:
+        cands = [(s.admit_seq, i) for i, s in enumerate(self.pslots)
+                 if s is not None and s.prefilling]
+        return [i for _, i in sorted(cands)]
+
+    def note_prefilled(self, slot: int, n_tokens: int) -> None:
+        st = self.pslots[slot]
+        st.n_prefilled = min(st.n_prefilled + n_tokens,
+                             len(st.prefill_ids))
+
+    def retire_prefill(self, slot: int) -> RequestState:
+        """Retire straight out of the prefill pool — a request whose
+        FIRST token already hits EOS or exhausts its budget never needs
+        a decode slot (or a handoff)."""
+        st = self.pslots[slot]
+        self.prefill_pool.free(st.blocks)
+        st.blocks = []
+        self.pslots[slot] = None
+        self.n_retired += 1
+        return st
+
+    # -- handoff boundary --------------------------------------------------
+
+    def handoff_ready(self) -> list:
+        """Prefill-slot indices whose prefill is complete and first token
+        sampled, oldest-admitted first — the order handoffs are
+        attempted (and therefore the order decode-slot pressure is
+        applied in)."""
+        cands = [(s.admit_seq, i) for i, s in enumerate(self.pslots)
+                 if s is not None and not s.prefilling and s.generated]
+        return [i for _, i in sorted(cands)]
+
+    def handoff(self, pslot: int):
+        """Move the request in prefill slot `pslot` across the boundary:
+        allocate decode-pool blocks for its prefix, free the prefill
+        side, install it in a decode slot. May preempt decode residents
+        STRICTLY YOUNGER than the candidate (youngest first) to make
+        room. Returns (decode_slot, src_blocks, dst_blocks, preempted)
+        — src/dst are the physical block ids the engine must copy K/V
+        between — or None when the candidate must keep waiting (it is
+        the youngest, so someone older is making progress)."""
+        st = self.pslots[pslot]
+        need = blocks_for(len(st.prefill_ids), self.block_size)
+        preempted = []
+
+        def free_slot():
+            return next((i for i, s in enumerate(self.slots)
+                         if s is None), None)
+
+        def try_alloc():
+            return (self.pool.alloc(need)
+                    if free_slot() is not None else None)
+
+        dst = try_alloc()
+        while dst is None:
+            younger = [(s.admit_seq, i) for i, s in enumerate(self.slots)
+                       if s is not None and s.admit_seq > st.admit_seq]
+            if not younger:
+                return None
+            victim = max(younger)[1]
+            preempted.append(victim)
+            self._preempt_decode(victim)
+            dst = try_alloc()
+        src = list(st.blocks)
+        self.prefill_pool.free(st.blocks)
+        st.blocks = dst
+        self.pslots[pslot] = None
+        dslot = free_slot()
+        self.slots[dslot] = st
+        self.n_handoffs += 1
+        return dslot, src, dst, preempted
+
+    # -- decode ------------------------------------------------------------
+
+    def decode_ready(self) -> list:
+        cands = [(s.admit_seq, i) for i, s in enumerate(self.slots)
+                 if s is not None and s.generated]
+        return [i for _, i in sorted(cands)]
+
+    def ensure_block(self, slot: int, horizon: int = 1):
+        """Identical policy to Scheduler.ensure_block, over the decode
+        pool and decode residents only (prefill residents are never
+        preempted by decode growth — their pool is separate, which is
+        the isolation the split exists to provide)."""
+        preempted = []
+        st = self.slots[slot]
+        need_upto = min(blocks_for(st.write_pos + horizon,
+                                   self.block_size), self.max_blocks)
+        while len(st.blocks) < need_upto:
+            got = self.pool.alloc(1)
+            if got is not None:
+                st.blocks.extend(got)
+                continue
+            live = [(s.admit_seq, i) for i, s in enumerate(self.slots)
+                    if s is not None]
+            if len(live) <= 1:
+                raise RuntimeError(
+                    f"decode block pool exhausted with a single live "
+                    f"request (id {st.req.id}): serve.num_blocks "
+                    f"({self.pool.num_blocks}) cannot hold one "
+                    f"sequence; raise it")
+            victim = max(live)[1]
+            preempted.append(victim)
+            self._preempt_decode(victim)
+            if victim == slot:
+                return False, preempted
+        return True, preempted
+
+    def _preempt_decode(self, slot: int) -> None:
+        st = self.slots[slot]
+        self.pool.free(st.blocks)
+        st.blocks = []
+        st.n_prefilled = 0
+        st.prefill_ids = ()
+        st.n_preempted += 1
+        self.slots[slot] = None
+        self.queue.appendleft(st)
+        self.n_preempted += 1
+
+    # -- retirement --------------------------------------------------------
+
+    def should_retire(self, slot: int, eos_token_id: Optional[int],
+                      pslot: bool = False) -> bool:
+        st = (self.pslots if pslot else self.slots)[slot]
         return (len(st.generated) >= st.req.max_new_tokens
                 or (eos_token_id is not None
                     and st.last_token == eos_token_id))

@@ -27,9 +27,22 @@ Scenarios (`--list`):
               drains to the step boundary (exit 75, no replayed step); a
               forced mid-schedule hang is named by the watchdog (77)
 
-Refused, each naming the ROADMAP Queue 1 item that ports it:
-`slice_lost` (item 9: the port runs one slice) and `serve_engine_dead`,
-`serve_overload` (item 11: the fleet and its bench entry point).
+Serving scenarios run `python -m picotron_tpu_torch.tools.serve_bench
+--fleet N` legs as child processes at the JAX tool's tiny shape
+(debug-tiny, prompt 16, 8 new tokens, 3 slots, block 4, chunk 4,
+temperature 0.7, seed 7; one card or the CPU):
+
+  serve_engine_dead  a replica of 2 killed mid-burst (engine_dead@2):
+              every request finishes with token digests equal to a fleet
+              of 1's, 0 leaked blocks, a serve_engine_dead postmortem,
+              the same digests on a repeat
+  serve_overload  a 10-request burst into 1 slot under a 6 ms deadline:
+              the shed set non-empty and the same on a repeat, admitted
+              digests equal to the no-deadline leg's, queue wait within
+              the deadline, shed seconds booked and rendered
+
+Refused, naming the ROADMAP Queue 1 item that ports it: `slice_lost`
+(item 9: the port runs one slice).
 
 The scenario layout is the JAX tool's dp 2 x tp 2 on four ranks: four
 gloo processes with `--device cpu`; with `--device cuda` (the default)
@@ -71,11 +84,6 @@ RUN_TIMEOUT_S = 600
 REFUSED = {
     "slice_lost": "whole-slice loss needs slices > 1, which the port "
                   "refuses (ROADMAP Queue 1 item 9)",
-    "serve_engine_dead": "the serving fleet (serve/fleet.py) and its "
-                         "bench entry point are not ported (ROADMAP Queue 1 "
-                         "item 11)",
-    "serve_overload": "the serving fleet's deadline shedding is not "
-                      "ported (ROADMAP Queue 1 item 11)",
 }
 
 
@@ -621,6 +629,203 @@ def run_mpmd_sigterm(workdir: str, verbose: bool = False,
     return True
 
 
+# ---------------------------------------------------------------------------
+# the serving scenarios
+# ---------------------------------------------------------------------------
+
+
+def _run_bench_fleet(leg_dir: str, extra_args: list, device: str,
+                     telemetry: Optional[str] = None) -> dict:
+    """One `tools.serve_bench --fleet` leg in a child process; returns
+    its JSON row."""
+    os.makedirs(leg_dir, exist_ok=True)
+    env = dict(os.environ)
+    env.pop("PICOTRON_CHAOS", None)  # the leg's --chaos is the only fault
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    if device == "cpu":
+        env.setdefault("OMP_NUM_THREADS", "1")  # tiny ops: one thread
+    cmd = [sys.executable, "-m", "picotron_tpu_torch.tools.serve_bench",
+           "--device", device, "--model", "debug-tiny", "--prompt-len",
+           "16", "--max-new-tokens", "8", "--serve-slots", "3",
+           "--block-size", "4", "--prefill-chunk", "4",
+           "--serve-temperature", "0.7", "--serve-seed", "7"] + extra_args
+    if telemetry:
+        cmd += ["--telemetry", telemetry]
+    log_path = os.path.join(leg_dir, "run.log")
+    with open(log_path, "ab") as log:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=log,
+                              env=env, timeout=RUN_TIMEOUT_S)
+        log.write(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve_bench fleet leg exited "
+                           f"{proc.returncode} (log: {log_path})")
+    for line in reversed(proc.stdout.decode().splitlines()):
+        line = line.strip()
+        if line.startswith("{"):
+            return json.loads(line)
+    raise RuntimeError(f"no JSON row in serve_bench output (log: "
+                       f"{log_path})")
+
+
+def check_engine_dead(oracle: dict, fault: dict, n_req: int):
+    """serve_engine_dead's checks of one fault leg against the fleet-of-1
+    oracle: an error string, or None."""
+    if fault["engines_dead"] != 1:
+        return (f"engines_dead {fault['engines_dead']} != 1 — the chaos "
+                f"kill did not land")
+    if fault["completed"] != n_req or fault["shed"]:
+        return (f"survivor finished {fault['completed']}/{n_req} (shed "
+                f"{fault['shed']}) — every request must complete on the "
+                f"surviving engine")
+    if fault["redispatched"] < 1:
+        return ("no requests were re-dispatched — the engine died with "
+                "nothing in flight, so the scenario proved nothing")
+    if fault["request_digests"] != oracle["request_digests"]:
+        bad = [k for k, v in oracle["request_digests"].items()
+               if fault["request_digests"].get(k) != v]
+        return (f"token parity broken after failover for request(s) {bad} "
+                f"— re-dispatched continuations must be bit-identical to "
+                f"the fault-free oracle")
+    if fault["leaked_blocks"]:
+        return (f"{fault['leaked_blocks']} leaked block(s) on survivor "
+                f"pools after the trace drained")
+    return None
+
+
+def run_serve_engine_dead(workdir: str, verbose: bool = False,
+                          device: str = "cpu") -> bool:
+    """Engine failover under load. Oracle leg: a fleet of 1, no faults,
+    temperature 0.7. Fault leg: a fleet of 2 with `engine_dead@2` fired
+    as request 2 is routed: the engine dies abruptly with requests
+    resident. The survivor must finish EVERY request with per-request
+    token digests equal to the oracle's, leak no block and leave a
+    serve_engine_dead postmortem; a repeat of the fault leg must give the
+    same digests (recovery is deterministic, not merely successful)."""
+    fail = lambda msg: (print(f"[chaos-cli] serve_engine_dead: FAIL — "  # noqa: E731
+                              f"{msg}"), False)[1]
+    n_req = 8
+    common = ["--requests", str(n_req)]
+    oracle = _run_bench_fleet(os.path.join(workdir, "oracle"),
+                              common + ["--fleet", "1"], device)
+    tel_dir = os.path.join(workdir, "fault")
+    fault = _run_bench_fleet(
+        tel_dir, common + ["--fleet", "2", "--chaos", "engine_dead@2"],
+        device, telemetry=os.path.join(tel_dir, "telemetry.jsonl"))
+    if verbose:
+        print(json.dumps(oracle), "\n", json.dumps(fault))
+    err = check_engine_dead(oracle, fault, n_req)
+    if err:
+        return fail(err)
+    pm_path = os.path.join(tel_dir, "flightdeck_postmortem.json")
+    if not os.path.exists(pm_path):
+        return fail(f"no flightdeck postmortem at {pm_path}")
+    with open(pm_path) as f:
+        pm = json.load(f)
+    if pm.get("reason") != "serve_engine_dead":
+        return fail(f"postmortem reason {pm.get('reason')!r} != "
+                    f"'serve_engine_dead'")
+    repeat = _run_bench_fleet(
+        os.path.join(workdir, "repeat"),
+        common + ["--fleet", "2", "--chaos", "engine_dead@2"], device)
+    if (repeat["request_digests"] != fault["request_digests"]
+            or repeat["redispatched"] != fault["redispatched"]):
+        return fail("fault leg is not deterministic across repeats "
+                    "(digests or redispatch count changed)")
+    dead_engine = (pm.get("extra") or {}).get("engine")
+    print(f"[chaos-cli] serve_engine_dead: OK — engine killed mid-burst "
+          f"(postmortem engine {dead_engine}), survivor finished "
+          f"{fault['completed']}/{n_req} requests bit-identical to the "
+          f"single-engine oracle ({fault['redispatched']} re-dispatched), "
+          f"0 leaked blocks, deterministic on repeat")
+    return True
+
+
+def check_overload(unloaded: dict, shedleg: dict, n_req: int,
+                   deadline_ms: float):
+    """serve_overload's checks of the deadline leg against the
+    no-deadline leg: an error string, or None."""
+    if not shedleg["shed"]:
+        return ("burst shed nothing — the overload never tripped the "
+                "deadline, scenario proves nothing")
+    if shedleg["completed"] + shedleg["shed"] != n_req:
+        return (f"completed {shedleg['completed']} + shed "
+                f"{shedleg['shed']} != {n_req} submitted")
+    mismatch = [k for k, v in shedleg["request_digests"].items()
+                if unloaded["request_digests"].get(k) != v]
+    if mismatch:
+        return (f"admitted request(s) {mismatch} decoded different tokens "
+                f"than the no-deadline leg — shedding neighbors must not "
+                f"perturb sampling")
+    qw95 = shedleg["queue_wait_p95_ms"]
+    if qw95 is None or qw95 > deadline_ms + 1e-6:
+        return (f"admitted queue wait p95 {qw95} ms exceeds the "
+                f"{deadline_ms} ms deadline — admission let an expired "
+                f"request through")
+    return None
+
+
+def run_serve_overload(workdir: str, verbose: bool = False,
+                       device: str = "cpu") -> bool:
+    """Deadline load shedding under a saturation burst: both legs run a
+    1-slot engine on the same all-at-t=0 burst of 10 requests. The
+    no-deadline leg serves everything late; the deadline leg sheds the
+    requests whose VIRTUAL-clock queue wait exceeds the deadline. The
+    shed set must be non-empty and equal on a repeat, the admitted
+    requests' digests equal to the no-deadline leg's, every admitted
+    queue wait within the deadline, and the shed seconds booked to the
+    telemetry ledger's `shed` category and rendered by
+    telemetry_report."""
+    from picotron_tpu_torch.tools import telemetry_report
+
+    fail = lambda msg: (print(f"[chaos-cli] serve_overload: FAIL — "  # noqa: E731
+                              f"{msg}"), False)[1]
+    n_req = 10
+    deadline_ms = 6.0
+    burst = ["--requests", str(n_req), "--serve-slots", "1", "--rate", "0",
+             "--fleet", "1"]
+    unloaded = _run_bench_fleet(os.path.join(workdir, "no_deadline"),
+                                burst, device)
+    tel_dir = os.path.join(workdir, "deadline")
+    tel_path = os.path.join(tel_dir, "telemetry.jsonl")
+    shedleg = _run_bench_fleet(
+        tel_dir, burst + ["--deadline-ms", str(deadline_ms)], device,
+        telemetry=tel_path)
+    if verbose:
+        print(json.dumps(unloaded), "\n", json.dumps(shedleg))
+    err = check_overload(unloaded, shedleg, n_req, deadline_ms)
+    if err:
+        return fail(err)
+    repeat = _run_bench_fleet(
+        os.path.join(workdir, "repeat"),
+        burst + ["--deadline-ms", str(deadline_ms)], device)
+    if (repeat["shed_ids"] != shedleg["shed_ids"]
+            or repeat["request_digests"] != shedleg["request_digests"]):
+        return fail(f"shed set not deterministic: {shedleg['shed_ids']} "
+                    f"vs {repeat['shed_ids']} on repeat")
+    summary = telemetry_report.summarize(
+        telemetry_report.load_events(tel_path))
+    shed_s = (summary.get("categories") or {}).get("shed", 0.0)
+    if not shed_s > 0.0:
+        return fail("no seconds booked to the `shed` ledger category in "
+                    "the telemetry stream")
+    sv = summary.get("serving") or {}
+    if sv.get("shed") != shedleg["shed"]:
+        return fail(f"telemetry_report serving view shed {sv.get('shed')} "
+                    f"!= bench row {shedleg['shed']}")
+    if "shed" not in telemetry_report.render(summary):
+        return fail("telemetry_report render does not show the shed row")
+    print(f"[chaos-cli] serve_overload: OK — burst shed "
+          f"{shedleg['shed']}/{n_req} deterministically "
+          f"(ids {shedleg['shed_ids']}), admitted tokens bit-identical "
+          f"to the no-deadline leg, queue wait p95 "
+          f"{shedleg['queue_wait_p95_ms']} ms <= {deadline_ms} ms "
+          f"deadline, {round(shed_s, 4)}s booked to `shed`")
+    return True
+
+
 CUSTOM_SCENARIOS: dict[str, tuple[Callable, str]] = {
     "dp_resize": (run_dp_resize,
                   "elastic scale-out: SIGKILL a dp=2 run, re-stamp to "
@@ -637,7 +842,19 @@ CUSTOM_SCENARIOS: dict[str, tuple[Callable, str]] = {
                      "(stage, tick, op) drains to the step boundary "
                      "(exit 75, zero replayed steps on resume); forced "
                      "hang is watchdog-reported naming the live op"),
+    "serve_engine_dead": (run_serve_engine_dead,
+                          "engine failover under load: a fleet of 2 "
+                          "loses an engine mid-burst; every request "
+                          "finishes bit-identical to a fleet of 1, 0 "
+                          "leaked blocks, deterministic on repeat"),
+    "serve_overload": (run_serve_overload,
+                       "deadline load shedding: a 10x burst into 1 slot "
+                       "sheds deterministically on the virtual clock, "
+                       "admitted tokens unperturbed, shed seconds booked"),
 }
+
+# scenarios whose layout needs more ranks than one card gives NCCL
+MULTI_RANK = ("dp_resize", "pp_resize", "mpmd_sigterm")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -690,7 +907,7 @@ def main(argv=None) -> int:
                   "--device cpu", file=sys.stderr)
             return 2
         n = torch.cuda.device_count()
-        short = [s for s in names if s in CUSTOM_SCENARIOS and n < 8]
+        short = [s for s in names if s in MULTI_RANK and n < 8]
         if short:
             print(f"[chaos-cli] {', '.join(short)}: the layouts need 2 to 8 "
                   f"ranks and NCCL takes one per card ({n} here); run them "

@@ -159,7 +159,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-disagg", action="store_true",
                    help="disaggregated serving: prefill and decode as "
                         "separately placed pools with paged-KV block "
-                        "handoff (serve/disagg: ROADMAP Queue 1 item 11)")
+                        "handoff (picotron_tpu_torch/serve/disagg)")
     p.add_argument("--serve-prefill-slots", type=int, default=None,
                    help="prefill-pool slot count (0 = decode_slots)")
     p.add_argument("--serve-prefill-num-blocks", type=int, default=None,

@@ -23,7 +23,7 @@ every rank, the batch made with numpy from a seed):
   port's own single-device run on the same global batch; the cp ranks'
   params equal bit for bit; the cp exchanges per step counted.
 - The JAX cp driver's grad norm against the single-device one: it
-  carries the data-axes factor of ROADMAP Queue 3 item 3 (the cp size
+  carries the data-axes factor of ROADMAP Queue 3 item 4 (the cp size
   times the dp size), which the port's does not.
 - Checkpoints at cp4 (ring, zigzag, fused, zero1) through `train.run`:
   save after step 2, auto-resume to 4, equal to an uninterrupted run bit
@@ -475,7 +475,7 @@ def test_cp_exchanges_per_step(runs, layout):
 
 
 def test_jax_cp_driver_grad_norm_carries_the_data_axes_factor(runs):
-    """ROADMAP Queue 3 item 3 under cp: the JAX driver's grad norm is the
+    """ROADMAP Queue 3 item 4 under cp: the JAX trainer's grad norm is the
     single-device one times the size of the data axes (cp x dp); the
     port's is the single-device one (the test above)."""
     for layout, raw in LAYOUTS.items():

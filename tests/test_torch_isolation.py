@@ -42,6 +42,9 @@ def test_port_files_exist():
                  "picotron_tpu_torch/train.py",
                  "picotron_tpu_torch/generate.py",
                  "picotron_tpu_torch/serve/engine.py",
+                 "picotron_tpu_torch/serve/disagg.py",
+                 "picotron_tpu_torch/serve/fleet.py",
+                 "picotron_tpu_torch/tools/serve_bench.py",
                  "picotron_tpu_torch/ops/moe.py",
                  "picotron_tpu_torch/parallel/ep.py",
                  "picotron_tpu_torch/telemetry/__init__.py",
@@ -71,7 +74,10 @@ def test_import_leaves_jax_unloaded():
             "picotron_tpu_torch.resilience.chaos, "
             "picotron_tpu_torch.telemetry.flightdeck, "
             "picotron_tpu_torch.tools.telemetry_report, "
-            "picotron_tpu_torch.tools.trace_export"
+            "picotron_tpu_torch.tools.trace_export, "
+            "picotron_tpu_torch.serve.disagg, picotron_tpu_torch.serve.fleet"
+            ", picotron_tpu_torch.tools.serve_bench, "
+            "picotron_tpu_torch.tools.chaos"
             "\nbad = [m for m in sys.modules if m == 'jax' or m.startswith"
             "('jax.') or m == 'picotron_tpu' or m.startswith('picotron_tpu.')"
             " or m in ('datasets', 'transformers')]"
@@ -107,12 +113,16 @@ def test_entry_point_without_cpu_request_raises_when_cuda_absent(monkeypatch):
 
 
 def test_generation_and_serving_refuse_without_cuda(monkeypatch):
-    """`python -m picotron_tpu_torch.generate` without --device cpu, and a
-    ServeEngine without device="cpu", refuse when CUDA is absent; neither
-    falls back to the CPU."""
+    """`python -m picotron_tpu_torch.generate` and `.tools.serve_bench`
+    without --device cpu, and a ServeEngine, DisaggServeEngine or
+    FleetSupervisor without device="cpu", refuse when CUDA is absent;
+    none falls back to the CPU."""
     from picotron_tpu_torch import config, generate
     from picotron_tpu_torch.models.llama import LlamaModel
-    from picotron_tpu_torch.serve import ServeEngine
+    from picotron_tpu_torch.serve import (
+        DisaggServeEngine, FleetSupervisor, ServeEngine,
+    )
+    from picotron_tpu_torch.tools import serve_bench
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -120,9 +130,13 @@ def test_generation_and_serving_refuse_without_cuda(monkeypatch):
                        "--prompt-ids", "1,2"])
     cfg = config.config_from_dict({"model": {"name": "debug-tiny"}}).model
     model = LlamaModel(cfg, device="cpu")
+    for cls in (ServeEngine, DisaggServeEngine, FleetSupervisor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ServeEngine(model)
+        serve_bench.main(["--fleet", "1", "--model", "debug-tiny"])
     assert ServeEngine(model, device="cpu").device.type == "cpu"
+    assert DisaggServeEngine(model, device="cpu").device_p.type == "cpu"
 
 
 def test_peak_flops_refuses_to_guess(monkeypatch):

@@ -2,8 +2,9 @@
 its shards, its Hkv/2 cache heads, the model's own f/g hooks and
 vocab-parallel embedding and head) in one gloo world of 2 ranks, against
 tp 1 in this process, fp32 on the CPU, the debug-tiny params from a
-seeded init: greedy `generate` and `ServeEngine` tokens (plain
-and n-gram) equal to tp 1's; a sampled `generate` equal on both ranks;
+seeded init: greedy `generate`, `ServeEngine` (plain and n-gram) and
+`DisaggServeEngine` tokens (both pools on the rank's device, a decode
+pool cut so that requests are preempted) equal to tp 1's; a sampled `generate` equal on both ranks;
 and heads that tp does not divide refused (the JAX package's
 `place_for_decode` check). The worker code imports no jax."""
 
@@ -14,7 +15,7 @@ import torch
 from picotron_tpu_torch import config as tcfg
 from picotron_tpu_torch import generate as tgen
 from picotron_tpu_torch.models.llama import LlamaModel, init_params
-from picotron_tpu_torch.serve import ServeEngine
+from picotron_tpu_torch.serve import DisaggServeEngine, ServeEngine
 from tests.test_torch_parallel import World
 
 RAW = {"model": {"name": "debug-tiny", "dtype": "float32",
@@ -57,13 +58,16 @@ def decode_all(model) -> dict:
     gen = torch.Generator().manual_seed(5)
     out["sampled"] = tgen.generate(model, prompt, 10, temperature=0.8,
                                    top_k=20, generator=gen).tolist()
-    for name, extra in (("engine", {}),
-                        ("ngram", {"speculator": "ngram", "draft_len": 3})):
-        eng = ServeEngine(model, tcfg.ServeConfig(**SCFG, **extra),
-                          device="cpu")
+    for name, cls, extra in (
+            ("engine", ServeEngine, {}),
+            ("ngram", ServeEngine, {"speculator": "ngram", "draft_len": 3}),
+            ("disagg", DisaggServeEngine, {"disagg": True,
+                                           "num_blocks": 8})):
+        eng = cls(model, tcfg.ServeConfig(**{**SCFG, **extra}), device="cpu")
         out[name] = [r["tokens"] for r in eng.run(requests())]
         out[name + "_pool_heads"] = eng._k.shape[3]
-        out[name + "_leaked"] = eng.pool.in_use
+        pools = (eng.pool, getattr(eng, "pool_p", None))
+        out[name + "_leaked"] = sum(p.in_use for p in pools if p)
         eng.close()
     return out
 
@@ -91,9 +95,12 @@ def test_tp2_decode_equals_tp1(tp2):
     for r, out in ranks.items():
         assert out["tp_rank"] == r and out["kv_heads"] == 1
         assert out["engine_pool_heads"] == 1
-        for key in ("generate", "engine", "ngram"):
+        for key in ("generate", "engine", "ngram", "disagg"):
             assert out[key] == tp1[key], (r, key)
-        assert out["engine_leaked"] == out["ngram_leaked"] == 0
+        assert out["disagg"] == tp1["engine"]
+        assert out["disagg_pool_heads"] == 1
+        assert (out["engine_leaked"] == out["ngram_leaked"]
+                == out["disagg_leaked"] == 0)
     assert ranks[0]["sampled"] == ranks[1]["sampled"]
 
 

@@ -211,6 +211,8 @@ def test_extract_metrics_csvs_are_the_jax_tools(tmp_path, store,
      "--lr-warmup-steps", "5", "--optimizer-offload"],
     ["--ep", "2", "--model", "debug-tiny-moe", "--serve-slots", "4",
      "--serve-block-size", "8", "--dtype", "float32"],
+    ["--model", "debug-tiny", "--serve-disagg", "--serve-prefill-slots",
+     "2", "--serve-prefill-num-blocks", "32", "--serve-decode-device", "0"],
 ])
 def test_create_config_writes_the_jax_tools_json(tmp_path, flags):
     from picotron_tpu_torch.tools import create_config
@@ -360,11 +362,12 @@ def test_chaos_lists_and_refuses_what_the_port_lacks(capsys):
 
     assert chaos.main(["--list"]) == 0
     out = capsys.readouterr().out
-    for name, item in (("slice_lost", "item 9"),
-                       ("serve_engine_dead", "item 11"),
-                       ("serve_overload", "item 11")):
+    line = next(ln for ln in out.splitlines() if ln.startswith("slice_lost"))
+    assert "refused" in line and "item 9" in line
+    assert set(chaos.REFUSED) == {"slice_lost"}
+    for name in ("serve_engine_dead", "serve_overload"):
         line = next(ln for ln in out.splitlines() if ln.startswith(name))
-        assert "refused" in line and item in line
+        assert "refused" not in line and name in chaos.CUSTOM_SCENARIOS
     jaxs = jax_tool("chaos")
     assert (set(chaos.SCENARIOS) | set(chaos.CUSTOM_SCENARIOS)
             | set(chaos.REFUSED)) == (set(jaxs.SCENARIOS)
