@@ -17,7 +17,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    Hkv 8), at a shifted-positions shape (a later q shard against the
    whole K/V) with a nonzero LSE cotangent, and at the per-rank heads of
    tp 4 (SmolLM-1.7B: B 2, Hq = Hkv = 8, D 64; Llama-3-8B: B 1, Hq 8,
-   Hkv 2, D 128). Then each kernel's time at the
+   Hkv 2, D 128, and Hq 16, Hkv 4 under the 2d tp strategy at 2 x 2, the
+   shape phase 15 runs). Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
    (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and each
    kernel's time, achieved TFLOP/s and share of its bound at the training
@@ -361,7 +362,38 @@ Phases, each of which raises on failure (so the script exits non-zero):
    shed = submitted, the admitted queue wait within the deadline. No
    flash or AdamW kernel launches in the phase. A `serving_fleet` JSON
    line before the card line.
-15. Numbers, then the device line last.
+15. The tp strategies and the hierarchical dp reduction
+   (`parallel/tp_strategies.py`, `parallel/hier_reduce.py`), each rank a
+   thread on the one card (`GroupWorld`; NCCL takes one rank per card).
+   The collectives are `ThreadGroup`s: clones handed between the threads
+   (sums in rank order), reached through the port's communicator seam
+   (`parallel/comm.GroupComm` and the process-group hooks of its module
+   functions); the ones whose backward communicates join the ranks'
+   graphs, so the AD twins run ONE backward from this thread over the
+   ranks' summed losses, and the fused engine's ranks take their
+   transposes on their own threads. (a) Llama-3-8B at full width
+   (TP_RUN's model: 32/8 heads, D 128, vocab 128256), TP_LAYERS of 32
+   layers, tp 4, dp/cp/pp 1, mbs 1, ga 1, flash attention, from one
+   seeded init transplanted into every layout (TP_LAYOUTS): megatron,
+   "2d" at 2 x 2, "row" and "qkv=2d,o=2d" without SP, megatron + SP and
+   tp_sync "deferred" with it, each under the fused engine (remat
+   "dots_attn") and the two megatron twins also under AD. In fp32 at
+   TP_SEQ_FP32 (TF32 off): 3 steps' losses and the step-1 grad norm
+   within TP_LOSS_RTOL of the twin's AD run. In bf16 at the run's seq
+   TP_SEQ: per rank the flash launches (TP_LAYERS per step per kernel,
+   all at the layout's heads: 8/2, 16/4 or 32/8, all on the tensor-core
+   kernels), one forward's collectives by kind equal to
+   `tp_strategies.forward_collectives` (the JAX docstring's schedule),
+   the step's collectives by kind, ms/step and the peak GiB of the world
+   of 4 ranks (a thread world on one card: not a tp speed). (b) CONFIG's
+   SmolLM-1.7B at HIER_LAYERS layers, fp32, seq 2048, a thread world of
+   dp HIER_DP over HIER_SLICES slices (inner 2): one step's grads by the
+   hierarchical reduction equal on every rank and within HIER_GRAD_RTOL
+   (relative L2, per tensor) of the flat all-reduce's, the legs by kind
+   (one reduce-scatter and one all-gather in the slice, one all-reduce
+   across it), and the cross-slice leg's bytes 1/inner of the flat
+   all-reduce's. A `tp_strategies` JSON line before the card line.
+16. Numbers, then the device line last.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -480,6 +512,18 @@ nearly uniformly over 512+ keys, so one missing key moves the logits
 far less than phase 10's 24 layers do; phase 10's 0.1 could not see
 it). The greedy tokens are held in bf16 by the margin (0.0 measured).
 
+Phase 15's limits: TP_LOSS_RTOL = 1e-4 relative on each fp32 loss and the
+step-1 grad norm against the twin's AD run. The strategies change only
+which ranks sum which partial products (2d sums the row products over
+tx, not tp; row-first sums the entry products and gathers the exit), so
+in fp32 with TF32 off the losses move by reassociation alone: measured
+0 (2d, SP, deferred) to 1.8e-7 (qkv=2d,o=2d) (NVIDIA H100 80GB HBM3, 700
+W; PERF.md). The grad norm is in the check because Adam hides a grad
+off by a constant factor (a tp_y too many) from the losses: the norm
+would move by that factor. HIER_GRAD_RTOL = 1e-6 relative L2 per
+tensor: the hierarchical and the flat schedule add the same four fp32
+grads in another order (measured 4.4e-8 at worst).
+
 Needs one card; exits non-zero with no result when CUDA is absent or when
 run without the rest of the repository.
 
@@ -513,6 +557,7 @@ ROW_RTOL = 1e-2               # per-row relative L2 error of out/dq/dk/dv
 ROW_FLOOR = 1e-3              # row RMS below which the limit is absolute
 LSE_ATOL = 2e-3               # absolute error of each fp32 lse entry
 STEPS, GA, MBS, SEQ = 4, 2, 2, 2048
+TP2D_LABEL = "llama3-8b 2d 2x2 B1 S2048 Hq16 Hkv4 D128 rope static"
 # phase-2 shapes: (b, hq, hkv, sq, sk, d, q position shift); a nonzero
 # shift makes explicit positions and a nonzero LSE cotangent
 SLICE_SHAPE = (2, 32, 32, SEQ, SEQ, 64, 0)
@@ -527,6 +572,9 @@ SHAPES = {
                                                        64, 0),
     "llama3-8b tp4 B1 S2048 Hq8 Hkv2 D128 rope static": (1, 8, 2, SEQ, SEQ,
                                                          128, 0),
+    # the per-rank heads of Llama-3-8B under the 2d tp strategy at tp 4 =
+    # 2 x 2 (phase 15: heads / tp_x)
+    TP2D_LABEL: (1, 16, 4, SEQ, SEQ, 128, 0),
     # each pipeline stage of phase 9 (PP_CONFIG: Llama-2-7B, 32/32 heads)
     "llama2-7b pp B1 S4096 H32 D128 rope static": (1, 32, 32, 4096, 4096,
                                                    128, 0),
@@ -649,6 +697,29 @@ FLEET_TRACE = (16, 512, 64, 500.0)  # 14b: requests, most prompt, most
 #                                     budget, arrivals/s (virtual clock)
 FLEET_KILL = "engine_dead@5"   # 14b: request 5's engine dies as it routes
 OVERLOAD = (10, 6.0)           # 14c: a burst into 1 slot, deadline ms
+# phase 15: the tp strategies on runs/llama3-8b-4d-v5p64's model (full
+# width, TP_LAYERS of 32 layers, tp 4 as a thread world on the one card)
+# and the hierarchical dp reduction on CONFIG's model
+TP_RUN = "runs/llama3-8b-4d-v5p64/config.json"
+TP, TP_LAYERS, TP_STEPS = 4, 2, 3
+TP_SEQ, TP_SEQ_FP32 = 8192, 2048  # the run's seq (bf16), the fp32 legs'
+TP_SEED = 15
+TP_LAYOUTS = {  # name: (distributed overrides, the twin it is held to)
+    "megatron": ({}, None),
+    "2d 2x2": ({"tp_strategy": "2d", "tp_mesh": "2x2"}, "megatron"),
+    "row": ({"tp_strategy": "row"}, "megatron"),
+    "qkv=2d,o=2d": ({"tp_strategy": "qkv=2d,o=2d", "tp_mesh": "2x2"},
+                    "megatron"),
+    "megatron sp": ({"sequence_parallel": True}, None),
+    "deferred": ({"sequence_parallel": True, "tp_sync": "deferred"},
+                 "megatron sp"),
+}
+TP_HEADS = {  # each rank's (q heads, kv heads): Llama-3-8B's 32/8 under
+    "megatron": (8, 2), "megatron sp": (8, 2), "deferred": (8, 2),
+    "2d 2x2": (16, 4), "qkv=2d,o=2d": (16, 4), "row": (32, 8)}
+TP_LOSS_RTOL = 1e-4            # 15a: fp32 losses and norm vs the twin's
+HIER_DP, HIER_SLICES, HIER_LAYERS, HIER_SEED = 4, 2, 2, 16
+HIER_GRAD_RTOL = 1e-6          # 15b: each grad tensor vs flat, rel L2
 
 
 def log(msg: str) -> None:
@@ -785,6 +856,7 @@ def compare(fa, case, errs: dict, label: str) -> None:
         limit = LSE_ATOL if key == "lse" else ROW_RTOL
         worst = float(rows.max())
         errs[name] = max(errs.get(name, 0.0), abs_err)
+        errs[(label, name)] = max(errs.get((label, name), 0.0), abs_err)
         log(f"  {key}: worst row err {worst:.4g} (limit {limit:g}), max abs "
             f"err {abs_err:.4g}, max |plain| {scale:.4g}")
         if not worst <= limit:
@@ -2088,6 +2160,10 @@ class ThreadWorld:
     def comm(self, index: int) -> "ThreadComm":
         return ThreadComm(self, index)
 
+    def abort(self) -> None:
+        """Break every barrier a rank may wait at (a rank failed)."""
+        self.barrier.abort()
+
     def run(self, fn) -> list:
         """fn(rank) on one thread per rank; the results in rank order. A
         failing rank aborts the barrier (so no rank waits forever) and its
@@ -2099,7 +2175,7 @@ class ThreadWorld:
                 out[rank] = fn(rank)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 errors.append((rank, e))
-                self.barrier.abort()
+                self.abort()
 
         threads = [threading.Thread(target=target, args=(r,), daemon=True)
                    for r in range(self.n)]
@@ -4848,6 +4924,739 @@ def fleet_phase(fa, card: str, config: str = CONFIG,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the tp strategies and the hierarchical dp reduction
+# ---------------------------------------------------------------------------
+
+
+class GroupWorld(ThreadWorld):
+    """A `ThreadWorld` whose ranks also meet in groups of their own
+    (`group`: a tp group, the 2d subgroups, the dp cohorts), each with its
+    own barrier and slots; a failing rank breaks them all."""
+
+    def __init__(self, n: int, timeout: float = THREAD_TIMEOUT_S):
+        super().__init__(n, timeout)
+        self.timeout = timeout
+        self.groups = []
+
+    def group(self, n: int) -> "GroupSlots":
+        g = GroupSlots(n, self.timeout)
+        self.groups.append(g)
+        return g
+
+    def abort(self) -> None:
+        super().abort()
+        for g in self.groups:
+            g.barrier.abort()
+
+
+class GroupSlots:
+    """The barrier, one slot per member, the joined result and the
+    members' communicators of one thread group."""
+
+    def __init__(self, n: int, timeout: float):
+        self.n = n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+        self.slots = [None] * n
+        self.members = [None] * n
+        self.result = None
+
+
+@functools.lru_cache(maxsize=None)
+def thread_group_class():
+    """`ThreadGroup`: one rank's `parallel.comm.GroupComm` over a thread
+    group (`GroupSlots`), built on first use (the port is imported only
+    where the card runs). Its raw collectives hand clones between the
+    threads (sums in rank order), and `parallel.comm`'s module functions
+    reach them through the process-group hooks (`all_reduce_into`,
+    `all_gather_into`, `reduce_scatter_into`), so that `GradSync`, the
+    guard's norm and the fused engine's transposes run over it. The
+    pairs whose backward communicates (`copy`, `gather`, `scatter`) are
+    joined: one autograd node over every member's tensor, made by member
+    0 once all have posted, whose backward takes every member's
+    transpose at once. So the ranks' graphs join there, and ONE backward
+    from one thread over the sum of the ranks' losses gives each rank the
+    grads its own backward would (a backward per thread would stall: a
+    device's autograd nodes run on one engine thread). `counts` and
+    `nbytes` are this rank's calls and bytes by kind (the joined
+    backwards' included)."""
+    import torch.distributed as dist
+
+    from picotron_tpu_torch.parallel.comm import GroupComm, own_slice
+
+    def filled(gs, like):
+        return [torch.zeros_like(x) if g is None else g
+                for g, x in zip(gs, like)]
+
+    def total(ts):
+        out = ts[0].clone()
+        for t in ts[1:]:
+            out += t
+        return out
+
+    class JoinedCopy(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, sh, *xs):
+            ctx.sh = sh
+            ctx.save_for_backward(*xs)
+            return tuple(x.clone() for x in xs)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            g = total(filled(gs, ctx.saved_tensors))
+            for m in ctx.sh.members:
+                m.count("all_reduce", g)
+            return (None, *(g.clone() for _ in gs))
+
+    class JoinedGather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, sh, dim, *xs):
+            ctx.sh, ctx.dim = sh, dim
+            ctx.save_for_backward(*xs)
+            for m, x in zip(sh.members, xs):
+                m.count("all_gather", x)
+            full = torch.cat(xs, dim)
+            return tuple(full.clone() for _ in xs)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            sh = ctx.sh
+            xs = ctx.saved_tensors
+            g = total([torch.zeros(
+                xs[0].shape[:ctx.dim] + (sh.n * xs[0].shape[ctx.dim],)
+                + xs[0].shape[ctx.dim + 1:], dtype=xs[0].dtype,
+                device=xs[0].device) if g is None else g for g in gs])
+            out = []
+            for j, m in enumerate(sh.members):
+                part = own_slice(g, ctx.dim, sh.n, j)
+                m.count("reduce_scatter", part)
+                out.append(part)
+            return (None, None, *out)
+
+    class JoinedScatter(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, sh, dim, *xs):
+            ctx.sh, ctx.dim = sh, dim
+            s = total(list(xs))
+            outs = tuple(own_slice(s, dim, sh.n, j) for j in range(sh.n))
+            for m, o in zip(sh.members, outs):
+                m.count("reduce_scatter", o)
+            ctx.save_for_backward(*outs)
+            return outs
+
+        @staticmethod
+        def backward(ctx, *gs):
+            gs = filled(gs, ctx.saved_tensors)
+            full = torch.cat(gs, ctx.dim)
+            for m, g in zip(ctx.sh.members, gs):
+                m.count("all_gather", g)
+            return (None, None, *(full.clone() for _ in gs))
+
+    class ThreadGroup(GroupComm):
+        def __init__(self, sh: GroupSlots, index: int):
+            # the group is this object: the module functions delegate
+            super().__init__(self, sh.n, index)
+            self.sh = sh
+            sh.members[index] = self
+            self.counts = {"all_reduce": 0, "all_gather": 0,
+                           "reduce_scatter": 0}
+            self.nbytes = dict.fromkeys(self.counts, 0)
+
+        def count(self, kind: str, t: torch.Tensor) -> None:
+            self.counts[kind] += 1
+            self.nbytes[kind] += t.numel() * t.element_size()
+
+        def _swap(self, item, read):
+            sh = self.sh
+            sh.slots[self.index] = item
+            sh.barrier.wait()
+            try:
+                return read(sh.slots)
+            finally:
+                sh.barrier.wait()
+
+        def _joined(self, make, x):
+            sh = self.sh
+            sh.slots[self.index] = x
+            sh.barrier.wait()
+            try:
+                if self.index == 0:
+                    sh.result = make(*sh.slots)
+                sh.barrier.wait()
+                return sh.result[self.index]
+            finally:
+                sh.barrier.wait()
+
+        # the process-group hooks of `parallel.comm`
+        def all_reduce_into(self, t, op) -> None:
+            self.count("all_reduce", t)
+
+            def read(slots):
+                out = slots[0].clone()
+                for x in slots[1:]:
+                    if op == dist.ReduceOp.MAX:
+                        torch.maximum(out, x, out=out)
+                    else:
+                        out += x
+                return out
+
+            t.copy_(self._swap(t, read))
+
+        def all_gather_into(self, out, inp) -> None:
+            self.count("all_gather", inp)
+            out.copy_(self._swap(inp.contiguous(), torch.cat))
+
+        def reduce_scatter_into(self, out, inp) -> None:
+            self.count("reduce_scatter", out)
+            n, i = self.size, self.index
+
+            def read(slots):
+                c = slots[0].shape[0] // n
+                return total([x[i * c:(i + 1) * c] for x in slots])
+
+            out.copy_(self._swap(inp.contiguous(), read))
+
+        # the joined differentiable pairs
+        def copy(self, x):
+            return self._joined(lambda *xs: JoinedCopy.apply(self.sh, *xs), x)
+
+        def gather(self, x, dim: int):
+            return self._joined(
+                lambda *xs: JoinedGather.apply(self.sh, dim % x.dim(), *xs),
+                x)
+
+        def scatter(self, x, dim: int):
+            return self._joined(
+                lambda *xs: JoinedScatter.apply(self.sh, dim % x.dim(), *xs),
+                x)
+
+    return ThreadGroup
+
+
+def solo_group():
+    """A thread group of one rank (a data group at dp 1)."""
+    return thread_group_class()(GroupSlots(1, THREAD_TIMEOUT_S), 0)
+
+
+def rank_counts(groups) -> dict:
+    """A rank's calls by kind over its distinct thread groups."""
+    out = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+    for g in {id(g): g for g in groups if g is not None}.values():
+        for k, v in g.counts.items():
+            out[k] += v
+    return out
+
+
+def reset_counts(groups) -> None:
+    for g in groups:
+        if g is not None:
+            for d in (g.counts, g.nbytes):
+                for k in d:
+                    d[k] = 0
+
+
+@contextlib.contextmanager
+def flash_by_rank(table: dict, tls):
+    """Count each flash kernel's launches by (thread world rank, kernel,
+    q heads, kv heads) while inside (the rank from `tls.rank`; None on
+    the autograd engine's thread), without touching the wrappers' own
+    counts."""
+    from picotron_tpu_torch.ops import flash_attention as fa
+
+    names = {"fwd_kernel": "flash_fwd", "bwd_dq_kernel": "flash_bwd_dq",
+             "bwd_dkv_kernel": "flash_bwd_dkv"}
+    orig = {n: getattr(fa, n) for n in names}
+    lock = threading.Lock()
+
+    def wrap(attr):
+        fn = orig[attr]
+
+        def call(q4, k4, *args):
+            key = (getattr(tls, "rank", None), names[attr], q4.shape[1],
+                   k4.shape[1])
+            with lock:
+                table[key] = table.get(key, 0) + 1
+            return fn(q4, k4, *args)
+
+        return call
+
+    for attr in names:
+        setattr(fa, attr, wrap(attr))
+    try:
+        yield
+    finally:
+        for attr, fn in orig.items():
+            setattr(fa, attr, fn)
+
+
+def tp_raw(run: dict, dist_kw: dict, dtype: str, seq: int, engine: str,
+           layers: int = TP_LAYERS) -> dict:
+    """The run config's model (TP_RUN: runs/llama3-8b-4d-v5p64) at
+    `layers` layers, flash attention (cp 1), tp TP and `dist_kw`, mbs 1,
+    ga 1, under `engine` (the fused one with remat "dots_attn", AD
+    without remat)."""
+    t = run["training"]
+    return {
+        "model": {**run["model"], "num_hidden_layers": layers,
+                  "attn_impl": "flash", "dtype": dtype},
+        "training": {"seq_length": seq, "micro_batch_size": 1,
+                     "gradient_accumulation_steps": 1,
+                     "learning_rate": t["learning_rate"],
+                     "lr_schedule": "constant", "lr_warmup_steps": 0,
+                     "total_train_steps": TP_STEPS,
+                     "adam_moments_dtype": t["adam_moments_dtype"],
+                     "remat": engine == "fused", "remat_policy": "dots_attn",
+                     "grad_engine": engine, "seed": TP_SEED},
+        "distributed": {"tp_size": TP, **dist_kw},
+    }
+
+
+def tp_world(cfg, full_sd: dict, dev):
+    """(world, per-rank ParallelEnv, TrainState, thread groups): cfg's tp
+    layout as a thread world of TP ranks on the card, each rank's model
+    its shards of `full_sd` (under the "row" strategy's flipped storage),
+    the groups made as `mesh.init_parallel` makes them."""
+    from picotron_tpu_torch import mesh
+    from picotron_tpu_torch.models.llama import LlamaModel
+    from picotron_tpu_torch.parallel.sharding import (
+        shard_state_dict, tp_flips,
+    )
+    from picotron_tpu_torch.parallel.tp import tp_context
+    from picotron_tpu_torch.train_step import init_train_state
+
+    group = thread_group_class()
+    world = GroupWorld(TP)
+    tp_x, tp_y = mesh._tp_mesh(cfg)
+    tp_sh = world.group(TP)
+    ty_sh = [world.group(tp_y) for _ in range(tp_x)]
+    tx_sh = [world.group(tp_x) for _ in range(tp_y)]
+    sizes = mesh.layout_sizes(cfg)
+    flips = tp_flips(cfg)
+    pars, states, groups = [], [], []
+    for r in range(TP):
+        tg = group(tp_sh, r)
+        ix, iy = divmod(r, tp_y)
+        ty = tx = None
+        if tp_y > 1 and tp_x > 1:
+            ty, tx = group(ty_sh[ix], iy), group(tx_sh[iy], ix)
+        elif tp_y > 1:
+            ty = tg
+        elif tp_x > 1:
+            tx = tg
+        par = mesh.ParallelEnv(
+            sizes=sizes, rank=r, world_size=TP, device=dev, backend="thread",
+            tp_group=tg, data_group=solo_group(), host_group=None,
+            coords=mesh.rank_coords(r, sizes), tp_mesh=(tp_x, tp_y),
+            tp_ty_group=ty, tp_tx_group=tx)
+        model = LlamaModel(cfg.model, device=dev, tp=tp_context(
+            par, cfg.distributed.sequence_parallel, cfg))
+        model.load_state_dict(shard_state_dict(full_sd, r, TP, flips=flips))
+        pars.append(par)
+        states.append(init_train_state(cfg, model, par))
+        groups.append([tg, ty, tx])
+    return world, pars, states, groups
+
+
+def tp_steps(cfg, world, pars, states, batch, tls) -> dict:
+    """TP_STEPS steps: under the fused engine each rank's own train step
+    (`make_train_step`) on its thread; under AD each rank's forward on its
+    thread, ONE backward over the ranks' summed NLL sums from this thread
+    (the joined collectives take every rank's transposes), then each
+    rank's seam (`GradSync`), guard norm and AdamW step on its thread.
+    {"losses", "grad_norms" (the guard's, of the whole model; rank 0's,
+    every rank's must agree), "walls" (s per step)}."""
+    from picotron_tpu_torch.models.llama import loss_sum_count
+    from picotron_tpu_torch.parallel.api import finish_grads, grad_seam
+    from picotron_tpu_torch.parallel.sharding import seq_sharded
+    from picotron_tpu_torch.train_step import (
+        make_train_step, resolved_grad_engine,
+    )
+
+    fused = resolved_grad_engine(cfg) == "fused"
+    steps = [make_train_step(cfg, p) for p in pars] if fused else None
+    seams = [grad_seam(p, seq_sharded(cfg)) for p in pars]
+    ids, tgt = batch
+
+    def fused_step(r):
+        tls.rank = r
+        m = steps[r](states[r], batch)
+        return float(m["loss"]), float(m["grad_norm"])
+
+    def forward(r):
+        tls.rank = r
+        for buf in states[r].optimizer.grad_of.values():
+            buf.zero_()
+        total, count, _ = loss_sum_count(states[r].model, ids[0], tgt[0])
+        return total, count
+
+    def finish(r, total, count):
+        tls.rank = r
+        st = states[r]
+        opt = st.optimizer
+        loss, scale = finish_grads(cfg.model, opt.grad_of, total.detach(),
+                                   count, [], seams[r](st.model))
+        gnorm = opt.grad_norm()
+        opt.step(scale, grad_norm=gnorm)
+        st.step += 1
+        return float(loss), float(gnorm * scale)
+
+    sync = torch.cuda.synchronize if ids.is_cuda else (lambda: None)
+    losses, norms, walls = [], [], []
+    for _ in range(TP_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        if fused:
+            got = world.run(fused_step)
+        else:
+            outs = world.run(forward)
+            sum(t for t, _ in outs).backward()
+            got = world.run(lambda r: finish(r, *outs[r]))
+            del outs
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if len(set(got)) != 1:
+            raise AssertionError(f"15a: the tp ranks' losses or grad norms "
+                                 f"differ: {got}")
+        losses.append(got[0][0])
+        norms.append(got[0][1])
+    return {"losses": losses, "grad_norms": norms, "walls": walls}
+
+
+def tp_forward_counts(cfg, world, pars, states, groups, batch) -> list:
+    """Each rank's tp collectives by kind over one forward (the eval
+    step: no grad)."""
+    from picotron_tpu_torch.train_step import make_eval_step
+
+    for g in groups:
+        reset_counts(g)
+    evals = [make_eval_step(cfg, p) for p in pars]
+    world.run(lambda r: evals[r](states[r].model, batch))
+    return [rank_counts(g) for g in groups]
+
+
+def tp_full_params(cfg, dev) -> dict:
+    """The whole model's fp32 params from TP_SEED (what every layout
+    transplants)."""
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    model = init_params(LlamaModel(cfg.model, device=dev), gen)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def tp_batch(cfg, seq: int, dev):
+    import numpy as np
+
+    toks = torch.from_numpy(np.random.default_rng(TP_SEED).integers(
+        0, cfg.model.vocab_size, (1, 1, seq + 1))).to(dev)
+    return toks[..., :-1].contiguous(), toks[..., 1:].contiguous()
+
+
+def tp_strategies_phase(here: str, card: str, run: Optional[dict] = None,
+                        dev: str = "cuda", seqs=(TP_SEQ_FP32, TP_SEQ),
+                        layers: int = TP_LAYERS) -> dict:
+    """Phase 15a (module docstring): every TP_LAYOUTS entry in fp32 at
+    TP_SEQ_FP32 (losses and the step-1 grad norm against its twin's) and
+    in bf16 at TP_SEQ (flash launches per rank at the layout's heads,
+    collectives by kind, ms/step, peak GiB). `run`, `dev`, `seqs` and
+    `layers` replace the configuration (a tiny model on the CPU in the
+    tests, where the launches are not counted)."""
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.ops import flash_attention as fa
+    from picotron_tpu_torch.parallel.tp_strategies import (
+        forward_collectives,
+    )
+
+    if run is None:
+        with open(os.path.join(here, TP_RUN)) as f:
+            run = json.load(f)
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    out = {"card": card, "tp": TP, "layers": layers, "seq": seqs[1],
+           "seq_fp32": seqs[0], "steps": TP_STEPS,
+           "limits": {"TP_LOSS_RTOL": TP_LOSS_RTOL}, "layouts": {}}
+    tls = threading.local()
+    legs = [(name, engine) for name, (_, twin) in TP_LAYOUTS.items()
+            for engine in (("fused", "ad") if twin is None else ("fused",))]
+    for dtype, seq in zip(("float32", "bfloat16"), seqs):
+        cfg0 = config_from_dict(tp_raw(run, {}, dtype, seq, "fused", layers))
+        full = tp_full_params(cfg0, dev)
+        batch = tp_batch(cfg0, seq, dev)
+        for name, engine in legs:
+            dist_kw, twin = TP_LAYOUTS[name]
+            cfg = config_from_dict(tp_raw(run, dist_kw, dtype, seq, engine,
+                                          layers))
+            base = 0
+            if cuda:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            world, pars, states, groups = tp_world(cfg, full, dev)
+            key = name if engine == "fused" else f"{name} (AD)"
+            entry = out["layouts"].setdefault(key, {})
+            if dtype == "float32":
+                res = tp_steps(cfg, world, pars, states, batch, tls)
+                entry["losses_fp32"] = res["losses"]
+                entry["grad_norms_fp32"] = res["grad_norms"]
+            else:
+                fwd = tp_forward_counts(cfg, world, pars, states, groups,
+                                        batch)
+                want = forward_collectives(cfg)
+                for g in groups:
+                    reset_counts(g)
+                table: dict = {}
+                fa.reset_launch_counts()
+                with flash_by_rank(table, tls):
+                    res = tp_steps(cfg, world, pars, states, batch, tls)
+                peak = None
+                if cuda:
+                    torch.cuda.synchronize()
+                    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                variants = launch_counts(fa)
+                step_counts = [{k: v // TP_STEPS for k, v in
+                                rank_counts(g).items()} for g in groups]
+                entry.update(
+                    losses_bf16=res["losses"],
+                    step_ms=statistics.median(res["walls"][1:]) * 1e3,
+                    step_seconds=res["walls"], peak_gib=peak,
+                    heads=TP_HEADS[name],
+                    forward_collectives=fwd[0],
+                    forward_collectives_promised=want,
+                    collectives_per_step=step_counts[0],
+                    launches_per_rank=tp_launches(table, name, engine,
+                                                  layers),
+                    variants=variants)
+                check_tp_leg(key, entry, fwd, want, table, variants, name,
+                             engine, layers, cuda)
+            del world, pars, states, groups
+            if cuda:
+                torch.cuda.empty_cache()
+        del full
+        if cuda:
+            torch.cuda.empty_cache()
+    # the losses against the twin's AD run, in fp32
+    for key, entry in out["layouts"].items():
+        name = key.replace(" (AD)", "")
+        twin = TP_LAYOUTS[name][1] or name
+        ref = out["layouts"][f"{twin} (AD)"]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(entry["losses_fp32"] + entry["grad_norms_fp32"][:1],
+                      ref["losses_fp32"] + ref["grad_norms_fp32"][:1]))
+        ref = ref["losses_fp32"]
+        entry["twin"] = f"{twin} (AD)"
+        entry["rel_err_vs_twin"] = rel
+        log(f"phase 15a {key} ({card}): fp32 losses {entry['losses_fp32']} "
+            f"(twin {twin} AD: {ref}), step-1 grad norm "
+            f"{entry['grad_norms_fp32'][0]}, rel err {rel:.3g} (limit "
+            f"{TP_LOSS_RTOL:g}); bf16 {entry['step_ms']:.1f} ms/step over "
+            f"the {TP} thread ranks, peak {entry['peak_gib']} GiB, "
+            f"heads {entry['heads']}, collectives per step (rank 0) "
+            f"{entry['collectives_per_step']}, forward "
+            f"{entry['forward_collectives']}")
+        if not rel <= TP_LOSS_RTOL:
+            raise AssertionError(f"15a {key}: fp32 losses and step-1 grad "
+                                 f"norm vs {twin} AD's: rel err {rel:.3g}")
+    return out
+
+
+def tp_launches(table: dict, name: str, engine: str,
+                layers: int = TP_LAYERS) -> dict:
+    """{kernel: [launches of rank r at the layout's heads]}; under AD the
+    backward's run on the autograd engine's thread (rank None) and are
+    given as their total."""
+    hq, hkv = TP_HEADS[name]
+    out = {}
+    for kernel, _ in KERNELS:
+        per = [table.get((r, kernel, hq, hkv), 0) for r in range(TP)]
+        if engine == "ad" and kernel != "flash_fwd":
+            per = [table.get((None, kernel, hq, hkv), 0)]
+        out[kernel] = per
+    return out
+
+
+def check_tp_leg(key, entry, fwd, want, table, variants, name, engine,
+                 layers: int = TP_LAYERS, cuda: bool = True):
+    """15a's checks of one bf16 leg: every rank's forward collectives the
+    promised schedule; on the card every flash launch at the layout's
+    heads, on the tensor-core kernels, `layers` per rank per step for
+    each kernel."""
+    fails = []
+    for r, got in enumerate(fwd):
+        if got != want:
+            fails.append(f"rank {r} forward collectives {got}, promised "
+                         f"{want}")
+    if not cuda:
+        if fails:
+            raise AssertionError(f"15a {key}: " + "; ".join(fails))
+        return
+    hq, hkv = TP_HEADS[name]
+    stray = {k: v for k, v in table.items() if k[2:] != (hq, hkv)}
+    if stray:
+        fails.append(f"flash launches at other heads: {stray}")
+    per = layers * TP_STEPS
+    for kernel, launches in entry["launches_per_rank"].items():
+        expect = ([per * TP] if engine == "ad" and kernel != "flash_fwd"
+                  else [per] * TP)
+        if launches != expect:
+            fails.append(f"{kernel} launches {launches}, want {expect}")
+    for vkey in VARIANT_COUNTS:
+        if variants[vkey]["cuda_core"]:
+            fails.append(f"{vkey} {variants[vkey]}: a bf16 leg ran the "
+                         f"CUDA-core kernel")
+    if fails:
+        raise AssertionError(f"15a {key}: " + "; ".join(fails))
+
+
+def hier_phase(here: str, card: str, raw: Optional[dict] = None,
+               dev: str = "cuda", seq: int = SEQ) -> dict:
+    """Phase 15b (module docstring): one step's grads of CONFIG's model at
+    HIER_LAYERS layers, fp32, as a thread world of dp HIER_DP over
+    HIER_SLICES slices, by the hierarchical reduction and by the flat
+    all-reduce. `raw`, `dev` and `seq` replace the configuration (a tiny
+    model on the CPU in the tests)."""
+    import numpy as np
+
+    from picotron_tpu_torch import mesh
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+    from picotron_tpu_torch.optimizer import param_grads
+    from picotron_tpu_torch.parallel.hier_reduce import (
+        _dp_groups, dp_granule, use_hier_dp,
+    )
+    from picotron_tpu_torch.train_step import make_grads_fn
+
+    dev = torch.device(dev)
+    if raw is None:
+        with open(os.path.join(here, CONFIG)) as f:
+            raw = json.load(f)
+        raw["model"].update(num_hidden_layers=HIER_LAYERS)
+    raw["model"]["dtype"] = "float32"
+    raw["training"].update(seq_length=seq, micro_batch_size=1,
+                           gradient_accumulation_steps=1, remat=False,
+                           grad_engine="ad")
+    raw["distributed"] = {"dp_size": HIER_DP, "slices": HIER_SLICES,
+                          "dcn_axes": "dp"}
+    raw.pop("checkpoint", None)
+    gen = torch.Generator(device=dev).manual_seed(HIER_SEED)
+    cfg = config_from_dict(raw)
+    full = init_params(LlamaModel(cfg.model, device=dev), gen).state_dict()
+    toks = torch.from_numpy(np.random.default_rng(HIER_SEED).integers(
+        0, cfg.model.vocab_size, (HIER_DP, 1, 1, seq + 1))).to(dev)
+    group = thread_group_class()
+    runs = {}
+    for mode in ("hier", "flat"):
+        raw["distributed"]["hier_dp_reduce"] = "auto" if mode == "hier" \
+            else "off"
+        cfg = config_from_dict(raw)
+        g_dp, inner = dp_granule(cfg)
+        granule = (g_dp, inner) if use_hier_dp(cfg) else (1, HIER_DP)
+        world = GroupWorld(HIER_DP)
+        data = world.group(HIER_DP)
+        intra, cross = _dp_groups(g_dp, inner)
+        intra_sh = [world.group(len(m)) for m in intra]
+        cross_sh = [world.group(len(m)) for m in cross]
+        sizes = mesh.layout_sizes(cfg)
+        pars, groups, models = [], [], []
+        for r in range(HIER_DP):
+            o, i = divmod(r, inner)
+            gs = [group(data, r), None, None]
+            if granule[0] > 1:
+                gs[1] = group(intra_sh[o], i) if inner > 1 else None
+                gs[2] = group(cross_sh[i], o)
+            pars.append(mesh.ParallelEnv(
+                sizes=sizes, rank=r, world_size=HIER_DP, device=dev,
+                backend="thread", tp_group=None, data_group=gs[0],
+                host_group=None, coords=mesh.rank_coords(r, sizes),
+                dp_granule=granule, dp_intra_group=gs[1],
+                dp_cross_group=gs[2]))
+            model = LlamaModel(cfg.model, device=dev)
+            model.load_state_dict(full)
+            models.append(model)
+            groups.append(gs)
+        fns = [make_grads_fn(cfg, p) for p in pars]
+        # the AD engine sums into the params' .grad
+        grads = [param_grads(m.parameters()) for m in models]
+
+        def rank(r):
+            loss, scale = fns[r](models[r], (toks[r, ..., :-1],
+                                             toks[r, ..., 1:]), grads[r])
+            return float(loss)
+
+        losses = world.run(rank)
+        names = [n for n, _ in models[0].named_parameters()]
+        runs[mode] = {
+            "loss": losses[0], "losses": losses,
+            "grads": [dict(zip(names, g.values())) for g in grads],
+            "counts": [{k: rank_counts([g]) for k, g in zip(
+                ("data", "intra", "cross"), gs) if g is not None}
+                for gs in groups],
+            "cross_bytes": (groups[0][2].nbytes["all_reduce"]
+                            if groups[0][2] is not None else 0),
+            "data_bytes": groups[0][0].nbytes["all_reduce"]}
+        del models, world, pars
+    hier, flat = runs["hier"], runs["flat"]
+    names = list(flat["grads"][0])
+    errs = {n: rel_l2(hier["grads"][0][n], flat["grads"][0][n])
+            for n in names}
+    worst = max(errs, key=errs.get)
+    numel = sum(flat["grads"][0][n].numel() for n in names)
+    m = dp_granule(cfg)[1]
+    flat_grad_bytes = 4 * numel
+    fails = []
+    for r in range(HIER_DP):
+        for n in names:
+            if not torch.equal(hier["grads"][r][n], hier["grads"][0][n]):
+                fails.append(f"rank {r}'s {n} is not rank 0's")
+                break
+    want_hier = {"data": {"all_reduce": 1, "all_gather": 0,
+                          "reduce_scatter": 0},
+                 "intra": {"all_reduce": 0, "all_gather": 1,
+                           "reduce_scatter": 1},
+                 "cross": {"all_reduce": 1, "all_gather": 0,
+                           "reduce_scatter": 0}}
+    want_flat = {"data": {"all_reduce": len(names) + 1, "all_gather": 0,
+                          "reduce_scatter": 0}}
+    for r in range(HIER_DP):
+        if hier["counts"][r] != want_hier:
+            fails.append(f"rank {r} hier legs {hier['counts'][r]}, want "
+                         f"{want_hier}")
+        if flat["counts"][r] != want_flat:
+            fails.append(f"rank {r} flat legs {flat['counts'][r]}, want "
+                         f"{want_flat}")
+    # the flat data group's all-reduces: every grad, then (NLL sum, count)
+    if flat["data_bytes"] != flat_grad_bytes + 8:
+        fails.append(f"flat all-reduce bytes {flat['data_bytes']}, want "
+                     f"{flat_grad_bytes} + 8")
+    padded = -(-numel // m) * m
+    if hier["cross_bytes"] * m != 4 * padded:
+        fails.append(f"cross-slice bytes {hier['cross_bytes']} x {m} != "
+                     f"the padded flat buffer's {4 * padded}")
+    if not errs[worst] <= HIER_GRAD_RTOL:
+        fails.append(f"grad {worst} rel L2 {errs[worst]:.3g} (limit "
+                     f"{HIER_GRAD_RTOL:g})")
+    if hier["loss"] != flat["loss"]:
+        fails.append(f"losses {hier['loss']} vs {flat['loss']}")
+    res = {"card": card, "dp": HIER_DP, "slices": HIER_SLICES,
+           "granule": list(dp_granule(cfg)),
+           "layers": cfg.model.num_hidden_layers, "seq": seq,
+           "loss": hier["loss"], "flat_loss": flat["loss"],
+           "worst_grad_rel_l2": errs[worst], "worst_grad": worst,
+           "legs_rank0": hier["counts"][0], "flat_legs_rank0":
+           flat["counts"][0], "cross_slice_bytes": hier["cross_bytes"],
+           "flat_allreduce_bytes": flat_grad_bytes,
+           "cross_over_flat": hier["cross_bytes"] / flat_grad_bytes,
+           "limits": {"HIER_GRAD_RTOL": HIER_GRAD_RTOL}}
+    log(f"phase 15b hierarchical dp reduction ({card}): dp {HIER_DP} over "
+        f"{HIER_SLICES} slices (inner {m}); worst grad vs flat rel L2 "
+        f"{errs[worst]:.3g} ({worst}, limit {HIER_GRAD_RTOL:g}); legs (rank "
+        f"0) {hier['counts'][0]}; cross-slice bytes {hier['cross_bytes']} = "
+        f"{res['cross_over_flat']:.4f} of the flat all-reduce's "
+        f"{flat_grad_bytes}")
+    if fails:
+        raise AssertionError("15b: " + "; ".join(fails))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4907,6 +5716,7 @@ def main() -> int:
     # the tensor-core kernels alone at each static shape: time, TFLOP/s,
     # share of bound; and without RoPE (the same products, no per-tile
     # rotation)
+    shape_times: dict = {}
     for label, shp in ((k, v) for k, v in SHAPES.items() if not v[-1]):
         case = make_case(fa, rope_tables, *shp, dev=dev, seed=7)
         q, k, v, qpos, kpos, tabs, do, dlse, static = case
@@ -4925,6 +5735,11 @@ def main() -> int:
             for name, fn in runs.items():
                 bound_ms, bound_by, flops = bnd_shape[name]
                 ms = cuda_ms(fn, iters=20, warmup=3)
+                if not rope:
+                    shape_times.setdefault(label, {})[name] = {
+                        "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share_of_bound": bound_ms / ms,
+                        "max_abs_err": errs.get((label, name))}
                 log(f"{name} {label}{rope} ({card}): {ms:.4f} ms, "
                     f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} "
                     f"ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound")
@@ -5064,6 +5879,16 @@ def main() -> int:
     log(f"phase 14 disaggregated serving and the fleet: ok in "
         f"{fleet['seconds']:.1f} s")
 
+    # phase 15: the tp strategies and the hierarchical dp reduction
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    tp = tp_strategies_phase(here, card)
+    torch.cuda.empty_cache()
+    tp["hier"] = hier_phase(here, card)
+    tp["seconds"] = time.perf_counter() - t15
+    log(f"phase 15 the tp strategies and the hierarchical dp reduction: ok "
+        f"in {tp['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -5099,6 +5924,9 @@ def main() -> int:
             "moe_launches": moe["train"]["launches"][name],
             "moe_shape": {k: moe["kernels"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "tp2d_shape": shape_times[TP2D_LABEL][name],
+            "tp_launches": {lay: res["launches_per_rank"][name]
+                            for lay, res in tp["layouts"].items()},
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
@@ -5132,6 +5960,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}))
     print(json.dumps({"elastic": elastic}))
     print(json.dumps({"serving_fleet": fleet}))
+    print(json.dumps({"tp_strategies": tp}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,13 +105,15 @@ OPT_FILE = elastic.OPT_FILE
 
 
 def topology(cfg: Config, par=None) -> dict:
-    """The parallel layout a checkpoint is saved under; under a process
-    group (`par`) also its process count and whether ZeRO-1 shards the
-    optimizer state."""
+    """The parallel layout a checkpoint is saved under (the slice count
+    past one slice); under a process group (`par`) also its process count
+    and whether ZeRO-1 shards the optimizer state."""
     d = cfg.distributed
     topo = {"dp": d.dp_size, "pp": d.pp_size, "ep": d.ep_size,
             "cp": d.cp_size, "tp": d.tp_size, "world_size": d.world_size,
             "process_count": 1}
+    if d.slices > 1:
+        topo["slices"] = d.slices
     if par is not None:
         topo.update(process_count=par.world_size, zero1=bool(d.zero1))
     return topo
@@ -609,10 +611,11 @@ def restore_params_only(cfg: Config, ckpt_dir: str,
     (memory-mapped: the moments are not read), as the JAX package's
     restore_params_only. A parallel layout's per-rank files are read
     whole: the union of the pp stages, the tp shards concatenated along
-    their split dims, the ep shards of the MoE banks along the expert
-    dim. With no step: the newest durable AND verified one."""
+    their split dims (a "row" tp strategy's flipped ones under `cfg`),
+    the ep shards of the MoE banks along the expert dim. With no step:
+    the newest durable AND verified one."""
     from picotron_tpu_torch.parallel.sharding import (
-        ep_shard_dim, tp_shard_dim,
+        ep_shard_dim, tp_flips, tp_shard_dim,
     )
 
     mgr = CheckpointManager(cfg, directory=ckpt_dir)
@@ -636,9 +639,10 @@ def restore_params_only(cfg: Config, ckpt_dir: str,
     else:
         parts = {c: w["params"] for c, w in whole.items()}
     size = layout.size
+    flips = tp_flips(cfg)
     params = {}
     for n in elastic.order_names(parts[(0, 0)]):
-        tpd, epd = tp_shard_dim(n), ep_shard_dim(n)
+        tpd, epd = tp_shard_dim(n, flips), ep_shard_dim(n)
         banks = []
         for e in range(size["ep"] if epd is not None else 1):
             shards = [parts[(e, t)][n] for t in range(

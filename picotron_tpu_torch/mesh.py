@@ -33,6 +33,18 @@ collectives it needs:
   sharded over ep, reduce their grads and ZeRO-1 shards their moments
   (the JAX `_data_axes_psum` leaves ep out for a tensor sharded over
   it); at ep 1 neither exists and the bank group is the data group;
+- under the 2d tp strategy (tp = tp_x x tp_y,
+  `parallel/tp_strategies.tp_subgroups`), the ty groups (the tp_y
+  contiguous tp indices of one ix) and the tx groups (the tp_x strided
+  tp indices of one iy), over the global ranks of each tp group;
+- on a multi-slice layout whose dp carries a slice granule
+  (`parallel/hier_reduce.use_hier_dp`), the hierarchical reduction's dp
+  cohorts: the intra-slice ones (the `inner` contiguous dp indices of one
+  slice) and the cross-slice ones (one dp index per slice at the same
+  offset). The slices split the outermost axes first
+  (`_split_axes_over_dcn`: dp, then pp), and dp is outermost in the rank
+  grid, so a slice of dp is a contiguous block of ranks: under torchrun
+  that block is a node (NVLink inside it, the network between nodes);
 - a gloo group over every rank for the checkpoint's host-side agreement
   (barriers and the step every rank restores), used by nothing else, so
   that a save's commit thread never interleaves with the step's
@@ -57,7 +69,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from picotron_tpu_torch.config import resolved_cp_flavor, resolved_cp_mesh
+from picotron_tpu_torch.config import (
+    resolved_cp_flavor, resolved_cp_mesh, resolved_tp_mesh,
+    resolved_tp_strategy,
+)
 from picotron_tpu_torch.ops.mesh_attention import mesh_groups
 
 # outermost to innermost, as the JAX package's AXES
@@ -125,6 +140,17 @@ class ParallelEnv:
     # the ep group, and the bank group (the data group at ep 1)
     ep_group: object = field(default=None, repr=False)
     bank_group: object = field(default=None, repr=False)
+    # (tp_x, tp_y) of the 2d tp strategy ((tp, 1) otherwise), and this
+    # rank's ty and tx subgroups (None for a group of one)
+    tp_mesh: tuple = (1, 1)
+    tp_ty_group: object = field(default=None, repr=False)
+    tp_tx_group: object = field(default=None, repr=False)
+    # the hierarchical dp reduction: (g_dp, inner) of the slice layout,
+    # and this rank's intra-slice and cross-slice dp cohorts (None
+    # without it)
+    dp_granule: tuple = (1, 1)
+    dp_intra_group: object = field(default=None, repr=False)
+    dp_cross_group: object = field(default=None, repr=False)
 
     @property
     def tp_size(self) -> int:
@@ -237,6 +263,64 @@ def check_world(cfg, world_size: int) -> None:
             f"change the layout)")
 
 
+def _split_axes_over_dcn(shape: tuple, n_slices: int) -> tuple:
+    """(dcn_shape, per_slice_shape) of the (dp, pp, ep, cp, tp) shape over
+    `n_slices` slices: the slices are absorbed by the outermost axes
+    first (dp, then pp); ep, cp and tp never cross a slice (port of the
+    JAX function of this name, its error included)."""
+    import math
+
+    n_dcn_tolerant_axes = 2  # dp, pp only — never ep/cp/tp over DCN
+    dcn = [1] * len(shape)
+    per_slice = list(shape)
+    rem = n_slices
+    for i in range(n_dcn_tolerant_axes):
+        g = math.gcd(per_slice[i], rem)
+        dcn[i] = g
+        per_slice[i] //= g
+        rem //= g
+        if rem == 1:
+            break
+    if rem != 1:
+        raise ValueError(
+            f"cannot distribute {n_slices} DCN slices over mesh axes "
+            f"{dict(zip(AXES, shape))}: the slice count must divide the "
+            f"product of the DCN-tolerant axis sizes (dp * pp = "
+            f"{shape[0] * shape[1]}) — ep/cp/tp collectives must stay on "
+            f"ICI. Rebalance the layout so dp*pp absorbs the slice count.")
+    return tuple(dcn), tuple(per_slice)
+
+
+def _tp_mesh(cfg) -> tuple:
+    """(tp_x, tp_y) of the config's 2d tp strategy; (tp, 1) otherwise."""
+    tp = cfg.distributed.tp_size
+    if tp > 1 and "2d" in resolved_tp_strategy(cfg).values():
+        return tuple(resolved_tp_mesh(cfg))
+    return (tp, 1)
+
+
+def tp_subgroup_ranks(sizes: dict, tp_x: int, tp_y: int) -> tuple:
+    """(ty lists, tx lists) of global ranks: each tp group's
+    `tp_strategies.tp_subgroups`."""
+    from picotron_tpu_torch.parallel.tp_strategies import tp_subgroups
+
+    ty, tx = tp_subgroups(tp_x, tp_y)
+    lists = group_ranks(sizes, ("tp",))
+    return ([[g[i] for i in sub] for g in lists for sub in ty],
+            [[g[i] for i in sub] for g in lists for sub in tx])
+
+
+def dp_cohort_ranks(sizes: dict, g_dp: int, inner: int) -> tuple:
+    """(intra-slice lists, cross-slice lists) of global ranks: each dp
+    group's `hier_reduce._dp_groups`."""
+    from picotron_tpu_torch.parallel.hier_reduce import _dp_groups
+
+    intra, cross = _dp_groups(g_dp, inner)
+    lists = group_ranks(sizes, ("dp",))
+    return ([[g[i] for i in sub] for g in lists for sub in intra],
+            [[g[i] for i in sub] for g in lists for sub in cross])
+
+
 def cp_row_ranks(cp_ranks, cp_x: int, cp_y: int) -> list:
     """The row groups of one cp group under the mesh cp flavor (the cp
     indices of `mesh_attention.mesh_groups`'s rows), as global ranks."""
@@ -291,11 +375,15 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
                                f"got {backend!r}")
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
+    from picotron_tpu_torch.parallel.hier_reduce import dp_granule, use_hier_dp
+
     sizes = layout_sizes(cfg)
     cp_x, cp_y = _cp_mesh(cfg)
+    tp_x, tp_y = _tp_mesh(cfg)
+    granule = dp_granule(cfg) if use_hier_dp(cfg) else (1, sizes["dp"])
     tied = sizes["pp"] > 1 and cfg.model.tie_word_embeddings
-    key = (tuple(sizes.values()), (cp_x, cp_y), tied, world, backend,
-           str(device))
+    key = (tuple(sizes.values()), (cp_x, cp_y), (tp_x, tp_y), granule, tied,
+           world, backend, str(device))
     if key not in _ENVS:
         tp_group, _ = dist.new_subgroups_by_enumeration(
             group_ranks(sizes, ("tp",)))
@@ -329,6 +417,21 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
                 group_ranks(sizes, ("ep",)))
             bank_group, _ = dist.new_subgroups_by_enumeration(
                 group_ranks(sizes, BANK_AXES))
+        ty_group = tx_group = None
+        if tp_y > 1 and tp_x > 1:
+            ty, tx = tp_subgroup_ranks(sizes, tp_x, tp_y)
+            ty_group, _ = dist.new_subgroups_by_enumeration(ty)
+            tx_group, _ = dist.new_subgroups_by_enumeration(tx)
+        elif tp_y > 1:
+            ty_group = tp_group
+        elif tp_x > 1:
+            tx_group = tp_group
+        intra_group = cross_group = None
+        if granule[0] > 1:
+            intra, cross = dp_cohort_ranks(sizes, *granule)
+            if granule[1] > 1:
+                intra_group, _ = dist.new_subgroups_by_enumeration(intra)
+            cross_group, _ = dist.new_subgroups_by_enumeration(cross)
         # the checkpoint's own group: its commit thread's agreement must
         # not interleave with the step's collectives on another group
         host_group = dist.new_group(backend="gloo")
@@ -339,7 +442,9 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
             cp_group=cp_group, cp_ranks=cp_ranks, cp_mesh=(cp_x, cp_y),
             cp_row_group=row_group, pp_group=pp_group, pp_ranks=pp_ranks,
             pp_ends_group=ends_group, ep_group=ep_group,
-            bank_group=bank_group)
+            bank_group=bank_group, tp_mesh=(tp_x, tp_y),
+            tp_ty_group=ty_group, tp_tx_group=tx_group, dp_granule=granule,
+            dp_intra_group=intra_group, dp_cross_group=cross_group)
     return _ENVS[key]
 
 

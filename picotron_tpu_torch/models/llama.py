@@ -25,6 +25,20 @@ vocab-parallel CE in `loss_sum_count`. Under sequence parallelism the
 residual stream between them is [B, S/tp, H]. Without a context (tp 1)
 the model is the single-device one, op for op.
 
+The tp strategies and the deferred sync (port of the JAX `ParallelCtx`
+hooks `pre`, `qkv_mm`, `o_mm`, `mlp_mm` and `head_in`;
+`parallel/tp_strategies.py`): the context's `pre` runs on each block's
+input before its norm (the deferred sync's hoisted gather; identity
+otherwise), a hooked attention pair (2d or row-first) replaces
+`qkv_proj`'s matmuls and `_o_proj` with the strategy's `qkv_mm` and
+`o_mm`, a hooked MLP pair replaces `_gate_up` and `_act_down` with its
+`gate_up` and `act_down` (the JAX `mlp_mm` split at the activation, so
+that every remat policy cuts it where it cuts the megatron MLP), and
+the head enters through `head_in`. Under "row" a pair's weights are
+stored with the other dim sharded (q/k/v/gate/up [out, in/tp], o/down
+[out/tp, in]). With no strategy and the sync exit, the block is the one
+above, op for op.
+
 Mixture of experts (port of the JAX `_moe_block`, :401-425 there): with
 `num_experts` > 0 each layer's MLP is `ops/moe.moe_mlp` over the router
 [H, E] and the expert banks w_gate/w_up [E_local, H, F/tp] and w_down
@@ -187,6 +201,16 @@ def _tp_size(tp: Optional[TPContext]) -> int:
     return 1 if tp is None else tp.size
 
 
+def _hooked(tp: Optional[TPContext], pair: str) -> bool:
+    """The tp strategy replaces the matmuls of `pair` ("attn", "mlp")."""
+    return tp is not None and tp.strategy is not None and \
+        tp.strategy.hooked(pair)
+
+
+def _row(tp: Optional[TPContext], pair: str) -> bool:
+    return _hooked(tp, pair) and getattr(tp.strategy, pair) == "row"
+
+
 def pp_layer_placement(num_layers: int, pp: int):
     """(padded size, slots): the JAX package's stacked layer axis, padded
     to pp * ceil(L / pp), and each real layer's slot in it (stage k's
@@ -278,9 +302,15 @@ class DecoderLayer(nn.Module):
                  ep: Optional[EPContext] = None):
         super().__init__()
         n = _tp_size(tp)
-        h, i, d = cfg.hidden_size, cfg.intermediate_size // n, cfg.head_dim
-        q_out = cfg.num_attention_heads // n * d
-        kv_out = cfg.num_key_value_heads // n * d
+        h, d = cfg.hidden_size, cfg.head_dim
+        # a "row" pair shards its input features (q/k/v, gate/up) and
+        # the o/down outputs; otherwise the output features (q/k/v,
+        # gate/up) and the o/down inputs
+        ra, rm = _row(tp, "attn"), _row(tp, "mlp")
+        ha, hm = (h // n if ra else h), (h // n if rm else h)
+        q_out = cfg.num_attention_heads // (1 if ra else n) * d
+        kv_out = cfg.num_key_value_heads // (1 if ra else n) * d
+        i = cfg.intermediate_size // (1 if rm else n)
         self.tp = tp
         self.cp = cp
         self.ep = ep
@@ -291,8 +321,8 @@ class DecoderLayer(nn.Module):
                                             dtype=torch.float32))
 
         self.input_norm = p(h)
-        self.q, self.k, self.v = p(q_out, h), p(kv_out, h), p(kv_out, h)
-        self.o = p(h, q_out)
+        self.q, self.k, self.v = p(q_out, ha), p(kv_out, ha), p(kv_out, ha)
+        self.o = p(ha, q_out)
         self.post_norm = p(h)
         if cfg.attention_bias:
             self.b_q, self.b_k, self.b_v = p(q_out), p(kv_out), p(kv_out)
@@ -306,8 +336,8 @@ class DecoderLayer(nn.Module):
             self.w_gate, self.w_up = p(e_local, h, f), p(e_local, h, f)
             self.w_down = p(e_local, f, h)
         else:
-            self.gate, self.up = p(i, h), p(i, h)
-            self.down = p(h, i)
+            self.gate, self.up = p(i, hm), p(i, hm)
+            self.down = p(hm, i)
 
 
 class LlamaModel(nn.Module):
@@ -376,6 +406,10 @@ def init_params(model: LlamaModel, generator: torch.Generator,
     rank's experts are its own, where every other tensor draws alike)."""
 
     n = _tp_size(model.tp)
+    cfg = model.cfg
+    # each linear's whole fan-in, whichever dim its tp shard splits
+    fan_ins = {"o": cfg.num_attention_heads * cfg.head_dim,
+               "down": cfg.intermediate_size}
 
     def uniform(w, fan_in, gen=None):
         bound = (1.0 / fan_in) ** 0.5
@@ -388,9 +422,7 @@ def init_params(model: LlamaModel, generator: torch.Generator,
         names = ("q", "k", "v", "o") + (() if lp.moe else
                                         ("gate", "up", "down"))
         for name in names:
-            w = getattr(lp, name)
-            # a row-parallel shard holds 1/tp of its fan-in
-            uniform(w, w.shape[1] * (n if name in ("o", "down") else 1))
+            uniform(getattr(lp, name), fan_ins.get(name, cfg.hidden_size))
         if lp.moe:
             uniform(lp.router, lp.router.shape[0])
             for name in ("w_gate", "w_up", "w_down"):
@@ -438,9 +470,20 @@ def _exit(y: torch.Tensor, lp: DecoderLayer) -> torch.Tensor:
     return y if lp.tp is None else lp.tp.g(y)
 
 
+def _pre(x: torch.Tensor, lp: DecoderLayer) -> torch.Tensor:
+    """The block entry before the norm (the deferred sync's sequence
+    gather; identity otherwise)."""
+    return x if lp.tp is None else lp.tp.pre(x)
+
+
 def qkv_proj(h: torch.Tensor, lp: DecoderLayer, d: int):
     """q/k/v projections (+ optional bias) -> [B,S,Hq,D], [B,S,Hkv,D] x2
-    (this rank's heads under tp; h enters through f)."""
+    (this rank's heads under tp; h enters through f, or through the tp
+    strategy's `qkv_mm`)."""
+    if _hooked(lp.tp, "attn"):
+        dt = h.dtype
+        return lp.tp.strategy.qkv_mm(h, lp.q.to(dt), lp.k.to(dt),
+                                     lp.v.to(dt), d)
     h = _entry(h, lp)
     dt = h.dtype
     b, s, _ = h.shape
@@ -481,36 +524,48 @@ def _attention_block(x, lp: DecoderLayer, cfg: ModelConfig, rope):
 
 
 def _qkv_block(x, lp: DecoderLayer, cfg: ModelConfig):
-    h = rms_norm(x, lp.input_norm, cfg.rms_norm_eps)
+    h = rms_norm(_pre(x, lp), lp.input_norm, cfg.rms_norm_eps)
     return qkv_proj(h, lp, cfg.head_dim)
 
 
 def _o_proj(out, lp: DecoderLayer):
     """[B, S, Hq, D] attention output -> o-projection [B, S, H]."""
     b, s = out.shape[:2]
+    if _hooked(lp.tp, "attn"):
+        return lp.tp.strategy.o_mm(out.reshape(b, s, -1),
+                                   lp.o.to(out.dtype))
     return _exit(F.linear(out.reshape(b, s, -1), lp.o.to(out.dtype)), lp)
 
 
 def _gate_up(h, lp: DecoderLayer):
-    h = _entry(h, lp)
     dt = h.dtype
+    if _hooked(lp.tp, "mlp"):
+        return lp.tp.strategy.gate_up(h, lp.gate.to(dt), lp.up.to(dt))
+    h = _entry(h, lp)
     return F.linear(h, lp.gate.to(dt)), F.linear(h, lp.up.to(dt))
 
 
 def _act_down(gate, up, lp: DecoderLayer, cfg: ModelConfig):
+    if _hooked(lp.tp, "mlp"):
+        return lp.tp.strategy.act_down(gate, up, lp.down.to(gate.dtype),
+                                       mlp_act(cfg))
     return _exit(F.linear(mlp_act(cfg)(gate) * up, lp.down.to(gate.dtype)),
                  lp)
 
 
+def _post_norm(x, lp: DecoderLayer, cfg: ModelConfig):
+    """The MLP's entry norm, after `pre`."""
+    return rms_norm(_pre(x, lp), lp.post_norm, cfg.rms_norm_eps)
+
+
 def _mlp_block(x, lp: DecoderLayer, cfg: ModelConfig):
     """RMSNorm -> gated MLP."""
-    h = rms_norm(x, lp.post_norm, cfg.rms_norm_eps)
-    return _act_down(*_gate_up(h, lp), lp, cfg)
+    return _act_down(*_gate_up(_post_norm(x, lp, cfg), lp), lp, cfg)
 
 
 def _moe_entry(x, lp: DecoderLayer, cfg: ModelConfig):
     """RMSNorm -> the column-parallel entry: the MoE block's tokens."""
-    return _entry(rms_norm(x, lp.post_norm, cfg.rms_norm_eps), lp)
+    return _entry(_post_norm(x, lp, cfg), lp)
 
 
 def router_logits(h, lp: DecoderLayer) -> torch.Tensor:
@@ -574,7 +629,7 @@ def _res_moe(x, o, logits, lp, cfg):
 
 def _res_norm(x, o, lp, cfg):
     a = x + o
-    return a, rms_norm(a, lp.post_norm, cfg.rms_norm_eps)
+    return a, _post_norm(a, lp, cfg)
 
 
 def _res_norm_gate_up(x, o, lp, cfg):
@@ -596,7 +651,7 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
     if policy == "full":
         return _segment(decoder_layer, x, lp, cfg, rope)
     if policy == "dots_norms":
-        h = _segment(rms_norm, x, lp.input_norm, cfg.rms_norm_eps)
+        h = _segment(rms_norm, _pre(x, lp), lp.input_norm, cfg.rms_norm_eps)
         q, k, v = qkv_proj(h, lp, cfg.head_dim)
     else:
         q, k, v = _segment(_qkv_block, x, lp, cfg)
@@ -660,7 +715,7 @@ def logits_from_hidden(model: LlamaModel, x: torch.Tensor) -> torch.Tensor:
     """Full-vocab logits; under tp the sharded head's, gathered (eval)."""
     if model.tp is None:
         return F.linear(x, model.head_weight().to(x.dtype))
-    x = model.tp.f(x)
+    x = model.tp.head_in(x)
     return gather_logits(F.linear(x, model.head_weight().to(x.dtype)),
                          model.tp)
 

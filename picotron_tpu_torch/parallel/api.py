@@ -17,6 +17,14 @@ count is clamped at 1 after the sum, so shards whose IGNORE_INDEX counts
 differ weigh correctly. Under a process group this runs at every size, world 1
 included, so that the path is the same one the layouts run.
 
+On a multi-slice layout whose dp carries a slice granule
+(`parallel/hier_reduce.use_hier_dp`) the data-axis sum of the grads is
+the hierarchical schedule instead (`hier_reduce.hier_sum_`: one flat
+fp32 buffer per set of axes, (dp, ep, cp) for every tensor but the
+banks, (dp, cp) for the banks, as the JAX `_data_axes_psum`): a
+reduce-scatter inside the slice, one shard per slice across it, an
+all-gather back. The NLL sum and the count stay one flat all-reduce.
+
 Context parallelism needs nothing more here: the data group spans cp
 (`mesh.DATA_AXES`), each cp rank's grads, NLL sum and count are those of
 its slice of the sequence, and their sum over the group is the whole
@@ -30,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from picotron_tpu_torch.parallel import comm
+from picotron_tpu_torch.parallel.hier_reduce import hier_sum_
 from picotron_tpu_torch.parallel.sharding import ep_shard_dim, tp_partial
 
 
@@ -47,21 +56,29 @@ class GradSync:
     (nll_total, count, *more), the buffers `grads` ({param: buffer})
     reduced in place."""
 
-    def __init__(self, par, model: torch.nn.Module, sequence_parallel: bool):
+    def __init__(self, par, model: torch.nn.Module, seq_sharded: bool):
         self.par = par
         named = list(model.named_parameters())
         self.tp_params = ([p for n, p in named
-                           if tp_partial(n, sequence_parallel)]
+                           if tp_partial(n, seq_sharded)]
                           if par.tp_size > 1 else [])
         self.banks = {p for n, p in named if ep_shard_dim(n) is not None}
+        # the hierarchical reduction when the layout made its cohorts
+        self.hier = par.dp_granule[0] > 1
 
     def __call__(self, grads: dict, nll_total: torch.Tensor,
                  count: torch.Tensor, *more: torch.Tensor):
         for p in self.tp_params:
             comm.all_reduce(grads[p], self.par.tp_group)
-        for p, buf in grads.items():
-            comm.all_reduce(buf, self.par.bank_group if p in self.banks
-                            else self.par.data_group)
+        if self.hier:
+            hier_sum_([b for p, b in grads.items() if p not in self.banks],
+                      ("dp", "ep", "cp"), self.par)
+            hier_sum_([b for p, b in grads.items() if p in self.banks],
+                      ("dp", "cp"), self.par)
+        else:
+            for p, buf in grads.items():
+                comm.all_reduce(buf, self.par.bank_group if p in self.banks
+                                else self.par.data_group)
         return reduce_sum_count(nll_total, count, self.par.data_group, *more)
 
 
@@ -90,9 +107,10 @@ def finish_grads(cfg, grads: dict, nll_total: torch.Tensor,
     return nll_total / count, torch.reciprocal(count.float())
 
 
-def grad_seam(par, sequence_parallel: bool):
+def grad_seam(par, seq_sharded: bool):
     """model -> its `GradSync` over `par`, made once per model (again for
-    another model); None without a layout."""
+    another model); None without a layout. `seq_sharded`: the residual
+    stream is seq-sharded over tp (`sharding.seq_sharded`)."""
     made: dict = {}
 
     def seam(model):
@@ -100,7 +118,7 @@ def grad_seam(par, sequence_parallel: bool):
             return None
         if made.get("model") is not model:
             made.update(model=model,
-                        sync=GradSync(par, model, sequence_parallel))
+                        sync=GradSync(par, model, seq_sharded))
         return made["sync"]
 
     return seam

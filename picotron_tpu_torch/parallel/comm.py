@@ -45,6 +45,29 @@ on the rank's ep group, or the thread world's: `size`, `index` and
 transpose is the same exchange). The MoE router statistics' mean over
 the data group is `GroupMean.mean` (one all-reduce each way, counted as
 "all_reduce"; the JAX `lax.pmean`, whose transpose is again a mean).
+
+Tensor parallelism (`parallel/tp.py`, `parallel/tp_strategies.py`)
+reaches its collectives through `GroupComm`, one per group (the tp
+group, and under the 2d strategy its ty and tx subgroups): the raw
+`all_reduce`, `all_gather` and `reduce_scatter` along any dim, and the
+differentiable pairs the layouts are made of, each named by its forward
+and its backward:
+
+    copy          identity          all-reduce      (Megatron's f)
+    reduce        all-reduce        identity        (Megatron's g)
+    gather        all-gather        reduce-scatter  (SP's f)
+    scatter       reduce-scatter    all-gather      (SP's g)
+    gather_slice  all-gather        own slice       (a gather of a shard
+                                                     whose consumers run
+                                                     alike on every rank)
+    slice_reduce  own slice         all-gather      (row-first's entry)
+
+The differentiable pairs call the raw methods, so a communicator that
+overrides only those (`chip_smoke.py`'s thread world) runs the same
+layouts. `all_reduce`, `all_gather_into` and `reduce_scatter_into` hand
+the call to `group` itself when it is not a process group but an object
+with those methods, so that the data-axis seam (`parallel/api.py`) runs
+over a thread world's groups as well.
 """
 
 from __future__ import annotations
@@ -70,9 +93,21 @@ def reset_collective_counts() -> None:
         collectives[key] = 0
 
 
+def _delegate(group, method: str):
+    """`group`'s own method `method` when `group` is a communicator object
+    rather than a process group (None, the default group, included)."""
+    if group is None or isinstance(group, dist.ProcessGroup):
+        return None
+    return getattr(group, method, None)
+
+
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place over `group`; returns `t`."""
     collectives["all_reduce"] += 1
+    own = _delegate(group, "all_reduce_into")
+    if own is not None:
+        own(t, op)
+        return t
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -82,13 +117,164 @@ def all_gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     group-rank order. `inp` may be this rank's own slice of `out` (the
     in-place form ZeRO-1 uses)."""
     collectives["all_gather"] += 1
+    own = _delegate(group, "all_gather_into")
+    if own is not None:
+        own(out, inp)
+        return
     _all_gather(out, inp, group=group)
 
 
 def reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """`out` <- this rank's dim-0 slice of the sum of every rank's `inp`."""
     collectives["reduce_scatter"] += 1
+    own = _delegate(group, "reduce_scatter_into")
+    if own is not None:
+        own(out, inp)
+        return
     _reduce_scatter(out, inp, group=group)
+
+
+def gather_along(x: torch.Tensor, dim: int, n: int,
+                 gather_into) -> torch.Tensor:
+    """Every rank's x concatenated along `dim`, in rank order, through
+    `gather_into(out, inp)` (a dim-0 all-gather)."""
+    dim = dim % x.dim()
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + x.shape[1:])
+    gather_into(out, x)
+    out = out.reshape((n,) + x.shape).movedim(0, dim)
+    return out.reshape(x.shape[:dim] + (n * x.shape[dim],)
+                       + x.shape[dim + 1:])
+
+
+def scatter_along(x: torch.Tensor, dim: int, n: int,
+                  scatter_into) -> torch.Tensor:
+    """This rank's slice along `dim` of the sum of every rank's x, through
+    `scatter_into(out, inp)` (a dim-0 reduce-scatter)."""
+    dim = dim % x.dim()
+    size = x.shape[dim]
+    out_shape = x.shape[:dim] + (size // n,) + x.shape[dim + 1:]
+    parts = x.reshape(x.shape[:dim] + (n, size // n) + x.shape[dim + 1:])
+    parts = parts.movedim(dim, 0).contiguous()
+    parts = parts.reshape((n * out_shape[0],) + out_shape[1:])
+    out = parts.new_empty(out_shape)
+    scatter_into(out, parts)
+    return out
+
+
+def own_slice(x: torch.Tensor, dim: int, n: int, index: int) -> torch.Tensor:
+    """Slice `index` of n along `dim` (a contiguous copy)."""
+    c = x.shape[dim] // n
+    return x.narrow(dim, index * c, c).contiguous()
+
+
+class GroupComm:
+    """The collectives of one rank over one process group of `size` ranks,
+    in which it is `index` (module docstring: the raw methods and the
+    differentiable pairs)."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, size, index
+
+    # -- raw (not differentiable) -------------------------------------------
+
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM):
+        """t summed in place over the group; returns t."""
+        return all_reduce(t, self.group, op)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return gather_along(x, dim, self.size, lambda out, inp:
+                            all_gather_into(out, inp, self.group))
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return scatter_along(x, dim, self.size, lambda out, inp:
+                             reduce_scatter_into(out, inp, self.group))
+
+    # -- differentiable -----------------------------------------------------
+
+    def copy(self, x):
+        return _Copy.apply(x, self)
+
+    def reduce(self, x):
+        return _Reduce.apply(x, self)
+
+    def gather(self, x, dim: int):
+        return _Gather.apply(x, self, dim)
+
+    def scatter(self, x, dim: int):
+        return _Scatter.apply(x, self, dim)
+
+    def gather_slice(self, x, dim: int):
+        return _GatherSlice.apply(x, self, dim)
+
+    def slice_reduce(self, x, dim: int):
+        return _SliceReduce.apply(x, self, dim)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous().clone()), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim), None, None
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        return own_slice(g, ctx.dim, c.size, c.index), None, None
+
+
+class _SliceReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return own_slice(x, dim, comm.size, comm.index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim), None, None
 
 
 def split_chunks(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:

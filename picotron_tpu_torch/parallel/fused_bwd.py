@@ -67,12 +67,38 @@ statistics' mean. Its weight grads come from the fp32 masters' casts,
 as under the AD engine; `ComputeWeights` holds the attention matmuls and
 the head for an MoE layer.
 
+The tp strategies (`parallel/tp_strategies.py`; the JAX engine's
+segment VJPs over the same hooks, `fused_bwd.py:113-122, 313-330,
+374-408` there): the forward runs the strategy's hooks on the compute
+weights, and the backward takes each hook's transpose explicitly, with
+the raw collectives (so that every rank calls its own, as a thread
+world's ranks must):
+
+- the deferred sync: the megatron half with f's transpose the identity
+  and g's an all-gather of the sequence, and `pre`'s transpose (a
+  reduce-scatter of the sequence) after each norm's;
+- 2d: the subgroup gathers' transpose is the own slice (of the head
+  block's dq/dk/dv, of the gathered weight's grad, of the activation's),
+  the tx sum's the identity, f's the all-reduce over tp; the o
+  transpose reads the weight rows gathered over ty again. An MLP pair
+  under 2d needs no collective beyond f's: its own slices are the
+  megatron products;
+- row-first: the feature slab's transpose is the all-gather of the slab
+  grads (zero padding plus the all-reduce, in one), the entry sums' the
+  identity, the exit gather's the own slice, and the column-parallel
+  o/down input's the all-reduce over tp.
+
+The head enters through `TPContext.head_in` outside autograd, and its
+transpose (`head_in_transpose`) follows the CE's grad: nothing of the
+backward runs autograd through a collective whose transpose
+communicates.
+
 Eligibility is the JAX package's (`fused_bwd_supported`: one pipeline
-stage under remat "dots_attn"); of its branches the ported ones are
-flash (`attn_impl` "auto"/"flash"), the plain "reference" attention and
-the three cp schedules (ring, Ulysses, mesh), over dp, cp, ep, MoE and
-Megatron tp with or without SP. The tp strategies' hooks (ROADMAP Queue
-1 item 9) are refused.
+stage under remat "dots_attn"); every branch of it is ported: flash
+(`attn_impl` "auto"/"flash"), the plain "reference" attention and the
+three cp schedules (ring, Ulysses, mesh), over dp, cp, ep, MoE,
+Megatron tp with or without SP, the deferred sync and the 2d and
+row-first strategies.
 """
 
 from __future__ import annotations
@@ -85,7 +111,8 @@ import torch.nn.functional as F
 
 from picotron_tpu_torch.config import Config
 from picotron_tpu_torch.models.llama import (
-    LlamaModel, _entry, _exit, _moe_block, compute_dtype, embed, mlp_act,
+    LlamaModel, _entry, _exit, _hooked, _moe_block, _pre, compute_dtype,
+    embed, mlp_act,
 )
 from picotron_tpu_torch.ops.attention import (
     sdpa_attention, sdpa_attention_bwd_from_saved,
@@ -100,7 +127,10 @@ from picotron_tpu_torch.ops.rmsnorm import rms_norm
 from picotron_tpu_torch.ops.rope import apply_rope
 from picotron_tpu_torch.optimizer import param_grads
 from picotron_tpu_torch.parallel.api import finish_grads
-from picotron_tpu_torch.parallel.tp import vocab_parallel_embed_grad
+from picotron_tpu_torch.parallel.comm import own_slice
+from picotron_tpu_torch.parallel.tp import (
+    vocab_parallel_ce_sum_count, vocab_parallel_embed_grad,
+)
 
 _MATMULS = ("q", "k", "v", "o", "gate", "up", "down")
 _ATTN = ("q", "k", "v", "o")
@@ -114,14 +144,6 @@ def fused_bwd_supported(cfg: Config) -> bool:
     d, t = cfg.distributed, cfg.training
     return (d.pp_size == 1
             and t.remat and t.remat_policy == "dots_attn")
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise for the JAX engine's branches this port lacks."""
-    if cfg.distributed.tp_strategy != "megatron":
-        raise NotImplementedError(
-            "the fused grad engine's tp-strategy hooks (qkv_mm, o_mm, "
-            "mlp_mm) are not ported yet (ROADMAP Queue 1 item 9)")
 
 
 class ComputeWeights:
@@ -233,6 +255,43 @@ def _exit_t(dy, lp):
     return dy if lp.tp is None else lp.tp.g_transpose(dy)
 
 
+def _pre_t(dx, lp):
+    return dx if lp.tp is None else lp.tp.pre_transpose(dx)
+
+
+def _kind(lp, pair: str) -> str:
+    """The layer's kind of `pair` ("megatron", "2d", "row")."""
+    return getattr(lp.tp.strategy, pair) if _hooked(lp.tp, pair) \
+        else "megatron"
+
+
+def _ty_slice(t, lp):
+    """The own slice of a ty-gathered feature block (2d; the whole of it
+    over a ty group of one)."""
+    ty = lp.tp.strategy.ty
+    return t if ty is None else own_slice(t, -1, ty.size, ty.index)
+
+
+def _tp_slice(t, lp):
+    """The rank's 1/tp slice of the features (row-first)."""
+    c = lp.tp.strategy.comm
+    return own_slice(t, -1, c.size, c.index)
+
+
+def _qkv_fwd(h, lp, w, d):
+    """q/k/v of the norm output h, through f or the strategy's hook."""
+    if _hooked(lp.tp, "attn"):
+        return lp.tp.strategy.qkv_mm(h, w["q"], w["k"], w["v"], d)
+    return _qkv(_entry(h, lp), lp, w, d)
+
+
+def _o_fwd(outf, lp, w):
+    """The o-projection with the block exit."""
+    if _hooked(lp.tp, "attn"):
+        return lp.tp.strategy.o_mm(outf, w["o"])
+    return _exit(F.linear(outf, w["o"]), lp)
+
+
 def _qkv(h, lp, w, d):
     """q/k/v of the (already entered) h."""
     b, s, _ = h.shape
@@ -269,17 +328,23 @@ def forward_saved(model: LlamaModel, weights: ComputeWeights,
     x = embed(model, ids)
     for i, lp in enumerate(model.layers):
         w = weights.layer(i)
-        q, k, v = _qkv(_entry(rms_norm(x, lp.input_norm, eps), lp), lp, w,
-                       hd)
+        q, k, v = _qkv_fwd(rms_norm(_pre(x, lp), lp.input_norm, eps), lp, w,
+                           hd)
         out, lse = attn_fwd(q, k, v)
-        a = x + _exit(F.linear(_flat(out), w["o"]), lp)
+        a = x + _o_fwd(_flat(out), lp, w)
         saved.append((x, q, k, v, out, lse))
         if lp.moe:
             mo, a_l = _moe_block(a, lp, cfg)
             aux_sum = a_l if aux_sum is None else aux_sum + a_l
             x = a + mo
             continue
-        h = _entry(rms_norm(a, lp.post_norm, eps), lp)
+        h = rms_norm(_pre(a, lp), lp.post_norm, eps)
+        if _hooked(lp.tp, "mlp"):
+            s = lp.tp.strategy
+            x = a + s.act_down(*s.gate_up(h, w["gate"], w["up"]), w["down"],
+                               act)
+            continue
+        h = _entry(h, lp)
         m = act(F.linear(h, w["gate"])) * F.linear(h, w["up"])
         x = a + _exit(F.linear(m, w["down"]), lp)
     if aux is not None and aux_sum is not None:
@@ -287,31 +352,56 @@ def forward_saved(model: LlamaModel, weights: ComputeWeights,
     return x, saved
 
 
+def _norm_grads(x, norm, lp, eps):
+    """(x's `pre` output under autograd, its norm output): the leaf and
+    the graph a norm's transpose is taken over."""
+    with torch.no_grad():
+        xin = _pre(x, lp)
+    with torch.enable_grad():
+        x_ = _with_grad(xin)
+        return x_, rms_norm(x_, norm, eps)
+
+
 def _mlp_grads(a, dy, lp, w, cfg, acc, plain):
     """The dense MLP half, y = a + down(act(gate) * up) with gate/up from
-    norm(a): adds its weight and norm grads into `acc` and returns
+    norm(pre(a)): adds its weight and norm grads into `acc` and returns
     d a (the residual's dy included)."""
-    with torch.enable_grad():
-        a_ = _with_grad(a)
-        h2 = rms_norm(a_, lp.post_norm, cfg.rms_norm_eps)
+    a_, h2 = _norm_grads(a, lp.post_norm, lp, cfg.rms_norm_eps)
+    # 2d takes the megatron products: the tx sum's transpose is the
+    # identity, and its ty gathers' the own slices, which are this rank's
+    # own activation and weight columns
+    row = _kind(lp, "mlp") == "row"
     with torch.no_grad():
-        h2d = _entry(h2.detach(), lp)
+        if row:
+            h2d = _tp_slice(h2.detach(), lp)
+            comm = lp.tp.strategy.comm
+            gate0 = comm.all_reduce(F.linear(h2d, w["gate"]))
+            up0 = comm.all_reduce(F.linear(h2d, w["up"]))
+        else:
+            h2d = _entry(h2.detach(), lp)
+            gate0, up0 = F.linear(h2d, w["gate"]), F.linear(h2d, w["up"])
     with torch.enable_grad():
-        gate = _with_grad(F.linear(h2d, w["gate"]))
-        up = _with_grad(F.linear(h2d, w["up"]))
+        gate, up = _with_grad(gate0), _with_grad(up0)
         m = mlp_act(cfg)(gate) * up
-    dyg = _exit_t(dy, lp)
-    dm = dyg @ w["down"]
+    if row:
+        # the exit gather's transpose is the own slice; the column
+        # product's input grad sums over tp
+        dyg = _tp_slice(dy, lp)
+        dm = comm.all_reduce(dyg @ w["down"])
+    else:
+        dyg = _exit_t(dy, lp)
+        dm = dyg @ w["down"]
     accumulate_weight_grad(acc[lp.down], dyg, m.detach(), plain)
     d_gate, d_up = torch.autograd.grad(m, (gate, up), dm)
     # sums in autograd's order (the later consumer's grad first), so
     # the bf16 roundings are the AD engine's
-    dh2 = _entry_t(d_up @ w["up"] + d_gate @ w["gate"], lp)
+    dh2 = d_up @ w["up"] + d_gate @ w["gate"]
+    dh2 = comm.all_gather(dh2, -1) if row else _entry_t(dh2, lp)
     accumulate_weight_grad(acc[lp.gate], d_gate, h2d, plain)
     accumulate_weight_grad(acc[lp.up], d_up, h2d, plain)
     da, d_post = torch.autograd.grad(h2, (a_, lp.post_norm), dh2)
     acc[lp.post_norm].add_(d_post)
-    return dy + da
+    return dy + _pre_t(da, lp)
 
 
 def _moe_segment_grads(a, dy, count_f, lp, cfg, acc):
@@ -352,18 +442,31 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
 
     # ---------------- head + CE ----------------
     head = model.head_weight()
+    tp = model.tp
     with torch.enable_grad():
         x_l, head_w = _with_grad(x), _with_grad(weights.head)
         h = rms_norm(x_l, model.final_norm, eps)
-        if model.tp is not None:
-            total, count = model.tp.head_ce(h, head_w, tgt, ce_chunk_size)
-        elif ce_chunk_size:
-            total, count = chunked_cross_entropy_sum_count(
-                h, head_w, tgt, ce_chunk_size)
-        else:
-            total, count = cross_entropy_sum_count(F.linear(h, head_w), tgt)
-    dy, d_final, d_head = torch.autograd.grad(
-        total, (x_l, model.final_norm, head_w))
+    if tp is not None:
+        # the head's entry outside autograd, its transpose by hand
+        with torch.no_grad():
+            hin = tp.head_in_raw(h.detach())
+        with torch.enable_grad():
+            hin = _with_grad(hin)
+            total, count = vocab_parallel_ce_sum_count(hin, head_w, tgt, tp,
+                                                       ce_chunk_size)
+        dhin, d_head = torch.autograd.grad(total, (hin, head_w))
+        dy, d_final = torch.autograd.grad(
+            h, (x_l, model.final_norm), tp.head_in_transpose(dhin))
+    else:
+        with torch.enable_grad():
+            if ce_chunk_size:
+                total, count = chunked_cross_entropy_sum_count(
+                    h, head_w, tgt, ce_chunk_size)
+            else:
+                total, count = cross_entropy_sum_count(F.linear(h, head_w),
+                                                       tgt)
+        dy, d_final, d_head = torch.autograd.grad(
+            total, (x_l, model.final_norm, head_w))
     acc[model.final_norm].add_(d_final)
     acc[head].add_(d_head.to(acc[head].dtype))
     total = total.detach()
@@ -379,26 +482,45 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
     for i in reversed(range(len(model.layers))):
         lp, w = model.layers[i], weights.layer(i)
         x, q, k, v, out, lse = saved.pop()
+        kind = _kind(lp, "attn")
         with torch.no_grad():
             outf = _flat(out)
-            a = x + _exit(F.linear(outf, w["o"]), lp)
+            a = x + _o_fwd(outf, lp, w)
         if lp.moe:
             da = dy + _moe_segment_grads(a, dy, count_f, lp, cfg, acc)
         else:
             da = _mlp_grads(a, dy, lp, w, cfg, acc, plain)
         # o-projection, then attention from the saved (out, lse)
-        dag = _exit_t(da, lp)
-        dout = (dag @ w["o"]).reshape(out.shape)
-        accumulate_weight_grad(acc[lp.o], dag, outf, plain)
+        if kind == "2d":
+            # the tx sum's transpose is the identity; the weight rows
+            # gathered over ty again, the weight grad's own slice
+            s = lp.tp.strategy
+            wo = w["o"] if s.ty is None else s.ty.all_gather(w["o"], 1)
+            dout = (da @ wo).reshape(out.shape)
+            accumulate_weight_grad(acc[lp.o], da, _ty_slice(outf, lp), plain)
+        elif kind == "row":
+            dag = _tp_slice(da, lp)
+            dout = lp.tp.strategy.comm.all_reduce(
+                dag @ w["o"]).reshape(out.shape)
+            accumulate_weight_grad(acc[lp.o], dag, outf, plain)
+        else:
+            dag = _exit_t(da, lp)
+            dout = (dag @ w["o"]).reshape(out.shape)
+            accumulate_weight_grad(acc[lp.o], dag, outf, plain)
         dq, dk, dv = attn_bwd(q, k, v, out, lse, dout)
         dq, dk, dv = _flat(dq), _flat(dk), _flat(dv)
-        # qkv half: q/k/v = norm(x) @ W (+ b)
-        with torch.enable_grad():
-            x_ = _with_grad(x)
-            h1 = rms_norm(x_, lp.input_norm, eps)
+        # qkv half: q/k/v = norm(pre(x)) @ W (+ b)
+        x_, h1 = _norm_grads(x, lp.input_norm, lp, eps)
+        if kind == "2d":
+            # the ty gathers' transpose: the own slice, after which the
+            # products are megatron's
+            dq, dk, dv = (_ty_slice(t, lp) for t in (dq, dk, dv))
         with torch.no_grad():
-            h1d = _entry(h1.detach(), lp)
-        dh1 = _entry_t(dv @ w["v"] + dk @ w["k"] + dq @ w["q"], lp)
+            h1d = (_tp_slice(h1.detach(), lp) if kind == "row" else
+                   _entry(h1.detach(), lp))
+        dh1 = dv @ w["v"] + dk @ w["k"] + dq @ w["q"]
+        dh1 = (lp.tp.strategy.comm.all_gather(dh1, -1) if kind == "row"
+               else _entry_t(dh1, lp))
         for name, g in (("q", dq), ("k", dk), ("v", dv)):
             accumulate_weight_grad(acc[getattr(lp, name)], g, h1d, plain)
             bias = getattr(lp, "b_" + name)
@@ -406,7 +528,7 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
                 acc[bias].add_(g.sum(dim=(0, 1)).to(acc[bias].dtype))
         dx, d_in = torch.autograd.grad(h1, (x_, lp.input_norm), dh1)
         acc[lp.input_norm].add_(d_in)
-        dy = da + dx
+        dy = da + _pre_t(dx, lp)
         del x, q, k, v, out, lse
 
     # ---------------- embedding ----------------

@@ -12,7 +12,12 @@ JAX package), lints them (`lint_schedule`), and prices them
 V = pp * interleave runs on pipeline rank j % pp (Megatron's round-robin
 chunk placement; its layers: `models/llama.stage_layers`).
 `ScheduleBufferError` is what the walk raises when a table leaves a
-boundary buffer that nothing consumed.
+boundary buffer that nothing consumed. `stage_slice_placement` and
+`check_stage_slice_placement` place the stages on the slices of a
+multi-slice layout (the guard of a pp cut, run when a walk of an mpmd
+table is built); the JAX `boundary_dcn_traffic` prices the crossing
+exchanges through the cost model and waits for it (ROADMAP Queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -276,3 +281,72 @@ def pipeline_bubble_fraction(cfg) -> float:
             else cfg.pipeline.schedule)
     return schedule_stats(kind, n, pp, cfg.pipeline.interleave)[
         "bubble_fraction"]
+
+
+# ---------------------------------------------------------------------------
+# placement of the stages on the slices
+# ---------------------------------------------------------------------------
+
+
+def slice_of(rank: int, sizes: tuple, dcn_shape: tuple) -> int:
+    """The slice of a rank of the row-major (dp, pp, ep, cp, tp) grid
+    `sizes`: the granule (outermost) coordinate of each axis the slices
+    split (`dcn_shape`, `mesh._split_axes_over_dcn`), row-major (the JAX
+    `SliceTopology.slice_of`)."""
+    coords, rem = [], rank
+    for n in reversed(sizes):
+        coords.append(rem % n)
+        rem //= n
+    idx = 0
+    for c, g, n in zip(reversed(coords), dcn_shape, sizes):
+        idx = idx * g + c // (n // g)
+    return idx
+
+
+def _slice_layout(cfg) -> tuple:
+    from picotron_tpu_torch.mesh import _split_axes_over_dcn
+
+    d = cfg.distributed
+    grid = (d.dp_size, d.pp_size, d.ep_size, d.cp_size, d.tp_size)
+    dcn = (_split_axes_over_dcn(grid, d.slices)[0] if d.slices > 1
+           else (1,) * len(grid))
+    return grid, dcn
+
+
+def stage_slice_placement(cfg) -> list:
+    """The slice each pipeline stage's ranks live on, None for a stage
+    whose ranks span slices (port of the JAX function of this name). When
+    pp alone carries the slice granule every stage lies on one slice, and
+    the stage boundaries' exchanges are the only traffic across the
+    cut."""
+    import numpy as np
+
+    grid, dcn = _slice_layout(cfg)
+    ranks = np.arange(int(np.prod(grid))).reshape(grid)
+    out = []
+    for g in range(cfg.distributed.pp_size):
+        slices = {slice_of(int(r), grid, dcn) for r in ranks[:, g].ravel()}
+        out.append(slices.pop() if len(slices) == 1 else None)
+    return out
+
+
+def check_stage_slice_placement(cfg) -> list:
+    """Raise unless every stage lies whole on one slice when pp alone
+    carries the slice cut (a dp cut spans every stage over the slices
+    legitimately: the hierarchical dp reduction handles it). Returns the
+    placement (the JAX function of this name)."""
+    placement = stage_slice_placement(cfg)
+    grid, dcn = _slice_layout(cfg)
+    cut = tuple(a for a, g in zip(("dp", "pp", "ep", "cp", "tp"), dcn)
+                if g > 1)
+    if cfg.distributed.slices > 1 and cut == ("pp",):
+        bad = [g for g, s in enumerate(placement) if s is None]
+        if bad:
+            raise RuntimeError(
+                f"mpmd stage placement violates the slice cut: device "
+                f"group(s) {bad} span multiple slices although pp alone "
+                f"carries the {cfg.distributed.slices}-slice granule — "
+                f"stage programs would run ICI collectives over DCN. The "
+                f"mesh grid no longer matches mesh._split_axes_over_dcn's "
+                f"house rule; this is a bug, not a layout choice.")
+    return placement

@@ -90,8 +90,10 @@ from picotron_tpu_torch.parallel.api import (
 )
 from picotron_tpu_torch.parallel.comm import PPComm
 from picotron_tpu_torch.parallel.mpmd import (
-    ScheduleBufferError, TickOp, build_schedule, lint_schedule,
+    ScheduleBufferError, TickOp, build_schedule, check_stage_slice_placement,
+    lint_schedule,
 )
+from picotron_tpu_torch.parallel.sharding import seq_sharded
 from picotron_tpu_torch.resilience import chaos, watchdog
 from picotron_tpu_torch.telemetry import bus as telemetry_bus
 from picotron_tpu_torch.telemetry.flightdeck.tracer import TID_PP_BASE
@@ -306,7 +308,7 @@ class StageRunner:
         m = self.model
         s = self.ids.shape[-1]
         tp = m.tp
-        if tp is not None and tp.sequence_parallel:
+        if tp is not None and tp.seq_sharded:
             s //= tp.size
         return ((self.ids.shape[1], s, m.cfg.hidden_size),
                 compute_dtype(m.cfg))
@@ -362,10 +364,13 @@ class PipelineGrads:
         self.table = table if table is not None else schedule_table(cfg)
         # the schedule_tick chaos point fires on the mpmd tables' walks
         self.ticks = cfg.pipeline.executor == "mpmd"
+        if self.ticks:
+            # the JAX make_mpmd_train_step's guard of a pp slice cut
+            check_stage_slice_placement(cfg)
         self.remat = t.remat_policy if t.remat else None
         self.runner = runner
         self.stats = WalkStats()
-        self.seam = grad_seam(par, cfg.distributed.sequence_parallel)
+        self.seam = grad_seam(par, seq_sharded(cfg))
 
     def __call__(self, model, batch, grads: Optional[dict] = None,
                  step: Optional[int] = None, extras: Optional[dict] = None):

@@ -6,32 +6,43 @@ Each rank holds its shard of the weights (`parallel/sharding.py`):
 column-parallel q/k/v/gate/up produce this rank's heads or ffn columns,
 row-parallel o/down produce partial sums. The JAX package writes only the
 forward collectives and lets shard_map transpose them; here each
-collective that needs a transpose is a `torch.autograd.Function`:
+collective that needs a transpose is one of the differentiable pairs of
+the rank's tp communicator (`parallel/comm.GroupComm`, `TPContext.comm`):
 
-- Megatron's f (`_CopyToTP`): identity forward, all-reduce of the grad
+- Megatron's f (`copy`): identity forward, all-reduce of the grad
   backward, at every column-parallel entry;
-- g (`_ReduceFromTP`): all-reduce forward, identity backward, at every
+- g (`reduce`): all-reduce forward, identity backward, at every
   row-parallel exit;
 - under sequence parallelism (the residual stream seq-sharded [B, S/tp,
-  H] between blocks), f is `_GatherSeq` (all-gather over the sequence,
-  reduce-scatter backward) and g `_ScatterSeq` (reduce-scatter,
-  all-gather backward): `sp_gather_seq` / `sp_scatter_seq` (:74, :79).
-  `TPContext.f_transpose` / `g_transpose` are the same transposes for
-  the fused engine's manual backward.
+  H] between blocks), f is `gather` over the sequence (reduce-scatter
+  backward) and g `scatter` (reduce-scatter, all-gather backward);
+- under the deferred sync (`distributed.tp_sync="deferred"`, the JAX
+  `tp_strategy_hooks`' deferred set) the residual stream is seq-sharded
+  as under SP, but the gather moves before the norm (`pre`, at each
+  block's entry, and `head_in` before the head), f is the identity both
+  ways, and g the sequence reduce-scatter. The norms then run on the
+  whole sequence from a partial grad, so their grads are partial over tp
+  as under SP (`parallel/sharding.tp_partial`).
 
-`vocab_parallel_embed` (:36) masks out-of-shard ids and reduces (or
-reduce-scatters the sequence under SP); `vocab_parallel_ce_sum_count`
-(:85) takes the softmax statistics of this rank's vocab shard (whole, or
-in chunks, `_chunked_local_stats` :142) and merges them with one max
-all-reduce and one sum all-reduce, so the gathered [B, S, V] logits never
-exist; `gather_logits` (:219) assembles the full-vocab logits for eval.
-`TPContext` holds a rank's tp group and the hooks that depend on the
-layout (the tp side of the JAX `ParallelCtx`).
+`TPContext.f_transpose`, `g_transpose`, `pre_transpose` and
+`head_in_transpose` are the same transposes for the fused engine's
+manual backward. The 2d and row-first strategies' hooks live in
+`parallel/tp_strategies.py` (`TPContext.strategy`).
+
+`vocab_parallel_embed` masks out-of-shard ids and reduces (or
+reduce-scatters the sequence under SP and deferred sync);
+`vocab_parallel_ce_sum_count` takes the softmax statistics of this
+rank's vocab shard (whole, or in chunks, `_ChunkedLocalStats`) and
+merges them with one max all-reduce and one sum all-reduce, so the
+gathered [B, S, V] logits never exist; `gather_logits` assembles the
+full-vocab logits for eval. `TPContext` holds a rank's tp communicator
+and the hooks that depend on the layout (the tp side of the JAX
+`ParallelCtx`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -39,75 +50,6 @@ import torch.nn.functional as F
 
 from picotron_tpu_torch.ops.losses import IGNORE_INDEX
 from picotron_tpu_torch.parallel import comm
-
-
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    out = t.contiguous().clone()
-    return comm.all_reduce(out, group)
-
-
-def gather_dim1(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """[B, s, ...] -> [B, n*s, ...]: every rank's x along dim 1, in
-    group-rank order."""
-    x = x.contiguous()
-    out = x.new_empty((n * x.shape[0],) + x.shape[1:])
-    comm.all_gather_into(out, x, group)
-    out = out.reshape((n,) + x.shape).movedim(0, 1)
-    return out.reshape((x.shape[0], n * x.shape[1]) + x.shape[2:])
-
-
-def scatter_dim1(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """[B, S, ...] -> [B, S/n, ...]: this rank's slice of dim 1 of the sum
-    of every rank's x."""
-    b, s = x.shape[:2]
-    parts = x.reshape((b, n, s // n) + x.shape[2:]).movedim(1, 0)
-    parts = parts.contiguous().reshape((n * b, s // n) + x.shape[2:])
-    out = parts.new_empty((b, s // n) + x.shape[2:])
-    comm.reduce_scatter_into(out, parts, group)
-    return out
-
-
-class _CopyToTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
-
-
-class _ReduceFromTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherSeq(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        return gather_dim1(x, group, n)
-
-    @staticmethod
-    def backward(ctx, g):
-        return scatter_dim1(g, ctx.group, ctx.n), None, None
-
-
-class _ScatterSeq(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        return scatter_dim1(x, group, n)
-
-    @staticmethod
-    def backward(ctx, g):
-        return gather_dim1(g, ctx.group, ctx.n), None, None
 
 
 class _SplitOverTP(torch.autograd.Function):
@@ -123,41 +65,91 @@ class _SplitOverTP(torch.autograd.Function):
 
 @dataclass(frozen=True)
 class TPContext:
-    """The tp hooks of one rank: its tp group, its coordinate and the
-    group's size, and whether the residual stream is seq-sharded."""
+    """The tp hooks of one rank: its tp group (a process group, or a
+    `comm.GroupComm` of its own, such as a thread world's), its
+    coordinate and the group's size, whether the residual stream is
+    seq-sharded by sequence parallelism (`sequence_parallel`) or by the
+    deferred sync (`deferred`), and the 2d/row-first hooks
+    (`parallel.tp_strategies.TPStrategy`, None under megatron)."""
 
     group: object
     rank: int
     size: int
     sequence_parallel: bool = False
+    deferred: bool = False
+    strategy: object = None
+    comm: object = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.comm is None:
+            object.__setattr__(self, "comm", self.group if isinstance(
+                self.group, comm.GroupComm) else comm.GroupComm(
+                    self.group, self.size, self.rank))
+
+    @property
+    def seq_sharded(self) -> bool:
+        """The residual stream between blocks is [B, S/tp, H]."""
+        return self.sequence_parallel or self.deferred
 
     # -- Megatron's f and g, and their transposes ---------------------------
 
     def f(self, x: torch.Tensor) -> torch.Tensor:
-        """Column-parallel entry: identity (SP: all-gather the sequence);
-        backward all-reduce (SP: reduce-scatter)."""
+        """Column-parallel entry: identity, backward all-reduce (SP:
+        all-gather the sequence, backward reduce-scatter; deferred: the
+        identity both ways, the gather having moved to `pre`)."""
+        if self.deferred:
+            return x
         if self.sequence_parallel:
-            return _GatherSeq.apply(x, self.group, self.size)
-        return _CopyToTP.apply(x, self.group)
+            return self.comm.gather(x, 1)
+        return self.comm.copy(x)
 
     def g(self, x: torch.Tensor) -> torch.Tensor:
-        """Row-parallel exit: all-reduce (SP: reduce-scatter the
-        sequence); backward identity (SP: all-gather)."""
-        if self.sequence_parallel:
-            return _ScatterSeq.apply(x, self.group, self.size)
-        return _ReduceFromTP.apply(x, self.group)
+        """Row-parallel exit: all-reduce, backward identity (SP and
+        deferred: reduce-scatter the sequence, backward all-gather)."""
+        if self.seq_sharded:
+            return self.comm.scatter(x, 1)
+        return self.comm.reduce(x)
+
+    def pre(self, x: torch.Tensor) -> torch.Tensor:
+        """The block entry before the norm: deferred sync's hoisted
+        sequence all-gather (backward reduce-scatter); else identity."""
+        return self.comm.gather(x, 1) if self.deferred else x
+
+    def head_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The head's entry: f, or under deferred sync the sequence
+        gather (the JAX `head_in` hook)."""
+        return self.comm.gather(x, 1) if self.deferred else self.f(x)
 
     def f_transpose(self, dx: torch.Tensor) -> torch.Tensor:
         """The grad through f, for a manual backward."""
+        if self.deferred:
+            return dx
         if self.sequence_parallel:
-            return scatter_dim1(dx, self.group, self.size)
-        return _all_reduce(dx, self.group)
+            return self.comm.reduce_scatter(dx, 1)
+        return self.comm.all_reduce(dx.contiguous().clone())
 
     def g_transpose(self, dy: torch.Tensor) -> torch.Tensor:
         """The grad through g, for a manual backward."""
-        if self.sequence_parallel:
-            return gather_dim1(dy, self.group, self.size)
+        if self.seq_sharded:
+            return self.comm.all_gather(dy, 1)
         return dy
+
+    def pre_transpose(self, dx: torch.Tensor) -> torch.Tensor:
+        """The grad through `pre`, for a manual backward."""
+        return self.comm.reduce_scatter(dx, 1) if self.deferred else dx
+
+    def head_in_transpose(self, dx: torch.Tensor) -> torch.Tensor:
+        """The grad through `head_in`, for a manual backward."""
+        if self.deferred:
+            return self.comm.reduce_scatter(dx, 1)
+        return self.f_transpose(dx)
+
+    def head_in_raw(self, x: torch.Tensor) -> torch.Tensor:
+        """`head_in`'s forward outside autograd (a manual backward takes
+        `head_in_transpose`)."""
+        if self.deferred or self.sequence_parallel:
+            return self.comm.all_gather(x, 1)
+        return x
 
     def replicated(self, t: torch.Tensor) -> torch.Tensor:
         """A value computed alike on every tp rank from the gathered
@@ -169,18 +161,28 @@ class TPContext:
 
     def head_ce(self, x, head_shard, targets, chunk_size: int = 0):
         """(NLL sum, valid count) of x against the vocab-sharded head; x
-        is the final-norm output (seq-sharded under SP: f gathers it)."""
-        return vocab_parallel_ce_sum_count(self.f(x), head_shard, targets,
-                                           self, chunk_size)
+        is the final-norm output (seq-sharded under SP and deferred sync:
+        `head_in` gathers it)."""
+        return vocab_parallel_ce_sum_count(self.head_in(x), head_shard,
+                                           targets, self, chunk_size)
 
 
-def tp_context(par, sequence_parallel: bool = False):
+def tp_context(par, sequence_parallel: bool = False, cfg=None):
     """The TPContext of a rank (`mesh.ParallelEnv`), or None without tp
-    (no layout, or tp 1: the model is then the single-device one)."""
+    (no layout, or tp 1: the model is then the single-device one). With
+    the config (`cfg`), its tp strategy and sync mode
+    (`parallel/tp_strategies.py`)."""
     if par is None or par.tp_size == 1:
         return None
+    if cfg is None:
+        return TPContext(par.tp_group, par.tp_rank, par.tp_size,
+                         sequence_parallel)
+    from picotron_tpu_torch.parallel.tp_strategies import strategy_for
+
     return TPContext(par.tp_group, par.tp_rank, par.tp_size,
-                     sequence_parallel)
+                     sequence_parallel,
+                     deferred=cfg.distributed.tp_sync == "deferred",
+                     strategy=strategy_for(cfg, par))
 
 
 def _shard_rows(ids: torch.Tensor, vshard: int, tp: TPContext):
@@ -293,10 +295,9 @@ def vocab_parallel_ce_sum_count(hidden: torch.Tensor, head_shard: torch.Tensor,
                    .squeeze(-1) * ok.float())
     # merge: the max over tp (a shift constant), then one sum over tp of
     # both the rescaled sumexp and the label logit
-    m = comm.all_reduce(m_loc.detach().clone(), tp.group, dist.ReduceOp.MAX)
-    se, label = _ReduceFromTP.apply(
-        torch.stack([se_loc * torch.exp(m_loc - m), lab_loc]),
-        tp.group).unbind(0)
+    m = tp.comm.all_reduce(m_loc.detach().clone(), dist.ReduceOp.MAX)
+    se, label = tp.comm.reduce(
+        torch.stack([se_loc * torch.exp(m_loc - m), lab_loc])).unbind(0)
     logz = m + torch.log(se)
     nll = torch.where(valid, logz - label, torch.zeros_like(logz))
     return nll.sum(), valid.sum()
@@ -304,7 +305,4 @@ def vocab_parallel_ce_sum_count(hidden: torch.Tensor, head_shard: torch.Tensor,
 
 def gather_logits(logits: torch.Tensor, tp: TPContext) -> torch.Tensor:
     """[..., V/tp] vocab-sharded logits -> [..., V] (eval; no grad)."""
-    x = logits.detach().contiguous()
-    out = x.new_empty((tp.size * x.shape[0],) + x.shape[1:])
-    comm.all_gather_into(out, x, tp.group)
-    return torch.cat(out.chunk(tp.size, dim=0), dim=-1)
+    return tp.comm.all_gather(logits.detach(), -1)

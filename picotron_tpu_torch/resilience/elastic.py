@@ -67,10 +67,9 @@ from picotron_tpu_torch.ckpt_integrity import MANIFEST_NAME, fsync_dir
 TOPOLOGY_AXES = ("dp", "pp", "ep", "cp", "tp")
 
 # The axes a resize can carry a checkpoint across: dp (the constant
-# global batch plan and the ZeRO-1 re-split) and pp (the stages
-# re-bucketed by global layer index); slices stays in the schema so that
-# describe and compare read as the JAX package's, but the port runs one
-# slice (ROADMAP Queue 1 item 9), so a slices re-stamp is refused.
+# global batch plan and the ZeRO-1 re-split), pp (the stages re-bucketed
+# by global layer index) and slices (placement only: no file changes;
+# `tools/elastic_resize.py --slices`, the slice-loss recovery).
 # tp/cp/ep re-partition the weight math itself and are refused.
 SUPPORTED_ELASTIC_AXES = ("dp", "pp", "slices")
 

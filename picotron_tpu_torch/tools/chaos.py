@@ -26,6 +26,10 @@ Scenarios (`--list`):
   mpmd_sigterm  SIGTERM at a named (stage, tick, op) of a pp 2 mpmd walk
               drains to the step boundary (exit 75, no replayed step); a
               forced mid-schedule hang is named by the watchdog (77)
+  slice_lost  dp 2 x tp 2 x slices 2 (dcn_axes dp: the hierarchical dp
+              reduction live) loses a slice at step 3 (SIGKILL, the
+              slice named in the log), is re-stamped with --slices 1
+              offline, and finishes at dp 1 via checkpoint.elastic
 
 Serving scenarios run `python -m picotron_tpu_torch.tools.serve_bench
 --fleet N` legs as child processes at the JAX tool's tiny shape
@@ -41,9 +45,6 @@ temperature 0.7, seed 7; one card or the CPU):
               digests equal to the no-deadline leg's, queue wait within
               the deadline, shed seconds booked and rendered
 
-Refused, naming the ROADMAP Queue 1 item that ports it: `slice_lost`
-(item 9: the port runs one slice).
-
 The scenario layout is the JAX tool's dp 2 x tp 2 on four ranks: four
 gloo processes with `--device cpu`; with `--device cuda` (the default)
 four NCCL ranks when the machine has four cards, else one rank (dp 1,
@@ -51,8 +52,8 @@ tp 1, mbs 2 x ga 2: the same global batch), one attention head of 64
 (the flash kernels take head_dim 64 or 128). The ranks are launched as
 processes with torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR/PORT on localhost), so each rank's own exit code reaches the
-supervisor. The dp/pp resize and mpmd scenarios need 2 to 8 ranks and
-run on the CPU (or on a machine with that many cards).
+supervisor. The dp/pp resize, slice_lost and mpmd scenarios need 2 to 8
+ranks and run on the CPU (or on a machine with that many cards).
 
     python -m picotron_tpu_torch.tools.chaos --list
     python -m picotron_tpu_torch.tools.chaos --scenario nan_skip \
@@ -81,10 +82,8 @@ STEPS = 6  # total_train_steps of every scenario (the fault lands mid-run)
 LOSS_TOL = dict(rtol=1e-3, atol=1e-4)  # the JAX tool's loss parity
 RUN_TIMEOUT_S = 600
 
-REFUSED = {
-    "slice_lost": "whole-slice loss needs slices > 1, which the port "
-                  "refuses (ROADMAP Queue 1 item 9)",
-}
+# scenarios the port refuses, each naming its ROADMAP item: none now
+REFUSED: dict = {}
 
 
 @dataclass
@@ -530,6 +529,132 @@ def run_pp_resize(workdir: str, verbose: bool = False,
                         ("--pp", "1"), verbose, device)
 
 
+def run_slice_lost(workdir: str, verbose: bool = False,
+                   device: str = "cpu") -> bool:
+    """Whole-slice loss on a 2-slice job (the JAX tool's scenario):
+
+      baseline  dp 2 x tp 2, one slice, fault-free, steps 1-6
+      leg 1     dp 2 x tp 2 x slices 2, dcn_axes dp (the hierarchical dp
+                reduction live), slice_lost@3: SIGKILL with the slice
+                named in the log; the sync save at step 2 is durable and
+                records slices 2 in its manifest topology
+      re-stamp  `tools.elastic_resize --slices 1` (placement only; dp
+                untouched)
+      leg 2     dp 1 x tp 2 (one surviving slice's ranks) under
+                checkpoint.elastic: the dp 2 -> 1 change rides the runtime
+                resize at constant global batch, booked as `resize`
+
+    The final step, tokens and per-step losses are held to the baseline
+    at the JAX tool's rtol 1e-3 (the hierarchical schedule reassociates
+    the dp sum; nothing else differs)."""
+    import numpy as np
+
+    from picotron_tpu_torch.resilience import elastic
+    from picotron_tpu_torch.tools import telemetry_report
+
+    fail = lambda msg: (print(f"[chaos-cli] slice_lost: FAIL — {msg}"),  # noqa: E731
+                        False)[1]
+
+    def leg(ckpt_dir, *, dp, mbs, ga, slices=1, chaos_spec="",
+            elastic_on=False):
+        cfg = scenario_config(os.path.dirname(ckpt_dir), chaos_spec,
+                              {"checkpoint": {"async_save": False}}, device)
+        cfg["distributed"].update(dp_size=dp, slices=slices)
+        if slices > 1:
+            cfg["distributed"]["dcn_axes"] = "dp"
+        cfg["training"].update(micro_batch_size=mbs,
+                               gradient_accumulation_steps=ga)
+        cfg["checkpoint"]["save_dir"] = ckpt_dir
+        if elastic_on:
+            cfg["checkpoint"]["elastic"] = True
+        return cfg
+
+    def newest_step_dir(ckpt_dir):
+        meta = _final_meta(ckpt_dir)
+        return os.path.join(ckpt_dir, f"step_{meta['step']:08d}")
+
+    base_dir = os.path.join(workdir, "baseline")
+    os.makedirs(base_dir, exist_ok=True)
+    base_ckpt = os.path.join(base_dir, "ckpt")
+    rc = _run_trainer(_write(leg(base_ckpt, dp=2, mbs=2, ga=1),
+                             os.path.join(base_dir, "config.json")),
+                      os.path.join(base_dir, "run.log"), {}, device)
+    if rc != 0:
+        return fail(f"baseline run exited {rc}")
+    base_meta = _final_meta(base_ckpt)
+
+    fault_dir = os.path.join(workdir, "fault")
+    os.makedirs(fault_dir, exist_ok=True)
+    ckpt_dir = os.path.join(fault_dir, "ckpt")
+    log_path = os.path.join(fault_dir, "run.log")
+    rc = _run_trainer(_write(leg(ckpt_dir, dp=2, mbs=2, ga=1, slices=2,
+                                 chaos_spec=f"slice_lost@{STEPS // 2}"),
+                             os.path.join(fault_dir, "config_slices2.json")),
+                      log_path, {}, device)
+    if rc != -signal.SIGKILL:
+        return fail(f"leg 1 (slices=2) exited {rc}, expected "
+                    f"{-signal.SIGKILL} (SIGKILL)")
+    with open(log_path) as f:
+        if "slice_lost: the slice hosting process" not in f.read():
+            return fail("slice_lost firing (with the lost slice named) "
+                        "absent from the leg-1 log")
+    saved = elastic.saved_topology(newest_step_dir(ckpt_dir)) or {}
+    if saved.get("slices") != 2:
+        return fail(f"durable save records topology {saved}, expected "
+                    f"slices=2 in its manifest")
+
+    resize_log = os.path.join(fault_dir, "resize.log")
+    rc = _restamp(ckpt_dir, resize_log, "--slices", "1")
+    if rc != 0:
+        return fail(f"elastic_resize --slices 1 exited {rc} (see "
+                    f"{resize_log})")
+    saved = elastic.saved_topology(newest_step_dir(ckpt_dir)) or {}
+    if saved.get("slices", 1) != 1:
+        return fail(f"re-stamped store still records {saved}")
+
+    rc = _run_trainer(_write(leg(ckpt_dir, dp=1, mbs=2, ga=2,
+                                 elastic_on=True),
+                             os.path.join(fault_dir, "config_dp1.json")),
+                      log_path, {}, device)
+    if rc != 0:
+        return fail(f"leg 2 (dp=1, elastic) exited {rc}, expected 0")
+    with open(log_path) as f:
+        log_text = f.read()
+    if verbose:
+        print(log_text)
+    if not re.search(r"elastic resize:", log_text):
+        return fail("marker /elastic resize:/ absent from the leg-2 log")
+    meta = _final_meta(ckpt_dir)
+    for key in ("step", "trained_tokens"):
+        if meta[key] != base_meta[key]:
+            return fail(f"final {key} {meta[key]} != fault-free baseline "
+                        f"{base_meta[key]}")
+    base_losses = _step_losses(os.path.join(base_ckpt, "telemetry.jsonl"))
+    fault_losses = _step_losses(os.path.join(ckpt_dir, "telemetry.jsonl"))
+    if set(fault_losses) != set(base_losses):
+        return fail(f"step sets differ: fault {sorted(fault_losses)} vs "
+                    f"baseline {sorted(base_losses)}")
+    steps = sorted(base_losses)
+    bl = np.array([base_losses[s] for s in steps])
+    fl = np.array([fault_losses[s] for s in steps])
+    if not np.allclose(fl, bl, **LOSS_TOL):
+        return fail(f"loss trajectory diverged from baseline: "
+                    f"{list(zip(steps, fl.tolist(), bl.tolist()))}")
+    summary = telemetry_report.summarize(telemetry_report.load_events(
+        os.path.join(ckpt_dir, "telemetry.jsonl")))
+    if summary["categories"].get("resize", 0.0) <= 0.0:
+        return fail(f"no `resize` seconds in the goodput categories "
+                    f"({summary['categories']})")
+    if not summary.get("resize", {}).get("events"):
+        return fail("no elastic_resize event in the telemetry stream")
+    print(f"[chaos-cli] slice_lost: OK — 2-slice run lost a slice, "
+          f"re-stamped --slices 1, finished at dp=1 via runtime elastic; "
+          f"final step {meta['step']} / {meta['trained_tokens']} tokens "
+          f"and loss trajectory match baseline; resize booked "
+          f"{summary['categories']['resize']:.3f}s")
+    return True
+
+
 def run_mpmd_sigterm(workdir: str, verbose: bool = False,
                      device: str = "cpu") -> bool:
     """SIGTERM at tick 2 of step 3's pp 2 mpmd walk drains to the step
@@ -837,6 +962,12 @@ CUSTOM_SCENARIOS: dict[str, tuple[Callable, str]] = {
                   "re-stamp to pp=1 offline (layers re-bucketed), SIGKILL "
                   "again, finish at pp=2 via checkpoint.elastic; loss "
                   "parity vs the pp=2 baseline, resize booked"),
+    "slice_lost": (run_slice_lost,
+                   "whole-slice loss: a dp=2 x slices=2 run (hierarchical "
+                   "dp reduction live) SIGKILLed at step 3, re-stamped "
+                   "--slices 1 offline, finished at dp=1 via "
+                   "checkpoint.elastic; loss parity vs the baseline, "
+                   "resize booked"),
     "mpmd_sigterm": (run_mpmd_sigterm,
                      "mid-schedule MPMD faults: SIGTERM at a named "
                      "(stage, tick, op) drains to the step boundary "
@@ -854,7 +985,7 @@ CUSTOM_SCENARIOS: dict[str, tuple[Callable, str]] = {
 }
 
 # scenarios whose layout needs more ranks than one card gives NCCL
-MULTI_RANK = ("dp_resize", "pp_resize", "mpmd_sigterm")
+MULTI_RANK = ("dp_resize", "pp_resize", "mpmd_sigterm", "slice_lost")
 
 
 def build_parser() -> argparse.ArgumentParser:

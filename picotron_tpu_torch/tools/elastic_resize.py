@@ -1,8 +1,8 @@
 """Offline elastic re-stamp (the port's copy of tools/elastic_resize.py):
-adapt a verified checkpoint to a new dp/pp layout.
+adapt a verified checkpoint to a new dp/pp/slices layout.
 
     python -m picotron_tpu_torch.tools.elastic_resize CKPT_DIR [--dp M]
-        [--pp K] [--step N] [--dry-run]
+        [--pp K] [--slices S] [--step N] [--dry-run]
 
 The restore path (`checkpoint.py`) refuses a checkpoint saved at another
 dp or pp unless `checkpoint.elastic` is on or the checkpoint has been
@@ -20,13 +20,17 @@ target's global ranks, the layers re-bucketed into the target's pipeline
 stages (`resilience/elastic.resplit_step`). It writes the new files
 under `state.tmp.<pid>/` and swaps them in; a failure before the swap
 leaves `state/` as it was. A `--dp` and `--pp` change can go together.
+`--slices` (slice-loss recovery: restart the surviving slices as a
+smaller multi-slice or a single-slice job) is placement only: it
+re-stamps the slice count in the topology and the config meta, after
+the JAX tool's check that the count divides the target's dp * pp, and
+rewrites no file of `state/` unless `--dp` or `--pp` changes too.
 
 Safety, as the JAX tool's: the step is deep-verified BEFORE anything is
 rewritten, and a corrupt step is refused (re-stamping rebuilds the
 manifest from the bytes on disk, which would bless the corruption); a
 legacy step (no manifest) is rewritten without one. An uneven pp split
-whose layer slots differ is refused as the JAX slot check refuses it;
-`--slices` is refused (the port runs one slice: ROADMAP Queue 1 item 9).
+whose layer slots differ is refused as the JAX slot check refuses it.
 """
 
 from __future__ import annotations
@@ -61,8 +65,9 @@ def _fail(msg: str) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="re-stamp a checkpoint step for a new dp/pp layout "
-                    "(constant global batch), re-splitting its files")
+        description="re-stamp a checkpoint step for a new dp/pp/slices "
+                    "layout (constant global batch), re-splitting its "
+                    "files")
     ap.add_argument("save_dir", help="checkpoint directory (the trainer's "
                     "checkpoint.save_dir, containing step_XXXXXXXX dirs)")
     ap.add_argument("--dp", type=int, default=None,
@@ -70,21 +75,24 @@ def main(argv=None) -> int:
     ap.add_argument("--pp", type=int, default=None,
                     help="target pipeline-parallel size")
     ap.add_argument("--slices", type=int, default=None,
-                    help="refused: the port runs one slice (ROADMAP "
-                         "Queue 1 item 9)")
+                    help="target slice count (slice-loss recovery: "
+                         "restart the surviving slices as a smaller "
+                         "multi-slice or single-slice job; placement "
+                         "metadata only — pair with --dp/--pp to shrink "
+                         "the layout onto the survivors)")
     ap.add_argument("--step", type=int, default=None,
                     help="step to re-stamp (default: newest step that "
                          "passes verification)")
     ap.add_argument("--dry-run", action="store_true",
                     help="print the plan without touching the store")
     args = ap.parse_args(argv)
-    if args.slices is not None:
-        return _fail("--slices: the port runs one slice; a multi-slice "
-                     "layout and its re-stamp are ROADMAP Queue 1 item 9")
-    if args.dp is None and args.pp is None:
-        ap.error("pick a target topology: --dp M and/or --pp K")
+    if args.dp is None and args.pp is None and args.slices is None:
+        ap.error("pick a target topology: --dp M, --pp K and/or "
+                 "--slices S")
     if args.pp is not None and args.pp < 1:
         ap.error(f"--pp must be >= 1, got {args.pp}")
+    if args.slices is not None and args.slices < 1:
+        ap.error(f"--slices must be >= 1, got {args.slices}")
 
     steps = list_steps(args.save_dir)
     if not steps:
@@ -154,6 +162,18 @@ def main(argv=None) -> int:
                 f"only even splits share a stack; pick a pp that "
                 f"divides the padded layer count evenly")
 
+    slices_old = int(saved.get("slices", dist.get("slices", 1)) or 1)
+    slices_new = args.slices if args.slices is not None else slices_old
+    if slices_new > 1 and (slices_new > plan.dp_new * pp_new
+                           or (plan.dp_new * pp_new) % slices_new != 0):
+        # the config-validation rule at the target sizes: the resumed
+        # run would refuse its own config before restoring anything
+        return _fail(f"cannot re-stamp step {step} to slices={slices_new}: "
+                     f"slices must divide dp*pp = {plan.dp_new * pp_new} "
+                     f"(dp={plan.dp_new}, pp={pp_new}) and not exceed it — "
+                     f"the resumed run's config validation would refuse "
+                     f"this layout")
+
     dl_state = meta.get("dataloader")
     if dl_state:
         dl_state = elastic.translate_dataloader_state(
@@ -171,6 +191,7 @@ def main(argv=None) -> int:
         except ValueError as e:
             return _fail(f"cannot re-stamp step {step} to pp={pp_new}: {e}")
     new_topo = {ax: dst.size[ax] for ax in elastic.TOPOLOGY_AXES}
+    new_topo["slices"] = slices_new
     new_topo["world_size"] = dst.world
     new_topo["process_count"] = dst.world if dst.grouped else 1
     if dst.grouped:
@@ -187,6 +208,9 @@ def main(argv=None) -> int:
     if pp_new != pp_old:
         print(f"  pipeline  pp {pp_old} -> {pp_new} (layers re-bucketed "
               f"into the target's stages by global index)")
+    if slices_new != slices_old:
+        print(f"  slices    {slices_old} -> {slices_new} (placement "
+              f"metadata only — no tensor touches a slice boundary)")
     print(f"  files     {src.world if src.grouped else 1} rank(s) -> "
           f"{dst.world if dst.grouped else 1} rank(s) "
           f"({'per-rank files' if dst.grouped else 'params.pt'}, zero1 "
@@ -198,9 +222,12 @@ def main(argv=None) -> int:
         print("dry run: store not modified")
         return 0
 
-    timings = elastic.resplit_step(step_dir, src, dst)
+    same_files = (src.size, src.zero1, src.grouped, src.interleave) == \
+        (dst.size, dst.zero1, dst.grouped, dst.interleave)
+    timings = None if same_files else elastic.resplit_step(step_dir, src, dst)
     meta["config"]["distributed"]["dp_size"] = plan.dp_new
     meta["config"]["distributed"]["pp_size"] = pp_new
+    meta["config"]["distributed"]["slices"] = slices_new
     meta["config"]["training"]["micro_batch_size"] = plan.micro_batch_size
     meta["config"]["training"]["gradient_accumulation_steps"] = \
         plan.gradient_accumulation_steps
@@ -209,8 +236,12 @@ def main(argv=None) -> int:
                                        "elastic_resize"}
     atomic_write_text(os.path.join(step_dir, "meta.json"),
                       json.dumps(meta, indent=2))
-    print(f"  state     re-split in {timings['read_s']:.2f}s read + "
-          f"{timings['write_s']:.2f}s write: {', '.join(timings['files'])}")
+    if timings is None:
+        print("  state     unchanged (the same files serve the target)")
+    else:
+        print(f"  state     re-split in {timings['read_s']:.2f}s read + "
+              f"{timings['write_s']:.2f}s write: "
+              f"{', '.join(timings['files'])}")
     if res.status == "verified":
         write_manifest(step_dir, build_manifest(step_dir, step=step,
                                                 topology=new_topo))
@@ -222,6 +253,8 @@ def main(argv=None) -> int:
     else:
         print("  manifest  none (legacy step) — meta.json rewritten only")
     pp_hint = f" distributed.pp_size={pp_new}" if pp_new != pp_old else ""
+    if slices_new != slices_old:
+        pp_hint += f" distributed.slices={slices_new}"
     print(f"resume with distributed.dp_size={plan.dp_new}{pp_hint} "
           f"training.micro_batch_size={plan.micro_batch_size} "
           f"training.gradient_accumulation_steps="

@@ -103,7 +103,7 @@ from picotron_tpu_torch.parallel import comm
 from picotron_tpu_torch.parallel.cp import cp_context
 from picotron_tpu_torch.parallel.ep import ep_context
 from picotron_tpu_torch.parallel.mpmd import pipeline_bubble_fraction
-from picotron_tpu_torch.parallel.sharding import shard_state_dict
+from picotron_tpu_torch.parallel.sharding import shard_state_dict, tp_flips
 from picotron_tpu_torch.parallel.tp import tp_context
 from picotron_tpu_torch.resilience import (
     EXIT_DIVERGED, EXIT_PREEMPTED, DivergenceGuard, GuardAction,
@@ -123,24 +123,33 @@ from picotron_tpu_torch.utils import (
 def unsupported(cfg: Config) -> list[str]:
     """What the config asks for that this slice lacks, each with its
     ROADMAP item (an empty list means the run is supported)."""
-    d, t = cfg.distributed, cfg.training
+    t = cfg.training
     out = []
-    if d.tp_strategy != "megatron":
-        out.append(f"distributed.tp_strategy={d.tp_strategy!r} (tp "
-                   "strategies: ROADMAP Queue 1 item 9)")
-    if d.tp_sync != "sync":
-        out.append(f"distributed.tp_sync={d.tp_sync!r} (deferred tp sync: "
-                   "ROADMAP Queue 1 item 9)")
-    if d.slices > 1 or d.hier_dp_reduce == "on":
-        out.append("distributed.slices > 1 / hier_dp_reduce (the "
-                   "hierarchical multi-slice dp reduction: ROADMAP Queue 1 "
-                   "item 9)")
     if t.remat and t.remat_policy == "dots_offload":
         out.append("training.remat_policy='dots_offload' (saves in pinned "
                    "host memory: ROADMAP Queue 1 item 7)")
     if cfg.logging.use_wandb:
         out.append("logging.use_wandb (the card's machine has no wandb: "
                    "ROADMAP Queue 1 item 12)")
+    return out
+
+
+def tp_slices_line(cfg: Config, par) -> str:
+    """The layout line's tp strategy, tp sync and slices parts ("" when
+    the run uses none of them)."""
+    d = cfg.distributed
+    out = ""
+    if d.tp_size > 1 and d.tp_strategy != "megatron":
+        out += f", tp_strategy {d.tp_strategy}"
+        if par.tp_mesh[1] > 1 or "2d" in d.tp_strategy:
+            out += f" {par.tp_mesh[0]}x{par.tp_mesh[1]}"
+    if d.tp_sync != "sync":
+        out += f", tp_sync {d.tp_sync}"
+    if d.slices > 1:
+        g_dp, inner = par.dp_granule
+        out += (f", slices {d.slices} (hierarchical dp reduction, "
+                f"{g_dp} x {inner})" if g_dp > 1
+                else f", slices {d.slices} (flat dp reduction)")
     return out
 
 
@@ -170,7 +179,7 @@ def build_state(cfg: Config, dev: torch.device, par=None):
     elastic restore emits `elastic_resize` and prints the JAX trainer's
     line."""
     ck = cfg.checkpoint
-    tp = tp_context(par, cfg.distributed.sequence_parallel)
+    tp = tp_context(par, cfg.distributed.sequence_parallel, cfg)
     stage = stage_of(cfg, par)
     seed = cfg.training.seed + (0 if tp is None else 1_000_003 * tp.rank)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -202,7 +211,8 @@ def build_state(cfg: Config, dev: torch.device, par=None):
         params = load_hf_safetensors(ck.init_from_hf, cfg.model)
         if par is not None:
             params = shard_state_dict(params, par.tp_rank, par.tp_size,
-                                      par.ep_rank, par.ep_size)
+                                      par.ep_rank, par.ep_size,
+                                      tp_flips(cfg))
         state.optimizer.install(params)
         log_print(f"initialized weights from {ck.init_from_hf}")
 
@@ -365,7 +375,8 @@ def run(cfg: Config, device: Optional[str] = None,
                      f"{'x'.join(map(str, par.cp_mesh))} "
                      f"{cfg.distributed.cp_layout}"
                      if par.cp_size > 1 else "")
-                  + (pipeline_line(cfg) if par.pp_size > 1 else ""))
+                  + (pipeline_line(cfg) if par.pp_size > 1 else "")
+                  + tp_slices_line(cfg, par))
     t, ck = cfg.training, cfg.checkpoint
     if ck.save_frequency > 0:
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story

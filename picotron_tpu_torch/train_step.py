@@ -68,9 +68,10 @@ from picotron_tpu_torch.parallel.api import (
 )
 from picotron_tpu_torch.parallel.comm import PPComm
 from picotron_tpu_torch.parallel.fused_bwd import (
-    ComputeWeights, check_ported, fused_accumulate_grads, fused_bwd_supported,
+    ComputeWeights, fused_accumulate_grads, fused_bwd_supported,
 )
 from picotron_tpu_torch.parallel.pp import PipelineEval, PipelineGrads
+from picotron_tpu_torch.parallel.sharding import seq_sharded
 
 __all__ = ["TrainState", "accumulate_grads", "guard_nonfinite",
            "init_train_state", "make_eval_step", "make_grads_fn",
@@ -160,13 +161,12 @@ def make_grads_fn(cfg: Config, par=None):
     t = cfg.training
     if cfg.distributed.pp_size > 1:
         return PipelineGrads(cfg, par)
-    seam = grad_seam(par, cfg.distributed.sequence_parallel)
+    seam = grad_seam(par, seq_sharded(cfg))
     if resolved_grad_engine(cfg) != "fused":
         remat = t.remat_policy if t.remat else None
         return lambda model, batch, grads=None, extras=None: \
             accumulate_grads(model, batch, remat, t.ce_chunk_size, grads,
                              seam(model), extras)
-    check_ported(cfg)
     weights = None
 
     def fused(model: LlamaModel, batch, grads: Optional[dict] = None,

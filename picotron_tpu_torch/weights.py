@@ -28,12 +28,14 @@ _AS_IS = ("router", "w_gate", "w_up", "w_down")
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, tp_rank: int = 0,
                     tp_size: int = 1, pp_size: int = 1, ep_rank: int = 0,
-                    ep_size: int = 1) -> dict:
+                    ep_size: int = 1, flips=frozenset()) -> dict:
     """JAX param pytree (numpy leaves) -> the port's state_dict (fp32
     tensors on the CPU; load with `model.load_state_dict`, or
     `stage_params` for a pipeline stage): the whole model, or with
     `tp_size` > 1 tp rank `tp_rank`'s shards of it, and with `ep_size` >
-    1 ep rank `ep_rank`'s experts (`parallel/sharding.py`). A layer stack
+    1 ep rank `ep_rank`'s experts (`parallel/sharding.py`; `flips`, the
+    leaves a "row" tp strategy shards on their other dim,
+    `sharding.tp_flips`). A layer stack
     padded for `pp_size` stages (the JAX state under an uneven split) is
     read through the real layers' slots."""
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))  # noqa: E731
@@ -55,7 +57,7 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, tp_rank: int = 0,
             elif name not in _VECTORS + _AS_IS:
                 raise KeyError(f"unknown layer leaf {name!r}")
             sd[f"layers.{i}.{name}"] = t(a)
-    return shard_state_dict(sd, tp_rank, tp_size, ep_rank, ep_size)
+    return shard_state_dict(sd, tp_rank, tp_size, ep_rank, ep_size, flips)
 
 
 def stage_params(sd: dict, model: torch.nn.Module) -> dict:

@@ -485,3 +485,32 @@ def test_process_ending_kinds_match_jax(ending, name):
         jev[-1]["phase"], jev[-1]["category"])
     assert (pm["reason"], pm["step"]) == (jpm["reason"], jpm["step"]) \
         == ("watchdog", 2)
+
+
+# ---------------------------------------------------------------------------
+# the slice-loss scenario
+# ---------------------------------------------------------------------------
+
+
+def test_chaos_tool_runs_slice_lost():
+    """`slice_lost` is a runnable scenario of the tool (the JAX tool's
+    custom runner), a multi-rank one, and nothing is refused."""
+    from picotron_tpu_torch.tools import chaos
+
+    assert "slice_lost" in chaos.CUSTOM_SCENARIOS
+    assert "slice_lost" in chaos.MULTI_RANK
+    assert chaos.REFUSED == {}
+    names = chaos.build_parser()._option_string_actions["--scenario"].choices
+    assert "slice_lost" in names
+
+
+@pytest.mark.slow
+def test_slice_lost_scenario_recovers(tmp_path, capsys):
+    """The 4-rank scenario: leg 1 at dp 2 x tp 2 x slices 2 killed at step
+    3, re-stamped --slices 1, finished at dp 1 through checkpoint.elastic,
+    losses held to the baseline (~15 s of child trainer processes)."""
+    from picotron_tpu_torch.tools import chaos
+
+    assert chaos.main(["--scenario", "slice_lost", "--device", "cpu",
+                       "--workdir", str(tmp_path)]) == 0
+    assert "slice_lost: OK" in capsys.readouterr().out

@@ -690,3 +690,91 @@ def test_restore_params_only_reads_a_layout_whole(world, store):
     for n, t in want.items():
         assert params[n].dtype == torch.float32, n
         assert torch.equal(params[n], t), n
+
+
+# ---------------------------------------------------------------------------
+# --slices: the slice-loss recovery's re-stamp
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def slices_store(tmp_path_factory):
+    """A one-rank store (debug-tiny, 2 steps, saved at step 2) re-stamped
+    to dp 2 x slices 2 offline: the shape a 2-slice job leaves."""
+    from picotron_tpu_torch import train as ttrain
+    from picotron_tpu_torch.tools import elastic_resize
+
+    d = tmp_path_factory.mktemp("slices")
+    raw = {"model": {"name": "debug-tiny", "dtype": "float32"},
+           "training": dict(seq_length=16, micro_batch_size=2,
+                            gradient_accumulation_steps=2,
+                            total_train_steps=2, remat=False),
+           "distributed": {"use_cpu": True},
+           "checkpoint": {"save_dir": str(d / "ckpt"), "async_save": False,
+                          "save_frequency": 2}}
+    os.environ.pop("PICOTRON_CHAOS", None)
+    ttrain.run(tcfg.config_from_dict(raw), "cpu")
+    assert elastic_resize.main([str(d / "ckpt"), "--dp", "2",
+                                "--slices", "2"]) == 0
+    return str(d / "ckpt")
+
+
+def test_elastic_resize_slices_restamps_topology_and_meta(
+        tmp_path, slices_store, capsys):
+    """--slices 2 -> 1: the plan names the change and the resume line the
+    new slice count; the manifest topology and the config meta record it,
+    the step re-verifies, and state/ is untouched (placement only)."""
+    from picotron_tpu_torch.ckpt_integrity import verify_step_dir
+    from picotron_tpu_torch.tools import elastic_resize
+
+    store = str(tmp_path / "ckpt")
+    shutil.copytree(slices_store, store)
+    step_dir = os.path.join(store, "step_00000002")
+    assert elastic.saved_topology(step_dir)["slices"] == 2
+    state = os.path.join(step_dir, "state")
+    before = {f: open(os.path.join(state, f), "rb").read()
+              for f in os.listdir(state)}
+    capsys.readouterr()
+    assert elastic_resize.main([store, "--slices", "1", "--dry-run"]) == 0
+    out = capsys.readouterr().out
+    assert "slices    2 -> 1 (placement metadata only" in out
+    assert "dry run: store not modified" in out
+    assert elastic.saved_topology(step_dir)["slices"] == 2
+    assert elastic_resize.main([store, "--slices", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "distributed.slices=1" in out
+    topo = elastic.saved_topology(step_dir)
+    assert topo["slices"] == 1 and topo["dp"] == 2
+    with open(os.path.join(step_dir, "meta.json")) as f:
+        meta = json.load(f)
+    assert meta["config"]["distributed"]["slices"] == 1
+    assert meta["elastic_restamp"]["to"]["slices"] == 1
+    assert verify_step_dir(step_dir, deep=True).status == "verified"
+    assert {f: open(os.path.join(state, f), "rb").read()
+            for f in os.listdir(state)} == before
+
+
+@pytest.mark.parametrize("flags,why", [
+    (("--slices", "3"), "slices must divide dp*pp = 2 (dp=2, pp=1)"),
+    (("--slices", "4"), "slices must divide dp*pp = 2 (dp=2, pp=1)"),
+    (("--dp", "1", "--slices", "2"),
+     "slices must divide dp*pp = 1 (dp=1, pp=1)"),
+])
+def test_elastic_resize_slices_refused_with_the_jax_wording(
+        tmp_path, slices_store, capsys, flags, why):
+    """A slice count the target's dp x pp cannot absorb is refused in the
+    JAX tool's words (tools/elastic_resize.py:197-205), the store
+    untouched."""
+    from picotron_tpu_torch.tools import elastic_resize
+
+    store = str(tmp_path / "ckpt")
+    shutil.copytree(slices_store, store)
+    step_dir = os.path.join(store, "step_00000002")
+    meta = open(os.path.join(step_dir, "meta.json")).read()
+    capsys.readouterr()
+    assert elastic_resize.main([store, *flags]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith(f"cannot re-stamp step 2 to slices={flags[-1]}: ")
+    assert why + " and not exceed it — the resumed run's config " \
+        "validation would refuse this layout" in err
+    assert open(os.path.join(step_dir, "meta.json")).read() == meta

@@ -236,23 +236,27 @@ def test_weight_grad_forms_on_the_cpu():
 
 
 @pytest.mark.parametrize("bad,match", [
-    # context parallelism is ported; the tp strategies' hooks are not
-    ({"distributed": {"tp_size": 2, "tp_strategy": "row"}}, "item 9"),
-    # the MoE branch is ported: its case keeps its id and checks that
-    # nothing refuses it (match None)
+    # the tp strategies' hooks and the MoE branch are ported: their cases
+    # keep their ids and check that the engine builds for them (match
+    # None); tests/test_torch_tp_strategies.py runs the strategies' fused
+    # grads against AD's in a gloo world
+    pytest.param({"distributed": {"tp_size": 2, "tp_strategy": "row"}},
+                 None, id="bad0-item 9"),
     pytest.param({"model": {"name": "debug-tiny-moe"}}, None,
                  id="bad1-item 10"),
 ])
 def test_unported_branches_are_refused(bad, match):
+    from picotron_tpu_torch import train_step as tstep
+
     raw = {"model": {"name": "debug-tiny"},
-           "training": {"remat": True, "remat_policy": "dots_attn"}}
+           "training": {"remat": True, "remat_policy": "dots_attn",
+                        "grad_engine": "fused"}}
     for section, vals in bad.items():
         raw.setdefault(section, {}).update(vals)
-    if match is None:
-        fused_bwd.check_ported(tcfg.config_from_dict(raw))
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        fused_bwd.check_ported(tcfg.config_from_dict(raw))
+    cfg = tcfg.config_from_dict(raw)
+    assert match is None
+    assert tstep.resolved_grad_engine(cfg) == "fused"
+    assert callable(tstep.make_grads_fn(cfg))
 
 
 def test_fused_save_resume_is_bit_identical(tmp_path, monkeypatch):

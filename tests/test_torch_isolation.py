@@ -52,7 +52,9 @@ def test_port_files_exist():
                  "picotron_tpu_torch/telemetry/flightdeck/__init__.py",
                  "picotron_tpu_torch/native.py",
                  "picotron_tpu_torch/tools/telemetry_report.py",
-                 "picotron_tpu_torch/tools/trace_export.py"):
+                 "picotron_tpu_torch/tools/trace_export.py",
+                 "picotron_tpu_torch/parallel/tp_strategies.py",
+                 "picotron_tpu_torch/parallel/hier_reduce.py"):
         assert want in names
     assert (ROOT / "picotron_tpu_torch/csrc/flash_attention.cu").exists()
     assert (ROOT / "picotron_tpu_torch/csrc/packer.cpp").exists()
@@ -77,7 +79,9 @@ def test_import_leaves_jax_unloaded():
             "picotron_tpu_torch.tools.trace_export, "
             "picotron_tpu_torch.serve.disagg, picotron_tpu_torch.serve.fleet"
             ", picotron_tpu_torch.tools.serve_bench, "
-            "picotron_tpu_torch.tools.chaos"
+            "picotron_tpu_torch.tools.chaos, "
+            "picotron_tpu_torch.parallel.tp_strategies, "
+            "picotron_tpu_torch.parallel.hier_reduce"
             "\nbad = [m for m in sys.modules if m == 'jax' or m.startswith"
             "('jax.') or m == 'picotron_tpu' or m.startswith('picotron_tpu.')"
             " or m in ('datasets', 'transformers')]"

@@ -11,7 +11,12 @@
   torchrun environment, and a CUDA run without NCCL (which never becomes
   gloo);
 - every option the port still refuses names its ROADMAP item, and the
-  context-parallel layouts (ported since) are no longer refused;
+  layouts ported since (cp, pp, ep, the tp strategies, the deferred
+  sync, the slices) are no longer refused;
+- `torchrun --nproc_per_node 4 ... --device cpu` under the fused engine
+  at tp 4 with the 2d strategy (2 x 2), and at dp 2 x tp 2 with the row
+  strategy over 2 slices (the hierarchical dp reduction): each exits 0,
+  its layout line naming the strategy or the slices;
 - `torchrun --nproc_per_node 4 ... --device cpu` at cp 4: the tiny
   versions of runs/llama2-7b-cp4-seq8192 (ring, zigzag, fused, zero1)
   and runs/llama2-7b-cp4-mesh-seq8192 (mesh 2x2), and Ulysses, each
@@ -35,6 +40,7 @@ from picotron_tpu_torch import config as tcfg
 from picotron_tpu_torch import data as tdata
 from picotron_tpu_torch import mesh
 from picotron_tpu_torch import train as ttrain
+from picotron_tpu_torch import train_step as tstep
 from picotron_tpu_torch.parallel import fused_bwd
 from tests.test_torch_parallel import tiny_raw
 
@@ -68,6 +74,46 @@ def test_torchrun_cli_trains_dp2_tp2_on_cpu(tmp_path):
     per = rep["collectives_per_step"]
     assert per["all_reduce"] > 0 and per["all_gather"] > 0
     assert per["reduce_scatter"] > 0  # sequence parallelism
+
+
+# the tp strategies and the slices under torchrun (ROADMAP Queue 1 item
+# 9, the old refusal cases of test_still_refused_options_name_their_item)
+SLICE17_CLI = {
+    "2d_2x2_fused": (dict(tp_size=4, tp_strategy="2d", tp_mesh="2x2"),
+                     "tp_strategy 2d 2x2"),
+    "dp2_tp2_row_slices": (
+        dict(dp_size=2, tp_size=2, tp_strategy="row", slices=2,
+             dcn_axes="dp"),
+        "slices 2 (hierarchical dp reduction, 2 x 1)"),
+}
+
+
+@pytest.mark.parametrize("layout", list(SLICE17_CLI))
+def test_torchrun_cli_trains_tp_strategies_and_slices_on_cpu(tmp_path,
+                                                            layout):
+    dist_kw, marker = SLICE17_CLI[layout]
+    raw = tiny_raw(training={"total_train_steps": 2, "remat": True,
+                             "remat_policy": "dots_attn",
+                             "grad_engine": "fused"}, **dist_kw)
+    cfg_path, report = tmp_path / "cfg.json", tmp_path / "report.json"
+    cfg_path.write_text(json.dumps(raw))
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    env.pop("WORLD_SIZE", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "4", "-m", "picotron_tpu_torch.train",
+         "--config", str(cfg_path), "--device", "cpu",
+         "--report", str(report)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    layout_lines = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("layout: ")]
+    assert len(layout_lines) == 1 and marker in layout_lines[0], \
+        layout_lines
+    rep = json.loads(report.read_text())
+    assert rep["world_size"] == 4 and len(rep["losses"]) == 2
+    assert all(np.isfinite(rep["losses"]))
+    assert rep["collectives_per_step"]["all_gather"] > 0
 
 
 # the tiny versions of runs/llama2-7b-cp4-seq8192 (ring, zigzag, fused,
@@ -208,6 +254,10 @@ def test_layout_errors_are_typed(monkeypatch):
 _CP_PORTED = "context parallelism: ROADMAP Queue 1 item 9"
 _PP_PORTED = "pipeline parallelism: ROADMAP Queue 1 item 9"
 _EP_PORTED = "expert parallelism: ROADMAP Queue 1 item 10"
+# so were the tp strategies, the deferred sync and the slices
+_TP_PORTED = "tp strategies: ROADMAP Queue 1 item 9"
+_DEFERRED_PORTED = "deferred tp sync: ROADMAP Queue 1 item 9"
+_SLICES_PORTED = "multi-slice dp reduction: ROADMAP Queue 1 item 9"
 
 
 @pytest.mark.parametrize("dist_kw,model_kw,match", [
@@ -217,12 +267,12 @@ _EP_PORTED = "expert parallelism: ROADMAP Queue 1 item 10"
                  id=f"dist_kw1-model_kw1-{_CP_PORTED}"),
     pytest.param({"ep_size": 2}, {"name": "debug-tiny-moe"}, None,
                  id=f"dist_kw2-model_kw2-{_EP_PORTED}"),
-    ({"tp_size": 2, "tp_strategy": "row"}, {},
-     "tp strategies: ROADMAP Queue 1 item 9"),
-    ({"tp_size": 2, "tp_sync": "deferred"}, {},
-     "deferred tp sync: ROADMAP Queue 1 item 9"),
-    ({"dp_size": 2, "slices": 2}, {},
-     "multi-slice dp reduction: ROADMAP Queue 1 item 9"),
+    pytest.param({"tp_size": 2, "tp_strategy": "row"}, {}, None,
+                 id=f"dist_kw3-model_kw3-{_TP_PORTED}"),
+    pytest.param({"tp_size": 2, "tp_sync": "deferred"}, {}, None,
+                 id=f"dist_kw4-model_kw4-{_DEFERRED_PORTED}"),
+    pytest.param({"dp_size": 2, "slices": 2}, {}, None,
+                 id=f"dist_kw5-model_kw5-{_SLICES_PORTED}"),
     pytest.param({"cp_size": 2}, {"attn_impl": "ring"}, None,
                  id=f"dist_kw6-model_kw6-{_CP_PORTED}"),
 ])
@@ -249,13 +299,20 @@ def test_layouts_the_slice_runs_are_supported():
                dict(cp_size=4, cp_flavor="ulysses"),
                dict(cp_size=4, cp_flavor="mesh", cp_mesh="2x2"),
                dict(cp_size=2, tp_size=2, sequence_parallel=True,
-                    cp_flavor="ulysses")):
+                    cp_flavor="ulysses"),
+               dict(tp_size=4, tp_strategy="2d", tp_mesh="2x2"),
+               dict(dp_size=2, tp_size=2, tp_strategy="row"),
+               dict(tp_size=4, tp_strategy="qkv=2d,o=2d"),
+               dict(tp_size=2, cp_size=2, sequence_parallel=True,
+                    tp_sync="deferred"),
+               dict(dp_size=4, slices=2, dcn_axes="dp")):
         cfg = tcfg.config_from_dict(tiny_raw(**kw))
         assert ttrain.unsupported(cfg) == []
         fused = tcfg.config_from_dict(tiny_raw(
             training={"remat": True, "remat_policy": "dots_attn",
                       "grad_engine": "fused"}, **kw))
-        fused_bwd.check_ported(fused)
+        assert fused_bwd.fused_bwd_supported(fused)
+        assert callable(tstep.make_grads_fn(fused))
 
 
 def test_world1_smoke_config_is_runs_smollm17_dp8_cut_to_one_card():
