@@ -78,7 +78,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
    3's, the
    forward kernel launched twice per layer and microbatch under "full" and
    once otherwise, and each policy's peak memory and second step's time;
-   (d) the chunked CE (chunk CE_CHUNK) against the unchunked one
+   "dots_offload" (every saved activation parked in pinned host memory,
+   the lse on the card; `models/act_offload.py`) after "dots", held to
+   its losses bit for bit and its launches, every copy timed: the peak
+   and step-2 ms against "dots"', the bytes parked per step and each
+   way's GB/s (bytes over the copies' own stream time) against the
+   link's pinned-copy rates; then a planted fault (microbatch 2's first
+   parked storage restored with microbatch 1's bytes, as from another
+   microbatch's buffer), which must change its losses; (d) the chunked CE (chunk CE_CHUNK) against the unchunked one
    on one microbatch's hidden [2, 2048, 2048] and the head [49152, 2048]
    in bf16: the loss within CE_LOSS_RTOL, d hidden and d head within
    CE_GRAD_RTOL in relative L2, and each one's peak memory.
@@ -376,8 +383,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    layers, tp 4, dp/cp/pp 1, mbs 1, ga 1, flash attention, from one
    seeded init transplanted into every layout (TP_LAYOUTS): megatron,
    "2d" at 2 x 2, "row" and "qkv=2d,o=2d" without SP, megatron + SP and
-   tp_sync "deferred" with it, each under the fused engine (remat
-   "dots_attn") and the two megatron twins also under AD. In fp32 at
+   tp_sync "deferred" with it, and "adaptive" (resolved by the cost model
+   on the h100 tier, its spec printed; its fp32 losses equal to the named
+   layout of the same spec bit for bit), each under the fused engine
+   (remat "dots_attn") and the two megatron twins also under AD. In fp32 at
    TP_SEQ_FP32 (TF32 off): 3 steps' losses and the step-1 grad norm
    within TP_LOSS_RTOL of the twin's AD run. In bf16 at the run's seq
    TP_SEQ: per rank the flash launches (TP_LAYERS per step per kernel,
@@ -393,7 +402,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (one reduce-scatter and one all-gather in the slice, one all-reduce
    across it), and the cross-slice leg's bytes 1/inner of the flat
    all-reduce's. A `tp_strategies` JSON line before the card line.
-16. Numbers, then the device line last.
+16. Numbers, then the device line last. The numbers include the cost
+   model's (`cost_model_phase`): the h100 tier's predicted ms/step for
+   each measured point of this run (phases 3, 5b, each 5c policy, 6c and
+   11a) beside the measurement, their ratio (each within COST_RATIO),
+   the Spearman rank agreement of tokens/s (the ordering result) and of
+   ms/step, and the calibration these points fit (FIT_KEYS); a
+   `cost_model` JSON line before the card line.
 
 Tolerance (phase 2), per row of each output (a row is one token's D values
 of out, dq, dk or dv): ||kernel - plain||_2 <= 1e-2 * ||plain||_2 (a row
@@ -609,7 +624,9 @@ EVAL_STEPS = 2
 EVAL_ATOL = 5e-3               # val_loss: forward kernel vs plain attention
 RESUME_SPREAD_FACTOR = 4       # resumed losses vs phase 3, if not bitwise
 FUSED_CONFIG = "picotron_tpu_torch/configs/smollm17-1gpu-seq2048-fused.json"
-REMAT_POLICIES = ("full", "dots", "dots_attn", "dots_lean", "dots_norms")
+REMAT_POLICIES = ("full", "dots", "dots_attn", "dots_lean", "dots_norms",
+                  "dots_offload")
+COST_RATIO = 2.0               # cost model: predicted vs measured step
 GRAD_RTOL = 1e-2               # per grad tensor: fused vs AD engine
 LOSS_ATOL = 1e-3               # step-1 loss across engines and policies
 CE_CHUNK = 8192
@@ -713,10 +730,13 @@ TP_LAYOUTS = {  # name: (distributed overrides, the twin it is held to)
     "megatron sp": ({"sequence_parallel": True}, None),
     "deferred": ({"sequence_parallel": True, "tp_sync": "deferred"},
                  "megatron sp"),
+    # resolved on the h100 tier by the cost model (`tp_adaptive`)
+    "adaptive": ({"tp_strategy": "adaptive"}, "megatron"),
 }
 TP_HEADS = {  # each rank's (q heads, kv heads): Llama-3-8B's 32/8 under
     "megatron": (8, 2), "megatron sp": (8, 2), "deferred": (8, 2),
     "2d 2x2": (16, 4), "qkv=2d,o=2d": (16, 4), "row": (32, 8)}
+TP_PAIR_HEADS = {"col": (8, 2), "2d": (16, 4), "row": (32, 8)}
 TP_LOSS_RTOL = 1e-4            # 15a: fp32 losses and norm vs the twin's
 HIER_DP, HIER_SLICES, HIER_LAYERS, HIER_SEED = 4, 2, 2, 16
 HIER_GRAD_RTOL = 1e-6          # 15b: each grad tensor vs flat, rel L2
@@ -1204,7 +1224,8 @@ def chunked_ce_check(n=(MBS, SEQ), hidden=2048, vocab=49152,
 def remat_policies(fa, here: str, phase3_losses: list) -> dict:
     """Phase 5(c): two steps of the phase-3 config under the AD engine
     with each remat policy, through `train.run`: {policy: {losses, peak
-    GiB, second step's seconds}}."""
+    GiB, second step's seconds}}; "dots_offload" (after "dots") also
+    with its parked bytes and copy rates (`offload_policy`)."""
     import dataclasses
     import gc
 
@@ -1217,6 +1238,9 @@ def remat_policies(fa, here: str, phase3_losses: list) -> dict:
         cfg = dataclasses.replace(base, training=dataclasses.replace(
             base.training, remat=True, remat_policy=policy, grad_engine="ad",
             total_train_steps=2))
+        if policy == "dots_offload":
+            out[policy] = offload_policy(fa, cfg, out["dots"])
+            continue
         fa.reset_launch_counts()
         result = train.run(cfg, "cuda")
         torch.cuda.synchronize()
@@ -1228,7 +1252,8 @@ def remat_policies(fa, here: str, phase3_losses: list) -> dict:
         losses = result["losses"]
         out[policy] = {"losses": losses,
                        "peak_memory_gb": result["peak_memory_gb"],
-                       "step_2_s": result["step_seconds"][1]}
+                       "step_2_s": result["step_seconds"][1],
+                       "launches": dict(fa.launches)}
         want = phase3_losses[:2]
         same = "bit for bit" if losses == want else (
             f"max diff {max(abs(a - b) for a, b in zip(losses, want))!r}")
@@ -1243,6 +1268,149 @@ def remat_policies(fa, here: str, phase3_losses: list) -> dict:
             raise AssertionError(f"remat {policy}: losses {losses}, phase 3 "
                                  f"{want}")
     return out
+
+
+@contextlib.contextmanager
+def offload_probes(ao, timed=None, stale=False):
+    """Probes on the parker's two copy sites (`models/act_offload.py`),
+    undone on exit. `timed` ({"d2h": [], "h2d": []}) gets each copy's
+    (start, end, bytes), CUDA events on the copy's own stream: a D2H's
+    start is recorded once its buffer is taken (pinning a new one is
+    host time) and the stream has taken its waits, an H2D's after its
+    waits. `stale` plants the fault: the first parked storage of the
+    second forward restored with the first forward's bytes, as if its
+    copy had gone to another microbatch's buffer."""
+    init, take, fetch = (ao._Stored.__init__, ao.ActivationParker._take,
+                         ao._Group.fetch)
+    first, starts = [], []
+
+    def event(stream):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(stream)
+        return e
+
+    def parker_take(self, n):
+        buf, last = take(self, n)
+        if timed is not None:
+            self.d2h.wait_stream(torch.cuda.current_stream(self.device))
+            if last is not None:
+                self.d2h.wait_event(last)
+            starts.append(event(self.d2h))
+        return buf, last
+
+    def stored_init(self, group, t):
+        init(self, group, t)
+        if timed is not None:
+            timed["d2h"].append((starts.pop(), event(group.parker.d2h),
+                                 self.nbytes))
+        if stale and group.prev is None and not group.stored:
+            self.event.synchronize()
+            if not first:
+                first.append(self.buf.clone())
+            elif first[-1] is not None:
+                self.buf.copy_(first[0])
+                first.append(None)
+
+    def group_fetch(self):
+        if timed is None or self.fetched:
+            return fetch(self)
+        p = self.parker
+        items = [s for s in self.stored.values() if s.buf is not None]
+        p.h2d.wait_stream(torch.cuda.current_stream(p.device))
+        for s in items:
+            p.h2d.wait_event(s.event)
+        start = event(p.h2d)
+        fetch(self)
+        timed["h2d"].append((start, event(p.h2d),
+                             sum(s.nbytes for s in items)))
+
+    ao._Stored.__init__, ao._Group.fetch = stored_init, group_fetch
+    ao.ActivationParker._take = parker_take
+    try:
+        yield
+    finally:
+        ao._Stored.__init__, ao._Group.fetch = init, fetch
+        ao.ActivationParker._take = take
+
+
+def offload_policy(fa, cfg, dots: dict) -> dict:
+    """5c's "dots_offload": two steps with every copy timed
+    (`offload_probes`), held to "dots" bit for bit (losses) and launch for
+    launch; the bytes parked per step and each way's GB/s (bytes over the
+    copies' own stream time) against the link's pinned-copy rates; then
+    the planted fault, which must break the equality."""
+    import gc
+
+    from picotron_tpu_torch import train
+    from picotron_tpu_torch.models import act_offload as ao
+
+    def run(stale=False):
+        fa.reset_launch_counts()
+        ao.reset_counts()
+        timed = None if stale else {"d2h": [], "h2d": []}
+        with offload_probes(ao, timed, stale):
+            result = train.run(cfg, "cuda")
+        torch.cuda.synchronize()
+        parker = result.pop("state").model._parker
+        res = {"losses": result["losses"],
+               "peak_memory_gb": result["peak_memory_gb"],
+               "step_2_s": result["step_seconds"][1],
+               "launches": dict(fa.launches), "counts": dict(ao.counts),
+               "pinned_bytes": parker.pinned_bytes}
+        if timed is not None:
+            res["copies"] = {
+                way: (sum(n for _, _, n in ev),
+                      sum(a.elapsed_time(b) for a, b, _ in ev) / 1e3)
+                for way, ev in timed.items()}
+        del result, parker, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    res = run()
+    steps = cfg.training.total_train_steps
+    per_layer = steps * GA * cfg.model.num_hidden_layers
+    c = res["counts"]
+    (d2h_b, d2h_s), (h2d_b, h2d_s) = (res["copies"]["d2h"],
+                                      res["copies"]["h2d"])
+    link = link_rates(torch.device("cuda"))
+    res.update({
+        "bytes_parked_per_step": c["d2h_bytes"] / steps,
+        "d2h_gb_per_s": d2h_b / d2h_s / 1e9 if d2h_s else None,
+        "h2d_gb_per_s": h2d_b / h2d_s / 1e9 if h2d_s else None,
+        "link_gb_per_s": link,
+        "vs_dots": {"peak_memory_gb": dots["peak_memory_gb"],
+                    "step_2_s": dots["step_2_s"]}})
+    fault = run(stale=True)
+    res["planted_stale_losses"] = fault["losses"]
+    log(f"phase 5c remat dots_offload: losses {res['losses']} (dots: "
+        f"{dots['losses']}, "
+        f"{'bit for bit' if res['losses'] == dots['losses'] else 'DIFFER'}), "
+        f"peak {res['peak_memory_gb']:.2f} GiB (dots "
+        f"{dots['peak_memory_gb']:.2f}), step 2 {res['step_2_s'] * 1e3:.1f} "
+        f"ms (dots {dots['step_2_s'] * 1e3:.1f}); per step "
+        f"{res['bytes_parked_per_step'] / 1e9:.3f} GB parked each way "
+        f"({c['storages'] // (steps * GA)} storages per microbatch, "
+        f"{c['kept']} lse kept, pinned "
+        f"{res['pinned_bytes'] / 2 ** 30:.2f} GiB); D2H "
+        f"{res['d2h_gb_per_s']:.1f} GB/s, H2D {res['h2d_gb_per_s']:.1f} GB/s "
+        f"on their streams (link: H2D {link['h2d_alone']:.1f}, D2H "
+        f"{link['d2h_alone']:.1f}, both {link['both_each_way']:.1f} GB/s); "
+        f"planted stale buffer: losses {fault['losses']}")
+    fails = []
+    if res["losses"] != dots["losses"]:
+        fails.append(f"losses {res['losses']} vs dots {dots['losses']}")
+    if res["launches"] != dots["launches"]:
+        fails.append(f"launches {res['launches']} vs dots "
+                     f"{dots['launches']}")
+    if c["kept"] != per_layer or c["d2h_bytes"] != c["h2d_bytes"]:
+        fails.append(f"counts {c}: want {per_layer} lse kept and the bytes "
+                     f"fetched equal to those parked")
+    if fault["losses"] == dots["losses"]:
+        fails.append("the planted stale buffer was not caught")
+    if fails:
+        raise AssertionError("phase 5c dots_offload: " + "; ".join(fails))
+    return res
 
 
 def path_numbers(result: dict, m, peak_flops: float) -> dict:
@@ -5376,6 +5544,7 @@ def tp_strategies_phase(here: str, card: str, run: Optional[dict] = None,
            "seq_fp32": seqs[0], "steps": TP_STEPS,
            "limits": {"TP_LOSS_RTOL": TP_LOSS_RTOL}, "layouts": {}}
     tls = threading.local()
+    out["adaptive"] = tp_adaptive(run, seqs[0], layers)
     legs = [(name, engine) for name, (_, twin) in TP_LAYOUTS.items()
             for engine in (("fused", "ad") if twin is None else ("fused",))]
     for dtype, seq in zip(("float32", "bfloat16"), seqs):
@@ -5456,7 +5625,40 @@ def tp_strategies_phase(here: str, card: str, run: Optional[dict] = None,
         if not rel <= TP_LOSS_RTOL:
             raise AssertionError(f"15a {key}: fp32 losses and step-1 grad "
                                  f"norm vs {twin} AD's: rel err {rel:.3g}")
+    preset = out["adaptive"]["preset"]
+    if preset is not None:
+        got = out["layouts"]["adaptive"]["losses_fp32"]
+        want = out["layouts"][preset]["losses_fp32"]
+        out["adaptive"]["equal_to_preset"] = got == want
+        log(f"phase 15a adaptive ({card}): resolved on the h100 tier to "
+            f"{out['adaptive']['spec']} = {preset!r}; fp32 losses {got} "
+            f"(the preset's {want}, "
+            f"{'bit for bit' if got == want else 'DIFFER'})")
+        if got != want:
+            raise AssertionError(f"15a adaptive: losses {got} vs its preset "
+                                 f"{preset}'s {want}")
     return out
+
+
+def tp_adaptive(run: dict, seq: int, layers: int) -> dict:
+    """15a's "adaptive" layout resolved by the cost model on the h100
+    tier: its per-class spec, the named layout with the same spec (None
+    for a mix no preset spells), and its per-rank heads (TP_HEADS, from
+    the attention pair's kind)."""
+    from picotron_tpu_torch.config import (
+        config_from_dict, resolved_tp_strategy,
+    )
+
+    def spec(kw):
+        return resolved_tp_strategy(config_from_dict(
+            tp_raw(run, kw, "float32", seq, "fused", layers)))
+
+    got = spec(TP_LAYOUTS["adaptive"][0])
+    preset = next((name for name in ("megatron", "row", "2d 2x2",
+                                     "qkv=2d,o=2d")
+                   if spec(TP_LAYOUTS[name][0]) == got), None)
+    TP_HEADS["adaptive"] = TP_PAIR_HEADS[got["qkv"]]
+    return {"tier": "h100", "spec": got, "preset": preset}
 
 
 def tp_launches(table: dict, name: str, engine: str,
@@ -5654,6 +5856,91 @@ def hier_phase(here: str, card: str, raw: Optional[dict] = None,
         f"{flat_grad_bytes}")
     if fails:
         raise AssertionError("15b: " + "; ".join(fails))
+    return res
+
+
+def cost_points(here: str, result: dict, fused: dict, engines: dict,
+                offload: dict, moe: dict) -> list:
+    """The measured points of this run the h100 tier is fitted on: each
+    a repo config with overrides (analysis/calibration.point_config) and
+    its tokens/s: phase 3 (median of steps 2-4), 5b (fused), each 5c
+    policy (its step 2), 6c (the offloaded optimizer at ga 64) and 11a
+    (two Mixtral layers)."""
+    pts = [
+        {"label": "phase 3 (AD, no remat)", "config": CONFIG,
+         "tokens_per_sec_per_chip": engines["ad"]["tokens_per_s"]},
+        {"label": "phase 5b (fused, dots_attn)", "config": FUSED_CONFIG,
+         "tokens_per_sec_per_chip": engines["fused"]["tokens_per_s"]},
+    ]
+    for policy, r in engines["remat"].items():
+        pts.append({
+            "label": f"phase 5c ({policy})", "config": CONFIG,
+            "overrides": {"training": {
+                "remat": True, "remat_policy": policy, "grad_engine": "ad",
+                "total_train_steps": 2}},
+            "tokens_per_sec_per_chip": GA * MBS * SEQ / r["step_2_s"]})
+    pts.append({"label": "phase 6c (offload, ga 64)",
+                "config": OFFLOAD_CONFIG,
+                "tokens_per_sec_per_chip": offload["config"]["tokens_per_s"]})
+    pts.append({"label": "phase 11a (Mixtral 2 layers)",
+                "config": MOE_CONFIG,
+                "tokens_per_sec_per_chip": moe["train"]["tokens_per_s"]})
+    return pts
+
+
+def cost_model_phase(here: str, card: str, points: list) -> dict:
+    """The h100 tier's predicted ms/step for each measured point of this
+    run (`cost_points`) beside the measurement and their ratio, under the
+    committed calibration (analysis/h100_points.json's fit, an earlier
+    run of these points); the ordering result, Spearman rank agreement
+    over tokens/s (`rank_agreement`: the points' steps span 64x in
+    tokens, so a ranking of ms/step mostly ranks step sizes), beside the
+    ms/step one; the constants this run's points would fit; fails if a
+    prediction is not within COST_RATIO of its measurement."""
+    import dataclasses
+
+    from picotron_tpu_torch.analysis.calibration import (
+        FIT_KEYS, FIT_START, MeasuredPoint, fit_calibration, point_config,
+        rank_agreement,
+    )
+    from picotron_tpu_torch.analysis.cost_model import (
+        CostModel, h100_tier, spearman,
+    )
+
+    gen = h100_tier()
+    model = CostModel(gen)
+    rows, measured = [], []
+    for p in points:
+        cfg = point_config(p, here)
+        tokens = cfg.tokens_per_step
+        meas_ms = tokens / p["tokens_per_sec_per_chip"] * 1e3
+        pred_ms = model.predict(cfg).total_s * 1e3
+        rows.append({**p, "measured_ms": meas_ms, "predicted_ms": pred_ms,
+                     "ratio": pred_ms / meas_ms})
+        measured.append(MeasuredPoint(cfg, p["tokens_per_sec_per_chip"],
+                                      p["label"], "chip_smoke"))
+    rho = spearman([r["predicted_ms"] for r in rows],
+                   [r["measured_ms"] for r in rows])
+    rank = rank_agreement(measured, model)["pooled"]
+    fitted = fit_calibration(measured, gen, start=FIT_START, keys=FIT_KEYS)
+    res = {"card": card, "tier": dataclasses.asdict(gen), "points": rows,
+           "spearman_tokens_per_s": rank, "spearman_ms_per_step": rho,
+           "calibration": dataclasses.asdict(model.calib),
+           "fitted": dataclasses.asdict(fitted),
+           "fitted_rank": rank_agreement(measured, CostModel(gen, fitted)),
+           "limits": {"COST_RATIO": COST_RATIO}}
+    for r in rows:
+        log(f"cost model [{gen.name}] {r['label']}: predicted "
+            f"{r['predicted_ms']:.1f} ms/step, measured "
+            f"{r['measured_ms']:.1f} ({card}), ratio {r['ratio']:.3f}")
+    log(f"cost model: Spearman over {len(rows)} points {rank:.4f} of "
+        f"tokens/s ({rho:.4f} of ms/step); this run's fit {res['fitted']}, "
+        f"its rank agreement {res['fitted_rank']['pooled']}")
+    bad = [r["label"] for r in rows
+           if not 1 / COST_RATIO < r["ratio"] < COST_RATIO]
+    if bad:
+        raise AssertionError(f"cost model: predictions off by more than "
+                             f"{COST_RATIO}x for {bad}")
     return res
 
 
@@ -5902,6 +6189,8 @@ def main() -> int:
             f"{100 * nums['mfu']:.2f}% of {H100_BF16_PEAK / 1e12:.1f} "
             f"TFLOP/s, peak memory {nums['peak_memory_gb']:.2f} GiB, step "
             f"seconds {res['step_seconds']}")
+    cost_model = cost_model_phase(here, card, cost_points(
+        here, result, fused, engines, offload, moe))
     kernels = []
     for name, replaces in KERNELS:
         ms, plain_ms, lib_ms = times[name]
@@ -5927,6 +6216,8 @@ def main() -> int:
             "tp2d_shape": shape_times[TP2D_LABEL][name],
             "tp_launches": {lay: res["launches_per_rank"][name]
                             for lay, res in tp["layouts"].items()},
+            "dots_offload_launches":
+                engines["remat"]["dots_offload"]["launches"][name],
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "
@@ -5961,6 +6252,7 @@ def main() -> int:
     print(json.dumps({"elastic": elastic}))
     print(json.dumps({"serving_fleet": fleet}))
     print(json.dumps({"tp_strategies": tp}))
+    print(json.dumps({"cost_model": cost_model}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

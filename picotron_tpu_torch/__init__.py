@@ -2,13 +2,13 @@
 H100 (Hopper, sm_90a).
 
 The JAX package `picotron_tpu` stays the reference; this package mirrors
-its module names (config, ops/, models/llama, optimizer, train_step, data,
-native, utils, train, checkpoint, ckpt_integrity/, resilience/,
-telemetry/, generate, serve/, tools/) and imports nothing from it or from
-jax. The three Pallas flash-attention kernels are hand-written CUDA in
-`csrc/flash_attention.cu`, built with nvcc at first launch
-(`kernels/build.py`), never at import; the data pipeline's token packer
-(`csrc/packer.cpp`) is built there with g++ at its first use.
+its module names (config, ops/, models/llama, optimizer, train_step,
+data, native, utils, train, checkpoint, ckpt_integrity/, resilience/,
+telemetry/, generate, serve/, analysis/, tools/) and imports nothing
+from it or from jax. The three Pallas flash-attention kernels are
+hand-written CUDA in `csrc/flash_attention.cu`, built with nvcc at first
+launch (`kernels/build.py`), never at import; the data pipeline's token
+packer (`csrc/packer.cpp`) is built there with g++ at its first use.
 
 Entry points run on CUDA unless the caller asks for the CPU (`--device
 cpu`, `device="cpu"`, or config `distributed.use_cpu: true`); on the CPU
@@ -27,6 +27,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["checkpoint", "ckpt_integrity", "config", "data", "models",
-           "ops", "optimizer", "resilience", "telemetry", "train",
+__all__ = ["analysis", "checkpoint", "ckpt_integrity", "config", "data",
+           "models", "ops", "optimizer", "resilience", "telemetry", "train",
            "train_step", "utils", "weights"]

@@ -1,0 +1,401 @@
+"""Layout search: rank the dp x tp x pp x cp x ep x flags x executor space
+by predicted time (port of picotron_tpu/analysis/planner.py).
+
+The cost model prices one layout; the planner enumerates the space for a
+chip count, validates each candidate with the Config's own `validate()`,
+prunes what a closed-form memory estimate (`estimate_hbm_gib`, the JAX
+package's, deliberately optimistic by a margin) says cannot fit the
+tier's HBM (the h100 tier: 80 GB per GPU, nodes of 8), prices the
+survivors with `CostModel.predict` and ranks them, holding the global
+batch constant (mbs fixed, gradient accumulation re-derived per data
+width). `planner_gap` is the trainer's cost preflight; `slice_plans`
+prices a slice (node) cut on dp or pp.
+
+Not ported: the JAX planner's traced re-pricing (`reprice_traced`, which
+needs the collective audit, ROADMAP Queue 1 item 13b) and memcheck's
+verification (`verify_hbm` refuses: tools/memcheck.py is JAX-only,
+item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+from picotron_tpu_torch.analysis.cost_model import (
+    CostModel, StepCost, feasible_tp_meshes, layout_label,
+)
+from picotron_tpu_torch.config import Config, PipelineConfig, num_params
+
+_DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+# activation leaves saved per layer under each remat policy, in units of
+# one [mbs, s_local, h]-sized tensor — coarse on purpose: the estimate
+# feeds a margin-backed prune (the JAX package's factors)
+_REMAT_ACT_FACTOR = {"full": 2.0, "dots": 12.0, "dots_attn": 5.0,
+                     "dots_lean": 4.0, "dots_norms": 14.0,
+                     "dots_offload": 5.0}
+# safety margin on the analytic estimate vs capacity: keep points whose
+# estimate is under margin * HBM, reject the rest
+_HBM_MARGIN = 0.92
+
+
+@dataclass
+class PlanPoint:
+    """One candidate layout with its predicted cost and HBM screen."""
+
+    cfg: Config
+    cost: StepCost
+    hbm_est_gib: float
+    hbm_fits: bool
+
+    @property
+    def label(self) -> str:
+        return layout_label(self.cfg)
+
+    def overrides_line(self) -> str:
+        """An --override line of dotted config paths (the JAX tools'
+        form) that turns the base config into this layout."""
+        d, t = self.cfg.distributed, self.cfg.training
+        parts = [f"distributed.dp_size={d.dp_size}",
+                 f"distributed.tp_size={d.tp_size}",
+                 f"distributed.pp_size={d.pp_size}",
+                 f"distributed.cp_size={d.cp_size}",
+                 f"distributed.ep_size={d.ep_size}"]
+        if d.cp_flavor:
+            # the flavor axis the planner enumerated; attn_impl rides
+            # along so applying the line to a base whose attn_impl names
+            # a different cp schedule cannot contradict the flavor
+            parts.append(f"distributed.cp_flavor={d.cp_flavor}")
+            parts.append(f"model.attn_impl={self.cfg.model.attn_impl}")
+        if d.cp_mesh:
+            parts.append(f"distributed.cp_mesh={d.cp_mesh}")
+        if d.tp_strategy != "megatron":
+            parts.append(f"distributed.tp_strategy={d.tp_strategy}")
+        if d.tp_sync != "sync":
+            parts.append(f"distributed.tp_sync={d.tp_sync}")
+        if d.tp_mesh:
+            parts.append(f"distributed.tp_mesh={d.tp_mesh}")
+        parts += [
+                 f"distributed.sequence_parallel="
+                 f"{str(d.sequence_parallel).lower()}",
+                 f"distributed.zero1={str(d.zero1).lower()}",
+                 f"training.optimizer_offload="
+                 f"{str(t.optimizer_offload).lower()}",
+                 f"training.gradient_accumulation_steps="
+                 f"{t.gradient_accumulation_steps}"]
+        p = self.cfg.pipeline
+        parts += [f"pipeline.executor={p.executor}",
+                  f"pipeline.schedule={p.schedule}",
+                  f"pipeline.interleave={p.interleave}"]
+        return "--override " + " ".join(parts)
+
+    def as_dict(self) -> dict:
+        out = {"layout": self.label,
+               "hbm_est_gib": round(self.hbm_est_gib, 3),
+               "hbm_fits": self.hbm_fits,
+               **self.cost.as_dict(),
+               "overrides": self.overrides_line()}
+        return out
+
+
+# ---------------------------------------------------------------------------
+# HBM estimate (the analytic prune)
+# ---------------------------------------------------------------------------
+
+
+def estimate_hbm_gib(cfg: Config) -> float:
+    """Closed-form per-device memory estimate: parameter/optimizer state
+    under the layout's sharding + saved activations under the remat
+    policy + the logits block. Coarse (no XLA temporaries/padding) —
+    use only through the margin in `plan`."""
+    m, d, t = cfg.model, cfg.distributed, cfg.training
+    n_total = num_params(m)
+    shard = d.tp_size * d.pp_size
+    n_local = n_total / shard
+    if m.num_experts and d.ep_size > 1:
+        bank = (m.num_hidden_layers * m.num_experts
+                * 3 * m.hidden_size * m.expert_ffn_size)
+        n_local -= bank / shard * (1 - 1 / d.ep_size)
+
+    act_b = _DTYPE_BYTES.get(m.dtype, 2)
+    mom_b = 2 if t.adam_moments_dtype == "bfloat16" else 4
+    dp_shard = d.dp_size if d.zero1 else 1
+
+    by = 0.0
+    by += n_local * act_b                      # compute-dtype copy
+    if not t.optimizer_offload:
+        by += n_local * 4 / dp_shard           # fp32 master
+        by += n_local * 2 * mom_b / dp_shard   # Adam moments
+    if t.gradient_accumulation_steps > 1 or d.dp_size * d.ep_size > 1:
+        by += n_local * 4                      # fp32 grad accumulator
+
+    # saved activations: per-layer factor x in-flight microbatches
+    s_local = t.seq_length // d.cp_size
+    if d.sequence_parallel:
+        s_local = max(s_local // d.tp_size, 1)
+    layers_stage = max(m.num_hidden_layers // d.pp_size, 1)
+    in_flight = min(t.gradient_accumulation_steps, d.pp_size)
+    factor = _REMAT_ACT_FACTOR.get(t.remat_policy if t.remat else "none",
+                                   20.0)
+    by += (factor * layers_stage * in_flight
+           * t.micro_batch_size * s_local * m.hidden_size * act_b)
+
+    # logits + CE block (fp32), on the last stage
+    vocab_local = m.vocab_size / d.tp_size
+    if t.ce_chunk_size:
+        vocab_local = t.ce_chunk_size
+    by += t.micro_batch_size * s_local * vocab_local * 4
+
+    return by / (1024 ** 3)
+
+
+# ---------------------------------------------------------------------------
+# Enumeration + ranking
+# ---------------------------------------------------------------------------
+
+
+def _factorizations(n: int, k: int):
+    """All ordered k-tuples of positive ints whose product is n."""
+    if k == 1:
+        yield (n,)
+        return
+    for f in range(1, n + 1):
+        if n % f == 0:
+            for rest in _factorizations(n // f, k - 1):
+                yield (f,) + rest
+
+
+def _pipeline_options(base: Config, pp: int) -> list[PipelineConfig]:
+    """Executor/schedule candidates for a pp-stage slice of the layout
+    space. pp==1 has nothing to schedule; pp>1 adds the mpmd executor
+    under 1f1b and every interleave depth that divides the per-stage
+    layer slot count (the compile-once constraint Config.validate pins).
+    gpipe is deliberately absent: the cost model prices it identically
+    to 1f1b (same v) and it exists as a debugging twin, not a layout."""
+    opts = [PipelineConfig()]
+    if pp <= 1:
+        return opts
+    opts.append(PipelineConfig(executor="mpmd"))
+    slots = -(-base.model.num_hidden_layers // pp)  # ceil
+    for v in range(2, slots + 1):
+        if slots % v == 0:
+            opts.append(PipelineConfig(executor="mpmd",
+                                       schedule="interleaved",
+                                       interleave=v))
+    return opts
+
+
+_CP_FLAVOR_IMPLS = ("ring", "ulysses", "mesh")
+
+
+def _cp_flavor_options(base: Config, cp: int, tp: int) -> list[tuple]:
+    """(cp_flavor, cp_mesh) candidates for a cp-degree slice of the layout
+    space — the flavor is a free planner axis, like sp or zero1. Ring is
+    always schedulable; Ulysses needs the tp-local heads to divide by cp;
+    mesh enumerates every true-2D factorization whose inner factor divides
+    the tp-local query and kv heads (degenerate factorizations ARE the 1D
+    flavors, so they are not repeated here)."""
+    if cp <= 1:
+        return [("", "")]
+    opts = [("ring", "")]
+    hq = base.model.num_attention_heads // tp
+    hkv = base.model.num_key_value_heads // tp
+    if hq % cp == 0 and hkv % cp == 0:
+        opts.append(("ulysses", ""))
+    opts += [("mesh", f"{cp // y}x{y}") for y in range(2, cp)
+             if cp % y == 0 and cp // y > 1
+             and hq % y == 0 and hkv % y == 0]
+    return opts
+
+
+def _tp_strategy_options(base: Config, tp: int) -> list[tuple]:
+    """(tp_strategy, tp_sync, tp_mesh) candidates for a tp-degree slice of
+    the layout space — strategy and sync mode are free planner axes, like
+    the cp flavor. Megatron-sync is always schedulable; deferred sync
+    needs tp > 1 (it reschedules the row-parallel exit psum as RS + a
+    hoisted AG); the 2d strategy enumerates every true-2D factorization
+    at tp >= 4. The row-first strategy is not enumerated: its entry psum
+    spans the full projection width (wider than hidden) plus an exit
+    gather, so it is dominated by megatron at every degree the cost model
+    prices — tools/layout_planner.py --tp-strategy-table still reports it
+    for inspection."""
+    opts = [("megatron", "sync", "")]
+    if tp <= 1:
+        return opts
+    opts.append(("megatron", "deferred", ""))
+    if tp >= 4:
+        opts += [("2d", "sync", f"{x}x{y}")
+                 for x, y in feasible_tp_meshes(base, tp)]
+    return opts
+
+
+def candidate_configs(base: Config, chips: int,
+                      *, flags: bool = True) -> list[Config]:
+    """Every valid layout of `base` over `chips` devices. Flag knobs
+    (sequence_parallel / zero1 / optimizer_offload) toggle only where they
+    can matter (sp needs tp>1, zero1 needs dp>1); pipeline executor and
+    schedule enumerate only where pp > 1 (see _pipeline_options); the cp
+    flavor and its mesh factorization enumerate only where cp > 1 (see
+    _cp_flavor_options). Grad accumulation is rederived so the global
+    batch matches the base config's."""
+    t = base.training
+    global_batch = base.global_batch_size
+    out = []
+    for dp, tp, pp, cp, ep in _factorizations(chips, 5):
+        denom = t.micro_batch_size * dp * ep
+        ga = max(round(global_batch / denom), 1)
+        sp_opts = (False, True) if (flags and tp > 1) else (False,)
+        z_opts = (False, True) if (flags and dp > 1) else (False,)
+        o_opts = (False, True) if flags else (False,)
+        pipe_opts = _pipeline_options(base, pp) if flags \
+            else [PipelineConfig()]
+        cp_opts = _cp_flavor_options(base, cp, tp) if flags \
+            else [(base.distributed.cp_flavor if cp > 1 else "",
+                   base.distributed.cp_mesh if cp > 1 else "")]
+        tp_opts = _tp_strategy_options(base, tp) if flags \
+            else [(base.distributed.tp_strategy, base.distributed.tp_sync,
+                   base.distributed.tp_mesh)]
+        for sp in sp_opts:
+            for z1 in z_opts:
+                for off in o_opts:
+                    for pl in pipe_opts:
+                        for flavor, cp_mesh in cp_opts:
+                            for tp_strat, tp_sync, tp_mesh in tp_opts:
+                                model_cfg = base.model
+                                if (model_cfg.attn_impl in _CP_FLAVOR_IMPLS
+                                        and flavor
+                                        and model_cfg.attn_impl != flavor):
+                                    # a base pinned to one cp schedule by
+                                    # name would contradict the enumerated
+                                    # flavor; rename it (flash lowering is
+                                    # unchanged)
+                                    model_cfg = dataclasses.replace(
+                                        model_cfg, attn_impl=flavor)
+                                cfg = base.replace(
+                                    model=model_cfg,
+                                    distributed=dataclasses.replace(
+                                        base.distributed, dp_size=dp,
+                                        tp_size=tp, pp_size=pp, cp_size=cp,
+                                        ep_size=ep, cp_flavor=flavor,
+                                        cp_mesh=cp_mesh,
+                                        tp_strategy=tp_strat,
+                                        tp_sync=tp_sync, tp_mesh=tp_mesh,
+                                        sequence_parallel=sp, zero1=z1),
+                                    training=dataclasses.replace(
+                                        t, gradient_accumulation_steps=ga,
+                                        optimizer_offload=off,
+                                        # offload demands bf16 + 1f1b;
+                                        # grad_engine auto lets each layout
+                                        # pick its engine
+                                        grad_engine="auto"),
+                                    pipeline=pl,
+                                )
+                                try:
+                                    cfg.validate()
+                                except (ValueError, KeyError):
+                                    continue
+                                out.append(cfg)
+    return out
+
+
+def plan(base: Config, chips: int, model: Optional[CostModel] = None,
+         *, flags: bool = True, hbm_gib: Optional[float] = None,
+         include_infeasible: bool = False) -> list[PlanPoint]:
+    """Rank every candidate layout by predicted step time, HBM-pruned.
+    Returns PlanPoints sorted fastest-first; `include_infeasible` keeps
+    the pruned points (marked) for reporting."""
+    model = model or CostModel()
+    cap = hbm_gib if hbm_gib is not None else model.gen.hbm_gib
+    pts = []
+    for cfg in candidate_configs(base, chips, flags=flags):
+        est = estimate_hbm_gib(cfg)
+        fits = est <= cap * _HBM_MARGIN
+        if not fits and not include_infeasible:
+            continue
+        pts.append(PlanPoint(cfg, model.predict(cfg), est, fits))
+    # rank by time PER TOKEN: ga rounding can leave a candidate stepping
+    # slightly more/fewer tokens than the base, and raw step time would
+    # reward the smaller batch
+    pts.sort(key=lambda p: (not p.hbm_fits,
+                            p.cost.total_s / p.cost.tokens_per_step,
+                            # deterministic tie-breaks that prefer the
+                            # memory-kinder spellings at equal cost
+                            not p.cfg.distributed.sequence_parallel,
+                            not p.cfg.distributed.zero1,
+                            p.label))
+    return pts
+
+
+# ---------------------------------------------------------------------------
+# memcheck verification (JAX-only)
+# ---------------------------------------------------------------------------
+
+
+def verify_hbm(point: PlanPoint, hbm_gib: float) -> bool:
+    """Refused: the JAX package verifies a winner through tools/memcheck.py
+    (XLA's compile-time memory breakdown), a JAX-only tool with no
+    counterpart in the port (ROADMAP Queue 1 item 12)."""
+    raise NotImplementedError(
+        "verify_hbm needs tools/memcheck.py, which is JAX-only (ROADMAP "
+        "Queue 1 item 12): the port's planner screens HBM analytically "
+        "(estimate_hbm_gib)")
+
+
+def best_point(points: list[PlanPoint], *, verify: bool = False,
+               hbm_gib: Optional[float] = None,
+               model: Optional[CostModel] = None) -> Optional[PlanPoint]:
+    """The fastest feasible point (`verify` asks for tools/memcheck.py's
+    verdict, which the port does not have: `verify_hbm`)."""
+    if hbm_gib is None:
+        hbm_gib = (model or CostModel()).gen.hbm_gib
+    for p in points:
+        if not p.hbm_fits:
+            continue
+        if not verify:
+            return p
+        if verify_hbm(p, hbm_gib):
+            return p
+    return None
+
+
+def planner_gap(cfg: Config, model: Optional[CostModel] = None,
+                *, flags: bool = True):
+    """(current cost, best PlanPoint, gap fraction) — how much slower the
+    given config is predicted to be than the planner's best layout at the
+    same chip count. Pure analytic; used by the train.py preflight and
+    shardcheck --cost."""
+    model = model or CostModel()
+    cur = model.predict(cfg)
+    pts = plan(cfg, cfg.distributed.world_size, model, flags=flags)
+    if not pts:
+        return cur, None, 0.0
+    best = pts[0]
+    # per-token compare (see plan()'s ranking key)
+    gap = ((cur.total_s / cur.tokens_per_step)
+           / (best.cost.total_s / best.cost.tokens_per_step) - 1.0)
+    return cur, best, gap
+
+
+def slice_plans(cfg: Config, model: Optional[CostModel] = None,
+                n_slices: Optional[int] = None) -> list[dict]:
+    """Enumerate which DCN-tolerant axis (dp or pp) can absorb the slice
+    granules for this layout and price both network tiers for each legal
+    split (CostModel.slice_tiers): the intra-slice ICI legs and the
+    shard-per-slice DCN leg of the hierarchical decomposition. Rows are
+    ranked by total comm — the top row is the boundary the layout should
+    declare in `distributed.dcn_axes`. Empty when no axis can absorb the
+    slice count (the same divisibility rule mesh._split_axes_over_dcn
+    enforces)."""
+    model = model or CostModel()
+    s = n_slices if n_slices is not None else cfg.distributed.slices
+    if s <= 1:
+        return []
+    d = cfg.distributed
+    rows = []
+    for axis, size in (("dp", d.dp_size), ("pp", d.pp_size)):
+        if size >= s and size % s == 0:
+            rows.append(model.slice_tiers(cfg, s, axis))
+    rows.sort(key=lambda r: r["total_comm_ms"])
+    return rows

@@ -1591,24 +1591,27 @@ def resolved_cp_mesh(cfg: "Config") -> tuple[int, int]:
     return cp // cp_y, cp_y
 
 
-def resolved_tp_strategy(cfg: "Config", generation: str = "v5e"):
+def resolved_tp_strategy(cfg: "Config", generation=None, calibration=None):
     """The concrete per-layer-class TP partitioning this config runs:
     a dict {qkv,o,up,down,head} -> {col,row,2d}. The single dispatch key
-    for parallel/tp_strategies.py, parallel/sharding.py, the collective
-    audit and the cost model. tp_size==1 always resolves to megatron (the
-    hooks compile away); "adaptive" resolves deterministically via the
-    cost-model per-class argmin against `generation`'s ICI descriptor
-    (choose_tp_strategy — pure analytic, no devices touched)."""
+    for parallel/tp_strategies.py, parallel/sharding.py and the cost
+    model. tp_size==1 always resolves to megatron; "adaptive" resolves
+    deterministically through the cost model's per-class argmin on
+    `generation`'s tier (default the h100 tier; analysis/cost_model.py
+    choose_tp_strategy, pure arithmetic, no device touched) under
+    `calibration` (default the tier's fit)."""
     d = cfg.distributed
     if d.tp_size <= 1:
         return dict(_TP_STRATEGY_PRESETS["megatron"])
     spec = parse_tp_strategy(d.tp_strategy)
     if spec is not None:
         return spec
-    raise NotImplementedError(
-        "tp_strategy='adaptive' resolves through the cost model "
-        "(analysis/cost_model.py), which the PyTorch port has not ported "
-        "yet (ROADMAP Queue 1 item 13); name an explicit strategy")
+    from picotron_tpu_torch.analysis.cost_model import (
+        DEFAULT_CALIBRATION, choose_tp_strategy,
+    )
+
+    return choose_tp_strategy(cfg, generation,
+                              calibration or DEFAULT_CALIBRATION)
 
 
 def resolved_tp_mesh(cfg: "Config") -> tuple[int, int]:

@@ -132,15 +132,19 @@ input, and the routing with them, bit for bit (`ops/moe.py`'s recompute
 contract). Under "dots" and "dots_norms" the router logits are saved (a
 segment makes them, the next reads them); "dots" recomputes the post
 norm in both segments, so under tp the block's f runs twice there.
-"dots_offload" (saves parked in pinned host memory) is not ported
-(ROADMAP Queue 1 item 7). Under tp the saved q/k/v/out are this rank's
-heads; under sequence parallelism x (and "dots"' attn_proj_out) is the
-seq shard, and "dots_norms" keeps the gathered norm output that the
-column-parallel products read (autograd saves a matmul's input).
+"dots_offload" keeps "dots"' saved set (both tables) with every saved
+activation parked in pinned host memory between the passes and the lse
+on the device (`models/act_offload.py`): the same segments under a
+saved-tensor hook pair, so its numbers are "dots"' bit for bit. Under
+tp the saved q/k/v/out are this rank's heads; under sequence
+parallelism x (and "dots"' attn_proj_out) is the seq shard, and
+"dots_norms" keeps the gathered norm output that the column-parallel
+products read (autograd saves a matmul's input).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
 
@@ -150,6 +154,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from picotron_tpu_torch.config import ModelConfig
+from picotron_tpu_torch.models.act_offload import ActivationParker, parker_of
 from picotron_tpu_torch.ops.attention import sdpa_attention
 from picotron_tpu_torch.ops.flash_attention import flash_attention
 from picotron_tpu_torch.ops.losses import (
@@ -646,8 +651,19 @@ def _segment(fn, *args):
                       preserve_rng_state=False)
 
 
-def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
-    """`decoder_layer` with `policy`'s saved set (module docstring)."""
+def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str,
+                parker: Optional[ActivationParker] = None):
+    """`decoder_layer` with `policy`'s saved set (module docstring);
+    "dots_offload" parks "dots"' saved set through `parker`, the model's
+    (`run_layers` passes `act_offload.parker_of(model)`, whose pinned pool
+    outlives the call)."""
+    if policy == "dots_offload":
+        if parker is None:
+            raise ValueError('remat_policy "dots_offload" needs the '
+                             "model's ActivationParker (act_offload."
+                             "parker_of)")
+        with parker.layer():
+            return remat_layer(x, lp, cfg, rope, "dots", parker)
     if policy == "full":
         return _segment(decoder_layer, x, lp, cfg, rope)
     if policy == "dots_norms":
@@ -655,7 +671,8 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
         q, k, v = qkv_proj(h, lp, cfg.head_dim)
     else:
         q, k, v = _segment(_qkv_block, x, lp, cfg)
-    out = _attention(q, k, v, cfg, rope, lp.cp)
+    with parker.keep_lse() if parker is not None else nullcontext():
+        out = _attention(q, k, v, cfg, rope, lp.cp)
     if policy == "dots_attn" or (lp.moe and policy == "dots_lean"):
         return _segment(_after_attention, x, out, lp, cfg)
     if lp.moe and policy == "dots":
@@ -679,11 +696,7 @@ def remat_layer(x, lp: DecoderLayer, cfg: ModelConfig, rope, policy: str):
         a, h = _segment(_res_norm, x, o, lp, cfg)
         gate, up = _gate_up(h, lp)
     else:
-        raise NotImplementedError(
-            f"remat_policy={policy!r}: saves parked in pinned host memory "
-            "are not ported (ROADMAP Queue 1 item 7)"
-            if policy == "dots_offload" else
-            f"unknown remat_policy {policy!r}")
+        raise ValueError(f"unknown remat_policy {policy!r}")
     return a + _segment(_act_down, gate, up, lp, cfg)
 
 
@@ -696,14 +709,17 @@ def run_layers(model: LlamaModel, x: torch.Tensor,
     drop fraction), else None."""
     rope = (model.rope_cos, model.rope_sin)
     aux = None
-    for lp in (model.layers if layers is None else layers):
-        if remat is None:
-            x = decoder_layer(x, lp, model.cfg, rope)
-        else:
-            x = remat_layer(x, lp, model.cfg, rope, remat)
-        if lp.moe:
-            x, a = x
-            aux = a if aux is None else aux + a
+    parker = (parker_of(model, x.device) if remat == "dots_offload"
+              else None)
+    with parker.forward() if parker is not None else nullcontext():
+        for lp in (model.layers if layers is None else layers):
+            if remat is None:
+                x = decoder_layer(x, lp, model.cfg, rope)
+            else:
+                x = remat_layer(x, lp, model.cfg, rope, remat, parker)
+            if lp.moe:
+                x, a = x
+                aux = a if aux is None else aux + a
     return x, aux
 
 

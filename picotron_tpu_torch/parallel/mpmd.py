@@ -15,9 +15,9 @@ chunk placement; its layers: `models/llama.stage_layers`).
 boundary buffer that nothing consumed. `stage_slice_placement` and
 `check_stage_slice_placement` place the stages on the slices of a
 multi-slice layout (the guard of a pp cut, run when a walk of an mpmd
-table is built); the JAX `boundary_dcn_traffic` prices the crossing
-exchanges through the cost model and waits for it (ROADMAP Queue 1
-item 13).
+table is built); the JAX `boundary_dcn_traffic` (the crossing
+exchanges' bytes, priced by the cost model) is ROADMAP Queue 1 item
+13b.
 """
 
 from __future__ import annotations

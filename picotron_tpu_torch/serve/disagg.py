@@ -42,10 +42,11 @@ token index) alone, so disaggregated tokens equal the colocated
 engine's (and, greedy, `generate`'s and the JAX disaggregated engine's)
 on any trace, under preemption too.
 
-Not ported (ROADMAP Queue 1 item 13): the JAX engine's variant-hazard
+Not ported (ROADMAP Queue 1 item 13b): the JAX engine's variant-hazard
 check and `analysis/variants.prove_disagg_programs` (they guard against
-XLA recompiles; the port compiles nothing on this path) and
-`cost_model.price_kv_handoff`.
+XLA recompiles; the port compiles nothing on this path). The handoff's
+worst case is priced by `analysis/cost_model.price_kv_handoff` (the
+bench's `predicted_handoff_*` fields).
 """
 
 from __future__ import annotations

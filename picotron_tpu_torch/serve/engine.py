@@ -47,7 +47,7 @@ MoE models are refused, as in the JAX engine.
 The JAX engine's sharding discipline and its `analysis.variants` feed
 check guard against JAX recompiles (a new jit variant per committed or
 uncommitted argument). The port has no JIT, so both are dropped; the
-variant audit's port is ROADMAP Queue 1 item 13. Its CompileWatch books
+variant audit's port is ROADMAP Queue 1 item 13b. Its CompileWatch books
 the nvcc builds of `kernels/build.py`, of which the serving path has
 none, so `decode_compiles` counts 0 where the JAX engine counts its one
 decode compile.

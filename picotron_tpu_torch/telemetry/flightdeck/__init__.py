@@ -56,11 +56,11 @@ def install(tel, cfg=None, *, process_index: int = 0) -> None:
       (``logging.telemetry_dir`` or ``checkpoint.save_dir``) and
       ``logging.flight_steps > 0``; on by default so abnormal exits
       always leave a postmortem.
-    * sentinel — only when ``logging.sentinel`` is true. The JAX package
-      seeds it with its ICI cost model's prediction for the config; the
-      port has no cost model yet (`analysis/`, ROADMAP Queue 1 item 13),
-      so it passes ``predicted=None``, the value the JAX `install` falls
-      back to when its prediction raises: the sentinel then watches its
+    * sentinel — only when ``logging.sentinel`` is true, seeded with the
+      cost model's prediction for the config on the h100 tier
+      (`analysis/cost_model.py`: its step and exposed-comm seconds, the
+      predicted sync share); ``predicted=None`` when the prediction
+      raises, as in the JAX `install`: the sentinel then watches its
       rolling baselines alone.
     """
     if cfg is None:
@@ -88,9 +88,18 @@ def install(tel, cfg=None, *, process_index: int = 0) -> None:
                                     tracer=tel.tracer)
 
     if getattr(lg, "sentinel", False):
+        predicted = None
+        try:
+            from picotron_tpu_torch.analysis.cost_model import CostModel
+
+            sc = CostModel().predict(cfg)
+            predicted = {"total_s": sc.total_s,
+                         "exposed_comm_s": sc.exposed_comm_s}
+        except Exception:
+            predicted = None  # the sentinel still watches its baselines
         tel.sentinel = DriftSentinel(
             window=int(getattr(lg, "sentinel_window", 32)),
             zscore=float(getattr(lg, "sentinel_zscore", 4.0)),
             ratio=float(getattr(lg, "sentinel_ratio", 1.5)),
             patience=int(getattr(lg, "sentinel_patience", 3)),
-            predicted=None)
+            predicted=predicted)

@@ -8,11 +8,10 @@ tracks three quantities:
                         median (p50/p95 kept for reporting),
 * ``sync_share``      — sync / step_time, vs a cost model's predicted
                         exposed-comm share for the active config when a
-                        prediction was supplied, falling back to its
-                        rolling median otherwise (the port has no cost
-                        model yet, ROADMAP Queue 1 item 13, so its
-                        `flightdeck.install` passes none and the rolling
-                        median is the baseline),
+                        prediction was supplied (`flightdeck.install`
+                        seeds it from `analysis/cost_model.py` on the
+                        h100 tier), falling back to its rolling median
+                        otherwise,
 * ``data_wait_share`` — data / (data + step_time), vs rolling median.
 
 A quantity breaches when it exceeds ``ratio`` x its baseline (and, when

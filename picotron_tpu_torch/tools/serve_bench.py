@@ -22,9 +22,10 @@ structural: the same on any host.
 
 The model is the preset (`--model`, cut to `--layers` when given) with
 random weights from a seed in its compute dtype (bf16), on the card unless `--device cpu` is
-given (no CUDA: an error, never a fallback). The JAX bench's
-`predicted_handoff_*` fields come from its cost model, which the port
-does not have yet (ROADMAP Queue 1 item 13).
+given (no CUDA: an error, never a fallback). The `--disagg` row's
+`predicted_handoff_*` fields are the cost model's worst-case handoff
+(`analysis/cost_model.price_kv_handoff` on the h100 tier: the whole
+max_model_len prefix's K and V blocks over one NVLink hop).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from picotron_tpu_torch.analysis.cost_model import CostModel
 
 WALL_NOTE = ("wall seconds are the host's clock around a whole run and "
              "move with the host's load; the stall ticks, handoffs, "
@@ -319,6 +322,8 @@ def run_serve_disagg(model: str, layers, *, slots: int, block_size: int,
             "output_tokens": s["output_tokens"],
         })
 
+    handoff_s, handoff_bytes = CostModel().price_kv_handoff(
+        m.cfg, scfg(disagg=True))
     return {
         "metric": f"serve_disagg_{model.split('/')[-1]}"
                   f"-{m.cfg.num_hidden_layers}L",
@@ -336,6 +341,8 @@ def run_serve_disagg(model: str, layers, *, slots: int, block_size: int,
         "handoffs": dis["handoffs"],
         "handoff_blocks": dis["handoff_blocks"],
         "handoff_s": dis["handoff_s"],
+        "predicted_handoff_ms_worstcase": round(handoff_s * 1e3, 3),
+        "predicted_handoff_bytes_worstcase": handoff_bytes,
         "prefill_slot_occupancy": dis["prefill_slot_occupancy"],
         "decode_compiles": dis["decode_compiles"],
         "preemptions": dis["preemptions"],

@@ -15,9 +15,10 @@ than once (an in-process rollback already reclassified in the ledger, a
 cross-restart replay only visible here) are booked as `replay` badput.
 The port's stream books the JAX stream's categories (the port's
 `telemetry/goodput.py` is a copy), so this tool and the JAX package's
-give the same report on it. The JAX tool's `--config` row (its ICI cost
-model's predicted comm time) waits for the port's `analysis/` (ROADMAP
-Queue 1 item 13).
+give the same report on it. `--config` adds the `comm` row: the cost
+model's predicted exposed comm per step for the run's config
+(`analysis/cost_model.py`, the h100 tier) beside the measured sync-phase
+median, and their drift.
 
 Usage:
 
@@ -25,6 +26,8 @@ Usage:
   python -m picotron_tpu_torch.tools.telemetry_report run/ --markdown
   python -m picotron_tpu_torch.tools.telemetry_report run/telemetry.jsonl \
       --json
+  python -m picotron_tpu_torch.tools.telemetry_report run/ \
+      --config run/config.json
 """
 
 from __future__ import annotations
@@ -311,6 +314,65 @@ def serving_view(reqs: list[dict], summary: dict | None,
     return view
 
 
+def comm_row(events: list[dict], config_path: str) -> dict:
+    """Predicted vs measured per-step communication time: the cost
+    model's exposed-comm prediction for the run's config next to the
+    measured sync-phase median from the stream (the JAX tool's row, its
+    fields). The drift column is the per-run calibration residual. Pure
+    arithmetic: no device is touched."""
+    from picotron_tpu_torch.analysis.calibration import measured_step_seconds
+    from picotron_tpu_torch.analysis.cost_model import CostModel
+    from picotron_tpu_torch.config import load_config
+
+    cfg = load_config(config_path)
+    cost = CostModel().predict(cfg)
+    meas = measured_step_seconds(events) or {}
+    # the tp axis' traffic split into its exposed and overlapped halves:
+    # the deferred sync only moves time from the first into the second
+    tp_terms = [t for t in cost.comm if "tp" in t.axes]
+    tp_exposed = sum(t.secs_exposed for t in tp_terms)
+    tp_total = sum(t.secs_total for t in tp_terms)
+    out = {
+        "generation": cost.generation,
+        "predicted_comm_ms": round(cost.exposed_comm_s * 1e3, 3),
+        "predicted_step_ms": round(cost.total_s * 1e3, 3),
+        "predicted_tp_comm_exposed_ms": round(tp_exposed * 1e3, 3),
+        "predicted_tp_comm_overlapped_ms": round(
+            (tp_total - tp_exposed) * 1e3, 3),
+        "measured_sync_p50_ms": (round(meas["sync_s"] * 1e3, 3)
+                                 if meas.get("sync_s") is not None
+                                 else None),
+        "measured_step_p50_ms": (round(meas["step_s"] * 1e3, 3)
+                                 if meas.get("step_s") is not None
+                                 else None),
+    }
+    if out["measured_sync_p50_ms"] and out["predicted_comm_ms"]:
+        out["comm_drift_pct"] = round(
+            100.0 * (out["measured_sync_p50_ms"]
+                     / out["predicted_comm_ms"] - 1.0), 1)
+    return out
+
+
+def _render_comm(cm: dict, markdown: bool) -> list:
+    drift = cm.get("comm_drift_pct")
+    # a stream without sync-phase records has no measured side: n/a
+    sync_p50 = cm.get("measured_sync_p50_ms")
+    sync_txt = f"{sync_p50} ms" if sync_p50 is not None else "n/a"
+    msg = (f"comm [{cm['generation']}]: predicted "
+           f"{cm['predicted_comm_ms']} ms/step exposed "
+           f"(of {cm['predicted_step_ms']} ms predicted step) | "
+           f"measured sync p50 {sync_txt}"
+           + (f" | drift {drift:+.1f}%" if drift is not None else ""))
+    lines = [f"**{msg}**" if markdown else msg]
+    if cm.get("predicted_tp_comm_exposed_ms") or \
+            cm.get("predicted_tp_comm_overlapped_ms"):
+        lines.append(f"  tp comm: {cm['predicted_tp_comm_exposed_ms']} "
+                     f"ms exposed + {cm['predicted_tp_comm_overlapped_ms']} "
+                     f"ms overlapped (deferred sync moves exposed time "
+                     f"into the overlapped column)")
+    return lines + [""]
+
+
 def render(s: dict, markdown: bool = False) -> str:
     lines = []
     gp = s["goodput_pct"]
@@ -350,6 +412,8 @@ def render(s: dict, markdown: bool = False) -> str:
                          f"{p['total_s']:10.3f}s  p50 {p['p50_ms']:.2f}ms  "
                          f"p95 {p['p95_ms']:.2f}ms")
     lines.append("")
+    if s.get("comm"):
+        lines += _render_comm(s["comm"], markdown)
     pp = s.get("pipeline")
     if pp:
         frac = pp.get("bubble_fraction")
@@ -453,6 +517,10 @@ def main(argv=None) -> int:
                     help="emit markdown tables (PERF.md format)")
     ap.add_argument("--json", action="store_true",
                     help="emit the summary as one JSON object")
+    ap.add_argument("--config", default=None,
+                    help="the run's config JSON: adds a `comm` row — the "
+                         "cost model's predicted per-step comm time next "
+                         "to the measured sync-phase time")
     args = ap.parse_args(argv)
 
     events = load_events(resolve_path(args.path))
@@ -460,6 +528,8 @@ def main(argv=None) -> int:
         print(f"no events in {args.path}", file=sys.stderr)
         return 1
     s = summarize(events)
+    if args.config:
+        s["comm"] = comm_row(events, args.config)
     try:
         print(json.dumps(s) if args.json else render(s, args.markdown))
     except BrokenPipeError:  # `... | head` is a supported way to read this

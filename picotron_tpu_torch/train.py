@@ -71,6 +71,11 @@ Exit codes (the contract with a supervisor): 75 preempted with a durable
 emergency checkpoint (resubmit with auto_resume), 76 diverged, 77 the
 watchdog found no progress. What this slice does not run is refused up
 front, naming the ROADMAP item that ports it (see `unsupported`).
+
+Above world size 1 the trainer runs the JAX trainer's advisory cost
+preflight (`cost_preflight`: the cost model on the h100 tier against the
+planner's best layout; PICOTRON_COST_PREFLIGHT=0 and PICOTRON_COST_GAP
+as there).
 """
 
 from __future__ import annotations
@@ -125,13 +130,54 @@ def unsupported(cfg: Config) -> list[str]:
     ROADMAP item (an empty list means the run is supported)."""
     t = cfg.training
     out = []
-    if t.remat and t.remat_policy == "dots_offload":
-        out.append("training.remat_policy='dots_offload' (saves in pinned "
-                   "host memory: ROADMAP Queue 1 item 7)")
     if cfg.logging.use_wandb:
         out.append("logging.use_wandb (the card's machine has no wandb: "
                    "ROADMAP Queue 1 item 12)")
     return out
+
+
+def cost_preflight(cfg: Config) -> None:
+    """The advisory layout check (the JAX trainer's, `train.py:255-290`
+    there): the cost model's predicted step on the h100 tier, and a
+    warning — never a failure — when the planner's best layout at the
+    same world size is predicted PICOTRON_COST_GAP (a fraction, default
+    0.2) or more faster, with the overrides that adopt it; under spmd pp
+    it also says when pipeline.executor=mpmd alone closes a fifth of that
+    gap. Pure arithmetic, milliseconds; PICOTRON_COST_PREFLIGHT=0 turns
+    it off."""
+    import dataclasses
+
+    from picotron_tpu_torch.analysis.cost_model import CostModel, h100_tier
+    from picotron_tpu_torch.analysis.planner import planner_gap
+    from picotron_tpu_torch.config import PipelineConfig
+
+    cm = CostModel(h100_tier())
+    cur, best, gap = planner_gap(cfg, cm)
+    gap_bar = float(os.environ.get("PICOTRON_COST_GAP", "0.2"))
+    log_print(f"cost preflight [{cm.gen.name}]: predicted "
+              f"{cur.total_s * 1e3:.4g} ms/step "
+              f"({cur.exposed_comm_s * 1e3:.4g} ms exposed comm)")
+    if best is None or gap < gap_bar:
+        return
+    log_print(f"cost preflight WARNING: this layout is predicted "
+              f"{gap * 100:.0f}% slower than the planner's best at "
+              f"{cfg.distributed.world_size} chips ({best.label}, "
+              f"{best.cost.total_s * 1e3:.4g} ms/step). To adopt it: "
+              f"{best.overrides_line()}")
+    if cfg.pipeline.executor == "spmd" and cfg.distributed.pp_size > 1:
+        try:
+            twin = dataclasses.replace(
+                cfg, pipeline=PipelineConfig(executor="mpmd"))
+            twin.validate()
+        except (ValueError, KeyError):
+            return  # the layout cannot host mpmd (offload/sp/MoE)
+        closed = cur.total_s - cm.predict(twin).total_s
+        gap_s = cur.total_s - best.cost.total_s
+        if gap_s > 0 and closed >= 0.2 * gap_s:
+            log_print(f"cost preflight: pipeline.executor=mpmd alone (same "
+                      f"layout) is predicted to close "
+                      f"{closed / gap_s * 100:.0f}% of that gap — "
+                      f"--override pipeline.executor=mpmd")
 
 
 def tp_slices_line(cfg: Config, par) -> str:
@@ -382,6 +428,9 @@ def run(cfg: Config, device: Optional[str] = None,
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story
         log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
                   f"~{est / 1e9:.2f} GB/checkpoint)")
+    if (cfg.distributed.world_size > 1
+            and os.environ.get("PICOTRON_COST_PREFLIGHT", "1") != "0"):
+        cost_preflight(cfg)
     # Installed on the bus BEFORE the loader and the state are built, so
     # restore retries and chaos events are captured from the first
     # second.

@@ -98,11 +98,30 @@ def test_config_json_roundtrip(tmp_path):
 
 
 def test_adaptive_tp_strategy_waits_for_the_cost_model():
-    cfg = tcfg.config_from_dict({
-        "model": {"name": "debug-tiny"},
-        "distributed": {"tp_size": 2, "tp_strategy": "adaptive"}})
-    with pytest.raises(NotImplementedError, match="cost model"):
-        tcfg.resolved_tp_strategy(cfg)
+    """(Named when "adaptive" was refused.) "adaptive" resolves through
+    the cost model on the h100 tier, deterministically (the same spec on
+    every call, megatron winning ties), to a legal per-class spec; on the
+    JAX package's v5e descriptor and calibration it is the JAX
+    resolution."""
+    from picotron_tpu.analysis import cost_model as jcm
+    from picotron_tpu_torch.analysis.cost_model import (
+        Calibration, IciGeneration,
+    )
+
+    raw = {"model": {"name": "debug-tiny", "num_attention_heads": 8,
+                     "num_key_value_heads": 4},
+           "distributed": {"tp_size": 4, "tp_strategy": "adaptive"}}
+    cfg = tcfg.config_from_dict(raw)
+    got = tcfg.resolved_tp_strategy(cfg)
+    assert got == tcfg.resolved_tp_strategy(cfg)
+    assert set(got) == set(tcfg.TP_STRATEGY_CLASSES)
+    assert tcfg.parse_tp_strategy(",".join(f"{k}={v}" for k, v in
+                                           got.items())) == got
+    v5e = IciGeneration(**dataclasses.asdict(jcm.GENERATIONS["v5e"]))
+    jcal = Calibration(**dataclasses.asdict(jcm.DEFAULT_CALIBRATION))
+    assert tcfg.resolved_tp_strategy(cfg, v5e, jcal) == \
+        jcfg.resolved_tp_strategy(jcfg.config_from_dict(raw),
+                                  generation="v5e")
     cfg = tcfg.config_from_dict({"model": {"name": "debug-tiny"},
                                  "distributed": {"tp_size": 2}})
     assert tcfg.resolved_tp_strategy(cfg) == jcfg.resolved_tp_strategy(

@@ -5,9 +5,8 @@ sustained breach, export equal JSON and raise equal alerts; the facade's
 hooks (phase spans, fault instants, the flight ring, the sentinel's
 alert and auto-dump, the trace export on close) turn one event sequence
 into equal documents in both packages; and `install` attaches the same
-pieces per config (the port's sentinel without a cost-model prediction,
-ROADMAP Queue 1 item 13, so its sync-share baseline is its rolling
-median where the JAX one is seeded from the prediction)."""
+pieces per config (each sentinel seeded from its own cost model's
+prediction: the port's on the h100 tier, the JAX one's on a v5e)."""
 
 import json
 
@@ -211,6 +210,9 @@ def test_install_attaches_what_jax_does(logging, rank, tmp_path):
         for key in ("window", "zscore", "ratio", "patience", "warmup"):
             assert getattr(got.sentinel, key) == \
                 getattr(want.sentinel, key), key
-        assert got.sentinel.predicted is None
+        # both seeded by their cost model (the port's on the h100 tier)
+        assert set(got.sentinel.predicted) == set(want.sentinel.predicted)
+        assert 0 <= got.sentinel.predicted["exposed_comm_s"] < \
+            got.sentinel.predicted["total_s"]
     got.close()
     want.close()

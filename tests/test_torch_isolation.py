@@ -54,7 +54,14 @@ def test_port_files_exist():
                  "picotron_tpu_torch/tools/telemetry_report.py",
                  "picotron_tpu_torch/tools/trace_export.py",
                  "picotron_tpu_torch/parallel/tp_strategies.py",
-                 "picotron_tpu_torch/parallel/hier_reduce.py"):
+                 "picotron_tpu_torch/parallel/hier_reduce.py",
+                 "picotron_tpu_torch/models/act_offload.py",
+                 "picotron_tpu_torch/analysis/cost_model.py",
+                 "picotron_tpu_torch/analysis/calibration.py",
+                 "picotron_tpu_torch/analysis/planner.py",
+                 "picotron_tpu_torch/tools/layout_planner.py",
+                 "picotron_tpu_torch/tools/submit_jobs.py",
+                 "picotron_tpu_torch/tools/data_bench.py"):
         assert want in names
     assert (ROOT / "picotron_tpu_torch/csrc/flash_attention.cu").exists()
     assert (ROOT / "picotron_tpu_torch/csrc/packer.cpp").exists()
@@ -81,7 +88,12 @@ def test_import_leaves_jax_unloaded():
             ", picotron_tpu_torch.tools.serve_bench, "
             "picotron_tpu_torch.tools.chaos, "
             "picotron_tpu_torch.parallel.tp_strategies, "
-            "picotron_tpu_torch.parallel.hier_reduce"
+            "picotron_tpu_torch.parallel.hier_reduce, "
+            "picotron_tpu_torch.models.act_offload, "
+            "picotron_tpu_torch.analysis, "
+            "picotron_tpu_torch.tools.layout_planner, "
+            "picotron_tpu_torch.tools.submit_jobs, "
+            "picotron_tpu_torch.tools.data_bench"
             "\nbad = [m for m in sys.modules if m == 'jax' or m.startswith"
             "('jax.') or m == 'picotron_tpu' or m.startswith('picotron_tpu.')"
             " or m in ('datasets', 'transformers')]"

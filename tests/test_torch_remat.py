@@ -6,7 +6,8 @@ through `torch.autograd.graph.saved_tensors_hooks`, are the policy's
 documented saved set (`models/llama.py` docstring). The chunked CE holds
 to the JAX package's `vocab_parallel_ce_sum_count(chunk_size=...)` and to
 the port's unchunked CE, loss and grads on hidden and head, with
-IGNORE_INDEX targets."""
+IGNORE_INDEX targets. "dots_offload" equals "dots" bit for bit and the
+JAX package's dots_offload, and parks every saved tensor but the lse."""
 
 import functools
 
@@ -21,6 +22,7 @@ from picotron_tpu.models import llama as jllama
 from picotron_tpu.parallel.tp import vocab_parallel_ce_sum_count
 from picotron_tpu_torch import config as tcfg
 from picotron_tpu_torch import weights
+from picotron_tpu_torch.models import act_offload
 from picotron_tpu_torch.models import llama as tllama
 from picotron_tpu_torch.ops.losses import (
     IGNORE_INDEX, chunked_cross_entropy_sum_count, cross_entropy_sum_count,
@@ -130,12 +132,121 @@ def test_count_catches_dots_attn_saving_the_mlp():
         "dots_attn"]
 
 
+def _jax_grads(policy, ids, tgt):
+    """The JAX model's (NLL sum, grads) under `policy` on _model()'s
+    params."""
+    jc = jcfg.config_from_dict({"model": {"name": "debug-tiny", **MODEL},
+                                "training": {"seq_length": 64}})
+    ctx = jllama.ParallelCtx(remat=True, remat_policy=policy)
+    fn = jax.jit(jax.value_and_grad(lambda p: jllama.loss_sum_count(
+        p, jnp.asarray(ids.numpy()), jnp.asarray(tgt.numpy()), jc.model,
+        ctx)[0]))
+    total, grads = fn(jax.tree.map(jnp.asarray, _tree("debug-tiny")))
+    return float(total), weights.params_from_jax(
+        jax.tree.map(np.asarray, grads), _model().cfg)
+
+
+def _copying_parker():
+    """A CPU parker that copies every save out and back, as the card's
+    does, through plain host buffers (the restore path, the views, the
+    pool)."""
+    parker = act_offload.ActivationParker("cpu")
+    parker._copies = lambda t: True
+    return parker
+
+
 def test_dots_offload_is_refused():
+    """(Named when the policy was refused.) "dots_offload" runs: its loss
+    and grads equal the JAX package's dots_offload within 1e-6 relative,
+    and the port's "dots" bit for bit, with the CPU's no-op placement and
+    with the saves copied out and back (`_copying_parker`)."""
     model = _model()
-    x = torch.zeros(2, 64, MODEL["hidden_size"], requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    ids, tgt = _batch()
+    loss0, g0 = _grads(model, ids, tgt, "dots")
+    jloss, jgrads = _jax_grads("dots_offload", ids, tgt)
+    for copy in (False, True):
+        model._parker = (_copying_parker() if copy
+                         else act_offload.ActivationParker("cpu"))
+        loss, g = _grads(model, ids, tgt, "dots_offload")
+        assert loss == loss0, copy
+        for name, want in g0.items():
+            assert torch.equal(g[name], want), (copy, name)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-6)
+    for name, want in jgrads.items():
+        err = float((g[name] - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), (name, err)
+
+
+def test_dots_offload_layer_needs_the_models_parker():
+    """A "dots_offload" layer called without a parker is refused: a parker
+    of its own per call would pin its pool anew each time and fetch
+    nothing ahead (`run_layers` passes the model's)."""
+    model = _model()
+    x = torch.zeros(1, 8, MODEL["hidden_size"])
+    with pytest.raises(ValueError, match="parker_of"):
         tllama.remat_layer(x, model.layers[0], model.cfg,
                            (model.rope_cos, model.rope_sin), "dots_offload")
+
+
+def test_dots_offload_parks_every_save_but_the_lse():
+    """The saved-tensor accounting: per layer the lse [B, Hq, S] alone
+    stays on the device; every other tensor the layer saves is parked
+    (x twice, attn_out, attn_proj_out, mlp_gate, mlp_up as segment
+    inputs; the kernel's q, k, v, out, positions, RoPE tables and scale),
+    none of them a parameter, each storage copied once and fetched once."""
+    model = _model()
+    ids, tgt = _batch()
+    parker = model._parker = _copying_parker()
+    seen, pack_of = [], parker._pack
+
+    def pack(t):
+        seen.append((t.requires_grad and t.is_leaf, t.dtype, tuple(t.shape)))
+        return pack_of(t)
+
+    parker._pack = pack
+    act_offload.reset_counts()
+    _grads(model, ids, tgt, "dots_offload")
+    c = dict(act_offload.counts)
+    n_layers, (b, s) = MODEL["num_hidden_layers"], ids.shape
+    assert c["kept"] == n_layers
+    assert c["parked"] == 17 * n_layers
+    assert not any(param for param, _, _ in seen)
+    lse = [k for k in seen if k[1:] == (torch.float32, (
+        b, MODEL["num_attention_heads"], s))]
+    assert len(lse) == n_layers
+    # 15 storages a layer: out is shared by the kernel and the o-proj
+    # segment, x by two segments
+    assert c["storages"] == 15 * n_layers
+    assert c["d2h_bytes"] == c["h2d_bytes"] == parker.pinned_bytes > 0
+    # a second pass reuses the pool: nothing more is allocated
+    _grads(model, ids, tgt, "dots_offload")
+    assert parker.pinned_bytes == c["d2h_bytes"]
+
+
+def test_dots_offload_stale_buffer_is_caught(monkeypatch):
+    """A planted fault: one parked storage restored with the bytes another
+    microbatch parked (the first storage of the second forward gets the
+    first forward's) changes the grads, so the bit-for-bit comparison
+    with "dots" sees it."""
+    model = _model()
+    ids, tgt = _batch()
+    model._parker = _copying_parker()
+    init, first = act_offload._Stored.__init__, []
+
+    def stale(self, group, t):
+        init(self, group, t)
+        if group.prev is None and not group.stored:   # a forward's first
+            if first:
+                self.buf.copy_(first[0])
+            else:
+                first.append(self.buf.clone())
+
+    monkeypatch.setattr(act_offload._Stored, "__init__", stale)
+    _grads(model, *_batch(seed=7), "dots_offload")
+    loss0, g0 = _grads(model, ids, tgt, "dots")
+    loss, g = _grads(model, ids, tgt, "dots_offload")
+    assert loss == loss0  # the forward reads nothing parked
+    assert not all(torch.equal(g[n], g0[n]) for n in g0)
 
 
 def _ce_case(dtype=torch.float32, n=(2, 24), hdim=16, vocab=64, seed=3):

@@ -16,6 +16,11 @@ CPU:
   count that does not divide dp x pp and an uneven pp split are refused
   (the store untouched); a re-stamp re-verifies and restores without
   checkpoint.elastic.
+- `submit_jobs` (tests/test_tools.py's cases): the status.txt machine
+  with the port's OOM and time-out greps, the slurm render (one torchrun
+  per node), the dry run, the squeue watcher, and the local launcher
+  running a dp 2 debug-tiny job under torchrun on the CPU; `data_bench`
+  on a small table, and its refusal without `datasets`.
 - `chaos`: `--list` names every JAX scenario as runnable (none refused)
   and a multi-rank one asked of a machine short of cards exits 2;
   `nan_skip` recovers in tier 1 (four gloo
@@ -401,3 +406,163 @@ def test_chaos_scenario_recovers(tmp_path, name, capsys):
     assert chaos.main(["--scenario", name, "--device", "cpu",
                        "--workdir", str(tmp_path)]) == 0
     assert f"{name}: OK" in capsys.readouterr().out
+
+
+# -- submit_jobs and data_bench (tests/test_tools.py's cases) ---------------
+
+
+def _run_dir(root, name="run_a", dist=None):
+    d = root / name
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({"distributed": dist or {}}))
+    return d
+
+
+def test_job_status_machine(tmp_path):
+    from picotron_tpu_torch.tools import submit_jobs as sj
+
+    run = _run_dir(tmp_path)
+    jobs = sj.discover_jobs(str(tmp_path))
+    assert len(jobs) == 1
+    job = jobs[0]
+    assert job.status == "init"
+    job.set_status("running")
+    assert job.status == "running"
+    # the post-mortem greps (the reference picotron's): torch's OOM and an
+    # illegal memory access are oom; a store or collective time-out is
+    # timeout
+    for text, want in (
+            ("torch.OutOfMemoryError: CUDA out of memory. Tried to "
+             "allocate 2.00 GiB", "oom"),
+            ("RuntimeError: CUDA error: an illegal memory access was "
+             "encountered", "oom"),
+            ("torch.distributed.DistStoreError: Timed out after 901 "
+             "seconds", "timeout"),
+            ("some other crash", "fail")):
+        (run / "train.log").write_text(f"... {text} ...")
+        assert job.classify(returncode=1) == want, text
+    assert job.classify(returncode=0) == "completed"
+
+
+def test_slurm_render_golden(tmp_path):
+    """The sbatch render: the #SBATCH directives, one torchrun per node
+    over world / nodes GPUs, the status.txt transitions and greps built
+    from the pattern constants the local launcher classifies with."""
+    from picotron_tpu_torch.tools import submit_jobs as sj
+
+    run = _run_dir(tmp_path, "llama-dp8", {"dp_size": 4, "tp_size": 2})
+    job = sj.discover_jobs(str(tmp_path))[0]
+    script = sj.render_slurm(job, nodes=2, time_limit="03:30:00")
+    assert script == str(run / "job.slurm")
+    text = open(script).read()
+    assert text == sj.SLURM_TEMPLATE.format(
+        name="llama-dp8", nodes=2, gpus=4, run_dir=str(run),
+        time_limit="03:30:00", repo_root=sj.REPO_ROOT,
+        oom_re="|".join(sj.OOM_PATTERNS),
+        timeout_re="|".join(sj.TIMEOUT_PATTERNS))
+    for line in ("#SBATCH --job-name=llama-dp8", "#SBATCH --nodes=2",
+                 "#SBATCH --gpus-per-node=4", "#SBATCH --time=03:30:00",
+                 "srun --ntasks-per-node=1 python -m torch.distributed.run",
+                 "--nnodes 2 --nproc_per_node 4",
+                 f"-m picotron_tpu_torch.train --config {run}/config.json"):
+        assert line in text, line
+    for state in ("running", "completed", "oom", "timeout", "fail"):
+        assert f"echo {state} > " in text
+    assert "OutOfMemoryError|CUDA out of memory|illegal memory access" in text
+    with pytest.raises(ValueError, match="divide"):
+        sj.render_slurm(job, nodes=3, time_limit="01:00:00")
+
+
+def test_slurm_dry_run_renders_without_submitting(tmp_path, capsys,
+                                                  monkeypatch):
+    import subprocess as sp
+
+    from picotron_tpu_torch.tools import submit_jobs as sj
+
+    run = _run_dir(tmp_path)
+
+    def boom(*a, **k):
+        raise AssertionError("dry run must not invoke subprocess")
+
+    monkeypatch.setattr(sp, "run", boom)
+    assert sj.main([str(tmp_path), "--launcher", "slurm", "--dry-run"]) == 0
+    out = capsys.readouterr().out
+    assert "rendered" in out and "-m picotron_tpu_torch.train" in out
+    assert (run / "job.slurm").exists()
+    assert (run / "status.txt").read_text().strip() == "init"
+
+
+def test_watch_queue_flips_pending_to_running_and_catches_dead(tmp_path,
+                                                               monkeypatch):
+    import subprocess as sp
+
+    from picotron_tpu_torch.tools import submit_jobs as sj
+
+    for name in ("run_a", "run_b"):
+        _run_dir(tmp_path, name)
+    job_a, job_b = sj.discover_jobs(str(tmp_path))
+    job_a.set_status("pending")
+    job_b.set_status("pending")
+    polls = iter(["1001 PENDING\n1002 RUNNING\n", ""])
+
+    class R:
+        def __init__(self, out):
+            self.stdout, self.returncode = out, 0
+
+    def fake_run(cmd, **kw):
+        assert cmd[0] == "squeue"
+        return R(next(polls))
+
+    monkeypatch.setattr(sp, "run", fake_run)
+    monkeypatch.setattr(sj.time, "sleep", lambda s: None)
+    sj.watch_queue(str(tmp_path), {"run_a": "1001", "run_b": "1002"},
+                   interval=0, max_polls=2)
+    assert job_a.status == "fail"      # left the queue while pending
+    assert job_b.status == "running"   # started; its epilogue owns the rest
+
+
+def test_dry_run_requires_slurm_launcher(tmp_path):
+    from picotron_tpu_torch.tools import submit_jobs as sj
+
+    with pytest.raises(SystemExit):
+        sj.main([str(tmp_path), "--dry-run"])
+
+
+def test_local_launcher_runs_the_trainer_under_torchrun(tmp_path, capsys):
+    """--launcher local: torchrun with one process per rank of the run's
+    layout (a dp 2 job's command), and a debug-tiny run on the CPU under
+    torchrun (one rank) completes, its status and log say so, and --only
+    completed finds it."""
+    from picotron_tpu_torch.tools import submit_jobs as sj
+
+    for name, dp in (("dp2", 2), ("dp1", 1)):
+        run = tmp_path / name / "run"
+        run.mkdir(parents=True)
+        raw = _raw(tmp_path / "ckpt", steps=2, distributed={"dp_size": dp})
+        (run / "config.json").write_text(json.dumps(raw))
+        job = sj.discover_jobs(str(tmp_path / name))[0]
+        assert sj.local_command(job)[1:6] == [
+            "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(dp)]
+    assert sj.main([str(tmp_path / "dp1"), "--job-timeout", "240"]) == 0
+    assert job.status == "completed", (run / "train.log").read_text()[-2000:]
+    assert "training done" in (run / "train.log").read_text()
+    capsys.readouterr()
+    sj.main([str(tmp_path / "dp1"), "--status"])
+    assert "completed:1" in capsys.readouterr().out
+
+
+def test_data_bench_runs_and_names_a_missing_datasets(capsys, monkeypatch):
+    from picotron_tpu_torch.tools import data_bench
+
+    assert data_bench.main(["--blocks", "128", "--seq", "32"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["epoch_view_s"] >= 0
+    for key in ("read_lazy_tok_s", "read_flat_tok_s", "read_seq_tok_s",
+                "preproc_tok_s"):
+        assert out[key] > 0, key
+    assert out["vs_card_margin"] == round(out["read_lazy_tok_s"]
+                                          / data_bench.CARD_TOKENS_PER_S, 1)
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    assert data_bench.main(["--blocks", "8", "--seq", "8"]) == 2
+    assert "datasets" in capsys.readouterr().err

@@ -424,7 +424,12 @@ def test_chip_smoke_phase15_thread_worlds_on_the_cpu():
         torch.set_num_threads(threads)
     assert set(out["layouts"]) == {"megatron", "megatron (AD)", "2d 2x2",
                                    "row", "qkv=2d,o=2d", "megatron sp",
-                                   "megatron sp (AD)", "deferred"}
+                                   "megatron sp (AD)", "deferred",
+                                   "adaptive"}
+    # "adaptive" resolves on the h100 tier, here to the megatron spec, and
+    # then equals that layout bit for bit
+    assert out["adaptive"]["preset"] == "megatron"
+    assert out["adaptive"]["equal_to_preset"] is True
     for key, entry in out["layouts"].items():
         assert entry["rel_err_vs_twin"] <= 1e-6, (key, entry)
         assert entry["forward_collectives"] == \

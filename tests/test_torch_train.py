@@ -25,6 +25,7 @@ from picotron_tpu_torch import optimizer as toptim
 from picotron_tpu_torch import train as ttrain
 from picotron_tpu_torch import train_step as tstep
 from picotron_tpu_torch import weights
+from picotron_tpu_torch.models import act_offload
 from picotron_tpu_torch.models import llama as tllama
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -80,6 +81,45 @@ def test_three_steps_match_jax(moments, preset, clip):
         np.testing.assert_allclose(
             dict(jax.tree_util.tree_leaves_with_path(got))[path],
             np.asarray(want), err_msg=str(path), **TOL)
+
+
+def test_dots_offload_steps_match_jax():
+    """Three steps under remat "dots_offload" (the port's saves parked,
+    a no-op placement on the CPU) against the JAX train step under the
+    same policy (its trainer's ParallelCtx): losses at rtol 1e-6, final
+    params at the file's tolerance, and the port's losses equal to its
+    "dots" run's bit for bit."""
+    raw = _raw("float32", remat=True, remat_policy="dots_offload")
+    jc, tc = jcfg.config_from_dict(raw), tcfg.config_from_dict(raw)
+    tree = jax.tree.map(np.asarray, jllama.init_params(jc.model,
+                                                       jax.random.key(3)))
+    ctx = jllama.ParallelCtx(remat=True, remat_policy="dots_offload")
+    jstate = jstep.init_train_state(jc, jax.tree.map(jnp.asarray, tree))
+    jstep_fn = jax.jit(jstep.make_train_step(jc, ctx))
+    runs = {}
+    for policy in ("dots_offload", "dots"):
+        cfg = tcfg.config_from_dict({**raw, "training": {
+            **raw["training"], "remat_policy": policy}})
+        model = tllama.LlamaModel(cfg.model, device="cpu")
+        model.load_state_dict(weights.params_from_jax(tree, cfg.model))
+        state = tstep.init_train_state(cfg, model)
+        step_fn = tstep.make_train_step(cfg)
+        loader = tdata.MicroBatchDataLoader(cfg, "cpu")
+        runs[policy] = [float(step_fn(state, next(loader))["loss"])
+                        for _ in range(3)]
+        if policy == "dots_offload":
+            got = weights.params_to_numpy(model)
+    assert runs["dots_offload"] == runs["dots"]
+    loader = tdata.MicroBatchDataLoader(tc, "cpu")
+    for want in runs["dots_offload"]:
+        ids, tgt = next(loader)
+        jstate, jloss = jstep_fn(jstate, (jnp.asarray(ids.numpy()),
+                                          jnp.asarray(tgt.numpy())))
+        np.testing.assert_allclose(want, float(jloss), rtol=1e-6)
+    got = dict(jax.tree_util.tree_leaves_with_path(got))
+    for path, want in jax.tree_util.tree_leaves_with_path(jstate.params):
+        np.testing.assert_allclose(got[path], np.asarray(want),
+                                   err_msg=str(path), **TOL)
 
 
 def test_loader_batches_and_cursors_token_exact():
@@ -216,12 +256,26 @@ def _check_no_flight(tmp_path, result):
     assert "guard" in kinds
 
 
+def _check_offload(tmp_path, result):
+    """remat "dots_offload": the trainer's losses equal a "dots" run's bit
+    for bit (which parks nothing)."""
+    raw = _raw("float32")
+    raw["training"].update(remat=True, remat_policy="dots")
+    raw["checkpoint"] = {"save_dir": str(tmp_path / "dots")}
+    act_offload.reset_counts()
+    want = ttrain.run(tcfg.config_from_dict(raw), "cpu")
+    assert act_offload.counts["parked"] == 0
+    assert result["losses"] == want["losses"]
+    assert all(np.isfinite(result["losses"]))
+
+
 @pytest.mark.parametrize("override,match", [
     # pp is ported: not refused, the run stops at the world-size check
     pytest.param({"distributed": {"pp_size": 2}}, None,
                  id="override0-pp_size"),
+    # dots_offload is ported: the run parks its saves (`_check_offload`)
     pytest.param({"training": {"remat": True, "remat_policy":
-                               "dots_offload"}}, "dots_offload",
+                               "dots_offload"}}, _check_offload,
                  id="override1-dots_offload"),
     pytest.param({"logging": {"use_wandb": True}}, "use_wandb",
                  id="override2-use_wandb"),
