@@ -402,7 +402,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (one reduce-scatter and one all-gather in the slice, one all-reduce
    across it), and the cross-slice leg's bytes 1/inner of the flat
    all-reduce's. A `tp_strategies` JSON line before the card line.
-16. Numbers, then the device line last. The numbers include the cost
+16. Shardcheck (`picotron_tpu_torch/analysis/`: one step recorded on
+   `meta` through recording groups, audited): (a) phase 3's trainer ran
+   with its preflight on: its `shardcheck preflight: ok` line, and the
+   preflight's seconds at full SmolLM-1.7B (the phases after 3 run with
+   PICOTRON_PREFLIGHT=0: the preflight is static analysis of a config,
+   and phase 3's is the one this phase reads); (b) for each of phase
+   15a's bf16 legs at tp 4, and for one train step of 15b's slice layout
+   (dp HIER_DP over HIER_SLICES slices, the hierarchical reduction,
+   `train_step.make_train_step` on each thread rank), the schedule every
+   thread rank really issued on the card (each `ThreadGroup` call, by
+   kind, the group's ranks and the bytes the rank handed in or took out)
+   equals that rank's meta recording (`record_train_step(cfg, rank=r)`,
+   times the steps run), and `run_shardcheck` is green on the recorded
+   step; (c) `analysis/variants.check_engine_feed` on phase 10c's engine
+   (CUDA tensors): proven, every persistent input on the card, no
+   `variant_hazard` event. A `shardcheck` JSON line before the card line.
+17. Numbers, then the device line last. The numbers include the cost
    model's (`cost_model_phase`): the h100 tier's predicted ms/step for
    each measured point of this run (phases 3, 5b, each 5c policy, 6c and
    11a) beside the measurement, their ratio (each within COST_RATIO),
@@ -3656,6 +3672,16 @@ def trace_phase(model16, card: str) -> dict:
         f"{s['preemptions']} preemptions, peak {peak:.2f} GiB, "
         f"decode_compiles {s['decode_compiles']}, {checked[0]} decode "
         f"dispatches under sync debug mode 'error'")
+    from picotron_tpu_torch.analysis import check_engine_feed
+
+    t_feed = time.perf_counter()
+    feed = check_engine_feed(eng).info["variants"]
+    out["variant_check"] = {
+        **{k: feed[k] for k in ("proven", "uncommitted", "leaves",
+                                "upload_device")},
+        "seconds": time.perf_counter() - t_feed,
+        "construction_proven": eng.variant_report.info["variants"]["proven"],
+        "hazard_events": kinds.count("variant_hazard")}
     if eng.pool.in_use:
         raise AssertionError(f"10c: {eng.pool.in_use} blocks leaked")
     if (kinds.count("serve_request") != n_req
@@ -5107,8 +5133,8 @@ class GroupWorld(ThreadWorld):
         self.timeout = timeout
         self.groups = []
 
-    def group(self, n: int) -> "GroupSlots":
-        g = GroupSlots(n, self.timeout)
+    def group(self, n: int, ranks: tuple = ()) -> "GroupSlots":
+        g = GroupSlots(n, self.timeout, ranks)
         self.groups.append(g)
         return g
 
@@ -5120,10 +5146,12 @@ class GroupWorld(ThreadWorld):
 
 class GroupSlots:
     """The barrier, one slot per member, the joined result and the
-    members' communicators of one thread group."""
+    members' communicators of one thread group; `ranks` its members'
+    global ranks (phase 16 compares the calls by them)."""
 
-    def __init__(self, n: int, timeout: float):
+    def __init__(self, n: int, timeout: float, ranks: tuple = ()):
         self.n = n
+        self.ranks = tuple(ranks)
         self.barrier = threading.Barrier(n, timeout=timeout)
         self.slots = [None] * n
         self.members = [None] * n
@@ -5147,7 +5175,7 @@ def thread_group_class():
     grads its own backward would (a backward per thread would stall: a
     device's autograd nodes run on one engine thread). `counts` and
     `nbytes` are this rank's calls and bytes by kind (the joined
-    backwards' included)."""
+    backwards' included), `log` each call's (kind, bytes)."""
     import torch.distributed as dist
 
     from picotron_tpu_torch.parallel.comm import GroupComm, own_slice
@@ -5229,10 +5257,12 @@ def thread_group_class():
             self.counts = {"all_reduce": 0, "all_gather": 0,
                            "reduce_scatter": 0}
             self.nbytes = dict.fromkeys(self.counts, 0)
+            self.log = []
 
         def count(self, kind: str, t: torch.Tensor) -> None:
             self.counts[kind] += 1
             self.nbytes[kind] += t.numel() * t.element_size()
+            self.log.append((kind, t.numel() * t.element_size()))
 
         def _swap(self, item, read):
             sh = self.sh
@@ -5301,9 +5331,9 @@ def thread_group_class():
     return ThreadGroup
 
 
-def solo_group():
+def solo_group(rank: int = 0):
     """A thread group of one rank (a data group at dp 1)."""
-    return thread_group_class()(GroupSlots(1, THREAD_TIMEOUT_S), 0)
+    return thread_group_class()(GroupSlots(1, THREAD_TIMEOUT_S, (rank,)), 0)
 
 
 def rank_counts(groups) -> dict:
@@ -5321,6 +5351,19 @@ def reset_counts(groups) -> None:
             for d in (g.counts, g.nbytes):
                 for k in d:
                     d[k] = 0
+            g.log.clear()
+
+
+def issued(groups) -> list:
+    """A rank's calls over its distinct thread groups of more than one
+    rank: sorted (kind, the group's ranks, bytes, calls)."""
+    from collections import Counter
+
+    c = Counter()
+    for g in {id(g): g for g in groups if g is not None}.values():
+        if len(g.sh.ranks) > 1:
+            c.update((kind, g.sh.ranks, n) for kind, n in g.log)
+    return sorted((*k, v) for k, v in c.items())
 
 
 @contextlib.contextmanager
@@ -5395,9 +5438,11 @@ def tp_world(cfg, full_sd: dict, dev):
     group = thread_group_class()
     world = GroupWorld(TP)
     tp_x, tp_y = mesh._tp_mesh(cfg)
-    tp_sh = world.group(TP)
-    ty_sh = [world.group(tp_y) for _ in range(tp_x)]
-    tx_sh = [world.group(tp_x) for _ in range(tp_y)]
+    tp_sh = world.group(TP, tuple(range(TP)))
+    ty_sh = [world.group(tp_y, tuple(ix * tp_y + iy for iy in range(tp_y)))
+             for ix in range(tp_x)]
+    tx_sh = [world.group(tp_x, tuple(ix * tp_y + iy for ix in range(tp_x)))
+             for iy in range(tp_y)]
     sizes = mesh.layout_sizes(cfg)
     flips = tp_flips(cfg)
     pars, states, groups = [], [], []
@@ -5413,7 +5458,7 @@ def tp_world(cfg, full_sd: dict, dev):
             tx = tg
         par = mesh.ParallelEnv(
             sizes=sizes, rank=r, world_size=TP, device=dev, backend="thread",
-            tp_group=tg, data_group=solo_group(), host_group=None,
+            tp_group=tg, data_group=solo_group(r), host_group=None,
             coords=mesh.rank_coords(r, sizes), tp_mesh=(tp_x, tp_y),
             tp_ty_group=ty, tp_tx_group=tx)
         model = LlamaModel(cfg.model, device=dev, tp=tp_context(
@@ -5577,6 +5622,10 @@ def tp_strategies_phase(here: str, card: str, run: Optional[dict] = None,
                 fa.reset_launch_counts()
                 with flash_by_rank(table, tls):
                     res = tp_steps(cfg, world, pars, states, batch, tls)
+                # each rank's calls of the TP_STEPS steps, for phase 16
+                out.setdefault("_issued", {})[key] = (
+                    tp_raw(run, dist_kw, dtype, seq, engine, layers),
+                    [issued(g) for g in groups])
                 peak = None
                 if cuda:
                     torch.cuda.synchronize()
@@ -5709,25 +5758,10 @@ def check_tp_leg(key, entry, fwd, want, table, variants, name, engine,
         raise AssertionError(f"15a {key}: " + "; ".join(fails))
 
 
-def hier_phase(here: str, card: str, raw: Optional[dict] = None,
-               dev: str = "cuda", seq: int = SEQ) -> dict:
-    """Phase 15b (module docstring): one step's grads of CONFIG's model at
-    HIER_LAYERS layers, fp32, as a thread world of dp HIER_DP over
-    HIER_SLICES slices, by the hierarchical reduction and by the flat
-    all-reduce. `raw`, `dev` and `seq` replace the configuration (a tiny
-    model on the CPU in the tests)."""
-    import numpy as np
-
-    from picotron_tpu_torch import mesh
-    from picotron_tpu_torch.config import config_from_dict
-    from picotron_tpu_torch.models.llama import LlamaModel, init_params
-    from picotron_tpu_torch.optimizer import param_grads
-    from picotron_tpu_torch.parallel.hier_reduce import (
-        _dp_groups, dp_granule, use_hier_dp,
-    )
-    from picotron_tpu_torch.train_step import make_grads_fn
-
-    dev = torch.device(dev)
+def hier_raw(here: str, raw: Optional[dict] = None, seq: int = SEQ) -> dict:
+    """15b's configuration: CONFIG's model at HIER_LAYERS layers (or
+    `raw`'s), fp32, mbs 1, ga 1, the AD engine without remat, dp HIER_DP
+    over HIER_SLICES slices with dp crossing the cut."""
     if raw is None:
         with open(os.path.join(here, CONFIG)) as f:
             raw = json.load(f)
@@ -5739,42 +5773,78 @@ def hier_phase(here: str, card: str, raw: Optional[dict] = None,
     raw["distributed"] = {"dp_size": HIER_DP, "slices": HIER_SLICES,
                           "dcn_axes": "dp"}
     raw.pop("checkpoint", None)
+    return raw
+
+
+def hier_world(cfg, full: dict, dev):
+    """(world, per-rank ParallelEnv, per-rank [data, intra, cross] thread
+    groups, per-rank models loaded from `full`): cfg's dp layout over
+    its slices as a thread world, the cohorts as `mesh.init_parallel`
+    makes them (the intra and cross groups only under the hierarchical
+    reduction)."""
+    from picotron_tpu_torch import mesh
+    from picotron_tpu_torch.models.llama import LlamaModel
+    from picotron_tpu_torch.parallel.hier_reduce import (
+        _dp_groups, dp_granule, use_hier_dp,
+    )
+
+    group = thread_group_class()
+    g_dp, inner = dp_granule(cfg)
+    granule = (g_dp, inner) if use_hier_dp(cfg) else (1, HIER_DP)
+    world = GroupWorld(HIER_DP)
+    data = world.group(HIER_DP, tuple(range(HIER_DP)))
+    intra, cross = _dp_groups(g_dp, inner)
+    intra_sh = [world.group(len(m), tuple(m)) for m in intra]
+    cross_sh = [world.group(len(m), tuple(m)) for m in cross]
+    sizes = mesh.layout_sizes(cfg)
+    pars, groups, models = [], [], []
+    for r in range(HIER_DP):
+        o, i = divmod(r, inner)
+        gs = [group(data, r), None, None]
+        if granule[0] > 1:
+            gs[1] = group(intra_sh[o], i) if inner > 1 else None
+            gs[2] = group(cross_sh[i], o)
+        pars.append(mesh.ParallelEnv(
+            sizes=sizes, rank=r, world_size=HIER_DP, device=dev,
+            backend="thread", tp_group=None, data_group=gs[0],
+            host_group=None, coords=mesh.rank_coords(r, sizes),
+            dp_granule=granule, dp_intra_group=gs[1],
+            dp_cross_group=gs[2]))
+        model = LlamaModel(cfg.model, device=dev)
+        model.load_state_dict(full)
+        models.append(model)
+        groups.append(gs)
+    return world, pars, groups, models
+
+
+def hier_phase(here: str, card: str, raw: Optional[dict] = None,
+               dev: str = "cuda", seq: int = SEQ) -> dict:
+    """Phase 15b (module docstring): one step's grads of CONFIG's model at
+    HIER_LAYERS layers, fp32, as a thread world of dp HIER_DP over
+    HIER_SLICES slices, by the hierarchical reduction and by the flat
+    all-reduce. `raw`, `dev` and `seq` replace the configuration (a tiny
+    model on the CPU in the tests)."""
+    import numpy as np
+
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+    from picotron_tpu_torch.optimizer import param_grads
+    from picotron_tpu_torch.parallel.hier_reduce import dp_granule
+    from picotron_tpu_torch.train_step import make_grads_fn
+
+    dev = torch.device(dev)
+    raw = hier_raw(here, raw, seq)
     gen = torch.Generator(device=dev).manual_seed(HIER_SEED)
     cfg = config_from_dict(raw)
     full = init_params(LlamaModel(cfg.model, device=dev), gen).state_dict()
     toks = torch.from_numpy(np.random.default_rng(HIER_SEED).integers(
         0, cfg.model.vocab_size, (HIER_DP, 1, 1, seq + 1))).to(dev)
-    group = thread_group_class()
     runs = {}
     for mode in ("hier", "flat"):
         raw["distributed"]["hier_dp_reduce"] = "auto" if mode == "hier" \
             else "off"
         cfg = config_from_dict(raw)
-        g_dp, inner = dp_granule(cfg)
-        granule = (g_dp, inner) if use_hier_dp(cfg) else (1, HIER_DP)
-        world = GroupWorld(HIER_DP)
-        data = world.group(HIER_DP)
-        intra, cross = _dp_groups(g_dp, inner)
-        intra_sh = [world.group(len(m)) for m in intra]
-        cross_sh = [world.group(len(m)) for m in cross]
-        sizes = mesh.layout_sizes(cfg)
-        pars, groups, models = [], [], []
-        for r in range(HIER_DP):
-            o, i = divmod(r, inner)
-            gs = [group(data, r), None, None]
-            if granule[0] > 1:
-                gs[1] = group(intra_sh[o], i) if inner > 1 else None
-                gs[2] = group(cross_sh[i], o)
-            pars.append(mesh.ParallelEnv(
-                sizes=sizes, rank=r, world_size=HIER_DP, device=dev,
-                backend="thread", tp_group=None, data_group=gs[0],
-                host_group=None, coords=mesh.rank_coords(r, sizes),
-                dp_granule=granule, dp_intra_group=gs[1],
-                dp_cross_group=gs[2]))
-            model = LlamaModel(cfg.model, device=dev)
-            model.load_state_dict(full)
-            models.append(model)
-            groups.append(gs)
+        world, pars, groups, models = hier_world(cfg, full, dev)
         fns = [make_grads_fn(cfg, p) for p in pars]
         # the AD engine sums into the params' .grad
         grads = [param_grads(m.parameters()) for m in models]
@@ -5857,6 +5927,117 @@ def hier_phase(here: str, card: str, raw: Optional[dict] = None,
     if fails:
         raise AssertionError("15b: " + "; ".join(fails))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: shardcheck
+# ---------------------------------------------------------------------------
+
+
+def recorded_calls(cfg, rank: int, steps: int = 1) -> list:
+    """Rank `rank`'s meta recording of one step of `cfg`, in `issued`'s
+    form, each call `steps` times: the effective calls by (kind, group,
+    bytes handed in or taken out)."""
+    from collections import Counter
+
+    from picotron_tpu_torch.analysis import record_train_step
+
+    rec = record_train_step(cfg, rank=rank)
+    c = Counter((op.kind, op.group, op.shard_bytes)
+                for op in rec.programs[rank] if op.effective)
+    return sorted((*k, v * steps) for k, v in c.items())
+
+
+def schedules_vs_recorded(label: str, cfg, per_rank: list,
+                          steps: int) -> dict:
+    """16b for one layout: every thread rank's issued calls (`issued`)
+    against its meta recording, and `run_shardcheck` on the recorded
+    step. Raises on a difference or a finding."""
+    from picotron_tpu_torch.analysis import record_train_step, run_shardcheck
+
+    for r, got in enumerate(per_rank):
+        want = recorded_calls(cfg, r, steps)
+        if got != want:
+            extra = sorted(set(map(tuple, got)) - set(map(tuple, want)))
+            missing = sorted(set(map(tuple, want)) - set(map(tuple, got)))
+            raise AssertionError(
+                f"16b {label}: rank {r} issued {len(got)} kinds of call, "
+                f"the recording {len(want)}; issued only {extra[:4]}, "
+                f"recorded only {missing[:4]}")
+    rep = run_shardcheck(cfg, checks=("spec", "collectives", "boundary",
+                                      "provenance", "donation",
+                                      "stability"),
+                         recorded=record_train_step(cfg))
+    if not rep.ok():
+        raise AssertionError(f"16b {label}: " + rep.render())
+    return {"ranks": len(per_rank), "steps": steps,
+            "calls_per_rank": [sum(c[-1] for c in got) for got in per_rank],
+            "kinds": sorted({c[0] for got in per_rank for c in got}),
+            "audit_warnings": len(rep.warnings())}
+
+
+def hier_step_issued(here: str, raw: Optional[dict] = None,
+                     dev: str = "cuda", seq: int = SEQ) -> tuple:
+    """(cfg, per-rank `issued`) of one train step of 15b's layout under
+    the hierarchical reduction (`make_train_step` on each thread rank)."""
+    import numpy as np
+
+    from picotron_tpu_torch.config import config_from_dict
+    from picotron_tpu_torch.models.llama import LlamaModel, init_params
+    from picotron_tpu_torch.train_step import init_train_state, make_train_step
+
+    dev = torch.device(dev)
+    cfg = config_from_dict(hier_raw(here, raw, seq))
+    gen = torch.Generator(device=dev).manual_seed(HIER_SEED)
+    full = init_params(LlamaModel(cfg.model, device=dev), gen).state_dict()
+    toks = torch.from_numpy(np.random.default_rng(HIER_SEED).integers(
+        0, cfg.model.vocab_size, (HIER_DP, 1, 1, seq + 1))).to(dev)
+    world, pars, groups, models = hier_world(cfg, full, dev)
+    states = [init_train_state(cfg, m, p) for m, p in zip(models, pars)]
+    steps = [make_train_step(cfg, p) for p in pars]
+    world.run(lambda r: float(steps[r](states[r], (
+        toks[r, ..., :-1], toks[r, ..., 1:]))["loss"]))
+    return cfg, [issued(gs) for gs in groups]
+
+
+def shardcheck_phase(here: str, card: str, phase3: dict, tp: dict,
+                     serving: dict) -> dict:
+    """Phase 16 (module docstring)."""
+    from picotron_tpu_torch.config import config_from_dict
+
+    t0 = time.perf_counter()
+    pre = phase3.get("preflight")
+    if not pre or not pre["line"].startswith("shardcheck preflight: ok"):
+        raise AssertionError(f"16a: phase 3's trainer printed no "
+                             f"'shardcheck preflight: ok' line: {pre}")
+    out = {"card": card, "preflight": pre, "layouts": {}}
+    log(f"phase 16a preflight ({card}): {pre['line']} on phase 3's full "
+        f"SmolLM-1.7B config ({pre['recorded_ops']} recorded collectives)")
+    for key, (raw, per_rank) in sorted(tp.pop("_issued").items()):
+        out["layouts"][key] = schedules_vs_recorded(
+            key, config_from_dict(raw), per_rank, TP_STEPS)
+    torch.cuda.empty_cache()
+    cfg, per_rank = hier_step_issued(here)
+    out["layouts"]["hier dp over slices"] = schedules_vs_recorded(
+        "hier dp over slices", cfg, per_rank, 1)
+    torch.cuda.empty_cache()
+    for key, entry in out["layouts"].items():
+        log(f"phase 16b {key} ({card}): each of {entry['ranks']} thread "
+            f"ranks issued its recording ({entry['calls_per_rank'][0]} "
+            f"calls of {entry['kinds']} over {entry['steps']} step(s)); "
+            f"shardcheck green")
+    feed = serving["trace"]["variant_check"]
+    if not (feed["proven"] and feed["uncommitted"] == []
+            and feed["upload_device"].startswith("cuda")
+            and feed["hazard_events"] == 0):
+        raise AssertionError(f"16c: check_engine_feed on 10c's engine: "
+                             f"{feed}")
+    out["engine_feed"] = feed
+    log(f"phase 16c engine feed ({card}): proven on 10c's engine, "
+        f"{feed['leaves']} persistent inputs on {feed['upload_device']}, "
+        f"0 variant_hazard events, {feed['seconds'] * 1e3:.2f} ms")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def cost_points(here: str, result: dict, fused: dict, engines: dict,
@@ -6035,10 +6216,13 @@ def main() -> int:
     torch.cuda.synchronize()
     log("phase 2 kernels vs plain: ok")
 
-    # phase 3: the main path
+    # phase 3: the main path (with the trainer's shardcheck preflight)
     result = main_path(fa, here)
     log(f"phase 3 main path: ok, losses {result['losses']}, first batch "
         f"after {STEPS} steps {result['seen_batch_loss']}")
+    # the preflight is static analysis of a config: phase 16 reads phase
+    # 3's, the later trainer runs (and their children) skip it
+    os.environ["PICOTRON_PREFLIGHT"] = "0"
 
     # phase 4: checkpoint and resume
     per_step = 24 * GA
@@ -6176,6 +6360,11 @@ def main() -> int:
     log(f"phase 15 the tp strategies and the hierarchical dp reduction: ok "
         f"in {tp['seconds']:.1f} s")
 
+    # phase 16: shardcheck on the card's runs
+    torch.cuda.empty_cache()
+    shard = shardcheck_phase(here, card, result, tp, serving)
+    log(f"phase 16 shardcheck: ok in {shard['seconds']:.1f} s")
+
     # numbers
     m = config_from_dict({"model": {"name": "SmolLM-1.7B"}}).model
     for label, res in (("main path (AD, no remat)", result),
@@ -6252,6 +6441,7 @@ def main() -> int:
     print(json.dumps({"elastic": elastic}))
     print(json.dumps({"serving_fleet": fleet}))
     print(json.dumps({"tp_strategies": tp}))
+    print(json.dumps({"shardcheck": shard}))
     print(json.dumps({"cost_model": cost_model}))
     print(card)
     print(json.dumps({"ok": True, "device": {

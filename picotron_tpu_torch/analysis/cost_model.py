@@ -29,10 +29,11 @@ attention efficiencies, the pipeline bubble of the executor, the
 optimizer offload's PCIe streaming, and the comm terms weighted by how
 much of each stays exposed. "dots_offload" is priced as the JAX package
 prices it, a FLOP multiplier with no activation PCIe term (PERF.md
-records how far that is from the card). Not ported here: pricing a
-traced or recorded schedule (`price_ops`, `price_reshards`,
-`priced_schedule`), which needs the collective audit (ROADMAP Queue 1
-item 13b).
+records how far that is from the card). A recorded schedule is priced
+op by op (`price_ops`, `priced_schedule`: the collectives
+`analysis/trace.py` records for one step, on their placed axes), as the
+JAX model prices a traced one; `price_reshards` prices predicted
+reshards, of which eager PyTorch has none (`analysis/dataflow.py`).
 
 The h100 tier's figures and their sources:
 - NVLink 4: 18 links x 25 GB/s = 450 GB/s per direction per GPU, and
@@ -497,6 +498,89 @@ class CostModel:
             "ici_ms": round(ici_s * 1e3, 4),
             "total_comm_ms": round((ici_s + dcn_s) * 1e3, 4),
         }
+
+    # -- recorded-schedule pricing -----------------------------------------
+
+    def price_ops(self, cfg: Config, ops) -> list[dict]:
+        """Price a recorded `CollectiveOp` list (analysis/trace.py; the
+        JAX model's parsed one prices alike) against the config's axis
+        placement. Each op's group size is matched to a layout axis (or,
+        for the data axes' grad all-reduce, to the (dp, ep, cp) product,
+        priced as one pass per constituent axis). Ops whose group no axis
+        explains are priced on the worst (slowest) placed axis, flagged
+        `axis_guess` (port of the JAX method)."""
+        links = self.axes_for(cfg)
+        d = cfg.distributed
+        sizes = {"dp": d.dp_size, "pp": d.pp_size, "ep": d.ep_size,
+                 "cp": d.cp_size, "tp": d.tp_size}
+        priced = []
+        for op in ops:
+            if not op.effective:
+                continue
+            nbytes = op.nbytes or 0
+            axes = self._match_axes(op, sizes)
+            if axes:
+                secs = sum(
+                    self.collective_secs(op.kind, nbytes, links[a])
+                    for a in axes if a in links)
+                guess = False
+            else:
+                worst = min(links.values(), key=lambda l: l.bandwidth,
+                            default=None)
+                secs = (self.collective_secs(op.kind, nbytes, worst)
+                        if worst else 0.0)
+                guess = True
+            priced.append({"kind": op.kind, "line": op.line,
+                           "bytes": nbytes, "axes": axes,
+                           "secs": secs, "axis_guess": guess})
+        return priced
+
+    def price_reshards(self, cfg: Config, reshards) -> tuple:
+        """(secs, bytes) of predicted boundary reshards, each an
+        all-gather of its whole tensor on the slowest placed axis (the
+        JAX method's conservative bound). Eager PyTorch predicts none
+        (analysis/dataflow.py), so the port calls this with []."""
+        links = [l for l in self.axes_for(cfg).values() if l.size > 1]
+        worst = min(links, key=lambda l: l.bandwidth, default=None)
+        if worst is None:
+            return 0.0, sum(r.nbytes for r in reshards)
+        secs = sum(self.collective_secs("all_gather", r.nbytes, worst)
+                   for r in reshards)
+        return secs, sum(r.nbytes for r in reshards)
+
+    @staticmethod
+    def _match_axes(op, sizes: dict) -> tuple:
+        """Layout axes an op most plausibly spans (the JAX rule: a
+        permute's pairs name no group, so cp's ring first, then pp)."""
+        if op.kind == "collective_permute":
+            for a in ("cp", "pp", "dp"):
+                if sizes[a] > 1:
+                    return (a,)
+            return ()
+        g = op.group_size or 0
+        if g <= 1:
+            return ()
+        fused = sizes["dp"] * sizes["ep"] * sizes["cp"]
+        if g == fused and fused > 1:
+            return tuple(a for a in ("dp", "ep", "cp") if sizes[a] > 1)
+        prefer = (("ep", "cp", "tp", "dp", "pp")
+                  if op.kind == "all_to_all"
+                  else ("tp", "cp", "ep", "dp", "pp"))
+        for a in prefer:
+            if sizes[a] == g:
+                return (a,)
+        return ()
+
+    def priced_schedule(self, cfg: Config, recorded=None):
+        """(priced ops, total comm seconds) of the config's recorded step
+        (`analysis/trace.record_train_step`, made here when `recorded` is
+        not given: one meta step per pipeline stage, no card)."""
+        if recorded is None:
+            from picotron_tpu_torch.analysis.trace import record_train_step
+
+            recorded = record_train_step(cfg)
+        priced = self.price_ops(cfg, recorded.ops)
+        return priced, sum(p["secs"] for p in priced)
 
     def price_kv_handoff(self, model_cfg, serve_cfg=None, *,
                          n_tokens: Optional[int] = None,

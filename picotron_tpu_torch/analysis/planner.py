@@ -11,10 +11,11 @@ batch constant (mbs fixed, gradient accumulation re-derived per data
 width). `planner_gap` is the trainer's cost preflight; `slice_plans`
 prices a slice (node) cut on dp or pp.
 
-Not ported: the JAX planner's traced re-pricing (`reprice_traced`, which
-needs the collective audit, ROADMAP Queue 1 item 13b) and memcheck's
-verification (`verify_hbm` refuses: tools/memcheck.py is JAX-only,
-item 12).
+`reprice_traced` re-costs the top points from their recorded schedules
+(`analysis/trace.py`: one meta step per pipeline stage, priced op by op
+with `CostModel.price_ops`), the JAX planner's traced pass. Not ported:
+memcheck's verification (`verify_hbm` refuses: tools/memcheck.py is
+JAX-only, item 12).
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ class PlanPoint:
     cost: StepCost
     hbm_est_gib: float
     hbm_fits: bool
+    # the recorded schedule's comm seconds, once reprice_traced ran
+    traced_comm_s: Optional[float] = None
 
     @property
     def label(self) -> str:
@@ -97,6 +100,8 @@ class PlanPoint:
                "hbm_fits": self.hbm_fits,
                **self.cost.as_dict(),
                "overrides": self.overrides_line()}
+        if self.traced_comm_s is not None:
+            out["traced_comm_ms"] = round(self.traced_comm_s * 1e3, 3)
         return out
 
 
@@ -326,6 +331,27 @@ def plan(base: Config, chips: int, model: Optional[CostModel] = None,
                             not p.cfg.distributed.zero1,
                             p.label))
     return pts
+
+
+def reprice_traced(points: list[PlanPoint], model: CostModel,
+                   top_k: int = 3) -> list[PlanPoint]:
+    """Re-cost the first `top_k` feasible points from their recorded
+    schedules (`CostModel.priced_schedule`: a meta step per pipeline
+    stage at the point's own shapes, no card) and re-sort by the traced
+    total: compute, bubble and offload stay analytic, the exposed-comm
+    term becomes the recorded schedule priced per op (the JAX pass)."""
+    done = 0
+    for p in points:
+        if not p.hbm_fits or done >= top_k:
+            continue
+        _, p.traced_comm_s = model.priced_schedule(p.cfg)
+        done += 1
+    points.sort(key=lambda p: (
+        not p.hbm_fits,
+        (p.cost.compute_s + p.cost.bubble_s + p.cost.offload_s
+         + (p.traced_comm_s if p.traced_comm_s is not None
+            else p.cost.exposed_comm_s))))
+    return points
 
 
 # ---------------------------------------------------------------------------

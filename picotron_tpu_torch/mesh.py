@@ -336,6 +336,84 @@ def _cp_mesh(cfg) -> tuple:
     return (cp, 1)
 
 
+# the roles of a layout's groups, in the order every rank makes them
+GROUP_ROLES = ("tp", "data", "cp", "cp_row", "pp", "pp_ends", "ep", "bank",
+               "tp_ty", "tp_tx", "dp_intra", "dp_cross")
+
+
+def _granule(cfg) -> tuple:
+    """(g_dp, inner) of the hierarchical dp reduction; (1, dp) without it."""
+    from picotron_tpu_torch.parallel.hier_reduce import dp_granule, use_hier_dp
+
+    return (dp_granule(cfg) if use_hier_dp(cfg)
+            else (1, cfg.distributed.dp_size))
+
+
+def layout_partitions(cfg) -> dict:
+    """{role: partition} for each of GROUP_ROLES: the rank lists of the
+    layout's groups of that role (module docstring), or None where the
+    layout has none. A role whose groups are another's shares that list
+    object (the bank groups are the data groups at ep 1, the ends groups
+    the pp groups at pp 2, a tp subgroup of the whole tp width the tp
+    groups), and so shares its process group. A rank may lie in no group
+    of a role (the middle stages in the ends groups)."""
+    sizes = layout_sizes(cfg)
+    cp_x, cp_y = _cp_mesh(cfg)
+    tp_x, tp_y = _tp_mesh(cfg)
+    g_dp, inner = _granule(cfg)
+    p = dict.fromkeys(GROUP_ROLES)
+    p["tp"] = group_ranks(sizes, ("tp",))
+    p["data"] = p["bank"] = group_ranks(sizes, DATA_AXES)
+    cp_lists = group_ranks(sizes, ("cp",))
+    if sizes["cp"] > 1:
+        p["cp"] = cp_lists
+    if 1 < cp_y < sizes["cp"]:
+        p["cp_row"] = [r for g in cp_lists
+                       for r in cp_row_ranks(g, cp_x, cp_y)]
+    if sizes["pp"] > 1:
+        p["pp"] = group_ranks(sizes, ("pp",))
+        if cfg.model.tie_word_embeddings:
+            p["pp_ends"] = (p["pp"] if sizes["pp"] == 2
+                            else [[g[0], g[-1]] for g in p["pp"]])
+    if sizes["ep"] > 1:
+        p["ep"] = group_ranks(sizes, ("ep",))
+        p["bank"] = group_ranks(sizes, BANK_AXES)
+    if tp_y > 1 and tp_x > 1:
+        p["tp_ty"], p["tp_tx"] = tp_subgroup_ranks(sizes, tp_x, tp_y)
+    elif tp_y > 1:
+        p["tp_ty"] = p["tp"]
+    elif tp_x > 1:
+        p["tp_tx"] = p["tp"]
+    if g_dp > 1:
+        intra, cross = dp_cohort_ranks(sizes, g_dp, inner)
+        if inner > 1:
+            p["dp_intra"] = intra
+        p["dp_cross"] = cross
+    return p
+
+
+def parallel_env(cfg, rank: int, device: torch.device, backend: str,
+                 groups: dict, host_group=None) -> ParallelEnv:
+    """Rank `rank`'s ParallelEnv over `groups` ({role: this rank's group
+    of that role, or None}: process groups, or any objects with their
+    methods, such as `analysis/trace.py`'s recording groups)."""
+    sizes = layout_sizes(cfg)
+    ring = lambda axis: next(tuple(g) for g in  # noqa: E731
+                             group_ranks(sizes, (axis,)) if rank in g)
+    return ParallelEnv(
+        sizes=sizes, rank=rank, world_size=int(np.prod(list(sizes.values()))),
+        device=device, backend=backend, tp_group=groups["tp"],
+        data_group=groups["data"], host_group=host_group,
+        coords=rank_coords(rank, sizes), cp_group=groups["cp"],
+        cp_ranks=ring("cp"), cp_mesh=_cp_mesh(cfg),
+        cp_row_group=groups["cp_row"], pp_group=groups["pp"],
+        pp_ranks=ring("pp"), pp_ends_group=groups["pp_ends"],
+        ep_group=groups["ep"], bank_group=groups["bank"],
+        tp_mesh=_tp_mesh(cfg), tp_ty_group=groups["tp_ty"],
+        tp_tx_group=groups["tp_tx"], dp_granule=_granule(cfg),
+        dp_intra_group=groups["dp_intra"], dp_cross_group=groups["dp_cross"])
+
+
 _ENVS: dict = {}
 
 
@@ -344,8 +422,8 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
     else from torchrun's environment (initializing the group: NCCL for a
     CUDA `device`, on cuda:LOCAL_RANK, gloo for the CPU); None when there
     is neither, which requires a one-device layout. The groups of one
-    layout are made once per process (every rank makes them in the same
-    order) and reused."""
+    layout (`layout_partitions`) are made once per process (every rank
+    makes them in the same order) and reused."""
     if dist.is_initialized():
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
     else:
@@ -375,76 +453,30 @@ def init_parallel(cfg, device: torch.device) -> Optional[ParallelEnv]:
                                f"got {backend!r}")
         device = torch.device("cuda", local)
         torch.cuda.set_device(device)
-    from picotron_tpu_torch.parallel.hier_reduce import dp_granule, use_hier_dp
-
-    sizes = layout_sizes(cfg)
-    cp_x, cp_y = _cp_mesh(cfg)
-    tp_x, tp_y = _tp_mesh(cfg)
-    granule = dp_granule(cfg) if use_hier_dp(cfg) else (1, sizes["dp"])
-    tied = sizes["pp"] > 1 and cfg.model.tie_word_embeddings
-    key = (tuple(sizes.values()), (cp_x, cp_y), (tp_x, tp_y), granule, tied,
-           world, backend, str(device))
+    parts = layout_partitions(cfg)
+    key = (repr(parts), _cp_mesh(cfg), _tp_mesh(cfg), _granule(cfg), world,
+           backend, str(device))
     if key not in _ENVS:
-        tp_group, _ = dist.new_subgroups_by_enumeration(
-            group_ranks(sizes, ("tp",)))
-        data_group, _ = dist.new_subgroups_by_enumeration(
-            group_ranks(sizes, DATA_AXES))
-        cp_lists = group_ranks(sizes, ("cp",))
-        cp_ranks = next(tuple(g) for g in cp_lists if rank in g)
-        cp_group = row_group = None
-        if sizes["cp"] > 1:
-            cp_group, _ = dist.new_subgroups_by_enumeration(cp_lists)
-        if 1 < cp_y < sizes["cp"]:
-            rows = [r for g in cp_lists for r in cp_row_ranks(g, cp_x, cp_y)]
-            row_group, _ = dist.new_subgroups_by_enumeration(rows)
-        pp_lists = group_ranks(sizes, ("pp",))
-        pp_ranks = next(tuple(g) for g in pp_lists if rank in g)
-        pp_group = ends_group = None
-        if sizes["pp"] > 1:
-            pp_group, _ = dist.new_subgroups_by_enumeration(pp_lists)
-            if tied:
-                ends_group = pp_group
-                if sizes["pp"] > 2:
-                    ends_group, _ = dist.new_subgroups_by_enumeration(
-                        [[g[0], g[-1]] for g in pp_lists])
-            # NCCL: a batched send/recv that is a group's first call must
-            # involve every rank of the group, which a pipeline tick does
-            # not; one all-reduce sets the communicator up first
-            dist.all_reduce(torch.zeros(1, device=device), group=pp_group)
-        ep_group, bank_group = None, data_group
-        if sizes["ep"] > 1:
-            ep_group, _ = dist.new_subgroups_by_enumeration(
-                group_ranks(sizes, ("ep",)))
-            bank_group, _ = dist.new_subgroups_by_enumeration(
-                group_ranks(sizes, BANK_AXES))
-        ty_group = tx_group = None
-        if tp_y > 1 and tp_x > 1:
-            ty, tx = tp_subgroup_ranks(sizes, tp_x, tp_y)
-            ty_group, _ = dist.new_subgroups_by_enumeration(ty)
-            tx_group, _ = dist.new_subgroups_by_enumeration(tx)
-        elif tp_y > 1:
-            ty_group = tp_group
-        elif tp_x > 1:
-            tx_group = tp_group
-        intra_group = cross_group = None
-        if granule[0] > 1:
-            intra, cross = dp_cohort_ranks(sizes, *granule)
-            if granule[1] > 1:
-                intra_group, _ = dist.new_subgroups_by_enumeration(intra)
-            cross_group, _ = dist.new_subgroups_by_enumeration(cross)
+        made, groups = {}, {}
+        for role in GROUP_ROLES:
+            part = parts[role]
+            if part is None:
+                groups[role] = None
+                continue
+            if id(part) not in made:
+                made[id(part)], _ = dist.new_subgroups_by_enumeration(part)
+            groups[role] = made[id(part)]
+            if role == "pp":
+                # NCCL: a batched send/recv that is a group's first call
+                # must involve every rank of the group, which a pipeline
+                # tick does not; one all-reduce sets the communicator up
+                dist.all_reduce(  # shardcheck: ok (set-up, not a step)
+                    torch.zeros(1, device=device), group=groups["pp"])
         # the checkpoint's own group: its commit thread's agreement must
         # not interleave with the step's collectives on another group
         host_group = dist.new_group(backend="gloo")
-        _ENVS[key] = ParallelEnv(
-            sizes=sizes, rank=rank, world_size=world, device=device,
-            backend=backend, tp_group=tp_group, data_group=data_group,
-            host_group=host_group, coords=rank_coords(rank, sizes),
-            cp_group=cp_group, cp_ranks=cp_ranks, cp_mesh=(cp_x, cp_y),
-            cp_row_group=row_group, pp_group=pp_group, pp_ranks=pp_ranks,
-            pp_ends_group=ends_group, ep_group=ep_group,
-            bank_group=bank_group, tp_mesh=(tp_x, tp_y),
-            tp_ty_group=ty_group, tp_tx_group=tx_group, dp_granule=granule,
-            dp_intra_group=intra_group, dp_cross_group=cross_group)
+        _ENVS[key] = parallel_env(cfg, rank, device, backend, groups,
+                                  host_group)
     return _ENVS[key]
 
 

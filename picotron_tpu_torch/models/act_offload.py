@@ -251,7 +251,9 @@ class ActivationParker:
         if free:
             return free.pop()
         self.pinned_bytes += n
-        return torch.empty(n, dtype=torch.uint8, pin_memory=self.cuda), None
+        # the host pool: in host memory by design
+        return torch.empty(  # shardcheck: ok (see above)
+            n, dtype=torch.uint8, pin_memory=self.cuda), None
 
 
 def parker_of(model, device) -> ActivationParker:

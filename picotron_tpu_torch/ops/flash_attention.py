@@ -25,7 +25,9 @@ tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
 kernel launches per kernel, and `fwd_launches`, `dq_launches` and
 `dkv_launches` each kernel's by variant (bf16 on the tensor cores, fp32
-on CUDA cores); plain runs never count.
+on CUDA cores); plain runs never count. Meta tensors (the shapes-only
+step that `analysis/trace.py` records) take the plain version too: it
+launches nothing.
 """
 
 from __future__ import annotations
@@ -278,7 +280,7 @@ def bwd_plain(q4, k4, v4, o4, lse, do4, dlse, qpos, kpos, tabs, causal):
 def _fwd(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
     if q4.is_cuda:
         return fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal)
-    if q4.device.type != "cpu":
+    if q4.device.type not in ("cpu", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q4.device}")
     return fwd_plain(q4, k4, v4, qpos, kpos, tabs, causal)
 
@@ -301,7 +303,7 @@ def _bwd(q4, k4, v4, o4, lse, do4, dlse, qpos, kpos, tabs, causal,
         dk, dv = bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos,
                                 tabs, causal, static_causal)
         return dq, dk, dv
-    if q4.device.type != "cpu":
+    if q4.device.type not in ("cpu", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q4.device}")
     return bwd_plain(q4, k4, v4, o4, lse, do4, dlse, qpos, kpos, tabs, causal)
 
@@ -371,7 +373,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # fold sm_scale into q once, in the input dtype (as the JAX wrapper
     # does, so d = 128 rounds the same way); autograd carries the factor
     # into dq
-    q4 = (q * torch.tensor(sm_scale, dtype=q.dtype)).transpose(1, 2)
+    # (a 0-dim host tensor reaches the kernel as a value: no copy)
+    scale = torch.tensor(sm_scale, dtype=q.dtype)  # shardcheck: ok
+    q4 = (q * scale).transpose(1, 2)
     out4, lse = _FlashCore.apply(
         q4, k.transpose(1, 2), v.transpose(1, 2), qpos, kpos,
         *(tabs or (None,) * 4), causal, static_causal)
@@ -399,7 +403,7 @@ def flash_attention_bwd_from_saved(
     qpos = _positions(q_positions, sq, q.device)
     kpos = _positions(kv_positions, sk, q.device)
     tabs = _tables(rope, qpos, kpos)
-    scale = torch.tensor(sm_scale, dtype=q.dtype)
+    scale = torch.tensor(sm_scale, dtype=q.dtype)  # shardcheck: ok (0-dim)
     t = lambda x: x.transpose(1, 2)  # noqa: E731
     dq4, dk4, dv4 = _bwd(t(q * scale), t(k), t(v), t(out), lse, t(dout),
                          None, qpos, kpos, tabs, causal, static_causal)

@@ -101,7 +101,7 @@ def mesh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 kv_positions=pos[src])
         out_acc, lse_acc = _merge(out_acc, lse_acc, ob.float(), lb.float())
         if step != cp_x - 1:
-            kh, vh = comm.hop([kh, vh], nxt, prv)
+            kh, vh = comm.hop([kh, vh], nxt, prv)  # shardcheck: ok (ring)
     out = out_acc.to(q.dtype)
     if cp_y > 1:
         out = comm.all_to_all(out, 1, 2, row)
@@ -147,8 +147,8 @@ def mesh_attention_bwd_from_saved(
             dk_acc += dk_b.float()
             dv_acc += dv_b.float()
         if step != cp_x - 1:
-            kh, vh, dk_acc, dv_acc = comm.hop([kh, vh, dk_acc, dv_acc], nxt,
-                                              prv)
+            kh, vh, dk_acc, dv_acc = comm.hop(  # shardcheck: ok (ring)
+                [kh, vh, dk_acc, dv_acc], nxt, prv)
     if cp_x > 1:
         dk_acc, dv_acc = comm.hop([dk_acc, dv_acc], nxt, prv)
     grads = (dq_acc.to(q.dtype), dk_acc.to(k.dtype), dv_acc.to(v.dtype))

@@ -102,7 +102,10 @@ def gathered_layout(comm, q_positions: torch.Tensor) -> CPLayout:
     """The layout from each cp rank's own positions [S_local]: one
     all-gather over the cp group and one copy to the host."""
     full = comm.all_gather(q_positions.reshape(-1), range(comm.size))
-    return CPLayout(full.cpu().numpy().reshape(comm.size, -1))
+    # one host read per layout that is not static (the trainer's
+    # layouts are: parallel/cp.layout_from_config)
+    host = full.cpu()  # shardcheck: ok (see above)
+    return CPLayout(host.numpy().reshape(comm.size, -1))
 
 
 def resolve_layout(comm, s_local: int, layout: Optional[CPLayout],
@@ -181,7 +184,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 kv_positions=pos[src])
         out_acc, lse_acc = _merge(out_acc, lse_acc, ob.float(), lb.float())
         if step != n - 1:
-            k, v = comm.hop([k, v], (my + 1) % n, (my - 1) % n)
+            # each hop carries the block the next step reads: a ring
+            k, v = comm.hop(  # shardcheck: ok (see above)
+                [k, v], (my + 1) % n, (my - 1) % n)
     out = out_acc.to(q.dtype)
     return (out, lse_acc) if return_lse else out
 
@@ -225,7 +230,8 @@ def ring_attention_bwd_from_saved(
             dk_acc += dk_b.float()
             dv_acc += dv_b.float()
         if step != n - 1:
-            k, v, dk_acc, dv_acc = comm.hop([k, v, dk_acc, dv_acc], nxt, prv)
+            k, v, dk_acc, dv_acc = comm.hop(  # shardcheck: ok (ring)
+                [k, v, dk_acc, dv_acc], nxt, prv)
     # after n-1 hops this rank holds block my+1's grads: one more hop
     # brings every block's dk/dv home
     dk_acc, dv_acc = comm.hop([dk_acc, dv_acc], nxt, prv)

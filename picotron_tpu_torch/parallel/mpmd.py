@@ -15,9 +15,8 @@ chunk placement; its layers: `models/llama.stage_layers`).
 boundary buffer that nothing consumed. `stage_slice_placement` and
 `check_stage_slice_placement` place the stages on the slices of a
 multi-slice layout (the guard of a pp cut, run when a walk of an mpmd
-table is built); the JAX `boundary_dcn_traffic` (the crossing
-exchanges' bytes, priced by the cost model) is ROADMAP Queue 1 item
-13b.
+table is built), and `boundary_dcn_traffic` prices the exchanges that
+cross the cut (the JAX function of this name).
 """
 
 from __future__ import annotations
@@ -350,3 +349,51 @@ def check_stage_slice_placement(cfg) -> list:
                 f"mesh grid no longer matches mesh._split_axes_over_dcn's "
                 f"house rule; this is a bug, not a layout choice.")
     return placement
+
+
+def boundary_dcn_traffic(cfg, cost_model=None) -> dict:
+    """Per-step traffic of the table's stage-boundary exchanges across the
+    slice cut: which transfers cross it, their bytes, and (with a cost
+    model) seconds on the tier's cross-node term, priced as a
+    point-to-point shift (port of the JAX function of this name; a
+    transfer is one microbatch's [mbs * dp * ep, seq, hidden] in the
+    compute dtype, the JAX size)."""
+    from picotron_tpu_torch.models.llama import compute_dtype
+
+    d = cfg.distributed
+    placement = stage_slice_placement(cfg)
+    n_micro = cfg.training.gradient_accumulation_steps
+    pp, v = d.pp_size, cfg.pipeline.interleave
+    table = build_schedule(cfg.pipeline.schedule, n_micro, pp, v)
+    n_v = pp * v
+    m = cfg.model
+    itemsize = compute_dtype(m).itemsize
+    per_transfer = (cfg.training.micro_batch_size * d.dp_size * d.ep_size
+                    * cfg.training.seq_length * m.hidden_size * itemsize)
+
+    def crosses(j_from: int, j_to: int) -> bool:
+        a, b = placement[j_from % pp], placement[j_to % pp]
+        return a is None or b is None or a != b
+
+    transfers = crossing = 0
+    for op in table:
+        j = op.vstage
+        if op.op == "F" and j < n_v - 1:
+            transfers += 1
+            crossing += crosses(j, j + 1)
+        elif op.op == "B" and j > 0:
+            transfers += 1
+            crossing += crosses(j, j - 1)
+    out = {
+        "slices": max(d.slices, 1),
+        "placement": placement,
+        "transfers": transfers,
+        "crossing": crossing,
+        "bytes_per_transfer": per_transfer,
+        "dcn_bytes": crossing * per_transfer,
+    }
+    if cost_model is not None and d.slices > 1:
+        out["dcn_secs"] = crossing * cost_model.dcn_secs(
+            "collective_permute", per_transfer, d.slices)
+        out["dcn_generation"] = cost_model.gen.name
+    return out

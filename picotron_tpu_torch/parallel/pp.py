@@ -248,7 +248,8 @@ def walk(table: list, index: int, stage, comm, step: Optional[int] = None,
                                  f"split is a table only)")
             if tracer is not None:
                 if torch.cuda.is_initialized():
-                    torch.cuda.synchronize()
+                    # the span ends when the device does (tracer only)
+                    torch.cuda.synchronize()  # shardcheck: ok
                 tracer.complete(f"stage{j}/tick{t}/{o.op}/mb{mb}",
                                 tid=TID_PP_BASE + index,
                                 dur_s=time.perf_counter() - t0, stage=j,
@@ -262,7 +263,9 @@ def walk(table: list, index: int, stage, comm, step: Optional[int] = None,
                 keys.append((buf, j, mb))
         if sends or recvs:
             stats.exchanges += 1
-        for (buf, j, mb), r in zip(keys, comm.exchange(sends, recvs)):
+        # one exchange per tick boundary: the table's order
+        for (buf, j, mb), r in zip(keys, comm.exchange(  # shardcheck: ok
+                sends, recvs)):
             (xbuf if buf == "x" else gbuf)[(j, mb)] = r
     leftover = ([f"activation (vstage={j}, mb={m})" for j, m in sorted(xbuf)]
                 + [f"cotangent (vstage={j}, mb={m})" for j, m in sorted(gbuf)]

@@ -42,11 +42,13 @@ token index) alone, so disaggregated tokens equal the colocated
 engine's (and, greedy, `generate`'s and the JAX disaggregated engine's)
 on any trace, under preemption too.
 
-Not ported (ROADMAP Queue 1 item 13b): the JAX engine's variant-hazard
-check and `analysis/variants.prove_disagg_programs` (they guard against
-XLA recompiles; the port compiles nothing on this path). The handoff's
-worst case is priced by `analysis/cost_model.price_kv_handoff` (the
-bench's `predicted_handoff_*` fields).
+The JAX engine's variant-hazard check runs over both pools
+(`analysis/variants.check_engine_feed`: every persistent input on its
+pool's device, each hazard a `variant_hazard` event), and
+`analysis/variants.prove_disagg_programs` proves the four programs'
+signatures from the config alone. The handoff's worst case is priced by
+`analysis/cost_model.price_kv_handoff` (the bench's
+`predicted_handoff_*` fields).
 """
 
 from __future__ import annotations
@@ -174,6 +176,8 @@ class DisaggServeEngine(ServeEngine):
                                      self.block_size, self.max_blocks)
         self.stats.update(prefill_occupancy_sum=0.0, prefill_ticks=0,
                           handoffs=0, handoff_s=0.0, handoff_blocks=0)
+        # the base engine checked the decode pool; now both pools
+        self.variant_report = self._audit_feed()
 
     # -- prefill-pool table mirror ----------------------------------------
 

@@ -44,10 +44,15 @@ verify-and-accept step (serve/spec_decode.py), keyed the same way at
 every candidate position, so its tokens are the non-speculative ones.
 MoE models are refused, as in the JAX engine.
 
-The JAX engine's sharding discipline and its `analysis.variants` feed
-check guard against JAX recompiles (a new jit variant per committed or
-uncommitted argument). The port has no JIT, so both are dropped; the
-variant audit's port is ROADMAP Queue 1 item 13b. Its CompileWatch books
+The JAX engine's sharding discipline guards against JAX recompiles (a
+new jit variant per committed or uncommitted argument); the port has no
+JIT, so it is dropped. Its feed check stays, for what it means here:
+`analysis/variants.check_engine_feed` proves at construction that every
+persistent input (the model's parameters and buffers, the KV pool, the
+rope tables) lies on the engine's device, the discipline a decode
+captured as a CUDA graph needs, and each hazard it finds is a
+`variant_hazard` telemetry event (`variant_report` keeps the report),
+as in the JAX engine. Its CompileWatch books
 the nvcc builds of `kernels/build.py`, of which the serving path has
 none, so `decode_compiles` counts 0 where the JAX engine counts its one
 decode compile.
@@ -271,6 +276,8 @@ class ServeEngine:
         }
         self._stall_streak = 0  # consecutive ticks: work queued, no decode
         self._next_auto_id = 0
+        self._hazards: set = set()
+        self.variant_report = self._audit_feed()
 
     # -- intake ------------------------------------------------------------
 
@@ -303,6 +310,19 @@ class ServeEngine:
         return True
 
     # -- helpers -----------------------------------------------------------
+
+    def _audit_feed(self):
+        """`analysis/variants.check_engine_feed` over the engine's inputs;
+        each hazard not reported before is a `variant_hazard` event."""
+        from picotron_tpu_torch.analysis.variants import check_engine_feed
+
+        rep = check_engine_feed(self)
+        for f in rep.warnings():
+            if f.path not in self._hazards:
+                self._hazards.add(f.path)
+                self.telemetry.emit("variant_hazard", category="serve",
+                                    path=f.path, message=f.message)
+        return rep
 
     def _up(self, arr: np.ndarray, device=None) -> torch.Tensor:
         """A host array copied to the device (the engine's, or `device`),

@@ -20,9 +20,14 @@ fastest layout as an overrides line. No card is needed.
       # rank agreement against the card's measured points
 
 `--validate-sweep` scores the model against the measured points of
-`analysis/h100_points.json`. Not ported: `--trace` (re-pricing from a traced
-schedule, ROADMAP Queue 1 item 13b); `--verify-hbm` refuses, since
-tools/memcheck.py is JAX-only (item 12).
+`analysis/h100_points.json`. `--trace K` re-costs the top K points from
+their recorded schedules (one meta step per pipeline stage at each
+point's own shapes, `analysis/trace.py`; seconds per point, no card);
+`--verify-hbm` refuses, since tools/memcheck.py is JAX-only (ROADMAP
+Queue 1 item 12).
+
+  python -m picotron_tpu_torch.tools.layout_planner --chips 8 \\
+      --model SmolLM-1.7B --seq 2048 --trace 3
 """
 
 from __future__ import annotations
@@ -66,9 +71,10 @@ def render_table(points, top, markdown=False):
         d = p.as_dict()
         rows.append((i + 1, d["layout"], d["predicted_step_ms"],
                      d["compute_ms"], d["exposed_comm_ms"],
-                     d["bubble_ms"] + d["offload_ms"], d["hbm_est_gib"]))
+                     d["bubble_ms"] + d["offload_ms"],
+                     d.get("traced_comm_ms", ""), d["hbm_est_gib"]))
     hdr = ("rank", "layout", "step_ms", "compute_ms", "comm_ms",
-           "bubble+io_ms", "hbm_est_gib")
+           "bubble+io_ms", "traced_comm_ms", "hbm_est_gib")
     if markdown:
         lines = ["| " + " | ".join(hdr) + " |",
                  "|" + "---|" * len(hdr)]
@@ -116,6 +122,11 @@ def main(argv=None) -> int:
                     help="search only the 5 parallel axes (skip sp/zero1/"
                          "offload toggles)")
     ap.add_argument("--top", type=int, default=10, help="rows to print")
+    ap.add_argument("--trace", type=int, default=0, metavar="K",
+                    help="re-cost the top K points from their recorded "
+                         "collective schedules (a meta step per pipeline "
+                         "stage, priced per op; analysis/planner."
+                         "reprice_traced)")
     ap.add_argument("--verify-hbm", action="store_true",
                     help="refused: memcheck verification is JAX-only")
     ap.add_argument("--json", action="store_true",
@@ -258,6 +269,10 @@ def main(argv=None) -> int:
               f"{gen.name} ({cap:.1f} GiB) — try --hbm-gib, more GPUs, or "
               f"a smaller micro-batch", file=sys.stderr)
         return 1
+    if args.trace > 0:
+        from picotron_tpu_torch.analysis.planner import reprice_traced
+
+        points = reprice_traced(points, model, top_k=args.trace)
     winner = best_point(points, hbm_gib=cap, model=model)
 
     slice_rows = []

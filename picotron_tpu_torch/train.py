@@ -72,10 +72,16 @@ emergency checkpoint (resubmit with auto_resume), 76 diverged, 77 the
 watchdog found no progress. What this slice does not run is refused up
 front, naming the ROADMAP item that ports it (see `unsupported`).
 
-Above world size 1 the trainer runs the JAX trainer's advisory cost
-preflight (`cost_preflight`: the cost model on the h100 tier against the
-planner's best layout; PICOTRON_COST_PREFLIGHT=0 and PICOTRON_COST_GAP
-as there).
+Before the first step the trainer runs the JAX trainer's shardcheck
+preflight (`shardcheck_preflight`, PICOTRON_PREFLIGHT=0 skips it): one
+step recorded on meta through recording groups (`analysis/trace.py`,
+whatever the run's device: static analysis, the step itself then runs
+on the card), audited by the spec lint, the in-place and stability
+hazards, provenance, the signature proofs and, with slices, the slice
+boundary; an error raises `ShardcheckError`. Above world size 1 it also
+runs the JAX trainer's advisory cost preflight (`cost_preflight`: the
+cost model on the h100 tier against the planner's best layout;
+PICOTRON_COST_PREFLIGHT=0 and PICOTRON_COST_GAP as there).
 """
 
 from __future__ import annotations
@@ -178,6 +184,50 @@ def cost_preflight(cfg: Config) -> None:
                       f"layout) is predicted to close "
                       f"{closed / gap_s * 100:.0f}% of that gap — "
                       f"--override pipeline.executor=mpmd")
+
+
+def shardcheck_preflight(cfg: Config) -> dict:
+    """The fail-fast static pre-flight (the JAX trainer's, `train.py:
+    205-245` there): `analysis.preflight` over one step recorded on meta
+    at the config's own shapes. Raises ShardcheckError with the rendered
+    report on any error; prints `shardcheck preflight: ok (...)`, the
+    provenance and signature lines (`shardflow: ...`) and, on a
+    multi-slice layout, `slicecheck: ...`. Returns {"line": the ok line,
+    "seconds", "warnings", "recorded_ops"}."""
+    from picotron_tpu_torch.analysis import preflight
+
+    t0 = time.perf_counter()
+    pre = preflight(cfg)  # raises ShardcheckError with the report
+    secs = time.perf_counter() - t0
+    tr = pre.info.get("trace", {})
+    line = (f"shardcheck preflight: ok ({len(pre.warnings())} warning(s); "
+            f"{len(tr.get('ranks', ()))} program(s) recorded on "
+            f"{tr.get('device')}, {secs:.2f} s)")
+    log_print(line)
+    for f in pre.warnings():
+        if f.check in ("provenance", "variants"):
+            log_print(f"shardcheck preflight WARNING: {f.render()}")
+    prov = pre.info.get("provenance", {})
+    if prov:
+        log_print(f"shardflow: {prov['ops_attributed']}/"
+                  f"{prov['ops_effective']} collective(s) attributed, "
+                  f"{prov['implicit_ops']} implicit, "
+                  f"{prov['boundary_reshards']} predicted reshard(s)")
+    ts = pre.info.get("variants", {}).get("train_step", {})
+    if ts.get("proven"):
+        log_print(f"shardflow: train step proven one signature "
+                  f"({ts['leaves']} leaves)")
+    bnd = pre.info.get("boundary", {})
+    if bnd.get("audited"):
+        # the preflight raised above on any tp/cp/ep group across the
+        # cut, so every crossing collective here is a declared one
+        log_print(f"slicecheck: {bnd['slices']} slices, cut on "
+                  f"[{bnd['cut_axes']}] — {bnd['boundary']} declared "
+                  f"boundary op(s) over [{bnd['dcn_axes']}], "
+                  f"{bnd['intra']} intra-slice, 0 violating "
+                  f"({bnd['dcn_bytes']} B/step across the cut)")
+    return {"line": line, "seconds": secs, "warnings": len(pre.warnings()),
+            "recorded_ops": tr.get("ops")}
 
 
 def tp_slices_line(cfg: Config, par) -> str:
@@ -381,7 +431,8 @@ def _any_rank(flag: bool, par) -> bool:
     if par is None or par.world_size == 1:
         return flag
     t = torch.tensor([int(flag)], device=par.device)
-    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    torch.distributed.all_reduce(  # shardcheck: ok (host control)
+        t, op=torch.distributed.ReduceOp.MAX)
     return bool(t.item())
 
 
@@ -391,14 +442,14 @@ def run(cfg: Config, device: Optional[str] = None,
     "tokens_per_step", "peak_memory_gb", "device", "state", "val_losses",
     "start_step", "restore_timings", "save_timings", "world_size",
     "collectives_per_step", "pipeline", "dataloader_state",
-    "telemetry_path", "trace_path", "profile_path"} (state: the trained
-    TrainState;
+    "telemetry_path", "trace_path", "profile_path", "preflight"} (state:
+    the trained TrainState;
     val_losses: {step: val_loss}; collectives_per_step: the first step's,
     by kind; pipeline: the first step's walk on this rank under pp, else
     None; dataloader_state: the loader's cursor at the end;
     telemetry_path / trace_path: this process's JSONL stream and span
     trace, or None; profile_path: the logging.profile_dir Chrome trace, or
-    None).
+    None; preflight: `shardcheck_preflight`'s dict, None when skipped).
     `on_step(step, metrics)` runs after each completed step with its
     metrics as floats, before the preemption check. Raises
     SystemExit(75/76) on preemption/divergence."""
@@ -424,6 +475,9 @@ def run(cfg: Config, device: Optional[str] = None,
                   + (pipeline_line(cfg) if par.pp_size > 1 else "")
                   + tp_slices_line(cfg, par))
     t, ck = cfg.training, cfg.checkpoint
+    preflight = None
+    if os.environ.get("PICOTRON_PREFLIGHT", "1") != "0":
+        preflight = shardcheck_preflight(cfg)
     if ck.save_frequency > 0:
         est = preflight_save_dir(cfg)  # raises RuntimeError with the story
         log_print(f"checkpoint preflight: ok ({ck.save_dir}, "
@@ -726,7 +780,7 @@ def run(cfg: Config, device: Optional[str] = None,
             "world_size": world, "collectives_per_step": per_step,
             "pipeline": pipeline, "dataloader_state": dl.state,
             "telemetry_path": tel.jsonl_path, "trace_path": tel.trace_path,
-            "profile_path": profiler.path}
+            "profile_path": profiler.path, "preflight": preflight}
 
 
 def write_report(result: dict, path: str) -> None:

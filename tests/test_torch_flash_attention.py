@@ -164,6 +164,18 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="lse/delta"):
         tfa._operands("flash_bwd_dq", q4, k4, k4, pos, pos, None,
                       torch.zeros(1, 4, 7), torch.zeros(1, 4, 8), do4=q4)
-    with pytest.raises(RuntimeError, match="no kernel"):
-        tfa._fwd(q.to("meta"), q.to("meta"), q.to("meta"), None, None, None,
-                 True, True)
+    # a device with neither the kernel nor the plain version (a fake xpu
+    # tensor stands in for one)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.zeros(q.shape, device="xpu")
+        with pytest.raises(RuntimeError, match="no kernel"):
+            tfa._fwd(x, x, x, None, None, None, True, True)
+    # meta (the shapes-only step analysis/trace.py records) takes the plain
+    # version and launches nothing
+    launches = dict(tfa.launches)
+    qm = q.to("meta")
+    out4, lse = tfa._fwd(qm, qm, qm, None, None, None, True, True)
+    assert out4.shape == qm.shape and out4.device.type == "meta"
+    assert tfa.launches == launches

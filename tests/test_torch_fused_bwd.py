@@ -230,9 +230,19 @@ def test_weight_grad_forms_on_the_cpu():
     want = acc + dy.reshape(-1, 3).t() @ x.reshape(-1, 4)
     fused_bwd.accumulate_weight_grad(acc, dy, x)
     torch.testing.assert_close(acc, want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(RuntimeError, match="no path"):
-        fused_bwd.accumulate_weight_grad(acc.to("meta"), dy.to("meta"),
-                                         x.to("meta"))
+    # a device with no path (a fake xpu tensor stands in for one); meta,
+    # the shapes-only step analysis/trace.py records, takes the CPU's
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        with pytest.raises(RuntimeError, match="no path"):
+            fused_bwd.accumulate_weight_grad(
+                torch.zeros(3, 4, device="xpu"),
+                torch.zeros(2, 5, 3, device="xpu"),
+                torch.zeros(2, 5, 4, device="xpu"))
+    meta = acc.to("meta")
+    fused_bwd.accumulate_weight_grad(meta, dy.to("meta"), x.to("meta"))
+    assert meta.shape == acc.shape
 
 
 @pytest.mark.parametrize("bad,match", [

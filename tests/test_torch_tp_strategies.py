@@ -401,7 +401,10 @@ def test_chip_smoke_phase15_thread_worlds_on_the_cpu():
     twins) within 1e-6 of its twin's losses and step-1 grad norm, one
     forward's collectives the promised schedule; the hierarchical grads
     within 1e-6 of the flat ones, the legs by kind, the cross-slice bytes
-    half the flat all-reduce's."""
+    half the flat all-reduce's. Phase 16b's check on the same runs: every
+    thread rank's issued calls (by kind, group and bytes) equal its meta
+    recording, for each bf16 leg and one train step of the slice layout,
+    and shardcheck is green on each."""
     import json
     import os
 
@@ -420,6 +423,14 @@ def test_chip_smoke_phase15_thread_worlds_on_the_cpu():
         hier = chip_smoke.hier_phase(root, "cpu", raw={
             "model": dict(tiny), "training": {},
             "dataset": {"name": "synthetic"}}, dev="cpu", seq=16)
+        checked = {key: chip_smoke.schedules_vs_recorded(
+            key, tcfg.config_from_dict(raw), per_rank, chip_smoke.TP_STEPS)
+            for key, (raw, per_rank) in out.pop("_issued").items()}
+        cfg, per_rank = chip_smoke.hier_step_issued(root, raw={
+            "model": dict(tiny), "training": {},
+            "dataset": {"name": "synthetic"}}, dev="cpu", seq=16)
+        checked["hier"] = chip_smoke.schedules_vs_recorded(
+            "hier", cfg, per_rank, 1)
     finally:
         torch.set_num_threads(threads)
     assert set(out["layouts"]) == {"megatron", "megatron (AD)", "2d 2x2",
@@ -436,3 +447,5 @@ def test_chip_smoke_phase15_thread_worlds_on_the_cpu():
             entry["forward_collectives_promised"], key
     assert hier["worst_grad_rel_l2"] <= 1e-6
     assert hier["cross_over_flat"] == 0.5
+    assert set(checked) == set(out["layouts"]) | {"hier"}
+    assert "reduce_scatter" in checked["hier"]["kinds"]
