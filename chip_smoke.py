@@ -7,10 +7,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
 1. The card (nvidia-smi name and power limit) and the build: nvcc compiles
    picotron_tpu_torch/csrc/flash_attention.cu and csrc/adamw.cu for sm_90a
    from the checkout, both at once (ptxas registers and spills per kernel
-   printed), and cuobjdump's SASS of
-   the library must show HMMA (tensor-core) instructions in both variants
-   (D 64, 128) of each bf16 kernel: the forward, fwd_mma_kernel, the dq,
-   bwd_dq_mma_kernel, and the dk/dv, bwd_dkv_mma_kernel.
+   printed, and the dynamic shared memory of the Hopper dk/dv), and
+   cuobjdump's SASS of the library must show HMMA (mma.sync tensor-core)
+   instructions in both variants (D 64, 128) of the bf16 forward,
+   fwd_mma_kernel, and dq, bwd_dq_mma_kernel, and in the D-128 dk/dv,
+   bwd_dkv_mma_kernel, and HGMMA (wgmma) in the D-64 dk/dv,
+   bwd_dkv_wgmma_kernel.
 2. Each of the three flash-attention kernels against its plain PyTorch
    version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
    D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
@@ -18,7 +20,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    whole K/V) with a nonzero LSE cotangent, and at the per-rank heads of
    tp 4 (SmolLM-1.7B: B 2, Hq = Hkv = 8, D 64; Llama-3-8B: B 1, Hq 8,
    Hkv 2, D 128, and Hq 16, Hkv 4 under the 2d tp strategy at 2 x 2, the
-   shape phase 15 runs). Then each kernel's time at the
+   shape phase 15 runs). At each D-64 shape the dk/dv's rotation
+   pre-pass (`rope_rows`, of q and of k) equals its plain version `_rot`
+   bit for bit. Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
    (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and each
    kernel's time, achieved TFLOP/s and share of its bound at the training
@@ -29,8 +33,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
    offload off. Checks: every loss finite; the last step's loss below the
    first's; each kernel launched 24 x ga x steps times, every launch on
-   its tensor-core kernel (bf16); the AdamW kernel launched once per
-   parameter tensor per step (219 x steps); and the trained
+   its tensor-core kernel (bf16; the dk/dv's on bwd_dkv_wgmma_kernel, each
+   after two launches of the rotation pre-pass); the AdamW kernel
+   launched once per parameter tensor per step (219 x steps); and the trained
    model's loss on the first step's batch (re-read from a fresh loader)
    below that step's loss. The synthetic tokens are uniform random, so a
    later step's fresh batch is learnable only down to the unigram law and
@@ -613,6 +618,9 @@ SHAPES = {
     "mixtral B2 S2048 Hq32 Hkv8 D128 rope static": (2, 32, 8, SEQ, SEQ,
                                                     128, 0),
 }
+# the head dim whose bf16 dk/dv runs bwd_dkv_wgmma_kernel (with its
+# rotation pre-pass); the ops module's WGMMA_DKV_HEAD_DIMS, checked in main
+WGMMA_DKV_D = 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 KERNELS = [  # (counter name, TPU kernel it replaces)
@@ -923,6 +931,9 @@ def bounds_at(b, hq, hkv, d, qpos, kpos, rope: bool) -> dict:
     qb, kvb = b * hq * sq * d * 2, b * hkv * sk * d * 2
     tab = (2 * (sq + sk) * (d // 2) * 4 if rope else 0) + (sq + sk) * 4
     row = b * hq * sq * 4
+    # the Hopper dk/dv's rotation pre-pass writes rotated q and k and the
+    # kernel reads them back
+    prepass = 2 * (qb + kvb) if rope and d == WGMMA_DKV_D else 0
     work = {
         # S = QK^T and O = PV
         "flash_fwd": (4 * d * pairs, qb + 2 * kvb + tab + qb + row),
@@ -930,7 +941,7 @@ def bounds_at(b, hq, hkv, d, qpos, kpos, rope: bool) -> dict:
         "flash_bwd_dq": (6 * d * pairs, 2 * qb + 2 * kvb + tab + 2 * row + qb),
         # S, dP, dV = P^T dO, dK = dS^T Q
         "flash_bwd_dkv": (8 * d * pairs, 2 * qb + 2 * kvb + tab + 2 * row
-                          + 2 * kvb),
+                          + 2 * kvb + prepass),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -979,15 +990,51 @@ def time_kernels(fa, case) -> dict:
     }
 
 
-def sass_hmma(build) -> dict:
-    """HMMA (tensor-core) instructions per kernel in the built library's
-    SASS, by cuobjdump from the toolkit that built it: {mangled name: n}."""
+def check_rope_rows(fa, case, label: str) -> None:
+    """Raise unless the dk/dv's rotation pre-pass gives q and k bit for bit
+    as its plain version `_rot` does."""
+    q, k, _, _, _, tabs, *_ = case
+    for what, x, c, s in (("q", q, *tabs[:2]), ("k", k, *tabs[2:])):
+        got, want = fa.rope_rows(x, c, s), fa._rot(x, c, s, 1.0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{label}: rope_rows of {what} differs from "
+                                 f"_rot in {bad} of {got.numel()} entries")
+    log(f"  rope_rows of q and k: equal to _rot bit for bit")
+
+
+def sass_mma(build) -> dict:
+    """Tensor-core instructions per kernel in the built library's SASS, by
+    cuobjdump from the toolkit that built it: {mangled name: (HMMA, HGMMA)}
+    (mma.sync and wgmma)."""
     lib = build.build("flash_attention")
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return {block.split("\n", 1)[0].strip(): block.count("HMMA")
+    return {block.split("\n", 1)[0].strip():
+            (block.count("HMMA"), block.count("HGMMA"))
             for block in sass.split("Function : ")[1:]}
+
+
+def bf16_variants(key: str, n: int, d: int) -> dict:
+    """The by-variant launch counts `key` (VARIANT_COUNTS) of n bf16
+    launches at head dim d: the dk/dv at WGMMA_DKV_D on its wgmma kernel,
+    every other on the mma.sync one."""
+    if key != "dkv_launches":
+        return {"tensor_core": n, "cuda_core": 0}
+    wg = n if d == WGMMA_DKV_D else 0
+    return {"wgmma": wg, "tensor_core": n - wg, "cuda_core": 0}
+
+
+def check_prepass(counts: dict, d: int, label: str) -> None:
+    """Raise unless the rotation pre-pass ran twice (q, k) per wgmma dk/dv
+    launch (every model here uses RoPE)."""
+    want = 2 * bf16_variants("dkv_launches", counts["launches"][
+        "flash_bwd_dkv"], d)["wgmma"]
+    if counts["prepass_launches"] != {"rope_rows": want}:
+        raise AssertionError(f"{label}: rotation pre-pass launches "
+                             f"{counts['prepass_launches']}, want {want}")
 
 
 @torch.no_grad()
@@ -1023,6 +1070,7 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
     n_tensors = len(list(result["state"].model.parameters()))
     for key in VARIANT_COUNTS:
         result[key] = dict(getattr(fa, key))
+    result["prepass_launches"] = dict(fa.prepass_launches)
     losses = result["losses"]
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -1040,9 +1088,13 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
             raise AssertionError(f"{name} launched {result['launches'][name]} "
                                  f"times on the main path, want {want}")
     for key in VARIANT_COUNTS:
-        if result[key] != {"tensor_core": want, "cuda_core": 0}:
+        if result[key] != bf16_variants(key, want, WGMMA_DKV_D):
             raise AssertionError(f"{key} by variant {result[key]}: want all "
-                                 f"{want} on the tensor-core kernel")
+                                 f"{want} on the tensor-core kernel (the "
+                                 f"dk/dv's on the wgmma one)")
+    check_prepass({"launches": result["launches"],
+                   "prepass_launches": result["prepass_launches"]},
+                  WGMMA_DKV_D, "main path")
     if result["launches"]["adamw"] != n_tensors * STEPS:
         raise AssertionError(f"adamw launched {result['launches']['adamw']} "
                              f"times on the main path, want one per tensor "
@@ -1052,19 +1104,24 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
 
 def launch_counts(fa) -> dict:
     return {"launches": dict(fa.launches),
-            **{key: dict(getattr(fa, key)) for key in VARIANT_COUNTS}}
+            **{key: dict(getattr(fa, key)) for key in VARIANT_COUNTS},
+            "prepass_launches": dict(fa.prepass_launches)}
 
 
-def check_launches(counts: dict, want: dict, label: str) -> None:
+def check_launches(counts: dict, want: dict, label: str,
+                   d: int = WGMMA_DKV_D) -> None:
     """Raise unless each kernel launched `want[name]` times, every launch
-    on its tensor-core kernel."""
+    on its tensor-core kernel for head dim d (`bf16_variants`), with the
+    dk/dv's rotation pre-pass beside the wgmma ones."""
     for (name, _), key in zip(KERNELS, VARIANT_COUNTS):
         n = want[name]
-        if counts["launches"][name] != n or counts[key] != {
-                "tensor_core": n, "cuda_core": 0}:
+        if counts["launches"][name] != n or counts[key] != bf16_variants(
+                key, n, d):
             raise AssertionError(
                 f"{label}: {name} launched {counts['launches'][name]} times "
-                f"({key} {counts[key]}), want {n}, all on the tensor cores")
+                f"({key} {counts[key]}), want {n}, all on the tensor cores "
+                f"(D {d})")
+    check_prepass(counts, d, label)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2250,8 +2307,8 @@ def parallel_pair(here: str, cfg_path: str, steps: int, label: str,
     for name, run in (("plain", plain), ("nccl", ranks)):
         for k, v in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
                      ("flash_bwd_dkv", "dkv")):
-            if run["launches"][k] != per or run["flash_variants"][v] != {
-                    "tensor_core": per, "cuda_core": 0}:
+            if run["launches"][k] != per or run["flash_variants"][v] != (
+                    bf16_variants(v + "_launches", per, WGMMA_DKV_D)):
                 fails.append(f"{name}: {k} launched {run['launches'][k]} "
                              f"({run['flash_variants'][v]}), want {per} on "
                              f"the tensor cores")
@@ -2837,8 +2894,8 @@ def cp_schedules_phase(card: str, shape: tuple = CP_SHAPE) -> dict:
                   and lb["launches"]["flash_bwd_dkv"] == want_n
                   and lb["dq_launches"] == {"tensor_core": want_n,
                                             "cuda_core": 0}
-                  and lb["dkv_launches"] == {"tensor_core": want_n,
-                                             "cuda_core": 0}
+                  and lb["dkv_launches"] == bf16_variants(
+                      "dkv_launches", want_n, CP_SHAPE[-1])
                   and lf["launches"]["flash_bwd_dq"] == 0
                   and lb["launches"]["flash_fwd"] == 0)
             if not ok:
@@ -3002,7 +3059,7 @@ def cp_model_phase(card: str) -> dict:
                              f"(limit {CP_GRAD_RTOL})")
             try:
                 check_launches(counts, {k: want for k, _ in KERNELS},
-                               f"phase 8b {name}")
+                               f"phase 8b {name}", d=128)
             except AssertionError as e:
                 fails.append(str(e))
             if any(dist_calls.values()):
@@ -3260,7 +3317,7 @@ def pp_phase(card: str, raw: Optional[dict] = None) -> dict:
             check_launches(counts, {"flash_fwd": k_all * (1 + recomputes),
                                     "flash_bwd_dq": k_all,
                                     "flash_bwd_dkv": k_all},
-                           f"phase 9 {name}")
+                           f"phase 9 {name}", d=cfg1.model.head_dim)
         except AssertionError as e:
             fails.append(str(e))
         if topt.launches["adamw"] != sum(x["adamw"] for x in stages):
@@ -3823,7 +3880,8 @@ def moe_train_phase(fa, here: str, card: str, peak_flops: float) -> dict:
     adamw = topt.launches["adamw"]
     per = cfg.model.num_hidden_layers * t.gradient_accumulation_steps \
         * t.total_train_steps
-    check_launches(counts, {name: per for name, _ in KERNELS}, "phase 11a")
+    check_launches(counts, {name: per for name, _ in KERNELS}, "phase 11a",
+                   d=cfg.model.head_dim)
     n_tensors = len(cfg_param_names(cfg))
     if adamw != n_tensors * t.total_train_steps:
         raise AssertionError(f"11a: adamw launched {adamw} times, want "
@@ -4020,7 +4078,8 @@ def moe_ep_phase(fa, here: str, card: str, cfg=None, dev="cuda",
                              f"{2 * layers} each")
     if dev.type == "cuda":
         check_launches(counts, {name: layers * (1 + n_ep)
-                                for name, _ in KERNELS}, "phase 11d")
+                                for name, _ in KERNELS}, "phase 11d",
+                       d=cfg.model.head_dim)
     return res
 
 
@@ -6158,15 +6217,24 @@ def main() -> int:
             if ("entry function" in line or "registers" in line
                     or "spill" in line or "error" in line):
                 log(f"ptxas: {line.strip()}")
-    hmma = sass_hmma(build)
-    for fn, n in hmma.items():
-        log(f"sass: {n} HMMA in {fn}")
-    for kernel in ("fwd_mma_kernel", "bwd_dq_mma_kernel",
-                   "bwd_dkv_mma_kernel"):
-        counts = [n for fn, n in hmma.items() if kernel in fn]
-        if len(counts) != 2 or min(counts) == 0:
-            raise AssertionError(f"{kernel}'s SASS (D 64, 128) holds no "
-                                 f"tensor-core HMMA: {counts}")
+    if fa.WGMMA_DKV_HEAD_DIMS != (WGMMA_DKV_D,):
+        raise AssertionError(f"the ops module's wgmma dk/dv head dims "
+                             f"{fa.WGMMA_DKV_HEAD_DIMS} are not "
+                             f"chip_smoke's {WGMMA_DKV_D}")
+    log(f"bwd_dkv_wgmma_kernel: {fa._lib().pt_dkv_wgmma_smem()} bytes of "
+        f"dynamic shared memory per block")
+    mma = sass_mma(build)
+    for fn, (n, ng) in mma.items():
+        log(f"sass: {n} HMMA, {ng} HGMMA in {fn}")
+    # (kernel, instruction, its instantiations: D 64 and 128, or one)
+    for kernel, instr, n_fn in (("fwd_mma_kernel", 0, 2),
+                                ("bwd_dq_mma_kernel", 0, 2),
+                                ("bwd_dkv_mma_kernel", 0, 1),
+                                ("bwd_dkv_wgmma_kernel", 1, 1)):
+        counts = [c[instr] for fn, c in mma.items() if kernel in fn]
+        if len(counts) != n_fn or min(counts) == 0:
+            raise AssertionError(f"{kernel}'s SASS holds no tensor-core "
+                                 f"{('HMMA', 'HGMMA')[instr]}: {counts}")
     log("phase 1 build: ok")
 
     # phase 2: kernels against plain versions
@@ -6174,6 +6242,8 @@ def main() -> int:
     for i, (label, shp) in enumerate(SHAPES.items()):
         case = make_case(fa, rope_tables, *shp, dev=dev, seed=i)
         compare(fa, case, errs, label)
+        if shp[5] == WGMMA_DKV_D:
+            check_rope_rows(fa, case, label)
         del case
         torch.cuda.empty_cache()
     case = make_case(fa, rope_tables, *SLICE_SHAPE, dev=dev, seed=7)
@@ -6380,6 +6450,11 @@ def main() -> int:
             f"seconds {res['step_seconds']}")
     cost_model = cost_model_phase(here, card, cost_points(
         here, result, fused, engines, offload, moe))
+    from picotron_tpu_torch.kernels.variants import ptxas_lines
+
+    dkv_ptxas = [line for line in ptxas_lines(
+        build.BUILD_LOGS.get("flash_attention", ""), "bwd_dkv_wgmma_kernel")
+        if "registers" in line or "spill" in line]
     kernels = []
     for name, replaces in KERNELS:
         ms, plain_ms, lib_ms = times[name]
@@ -6407,6 +6482,12 @@ def main() -> int:
                             for lay, res in tp["layouts"].items()},
             "dots_offload_launches":
                 engines["remat"]["dots_offload"]["launches"][name],
+            # the dk/dv's variants on the main path (D 64: the wgmma
+            # kernel), its rotation pre-pass launches (inside ms and
+            # bound_ms), and the wgmma kernel's ptxas report
+            **({"variants": result["dkv_launches"],
+                "prepass_launches": result["prepass_launches"]["rope_rows"],
+                "ptxas": dkv_ptxas} if name == "flash_bwd_dkv" else {}),
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "

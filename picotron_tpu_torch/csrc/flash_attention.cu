@@ -5,7 +5,12 @@
 //   fwd_kernel         <- _fwd_kernel     (the same), fp32 inputs only
 //   bwd_dq_mma_kernel  <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543), bf16
 //   bwd_dq_kernel      <- _bwd_dq_kernel  (the same), fp32 inputs only
-//   bwd_dkv_mma_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593), bf16
+//   bwd_dkv_wgmma_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593),
+//                           bf16 at D 64, after rope_rows_kernel (which
+//                           replaces no TPU kernel: _bwd_dkv_kernel's
+//                           rotations of q at each visit, :456, and of k
+//                           per block, :433, done once per call)
+//   bwd_dkv_mma_kernel <- _bwd_dkv_kernel (the same), bf16 at D 128
 //   bwd_dkv_kernel     <- _bwd_dkv_kernel (the same), fp32 inputs only
 //
 // What bounds it on the card: causal attention at the training shapes
@@ -31,22 +36,42 @@
 // training shape (PERF.md); wgmma, TMA and warp specialisation are later
 // steps.
 //
-// The bf16 dk/dv (bwd_dkv_mma_kernel) is bound by operations too (8 D
-// FLOPs per visible (q, k) pair against the same bytes), and runs its four
-// products on the tensor cores with the forward's building blocks, the
-// roles turned round: one block of 4 warps per (64-row kv tile, kv head,
-// batch), each warp owning 16 kv rows of dK and dV. K and V are copied
-// once and stay resident (K rotated in place once per block); Q, dO and
-// each q row's position, lse and delta stream through a two-stage cp.async
-// ring over (GQA head x q tile), the next visible step's copy issued
-// before the current one's products, invisible steps never copied, and
-// the landed Q tile rotated in place once (S^T and dK share it). The
-// products are taken transposed (S^T = K Q^T, dV += P^T dO, dP^T = V dO^T,
-// dK += dS^T Q), so the kv rows are the mma rows and P^T and dS^T (from
-// the fp32 P) go from the accumulator fragments straight into bf16 A
-// fragments: neither touches shared memory, and nothing stands between
-// the products. GQA heads accumulate in registers with no atomics. One
-// barrier per step, two with RoPE.
+// The bf16 dk/dv is bound by operations too (8 D FLOPs per visible
+// (q, k) pair against the same bytes), and per pair it also pays one
+// exponential and two bf16 roundings (P and dS) on the CUDA cores. At
+// D 64 (the main path's head dim) it runs bwd_dkv_wgmma_kernel, built
+// from Hopper's own parts: one warpgroup per (64-row kv tile, kv head,
+// batch), heaviest causal tiles first, its four products on wgmma
+// m64n64k16 with fp32 accumulators in registers, taken transposed so that
+// the kv rows are wgmma's M: S^T = K Q^T and dP^T = V dO^T with both
+// operands in shared memory, dV += P^T dO and dK += dS^T Q with P^T and
+// dS^T rounded to bf16 straight from the accumulators into A fragments in
+// registers (neither touches shared memory) and dO and Q read MN-major.
+// K and V arrive once per block by TMA; Q, dO and the step's lse, delta
+// and q positions stream by TMA through a three-stage ring over (GQA head
+// x q tile), in the 128-byte swizzle that wgmma reads, each stage with a
+// full mbarrier (TMA's transaction count) and an empty one (one arrive
+// per warp): no block-wide barrier in the loop. Lane 0 of warp 0 issues
+// the copies, refilling the stage the previous step released while the
+// step's first products run; a separate producer warp would cost the SM
+// its third block (registers, PERF.md). Invisible steps are never copied;
+// GQA heads accumulate in registers with no atomics. Q and K come rotated
+// by rope_rows_kernel, a memory-bound pre-pass over q and k once per call
+// (the mma.sync kernel rotated each Q tile at each of its S/64 visits per
+// head), so only dk's inverse rotation, in fp32 in the epilogue, stays in
+// the kernel. Three blocks fit an SM (168 registers, no spills, 70,456
+// bytes of shared memory); what still bounds it (the per-step chain of
+// products and the CUDA-core work between them) is in PERF.md.
+//
+// At D 128 the wgmma kernel's four accumulators would take 192 registers
+// a thread, so bf16 D 128 stays on bwd_dkv_mma_kernel: the forward's
+// mma.sync building blocks with the roles turned round, one block of 4
+// warps per (64-row kv tile, kv head, batch), each warp owning 16 kv rows
+// of dK and dV, K and V resident (K rotated once per block), Q, dO and
+// the step's rows through a two-stage cp.async ring with the landed Q tile
+// rotated in place (S^T and dK share it), P^T and dS^T packed from the
+// accumulator fragments into A fragments; one barrier per step, two with
+// RoPE. pt_flash_bwd_dkv dispatches on D alone.
 //
 // The bf16 dq (bwd_dq_mma_kernel) is bound by operations as well (6 D
 // FLOPs per visible pair), and runs its three products on the tensor
@@ -91,8 +116,12 @@
 // tables fp32 [S, D/2] already gathered at the positions (null = no RoPE).
 // The bf16 forward also needs q, k, v, out and the tables 16-byte aligned,
 // the bf16 dq q, k, v, dout, dq and the tables, the bf16 dk/dv q, k, v,
-// dout, dk, dv and the tables.
+// dout, dk, dv, the tables and (at D 64, whose q and k come rotated and
+// whose q tables are null) lse, delta and the q positions. The Hopper
+// dk/dv gets its tensor maps from cuTensorMapEncodeTiled, found through
+// cudaGetDriverEntryPoint, so the library still links only the runtime.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -1249,8 +1278,8 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) bwd_dq_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv on CUDA cores, for fp32 inputs (bf16 runs bwd_dkv_mma_kernel): one
-// block per (kv tile, kv head, batch); the inner loop walks the GQA group's
+// dk/dv on CUDA cores, for fp32 inputs (bf16 runs bwd_dkv_wgmma_kernel or
+// bwd_dkv_mma_kernel): one block per (kv tile, kv head, batch); the inner loop walks the GQA group's
 // q heads x q tiles, so grouped heads accumulate in registers.
 // ---------------------------------------------------------------------------
 
@@ -1373,30 +1402,28 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv on the tensor cores (bf16), the design in the note at the top: per
-// step (GQA head, q tile), with kv rows as the mma rows and the 64 q
+// dk/dv on the tensor cores by mma.sync (bf16, D 128), the design in the
+// note at the top: per step (GQA head, q tile), with kv rows as the mma rows and the 64 q
 // columns as the n-dimension,
 //   S^T = K Q^T, P^T = exp(S^T - lse), dV += P^T dO,
 //   dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
 // Fragment layouts as for fwd_mma_kernel.
 // ---------------------------------------------------------------------------
 
-// Shared memory of bwd_dkv_mma_kernel: the resident K and V tiles, two ring
-// stages of Q and two of dO (bf16 rows of D + 8), and the next q tile's
-// RoPE table rows (cos then sin, fp32 rows of D/2 + 4): 73,728 bytes at
-// D 64 and 139,264 at D 128, plus 1,792 static (positions, lse, delta).
+// Shared memory of bwd_dkv_mma_kernel (D 128; D 64 runs
+// bwd_dkv_wgmma_kernel): the resident K and V tiles, two ring stages of Q
+// and two of dO (bf16 rows of D + 8), and the next q tile's RoPE table
+// rows (cos then sin, fp32 rows of D/2 + 4): 139,264 bytes, plus 1,792
+// static (positions, lse, delta).
 template <int D> constexpr size_t dkv_mma_smem() {
   return 6 * BK * (D + 8) * 2 + 2 * BQ * (D / 2 + 4) * 4;
 }
 
-// Blocks per SM: 2 at D 64, set by registers (ptxas: 241, no spills; the
-// live set is the dK and dV accumulators, S^T and dP^T, and the K and V A
-// fragments, 32 registers each), and 1 at D 128, set by shared memory
-// (252 registers, no spills). Staging the q tiles' table rows costs D 128
-// its second block, and still wins with RoPE over reading them from L2
-// between the step's two barriers.
+// One block per SM, set by shared memory (252 registers, no spills).
+// Staging the q tiles' table rows costs it a second block, and still wins
+// with RoPE over reading them from L2 between the step's two barriers.
 template <int D>
-__global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
+__global__ void __launch_bounds__(MMA_NT, 1) bwd_dkv_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1410,13 +1437,11 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
   // LDT: table row stride, padded by 16 bytes
   constexpr int LDS = D + 8, CH = D / 8, KD = D / 16, ND = D / 8;
   constexpr int H = D / 2, LDT = H + 4;
-  // q columns per pass: at D 128 the accumulators take 128 registers, so
-  // S^T and dP^T cover 32 q columns at a time; NC: n-tiles per pass
-  constexpr int QC = D == 64 ? BQ : BQ / 2, NC = QC / 8;
-  // at D 64 the K and V A fragments stay in registers; at D 128 they are
-  // read from the resident tiles at each k-step (64 more registers would
-  // spill)
-  constexpr bool KV_REGS = D == 64;
+  // q columns per pass: the accumulators take 128 registers, so S^T and
+  // dP^T cover 32 q columns at a time; NC: n-tiles per pass. The K and V
+  // A fragments are read from the resident tiles at each k-step (64 more
+  // registers would spill).
+  constexpr int QC = BQ / 2, NC = QC / 8;
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);
   bf16* Vs = Ks + BK * LDS;
@@ -1530,14 +1555,6 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
   // (rows 0-7 / 8-15, k columns 0-7 / 8-15)
   const int a_off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
                     (lane >> 4) * 8;
-  uint32_t kf[KV_REGS ? KD : 1][4], vf[KV_REGS ? KD : 1][4];
-  if constexpr (KV_REGS) {
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      ldsm_x4(kf[kk], Ks + a_off + kk * 16);
-      ldsm_x4(vf[kk], Vs + a_off + kk * 16);
-    }
-  }
 
   float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
@@ -1578,16 +1595,8 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
         uint32_t ka[4], va[4];
-        if constexpr (KV_REGS) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            ka[i] = kf[kk][i];
-            va[i] = vf[kk][i];
-          }
-        } else {
-          ldsm_x4(ka, Ks + a_off + kk * 16);
-          ldsm_x4(va, Vs + a_off + kk * 16);
-        }
+        ldsm_x4(ka, Ks + a_off + kk * 16);
+        ldsm_x4(va, Vs + a_off + kk * 16);
 #pragma unroll
         for (int j2 = 0; j2 < NC / 2; ++j2) {
           // Q and dO rows c0 + j2*16.. as the B fragments of n-tiles 2 j2
@@ -1714,6 +1723,478 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 2 : 1) bwd_dkv_mma_kernel(
           *reinterpret_cast<const uint4*>(kst + r * LDS + c8);
       *reinterpret_cast<uint4*>(dv + o) =
           *reinterpret_cast<const uint4*>(vst + r * LDS + c8);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv on Hopper (bf16, D 64), the design in the note at the top: one
+// warpgroup per (64-row kv tile, kv head, batch); per visible step (GQA
+// head, q tile), with the kv rows as wgmma's M and the 64 q columns as N,
+//   S^T = K Q^T, P^T = exp(S^T - lse), dV += P^T dO,
+//   dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q,
+// Q and K rotated beforehand by rope_rows_kernel. wgmma's accumulator
+// holds, per warp w of the warpgroup and lane (g = lane / 4, t = lane % 4),
+// rows 16 w + g and 16 w + g + 8 at columns 8 j + 2 t, 8 j + 2 t + 1 of
+// each 8-column chunk j, in d[4 j .. 4 j + 3] (PTX ISA, wgmma D fragments).
+// ---------------------------------------------------------------------------
+
+constexpr int WG_NT = 128;             // one warpgroup
+constexpr int WG_D = 64;               // the head dim this kernel serves
+constexpr int WG_NS = 3;               // ring stages
+constexpr int WG_TILE = BQ * WG_D * 2;  // a 64 x 64 bf16 tile: 8 KB
+// a stage's lse or delta row: TMA reads from 16-byte aligned addresses,
+// so a box of WG_BOX entries starts at the aligned entry at or before the
+// tile's first q row (up to 3 early: o = (bh Sq + q0) % 4)
+constexpr int WG_BOX = BQ + 4;
+constexpr int WG_ROW = 384;            // WG_BOX fp32, padded to 128 bytes
+// shared memory, in bytes from a 1024-aligned base (the 128-byte swizzle
+// repeats every 1024 bytes, and wgmma's descriptors assume tiles start on
+// it): K and V, then NS stages of Q, NS of dO, NS rows each of lse, delta
+// and q positions, the kv positions, and the barriers (full[NS],
+// empty[NS], kv)
+constexpr int WG_K = 0;
+constexpr int WG_V = WG_TILE;
+constexpr int WG_Q = 2 * WG_TILE;
+constexpr int WG_DO = WG_Q + WG_NS * WG_TILE;
+constexpr int WG_LSE = WG_DO + WG_NS * WG_TILE;
+constexpr int WG_DL = WG_LSE + WG_NS * WG_ROW;
+constexpr int WG_QP = WG_DL + WG_NS * WG_ROW;
+constexpr int WG_KP = WG_QP + WG_NS * WG_ROW;
+constexpr int WG_BAR = WG_KP + WG_ROW;
+constexpr int WG_SMEM = WG_BAR + (2 * WG_NS + 1) * 8 + 1024;  // + alignment
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// arrive, and expect `bytes` more from the copies that complete on bar
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      ::"r"(bar)
+      : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// TMA: one box of a tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// wgmma descriptor of a 64-row tile of 128-byte rows in the 128-byte
+// swizzle, as TMA writes it: start address >> 4, leading byte offset 16
+// (unused: one swizzle atom spans the operand's 64 columns), stride byte
+// offset 1024 (from one 8-row group to the next), layout 1 = 128-byte
+// swizzle. Read K-major (rows = M or N, k along the row), a k-step of 16
+// starts 32 bytes further (+2); read MN-major (rows = k), 16 rows further
+// (+2048 bytes, +128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of wgmma are in flight
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it
+__device__ __forceinline__ void acc_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B over one k-step of 16, m64n64k16: A (64 x 16) and B (16 x 64,
+// K-major) in shared memory by descriptor; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d += A B over one k-step of 16, m64n64k16: A (64 x 16) from registers in
+// the m16n8k16 A-fragment layout of each warp's 16 rows, B (16 x 64) in
+// shared memory by descriptor, MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The rotation pre-pass: a [B, H, S, D] bf16 tensor rotated by the
+// gathered fp32 tables c, s [S, D/2] (its position index along S) into y,
+// with rope_tile's arithmetic (fp32 rotate-half, each product rounded on
+// its own, rounded to bf16), so that the dk/dv kernel's products see the
+// operands a per-tile rotation gave. One thread per 8 columns of a row
+// position, batch and group of ROPE_HEADS heads, which loads its table
+// entries once and walks the group. Bound by bytes: each element read and
+// written once.
+constexpr int ROPE_HEADS = 4;
+template <int D>
+__global__ void __launch_bounds__(256) rope_rows_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ c,
+    const float* __restrict__ s, __nv_bfloat16* __restrict__ y, int H,
+    int S) {
+  constexpr int HD = D / 2, CH = HD / 8;
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  if (idx >= S * CH) return;
+  const int row = idx / CH, d = (idx % CH) * 8;
+  const float4 c0 = *reinterpret_cast<const float4*>(c + row * HD + d);
+  const float4 c1 = *reinterpret_cast<const float4*>(c + row * HD + d + 4);
+  const float4 s0 = *reinterpret_cast<const float4*>(s + row * HD + d);
+  const float4 s1 = *reinterpret_cast<const float4*>(s + row * HD + d + 4);
+  const float cc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float ss[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const int h_end = min(H, (int)(blockIdx.z + 1) * ROPE_HEADS);
+#pragma unroll
+  for (int h = blockIdx.z * ROPE_HEADS; h < h_end; ++h) {
+    const size_t o = (((size_t)blockIdx.y * H + h) * S + row) * D + d;
+    float a[8], b[8], ar[8], br[8];
+    unpack8(*reinterpret_cast<const uint4*>(x + o), a);
+    unpack8(*reinterpret_cast<const uint4*>(x + o + HD), b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ar[i] = __fsub_rn(__fmul_rn(a[i], cc[i]), __fmul_rn(b[i], ss[i]));
+      br[i] = __fadd_rn(__fmul_rn(b[i], cc[i]), __fmul_rn(a[i], ss[i]));
+    }
+    *reinterpret_cast<uint4*>(y + o) = pack8(ar);
+    *reinterpret_cast<uint4*>(y + o + HD) = pack8(br);
+  }
+}
+
+// Three blocks per SM: 168 registers (ptxas: no spills), and 3 x 70,456
+// bytes of shared memory. Two blocks of 191 registers were 11% slower
+// (PERF.md): the more warps an SM holds, the more of one block's
+// exponentials run under another's products.
+__global__ void __launch_bounds__(WG_NT, 3) bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_lse,
+    const __grid_constant__ CUtensorMap tm_dl,
+    const __grid_constant__ CUtensorMap tm_qp,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    const float* ck, const float* sk, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int static_causal) {
+  constexpr int D = WG_D, H = D / 2;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = wg_smem + (base - raw);
+  int* kp_s = reinterpret_cast<int*>(gbase + WG_KP);
+  const uint32_t full0 = base + WG_BAR, empty0 = full0 + 8 * WG_NS;
+  const uint32_t kv_bar = empty0 + 8 * WG_NS;
+
+  // static-causal: kv tile 0 sees the most q tiles, so ascending blockIdx.x
+  // already launches the heaviest blocks first
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int n_rep = Hq / Hkv;
+  const int k0 = kt * BK, nk = min(BK, Sk - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+
+  if (tid < BK) kp_s[tid] = causal && tid < nk ? kpos[k0 + tid] : 0;
+  if (tid == 0) {
+    for (int s = 0; s < WG_NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the copier's arrive.expect_tx
+      mbar_init(empty0 + 8 * s, 4);  // one arrive per warp
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers and kv positions, once, before the loop
+  int kmin = 0, kmax = 0;
+  if (causal && !static_causal) tile_minmax(kpos + k0, nk, kmin, kmax);
+
+  // the inner loop walks (GQA head gh < n_rep) x (q tile >= qt_start) as
+  // one sequence it = gh * nqt + (qt - qt_start); static-causal: q tiles
+  // before the first one that can see this kv tile are never visited
+  // (_q_eff)
+  const int num_q = (Sq + BQ - 1) / BQ;
+  const int qt_start = static_causal ? k0 / BQ : 0;
+  const int nqt = max(0, num_q - qt_start);
+  const int it_end = n_rep * nqt;
+  auto q_start = [&](int it) { return (qt_start + it % nqt) * BQ; };
+  auto tile_class = [&](int it) {
+    const int q0 = q_start(it), nq = min(BQ, Sq - q0);
+    int qmin = 0, qmax = 0;
+    if (causal && !static_causal) tile_minmax(qpos + q0, nq, qmin, qmax);
+    return classify(causal, static_causal, q0, nq, k0, nk, qmin, qmax, kmin,
+                    kmax);
+  };
+  // the first visible (head, q tile) at or after it (it_end if none) and
+  // its class: invisible tiles are neither copied nor multiplied. Every
+  // lane of a warp calls it (tile_minmax is warp-wide).
+  auto next_visible = [&](int it, TileClass& cls) {
+    for (; it < it_end; ++it) {
+      cls = tile_class(it);
+      if (cls.visible) return it;
+    }
+    return it_end;
+  };
+  // lane 0 of warp 0 copies step it into ring stage st by TMA: the Q and
+  // dO tiles (rows past Sq zero-filled), the lse and delta rows from the
+  // aligned entry before the tile and, when causal, the q positions
+  // (entries past the tile's end are masked)
+  const uint32_t step_bytes =
+      2 * WG_TILE + 2 * WG_BOX * 4 + (causal ? BQ * 4 : 0);
+  auto row0 = [&](int it) {  // the tile's first lse entry
+    return (b * Hq + hk * n_rep + it / nqt) * Sq + q_start(it);
+  };
+  auto issue = [&](int it, int st) {
+    const int q0 = q_start(it);
+    const int bh = b * Hq + hk * n_rep + it / nqt;
+    const uint32_t bar = full0 + 8 * st;
+    mbar_expect_tx(bar, step_bytes);
+    tma_load_3d(base + WG_Q + st * WG_TILE, &tm_q, bar, 0, q0, bh);
+    tma_load_3d(base + WG_DO + st * WG_TILE, &tm_do, bar, 0, q0, bh);
+    tma_load_1d(base + WG_LSE + st * WG_ROW, &tm_lse, bar, row0(it) & ~3);
+    tma_load_1d(base + WG_DL + st * WG_ROW, &tm_dl, bar, row0(it) & ~3);
+    if (causal) tma_load_1d(base + WG_QP + st * WG_ROW, &tm_qp, bar, q0);
+  };
+
+  TileClass cls, cls_p;
+  int it = next_visible(0, cls);
+  // warp 0's cursor: the next visible step to copy
+  int ip = it;
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * WG_TILE);
+      tma_load_3d(base + WG_K, &tm_k, kv_bar, 0, k0, b * Hkv + hk);
+      tma_load_3d(base + WG_V, &tm_v, kv_bar, 0, k0, b * Hkv + hk);
+    }
+    for (int st = 0; st < WG_NS && ip < it_end; ++st) {
+      if (lane == 0) issue(ip, st);
+      __syncwarp();
+      ip = next_visible(ip + 1, cls_p);
+    }
+  }
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+  // S^T then P^T, and dP^T then dS^T (overwritten by each step's first
+  // k-step)
+  float p[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    p[i] = 0.f;
+    dp[i] = 0.f;
+  }
+  mbar_wait(kv_bar, 0);
+  const uint64_t k_desc = sw128_desc(base + WG_K);
+  const uint64_t v_desc = sw128_desc(base + WG_V);
+
+  for (int n = 0; it < it_end; ++n) {
+    const int st = n % WG_NS;
+    const uint32_t parity = (n / WG_NS) & 1;
+    mbar_wait(full0 + 8 * st, parity);  // step it has landed in stage st
+    const int nq = min(BQ, Sq - q_start(it));
+    const uint32_t qa = base + WG_Q + st * WG_TILE;
+    const uint32_t oa = base + WG_DO + st * WG_TILE;
+    const int* qp_s = reinterpret_cast<const int*>(gbase + WG_QP + st * WG_ROW);
+    const int o = row0(it) & 3;
+    const float* lse_s =
+        reinterpret_cast<const float*>(gbase + WG_LSE + st * WG_ROW) + o;
+    const float* dl_s =
+        reinterpret_cast<const float*>(gbase + WG_DL + st * WG_ROW) + o;
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups: the exponentials of S^T
+    // run while dP^T is still being multiplied
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(p, k_desc + 2 * kk, sw128_desc(qa) + 2 * kk, kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, v_desc + 2 * kk, sw128_desc(oa) + 2 * kk, kk);
+    wg_commit();
+    // while they run, warp 0 refills the stage step n - 1 released (every
+    // warp has arrived on it: all four issued the products above) with the
+    // visible step WG_NS - 1 ahead
+    if (n > 0 && warp == 0 && ip < it_end) {
+      const int sp = (n - 1) % WG_NS;
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * sp, ((n - 1) / WG_NS) & 1);
+        issue(ip, sp);
+      }
+      __syncwarp();
+      ip = next_visible(ip + 1, cls_p);
+    }
+    wg_wait<1>();
+    acc_fence(p);
+    // P^T = exp(S^T - lse[c]) in fp32: this lane holds kv rows r (e = 0, 1:
+    // 16 warp + g; e = 2, 3: + 8) at q columns cb, cb + 1 of each chunk j
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int cb = j * 8 + tig * 2;
+      // exp(x) as exp2(x log2 e); a column with no visible key (lse =
+      // -inf) must give P = 0, so its shift is +inf
+      const float lb[2] = {
+          lse_s[cb] <= NEG ? INFINITY : lse_s[cb] * LOG2E,
+          lse_s[cb + 1] <= NEG ? INFINITY : lse_s[cb + 1] * LOG2E};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = warp * 16 + g + (e >> 1) * 8, c = cb + (e & 1);
+        float sv = p[4 * j + e];
+        if (!cls.full) {
+          const bool ok = c < nq && (!causal || qp_s[c] >= kp_s[r]);
+          if (!ok) sv = NEG;
+        }
+        p[4 * j + e] = fast_exp2(fmaf(sv, LOG2E, -lb[e & 1]));
+      }
+    }
+    wg_wait<0>();
+    acc_fence(dp);
+    // dS^T = P^T (dP^T - delta[c]) from the fp32 P, then both rounded to
+    // bf16 as A fragments: k-step kk (q rows 16 kk..) is chunks 2 kk and
+    // 2 kk + 1, so P and dS never touch shared memory
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float dl[2] = {dl_s[j * 8 + tig * 2], dl_s[j * 8 + tig * 2 + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - dl[e & 1]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // chunk 2 kk + i / 2, rows (i & 1)
+        pa[kk][i] = pack_bf16(p[8 * kk + 2 * i], p[8 * kk + 2 * i + 1]);
+        sa[kk][i] = pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+      }
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major from the
+    // stage; the stage is released once both have read it
+    acc_fence(dv_acc);
+    acc_fence(dk_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs_t(dv_acc, pa[kk], sw128_desc(oa + kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs_t(dk_acc, sa[kk], sw128_desc(qa + kk * 2048));
+    wg_commit();
+    wg_wait<0>();
+    acc_fence(dv_acc);
+    acc_fence(dk_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    it = next_visible(it + 1, cls);
+  }
+
+  // dk was accumulated against the rotated k: back through the rotation's
+  // transpose, y c + y[d+D/2] s (d < D/2), y c - y[d-D/2] s, each product
+  // rounded on its own as the plain version's separate fp32 ops round them.
+  // Column d and d + D/2 are chunks j and j + 4 of the same lane and e.
+  if (ck != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      if (r >= nk) continue;  // past Sk: no table row, never written
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const size_t t = (size_t)(k0 + r) * H + j * 8 + tig * 2 + (e & 1);
+          const float c = ck[t], s = sk[t];
+          const float x = dk_acc[4 * j + e], y = dk_acc[4 * (j + D / 16) + e];
+          dk_acc[4 * j + e] = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+          dk_acc[4 * (j + D / 16) + e] =
+              __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, s));
+        }
+    }
+  }
+  // dK and dV rounded to bf16 and stored from the accumulators, two
+  // columns per store; rows past Sk are not written
+  const size_t kv_row0 = (size_t)(b * Hkv + hk) * Sk + k0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    if (r >= nk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t o = (kv_row0 + r) * D + j * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(dk + o) =
+          pack_bf16(dk_acc[4 * j + 2 * i], dk_acc[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + o) =
+          pack_bf16(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -1866,6 +2347,111 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// cuTensorMapEncodeTiled (libcuda, not the runtime) through the runtime's
+// entry point query, so the library needs no -lcuda; null if not found
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the map of a contiguous bf16 [planes, rows, 64] tensor in 64 x 64 boxes,
+// written in the 128-byte swizzle; boxes past `rows` are zero-filled
+bool tile_map(CUtensorMap* map, const void* p, int rows, int planes) {
+  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)rows * 64 * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(p), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+// the map of n contiguous 4-byte values in boxes of `box`, zero past n
+bool row_map(CUtensorMap* map, const void* p, int n, int box_n,
+             CUtensorMapDataType t) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {4};
+  const cuuint32_t box[1] = {(cuuint32_t)box_n}, unit[1] = {1};
+  return encode_tiled()(map, t, 1, const_cast<void*>(p), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_rope_rows(const void* x, const void* c, const void* s,
+                             void* y, int B, int H, int S,
+                             cudaStream_t stream) {
+  // 16-byte loads and stores
+  if (((uintptr_t)x | (uintptr_t)c | (uintptr_t)s | (uintptr_t)y) & 15)
+    return cudaErrorMisalignedAddress;
+  dim3 grid((S * (D / 16) + 255) / 256, B, (H + ROPE_HEADS - 1) / ROPE_HEADS);
+  rope_rows_kernel<D><<<grid, 256, 0, stream>>>(
+      (const __nv_bfloat16*)x, (const float*)c, (const float*)s,
+      (__nv_bfloat16*)y, H, S);
+  return cudaGetLastError();
+}
+
+// q and k arrive rotated (rope_rows_kernel), so there are no q tables; ck
+// and sk, when given, are the tables of dk's inverse rotation
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             const void* qpos, const void* kpos,
+                             const void* cq, const void* sq, const void* ck,
+                             const void* sk, int B, int Hq, int Hkv, int Sq,
+                             int Sk, int causal, int static_causal,
+                             cudaStream_t stream) {
+  if (cq != nullptr || sq != nullptr) return cudaErrorInvalidValue;
+  // TMA reads from 16-byte aligned addresses; the stores move 4 bytes
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)lse |
+                         (uintptr_t)delta | (uintptr_t)qpos |
+                         (uintptr_t)dk | (uintptr_t)dv;
+  if (addr & 15) return cudaErrorMisalignedAddress;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo, tl, td, tp;
+  if (!tile_map(&tq, q, Sq, B * Hq) || !tile_map(&tdo, dout, Sq, B * Hq) ||
+      !tile_map(&tk, k, Sk, B * Hkv) || !tile_map(&tv, v, Sk, B * Hkv) ||
+      !row_map(&tl, lse, B * Hq * Sq, WG_BOX,
+               CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !row_map(&td, delta, B * Hq * Sq, WG_BOX,
+               CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !row_map(&tp, qpos, Sq, BQ, CU_TENSOR_MAP_DATA_TYPE_INT32))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WG_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sk + BK - 1) / BK, Hkv, B);
+  bwd_dkv_wgmma_kernel<<<grid, WG_NT, WG_SMEM, stream>>>(
+      tq, tk, tv, tdo, tl, td, tp, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      (const int*)qpos, (const int*)kpos, (const float*)ck, (const float*)sk,
+      Hq, Hkv, Sq, Sk, causal, static_causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry dispatches on (input type, head dim); anything else is refused.
@@ -1914,15 +2500,30 @@ int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* sk, int B, int Hq, int Hkv, int Sq, int Sk,
                      int D, int causal, int static_causal, int is_bf16,
                      void* stream) {
-  // bf16 inputs run the tensor-core dk/dv, fp32 inputs the CUDA-core one
+  // bf16 inputs run the Hopper dk/dv at D 64 (q and k rotated beforehand,
+  // by pt_rope_rows) and the mma.sync one at D 128; fp32 inputs the
+  // CUDA-core one
 #define PT_DKV_ARGS                                                         \
   q, k, v, dout, lse, delta, dk, dv, qpos, kpos, cq, sq, ck, sk, B, Hq, Hkv, \
       Sq, Sk, causal, static_causal, (cudaStream_t)stream
-  if (is_bf16 && D == 64) return (int)launch_dkv_mma<64>(PT_DKV_ARGS);
+  if (is_bf16 && D == 64) return (int)launch_dkv_wgmma(PT_DKV_ARGS);
   if (is_bf16 && D == 128) return (int)launch_dkv_mma<128>(PT_DKV_ARGS);
   if (!is_bf16 && D == 64) return (int)launch_dkv<float, 64>(PT_DKV_ARGS);
   if (!is_bf16 && D == 128) return (int)launch_dkv<float, 128>(PT_DKV_ARGS);
 #undef PT_DKV_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// the Hopper dk/dv's dynamic shared memory per block, in bytes
+int pt_dkv_wgmma_smem(void) { return WG_SMEM; }
+
+// the rotation pre-pass of the Hopper dk/dv: x [B, H, S, D] bf16 by the
+// gathered tables [S, D/2] fp32, into y
+int pt_rope_rows(const void* x, const void* c, const void* s, void* y, int B,
+                 int H, int S, int D, void* stream) {
+  if (D == WG_D)
+    return (int)launch_rope_rows<WG_D>(x, c, s, y, B, H, S,
+                                       (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,10 +4,12 @@
 Port of picotron_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 there (`_fwd_kernel` :139, `_bwd_dq_kernel` :327, `_bwd_dkv_kernel` :412)
 become CUDA kernels for sm_90a (all three on the tensor cores for bf16,
-on CUDA cores for fp32); the source note at the top of the
-.cu file says what bounds them on the card (operations: causal attention
-at S = 2048 is far above the card's FLOP/byte ridge) and what their design
-does about it. The public contract is the JAX one:
+on CUDA cores for fp32; the bf16 dk/dv at D 64 on Hopper's wgmma, fed by
+TMA, after a pre-pass that rotates q and k once per call); the source
+note at the top of the .cu file says what bounds them on the card
+(operations: causal attention at S = 2048 is far above the card's
+FLOP/byte ridge) and what their design does about it. The public
+contract is the JAX one:
 
     flash_attention(q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D], causal=, q_positions=,
                     kv_positions=, return_lse=, sm_scale=, rope=)
@@ -23,11 +25,12 @@ CPU tensors run the plain version, RoPE in fp32 + `sdpa_attention` /
 `sdpa_attention_bwd_from_saved` on the same [B,H,S,D] layout, so the CPU
 tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
-kernel launches per kernel, and `fwd_launches`, `dq_launches` and
+kernel launches per kernel, `fwd_launches`, `dq_launches` and
 `dkv_launches` each kernel's by variant (bf16 on the tensor cores, fp32
-on CUDA cores); plain runs never count. Meta tensors (the shapes-only
-step that `analysis/trace.py` records) take the plain version too: it
-launches nothing.
+on CUDA cores; dk/dv's bf16 D 64 on wgmma), and `prepass_launches` the
+dk/dv's rotation pre-pass; plain runs never count. Meta tensors (the
+shapes-only step that `analysis/trace.py` records) take the plain
+version too: it launches nothing.
 """
 
 from __future__ import annotations
@@ -50,10 +53,18 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 fwd_launches = {"tensor_core": 0, "cuda_core": 0}
 # the same for dq: `bwd_dq_mma_kernel` (bf16) or `bwd_dq_kernel` (fp32)
 dq_launches = {"tensor_core": 0, "cuda_core": 0}
-# the same for dk/dv: `bwd_dkv_mma_kernel` (bf16) or `bwd_dkv_kernel` (fp32)
-dkv_launches = {"tensor_core": 0, "cuda_core": 0}
+# the same for dk/dv: `bwd_dkv_wgmma_kernel` (bf16, D 64), `bwd_dkv_mma_kernel`
+# (bf16, D 128) or `bwd_dkv_kernel` (fp32)
+dkv_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
+# the dk/dv's rotation pre-pass (`rope_rows_kernel`), once for q and once
+# for k in each bf16 D-64 dk/dv call with RoPE
+prepass_launches = {"rope_rows": 0}
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+# the head dims whose bf16 dk/dv runs `bwd_dkv_wgmma_kernel` (a static
+# dispatch on D in `pt_flash_bwd_dkv`: at D 128 its accumulators do not
+# fit the registers, and `bwd_dkv_mma_kernel` serves it)
+WGMMA_DKV_HEAD_DIMS = (64,)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -62,17 +73,19 @@ _COUNT_LOCK = threading.Lock()
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for counts in (launches, fwd_launches, dq_launches, dkv_launches):
+        for counts in (launches, fwd_launches, dq_launches, dkv_launches,
+                       prepass_launches):
             for key in counts:
                 counts[key] = 0
 
 
-def _count(name: str, variants: dict, dtype) -> None:
-    """One launch of kernel `name` (its variant by dtype)."""
+def _count(name: str, variants: dict, dtype,
+           variant: Optional[str] = None) -> None:
+    """One launch of kernel `name` (its variant `variant`, else by dtype)."""
     with _COUNT_LOCK:
         launches[name] += 1
-        variants["tensor_core" if dtype == torch.bfloat16
-                 else "cuda_core"] += 1
+        variants[variant or ("tensor_core" if dtype == torch.bfloat16
+                             else "cuda_core")] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +104,10 @@ def _lib():
         lib.pt_flash_fwd.argtypes = [_P] * 11 + [_I] * 9 + [_P]
         lib.pt_flash_bwd_dq.argtypes = [_P] * 13 + [_I] * 9 + [_P]
         lib.pt_flash_bwd_dkv.argtypes = [_P] * 14 + [_I] * 9 + [_P]
-        for fn in (lib.pt_flash_fwd, lib.pt_flash_bwd_dq, lib.pt_flash_bwd_dkv):
+        lib.pt_rope_rows.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.pt_dkv_wgmma_smem.argtypes = []
+        for fn in (lib.pt_flash_fwd, lib.pt_flash_bwd_dq, lib.pt_flash_bwd_dkv,
+                   lib.pt_rope_rows, lib.pt_dkv_wgmma_smem):
             fn.restype = _I
         lib._pt_typed = True
     return lib
@@ -209,13 +225,25 @@ def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
                    static_causal):
     """Launch the dk/dv kernel -> dk4, dv4 [B,Hkv,Sk,D].
 
-    `pt_flash_bwd_dkv` dispatches by dtype: bf16 (the training path) always
-    runs `bwd_dkv_mma_kernel` on the tensor cores, fp32 runs the CUDA-core
-    `bwd_dkv_kernel`; `dkv_launches` records which."""
+    `pt_flash_bwd_dkv` dispatches by dtype and head dim: bf16 (the
+    training path) at D 64 runs `bwd_dkv_wgmma_kernel` (wgmma fed by TMA),
+    with q and k rotated once beforehand by `rope_rows_kernel` (two launches of
+    the pre-pass; only dk's inverse rotation stays in the kernel); bf16 at
+    D 128 runs `bwd_dkv_mma_kernel` (mma.sync, RoPE per tile); fp32 runs
+    the CUDA-core `bwd_dkv_kernel`. `dkv_launches` records which."""
     q4, k4, v4, do4, qpos, kpos, tabs, lse, delta = _operands(
         "flash_bwd_dkv", q4, k4, v4, qpos, kpos, tabs, lse, delta, do4=do4)
     b, hq, sq, d = q4.shape
     hkv, sk = k4.shape[1], k4.shape[2]
+    wgmma = q4.dtype == torch.bfloat16 and d in WGMMA_DKV_HEAD_DIMS
+    if wgmma:
+        # TMA reads 16-byte aligned rows
+        lse, delta, qpos = (t if t.data_ptr() % 16 == 0 else t.clone()
+                            for t in (lse, delta, qpos))
+        if tabs[0] is not None:
+            q4 = rope_rows_kernel(q4, tabs[0], tabs[1])
+            k4 = rope_rows_kernel(k4, tabs[2], tabs[3])
+            tabs = (None, None, tabs[2], tabs[3])
     dk = torch.empty_like(k4)
     dv = torch.empty_like(v4)
     rc = _lib().pt_flash_bwd_dkv(
@@ -224,8 +252,41 @@ def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
         hkv, sq, sk, d, int(causal), int(static_causal),
         int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_bwd_dkv")
-    _count("flash_bwd_dkv", dkv_launches, q4.dtype)
+    _count("flash_bwd_dkv", dkv_launches, q4.dtype, "wgmma" if wgmma else None)
     return dk, dv
+
+
+def rope_rows_kernel(x4, c, s):
+    """Launch the dk/dv's rotation pre-pass: x4 [B,H,S,D] bf16 (D in
+    WGMMA_DKV_HEAD_DIMS) rotated by the gathered tables c, s [S, D/2] fp32
+    -> a new [B,H,S,D] bf16 tensor, bit for bit `_rot(x4, c, s, 1.0)`."""
+    b, h, sq, d = x4.shape
+    if x4.dtype != torch.bfloat16 or d not in WGMMA_DKV_HEAD_DIMS:
+        raise ValueError(f"rope_rows: CUDA kernel takes bf16 with head_dim "
+                         f"in {WGMMA_DKV_HEAD_DIMS}, got {x4.dtype} {d}")
+    for t in (c, s):
+        if (t.shape != (sq, d // 2) or t.dtype != torch.float32
+                or t.device != x4.device):
+            raise ValueError(f"rope_rows: tables must be float32 "
+                             f"{(sq, d // 2)} on {x4.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    x4, c, s = x4.contiguous(), c.contiguous(), s.contiguous()
+    y = torch.empty_like(x4)
+    rc = _lib().pt_rope_rows(_ptr(x4), _ptr(c), _ptr(s), _ptr(y), b, h, sq,
+                             d, _stream(x4))
+    _raise_on(rc, "rope_rows")
+    with _COUNT_LOCK:
+        prepass_launches["rope_rows"] += 1
+    return y
+
+
+def rope_rows(x4, c, s):
+    """x4 [B,H,S,D] rotated by the gathered tables c, s [S, D/2]: the
+    pre-pass kernel on CUDA tensors, `_rot` (its plain version) on the
+    CPU."""
+    if x4.is_cuda:
+        return rope_rows_kernel(x4, c, s)
+    return _rot(x4, c, s, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -54,8 +54,11 @@ from picotron_tpu_torch.mesh import launcher_contract, shutdown
 _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
           ("bwd_dq_mma_kernel", "bwd_dq_kernel"),
           ("bwd_dq_kernel", "bwd_dq_kernel"),
+          ("bwd_dkv_wgmma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_mma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_kernel", "bwd_dkv_kernel"))
+# the dk/dv's rotation pre-pass, a class of its own
+_ROPE = ("rope_rows_kernel", "rope_rows")
 _GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 RANGES = ("train_step.grad_norm", "Optimizer.step")
 # the offloaded update's pieces, inside its Optimizer.step range
@@ -67,6 +70,8 @@ def kernel_class(name: str) -> str:
     for k, cls in _FLASH:
         if k in name:
             return "flash:" + cls
+    if _ROPE[0] in name:
+        return "flash:" + _ROPE[1]
     if "adamw_kernel" in name:
         return "adamw"
     if "nccl" in low:

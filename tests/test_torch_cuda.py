@@ -115,10 +115,16 @@ def test_kernels_match_plain(case, dtype, dev):
         _assert_close(a, b_, dtype, name)
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    # bf16 runs the tensor-core kernels, fp32 the CUDA-core ones
+    # bf16 runs the tensor-core kernels, fp32 the CUDA-core ones; the bf16
+    # dk/dv at D 64 runs the wgmma kernel, after two rotation pre-passes
+    # with RoPE
     variant = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
-    for counts in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
+    for counts in (fa.fwd_launches, fa.dq_launches):
         assert counts == {"tensor_core": 0, "cuda_core": 0, variant: 1}
+    wgmma = dtype == torch.bfloat16 and case[5] == 64
+    assert fa.dkv_launches == {"wgmma": 0, "tensor_core": 0, "cuda_core": 0,
+                               "wgmma" if wgmma else variant: 1}
+    assert fa.prepass_launches == {"rope_rows": 2 * (wgmma and case[8])}
 
 
 @cuda
@@ -135,8 +141,10 @@ def test_public_wrapper_launches_kernels_and_autograd(dev):
     torch.cuda.synchronize()
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    for counts in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
+    for counts in (fa.fwd_launches, fa.dq_launches):
         assert counts == {"tensor_core": 1, "cuda_core": 0}
+    assert fa.dkv_launches == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
+    assert fa.prepass_launches == {"rope_rows": 2}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
@@ -147,20 +155,81 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         fa.flash_attention(q, q, q)
 
 
+# the wgmma dk/dv's edge cases: (b, hq, hkv, sq, sk, causal, q position
+# shift, rope); explicit positions unless the shift is 0
+WGMMA_EDGES = {
+    "ragged S 130": (1, 4, 2, 130, 130, True, 0, True),
+    "shifted, ragged 97 x 161, GQA 4": (1, 4, 1, 97, 161, True, 64, True),
+    "GQA 4, static causal": (1, 8, 2, 256, 256, True, 0, True),
+    "fully masked rows": (1, 4, 4, 128, 128, True, -40, False),
+    "not causal, sk > sq": (2, 4, 2, 96, 160, False, 0, True),
+}
+
+
+@cuda
+@pytest.mark.parametrize("edge", list(WGMMA_EDGES))
+def test_wgmma_dkv_edge_cases(edge, dev):
+    """The wgmma dk/dv (D 64, bf16) against `bwd_plain` at ragged S (not a
+    multiple of 64, nor of 4), shifted positions, q rows that see no key
+    (lse -inf), GQA with n_rep 4 and no causal mask, each with a nonzero
+    LSE cotangent, within chip_smoke's per-row limit."""
+    b, hq, hkv, sq, sk, causal, shift, rope = WGMMA_EDGES[edge]
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = r(b, hq, sq, 64), r(b, hkv, sk, 64), r(b, hkv, sk, 64)
+    qpos = torch.arange(shift, shift + sq, device=dev, dtype=torch.int32)
+    kpos = torch.arange(sk, device=dev, dtype=torch.int32)
+    tabs = (fa._tables(rope_tables(512, 64, device=dev), qpos, kpos)
+            if rope else None)
+    static = causal and shift == 0
+    out, lse = fa.fwd_plain(q, k, v, qpos, kpos, tabs, causal)
+    if shift < 0:
+        assert torch.isneginf(lse).any()
+    do = r(b, hq, sq, 64)
+    dlse = torch.randn(b, hq, sq, generator=g, device=dev)
+    fa.reset_launch_counts()
+    dk, dv = fa.bwd_dkv_kernel(q, k, v, do, lse, fa._delta(do, out, dlse),
+                               qpos, kpos, tabs, causal, static)
+    _, dk_p, dv_p = fa.bwd_plain(q, k, v, out, lse, do, dlse, qpos, kpos,
+                                 tabs, causal)
+    torch.cuda.synchronize()
+    _assert_close(dk, dk_p, torch.bfloat16, "dk")
+    _assert_close(dv, dv_p, torch.bfloat16, "dv")
+    assert fa.dkv_launches == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
+    assert fa.prepass_launches == {"rope_rows": 2 if rope else 0}
+
+
+@cuda
+def test_rope_rows_matches_rot_bit_for_bit(dev):
+    """The rotation pre-pass equals its plain version `_rot` bit for bit
+    (the same fp32 roundings), at a ragged length."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2, 3, 77, 64, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(5, 82, device=dev, dtype=torch.int32)
+    c, s, _, _ = fa._tables(rope_tables(128, 64, device=dev), pos, pos)
+    fa.reset_launch_counts()
+    got = fa.rope_rows(x, c, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fa._rot(x, c, s, 1.0))
+    assert fa.prepass_launches == {"rope_rows": 1}
+
+
 # Faults planted in a copy of the CUDA source: (pattern, replacement, count).
 # Each edits every kernel that has the site, so each kernel's own output
 # shows whether the limit catches it. The counts include the sites in the
 # tensor-core forward, dq and dk/dv (`fwd_mma_kernel`, `bwd_dq_mma_kernel`,
-# `bwd_dkv_mma_kernel`), the kernels bf16 inputs run.
+# `bwd_dkv_wgmma_kernel` at D 64 and `bwd_dkv_mma_kernel` at D 128), the
+# kernels bf16 inputs run.
 MUTANTS = {
     # the causal mask lets each q row see one key past its own position
     # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dq_mma_kernel,
-    # bwd_dkv_kernel, bwd_dkv_mma_kernel, whose transposed mask indexes
-    # kp_s by kv row)
-    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 6),
+    # bwd_dkv_kernel, bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel, whose
+    # transposed masks index kp_s by kv row)
+    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 7),
     # the same, only in q rows at position 1024 and later
     "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[(\w+)\]",
-                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 6),
+                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 7),
     # the diagonal tile counted as full: its mask is never applied (one
     # `classify` shared by all kernels)
     "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
@@ -168,22 +237,22 @@ MUTANTS = {
     # the last visible tile of the inner loop is dropped (fwd, dq: the
     # diagonal kv tile, in fwd_mma_kernel and bwd_dq_mma_kernel through
     # their next-visible-tile search; dk/dv: the last q tile, in
-    # bwd_dkv_mma_kernel the last head's)
+    # bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel the last head's)
     "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt"
-                          r"|it < it_end; \+\+it", None, 6),
+                          r"|it < it_end; \+\+it", None, 7),
     # fwd_mma_kernel packs P's A fragment for kv columns 8..15 of each
     # k-step from the S n-tile of columns 0..7
     "p_from_wrong_ntile": (r"s\[2 \* kk \+ 1\]", "s[2 * kk]", 4),
-    # bwd_dkv_mma_kernel's (GQA head x q tile) sequence drops its last head
-    # (with one head per group, every head)
+    # the bf16 dk/dv kernels' (GQA head x q tile) sequence drops its last
+    # head (with one head per group, every head)
     "gqa_last_head_dropped": (r"it_end = n_rep \* nqt",
-                              "it_end = (n_rep - 1) * nqt", 1),
+                              "it_end = (n_rep - 1) * nqt", 2),
     # bwd_dq_mma_kernel takes row g's delta for row g + 8 of each warp's
     # 16 (the lane's two rows of the accumulator fragments)
     "dq_delta_wrong_row": (r"dl\[e >> 1\]", "dl[0]", 1),
 }
 # the faults that only one kernel has a site for
-ONE_KERNEL = {"gqa_last_head_dropped": "bwd_dkv_mma_kernel",
+ONE_KERNEL = {"gqa_last_head_dropped": "bwd_dkv_wgmma_kernel",
               "dq_delta_wrong_row": "bwd_dq_mma_kernel"}
 
 
@@ -223,8 +292,9 @@ def _lands_in(mutant, kernel):
 def test_mutant_sites(mutant):
     """Each planted fault finds its stated number of sites; every one but
     the one-kernel faults lands in the tensor-core forward, and every one
-    with a site in a CUDA-core backward kernel has one in its tensor-core
-    counterpart; no card needed."""
+    with a site in a CUDA-core backward kernel has one in each of its
+    tensor-core counterparts (dk/dv: the wgmma kernel at D 64 and the
+    mma.sync one at D 128); no card needed."""
     mutated, n = _mutate(mutant)
     assert n == MUTANTS[mutant][2], f"{mutant}: {n} sites"
     if mutant in ONE_KERNEL:
@@ -233,6 +303,7 @@ def test_mutant_sites(mutant):
     else:
         assert _lands_in(mutant, "fwd_mma_kernel"), f"{mutant} misses fwd"
     for old, new in (("bwd_dq_kernel", "bwd_dq_mma_kernel"),
+                     ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel"),
                      ("bwd_dkv_kernel", "bwd_dkv_mma_kernel")):
         if _lands_in(mutant, old):
             assert _lands_in(mutant, new), f"{mutant} misses {new}"
@@ -264,25 +335,43 @@ def test_tensor_core_forward_in_source():
 
 
 def test_tensor_core_dkv_in_source():
-    """The bf16 dk/dv is a kernel of its own whose products are bf16
-    mma.sync instructions fed by ldmatrix from a cp.async ring, and
-    pt_flash_bwd_dkv sends bf16 inputs to it alone; no card needed."""
+    """The bf16 dk/dv at D 64 is a Hopper kernel of its own: its four
+    products are wgmma.mma_async instructions (S^T and dP^T with both
+    operands in shared memory, dV and dK with P^T and dS^T from
+    registers), fed by TMA copies (cp.async.bulk.tensor) that complete on
+    an mbarrier ring, with no block-wide barrier in its loop;
+    pt_flash_bwd_dkv sends bf16 D 64 to it and bf16 D 128 to the mma.sync
+    kernel; no card needed."""
     src = (build.CSRC / "flash_attention.cu").read_text()
-    assert re.search(r"__global__ void __launch_bounds__\(MMA_NT[^)]*\) "
-                     r"bwd_dkv_mma_kernel\(", src)
-    body = _kernel_body(src, "bwd_dkv_mma_kernel")
+    assert re.search(r"__global__ void __launch_bounds__\(WG_NT[^)]*\) "
+                     r"bwd_dkv_wgmma_kernel\(", src)
+    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n64k16\.f32"
+                     r"\.bf16\.bf16", src)
+    for instr in ("cp.async.bulk.tensor.3d.shared::cluster.global",
+                  "cp.async.bulk.tensor.1d.shared::cluster.global",
+                  ".mbarrier::complete_tx", "mbarrier.arrive.expect_tx", "mbarrier.try_wait.parity",
+                  "wgmma.fence.sync.aligned", "wgmma.commit_group",
+                  "wgmma.wait_group"):
+        assert instr in src, instr
+    body = _kernel_body(src, "bwd_dkv_wgmma_kernel")
     body = body[:body.index("\n}\n")]  # the kernel alone
-    for helper in ("mma_16816(", "ldsm_x4(", "ldsm_x4_trans(", "issue_q(",
-                   "cp_async16(", "cp_async_wait<"):
+    assert body.count("wgmma_ss(") == 2  # S^T = K Q^T, dP^T = V dO^T
+    assert body.count("wgmma_rs_t(") == 2  # dV += P^T dO, dK += dS^T Q
+    for helper in ("tma_load_3d(", "mbar_wait(", "mbar_arrive(",
+                   "mbar_expect_tx(", "wg_wait<"):
         assert helper in body, helper
-    assert body.count("mma_16816(") >= 4  # S^T, dP^T, dV, dK
+    loop = body[body.index("for (int n = 0; it < it_end; ++n)"):]
+    assert "__syncthreads" not in loop
+    assert "rope_tile" not in body and "cq" not in body  # q comes rotated
     dkv = src[src.index("int pt_flash_bwd_dkv("):]
     dkv = dkv[:dkv.index("\n}\n")]
     assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
-                      r"launch_dkv_mma<\1>", dkv) == ["64", "128"]
+                      r"(launch_dkv_\w+)", dkv) == [
+        ("64", "launch_dkv_wgmma"), ("128", "launch_dkv_mma")]
+    assert "launch_dkv_mma<64>" not in src
     assert "bwd_dkv_kernel<__nv_bfloat16" not in src
     assert "launch_dkv<__nv_bfloat16" not in src
-    assert "PT_DISPATCH(launch_dkv," not in src
+    assert fa.WGMMA_DKV_HEAD_DIMS == (64,)
 
 
 def test_tensor_core_dq_in_source():
@@ -375,6 +464,7 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
     # a fault in a bf16 kernel fails that kernel's own outputs
     for kernel, outs in (("fwd_mma_kernel", {"out", "lse"}),
                          ("bwd_dq_mma_kernel", {"dq"}),
+                         ("bwd_dkv_wgmma_kernel", {"dk", "dv"}),
                          ("bwd_dkv_mma_kernel", {"dk", "dv"})):
         if mutant in MUTANTS and _lands_in(mutant, kernel):
             assert failed & outs, f"{mutant}: {kernel}'s outputs passed"

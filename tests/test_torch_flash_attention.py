@@ -139,8 +139,41 @@ def test_plain_path_never_counts_launches():
     out.sum().backward()
     assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
-    assert tfa.fwd_launches == tfa.dq_launches == tfa.dkv_launches == {
+    assert tfa.fwd_launches == tfa.dq_launches == {
         "tensor_core": 0, "cuda_core": 0}
+    assert tfa.dkv_launches == {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
+    assert tfa.prepass_launches == {"rope_rows": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_rows_matches_the_pallas_rotation(dtype):
+    """The dk/dv's rotation pre-pass (its plain version on the CPU) against
+    the JAX kernels' `_rot` with `_rot_tables` at shifted positions: fp32 at
+    1e-6 (the same products, summed in another order), bf16 within one
+    bf16 rounding step (XLA may contract a product into a fused
+    multiply-add before the cast)."""
+    from picotron_tpu.ops.flash_attention import _rot, _rot_tables
+
+    rng = np.random.default_rng(5)
+    b, h, s, d = 2, 3, 40, 64
+    x = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    pos = np.arange(7, 7 + s)
+    jcos, jsin = jrope_tables(64, d)
+    jc, js = _rot_tables(jcos, jsin, jnp.asarray(pos)[None])
+    jdt = getattr(jnp, dtype)
+    want = np.stack([np.stack([np.asarray(
+        _rot(jnp.asarray(x[i, j]).astype(jdt), jc, js, 1.0), np.float32)
+        for j in range(h)]) for i in range(b)])
+    tpos = torch.from_numpy(pos)
+    c, sn, _, _ = tfa._tables(trope_tables(64, d), tpos, tpos)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tfa.reset_launch_counts()
+    got = tfa.rope_rows(tx, c, sn).float().numpy()
+    assert tfa.prepass_launches == {"rope_rows": 0}  # plain: no launch
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-6)
 
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():

@@ -463,6 +463,10 @@ def test_profile_step_kernel_classes():
     assert kernel_class("bwd_dkv_kernel<float, 128>") == "flash:bwd_dkv_kernel"
     assert kernel_class("void {anon}::bwd_dkv_mma_kernel<64>(...)") == (
         "flash:bwd_dkv_kernel")
+    assert kernel_class("void {anon}::bwd_dkv_wgmma_kernel(CUtensorMap_st, "
+                        "...)") == "flash:bwd_dkv_kernel"
+    assert kernel_class("void {anon}::rope_rows_kernel<64>(...)") == (
+        "flash:rope_rows")
     assert kernel_class("nvjet_tst_128x256_64x4_2x1_v_bz_coopB_TNT") == "gemm"
     assert kernel_class("void at::native::vectorized_elementwise_kernel") == (
         "other")
