@@ -7,12 +7,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
 1. The card (nvidia-smi name and power limit) and the build: nvcc compiles
    picotron_tpu_torch/csrc/flash_attention.cu and csrc/adamw.cu for sm_90a
    from the checkout, both at once (ptxas registers and spills per kernel
-   printed, and the dynamic shared memory of the Hopper dk/dv), and
+   printed, and the dynamic shared memory of the Hopper dq and dk/dv), and
    cuobjdump's SASS of the library must show HMMA (mma.sync tensor-core)
    instructions in both variants (D 64, 128) of the bf16 forward,
-   fwd_mma_kernel, and dq, bwd_dq_mma_kernel, and in the D-128 dk/dv,
-   bwd_dkv_mma_kernel, and HGMMA (wgmma) in the D-64 dk/dv,
-   bwd_dkv_wgmma_kernel.
+   fwd_mma_kernel, and in the D-128 dq and dk/dv, bwd_dq_mma_kernel and
+   bwd_dkv_mma_kernel, and HGMMA (wgmma) in the D-64 dq and dk/dv,
+   bwd_dq_wgmma_kernel and bwd_dkv_wgmma_kernel.
 2. Each of the three flash-attention kernels against its plain PyTorch
    version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
    D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
@@ -20,22 +20,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
    whole K/V) with a nonzero LSE cotangent, and at the per-rank heads of
    tp 4 (SmolLM-1.7B: B 2, Hq = Hkv = 8, D 64; Llama-3-8B: B 1, Hq 8,
    Hkv 2, D 128, and Hq 16, Hkv 4 under the 2d tp strategy at 2 x 2, the
-   shape phase 15 runs). At each D-64 shape the dk/dv's rotation
+   shape phase 15 runs). At each D-64 shape the wgmma kernels' rotation
    pre-pass (`rope_rows`, of q and of k) equals its plain version `_rot`
    bit for bit. Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
-   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound; and each
+   (SDPA does no RoPE: it gets pre-rotated inputs), and the bound (the
+   D-64 dq timed on the rotated q and k that the backward shares with
+   dk/dv, whose time holds the pre-pass); and each
    kernel's time, achieved TFLOP/s and share of its bound at the training
-   and every other static shape, with and without RoPE.
+   and every other static shape, with and without RoPE (with RoPE, the
+   D-64 dq and dk/dv each hold their own pre-pass).
 3. The main path: `python -m picotron_tpu_torch.train --config
    picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json` (its entry point,
    in process) on full-width, full-depth SmolLM-1.7B (24 layers), seq 2048, mbs 2, ga 2,
    constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
    offload off. Checks: every loss finite; the last step's loss below the
    first's; each kernel launched 24 x ga x steps times, every launch on
-   its tensor-core kernel (bf16; the dk/dv's on bwd_dkv_wgmma_kernel, each
-   after two launches of the rotation pre-pass); the AdamW kernel
-   launched once per parameter tensor per step (219 x steps); and the trained
+   its tensor-core kernel (bf16; the dq's on bwd_dq_wgmma_kernel and the
+   dk/dv's on bwd_dkv_wgmma_kernel, both reading the q and k that two
+   launches of the rotation pre-pass per backward call rotated); the
+   AdamW kernel launched once per parameter tensor per step (219 x
+   steps); and the trained
    model's loss on the first step's batch (re-read from a fresh loader)
    below that step's loss. The synthetic tokens are uniform random, so a
    later step's fresh batch is learnable only down to the unigram law and
@@ -618,9 +623,10 @@ SHAPES = {
     "mixtral B2 S2048 Hq32 Hkv8 D128 rope static": (2, 32, 8, SEQ, SEQ,
                                                     128, 0),
 }
-# the head dim whose bf16 dk/dv runs bwd_dkv_wgmma_kernel (with its
-# rotation pre-pass); the ops module's WGMMA_DKV_HEAD_DIMS, checked in main
-WGMMA_DKV_D = 64
+# the head dim whose bf16 dq and dk/dv run bwd_dq_wgmma_kernel and
+# bwd_dkv_wgmma_kernel (after their shared rotation pre-pass); the ops
+# module's WGMMA_HEAD_DIMS, checked in main
+WGMMA_D = 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 KERNELS = [  # (counter name, TPU kernel it replaces)
@@ -931,9 +937,10 @@ def bounds_at(b, hq, hkv, d, qpos, kpos, rope: bool) -> dict:
     qb, kvb = b * hq * sq * d * 2, b * hkv * sk * d * 2
     tab = (2 * (sq + sk) * (d // 2) * 4 if rope else 0) + (sq + sk) * 4
     row = b * hq * sq * 4
-    # the Hopper dk/dv's rotation pre-pass writes rotated q and k and the
-    # kernel reads them back
-    prepass = 2 * (qb + kvb) if rope and d == WGMMA_DKV_D else 0
+    # the rotation pre-pass that the Hopper dq and dk/dv share writes
+    # rotated q and k and the kernels read them back: its bytes join the
+    # dk/dv's bound (the dq is timed on the rotated pair)
+    prepass = 2 * (qb + kvb) if rope and d == WGMMA_D else 0
     work = {
         # S = QK^T and O = PV
         "flash_fwd": (4 * d * pairs, qb + 2 * kvb + tab + qb + row),
@@ -960,8 +967,13 @@ def time_kernels(fa, case) -> dict:
     t = {}
     t["flash_fwd"] = cuda_ms(
         lambda: fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static))
+    # the D-64 dq on the rotated q and k that the backward call shares
+    # with dk/dv (whose time holds the pre-pass)
+    wg = tabs is not None and fa._wgmma(q)
+    q_rot, k_rot = ((fa.rope_rows(q, *tabs[:2]), fa.rope_rows(k, *tabs[2:]))
+                    if wg else (q, k))
     t["flash_bwd_dq"] = cuda_ms(lambda: fa.bwd_dq_kernel(
-        q, k, v, do, lse, delta, qpos, kpos, tabs, True, static))
+        q_rot, k_rot, v, do, lse, delta, qpos, kpos, tabs, True, static, wg))
     t["flash_bwd_dkv"] = cuda_ms(lambda: fa.bwd_dkv_kernel(
         q, k, v, do, lse, delta, qpos, kpos, tabs, True, static))
     plain_fwd = cuda_ms(lambda: fa.fwd_plain(q, k, v, qpos, kpos, tabs, True),
@@ -991,8 +1003,8 @@ def time_kernels(fa, case) -> dict:
 
 
 def check_rope_rows(fa, case, label: str) -> None:
-    """Raise unless the dk/dv's rotation pre-pass gives q and k bit for bit
-    as its plain version `_rot` does."""
+    """Raise unless the wgmma kernels' rotation pre-pass gives q and k bit
+    for bit as its plain version `_rot` does."""
     q, k, _, _, _, tabs, *_ = case
     for what, x, c, s in (("q", q, *tabs[:2]), ("k", k, *tabs[2:])):
         got, want = fa.rope_rows(x, c, s), fa._rot(x, c, s, 1.0)
@@ -1019,17 +1031,18 @@ def sass_mma(build) -> dict:
 
 def bf16_variants(key: str, n: int, d: int) -> dict:
     """The by-variant launch counts `key` (VARIANT_COUNTS) of n bf16
-    launches at head dim d: the dk/dv at WGMMA_DKV_D on its wgmma kernel,
-    every other on the mma.sync one."""
-    if key != "dkv_launches":
+    launches at head dim d: the dq and dk/dv at WGMMA_D on their wgmma
+    kernels, every other on the mma.sync one."""
+    if key == "fwd_launches":
         return {"tensor_core": n, "cuda_core": 0}
-    wg = n if d == WGMMA_DKV_D else 0
+    wg = n if d == WGMMA_D else 0
     return {"wgmma": wg, "tensor_core": n - wg, "cuda_core": 0}
 
 
 def check_prepass(counts: dict, d: int, label: str) -> None:
-    """Raise unless the rotation pre-pass ran twice (q, k) per wgmma dk/dv
-    launch (every model here uses RoPE)."""
+    """Raise unless the rotation pre-pass ran twice (q, k) per backward
+    call on the wgmma kernels, which dq and dk/dv share (one dk/dv launch
+    per call; every model here uses RoPE)."""
     want = 2 * bf16_variants("dkv_launches", counts["launches"][
         "flash_bwd_dkv"], d)["wgmma"]
     if counts["prepass_launches"] != {"rope_rows": want}:
@@ -1088,13 +1101,13 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
             raise AssertionError(f"{name} launched {result['launches'][name]} "
                                  f"times on the main path, want {want}")
     for key in VARIANT_COUNTS:
-        if result[key] != bf16_variants(key, want, WGMMA_DKV_D):
+        if result[key] != bf16_variants(key, want, WGMMA_D):
             raise AssertionError(f"{key} by variant {result[key]}: want all "
                                  f"{want} on the tensor-core kernel (the "
-                                 f"dk/dv's on the wgmma one)")
+                                 f"dq's and dk/dv's on the wgmma ones)")
     check_prepass({"launches": result["launches"],
                    "prepass_launches": result["prepass_launches"]},
-                  WGMMA_DKV_D, "main path")
+                  WGMMA_D, "main path")
     if result["launches"]["adamw"] != n_tensors * STEPS:
         raise AssertionError(f"adamw launched {result['launches']['adamw']} "
                              f"times on the main path, want one per tensor "
@@ -1109,10 +1122,10 @@ def launch_counts(fa) -> dict:
 
 
 def check_launches(counts: dict, want: dict, label: str,
-                   d: int = WGMMA_DKV_D) -> None:
+                   d: int = WGMMA_D) -> None:
     """Raise unless each kernel launched `want[name]` times, every launch
     on its tensor-core kernel for head dim d (`bf16_variants`), with the
-    dk/dv's rotation pre-pass beside the wgmma ones."""
+    shared rotation pre-pass beside the wgmma ones."""
     for (name, _), key in zip(KERNELS, VARIANT_COUNTS):
         n = want[name]
         if counts["launches"][name] != n or counts[key] != bf16_variants(
@@ -2308,7 +2321,7 @@ def parallel_pair(here: str, cfg_path: str, steps: int, label: str,
         for k, v in (("flash_fwd", "fwd"), ("flash_bwd_dq", "dq"),
                      ("flash_bwd_dkv", "dkv")):
             if run["launches"][k] != per or run["flash_variants"][v] != (
-                    bf16_variants(v + "_launches", per, WGMMA_DKV_D)):
+                    bf16_variants(v + "_launches", per, WGMMA_D)):
                 fails.append(f"{name}: {k} launched {run['launches'][k]} "
                              f"({run['flash_variants'][v]}), want {per} on "
                              f"the tensor cores")
@@ -2892,10 +2905,12 @@ def cp_schedules_phase(card: str, shape: tuple = CP_SHAPE) -> dict:
                                              "cuda_core": 0}
                   and lb["launches"]["flash_bwd_dq"] == want_n
                   and lb["launches"]["flash_bwd_dkv"] == want_n
-                  and lb["dq_launches"] == {"tensor_core": want_n,
-                                            "cuda_core": 0}
+                  and lb["dq_launches"] == bf16_variants(
+                      "dq_launches", want_n, CP_SHAPE[-1])
                   and lb["dkv_launches"] == bf16_variants(
                       "dkv_launches", want_n, CP_SHAPE[-1])
+                  # no RoPE tables reach these blocks: no pre-pass
+                  and lb["prepass_launches"] == {"rope_rows": 0}
                   and lf["launches"]["flash_bwd_dq"] == 0
                   and lb["launches"]["flash_fwd"] == 0)
             if not ok:
@@ -6217,18 +6232,20 @@ def main() -> int:
             if ("entry function" in line or "registers" in line
                     or "spill" in line or "error" in line):
                 log(f"ptxas: {line.strip()}")
-    if fa.WGMMA_DKV_HEAD_DIMS != (WGMMA_DKV_D,):
-        raise AssertionError(f"the ops module's wgmma dk/dv head dims "
-                             f"{fa.WGMMA_DKV_HEAD_DIMS} are not "
-                             f"chip_smoke's {WGMMA_DKV_D}")
+    if fa.WGMMA_HEAD_DIMS != (WGMMA_D,):
+        raise AssertionError(f"the ops module's wgmma head dims "
+                             f"{fa.WGMMA_HEAD_DIMS} are not "
+                             f"chip_smoke's {WGMMA_D}")
     log(f"bwd_dkv_wgmma_kernel: {fa._lib().pt_dkv_wgmma_smem()} bytes of "
-        f"dynamic shared memory per block")
+        f"dynamic shared memory per block; bwd_dq_wgmma_kernel: "
+        f"{fa._lib().pt_dq_wgmma_smem()}")
     mma = sass_mma(build)
     for fn, (n, ng) in mma.items():
         log(f"sass: {n} HMMA, {ng} HGMMA in {fn}")
     # (kernel, instruction, its instantiations: D 64 and 128, or one)
     for kernel, instr, n_fn in (("fwd_mma_kernel", 0, 2),
-                                ("bwd_dq_mma_kernel", 0, 2),
+                                ("bwd_dq_mma_kernel", 0, 1),
+                                ("bwd_dq_wgmma_kernel", 1, 1),
                                 ("bwd_dkv_mma_kernel", 0, 1),
                                 ("bwd_dkv_wgmma_kernel", 1, 1)):
         counts = [c[instr] for fn, c in mma.items() if kernel in fn]
@@ -6242,7 +6259,7 @@ def main() -> int:
     for i, (label, shp) in enumerate(SHAPES.items()):
         case = make_case(fa, rope_tables, *shp, dev=dev, seed=i)
         compare(fa, case, errs, label)
-        if shp[5] == WGMMA_DKV_D:
+        if shp[5] == WGMMA_D:
             check_rope_rows(fa, case, label)
         del case
         torch.cuda.empty_cache()
@@ -6452,9 +6469,11 @@ def main() -> int:
         here, result, fused, engines, offload, moe))
     from picotron_tpu_torch.kernels.variants import ptxas_lines
 
-    dkv_ptxas = [line for line in ptxas_lines(
-        build.BUILD_LOGS.get("flash_attention", ""), "bwd_dkv_wgmma_kernel")
+    wgmma_ptxas = {name: [line for line in ptxas_lines(
+        build.BUILD_LOGS.get("flash_attention", ""), fn)
         if "registers" in line or "spill" in line]
+        for name, fn in (("flash_bwd_dq", "bwd_dq_wgmma_kernel"),
+                         ("flash_bwd_dkv", "bwd_dkv_wgmma_kernel"))}
     kernels = []
     for name, replaces in KERNELS:
         ms, plain_ms, lib_ms = times[name]
@@ -6482,12 +6501,15 @@ def main() -> int:
                             for lay, res in tp["layouts"].items()},
             "dots_offload_launches":
                 engines["remat"]["dots_offload"]["launches"][name],
-            # the dk/dv's variants on the main path (D 64: the wgmma
-            # kernel), its rotation pre-pass launches (inside ms and
-            # bound_ms), and the wgmma kernel's ptxas report
-            **({"variants": result["dkv_launches"],
+            # the dq's and dk/dv's variants on the main path (D 64: the
+            # wgmma kernels), the rotation pre-pass launches they share
+            # (inside the dk/dv's ms and bound_ms), and the wgmma
+            # kernel's ptxas report
+            **({"variants": result[
+                    "dq_launches" if name == "flash_bwd_dq" else
+                    "dkv_launches"],
                 "prepass_launches": result["prepass_launches"]["rope_rows"],
-                "ptxas": dkv_ptxas} if name == "flash_bwd_dkv" else {}),
+                "ptxas": wgmma_ptxas[name]} if name in wgmma_ptxas else {}),
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "

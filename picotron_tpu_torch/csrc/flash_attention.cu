@@ -3,15 +3,19 @@
 // Replaces the three Pallas TPU kernels of picotron_tpu/ops/flash_attention.py:
 //   fwd_mma_kernel     <- _fwd_kernel     (:139, pallas_call in _fwd :281), bf16
 //   fwd_kernel         <- _fwd_kernel     (the same), fp32 inputs only
-//   bwd_dq_mma_kernel  <- _bwd_dq_kernel  (:327, pallas_call in _bwd :543), bf16
+//   bwd_dq_wgmma_kernel <- _bwd_dq_kernel (:327, pallas_call in _bwd :543),
+//                          bf16 at D 64, after rope_rows_kernel
+//   bwd_dq_mma_kernel  <- _bwd_dq_kernel  (the same), bf16 at D 128
 //   bwd_dq_kernel      <- _bwd_dq_kernel  (the same), fp32 inputs only
 //   bwd_dkv_wgmma_kernel <- _bwd_dkv_kernel (:412, pallas_call in _bwd :593),
-//                           bf16 at D 64, after rope_rows_kernel (which
-//                           replaces no TPU kernel: _bwd_dkv_kernel's
-//                           rotations of q at each visit, :456, and of k
-//                           per block, :433, done once per call)
+//                           bf16 at D 64, after rope_rows_kernel
 //   bwd_dkv_mma_kernel <- _bwd_dkv_kernel (the same), bf16 at D 128
 //   bwd_dkv_kernel     <- _bwd_dkv_kernel (the same), fp32 inputs only
+//   rope_rows_kernel   <- no TPU kernel: the rotations of q and k in
+//                         _bwd_dq_kernel (q :343, k :367 at each kv
+//                         visit) and _bwd_dkv_kernel (k :433, q :456 at
+//                         each q visit), done once per backward call for
+//                         both D-64 kernels
 //
 // What bounds it on the card: causal attention at the training shapes
 // (S = 2048, D = 64) does ~S/2 multiply-adds per loaded element, far above
@@ -56,12 +60,13 @@
 // step's first products run; a separate producer warp would cost the SM
 // its third block (registers, PERF.md). Invisible steps are never copied;
 // GQA heads accumulate in registers with no atomics. Q and K come rotated
-// by rope_rows_kernel, a memory-bound pre-pass over q and k once per call
-// (the mma.sync kernel rotated each Q tile at each of its S/64 visits per
-// head), so only dk's inverse rotation, in fp32 in the epilogue, stays in
-// the kernel. Three blocks fit an SM (168 registers, no spills, 70,456
-// bytes of shared memory); what still bounds it (the per-step chain of
-// products and the CUDA-core work between them) is in PERF.md.
+// by rope_rows_kernel, a memory-bound pre-pass over q and k once per
+// backward call, shared with dq (the mma.sync kernel rotated each Q tile
+// at each of its S/64 visits per head), so only dk's inverse rotation, in
+// fp32 in the epilogue, stays in the kernel. Three blocks fit an SM (168
+// registers, no spills, 70,456 bytes of shared memory); what still bounds
+// it (the per-step chain of products and the CUDA-core work between
+// them) is in PERF.md.
 //
 // At D 128 the wgmma kernel's four accumulators would take 192 registers
 // a thread, so bf16 D 128 stays on bwd_dkv_mma_kernel: the forward's
@@ -73,20 +78,38 @@
 // accumulator fragments into A fragments; one barrier per step, two with
 // RoPE. pt_flash_bwd_dkv dispatches on D alone.
 //
-// The bf16 dq (bwd_dq_mma_kernel) is bound by operations as well (6 D
-// FLOPs per visible pair), and runs its three products on the tensor
-// cores with the forward's data flow: one block of 4 warps per (64-row q
-// tile, q head, batch), heaviest causal tiles first, each warp owning 16
-// q rows of dQ. Q (rotated once) and dO are copied once and stay resident
-// as A fragments in registers, each lane holding its two rows' lse and
-// delta; K/V tiles stream through the forward's two-stage cp.async ring,
-// the next visible tile's copy issued before the current tile's products
-// and K rotated in place once it lands (rotated K is the B operand of
-// both S = Q K^T and dQ += dS K). dP = dO V^T takes V's rows as K's are
-// taken for S; dS = P (dP - delta), from the fp32 P, is rounded to bf16
-// and packed from the accumulator fragments straight into A fragments,
-// so dS never touches shared memory. One barrier per tile, two with
-// RoPE; dq goes back through the rotation's transpose in registers.
+// The bf16 dq is bound by operations as well (6 D FLOPs per visible
+// pair), and pays one exponential and one bf16 rounding per pair on the
+// CUDA cores. At D 64 it runs bwd_dq_wgmma_kernel, built from the dk/dv's
+// Hopper parts with the roles turned back: one warpgroup per (64-row q
+// tile, q head, batch), heaviest causal tiles first, q rows as wgmma's M.
+// S = Q K^T and dP = dO V^T take both operands from shared memory; dQ +=
+// dS K takes dS rounded to bf16 straight from dP's accumulator into A
+// fragments in registers (it never touches shared memory) and K read
+// MN-major. Q and dO arrive once per block by TMA; K, V and the tile's kv
+// positions stream by TMA through a two-stage ring over the visible kv
+// tiles, in the 128-byte swizzle, each stage with a full and an empty
+// mbarrier (no block-wide barrier in the loop), lane 0 of warp 0 refilling
+// the stage the previous tile released while the tile's first products
+// run. Each lane reads its two rows' lse, delta and q position once with
+// plain loads. It reads the q and k that rope_rows_kernel rotated for the
+// dk/dv of the same backward call (the mma.sync dq rotated each K tile at
+// each of its visits, 16.5x per call at the training shape), so only dq's
+// inverse rotation, in fp32 in the epilogue, stays in the kernel. Four
+// blocks fit an SM (128 registers, 50,728 bytes of shared memory); as
+// for the dk/dv, what bounds it is each tile's serial chain (products,
+// wait, CUDA-core work, product, wait), which more blocks an SM hide
+// better (PERF.md).
+//
+// At D 128 dq stays on bwd_dq_mma_kernel (a 256-byte row would span two
+// 128-byte swizzle atoms, and the dQ accumulator alone would take 64
+// registers a thread): the forward's mma.sync data flow, one block of 4
+// warps per (64-row q tile, q head, batch), each warp owning 16 q rows of
+// dQ, Q (rotated once) and dO resident as A fragments in registers, K/V
+// tiles through the forward's two-stage cp.async ring with K rotated in
+// place once it lands, dP = dO V^T taking V's rows as K's are taken for S,
+// dS packed from the accumulator fragments into A fragments; one barrier
+// per tile, two with RoPE. pt_flash_bwd_dq dispatches on D alone.
 //
 // The fp32 kernels (fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel) are the
 // first version: fp32 FMAs on CUDA cores (67 TFLOP/s peak) rather than
@@ -114,11 +137,13 @@
 // returns cudaGetLastError() after its launch. Tensors are contiguous
 // [B, H, S, D]; lse and delta are fp32 [B, Hq, Sq]; positions int32; RoPE
 // tables fp32 [S, D/2] already gathered at the positions (null = no RoPE).
-// The bf16 forward also needs q, k, v, out and the tables 16-byte aligned,
-// the bf16 dq q, k, v, dout, dq and the tables, the bf16 dk/dv q, k, v,
-// dout, dk, dv, the tables and (at D 64, whose q and k come rotated and
-// whose q tables are null) lse, delta and the q positions. The Hopper
-// dk/dv gets its tensor maps from cuTensorMapEncodeTiled, found through
+// The bf16 forward also needs q, k, v, out and the tables 16-byte
+// aligned; at D 128 the bf16 dq q, k, v, dout, dq and the tables, and the
+// bf16 dk/dv q, k, v, dout, dk, dv and the tables; at D 64, whose q and k
+// come rotated (the dq's k tables and the dk/dv's q tables null), the dq
+// q, k, v, dout and the kv positions, and the dk/dv q, k, v, dout, dk,
+// dv, lse, delta and the q positions. The Hopper dq and dk/dv get their
+// tensor maps from cuTensorMapEncodeTiled, found through
 // cudaGetDriverEntryPoint, so the library still links only the runtime.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -840,9 +865,9 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) fwd_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// dq on CUDA cores, for fp32 inputs (bf16 runs bwd_dq_mma_kernel): one
-// block per (q tile, q head, batch); loop over kv tiles, P recomputed from
-// the saved LSE, ds = p * (dp - delta).
+// dq on CUDA cores, for fp32 inputs (bf16 runs bwd_dq_wgmma_kernel or
+// bwd_dq_mma_kernel): one block per (q tile, q head, batch); loop over kv
+// tiles, P recomputed from the saved LSE, ds = p * (dp - delta).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -969,8 +994,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
 // dO tiles and then, once their fragments are in registers, the next kv
 // tile's RoPE table rows (cos then sin, fp32 rows of D/2 + 4; the two
 // uses take the same bytes); then two stages of K and two of V (bf16 rows
-// of D + 8): 55,296 bytes at D 64 and 104,448 at D 128, plus 768 static
-// (positions), so shared memory allows 4 and 2 blocks per SM.
+// of D + 8): 104,448 bytes at D 128, plus 768 static (positions), so
+// shared memory allows 2 blocks per SM.
 template <int D> __host__ __device__ constexpr int dq_mma_head_bytes() {
   return 2 * BQ * (D + 8) * 2 > 2 * BK * (D / 2 + 4) * 4
              ? 2 * BQ * (D + 8) * 2
@@ -980,19 +1005,18 @@ template <int D> constexpr size_t dq_mma_smem() {
   return dq_mma_head_bytes<D>() + 4 * BK * (D + 8) * 2;
 }
 
-// Blocks per SM: 3 at D 64 and 2 at D 128 (the second set by shared
-// memory). The live set is the dQ accumulators (D/2 registers), Q's and
-// dO's resident A fragments (D/4 each), and S and dP for KC kv columns at
-// a time (KC/2 each). The instructions are the same for any KC, so KC is
-// chosen for registers, by measurement (kernels/variants.py on an H100 at
-// the training shapes, PERF.md): at D 64, KC 64 takes 220 registers (2
-// blocks per SM) and KC 16 159 (3 blocks, no spills), 16% faster, while
-// KC 32 spills at the 168 registers that 3 blocks allow; at D 128, KC 32
-// takes 246 registers and KC 64 255, neither spilling, and KC 32 is no
-// slower. Reading dO's fragments from shared memory at each k-step instead
-// would keep its tile beside the table rows: one block per SM at D 128.
+// pt_flash_bwd_dq instantiates it at D 128 alone (bf16 D 64 runs
+// bwd_dq_wgmma_kernel). Two blocks per SM, set by shared memory. The live
+// set is the dQ accumulators (D/2 registers), Q's and dO's resident A
+// fragments (D/4 each), and S and dP for KC kv columns at a time (KC/2
+// each). The instructions are the same for any KC, so KC is chosen for
+// registers, by measurement (kernels/variants.py on an H100 at the
+// training shapes, PERF.md): KC 32 takes 246 registers and KC 64 255,
+// neither spilling, and KC 32 is no slower. Reading dO's fragments from
+// shared memory at each k-step instead would keep its tile beside the
+// table rows: one block per SM.
 template <int D>
-__global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) bwd_dq_mma_kernel(
+__global__ void __launch_bounds__(MMA_NT, 2) bwd_dq_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1008,7 +1032,7 @@ __global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) bwd_dq_mma_kernel(
   constexpr int H = D / 2, LDT = H + 4;
   // KC: kv columns per pass of S, dP and dQ += dS K (see above); NC:
   // n-tiles per pass
-  constexpr int KC = D == 64 ? 16 : 32, NC = KC / 8;
+  constexpr int KC = 32, NC = KC / 8;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
   bf16* dOs = Qs + BQ * LDS;
@@ -1893,8 +1917,8 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
 // The rotation pre-pass: a [B, H, S, D] bf16 tensor rotated by the
 // gathered fp32 tables c, s [S, D/2] (its position index along S) into y,
 // with rope_tile's arithmetic (fp32 rotate-half, each product rounded on
-// its own, rounded to bf16), so that the dk/dv kernel's products see the
-// operands a per-tile rotation gave. One thread per 8 columns of a row
+// its own, rounded to bf16), so that the wgmma dq's and dk/dv's products
+// see the operands a per-tile rotation gave. One thread per 8 columns of a row
 // position, batch and group of ROPE_HEADS heads, which loads its table
 // entries once and walks the group. Bound by bytes: each element read and
 // written once.
@@ -2199,6 +2223,268 @@ __global__ void __launch_bounds__(WG_NT, 3) bwd_dkv_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// dq on Hopper (bf16, D 64), the design in the note at the top: one
+// warpgroup per (64-row q tile, q head, batch); per visible kv tile, with
+// the q rows as wgmma's M and the 64 kv columns as N,
+//   S = Q K^T, P = exp(S - lse), dP = dO V^T, dS = P (dP - delta),
+// and then dQ += dS K with the 64 columns of d as N. Q and K rotated
+// beforehand by rope_rows_kernel. Accumulator layout as for
+// bwd_dkv_wgmma_kernel: this lane holds q rows 16 w + g and 16 w + g + 8
+// at columns 8 j + 2 t, 8 j + 2 t + 1 in d[4 j .. 4 j + 3].
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_NS = 2;               // ring stages
+// shared memory, in bytes from a 1024-aligned base: Q and dO (resident),
+// then NS stages of K, NS of V, NS rows of kv positions, and the barriers
+// (full[NS], empty[NS], qo)
+constexpr int DQ_Q = 0;
+constexpr int DQ_DO = WG_TILE;
+constexpr int DQ_K = 2 * WG_TILE;
+constexpr int DQ_V = DQ_K + DQ_NS * WG_TILE;
+constexpr int DQ_KP = DQ_V + DQ_NS * WG_TILE;
+constexpr int DQ_BAR = DQ_KP + DQ_NS * BK * 4;
+constexpr int DQ_SMEM = DQ_BAR + (2 * DQ_NS + 1) * 8 + 1024;  // + alignment
+
+// Four blocks per SM: 128 registers (ptxas: 4 bytes spilled) and 4 x
+// 50,728 bytes of shared memory. Three blocks (143 registers, no spill,
+// two or three stages) were 6% slower, four stages (two blocks by shared
+// memory) and two warpgroups a block sharing each stage (one block) 30%
+// slower (PERF.md): the more warps an SM holds, the more of one block's
+// exponentials run under another's products.
+__global__ void __launch_bounds__(WG_NT, 4) bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_kp, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    const float* cq, const float* sq, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int static_causal) {
+  constexpr int D = WG_D, H = D / 2;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint8_t* gbase = wg_smem + (base - raw);
+  const uint32_t full0 = base + DQ_BAR, empty0 = full0 + 8 * DQ_NS;
+  const uint32_t qo_bar = empty0 + 8 * DQ_NS;
+
+  const int num_q = (Sq + BQ - 1) / BQ;
+  // static-causal: the heaviest q tiles (most kv tiles) launch first
+  const int qt = static_causal ? num_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ, nq = min(BQ, Sq - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t row_base = (size_t)(b * Hq + h) * Sq;
+
+  if (tid == 0) {
+    for (int s = 0; s < DQ_NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the copier's arrive.expect_tx
+      mbar_init(empty0 + 8 * s, 4);  // one arrive per warp
+    }
+    mbar_init(qo_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // lse, delta and the position of this lane's rows g and g + 8 of its
+  // warp's 16 (i = 0, 1), read once: exp(x) as exp2(x log2 e), and a row
+  // with no visible key (lse = -inf) or past Sq must give P = 0, so its
+  // shift is +inf
+  float lb[2], dl[2];
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    const bool in = r < nq;
+    const float lr = in ? lse[row_base + q0 + r] : -INFINITY;
+    lb[i] = lr <= NEG ? INFINITY : lr * LOG2E;
+    dl[i] = in ? delta[row_base + q0 + r] : 0.f;
+    qp[i] = in ? qpos[q0 + r] : 0;
+  }
+  int qmin = 0, qmax = 0;
+  if (causal && !static_causal) tile_minmax(qpos + q0, nq, qmin, qmax);
+  __syncthreads();  // the barriers, once, before the loop
+
+  const int num_kv = (Sk + BK - 1) / BK;
+  // static-causal: no kv tile past the last one this q tile can see
+  const int kv_end = static_causal ? min(num_kv, (q0 + nq - 1) / BK + 1) : num_kv;
+  auto tile_class = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    int kmin = 0, kmax = 0;
+    if (causal && !static_causal) tile_minmax(kpos + k0, nk, kmin, kmax);
+    return classify(causal, static_causal, q0, nq, k0, nk, qmin, qmax, kmin,
+                    kmax);
+  };
+  // the first visible kv tile at or after kt (kv_end if none) and its
+  // class: invisible tiles are neither copied nor multiplied. Every lane
+  // of a warp calls it (tile_minmax is warp-wide).
+  auto next_visible = [&](int kt, TileClass& cls) {
+    for (; kt < kv_end; ++kt) {
+      cls = tile_class(kt);
+      if (cls.visible) return kt;
+    }
+    return kv_end;
+  };
+  // lane 0 of warp 0 copies kv tile kt into ring stage st by TMA: K and V
+  // (rows past Sk zero-filled) and, when causal, the kv positions (64
+  // entries from a multiple of 64: 16-byte aligned)
+  const uint32_t step_bytes = 2 * WG_TILE + (causal ? BK * 4 : 0);
+  auto issue = [&](int kt, int st) {
+    const uint32_t bar = full0 + 8 * st;
+    mbar_expect_tx(bar, step_bytes);
+    tma_load_3d(base + DQ_K + st * WG_TILE, &tm_k, bar, 0, kt * BK,
+                b * Hkv + hk);
+    tma_load_3d(base + DQ_V + st * WG_TILE, &tm_v, bar, 0, kt * BK,
+                b * Hkv + hk);
+    if (causal) tma_load_1d(base + DQ_KP + st * BK * 4, &tm_kp, bar, kt * BK);
+  };
+
+  TileClass cls, cls_p;
+  int kt = next_visible(0, cls);
+  // warp 0's cursor: the next visible kv tile to copy
+  int ip = kt;
+  if (warp == 0) {
+    if (lane == 0 && kt < kv_end) {  // Q and dO (rows past Sq zero), once
+      mbar_expect_tx(qo_bar, 2 * WG_TILE);
+      tma_load_3d(base + DQ_Q, &tm_q, qo_bar, 0, q0, b * Hq + h);
+      tma_load_3d(base + DQ_DO, &tm_do, qo_bar, 0, q0, b * Hq + h);
+    }
+    for (int st = 0; st < DQ_NS && ip < kv_end; ++st) {
+      if (lane == 0) issue(ip, st);
+      __syncwarp();
+      ip = next_visible(ip + 1, cls_p);
+    }
+  }
+
+  // dQ, S then P, and dP then dS (S and dP overwritten by each tile's
+  // first k-step)
+  float acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0.f;
+    s[i] = 0.f;
+    dp[i] = 0.f;
+  }
+  if (kt < kv_end) mbar_wait(qo_bar, 0);
+  const uint64_t q_desc = sw128_desc(base + DQ_Q);
+  const uint64_t o_desc = sw128_desc(base + DQ_DO);
+
+  for (int n = 0; kt < kv_end; ++n) {
+    const int st = n % DQ_NS;
+    mbar_wait(full0 + 8 * st, (n / DQ_NS) & 1);  // tile kt is in stage st
+    const int nk = min(BK, Sk - kt * BK);
+    const uint32_t ka = base + DQ_K + st * WG_TILE;
+    const uint32_t va = base + DQ_V + st * WG_TILE;
+    const int* kp_s = reinterpret_cast<const int*>(gbase + DQ_KP + st * BK * 4);
+
+    // S = Q K^T and dP = dO V^T, two groups: the exponentials of S run
+    // while dP is still being multiplied
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, q_desc + 2 * kk, sw128_desc(ka) + 2 * kk, kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, o_desc + 2 * kk, sw128_desc(va) + 2 * kk, kk);
+    wg_commit();
+    // while they run, warp 0 refills the stage tile n - 1 released (every
+    // warp has arrived on it: all four issued the products above) with
+    // the visible tile DQ_NS - 1 ahead
+    if (n > 0 && warp == 0 && ip < kv_end) {
+      const int sp = (n - 1) % DQ_NS;
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * sp, ((n - 1) / DQ_NS) & 1);
+        issue(ip, sp);
+      }
+      __syncwarp();
+      ip = next_visible(ip + 1, cls_p);
+    }
+    wg_wait<1>();
+    acc_fence(s);
+    // P = exp(S - lse) in fp32: this lane holds q rows g (e = 0, 1) and
+    // g + 8 (e = 2, 3) at kv columns c, c + 1 of each chunk j
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + tig * 2 + (e & 1);
+        float sv = s[4 * j + e];
+        if (!cls.full) {
+          const bool ok = c < nk && (!causal || qp[e >> 1] >= kp_s[c]);
+          if (!ok) sv = NEG;
+        }
+        s[4 * j + e] = fast_exp2(fmaf(sv, LOG2E, -lb[e >> 1]));
+      }
+    wg_wait<0>();
+    acc_fence(dp);
+    // dS = P (dP - delta) from the fp32 P, rounded to bf16 as A fragments:
+    // k-step kk (kv columns 16 kk..) is chunks 2 kk and 2 kk + 1, so dS
+    // never touches shared memory
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // chunk 2 kk + i / 2, rows (i & 1)
+        sa[kk][i] = pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+    // dQ += dS K, K read MN-major from the stage; the stage is released
+    // once the product has read it
+    acc_fence(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_t(acc, sa[kk], sw128_desc(ka + kk * 2048));
+    wg_commit();
+    wg_wait<0>();
+    acc_fence(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    kt = next_visible(kt + 1, cls);
+  }
+
+  // dq was accumulated against the rotated q: back through the rotation's
+  // transpose, y c + y[d+D/2] s (d < D/2), y c - y[d-D/2] s, each product
+  // rounded on its own as the plain version's separate fp32 ops round them.
+  // Column d and d + D/2 are chunks j and j + 4 of the same lane and e.
+  if (cq != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + g + 8 * i;
+      if (r >= nq) continue;  // past Sq: no table row, never written
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const size_t t = (size_t)(q0 + r) * H + j * 8 + tig * 2 + (e & 1);
+          const float c = cq[t], sn = sq[t];
+          const float x = acc[4 * j + e], y = acc[4 * (j + D / 16) + e];
+          acc[4 * j + e] = __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, sn));
+          acc[4 * (j + D / 16) + e] =
+              __fsub_rn(__fmul_rn(y, c), __fmul_rn(x, sn));
+        }
+    }
+  }
+  // dQ rounded to bf16 and stored from the accumulator, two columns per
+  // store; rows past Sq are not written
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dq + (row_base + q0 + r) * D + j * 8 +
+                                   tig * 2) =
+          pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
 template <int D> constexpr size_t fwd_smem() { return (3 * 64 * (D + 4) + 64 * LDP) * sizeof(float); }
 template <int D> constexpr size_t dq_smem() { return (4 * 64 * (D + 4) + 64 * LDP) * sizeof(float); }
 template <int D> constexpr size_t dkv_smem() { return (4 * 64 * (D + 4) + 2 * 64 * LDP) * sizeof(float); }
@@ -2452,6 +2738,39 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// q and k arrive rotated (rope_rows_kernel), so there are no k tables; cq
+// and sq, when given, are the tables of dq's inverse rotation
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, const void* qpos,
+                            const void* kpos, const void* cq, const void* sq,
+                            const void* ck, const void* sk, int B, int Hq,
+                            int Hkv, int Sq, int Sk, int causal,
+                            int static_causal, cudaStream_t stream) {
+  if (ck != nullptr || sk != nullptr) return cudaErrorInvalidValue;
+  // TMA reads from 16-byte aligned addresses; the stores move 4 bytes
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)kpos;
+  if ((addr & 15) || ((uintptr_t)dq & 3)) return cudaErrorMisalignedAddress;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo, tp;
+  if (!tile_map(&tq, q, Sq, B * Hq) || !tile_map(&tdo, dout, Sq, B * Hq) ||
+      !tile_map(&tk, k, Sk, B * Hkv) || !tile_map(&tv, v, Sk, B * Hkv) ||
+      !row_map(&tp, kpos, Sk, BK, CU_TENSOR_MAP_DATA_TYPE_INT32))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  bwd_dq_wgmma_kernel<<<grid, WG_NT, DQ_SMEM, stream>>>(
+      tq, tk, tv, tdo, tp, (const float*)lse, (const float*)delta,
+      (__nv_bfloat16*)dq, (const int*)qpos, (const int*)kpos,
+      (const float*)cq, (const float*)sq, Hq, Hkv, Sq, Sk, causal,
+      static_causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry dispatches on (input type, head dim); anything else is refused.
@@ -2481,11 +2800,13 @@ int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* sk, int B, int Hq, int Hkv, int Sq, int Sk,
                     int D, int causal, int static_causal, int is_bf16,
                     void* stream) {
-  // bf16 inputs run the tensor-core dq, fp32 inputs the CUDA-core one
+  // bf16 inputs run the Hopper dq at D 64 (q and k rotated beforehand, by
+  // pt_rope_rows) and the mma.sync one at D 128; fp32 inputs the CUDA-core
+  // one
 #define PT_DQ_ARGS                                                          \
   q, k, v, dout, lse, delta, dq, qpos, kpos, cq, sq, ck, sk, B, Hq, Hkv, Sq, \
       Sk, causal, static_causal, (cudaStream_t)stream
-  if (is_bf16 && D == 64) return (int)launch_dq_mma<64>(PT_DQ_ARGS);
+  if (is_bf16 && D == 64) return (int)launch_dq_wgmma(PT_DQ_ARGS);
   if (is_bf16 && D == 128) return (int)launch_dq_mma<128>(PT_DQ_ARGS);
   if (!is_bf16 && D == 64) return (int)launch_dq<float, 64>(PT_DQ_ARGS);
   if (!is_bf16 && D == 128) return (int)launch_dq<float, 128>(PT_DQ_ARGS);
@@ -2514,11 +2835,12 @@ int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// the Hopper dk/dv's dynamic shared memory per block, in bytes
+// the Hopper dk/dv's and dq's dynamic shared memory per block, in bytes
 int pt_dkv_wgmma_smem(void) { return WG_SMEM; }
+int pt_dq_wgmma_smem(void) { return DQ_SMEM; }
 
-// the rotation pre-pass of the Hopper dk/dv: x [B, H, S, D] bf16 by the
-// gathered tables [S, D/2] fp32, into y
+// the rotation pre-pass of the Hopper dq and dk/dv: x [B, H, S, D] bf16 by
+// the gathered tables [S, D/2] fp32, into y
 int pt_rope_rows(const void* x, const void* c, const void* s, void* y, int B,
                  int H, int S, int D, void* stream) {
   if (D == WG_D)

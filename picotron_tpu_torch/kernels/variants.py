@@ -2,20 +2,21 @@
 itself, on the card:
 
     python -m picotron_tpu_torch.kernels.variants --kernel flash_bwd_dq \
-        --variant 'kc32:int KC = D == 64 ? 16 : 32=>int KC = 32' \
+        --variant 'ns3:int DQ_NS = 2;=>int DQ_NS = 3;' \
         [--variant ...] [--rounds 3]
 
 Each --variant is NAME:OLD=>NEW, with more OLD=>NEW pairs joined by ";;":
 exact substrings of csrc/flash_attention.cu, each of which must occur
 (every occurrence is replaced). The source ("base") and every variant are
 built at once, one nvcc each, into build/variants/, and the ptxas lines of
-the kernel's tensor-core function (for flash_bwd_dkv the D-64 wgmma one)
-are printed. At chip_smoke's training
+the kernel's tensor-core function (for flash_bwd_dq and flash_bwd_dkv the
+D-64 wgmma one) are printed. At chip_smoke's training
 shape and its GQA D 128 shape, each build is held to the plain version
 (the worst row of each of the kernel's outputs, printed beside
 chip_smoke's limit and not enforced: a variant may trade accuracy) and
 timed by CUDA events with and without RoPE (the dk/dv's time with RoPE
-holds its rotation pre-pass), in turns (base, variants,
+holds the rotation pre-pass; the D-64 dq is timed on the rotated q and k,
+as the backward shares them), in turns (base, variants,
 repeated --rounds times) so that all share the card's state. The last
 line is one JSON object. Needs a CUDA card; run it from the repository
 root.
@@ -37,7 +38,7 @@ from picotron_tpu_torch.kernels import build
 
 # the public counter name of each kernel -> its tensor-core function
 FUNCTIONS = {"flash_fwd": "fwd_mma_kernel",
-             "flash_bwd_dq": "bwd_dq_mma_kernel",
+             "flash_bwd_dq": "bwd_dq_wgmma_kernel",
              "flash_bwd_dkv": "bwd_dkv_wgmma_kernel"}
 
 
@@ -119,11 +120,15 @@ def main(argv=None) -> dict:
         for rope, t in (("", tabs), (" without RoPE", None)):
             out, lse = fa.fwd_plain(q, k, v, qpos, kpos, t, True)
             delta = fa._delta(do, out, dlse)
+            wg = t is not None and fa._wgmma(q)
+            q_rot, k_rot = ((fa.rope_rows(q, *t[:2]), fa.rope_rows(k, *t[2:]))
+                            if wg else (q, k))
             fn = {
                 "flash_fwd": lambda: fa.fwd_kernel(q, k, v, qpos, kpos, t,
                                                    True, static),
                 "flash_bwd_dq": lambda: fa.bwd_dq_kernel(
-                    q, k, v, do, lse, delta, qpos, kpos, t, True, static),
+                    q_rot, k_rot, v, do, lse, delta, qpos, kpos, t, True,
+                    static, wg),
                 "flash_bwd_dkv": lambda: fa.bwd_dkv_kernel(
                     q, k, v, do, lse, delta, qpos, kpos, t, True, static),
             }[args.kernel]
@@ -139,7 +144,7 @@ def main(argv=None) -> dict:
                 print(f"{name} {args.kernel} {label}{rope} ({card}): "
                       f"{ms:.4f} ms (median of {args.rounds}: {ts}), "
                       f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-        del case, q, k, v, do, out, lse, delta
+        del case, q, k, v, do, out, lse, delta, q_rot, k_rot
         torch.cuda.empty_cache()
     build._LIBS.pop("flash_attention", None)
     for name, r in res.items():

@@ -4,11 +4,11 @@
 Port of picotron_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 there (`_fwd_kernel` :139, `_bwd_dq_kernel` :327, `_bwd_dkv_kernel` :412)
 become CUDA kernels for sm_90a (all three on the tensor cores for bf16,
-on CUDA cores for fp32; the bf16 dk/dv at D 64 on Hopper's wgmma, fed by
-TMA, after a pre-pass that rotates q and k once per call); the source
-note at the top of the .cu file says what bounds them on the card
-(operations: causal attention at S = 2048 is far above the card's
-FLOP/byte ridge) and what their design does about it. The public
+on CUDA cores for fp32; the bf16 dq and dk/dv at D 64 on Hopper's wgmma,
+fed by TMA, reading q and k that one pre-pass rotates once per backward
+call); the source note at the top of the .cu file says what bounds them
+on the card (operations: causal attention at S = 2048 is far above the
+card's FLOP/byte ridge) and what their design does about it. The public
 contract is the JAX one:
 
     flash_attention(q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D], causal=, q_positions=,
@@ -27,10 +27,10 @@ tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
 kernel launches per kernel, `fwd_launches`, `dq_launches` and
 `dkv_launches` each kernel's by variant (bf16 on the tensor cores, fp32
-on CUDA cores; dk/dv's bf16 D 64 on wgmma), and `prepass_launches` the
-dk/dv's rotation pre-pass; plain runs never count. Meta tensors (the
-shapes-only step that `analysis/trace.py` records) take the plain
-version too: it launches nothing.
+on CUDA cores; dq's and dk/dv's bf16 D 64 on wgmma), and
+`prepass_launches` the rotation pre-pass of the wgmma kernels; plain runs
+never count. Meta tensors (the shapes-only step that `analysis/trace.py`
+records) take the plain version too: it launches nothing.
 """
 
 from __future__ import annotations
@@ -51,20 +51,25 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 # the forward's launches by the kernel that ran: `fwd_mma_kernel` (bf16,
 # tensor cores) or `fwd_kernel` (fp32, CUDA cores)
 fwd_launches = {"tensor_core": 0, "cuda_core": 0}
-# the same for dq: `bwd_dq_mma_kernel` (bf16) or `bwd_dq_kernel` (fp32)
-dq_launches = {"tensor_core": 0, "cuda_core": 0}
+# the same for dq: `bwd_dq_wgmma_kernel` (bf16, D 64), `bwd_dq_mma_kernel`
+# (bf16, D 128) or `bwd_dq_kernel` (fp32)
+dq_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
 # the same for dk/dv: `bwd_dkv_wgmma_kernel` (bf16, D 64), `bwd_dkv_mma_kernel`
 # (bf16, D 128) or `bwd_dkv_kernel` (fp32)
 dkv_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
-# the dk/dv's rotation pre-pass (`rope_rows_kernel`), once for q and once
-# for k in each bf16 D-64 dk/dv call with RoPE
+# the wgmma kernels' rotation pre-pass (`rope_rows_kernel`): once for q
+# and once for k in each bf16 D-64 backward call with RoPE, shared by dq
+# and dk/dv (and in each call of either wrapper alone that is not handed
+# rotated operands)
 prepass_launches = {"rope_rows": 0}
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-# the head dims whose bf16 dk/dv runs `bwd_dkv_wgmma_kernel` (a static
-# dispatch on D in `pt_flash_bwd_dkv`: at D 128 its accumulators do not
-# fit the registers, and `bwd_dkv_mma_kernel` serves it)
-WGMMA_DKV_HEAD_DIMS = (64,)
+# the head dims whose bf16 dq and dk/dv run `bwd_dq_wgmma_kernel` and
+# `bwd_dkv_wgmma_kernel` on pre-rotated q and k (a static dispatch on D in
+# `pt_flash_bwd_dq` and `pt_flash_bwd_dkv`; D 128 runs the mma.sync
+# kernels: dk/dv's four accumulators would not fit the registers, and
+# dq's 256-byte rows would span two swizzle atoms)
+WGMMA_HEAD_DIMS = (64,)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -106,8 +111,10 @@ def _lib():
         lib.pt_flash_bwd_dkv.argtypes = [_P] * 14 + [_I] * 9 + [_P]
         lib.pt_rope_rows.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.pt_dkv_wgmma_smem.argtypes = []
+        lib.pt_dq_wgmma_smem.argtypes = []
         for fn in (lib.pt_flash_fwd, lib.pt_flash_bwd_dq, lib.pt_flash_bwd_dkv,
-                   lib.pt_rope_rows, lib.pt_dkv_wgmma_smem):
+                   lib.pt_rope_rows, lib.pt_dkv_wgmma_smem,
+                   lib.pt_dq_wgmma_smem):
             fn.restype = _I
         lib._pt_typed = True
     return lib
@@ -199,17 +206,56 @@ def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
     return out, lse
 
 
+def _wgmma(q4) -> bool:
+    """Whether bf16 q4's dq and dk/dv run the wgmma kernels (on q and k
+    rotated beforehand)."""
+    return q4.dtype == torch.bfloat16 and q4.shape[-1] in WGMMA_HEAD_DIMS
+
+
+def _prerotate(q4, k4, tabs, rotated):
+    """(q4, k4) for a wgmma kernel: rotated by the pre-pass, unless the
+    caller did (`rotated`) or there is no RoPE."""
+    if tabs[0] is None or rotated:
+        return q4, k4
+    return (rope_rows_kernel(q4, tabs[0], tabs[1]),
+            rope_rows_kernel(k4, tabs[2], tabs[3]))
+
+
+def _aligned16(*ts):
+    """The tensors, each copied if it does not start on 16 bytes (TMA
+    reads from 16-byte aligned addresses)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
+def _check_rotated(name, q4, rotated):
+    if rotated and not _wgmma(q4):
+        raise ValueError(f"{name}: rotated q and k are for the wgmma kernels "
+                         f"(bf16, head_dim in {WGMMA_HEAD_DIMS}), got "
+                         f"{q4.dtype} {q4.shape[-1]}")
+
+
 def bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
-                  static_causal):
+                  static_causal, rotated=False):
     """Launch the dq kernel -> dq4 [B,Hq,Sq,D] (w.r.t. the scaled q).
 
-    `pt_flash_bwd_dq` dispatches by dtype: bf16 (the training path) always
-    runs `bwd_dq_mma_kernel` on the tensor cores, fp32 runs the CUDA-core
-    `bwd_dq_kernel`; `dq_launches` records which."""
+    `pt_flash_bwd_dq` dispatches by dtype and head dim: bf16 (the
+    training path) at D 64 runs `bwd_dq_wgmma_kernel` (wgmma fed by TMA)
+    on q and k rotated beforehand by `rope_rows_kernel` (two launches of
+    the pre-pass, unless `rotated` says that q4 and k4 come rotated, as
+    `_bwd` hands them to dq and dk/dv alike; only dq's inverse rotation
+    stays in the kernel); bf16 at D 128 runs `bwd_dq_mma_kernel`
+    (mma.sync, RoPE per tile); fp32 runs the CUDA-core `bwd_dq_kernel`.
+    `dq_launches` records which."""
+    _check_rotated("flash_bwd_dq", q4, rotated)
     q4, k4, v4, do4, qpos, kpos, tabs, lse, delta = _operands(
         "flash_bwd_dq", q4, k4, v4, qpos, kpos, tabs, lse, delta, do4=do4)
     b, hq, sq, d = q4.shape
     hkv, sk = k4.shape[1], k4.shape[2]
+    wgmma = _wgmma(q4)
+    if wgmma:
+        (kpos,) = _aligned16(kpos)
+        q4, k4 = _prerotate(q4, k4, tabs, rotated)
+        tabs = (*tabs[:2], None, None)  # dq's inverse rotation alone
     dq = torch.empty_like(q4)
     rc = _lib().pt_flash_bwd_dq(
         _ptr(q4), _ptr(k4), _ptr(v4), _ptr(do4), _ptr(lse), _ptr(delta),
@@ -217,33 +263,31 @@ def bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
         sk, d, int(causal), int(static_causal),
         int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_bwd_dq")
-    _count("flash_bwd_dq", dq_launches, q4.dtype)
+    _count("flash_bwd_dq", dq_launches, q4.dtype, "wgmma" if wgmma else None)
     return dq
 
 
 def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
-                   static_causal):
+                   static_causal, rotated=False):
     """Launch the dk/dv kernel -> dk4, dv4 [B,Hkv,Sk,D].
 
     `pt_flash_bwd_dkv` dispatches by dtype and head dim: bf16 (the
-    training path) at D 64 runs `bwd_dkv_wgmma_kernel` (wgmma fed by TMA),
-    with q and k rotated once beforehand by `rope_rows_kernel` (two launches of
-    the pre-pass; only dk's inverse rotation stays in the kernel); bf16 at
-    D 128 runs `bwd_dkv_mma_kernel` (mma.sync, RoPE per tile); fp32 runs
-    the CUDA-core `bwd_dkv_kernel`. `dkv_launches` records which."""
+    training path) at D 64 runs `bwd_dkv_wgmma_kernel` (wgmma fed by TMA)
+    on q and k rotated beforehand by `rope_rows_kernel` (two launches of
+    the pre-pass, unless `rotated` says that q4 and k4 come rotated; only
+    dk's inverse rotation stays in the kernel); bf16 at D 128 runs
+    `bwd_dkv_mma_kernel` (mma.sync, RoPE per tile); fp32 runs the
+    CUDA-core `bwd_dkv_kernel`. `dkv_launches` records which."""
+    _check_rotated("flash_bwd_dkv", q4, rotated)
     q4, k4, v4, do4, qpos, kpos, tabs, lse, delta = _operands(
         "flash_bwd_dkv", q4, k4, v4, qpos, kpos, tabs, lse, delta, do4=do4)
     b, hq, sq, d = q4.shape
     hkv, sk = k4.shape[1], k4.shape[2]
-    wgmma = q4.dtype == torch.bfloat16 and d in WGMMA_DKV_HEAD_DIMS
+    wgmma = _wgmma(q4)
     if wgmma:
-        # TMA reads 16-byte aligned rows
-        lse, delta, qpos = (t if t.data_ptr() % 16 == 0 else t.clone()
-                            for t in (lse, delta, qpos))
-        if tabs[0] is not None:
-            q4 = rope_rows_kernel(q4, tabs[0], tabs[1])
-            k4 = rope_rows_kernel(k4, tabs[2], tabs[3])
-            tabs = (None, None, tabs[2], tabs[3])
+        lse, delta, qpos = _aligned16(lse, delta, qpos)
+        q4, k4 = _prerotate(q4, k4, tabs, rotated)
+        tabs = (None, None, *tabs[2:])  # dk's inverse rotation alone
     dk = torch.empty_like(k4)
     dv = torch.empty_like(v4)
     rc = _lib().pt_flash_bwd_dkv(
@@ -257,13 +301,13 @@ def bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs, causal,
 
 
 def rope_rows_kernel(x4, c, s):
-    """Launch the dk/dv's rotation pre-pass: x4 [B,H,S,D] bf16 (D in
-    WGMMA_DKV_HEAD_DIMS) rotated by the gathered tables c, s [S, D/2] fp32
+    """Launch the wgmma kernels' rotation pre-pass: x4 [B,H,S,D] bf16 (D
+    in WGMMA_HEAD_DIMS) rotated by the gathered tables c, s [S, D/2] fp32
     -> a new [B,H,S,D] bf16 tensor, bit for bit `_rot(x4, c, s, 1.0)`."""
     b, h, sq, d = x4.shape
-    if x4.dtype != torch.bfloat16 or d not in WGMMA_DKV_HEAD_DIMS:
+    if x4.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
         raise ValueError(f"rope_rows: CUDA kernel takes bf16 with head_dim "
-                         f"in {WGMMA_DKV_HEAD_DIMS}, got {x4.dtype} {d}")
+                         f"in {WGMMA_HEAD_DIMS}, got {x4.dtype} {d}")
     for t in (c, s):
         if (t.shape != (sq, d // 2) or t.dtype != torch.float32
                 or t.device != x4.device):
@@ -359,10 +403,16 @@ def _bwd(q4, k4, v4, o4, lse, do4, dlse, qpos, kpos, tabs, causal,
          static_causal):
     if q4.is_cuda:
         delta = _delta(do4, o4, dlse)
+        # the wgmma dq and dk/dv read one rotation of q and k: two launches
+        # of the pre-pass per call
+        rotated = tabs is not None and _wgmma(q4)
+        if rotated:
+            q4 = rope_rows_kernel(q4, tabs[0], tabs[1])
+            k4 = rope_rows_kernel(k4, tabs[2], tabs[3])
         dq = bwd_dq_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos, tabs,
-                           causal, static_causal)
+                           causal, static_causal, rotated)
         dk, dv = bwd_dkv_kernel(q4, k4, v4, do4, lse, delta, qpos, kpos,
-                                tabs, causal, static_causal)
+                                tabs, causal, static_causal, rotated)
         return dq, dk, dv
     if q4.device.type not in ("cpu", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q4.device}")

@@ -52,12 +52,13 @@ from picotron_tpu_torch.mesh import launcher_contract, shutdown
 
 # (name substring, class): each kernel's two variants share its class
 _FLASH = (("fwd_mma_kernel", "fwd_kernel"), ("fwd_kernel", "fwd_kernel"),
+          ("bwd_dq_wgmma_kernel", "bwd_dq_kernel"),
           ("bwd_dq_mma_kernel", "bwd_dq_kernel"),
           ("bwd_dq_kernel", "bwd_dq_kernel"),
           ("bwd_dkv_wgmma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_mma_kernel", "bwd_dkv_kernel"),
           ("bwd_dkv_kernel", "bwd_dkv_kernel"))
-# the dk/dv's rotation pre-pass, a class of its own
+# the wgmma dq's and dk/dv's rotation pre-pass, a class of its own
 _ROPE = ("rope_rows_kernel", "rope_rows")
 _GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 RANGES = ("train_step.grad_norm", "Optimizer.step")

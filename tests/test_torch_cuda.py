@@ -116,14 +116,14 @@ def test_kernels_match_plain(case, dtype, dev):
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
     # bf16 runs the tensor-core kernels, fp32 the CUDA-core ones; the bf16
-    # dk/dv at D 64 runs the wgmma kernel, after two rotation pre-passes
-    # with RoPE
+    # dq and dk/dv at D 64 run the wgmma kernels, which share two rotation
+    # pre-passes with RoPE
     variant = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
-    for counts in (fa.fwd_launches, fa.dq_launches):
-        assert counts == {"tensor_core": 0, "cuda_core": 0, variant: 1}
+    assert fa.fwd_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
     wgmma = dtype == torch.bfloat16 and case[5] == 64
-    assert fa.dkv_launches == {"wgmma": 0, "tensor_core": 0, "cuda_core": 0,
-                               "wgmma" if wgmma else variant: 1}
+    for counts in (fa.dq_launches, fa.dkv_launches):
+        assert counts == {"wgmma": 0, "tensor_core": 0, "cuda_core": 0,
+                          "wgmma" if wgmma else variant: 1}
     assert fa.prepass_launches == {"rope_rows": 2 * (wgmma and case[8])}
 
 
@@ -141,9 +141,10 @@ def test_public_wrapper_launches_kernels_and_autograd(dev):
     torch.cuda.synchronize()
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    for counts in (fa.fwd_launches, fa.dq_launches):
-        assert counts == {"tensor_core": 1, "cuda_core": 0}
-    assert fa.dkv_launches == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
+    assert fa.fwd_launches == {"tensor_core": 1, "cuda_core": 0}
+    for counts in (fa.dq_launches, fa.dkv_launches):
+        assert counts == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
+    # one rotation of q and k, shared by dq and dk/dv
     assert fa.prepass_launches == {"rope_rows": 2}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
@@ -155,8 +156,8 @@ def test_wrapper_raises_instead_of_falling_back(dev):
         fa.flash_attention(q, q, q)
 
 
-# the wgmma dk/dv's edge cases: (b, hq, hkv, sq, sk, causal, q position
-# shift, rope); explicit positions unless the shift is 0
+# the wgmma dq's and dk/dv's edge cases: (b, hq, hkv, sq, sk, causal, q
+# position shift, rope); explicit positions unless the shift is 0
 WGMMA_EDGES = {
     "ragged S 130": (1, 4, 2, 130, 130, True, 0, True),
     "shifted, ragged 97 x 161, GQA 4": (1, 4, 1, 97, 161, True, 64, True),
@@ -201,6 +202,41 @@ def test_wgmma_dkv_edge_cases(edge, dev):
 
 
 @cuda
+@pytest.mark.parametrize("edge", list(WGMMA_EDGES))
+def test_wgmma_dq_edge_cases(edge, dev):
+    """The wgmma dq (D 64, bf16), run as the backward runs it (`_bwd`:
+    q and k rotated once, for dq and dk/dv alike), against `bwd_plain` at
+    the dk/dv's edge cases (ragged S, shifted positions, q rows that see
+    no key, GQA with n_rep 4, no causal mask), each with a nonzero LSE
+    cotangent, within chip_smoke's per-row limit."""
+    b, hq, hkv, sq, sk, causal, shift, rope = WGMMA_EDGES[edge]
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = r(b, hq, sq, 64), r(b, hkv, sk, 64), r(b, hkv, sk, 64)
+    qpos = torch.arange(shift, shift + sq, device=dev, dtype=torch.int32)
+    kpos = torch.arange(sk, device=dev, dtype=torch.int32)
+    tabs = (fa._tables(rope_tables(512, 64, device=dev), qpos, kpos)
+            if rope else None)
+    static = causal and shift == 0
+    out, lse = fa.fwd_plain(q, k, v, qpos, kpos, tabs, causal)
+    if shift < 0:
+        assert torch.isneginf(lse).any()
+    do = r(b, hq, sq, 64)
+    dlse = torch.randn(b, hq, sq, generator=g, device=dev)
+    fa.reset_launch_counts()
+    got = fa._bwd(q, k, v, out, lse, do, dlse, qpos, kpos, tabs, causal,
+                  static)
+    want = fa.bwd_plain(q, k, v, out, lse, do, dlse, qpos, kpos, tabs,
+                        causal)
+    torch.cuda.synchronize()
+    for a, b_, name in zip(got, want, ("dq", "dk", "dv")):
+        _assert_close(a, b_, torch.bfloat16, name)
+    assert fa.dq_launches == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
+    assert fa.prepass_launches == {"rope_rows": 2 if rope else 0}
+
+
+@cuda
 def test_rope_rows_matches_rot_bit_for_bit(dev):
     """The rotation pre-pass equals its plain version `_rot` bit for bit
     (the same fp32 roundings), at a ragged length."""
@@ -218,28 +254,31 @@ def test_rope_rows_matches_rot_bit_for_bit(dev):
 # Faults planted in a copy of the CUDA source: (pattern, replacement, count).
 # Each edits every kernel that has the site, so each kernel's own output
 # shows whether the limit catches it. The counts include the sites in the
-# tensor-core forward, dq and dk/dv (`fwd_mma_kernel`, `bwd_dq_mma_kernel`,
-# `bwd_dkv_wgmma_kernel` at D 64 and `bwd_dkv_mma_kernel` at D 128), the
-# kernels bf16 inputs run.
+# tensor-core forward, dq and dk/dv (`fwd_mma_kernel`, and
+# `bwd_dq_wgmma_kernel` and `bwd_dkv_wgmma_kernel` at D 64,
+# `bwd_dq_mma_kernel` and `bwd_dkv_mma_kernel` at D 128), the kernels bf16
+# inputs run.
 MUTANTS = {
     # the causal mask lets each q row see one key past its own position
     # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dq_mma_kernel,
-    # bwd_dkv_kernel, bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel, whose
-    # transposed masks index kp_s by kv row)
-    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 7),
+    # bwd_dq_wgmma_kernel (its q positions in registers, qp), bwd_dkv_kernel,
+    # bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel, whose transposed masks
+    # index kp_s by kv row)
+    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 8),
     # the same, only in q rows at position 1024 and later
-    "late_mask_off_by_one": (r"(qp_s\[[^\]]+\]) >= kp_s\[(\w+)\]",
-                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 7),
+    "late_mask_off_by_one": (r"(qp(?:_s)?\[[^\]]+\]) >= kp_s\[(\w+)\]",
+                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 8),
     # the diagonal tile counted as full: its mask is never applied (one
     # `classify` shared by all kernels)
     "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
                               "t.full = q0 >= k0;", 1),
     # the last visible tile of the inner loop is dropped (fwd, dq: the
-    # diagonal kv tile, in fwd_mma_kernel and bwd_dq_mma_kernel through
-    # their next-visible-tile search; dk/dv: the last q tile, in
-    # bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel the last head's)
+    # diagonal kv tile, in fwd_mma_kernel, bwd_dq_mma_kernel and
+    # bwd_dq_wgmma_kernel through their next-visible-tile search; dk/dv:
+    # the last q tile, in bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel the
+    # last head's)
     "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt"
-                          r"|it < it_end; \+\+it", None, 7),
+                          r"|it < it_end; \+\+it", None, 8),
     # fwd_mma_kernel packs P's A fragment for kv columns 8..15 of each
     # k-step from the S n-tile of columns 0..7
     "p_from_wrong_ntile": (r"s\[2 \* kk \+ 1\]", "s[2 * kk]", 4),
@@ -247,13 +286,14 @@ MUTANTS = {
     # head (with one head per group, every head)
     "gqa_last_head_dropped": (r"it_end = n_rep \* nqt",
                               "it_end = (n_rep - 1) * nqt", 2),
-    # bwd_dq_mma_kernel takes row g's delta for row g + 8 of each warp's
-    # 16 (the lane's two rows of the accumulator fragments)
-    "dq_delta_wrong_row": (r"dl\[e >> 1\]", "dl[0]", 1),
+    # bwd_dq_wgmma_kernel takes row g's delta for row g + 8 of each warp's
+    # 16 (the lane's two rows of the wgmma accumulator)
+    "dq_delta_wrong_row": (r"\(dp\[4 \* j \+ e\] - dl\[e >> 1\]\)",
+                           "(dp[4 * j + e] - dl[0])", 1),
 }
 # the faults that only one kernel has a site for
 ONE_KERNEL = {"gqa_last_head_dropped": "bwd_dkv_wgmma_kernel",
-              "dq_delta_wrong_row": "bwd_dq_mma_kernel"}
+              "dq_delta_wrong_row": "bwd_dq_wgmma_kernel"}
 
 
 def _mutate(name):
@@ -293,8 +333,8 @@ def test_mutant_sites(mutant):
     """Each planted fault finds its stated number of sites; every one but
     the one-kernel faults lands in the tensor-core forward, and every one
     with a site in a CUDA-core backward kernel has one in each of its
-    tensor-core counterparts (dk/dv: the wgmma kernel at D 64 and the
-    mma.sync one at D 128); no card needed."""
+    tensor-core counterparts (the wgmma kernel at D 64 and the mma.sync
+    one at D 128); no card needed."""
     mutated, n = _mutate(mutant)
     assert n == MUTANTS[mutant][2], f"{mutant}: {n} sites"
     if mutant in ONE_KERNEL:
@@ -303,6 +343,7 @@ def test_mutant_sites(mutant):
     else:
         assert _lands_in(mutant, "fwd_mma_kernel"), f"{mutant} misses fwd"
     for old, new in (("bwd_dq_kernel", "bwd_dq_mma_kernel"),
+                     ("bwd_dq_kernel", "bwd_dq_wgmma_kernel"),
                      ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel"),
                      ("bwd_dkv_kernel", "bwd_dkv_mma_kernel")):
         if _lands_in(mutant, old):
@@ -371,29 +412,43 @@ def test_tensor_core_dkv_in_source():
     assert "launch_dkv_mma<64>" not in src
     assert "bwd_dkv_kernel<__nv_bfloat16" not in src
     assert "launch_dkv<__nv_bfloat16" not in src
-    assert fa.WGMMA_DKV_HEAD_DIMS == (64,)
+    assert fa.WGMMA_HEAD_DIMS == (64,)
 
 
 def test_tensor_core_dq_in_source():
-    """The bf16 dq is a kernel of its own whose three products are bf16
-    mma.sync instructions fed by ldmatrix from a cp.async ring, and
-    pt_flash_bwd_dq sends bf16 inputs to it alone; no card needed."""
+    """The bf16 dq at D 64 is a Hopper kernel of its own: its three
+    products are wgmma.mma_async instructions (S and dP with both operands
+    in shared memory, dQ += dS K with dS from registers), fed by TMA
+    copies (cp.async.bulk.tensor) that complete on an mbarrier ring, with
+    no block-wide barrier in its loop, on q and k rotated beforehand;
+    pt_flash_bwd_dq sends bf16 D 64 to it and bf16 D 128 to the mma.sync
+    kernel; no card needed."""
     src = (build.CSRC / "flash_attention.cu").read_text()
-    assert re.search(r"__global__ void __launch_bounds__\(MMA_NT[^)]*\) "
-                     r"bwd_dq_mma_kernel\(", src)
-    body = _kernel_body(src, "bwd_dq_mma_kernel")
+    assert re.search(r"__global__ void __launch_bounds__\(WG_NT[^)]*\) "
+                     r"bwd_dq_wgmma_kernel\(", src)
+    body = _kernel_body(src, "bwd_dq_wgmma_kernel")
     body = body[:body.index("\n}\n")]  # the kernel alone
-    for helper in ("mma_16816(", "ldsm_x4(", "ldsm_x4_trans(", "issue_kv(",
-                   "cp_async16(", "cp_async_wait<"):
+    assert body.count("wgmma_ss(") == 2  # S = Q K^T, dP = dO V^T
+    assert body.count("wgmma_rs_t(") == 1  # dQ += dS K
+    for helper in ("tma_load_3d(", "tma_load_1d(", "mbar_init(",
+                   "mbar_wait(", "mbar_arrive(", "mbar_expect_tx(",
+                   "wg_fence(", "wg_commit(", "wg_wait<"):
         assert helper in body, helper
-    assert body.count("mma_16816(") >= 3  # S, dP, dQ
+    loop = body[body.index("for (int n = 0; kt < kv_end; ++n)"):]
+    assert "__syncthreads" not in loop
+    # k comes rotated: no per-tile rotation, no k tables
+    assert "rope_tile" not in body
+    assert not re.search(r"\b(ck|sk)\b", body)
     dq = src[src.index("int pt_flash_bwd_dq("):]
     dq = dq[:dq.index("\n}\n")]
     assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
-                      r"launch_dq_mma<\1>", dq) == ["64", "128"]
+                      r"(launch_dq_\w+)", dq) == [
+        ("64", "launch_dq_wgmma"), ("128", "launch_dq_mma")]
+    assert "launch_dq_mma<64>" not in src
     assert "bwd_dq_kernel<__nv_bfloat16" not in src
     assert "launch_dq<__nv_bfloat16" not in src
     assert "PT_DISPATCH(launch_dq," not in src
+    assert fa.WGMMA_HEAD_DIMS == (64,)
 
 
 def test_variant_edits_and_ptxas_lines():
@@ -403,11 +458,10 @@ def test_variant_edits_and_ptxas_lines():
     from picotron_tpu_torch.kernels import variants
 
     src = (build.CSRC / "flash_attention.cu").read_text()
-    name, edited = variants.edit(
-        src, "kc32:int KC = D == 64 ? 16 : 32=>int KC = 32")
-    assert name == "kc32" and edited.count("int KC = 32") == 1
-    assert edited.replace("int KC = 32", "int KC = D == 64 ? 16 : 32") == src
-    for bad in ("kc32:no such text=>x", "kc32 no separator", ":a=>b"):
+    name, edited = variants.edit(src, "ns3:int DQ_NS = 2;=>int DQ_NS = 3;")
+    assert name == "ns3" and edited.count("int DQ_NS = 3;") == 1
+    assert edited.replace("int DQ_NS = 3;", "int DQ_NS = 2;") == src
+    for bad in ("ns3:no such text=>x", "ns3 no separator", ":a=>b"):
         with pytest.raises(ValueError):
             variants.edit(src, bad)
     log = ("ptxas info    : Compiling entry function '_Z17fwd_mma_kernelILi64E'"
@@ -463,6 +517,7 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
     assert failed, f"{mutant}: every output within the limit"
     # a fault in a bf16 kernel fails that kernel's own outputs
     for kernel, outs in (("fwd_mma_kernel", {"out", "lse"}),
+                         ("bwd_dq_wgmma_kernel", {"dq"}),
                          ("bwd_dq_mma_kernel", {"dq"}),
                          ("bwd_dkv_wgmma_kernel", {"dk", "dv"}),
                          ("bwd_dkv_mma_kernel", {"dk", "dv"})):

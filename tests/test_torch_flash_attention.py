@@ -139,19 +139,19 @@ def test_plain_path_never_counts_launches():
     out.sum().backward()
     assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
-    assert tfa.fwd_launches == tfa.dq_launches == {
-        "tensor_core": 0, "cuda_core": 0}
-    assert tfa.dkv_launches == {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
+    assert tfa.fwd_launches == {"tensor_core": 0, "cuda_core": 0}
+    assert tfa.dq_launches == tfa.dkv_launches == {
+        "wgmma": 0, "tensor_core": 0, "cuda_core": 0}
     assert tfa.prepass_launches == {"rope_rows": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rope_rows_matches_the_pallas_rotation(dtype):
-    """The dk/dv's rotation pre-pass (its plain version on the CPU) against
-    the JAX kernels' `_rot` with `_rot_tables` at shifted positions: fp32 at
-    1e-6 (the same products, summed in another order), bf16 within one
-    bf16 rounding step (XLA may contract a product into a fused
-    multiply-add before the cast)."""
+    """The wgmma kernels' rotation pre-pass (its plain version on the CPU)
+    against the JAX kernels' `_rot` with `_rot_tables` at shifted
+    positions: fp32 at 1e-6 (the same products, summed in another order),
+    bf16 within one bf16 rounding step (XLA may contract a product into a
+    fused multiply-add before the cast)."""
     from picotron_tpu.ops.flash_attention import _rot, _rot_tables
 
     rng = np.random.default_rng(5)

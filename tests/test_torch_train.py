@@ -460,6 +460,8 @@ def test_profile_step_kernel_classes():
     assert kernel_class("bwd_dq_kernel<float, 64>") == "flash:bwd_dq_kernel"
     assert kernel_class("void {anon}::bwd_dq_mma_kernel<128>(...)") == (
         "flash:bwd_dq_kernel")
+    assert kernel_class("void {anon}::bwd_dq_wgmma_kernel(CUtensorMap_st, "
+                        "...)") == "flash:bwd_dq_kernel"
     assert kernel_class("bwd_dkv_kernel<float, 128>") == "flash:bwd_dkv_kernel"
     assert kernel_class("void {anon}::bwd_dkv_mma_kernel<64>(...)") == (
         "flash:bwd_dkv_kernel")
