@@ -7,12 +7,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
 1. The card (nvidia-smi name and power limit) and the build: nvcc compiles
    picotron_tpu_torch/csrc/flash_attention.cu and csrc/adamw.cu for sm_90a
    from the checkout, both at once (ptxas registers and spills per kernel
-   printed, and the dynamic shared memory of the Hopper dq and dk/dv), and
-   cuobjdump's SASS of the library must show HMMA (mma.sync tensor-core)
-   instructions in both variants (D 64, 128) of the bf16 forward,
-   fwd_mma_kernel, and in the D-128 dq and dk/dv, bwd_dq_mma_kernel and
-   bwd_dkv_mma_kernel, and HGMMA (wgmma) in the D-64 dq and dk/dv,
-   bwd_dq_wgmma_kernel and bwd_dkv_wgmma_kernel.
+   printed, and the dynamic shared memory of the Hopper forward, dq and
+   dk/dv), and cuobjdump's SASS of the library must show HMMA (mma.sync
+   tensor-core) instructions in the D-128 forward, dq and dk/dv,
+   fwd_mma_kernel, bwd_dq_mma_kernel and bwd_dkv_mma_kernel (one
+   instantiation each), and HGMMA (wgmma) in the D-64 forward, dq and
+   dk/dv, fwd_wgmma_kernel, bwd_dq_wgmma_kernel and
+   bwd_dkv_wgmma_kernel.
 2. Each of the three flash-attention kernels against its plain PyTorch
    version on the card, in bf16: at the training shape (B 2, S 2048, H 32,
    D 64, fused RoPE, positions None), at a GQA shape with D 128 (Hq 32,
@@ -20,25 +21,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
    whole K/V) with a nonzero LSE cotangent, and at the per-rank heads of
    tp 4 (SmolLM-1.7B: B 2, Hq = Hkv = 8, D 64; Llama-3-8B: B 1, Hq 8,
    Hkv 2, D 128, and Hq 16, Hkv 4 under the 2d tp strategy at 2 x 2, the
-   shape phase 15 runs). At each D-64 shape the wgmma kernels' rotation
+   shape phase 15 runs); at D 64 the forward runs fwd_wgmma_kernel, at
+   D 128 fwd_mma_kernel. At each D-64 shape the wgmma kernels' rotation
    pre-pass (`rope_rows`, of q and of k) equals its plain version `_rot`
    bit for bit. Then each kernel's time at the
    training shape beside its plain version's, PyTorch's SDPA as a yardstick
    (SDPA does no RoPE: it gets pre-rotated inputs), and the bound (the
-   D-64 dq timed on the rotated q and k that the backward shares with
-   dk/dv, whose time holds the pre-pass); and each
+   forward timed with its own pre-pass and, beside it, alone on the
+   rotated q and k; the D-64 dq timed on the rotated q and k that the
+   backward shares with dk/dv, whose time holds the pre-pass); and each
    kernel's time, achieved TFLOP/s and share of its bound at the training
    and every other static shape, with and without RoPE (with RoPE, the
-   D-64 dq and dk/dv each hold their own pre-pass).
+   D-64 forward, dq and dk/dv each hold their own pre-pass).
 3. The main path: `python -m picotron_tpu_torch.train --config
    picotron_tpu_torch/configs/smollm17-1gpu-seq2048.json` (its entry point,
    in process) on full-width, full-depth SmolLM-1.7B (24 layers), seq 2048, mbs 2, ga 2,
    constant lr 3e-4 with no warmup, 4 steps, synthetic data, remat and
    offload off. Checks: every loss finite; the last step's loss below the
    first's; each kernel launched 24 x ga x steps times, every launch on
-   its tensor-core kernel (bf16; the dq's on bwd_dq_wgmma_kernel and the
-   dk/dv's on bwd_dkv_wgmma_kernel, both reading the q and k that two
-   launches of the rotation pre-pass per backward call rotated); the
+   its tensor-core kernel (bf16 at D 64: the forward's on
+   fwd_wgmma_kernel, the dq's on bwd_dq_wgmma_kernel and the dk/dv's on
+   bwd_dkv_wgmma_kernel, the forward reading the q and k that two
+   launches of the rotation pre-pass per forward call rotated, the dq
+   and dk/dv those that two launches per backward call rotated); the
    AdamW kernel launched once per parameter tensor per step (219 x
    steps); and the trained
    model's loss on the first step's batch (re-read from a fresh loader)
@@ -460,10 +465,11 @@ the largest row. tests/test_torch_cuda.py plants faults in copies of the
 kernel source and checks that each fails this limit: a mask off by one
 (in all rows, or only in rows at position 1024 and later), the diagonal
 tile taken as full, the last tile of the inner loop skipped, and the LSE
-cotangent left out of delta, in the tensor-core forward P packed from
-the wrong S n-tile, in the tensor-core dq one row's delta taken for
-another's, and in the tensor-core dk/dv the last GQA head of the inner
-loop dropped.
+cotangent left out of delta, in the D-128 forward P packed from the
+wrong S n-tile, in the D-64 forward O not rescaled by alpha and P's
+fragments of two rows swapped, in the tensor-core dq one row's delta
+taken for another's, and in the tensor-core dk/dv the last GQA head of
+the inner loop dropped.
 
 Phase 4's limits: EVAL_ATOL = 5e-3 absolute on a loss near 11: the two
 attention paths take the same bf16 q/k/v and differ by the kernels' bf16
@@ -965,13 +971,16 @@ def time_kernels(fa, case) -> dict:
     out, lse = fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static)
     delta = fa._delta(do, out, dlse)
     t = {}
+    # the forward as the main path calls it (at D 64 with its own pre-pass)
     t["flash_fwd"] = cuda_ms(
         lambda: fa.fwd_kernel(q, k, v, qpos, kpos, tabs, True, static))
-    # the D-64 dq on the rotated q and k that the backward call shares
-    # with dk/dv (whose time holds the pre-pass)
+    # the D-64 forward alone, and the D-64 dq, on the rotated q and k that
+    # the pre-pass makes (dk/dv's time holds the backward's pre-pass)
     wg = tabs is not None and fa._wgmma(q)
     q_rot, k_rot = ((fa.rope_rows(q, *tabs[:2]), fa.rope_rows(k, *tabs[2:]))
                     if wg else (q, k))
+    t["flash_fwd_alone"] = cuda_ms(lambda: fa.fwd_kernel(
+        q_rot, k_rot, v, qpos, kpos, None if wg else tabs, True, static))
     t["flash_bwd_dq"] = cuda_ms(lambda: fa.bwd_dq_kernel(
         q_rot, k_rot, v, do, lse, delta, qpos, kpos, tabs, True, static, wg))
     t["flash_bwd_dkv"] = cuda_ms(lambda: fa.bwd_dkv_kernel(
@@ -997,6 +1006,7 @@ def time_kernels(fa, case) -> dict:
                                                   retain_graph=True))
     return {
         "flash_fwd": (t["flash_fwd"], plain_fwd, lib_fwd),
+        "flash_fwd_alone": t["flash_fwd_alone"],
         "flash_bwd_dq": (t["flash_bwd_dq"], plain_bwd, lib_bwd),
         "flash_bwd_dkv": (t["flash_bwd_dkv"], plain_bwd, lib_bwd),
     }
@@ -1031,20 +1041,21 @@ def sass_mma(build) -> dict:
 
 def bf16_variants(key: str, n: int, d: int) -> dict:
     """The by-variant launch counts `key` (VARIANT_COUNTS) of n bf16
-    launches at head dim d: the dq and dk/dv at WGMMA_D on their wgmma
-    kernels, every other on the mma.sync one."""
-    if key == "fwd_launches":
-        return {"tensor_core": n, "cuda_core": 0}
+    launches at head dim d: all three kernels at WGMMA_D on their wgmma
+    kernels, at any other on their mma.sync ones."""
     wg = n if d == WGMMA_D else 0
     return {"wgmma": wg, "tensor_core": n - wg, "cuda_core": 0}
 
 
 def check_prepass(counts: dict, d: int, label: str) -> None:
-    """Raise unless the rotation pre-pass ran twice (q, k) per backward
-    call on the wgmma kernels, which dq and dk/dv share (one dk/dv launch
-    per call; every model here uses RoPE)."""
-    want = 2 * bf16_variants("dkv_launches", counts["launches"][
-        "flash_bwd_dkv"], d)["wgmma"]
+    """Raise unless the rotation pre-pass ran twice (q, k) per forward
+    call and twice per backward call on the wgmma kernels, which dq and
+    dk/dv share (one dk/dv launch per backward call; every model here
+    uses RoPE)."""
+    launched = counts["launches"]
+    want = 2 * (bf16_variants("fwd_launches", launched["flash_fwd"], d)[
+        "wgmma"] + bf16_variants("dkv_launches", launched["flash_bwd_dkv"],
+                                 d)["wgmma"])
     if counts["prepass_launches"] != {"rope_rows": want}:
         raise AssertionError(f"{label}: rotation pre-pass launches "
                              f"{counts['prepass_launches']}, want {want}")
@@ -1103,8 +1114,8 @@ def main_path(fa, here: str, config: str = CONFIG) -> dict:
     for key in VARIANT_COUNTS:
         if result[key] != bf16_variants(key, want, WGMMA_D):
             raise AssertionError(f"{key} by variant {result[key]}: want all "
-                                 f"{want} on the tensor-core kernel (the "
-                                 f"dq's and dk/dv's on the wgmma ones)")
+                                 f"{want} on the tensor-core kernel (at D "
+                                 f"{WGMMA_D} the wgmma one)")
     check_prepass({"launches": result["launches"],
                    "prepass_launches": result["prepass_launches"]},
                   WGMMA_D, "main path")
@@ -2901,8 +2912,9 @@ def cp_schedules_phase(card: str, shape: tuple = CP_SHAPE) -> dict:
             lf, lb = fwd_rec.launches, bwd_rec.launches
             ok = (n_f == n_b == want_n
                   and lf["launches"]["flash_fwd"] == want_n
-                  and lf["fwd_launches"] == {"tensor_core": want_n,
-                                             "cuda_core": 0}
+                  and lf["fwd_launches"] == bf16_variants(
+                      "fwd_launches", want_n, CP_SHAPE[-1])
+                  and lf["prepass_launches"] == {"rope_rows": 0}
                   and lb["launches"]["flash_bwd_dq"] == want_n
                   and lb["launches"]["flash_bwd_dkv"] == want_n
                   and lb["dq_launches"] == bf16_variants(
@@ -4137,7 +4149,7 @@ def moe_decode_phase(fa, here: str, card: str) -> dict:
         full = forward(model16, out)[:, p - 1:p - 1 + n].float()
     check_launches(launch_counts(fa), {
         "flash_fwd": cfg.model.num_hidden_layers, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0}, "11e forward")
+        "flash_bwd_dkv": 0}, "11e forward", d=cfg.model.head_dim)
     chosen = full.gather(-1, gen_tokens[..., None])[..., 0]
     margin = float((full.max(dim=-1).values - chosen).max())
     with recorded_routes(routes_dec):
@@ -6238,12 +6250,14 @@ def main() -> int:
                              f"chip_smoke's {WGMMA_D}")
     log(f"bwd_dkv_wgmma_kernel: {fa._lib().pt_dkv_wgmma_smem()} bytes of "
         f"dynamic shared memory per block; bwd_dq_wgmma_kernel: "
-        f"{fa._lib().pt_dq_wgmma_smem()}")
+        f"{fa._lib().pt_dq_wgmma_smem()}; fwd_wgmma_kernel: "
+        f"{fa._lib().pt_fwd_wgmma_smem()}")
     mma = sass_mma(build)
     for fn, (n, ng) in mma.items():
         log(f"sass: {n} HMMA, {ng} HGMMA in {fn}")
-    # (kernel, instruction, its instantiations: D 64 and 128, or one)
-    for kernel, instr, n_fn in (("fwd_mma_kernel", 0, 2),
+    # (kernel, instruction, its instantiations)
+    for kernel, instr, n_fn in (("fwd_mma_kernel", 0, 1),
+                                ("fwd_wgmma_kernel", 1, 1),
                                 ("bwd_dq_mma_kernel", 0, 1),
                                 ("bwd_dq_wgmma_kernel", 1, 1),
                                 ("bwd_dkv_mma_kernel", 0, 1),
@@ -6472,15 +6486,18 @@ def main() -> int:
     wgmma_ptxas = {name: [line for line in ptxas_lines(
         build.BUILD_LOGS.get("flash_attention", ""), fn)
         if "registers" in line or "spill" in line]
-        for name, fn in (("flash_bwd_dq", "bwd_dq_wgmma_kernel"),
+        for name, fn in (("flash_fwd", "fwd_wgmma_kernel"),
+                         ("flash_bwd_dq", "bwd_dq_wgmma_kernel"),
                          ("flash_bwd_dkv", "bwd_dkv_wgmma_kernel"))}
     kernels = []
     for name, replaces in KERNELS:
         ms, plain_ms, lib_ms = times[name]
         bound_ms, bound_by, _ = bnd[name]
-        log(f"{name} at B2 S2048 H32 D64 ({card}): {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound {bound_ms:.4f} "
-            f"ms ({bound_by})")
+        alone = (f" ({times['flash_fwd_alone']:.3f} ms without its "
+                 f"pre-pass)" if name == "flash_fwd" else "")
+        log(f"{name} at B2 S2048 H32 D64 ({card}): {ms:.3f} ms{alone}, "
+            f"plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": result["launches"][name],
@@ -6501,15 +6518,17 @@ def main() -> int:
                             for lay, res in tp["layouts"].items()},
             "dots_offload_launches":
                 engines["remat"]["dots_offload"]["launches"][name],
-            # the dq's and dk/dv's variants on the main path (D 64: the
-            # wgmma kernels), the rotation pre-pass launches they share
-            # (inside the dk/dv's ms and bound_ms), and the wgmma
-            # kernel's ptxas report
-            **({"variants": result[
-                    "dq_launches" if name == "flash_bwd_dq" else
-                    "dkv_launches"],
-                "prepass_launches": result["prepass_launches"]["rope_rows"],
-                "ptxas": wgmma_ptxas[name]} if name in wgmma_ptxas else {}),
+            # each kernel's variants on the main path (D 64: the wgmma
+            # kernels), the rotation pre-pass launches of the forward and
+            # the backward together (inside the forward's and the dk/dv's
+            # ms, and the dk/dv's bound_ms), and the wgmma kernel's
+            # ptxas report
+            "variants": result[dict(zip(
+                (k for k, _ in KERNELS), VARIANT_COUNTS))[name]],
+            "prepass_launches": result["prepass_launches"]["rope_rows"],
+            "ptxas": wgmma_ptxas[name],
+            **({"ms_without_prepass": times["flash_fwd_alone"]}
+               if name == "flash_fwd" else {}),
         })
     log(f"adamw over the phase-3 model ({card}): {adamw['ms']:.3f} ms, plain "
         f"{adamw['plain_ms']:.3f} ms, torch._fused_adamw_ "

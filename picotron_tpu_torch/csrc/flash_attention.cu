@@ -1,7 +1,9 @@
 // Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
 //
 // Replaces the three Pallas TPU kernels of picotron_tpu/ops/flash_attention.py:
-//   fwd_mma_kernel     <- _fwd_kernel     (:139, pallas_call in _fwd :281), bf16
+//   fwd_wgmma_kernel   <- _fwd_kernel     (:139, pallas_call in _fwd :281),
+//                         bf16 at D 64, after rope_rows_kernel
+//   fwd_mma_kernel     <- _fwd_kernel     (the same), bf16 at D 128
 //   fwd_kernel         <- _fwd_kernel     (the same), fp32 inputs only
 //   bwd_dq_wgmma_kernel <- _bwd_dq_kernel (:327, pallas_call in _bwd :543),
 //                          bf16 at D 64, after rope_rows_kernel
@@ -12,19 +14,46 @@
 //   bwd_dkv_mma_kernel <- _bwd_dkv_kernel (the same), bf16 at D 128
 //   bwd_dkv_kernel     <- _bwd_dkv_kernel (the same), fp32 inputs only
 //   rope_rows_kernel   <- no TPU kernel: the rotations of q and k in
-//                         _bwd_dq_kernel (q :343, k :367 at each kv
-//                         visit) and _bwd_dkv_kernel (k :433, q :456 at
-//                         each q visit), done once per backward call for
-//                         both D-64 kernels
+//                         _fwd_kernel (q :160 once, k :193 at each kv
+//                         visit), _bwd_dq_kernel (q :343, k :367 at each
+//                         kv visit) and _bwd_dkv_kernel (k :433, q :456
+//                         at each q visit), done once per forward call
+//                         for the D-64 forward and once per backward call
+//                         for both D-64 backward kernels
 //
 // What bounds it on the card: causal attention at the training shapes
 // (S = 2048, D = 64) does ~S/2 multiply-adds per loaded element, far above
 // the H100's ~295 FLOP/byte ridge, so the work is bound by operations, not
 // by device-memory bytes.
 //
-// The bf16 forward (fwd_mma_kernel, the main path's) therefore runs both
-// products on the tensor cores: mma.sync m16n8k16 bf16 with fp32
-// accumulation. One block of 4 warps per (64-row q tile, q head, batch),
+// The bf16 forward at D 64 (the main path's head dim) therefore runs
+// fwd_wgmma_kernel, built from the Hopper dq's parts: one warpgroup per
+// (64-row q tile, q head, batch), heaviest causal tiles first, q rows as
+// wgmma's M. S = Q K^T takes both operands from shared memory (wgmma
+// m64n64k16, fp32 accumulators in registers); the online softmax runs on
+// S's accumulator (a row's 64 scores lie across one quad: two shuffles
+// for its max, two for its sum), and P is rounded to bf16 straight from
+// it into A fragments in registers for O += P V, with V read MN-major, so
+// P never touches shared memory. Q arrives once per block by TMA; K, V
+// and the tile's kv positions stream by TMA through a two-stage ring over
+// the visible kv tiles, in the 128-byte swizzle, each stage with a full
+// and an empty mbarrier (no block-wide barrier in the loop). Each tile is
+// one chain: S's product, the mask and the softmax on the CUDA cores (O
+// rescaled by alpha in registers), P V's product, and each warp's release
+// of the stage once P V has read it; lane 0 of warp 0 refills the stage
+// the previous tile released while the tile's S product runs. (P V left in
+// flight under the next tile's S product measured slower: ptxas then
+// waited after every wgmma.) Q and K come rotated by rope_rows_kernel, a
+// memory-bound pre-pass once per forward call (the mma.sync forward
+// rotated each K tile at each of its visits, 16.5x per call at the
+// training shape, about a third of its time). Five blocks fit an SM (96
+// registers, 42,536 bytes of shared memory); what bounds it at the
+// training shape is that serial chain, which the five blocks hide only in
+// part (PERF.md).
+//
+// At D 128 the forward stays on fwd_mma_kernel (a 256-byte row would span
+// two 128-byte swizzle atoms): mma.sync m16n8k16 bf16 with fp32
+// accumulation, one block of 4 warps per (64-row q tile, q head, batch),
 // each warp owning 16 q rows, heaviest causal tiles launched first. Q is
 // loaded once, rotated, and kept as ldmatrix A fragments in registers for
 // the whole kv loop; K/V tiles stream through a two-stage shared-memory
@@ -32,13 +61,10 @@
 // ldmatrix is free of bank conflicts), the copy of the next visible tile
 // (with its RoPE table rows, in the region Q no longer needs) issued
 // before the current tile's products and rotated in place once it lands;
-// the online softmax runs on the S accumulator fragments, and P is rounded
-// to bf16 and packed straight from them into the A fragments of O += P V
-// (the m16n8 C layout of two neighbouring n-tiles is the m16k16 A layout),
-// so P never touches shared memory. One barrier per tile, two with RoPE.
-// The per-tile K rotation costs about a third of the kernel's time at the
-// training shape (PERF.md); wgmma, TMA and warp specialisation are later
-// steps.
+// P is packed from the S accumulator fragments into the A fragments of
+// O += P V (the m16n8 C layout of two neighbouring n-tiles is the m16k16
+// A layout). One barrier per tile, two with RoPE. pt_flash_fwd dispatches
+// on D alone.
 //
 // The bf16 dk/dv is bound by operations too (8 D FLOPs per visible
 // (q, k) pair against the same bytes), and per pair it also pays one
@@ -137,14 +163,15 @@
 // returns cudaGetLastError() after its launch. Tensors are contiguous
 // [B, H, S, D]; lse and delta are fp32 [B, Hq, Sq]; positions int32; RoPE
 // tables fp32 [S, D/2] already gathered at the positions (null = no RoPE).
-// The bf16 forward also needs q, k, v, out and the tables 16-byte
-// aligned; at D 128 the bf16 dq q, k, v, dout, dq and the tables, and the
-// bf16 dk/dv q, k, v, dout, dk, dv and the tables; at D 64, whose q and k
-// come rotated (the dq's k tables and the dk/dv's q tables null), the dq
-// q, k, v, dout and the kv positions, and the dk/dv q, k, v, dout, dk,
-// dv, lse, delta and the q positions. The Hopper dq and dk/dv get their
-// tensor maps from cuTensorMapEncodeTiled, found through
-// cudaGetDriverEntryPoint, so the library still links only the runtime.
+// At D 128 the bf16 forward also needs q, k, v, out and the tables 16-byte
+// aligned, the bf16 dq q, k, v, dout, dq and the tables, and the bf16
+// dk/dv q, k, v, dout, dk, dv and the tables; at D 64, whose q and k come
+// rotated (no forward tables, the dq's k tables and the dk/dv's q tables
+// null), the forward q, k, v and the kv positions, the dq q, k, v, dout
+// and the kv positions, and the dk/dv q, k, v, dout, dk, dv, lse, delta
+// and the q positions. The Hopper kernels get their tensor maps from
+// cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint, so the
+// library still links only the runtime.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
@@ -338,9 +365,10 @@ __device__ __forceinline__ TileClass classify(bool causal, bool static_causal,
 }
 
 // ---------------------------------------------------------------------------
-// Forward on CUDA cores, for fp32 inputs (bf16 runs fwd_mma_kernel): one
-// block per (q tile, q head, batch); loop over kv tiles with the online
-// softmax (m, l, acc) in registers.
+// Forward on CUDA cores, for fp32 inputs (bf16 runs fwd_wgmma_kernel at
+// D 64 and fwd_mma_kernel at D 128): one block per (q tile, q head,
+// batch); loop over kv tiles with the online softmax (m, l, acc) in
+// registers.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -594,10 +622,10 @@ template <int D> constexpr size_t fwd_mma_smem() {
   return fwd_mma_head_bytes<D>() + 4 * BK * (D + 8) * 2;
 }
 
-// minimum blocks per SM: 3 at D 64 and 2 at D 128, the most that fit
-// without register spills (ptxas: 152 and 200 registers)
+// minimum blocks per SM: 2 at D 128 (its one instantiation), the most
+// that fit without register spills (ptxas: 200 registers)
 template <int D>
-__global__ void __launch_bounds__(MMA_NT, D == 64 ? 3 : 2) fwd_mma_kernel(
+__global__ void __launch_bounds__(MMA_NT, 2) fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, const int* __restrict__ qpos,
@@ -1917,11 +1945,11 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
 // The rotation pre-pass: a [B, H, S, D] bf16 tensor rotated by the
 // gathered fp32 tables c, s [S, D/2] (its position index along S) into y,
 // with rope_tile's arithmetic (fp32 rotate-half, each product rounded on
-// its own, rounded to bf16), so that the wgmma dq's and dk/dv's products
-// see the operands a per-tile rotation gave. One thread per 8 columns of a row
-// position, batch and group of ROPE_HEADS heads, which loads its table
-// entries once and walks the group. Bound by bytes: each element read and
-// written once.
+// its own, rounded to bf16), so that the wgmma forward's, dq's and dk/dv's
+// products see the operands a per-tile rotation gave. One thread per 8
+// columns of a row position, batch and group of ROPE_HEADS heads, which
+// loads its table entries once and walks the group. Bound by bytes: each
+// element read and written once.
 constexpr int ROPE_HEADS = 4;
 template <int D>
 __global__ void __launch_bounds__(256) rope_rows_kernel(
@@ -2485,6 +2513,256 @@ __global__ void __launch_bounds__(WG_NT, 4) bwd_dq_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward on Hopper (bf16, D 64), the design in the note at the top:
+// one warpgroup per (64-row q tile, q head, batch); per visible kv tile,
+// with the q rows as wgmma's M and the 64 kv columns as N,
+//   S = Q K^T, m' = max(m, rowmax S), alpha = exp(m - m'), P = exp(S - m'),
+//   l = l alpha + rowsum P, O = O alpha + P V
+// (the last with the 64 columns of d as N), and out = O / l, lse = m +
+// log l after the last tile. Q and K rotated beforehand by
+// rope_rows_kernel. Accumulator layout as for bwd_dkv_wgmma_kernel: this
+// lane holds q rows 16 w + g and 16 w + g + 8 at columns 8 j + 2 t,
+// 8 j + 2 t + 1 in d[4 j .. 4 j + 3].
+// ---------------------------------------------------------------------------
+
+constexpr int FW_NS = 2;      // ring stages
+constexpr int FW_BLOCKS = 5;  // blocks an SM, for the launch bounds
+// shared memory, in bytes from a 1024-aligned base: Q (resident), then NS
+// stages of K, NS of V, NS rows of kv positions, and the barriers
+// (full[NS], empty[NS], q)
+constexpr int FW_Q = 0;
+constexpr int FW_K = WG_TILE;
+constexpr int FW_V = FW_K + FW_NS * WG_TILE;
+constexpr int FW_KP = FW_V + FW_NS * WG_TILE;
+constexpr int FW_BAR = FW_KP + FW_NS * BK * 4;
+constexpr int FW_SMEM = FW_BAR + (2 * FW_NS + 1) * 8 + 1024;  // + alignment
+
+__global__ void __launch_bounds__(WG_NT, FW_BLOCKS) fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_kp, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, int Hq, int Hkv, int Sq, int Sk,
+    int causal, int static_causal) {
+  constexpr int D = WG_D;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint8_t* gbase = wg_smem + (base - raw);
+  const uint32_t full0 = base + FW_BAR, empty0 = full0 + 8 * FW_NS;
+  const uint32_t q_bar = empty0 + 8 * FW_NS;
+
+  const int num_q = (Sq + BQ - 1) / BQ;
+  // static-causal: the heaviest q tiles (most kv tiles) launch first
+  const int qt = static_causal ? num_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * BQ, nq = min(BQ, Sq - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t row_base = (size_t)(b * Hq + h) * Sq;
+
+  if (tid == 0) {
+    for (int s = 0; s < FW_NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the copier's arrive.expect_tx
+      mbar_init(empty0 + 8 * s, 4);  // one arrive per warp
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the positions of this lane's rows g and g + 8 of its warp's 16, read
+  // once
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    qp[i] = r < nq ? qpos[q0 + r] : 0;
+  }
+  int qmin = 0, qmax = 0;
+  if (causal && !static_causal) tile_minmax(qpos + q0, nq, qmin, qmax);
+  __syncthreads();  // the barriers, once, before the loop
+
+  const int num_kv = (Sk + BK - 1) / BK;
+  // static-causal: no kv tile past the last one this q tile can see
+  const int kv_end = static_causal ? min(num_kv, (q0 + nq - 1) / BK + 1) : num_kv;
+  auto tile_class = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, Sk - k0);
+    int kmin = 0, kmax = 0;
+    if (causal && !static_causal) tile_minmax(kpos + k0, nk, kmin, kmax);
+    return classify(causal, static_causal, q0, nq, k0, nk, qmin, qmax, kmin,
+                    kmax);
+  };
+  // the first visible kv tile at or after kt (kv_end if none) and its
+  // class: invisible tiles are neither copied nor multiplied. Every lane
+  // of a warp calls it (tile_minmax is warp-wide).
+  auto next_visible = [&](int kt, TileClass& cls) {
+    for (; kt < kv_end; ++kt) {
+      cls = tile_class(kt);
+      if (cls.visible) return kt;
+    }
+    return kv_end;
+  };
+  // lane 0 of warp 0 copies kv tile kt into ring stage st by TMA: K and V
+  // (rows past Sk zero-filled) and, when causal, the kv positions (64
+  // entries from a multiple of 64: 16-byte aligned)
+  const uint32_t step_bytes = 2 * WG_TILE + (causal ? BK * 4 : 0);
+  auto issue = [&](int kt, int st) {
+    const uint32_t bar = full0 + 8 * st;
+    mbar_expect_tx(bar, step_bytes);
+    tma_load_3d(base + FW_K + st * WG_TILE, &tm_k, bar, 0, kt * BK,
+                b * Hkv + hk);
+    tma_load_3d(base + FW_V + st * WG_TILE, &tm_v, bar, 0, kt * BK,
+                b * Hkv + hk);
+    if (causal) tma_load_1d(base + FW_KP + st * BK * 4, &tm_kp, bar, kt * BK);
+  };
+
+  TileClass cls, cls_p;
+  int kt = next_visible(0, cls);
+  // warp 0's cursor: the next visible kv tile to copy
+  int ip = kt;
+  if (warp == 0) {
+    if (lane == 0 && kt < kv_end) {  // Q (rows past Sq zero), once
+      mbar_expect_tx(q_bar, WG_TILE);
+      tma_load_3d(base + FW_Q, &tm_q, q_bar, 0, q0, b * Hq + h);
+    }
+    for (int st = 0; st < FW_NS && ip < kv_end; ++st) {
+      if (lane == 0) issue(ip, st);
+      __syncwarp();
+      ip = next_visible(ip + 1, cls_p);
+    }
+  }
+
+  // O, and S then P (S overwritten by each tile's first k-step); the
+  // running row max m and sum l of this lane's two rows
+  float o[32], s[32], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    o[i] = 0.f;
+    s[i] = 0.f;
+  }
+  if (kt < kv_end) mbar_wait(q_bar, 0);
+  const uint64_t q_desc = sw128_desc(base + FW_Q);
+
+  for (int n = 0; kt < kv_end; ++n) {
+    const int st = n % FW_NS;
+    mbar_wait(full0 + 8 * st, (n / FW_NS) & 1);  // tile kt is in stage st
+    const int nk = min(BK, Sk - kt * BK);
+    const uint32_t ka = base + FW_K + st * WG_TILE;
+    const uint32_t va = base + FW_V + st * WG_TILE;
+    const int* kp_s = reinterpret_cast<const int*>(gbase + FW_KP + st * BK * 4);
+
+    // S = Q K^T
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, q_desc + 2 * kk, sw128_desc(ka) + 2 * kk, kk);
+    wg_commit();
+    // while it runs, warp 0 refills the stage tile n - 1 released (every
+    // warp has arrived on it: all four issued the product above) with the
+    // visible tile FW_NS - 1 ahead
+    if (n > 0 && warp == 0 && ip < kv_end) {
+      const int sp = (n - 1) % FW_NS;
+      if (lane == 0) {
+        mbar_wait(empty0 + 8 * sp, ((n - 1) / FW_NS) & 1);
+        issue(ip, sp);
+      }
+      __syncwarp();
+      ip = next_visible(ip + 1, cls_p);
+    }
+    wg_wait<0>();
+    acc_fence(s);
+    // the mask, on tiles that are not full: this lane holds q rows g (e =
+    // 0, 1) and g + 8 (e = 2, 3) at kv columns c, c + 1 of each chunk j
+    if (!cls.full) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + tig * 2 + (e & 1);
+          const bool ok = c < nk && (!causal || qp[e >> 1] >= kp_s[c]);
+          if (!ok) s[4 * j + e] = NEG;
+        }
+    }
+    // the online softmax in fp32: a row's 64 scores lie across one quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      // exp(x) as exp2(x log2 e)
+      const float alpha = m[i] <= NEG ? 0.f : fast_exp2((m[i] - m_new) * LOG2E);
+      // a row with no visible key yet has m_new = NEG: exp(NEG - NEG) must
+      // be 0, so its shift is +inf
+      const float mb = m_new <= NEG ? INFINITY : m_new * LOG2E;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const float p = fast_exp2(fmaf(s[4 * j + e], LOG2E, -mb));
+          rs += p;  // l sums p before its bf16 rounding
+          s[4 * j + e] = p;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+      // O is not in flight: the previous tile's product was waited for
+      // before its stage was released
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+    // P rounded to bf16 as A fragments: k-step kk (kv columns 16 kk..) is
+    // chunks 2 kk and 2 kk + 1, so P never touches shared memory
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // chunk 2 kk + i / 2, rows (i & 1)
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    // O += P V, V read MN-major from the stage; the stage is released
+    // once the product has read it. Waiting here keeps P's fragments and
+    // S's accumulator apart: a P V still in flight under the next S
+    // product made ptxas serialise every wgmma (a wait after each k-step)
+    acc_fence(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_t(o, pa[kk], sw128_desc(va + kk * 2048));
+    wg_commit();
+    wg_wait<0>();
+    acc_fence(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    kt = next_visible(kt + 1, cls);
+  }
+
+  // O / l rounded to bf16 and stored from the accumulator, two columns per
+  // store; lse by the lane with t = 0; rows past Sq are not written
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    if (r >= nq) continue;
+    const float inv_l = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + (row_base + q0 + r) * D + j * 8 +
+                                   tig * 2) =
+          pack_bf16(o[4 * j + 2 * i] * inv_l, o[4 * j + 2 * i + 1] * inv_l);
+    if (tig == 0)
+      lse[row_base + q0 + r] = l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
+  }
+}
+
 template <int D> constexpr size_t fwd_smem() { return (3 * 64 * (D + 4) + 64 * LDP) * sizeof(float); }
 template <int D> constexpr size_t dq_smem() { return (4 * 64 * (D + 4) + 64 * LDP) * sizeof(float); }
 template <int D> constexpr size_t dkv_smem() { return (4 * 64 * (D + 4) + 2 * 64 * LDP) * sizeof(float); }
@@ -2771,12 +3049,44 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// q and k arrive rotated (rope_rows_kernel), so there are no tables
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* out, void* lse, const void* qpos,
+                             const void* kpos, const void* cq,
+                             const void* sq, const void* ck, const void* sk,
+                             int B, int Hq, int Hkv, int Sq, int Sk,
+                             int causal, int static_causal,
+                             cudaStream_t stream) {
+  if (cq != nullptr || sq != nullptr || ck != nullptr || sk != nullptr)
+    return cudaErrorInvalidValue;
+  // TMA reads from 16-byte aligned addresses; the stores move 4 bytes
+  const uintptr_t addr =
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)kpos;
+  if ((addr & 15) || ((uintptr_t)out & 3)) return cudaErrorMisalignedAddress;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tp;
+  if (!tile_map(&tq, q, Sq, B * Hq) || !tile_map(&tk, k, Sk, B * Hkv) ||
+      !tile_map(&tv, v, Sk, B * Hkv) ||
+      !row_map(&tp, kpos, Sk, BK, CU_TENSOR_MAP_DATA_TYPE_INT32))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FW_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  fwd_wgmma_kernel<<<grid, WG_NT, FW_SMEM, stream>>>(
+      tq, tk, tv, tp, (__nv_bfloat16*)out, (float*)lse, (const int*)qpos,
+      (const int*)kpos, Hq, Hkv, Sq, Sk, causal, static_causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry dispatches on (input type, head dim); anything else is refused.
 extern "C" {
 
-// bf16 inputs run the tensor-core forward, fp32 inputs the CUDA-core one
+// bf16 inputs run the Hopper forward at D 64 (q and k rotated beforehand,
+// by pt_rope_rows) and the mma.sync one at D 128; fp32 inputs the
+// CUDA-core one
 int pt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, const void* qpos, const void* kpos, const void* cq,
                  const void* sq, const void* ck, const void* sk, int B, int Hq,
@@ -2785,7 +3095,7 @@ int pt_flash_fwd(const void* q, const void* k, const void* v, void* out,
 #define PT_FWD_ARGS                                                        \
   q, k, v, out, lse, qpos, kpos, cq, sq, ck, sk, B, Hq, Hkv, Sq, Sk, causal, \
       static_causal, (cudaStream_t)stream
-  if (is_bf16 && D == 64) return (int)launch_fwd_mma<64>(PT_FWD_ARGS);
+  if (is_bf16 && D == 64) return (int)launch_fwd_wgmma(PT_FWD_ARGS);
   if (is_bf16 && D == 128) return (int)launch_fwd_mma<128>(PT_FWD_ARGS);
   if (!is_bf16 && D == 64) return (int)launch_fwd<float, 64>(PT_FWD_ARGS);
   if (!is_bf16 && D == 128) return (int)launch_fwd<float, 128>(PT_FWD_ARGS);
@@ -2835,11 +3145,13 @@ int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// the Hopper dk/dv's and dq's dynamic shared memory per block, in bytes
+// the Hopper dk/dv's, dq's and forward's dynamic shared memory per block,
+// in bytes
 int pt_dkv_wgmma_smem(void) { return WG_SMEM; }
 int pt_dq_wgmma_smem(void) { return DQ_SMEM; }
+int pt_fwd_wgmma_smem(void) { return FW_SMEM; }
 
-// the rotation pre-pass of the Hopper dq and dk/dv: x [B, H, S, D] bf16 by
+// the rotation pre-pass of the Hopper kernels: x [B, H, S, D] bf16 by
 // the gathered tables [S, D/2] fp32, into y
 int pt_rope_rows(const void* x, const void* c, const void* s, void* y, int B,
                  int H, int S, int D, void* stream) {

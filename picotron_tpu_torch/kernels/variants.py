@@ -9,14 +9,13 @@ Each --variant is NAME:OLD=>NEW, with more OLD=>NEW pairs joined by ";;":
 exact substrings of csrc/flash_attention.cu, each of which must occur
 (every occurrence is replaced). The source ("base") and every variant are
 built at once, one nvcc each, into build/variants/, and the ptxas lines of
-the kernel's tensor-core function (for flash_bwd_dq and flash_bwd_dkv the
-D-64 wgmma one) are printed. At chip_smoke's training
+the kernel's tensor-core function (the D-64 wgmma one) are printed. At chip_smoke's training
 shape and its GQA D 128 shape, each build is held to the plain version
 (the worst row of each of the kernel's outputs, printed beside
 chip_smoke's limit and not enforced: a variant may trade accuracy) and
-timed by CUDA events with and without RoPE (the dk/dv's time with RoPE
-holds the rotation pre-pass; the D-64 dq is timed on the rotated q and k,
-as the backward shares them), in turns (base, variants,
+timed by CUDA events with and without RoPE (the forward's and the
+dk/dv's time with RoPE at D 64 holds the rotation pre-pass; the D-64 dq
+is timed on the rotated q and k, as the backward shares them), in turns (base, variants,
 repeated --rounds times) so that all share the card's state. The last
 line is one JSON object. Needs a CUDA card; run it from the repository
 root.
@@ -37,7 +36,7 @@ import torch
 from picotron_tpu_torch.kernels import build
 
 # the public counter name of each kernel -> its tensor-core function
-FUNCTIONS = {"flash_fwd": "fwd_mma_kernel",
+FUNCTIONS = {"flash_fwd": "fwd_wgmma_kernel",
              "flash_bwd_dq": "bwd_dq_wgmma_kernel",
              "flash_bwd_dkv": "bwd_dkv_wgmma_kernel"}
 

@@ -4,11 +4,12 @@
 Port of picotron_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 there (`_fwd_kernel` :139, `_bwd_dq_kernel` :327, `_bwd_dkv_kernel` :412)
 become CUDA kernels for sm_90a (all three on the tensor cores for bf16,
-on CUDA cores for fp32; the bf16 dq and dk/dv at D 64 on Hopper's wgmma,
-fed by TMA, reading q and k that one pre-pass rotates once per backward
-call); the source note at the top of the .cu file says what bounds them
-on the card (operations: causal attention at S = 2048 is far above the
-card's FLOP/byte ridge) and what their design does about it. The public
+on CUDA cores for fp32; at D 64 all three bf16 kernels on Hopper's wgmma,
+fed by TMA, reading q and k that one pre-pass rotates once per forward
+call and once per backward call; at D 128 on mma.sync); the source note
+at the top of the .cu file says what bounds them on the card
+(operations: causal attention at S = 2048 is far above the card's
+FLOP/byte ridge) and what their design does about it. The public
 contract is the JAX one:
 
     flash_attention(q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D], causal=, q_positions=,
@@ -26,10 +27,9 @@ CPU tensors run the plain version, RoPE in fp32 + `sdpa_attention` /
 tests drive everything around the kernels (the sm_scale fold, the layout
 moves, the RoPE tables, delta and the LSE cotangent). `launches` counts
 kernel launches per kernel, `fwd_launches`, `dq_launches` and
-`dkv_launches` each kernel's by variant (bf16 on the tensor cores, fp32
-on CUDA cores; dq's and dk/dv's bf16 D 64 on wgmma), and
-`prepass_launches` the rotation pre-pass of the wgmma kernels; plain runs
-never count. Meta tensors (the shapes-only step that `analysis/trace.py`
+`dkv_launches` each kernel's by variant (bf16 D 64 on wgmma, bf16 D 128
+on mma.sync, fp32 on CUDA cores), and `prepass_launches` the rotation
+pre-pass of the wgmma kernels; plain runs never count. Meta tensors (the shapes-only step that `analysis/trace.py`
 records) take the plain version too: it launches nothing.
 """
 
@@ -48,9 +48,9 @@ from picotron_tpu_torch.ops.attention import (
 # launches of each kernel since the last reset (plain integers, counted
 # under a lock so that threads launching at once lose no count)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-# the forward's launches by the kernel that ran: `fwd_mma_kernel` (bf16,
-# tensor cores) or `fwd_kernel` (fp32, CUDA cores)
-fwd_launches = {"tensor_core": 0, "cuda_core": 0}
+# the forward's launches by the kernel that ran: `fwd_wgmma_kernel` (bf16,
+# D 64), `fwd_mma_kernel` (bf16, D 128) or `fwd_kernel` (fp32)
+fwd_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
 # the same for dq: `bwd_dq_wgmma_kernel` (bf16, D 64), `bwd_dq_mma_kernel`
 # (bf16, D 128) or `bwd_dq_kernel` (fp32)
 dq_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
@@ -58,17 +58,18 @@ dq_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
 # (bf16, D 128) or `bwd_dkv_kernel` (fp32)
 dkv_launches = {"wgmma": 0, "tensor_core": 0, "cuda_core": 0}
 # the wgmma kernels' rotation pre-pass (`rope_rows_kernel`): once for q
-# and once for k in each bf16 D-64 backward call with RoPE, shared by dq
-# and dk/dv (and in each call of either wrapper alone that is not handed
-# rotated operands)
+# and once for k in each bf16 D-64 forward call with RoPE, and in each
+# such backward call, shared by dq and dk/dv (and in each call of either
+# wrapper alone that is not handed rotated operands)
 prepass_launches = {"rope_rows": 0}
 
 SUPPORTED_HEAD_DIMS = (64, 128)
-# the head dims whose bf16 dq and dk/dv run `bwd_dq_wgmma_kernel` and
-# `bwd_dkv_wgmma_kernel` on pre-rotated q and k (a static dispatch on D in
-# `pt_flash_bwd_dq` and `pt_flash_bwd_dkv`; D 128 runs the mma.sync
-# kernels: dk/dv's four accumulators would not fit the registers, and
-# dq's 256-byte rows would span two swizzle atoms)
+# the head dims whose bf16 forward, dq and dk/dv run `fwd_wgmma_kernel`,
+# `bwd_dq_wgmma_kernel` and `bwd_dkv_wgmma_kernel` on pre-rotated q and k
+# (a static dispatch on D in `pt_flash_fwd`, `pt_flash_bwd_dq` and
+# `pt_flash_bwd_dkv`; D 128 runs the mma.sync kernels: dk/dv's four
+# accumulators would not fit the registers, and the forward's and dq's
+# 256-byte rows would span two swizzle atoms)
 WGMMA_HEAD_DIMS = (64,)
 _SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -112,9 +113,10 @@ def _lib():
         lib.pt_rope_rows.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.pt_dkv_wgmma_smem.argtypes = []
         lib.pt_dq_wgmma_smem.argtypes = []
+        lib.pt_fwd_wgmma_smem.argtypes = []
         for fn in (lib.pt_flash_fwd, lib.pt_flash_bwd_dq, lib.pt_flash_bwd_dkv,
                    lib.pt_rope_rows, lib.pt_dkv_wgmma_smem,
-                   lib.pt_dq_wgmma_smem):
+                   lib.pt_dq_wgmma_smem, lib.pt_fwd_wgmma_smem):
             fn.restype = _I
         lib._pt_typed = True
     return lib
@@ -188,13 +190,21 @@ def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
     [B,Hkv,Sk,D], qpos/kpos int32, tabs None or the gathered fp32 tables
     (cq, sq, ck, sk). -> out4 [B,Hq,Sq,D], lse [B,Hq,Sq] fp32.
 
-    `pt_flash_fwd` dispatches by dtype: bf16 (the training path) always
-    runs `fwd_mma_kernel` on the tensor cores, fp32 runs the CUDA-core
-    `fwd_kernel`; `fwd_launches` records which."""
+    `pt_flash_fwd` dispatches by dtype and head dim: bf16 (the training
+    path) at D 64 runs `fwd_wgmma_kernel` (wgmma fed by TMA) on q and k
+    rotated beforehand by `rope_rows_kernel` (two launches of the
+    pre-pass with RoPE; the kernel takes no tables); bf16 at D 128 runs
+    `fwd_mma_kernel` (mma.sync, RoPE per tile); fp32 runs the CUDA-core
+    `fwd_kernel`. `fwd_launches` records which."""
     q4, k4, v4, qpos, kpos, tabs = _operands(
         "flash_fwd", q4, k4, v4, qpos, kpos, tabs)
     b, hq, sq, d = q4.shape
     hkv, sk = k4.shape[1], k4.shape[2]
+    wgmma = _wgmma(q4)
+    if wgmma:
+        q4, k4, v4, kpos = _aligned16(q4, k4, v4, kpos)
+        q4, k4 = _prerotate(q4, k4, tabs, False)
+        tabs = (None,) * 4
     out = torch.empty_like(q4)
     lse = torch.empty((b, hq, sq), device=q4.device, dtype=torch.float32)
     rc = _lib().pt_flash_fwd(
@@ -202,13 +212,13 @@ def fwd_kernel(q4, k4, v4, qpos, kpos, tabs, causal, static_causal):
         _ptr(kpos), *map(_ptr, tabs), b, hq, hkv, sq, sk, d, int(causal),
         int(static_causal), int(q4.dtype == torch.bfloat16), _stream(q4))
     _raise_on(rc, "flash_fwd")
-    _count("flash_fwd", fwd_launches, q4.dtype)
+    _count("flash_fwd", fwd_launches, q4.dtype, "wgmma" if wgmma else None)
     return out, lse
 
 
 def _wgmma(q4) -> bool:
-    """Whether bf16 q4's dq and dk/dv run the wgmma kernels (on q and k
-    rotated beforehand)."""
+    """Whether bf16 q4's forward, dq and dk/dv run the wgmma kernels (on
+    q and k rotated beforehand)."""
     return q4.dtype == torch.bfloat16 and q4.shape[-1] in WGMMA_HEAD_DIMS
 
 
@@ -404,7 +414,8 @@ def _bwd(q4, k4, v4, o4, lse, do4, dlse, qpos, kpos, tabs, causal,
     if q4.is_cuda:
         delta = _delta(do4, o4, dlse)
         # the wgmma dq and dk/dv read one rotation of q and k: two launches
-        # of the pre-pass per call
+        # of the pre-pass per call (the forward's rotated pair is not
+        # saved: the saved q and k stay unrotated)
         rotated = tabs is not None and _wgmma(q4)
         if rotated:
             q4 = rope_rows_kernel(q4, tabs[0], tabs[1])

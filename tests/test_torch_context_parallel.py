@@ -561,5 +561,6 @@ def test_flash_launch_counts_lose_nothing_under_threads():
     _hammer(lambda: fa._count("flash_fwd", fa.fwd_launches, torch.bfloat16),
             n_threads, per)
     assert fa.launches["flash_fwd"] == n_threads * per
-    assert fa.fwd_launches == {"tensor_core": n_threads * per, "cuda_core": 0}
+    assert fa.fwd_launches == {"wgmma": 0, "tensor_core": n_threads * per,
+                               "cuda_core": 0}
     fa.reset_launch_counts()

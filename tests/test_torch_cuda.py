@@ -116,15 +116,14 @@ def test_kernels_match_plain(case, dtype, dev):
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
     # bf16 runs the tensor-core kernels, fp32 the CUDA-core ones; the bf16
-    # dq and dk/dv at D 64 run the wgmma kernels, which share two rotation
-    # pre-passes with RoPE
+    # kernels at D 64 run the wgmma ones: with RoPE the forward rotates q
+    # and k (two pre-pass launches), and dq and dk/dv share two more
     variant = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
-    assert fa.fwd_launches == {"tensor_core": 0, "cuda_core": 0, variant: 1}
     wgmma = dtype == torch.bfloat16 and case[5] == 64
-    for counts in (fa.dq_launches, fa.dkv_launches):
+    for counts in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
         assert counts == {"wgmma": 0, "tensor_core": 0, "cuda_core": 0,
                           "wgmma" if wgmma else variant: 1}
-    assert fa.prepass_launches == {"rope_rows": 2 * (wgmma and case[8])}
+    assert fa.prepass_launches == {"rope_rows": 4 * (wgmma and case[8])}
 
 
 @cuda
@@ -141,11 +140,11 @@ def test_public_wrapper_launches_kernels_and_autograd(dev):
     torch.cuda.synchronize()
     assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
                            "flash_bwd_dkv": 1}
-    assert fa.fwd_launches == {"tensor_core": 1, "cuda_core": 0}
-    for counts in (fa.dq_launches, fa.dkv_launches):
+    for counts in (fa.fwd_launches, fa.dq_launches, fa.dkv_launches):
         assert counts == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
-    # one rotation of q and k, shared by dq and dk/dv
-    assert fa.prepass_launches == {"rope_rows": 2}
+    # one rotation of q and k for the forward, and one shared by dq and
+    # dk/dv
+    assert fa.prepass_launches == {"rope_rows": 4}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad.float()).all()
 
 
@@ -237,6 +236,38 @@ def test_wgmma_dq_edge_cases(edge, dev):
 
 
 @cuda
+@pytest.mark.parametrize("edge", list(WGMMA_EDGES))
+def test_wgmma_fwd_edge_cases(edge, dev):
+    """The wgmma forward (D 64, bf16) against `fwd_plain`, out and lse, at
+    the backward kernels' edge cases (ragged S, shifted positions, q rows
+    that see no key: a zero output and lse -inf, GQA with n_rep 4, no
+    causal mask), within chip_smoke's per-row limits."""
+    b, hq, hkv, sq, sk, causal, shift, rope = WGMMA_EDGES[edge]
+    g = torch.Generator(device=dev).manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = r(b, hq, sq, 64), r(b, hkv, sk, 64), r(b, hkv, sk, 64)
+    qpos = torch.arange(shift, shift + sq, device=dev, dtype=torch.int32)
+    kpos = torch.arange(sk, device=dev, dtype=torch.int32)
+    tabs = (fa._tables(rope_tables(512, 64, device=dev), qpos, kpos)
+            if rope else None)
+    static = causal and shift == 0
+    fa.reset_launch_counts()
+    out, lse = fa.fwd_kernel(q, k, v, qpos, kpos, tabs, causal, static)
+    out_p, lse_p = fa.fwd_plain(q, k, v, qpos, kpos, tabs, causal)
+    torch.cuda.synchronize()
+    # rows that see no key: lse -inf where the plain version's is, and a
+    # zero output
+    dark = torch.isneginf(lse_p)
+    assert bool(dark.any()) == (shift < 0)
+    assert torch.equal(torch.isneginf(lse), dark) and not out[dark].any()
+    _assert_close(out, out_p, torch.bfloat16, "out")
+    _assert_close(lse[~dark], lse_p[~dark], torch.bfloat16, "lse")
+    assert fa.fwd_launches == {"wgmma": 1, "tensor_core": 0, "cuda_core": 0}
+    assert fa.prepass_launches == {"rope_rows": 2 if rope else 0}
+
+
+@cuda
 def test_rope_rows_matches_rot_bit_for_bit(dev):
     """The rotation pre-pass equals its plain version `_rot` bit for bit
     (the same fp32 roundings), at a ragged length."""
@@ -254,31 +285,31 @@ def test_rope_rows_matches_rot_bit_for_bit(dev):
 # Faults planted in a copy of the CUDA source: (pattern, replacement, count).
 # Each edits every kernel that has the site, so each kernel's own output
 # shows whether the limit catches it. The counts include the sites in the
-# tensor-core forward, dq and dk/dv (`fwd_mma_kernel`, and
+# tensor-core forward, dq and dk/dv (`fwd_wgmma_kernel`,
 # `bwd_dq_wgmma_kernel` and `bwd_dkv_wgmma_kernel` at D 64,
-# `bwd_dq_mma_kernel` and `bwd_dkv_mma_kernel` at D 128), the kernels bf16
-# inputs run.
+# `fwd_mma_kernel`, `bwd_dq_mma_kernel` and `bwd_dkv_mma_kernel` at D
+# 128), the kernels bf16 inputs run.
 MUTANTS = {
     # the causal mask lets each q row see one key past its own position
-    # (fwd_mma_kernel, fwd_kernel, bwd_dq_kernel, bwd_dq_mma_kernel,
-    # bwd_dq_wgmma_kernel (its q positions in registers, qp), bwd_dkv_kernel,
-    # bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel, whose transposed masks
-    # index kp_s by kv row)
-    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 8),
+    # (fwd_wgmma_kernel and bwd_dq_wgmma_kernel (their q positions in
+    # registers, qp), fwd_mma_kernel, fwd_kernel, bwd_dq_kernel,
+    # bwd_dq_mma_kernel, bwd_dkv_kernel, bwd_dkv_mma_kernel and
+    # bwd_dkv_wgmma_kernel, whose transposed masks index kp_s by kv row)
+    "mask_off_by_one": (r">= kp_s\[(\w+)\]", r"+ 1 >= kp_s[\1]", 9),
     # the same, only in q rows at position 1024 and later
     "late_mask_off_by_one": (r"(qp(?:_s)?\[[^\]]+\]) >= kp_s\[(\w+)\]",
-                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 8),
+                             r"\1 + (\1 >= 1024) >= kp_s[\2]", 9),
     # the diagonal tile counted as full: its mask is never applied (one
     # `classify` shared by all kernels)
     "diagonal_tile_as_full": (r"t\.full = q0 >= k0 \+ nk - 1;",
                               "t.full = q0 >= k0;", 1),
     # the last visible tile of the inner loop is dropped (fwd, dq: the
-    # diagonal kv tile, in fwd_mma_kernel, bwd_dq_mma_kernel and
-    # bwd_dq_wgmma_kernel through their next-visible-tile search; dk/dv:
-    # the last q tile, in bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel the
-    # last head's)
+    # diagonal kv tile, in fwd_wgmma_kernel, fwd_mma_kernel,
+    # bwd_dq_mma_kernel and bwd_dq_wgmma_kernel through their
+    # next-visible-tile search; dk/dv: the last q tile, in
+    # bwd_dkv_mma_kernel and bwd_dkv_wgmma_kernel the last head's)
     "last_tile_skipped": (r"kt < kv_end; \+\+kt|qt < num_q; \+\+qt"
-                          r"|it < it_end; \+\+it", None, 8),
+                          r"|it < it_end; \+\+it", None, 9),
     # fwd_mma_kernel packs P's A fragment for kv columns 8..15 of each
     # k-step from the S n-tile of columns 0..7
     "p_from_wrong_ntile": (r"s\[2 \* kk \+ 1\]", "s[2 * kk]", 4),
@@ -290,10 +321,21 @@ MUTANTS = {
     # 16 (the lane's two rows of the wgmma accumulator)
     "dq_delta_wrong_row": (r"\(dp\[4 \* j \+ e\] - dl\[e >> 1\]\)",
                            "(dp[4 * j + e] - dl[0])", 1),
+    # fwd_wgmma_kernel adds each tile's P V to an O that was not rescaled
+    # by alpha = exp(m_old - m_new) (both of the lane's rows' columns)
+    "fwd_o_not_rescaled": (r"o\[4 \* j \+ 2 \* i( \+ 1)?\] \*= alpha;", "",
+                           2),
+    # fwd_wgmma_kernel packs P's A fragments for rows g and g + 8 of each
+    # warp's 16 from each other's accumulator entries
+    "fwd_p_wrong_fragment": (
+        r"pack_bf16\(s\[8 \* kk \+ 2 \* i\], s\[8 \* kk \+ 2 \* i \+ 1\]\)",
+        "pack_bf16(s[8 * kk + (2 * i ^ 2)], s[8 * kk + (2 * i ^ 2) + 1])", 1),
 }
 # the faults that only one kernel has a site for
 ONE_KERNEL = {"gqa_last_head_dropped": "bwd_dkv_wgmma_kernel",
-              "dq_delta_wrong_row": "bwd_dq_wgmma_kernel"}
+              "dq_delta_wrong_row": "bwd_dq_wgmma_kernel",
+              "fwd_o_not_rescaled": "fwd_wgmma_kernel",
+              "fwd_p_wrong_fragment": "fwd_wgmma_kernel"}
 
 
 def _mutate(name):
@@ -332,9 +374,9 @@ def _lands_in(mutant, kernel):
 def test_mutant_sites(mutant):
     """Each planted fault finds its stated number of sites; every one but
     the one-kernel faults lands in the tensor-core forward, and every one
-    with a site in a CUDA-core backward kernel has one in each of its
-    tensor-core counterparts (the wgmma kernel at D 64 and the mma.sync
-    one at D 128); no card needed."""
+    with a site in a CUDA-core kernel has one in each of its tensor-core
+    counterparts (the wgmma kernel at D 64 and the mma.sync one at D 128);
+    no card needed."""
     mutated, n = _mutate(mutant)
     assert n == MUTANTS[mutant][2], f"{mutant}: {n} sites"
     if mutant in ONE_KERNEL:
@@ -342,7 +384,9 @@ def test_mutant_sites(mutant):
         assert not _lands_in(mutant, "fwd_mma_kernel")
     else:
         assert _lands_in(mutant, "fwd_mma_kernel"), f"{mutant} misses fwd"
-    for old, new in (("bwd_dq_kernel", "bwd_dq_mma_kernel"),
+    for old, new in (("fwd_kernel", "fwd_wgmma_kernel"),
+                     ("fwd_kernel", "fwd_mma_kernel"),
+                     ("bwd_dq_kernel", "bwd_dq_mma_kernel"),
                      ("bwd_dq_kernel", "bwd_dq_wgmma_kernel"),
                      ("bwd_dkv_kernel", "bwd_dkv_wgmma_kernel"),
                      ("bwd_dkv_kernel", "bwd_dkv_mma_kernel")):
@@ -351,9 +395,9 @@ def test_mutant_sites(mutant):
 
 
 def test_tensor_core_forward_in_source():
-    """The bf16 forward is a kernel of its own whose products are bf16
-    mma.sync instructions fed by ldmatrix from a cp.async ring, and
-    pt_flash_fwd sends bf16 inputs to it alone; no card needed."""
+    """The bf16 forward at D 128 is a kernel of its own whose products are
+    bf16 mma.sync instructions fed by ldmatrix from a cp.async ring, and
+    pt_flash_fwd sends bf16 D 128 to it alone; no card needed."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert re.search(r"__global__ void __launch_bounds__\(MMA_NT[^)]*\) "
                      r"fwd_mma_kernel\(", src)
@@ -370,9 +414,45 @@ def test_tensor_core_forward_in_source():
     fwd = src[src.index("int pt_flash_fwd("):]
     fwd = fwd[:fwd.index("\n}\n")]
     assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
-                      r"launch_fwd_mma<\1>", fwd) == ["64", "128"]
+                      r"launch_fwd_mma<\1>", fwd) == ["128"]
+    assert "launch_fwd_mma<64>" not in src
     assert "launch_fwd<__nv_bfloat16" not in src
     assert "PT_DISPATCH(launch_fwd," not in src
+
+
+def test_wgmma_forward_in_source():
+    """The bf16 forward at D 64 is a Hopper kernel of its own: its two
+    products are wgmma.mma_async instructions (S = Q K^T with both
+    operands in shared memory, O += P V with P from registers), fed by TMA
+    copies (cp.async.bulk.tensor) that complete on an mbarrier ring, with
+    no block-wide barrier in its loop, on q and k rotated beforehand (no
+    tables); pt_flash_fwd sends bf16 D 64 to it and bf16 D 128 to the
+    mma.sync kernel; no card needed."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"__global__ void __launch_bounds__\(WG_NT[^)]*\) "
+                     r"fwd_wgmma_kernel\(", src)
+    body = _kernel_body(src, "fwd_wgmma_kernel")
+    body = body[:body.index("\n}\n")]  # the kernel alone
+    assert body.count("wgmma_ss(") == 1  # S = Q K^T
+    assert body.count("wgmma_rs_t(") == 1  # O += P V
+    for helper in ("tma_load_3d(", "tma_load_1d(", "mbar_init(",
+                   "mbar_wait(", "mbar_arrive(", "mbar_expect_tx(",
+                   "wg_fence(", "wg_commit(", "wg_wait<"):
+        assert helper in body, helper
+    for instr in ("cp.async.bulk.tensor.3d.shared::cluster.global",
+                  "mbarrier.try_wait.parity", "wgmma.mma_async"):
+        assert instr in src, instr
+    loop = body[body.index("for (int n = 0; kt < kv_end; ++n)"):]
+    assert "__syncthreads" not in loop
+    # q and k come rotated: no per-tile rotation, no tables, no mma.sync
+    assert "rope_tile" not in body and "mma_16816" not in body
+    assert not re.search(r"\b(cq|sq|ck|sk)\b", body)
+    fwd = src[src.index("int pt_flash_fwd("):]
+    fwd = fwd[:fwd.index("\n}\n")]
+    assert re.findall(r"is_bf16 && D == (\d+)\) return \(int\)"
+                      r"(launch_fwd_\w+)", fwd) == [
+        ("64", "launch_fwd_wgmma"), ("128", "launch_fwd_mma")]
+    assert fa.WGMMA_HEAD_DIMS == (64,)
 
 
 def test_tensor_core_dkv_in_source():
@@ -516,7 +596,8 @@ def test_planted_wrong_kernels_fail(mutant, dev, tmp_path, monkeypatch,
         torch.cuda.empty_cache()
     assert failed, f"{mutant}: every output within the limit"
     # a fault in a bf16 kernel fails that kernel's own outputs
-    for kernel, outs in (("fwd_mma_kernel", {"out", "lse"}),
+    for kernel, outs in (("fwd_wgmma_kernel", {"out", "lse"}),
+                         ("fwd_mma_kernel", {"out", "lse"}),
                          ("bwd_dq_wgmma_kernel", {"dq"}),
                          ("bwd_dq_mma_kernel", {"dq"}),
                          ("bwd_dkv_wgmma_kernel", {"dk", "dv"}),
@@ -567,7 +648,7 @@ def test_bf16_save_resume_on_the_card_is_bit_identical(dev, tmp_path):
     # 4 layers x ga 2 x 4 steps, + the eval's 4 x 2 x 1 forward launches
     assert fa.launches == {"flash_fwd": 40, "flash_bwd_dq": 32,
                            "flash_bwd_dkv": 32}
-    assert fa.fwd_launches == {"tensor_core": 40, "cuda_core": 0}
+    assert fa.fwd_launches == {"wgmma": 40, "tensor_core": 0, "cuda_core": 0}
     whole = train.run(cfg(), "cuda")
     assert first + resumed["losses"] == whole["losses"]
     assert resumed["val_losses"] == whole["val_losses"]
@@ -613,7 +694,7 @@ def test_fused_engine_matches_ad_on_the_card(dev):
     # 4 layers x ga 2 x 2 steps
     assert fa.launches == {"flash_fwd": 16, "flash_bwd_dq": 16,
                            "flash_bwd_dkv": 16}
-    assert fa.fwd_launches == {"tensor_core": 16, "cuda_core": 0}
+    assert fa.fwd_launches == {"wgmma": 16, "tensor_core": 0, "cuda_core": 0}
 
 
 @cuda

@@ -139,8 +139,7 @@ def test_plain_path_never_counts_launches():
     out.sum().backward()
     assert tfa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
-    assert tfa.fwd_launches == {"tensor_core": 0, "cuda_core": 0}
-    assert tfa.dq_launches == tfa.dkv_launches == {
+    assert tfa.fwd_launches == tfa.dq_launches == tfa.dkv_launches == {
         "wgmma": 0, "tensor_core": 0, "cuda_core": 0}
     assert tfa.prepass_launches == {"rope_rows": 0}
 

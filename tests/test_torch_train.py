@@ -455,8 +455,10 @@ def test_profile_step_kernel_classes():
 
     assert kernel_class("void {anon}::fwd_kernel<float, 64>(...)") == (
         "flash:fwd_kernel")
-    assert kernel_class("void {anon}::fwd_mma_kernel<64>(...)") == (
+    assert kernel_class("void {anon}::fwd_mma_kernel<128>(...)") == (
         "flash:fwd_kernel")
+    assert kernel_class("void {anon}::fwd_wgmma_kernel(CUtensorMap_st, "
+                        "...)") == "flash:fwd_kernel"
     assert kernel_class("bwd_dq_kernel<float, 64>") == "flash:bwd_dq_kernel"
     assert kernel_class("void {anon}::bwd_dq_mma_kernel<128>(...)") == (
         "flash:bwd_dq_kernel")
